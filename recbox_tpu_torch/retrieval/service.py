@@ -1,0 +1,186 @@
+"""Retrieval serving: towers → queryable top-k index.
+
+Counterpart of `recbox_tpu/retrieval/service.py` `RetrievalService`:
+
+    svc = RetrievalService(model, corpus_arrays)       # encode corpus now
+    scores, ids = svc.query({"user_id": uids}, k=100)
+    svc.refresh_items(new_corpus_arrays)               # corpus swap
+    svc.save("serving/v42")                            # durable snapshot
+    svc = RetrievalService.load("serving/v42", model)  # no re-encode
+
+The model is a `MatchingModel` whose parameters it carries (the port has no
+separate variables tree); the service moves it to its device and serves in
+eval mode. The encoded corpus stays on the device; `query` returns numpy
+(scores f32, ids int32) like the JAX package. Multi-interest towers
+returning (B, K, D) retrieve per interest, then merge by max score with
+per-row dedup. `from_trainer` waits for the training slice.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from recbox_tpu_torch import resolve_device
+from recbox_tpu_torch.data.loader import MASK_KEY, ArrayLoader
+from recbox_tpu_torch.retrieval.index import BruteForceMIPS
+
+__all__ = ["RetrievalService"]
+
+
+def _merge_interests(s: np.ndarray, i: np.ndarray, t: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Merge (B, K*t) per-interest candidates: dedup per row keeping each
+    item's max score, return the top-t by merged score."""
+    order = np.argsort(-s, axis=1, kind="stable")
+    s_d = np.take_along_axis(s, order, axis=1)
+    i_d = np.take_along_axis(i, order, axis=1)
+    B = s.shape[0]
+    out_s = np.full((B, t), -np.inf, np.float32)
+    out_i = np.full((B, t), -1, i.dtype)
+    for r in range(B):
+        # first occurrence in desc-score order == per-id max score
+        _, first = np.unique(i_d[r], return_index=True)
+        keep = np.sort(first)[:t]
+        out_s[r, :len(keep)] = s_d[r, keep]
+        out_i[r, :len(keep)] = i_d[r, keep]
+    return out_s, out_i
+
+
+class RetrievalService:
+    """Encode-once item index + tower-encoded query path.
+
+    ``device`` defaults to the CUDA device (`recbox_tpu_torch.resolve_device`);
+    extra keyword arguments go to `BruteForceMIPS` (e.g. quantize='int8').
+    """
+
+    def __init__(self, model: torch.nn.Module,
+                 corpus_arrays: Optional[Dict[str, np.ndarray]] = None,
+                 metric: str = "ip", method: str = "auto",
+                 batch_size: int = 8192,
+                 item_embs: Optional[Union[np.ndarray, torch.Tensor]] = None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 **index_kwargs):
+        if (corpus_arrays is None) == (item_embs is None):
+            raise ValueError(
+                "pass exactly one of corpus_arrays (encode now) or "
+                "item_embs (pre-encoded, e.g. RetrievalService.load)")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.metric = metric
+        self.method = method
+        self.batch_size = batch_size
+        self.index_kwargs = index_kwargs
+        if corpus_arrays is not None:
+            self.refresh_items(corpus_arrays)
+        else:
+            self._build_index(torch.as_tensor(item_embs))
+
+    @torch.no_grad()
+    def _encode(self, fn, arrays: Dict[str, np.ndarray]) -> torch.Tensor:
+        outs = []
+        for batch in ArrayLoader(arrays, batch_size=self.batch_size,
+                                 shuffle=False):
+            mask = torch.as_tensor(batch.pop(MASK_KEY), device=self.device)
+            emb = fn({k: torch.as_tensor(v, device=self.device)
+                      for k, v in batch.items()})
+            outs.append(emb[mask.bool()])
+        return torch.cat(outs, dim=0)
+
+    # -- corpus lifecycle ------------------------------------------------------
+    def refresh_items(self, corpus_arrays: Dict[str, np.ndarray]) -> None:
+        """Re-encode the corpus and rebuild the index (item catalog swap)."""
+        self._build_index(self._encode(self.model.encode_item, corpus_arrays))
+
+    def _build_index(self, item_embs: torch.Tensor) -> None:
+        self.item_embs = item_embs.to(self.device)
+        self.index = BruteForceMIPS(self.item_embs, metric=self.metric,
+                                    method=self.method, device=self.device,
+                                    **self.index_kwargs)
+
+    # -- persistence -----------------------------------------------------------
+    def save(self, path: str) -> None:
+        """Persist the encoded corpus (item_embs.npy), the model's
+        state_dict (model.pt) and the index config (service.json), each
+        written to a temporary name and moved into place atomically. Reload
+        with ``RetrievalService.load(path, model)``: the model definition is
+        code, the caller supplies it."""
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, "item_embs.tmp.npy")  # np.save appends .npy
+        np.save(tmp, self.item_embs.cpu().numpy())
+        os.replace(tmp, os.path.join(path, "item_embs.npy"))
+        tmp = os.path.join(path, "model.pt.tmp")
+        with open(tmp, "wb") as fh:
+            torch.save({k: v.cpu() for k, v in self.model.state_dict().items()},
+                       fh)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, os.path.join(path, "model.pt"))
+        cfg = {"metric": self.metric, "method": self.method,
+               "batch_size": self.batch_size,
+               "index_kwargs": self.index_kwargs}
+        tmp = os.path.join(path, "service.json.tmp")
+        with open(tmp, "w") as fh:
+            json.dump(cfg, fh)
+        os.replace(tmp, os.path.join(path, "service.json"))
+
+    @classmethod
+    def load(cls, path: str, model: torch.nn.Module,
+             device: Optional[Union[str, torch.device]] = None
+             ) -> "RetrievalService":
+        """Rebuild a saved service: the model's parameters from model.pt,
+        the index straight from the persisted embeddings (no re-encode)."""
+        with open(os.path.join(path, "service.json")) as fh:
+            cfg = json.load(fh)
+        with open(os.path.join(path, "model.pt"), "rb") as fh:
+            state = torch.load(fh, map_location="cpu", weights_only=True)
+        model.load_state_dict(state)
+        item_embs = np.load(os.path.join(path, "item_embs.npy"))
+        return cls(model, metric=cfg["metric"], method=cfg["method"],
+                   batch_size=cfg["batch_size"], item_embs=item_embs,
+                   device=device, **cfg["index_kwargs"])
+
+    @property
+    def num_items(self) -> int:
+        return self.item_embs.shape[0]
+
+    # -- queries ---------------------------------------------------------------
+    def query(self, user_arrays: Dict[str, np.ndarray], k: int = 100,
+              exclude: Optional[Sequence[Sequence[int]]] = None,
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        """(scores, item_ids) top-k per query row, shapes (Q, min(k, N)).
+
+        ``exclude`` gives per-row item-id lists to filter out (seen items);
+        filtering over-retrieves by the longest list. When a row's pool is
+        exhausted, trailing slots pad with score -inf, id -1.
+        """
+        q = self._encode(self.model.encode_user, user_arrays)
+        k = min(k, self.num_items)
+        extra = max((len(e) for e in exclude), default=0) \
+            if exclude is not None else 0
+        t = min(k + extra, self.num_items)
+        if q.ndim == 3:  # (B, K, D) multi-interest: retrieve per interest
+            B, K, D = q.shape
+            s, i = self.index.search(q.reshape(B * K, D), topk=t)
+            s, i = _merge_interests(s.cpu().numpy().reshape(B, -1),
+                                    i.cpu().numpy().reshape(B, -1), t)
+        else:
+            s, i = self.index.search(q, topk=t)
+            s, i = s.cpu().numpy(), i.cpu().numpy()
+        if exclude is None:
+            return s[:, :k], i[:, :k]
+        # vectorized seen-filter: pad banned lists, mask to -inf, re-rank
+        banned = np.full((s.shape[0], max(extra, 1)), -1, dtype=np.int64)
+        for r, e in enumerate(exclude):
+            if len(e):
+                banned[r, :len(e)] = np.asarray(e, dtype=np.int64)
+        bad = (i[:, :, None] == banned[:, None, :]).any(-1)
+        s = np.where(bad, -np.inf, s).astype(np.float32)
+        order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+        out_s = np.take_along_axis(s, order, axis=1)
+        out_i = np.take_along_axis(i, order, axis=1)
+        return out_s, np.where(np.isneginf(out_s), -1, out_i)
