@@ -1,10 +1,12 @@
 """Feature schema: typed specs for every input feature and the dataset map.
 
-Own copy of the part of `recbox_tpu/features/schema.py` that the retrieval
-serving slice reads: the feature types, `FeatureSpec.table_name`, and
-`FeatureMap.by_source` / `input_features` / `feature_dict`. Fields the slice
-never reads (pretrained tables, frozen tables, table placement, JSON
-persistence) wait for the slices that need them.
+Own copy of the part of `recbox_tpu/features/schema.py` that the ported
+slices read: the feature types, `FeatureSpec.table_name`, and the
+`FeatureMap` fields and lookups (`labels`, `by_source`, `input_features`,
+`feature_dict`). Fields no ported path reads (pretrained tables, frozen
+tables, table placement, JSON persistence) wait for the slices that need
+them. A numeric feature is one scalar column, embedded as value × a learned
+(1, d) vector by `nn.embedding.FeatureEmbedding`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -66,13 +68,17 @@ class FeatureSpec:
 @dataclasses.dataclass(frozen=True)
 class FeatureMap:
     """Dataset-level schema: an ordered tuple of FeatureSpecs plus the
-    matching wiring (query / corpus index columns, item count)."""
+    task wiring: label columns, the matching query / corpus index columns,
+    group id, item and sample counts (fields in the JAX package's order)."""
 
     dataset_id: str
     features: Tuple[FeatureSpec, ...]
+    labels: Tuple[str, ...] = ()
     query_index: str = ""
     corpus_index: str = ""
+    group_id: str = ""
     num_items: int = 0
+    num_samples: int = 0
 
     def __post_init__(self):
         names = [f.name for f in self.features]

@@ -1,6 +1,9 @@
-"""Move a flax parameter tree of the JAX package onto a port module.
+"""Move the state of the JAX package onto the port.
 
-The caller unboxes flax's `Partitioned` leaves and converts them to numpy on
+`from_jax_params` maps a flax parameter tree onto a port module;
+`load_packed_state` moves a JAX `PackedEmbeddingTrainer`'s dense params and
+packs into the port's, so both packages then compute the same step. The
+caller unboxes flax's `Partitioned` leaves and converts them to numpy on
 the JAX side (``jax.tree_util.tree_map(np.asarray, nn.meta.unbox(params))``);
 this module imports neither JAX nor flax. The mapping:
 
@@ -10,6 +13,9 @@ this module imports neither JAX nor flax. The mapping:
                                                       flax (in, out), torch
                                                       (out, in))
   .../Dense_<i>/bias       →  .../dense.<i>.bias
+  any other a/b/c          →  a.b.c, same layout     (e.g. DeepFM's lr/bias,
+                                                      lr_bias, dnn_w1 (F, D,
+                                                      H), dnn_b1)
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["from_jax_params"]
+__all__ = ["from_jax_params", "load_packed_state"]
 
 _DENSE = re.compile(r"Dense_(\d+)$")
 
@@ -47,8 +53,7 @@ def _torch_key(path: Tuple[str, ...]) -> Tuple[str, bool]:
         key = ".".join(mods[:-1] + ["dense", dense.group(1),
                                     "weight" if leaf == "kernel" else "bias"])
         return key, leaf == "kernel"
-    raise KeyError(f"flax param {'/'.join(path)} has no counterpart in the "
-                   "port")
+    return ".".join(path), False
 
 
 def from_jax_params(params: Mapping, model: nn.Module
@@ -67,8 +72,9 @@ def from_jax_params(params: Mapping, model: nn.Module
     for path, value in _flatten(params):
         key, transpose = _torch_key(path)
         if key not in target:
-            raise KeyError(f"flax param {'/'.join(path)} maps to {key!r}, "
-                           "which the port module does not have")
+            raise KeyError(f"flax param {'/'.join(path)} has no counterpart "
+                           f"in the port: it maps to {key!r}, which the port "
+                           "module does not have")
         arr = np.asarray(value)
         if transpose:
             arr = arr.T
@@ -83,3 +89,25 @@ def from_jax_params(params: Mapping, model: nn.Module
         raise KeyError(f"port parameters without a flax counterpart: "
                        f"{missing}")
     return out
+
+
+def load_packed_state(trainer, dense_params: Mapping,
+                      packs: Mapping[str, np.ndarray]) -> None:
+    """Put a JAX `PackedEmbeddingTrainer`'s state into an initialized port
+    trainer: its dense params tree (``t.params``, numpy leaves) onto the
+    model, its packs (``t.packs``, numpy, same names and layout) into
+    ``trainer.packs``. Raises on a missing or extra pack or a shape
+    mismatch. Adam's moments stay at the port trainer's (zeros after
+    init)."""
+    model = trainer.model
+    model.load_state_dict(from_jax_params(dense_params, model))
+    if set(packs) != set(trainer.packs):
+        raise KeyError(f"JAX packs {sorted(packs)} vs port packs "
+                       f"{sorted(trainer.packs)}")
+    for name, arr in packs.items():
+        ref = trainer.packs[name]
+        if tuple(np.shape(arr)) != tuple(ref.shape):
+            raise ValueError(f"pack {name}: JAX shape {np.shape(arr)} vs "
+                             f"port {tuple(ref.shape)}")
+        with torch.no_grad():
+            ref.copy_(torch.from_numpy(np.array(arr, np.float32)))

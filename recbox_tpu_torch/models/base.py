@@ -1,10 +1,17 @@
-"""Matching model base: two towers and their similarity.
+"""Model bases: two towers and their similarity; the CTR ranking base.
 
-Counterpart of `recbox_tpu/models/base.py` `MatchingModel` and
-`similarity_scores`. Subclasses define `user_tower` / `item_tower`;
-`encode_user` / `encode_item` are the serving entry points (normalized
-when the model was trained with cosine similarity), and `forward` scores a
-training batch's (B, 1+num_negs) sampled items.
+Counterpart of `recbox_tpu/models/base.py` `MatchingModel`,
+`similarity_scores` and `RankingModel`. Matching subclasses define
+`user_tower` / `item_tower`; `encode_user` / `encode_item` are the serving
+entry points (normalized when the model was trained with cosine
+similarity), and `forward` scores a training batch's (B, 1+num_negs) sampled
+items. Ranking subclasses define `logits(batch)`; `forward` returns them as
+(B,) raw logits (the sigmoid belongs to the loss and the evaluator).
+
+Every model draws its parameters from ``generator`` (default: a generator
+on the model's device seeded with 0) on ``device`` (default: the CUDA
+device, see `recbox_tpu_torch.resolve_device`); `init_rng` resolves the
+pair.
 """
 
 from __future__ import annotations
@@ -17,9 +24,20 @@ from torch import nn
 from recbox_tpu_torch import resolve_device
 from recbox_tpu_torch.features.schema import FeatureMap
 
-__all__ = ["MatchingModel", "extract_item_batch", "similarity_scores"]
+__all__ = ["MatchingModel", "RankingModel", "extract_item_batch",
+           "init_rng", "similarity_scores"]
 
 ITEM_PREFIX = "item::"
+
+
+def init_rng(generator: Optional[torch.Generator],
+             device: Optional[Union[str, torch.device]]
+             ) -> Tuple[torch.Generator, torch.device]:
+    """(generator, device) a model draws its parameters from."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    return generator, dev
 
 
 def extract_item_batch(batch: Dict[str, torch.Tensor]
@@ -47,13 +65,7 @@ def similarity_scores(user_emb: torch.Tensor, item_emb: torch.Tensor,
 
 
 class MatchingModel(nn.Module):
-    """Two-tower base.
-
-    Subclasses draw their parameters from ``generator`` (default: a
-    generator on the model's device seeded with 0) on ``device`` (default:
-    the CUDA device, see `recbox_tpu_torch.resolve_device`); `init_rng`
-    resolves the pair.
-    """
+    """Two-tower base."""
 
     def __init__(self, feature_map: FeatureMap, embedding_dim: int = 64,
                  similarity: str = "dot", temperature: float = 1.0):
@@ -63,14 +75,7 @@ class MatchingModel(nn.Module):
         self.similarity = similarity
         self.temperature = temperature
 
-    @staticmethod
-    def init_rng(generator: Optional[torch.Generator],
-                 device: Optional[Union[str, torch.device]]
-                 ) -> Tuple[torch.Generator, torch.device]:
-        dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        return generator, dev
+    init_rng = staticmethod(init_rng)
 
     def user_tower(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         raise NotImplementedError
@@ -97,3 +102,20 @@ class MatchingModel(nn.Module):
         num_candidates = batch["__item_ids__"].shape[1]
         return similarity_scores(user_emb, item_emb, num_candidates,
                                  self.similarity, self.temperature)
+
+
+class RankingModel(nn.Module):
+    """CTR base: subclasses implement ``logits(batch) -> (B,)``; `forward`
+    returns them flattened, as raw logits."""
+
+    init_rng = staticmethod(init_rng)
+
+    def __init__(self, feature_map: FeatureMap):
+        super().__init__()
+        self.feature_map = feature_map
+
+    def logits(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return self.logits(batch).reshape(-1)

@@ -1,9 +1,9 @@
-"""Core NN blocks: MLP, activations and the initializers the towers use.
+"""Core NN blocks: MLP, FM, first-order term, activations, initializers.
 
 Counterpart of `recbox_tpu/nn/core.py` (`MLP` :69-104, `get_activation`
-:54-66). The retrieval slice serves towers in eval mode, so the MLP here
-carries Linear → activation → dropout; BatchNorm and Dice are
-training-side state and wait for the training slice (they raise here).
+:54-66, `FactorizationMachine` :107, `LogisticRegression` :122). The MLP
+carries Linear → activation → dropout in a compute dtype; its BatchNorm and
+Dice are not ported yet (they raise; DeepFM's default has no BatchNorm).
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["MLP", "get_activation", "xavier_normal_", "xavier_uniform_"]
+__all__ = ["MLP", "FactorizationMachine", "LogisticRegression",
+           "get_activation", "xavier_normal_", "xavier_uniform_"]
 
 # flax's xavier initializers are variance_scaling(1, 'fan_avg', ...); its
 # 'truncated_normal' draws N(0, 1) truncated to [-2, 2] and divides the
@@ -68,7 +69,7 @@ def get_activation(act: Union[str, Callable, None]) -> Callable:
         return act
     key = act.lower()
     if key == "dice":
-        raise ValueError("Dice is stateful; it waits for the training slice")
+        raise ValueError("Dice is stateful and not ported yet (ROADMAP.md)")
     if key not in _ACTIVATIONS:
         raise NotImplementedError(f"activation={act}")
     return _ACTIVATIONS[key]
@@ -79,7 +80,9 @@ class MLP(nn.Module):
 
     Layer ``i`` is ``dense[i]``, the counterpart of flax's ``Dense_i``
     (`interop.from_jax_params` maps one onto the other). Weights are flax's
-    xavier_normal draw, biases zero.
+    xavier_normal draw, biases zero. With ``dtype`` bfloat16 each layer
+    casts its input, weight and bias to bf16, as flax's ``Dense(dtype=)``
+    does; the parameters stay float32.
     """
 
     def __init__(self, in_dim: int, hidden_units: Sequence[int],
@@ -87,12 +90,14 @@ class MLP(nn.Module):
                  output_dim: Optional[int] = None,
                  dropout: Union[float, Sequence[float]] = 0.0,
                  batch_norm: bool = False, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None,
                  device: Optional[torch.device] = None):
         super().__init__()
         if batch_norm:
             raise NotImplementedError(
-                "MLP(batch_norm=True) waits for the training slice")
+                "MLP(batch_norm=True) is not ported yet (ROADMAP.md)")
+        self.dtype = dtype
         n = len(hidden_units)
         acts = [activation] * n if isinstance(activation, str) \
             else list(activation)
@@ -114,10 +119,39 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = len(self._acts)
+        x = x.to(self.dtype)
         for i, lin in enumerate(self.dense):
-            x = lin(x)
+            bias = None if lin.bias is None else lin.bias.to(self.dtype)
+            x = F.linear(x, lin.weight.to(self.dtype), bias)
             if i < n:
                 x = self._acts[i](x)
                 if self._drops[i] > 0:
                     x = F.dropout(x, self._drops[i], training=self.training)
         return x
+
+
+class FactorizationMachine(nn.Module):
+    """Second-order FM over stacked field embeddings (B, F, D) → (B, 1):
+    0.5 · (sum² − sum of squares) summed over D."""
+
+    def forward(self, field_emb: torch.Tensor) -> torch.Tensor:
+        sum_sq = torch.square(torch.sum(field_emb, dim=1))
+        sq_sum = torch.sum(torch.square(field_emb), dim=1)
+        return 0.5 * torch.sum(sum_sq - sq_sum, dim=-1, keepdim=True)
+
+
+class LogisticRegression(nn.Module):
+    """First-order term over stacked (B, F, 1) dim-1 lookups: their sum plus
+    a global ``bias`` (zeros) → (B, 1). The JAX block's flat-input branch (a
+    bias-free Dense) and its ``use_bias=False`` have no ported caller; a
+    flat input raises."""
+
+    def __init__(self, device: Optional[torch.device] = None):
+        super().__init__()
+        self.bias = nn.Parameter(torch.zeros(1, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.ndim != 3:
+            raise NotImplementedError(
+                "LogisticRegression over a flat (B, K) input is not ported")
+        return torch.sum(x, dim=(1, 2))[:, None] + self.bias

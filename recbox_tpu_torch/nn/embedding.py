@@ -1,7 +1,8 @@
 """Feature embedding engine (torch.nn).
 
 Counterpart of `recbox_tpu/nn/embedding.py` `FeatureEmbedding`,
-`masked_pool` and `concat_embeddings`:
+`masked_pool`, `concat_embeddings`, `stack_embeddings` and the `__rows__`
+protocol:
 
 * one table per *table_name*, so `share_embedding` features alias one
   parameter; a table has as many rows as the largest vocab that uses it,
@@ -14,8 +15,15 @@ Counterpart of `recbox_tpu/nn/embedding.py` `FeatureEmbedding`,
 
 Tables live in ``tables[<table_name>]`` and numeric vectors in
 ``numeric[<feature>]``, the counterparts of flax's ``emb_<table>`` and
-``num_<feature>`` params. The `__rows__`/block protocol of the sparse and
-packed trainers is training-only and waits for the training slice.
+``num_<feature>`` params.
+
+The `__rows__` protocol (`embedding.py:44-75`): when a batch carries
+``rows_key_for(module.path, feature)``, the module uses those pre-gathered
+rows instead of its table, so a trainer that gathers rows itself
+(`training/packed.py`) gets (B, D) row gradients back. A module's ``path``
+is its flax name (``("embedding",)``, ``("linear",)`` in DeepFM), so the
+keys are the JAX package's. The block variant (`BLOCK_PREFIX`) is not
+ported: it was opt-in and measured slower on the TPU.
 """
 
 from __future__ import annotations
@@ -31,7 +39,16 @@ from recbox_tpu_torch.features.schema import (
 )
 from recbox_tpu_torch.nn.core import xavier_normal_, xavier_uniform_
 
-__all__ = ["FeatureEmbedding", "concat_embeddings", "masked_pool"]
+__all__ = ["FeatureEmbedding", "concat_embeddings", "stack_embeddings",
+           "masked_pool", "ROWS_PREFIX", "rows_key_for"]
+
+ROWS_PREFIX = "__rows__"
+
+
+def rows_key_for(module_path: Tuple[str, ...], feature_name: str) -> str:
+    """Batch key of the pre-gathered rows of ``feature_name`` for the
+    FeatureEmbedding at ``module_path``."""
+    return ROWS_PREFIX + "/".join(module_path) + ":" + feature_name
 
 
 def masked_pool(seq_emb: torch.Tensor, mask: torch.Tensor, mode: str
@@ -57,6 +74,9 @@ class FeatureEmbedding(nn.Module):
       sequence_pooling: if False, sequence features stay (B, L, D).
       emb_init_scheme: 'normal' (std ``emb_init_std``), 'xavier_normal' or
         'xavier_uniform', the JAX package's table initializers.
+      dtype: compute dtype of the outputs (tables stay float32).
+      name: the module's flax name, '/'-joined when nested; it scopes the
+        `__rows__` keys (``path``).
       generator: the torch.Generator every table draws from.
     """
 
@@ -64,6 +84,8 @@ class FeatureEmbedding(nn.Module):
                  embedding_dim: Optional[int] = None,
                  sequence_pooling: bool = True,
                  emb_init_scheme: str = "normal", emb_init_std: float = 1e-4,
+                 dtype: torch.dtype = torch.float32,
+                 name: Optional[str] = None,
                  generator: Optional[torch.Generator] = None,
                  device: Optional[torch.device] = None):
         super().__init__()
@@ -76,6 +98,8 @@ class FeatureEmbedding(nn.Module):
         self.source = source
         self.embedding_dim = embedding_dim
         self.sequence_pooling = sequence_pooling
+        self.dtype = dtype
+        self.path: Tuple[str, ...] = tuple(name.split("/")) if name else ()
         self.feats: Tuple[FeatureSpec, ...] = (
             feature_map.input_features if source is None
             else feature_map.by_source(source))
@@ -113,6 +137,14 @@ class FeatureEmbedding(nn.Module):
                 rows = max(rows, f.vocab_size)
         return rows
 
+    def _lookup(self, batch: Dict[str, torch.Tensor], spec: FeatureSpec,
+                x: torch.Tensor) -> torch.Tensor:
+        rows = batch.get(rows_key_for(self.path, spec.name))
+        if rows is None:
+            # gather in the table's dtype, cast the (small) result
+            rows = F.embedding(x, self.tables[spec.table_name])
+        return rows.to(self.dtype)
+
     def forward(self, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         out: Dict[str, torch.Tensor] = {}
@@ -122,14 +154,15 @@ class FeatureEmbedding(nn.Module):
                 continue
             x = batch[name]
             if spec.type == NUMERIC:
-                out[name] = x.to(torch.float32)[:, None] * self.numeric[name]
+                out[name] = (x.to(self.dtype)[:, None]
+                             * self.numeric[name].to(self.dtype))
             elif spec.type == CATEGORICAL:
-                emb = F.embedding(x, self.tables[spec.table_name])
+                emb = self._lookup(batch, spec, x)
                 if spec.padding_idx is not None:
                     emb = emb * (x != spec.padding_idx).to(emb.dtype)[..., None]
                 out[name] = emb
             elif spec.type == SEQUENCE:
-                emb = F.embedding(x, self.tables[spec.table_name])  # (B, L, D)
+                emb = self._lookup(batch, spec, x)                  # (B, L, D)
                 pad = spec.padding_idx if spec.padding_idx is not None \
                     else spec.vocab_size - 1
                 mask = x != pad
@@ -156,3 +189,24 @@ def concat_embeddings(emb_dict: Dict[str, torch.Tensor],
             e = e.reshape(e.shape[0], -1)
         parts.append(e)
     return torch.cat(parts, dim=-1)
+
+
+def stack_embeddings(emb_dict: Dict[str, torch.Tensor],
+                     feats: Tuple[FeatureSpec, ...]) -> torch.Tensor:
+    """Stack equal-width field embeddings into (B, F, D) in schema order. A
+    (B, L, D) entry is pooled first: its padding steps arrive zero-masked,
+    so the mean divides by the count of non-zero steps."""
+    parts = []
+    for spec in feats:
+        if spec.name not in emb_dict:
+            continue
+        parts.append(_field_view(emb_dict[spec.name]))
+    return torch.stack(parts, dim=1)
+
+
+def _field_view(e: torch.Tensor) -> torch.Tensor:
+    if e.ndim == 3:
+        valid = torch.any(e != 0, dim=-1).to(e.dtype)             # (B, L)
+        counts = torch.clamp(torch.sum(valid, dim=1), min=1.0)
+        e = torch.sum(e, dim=1) / counts[:, None]
+    return e

@@ -25,7 +25,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
-SOURCES = {"mips_fused_topk": "mips_fused_topk.cu"}
+SOURCES = {"mips_fused_topk": "mips_fused_topk.cu",
+           "packed_delta": "packed_delta.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -15,11 +15,11 @@ reaches the plain version, and a failed build or launch raises. The plain
 version also serves as the kernel's yardstick in `chip_smoke.py` and the
 tests.
 
-The segment plan is fixed at ``sub_rows = 1024`` on the card. The JAX
-package derives it from its VMEM block plan (`mips_topk.py:100-114`), which
-also gives 1024 for a 1024-query tile and rows up to 4 KB, i.e. at every
-serving shape; the plain version takes ``sub_rows`` so a test can follow the
-JAX plan at small query counts.
+The segment plan, and so the candidate set, is the JAX package's: the
+sub-chunk size follows its block plan for the query tile (`block_plan`,
+`mips_fused_topk.py:226-228`), and candidates are counted over the corpus
+padded to its grid block (`:236-265`), so a k above the live candidates
+returns (-inf, -1) pads where JAX does, and raises only where JAX raises.
 """
 
 from __future__ import annotations
@@ -33,13 +33,11 @@ import torch.nn.functional as F
 
 from recbox_tpu_torch.ops import _build
 from recbox_tpu_torch.ops.mips_topk import (
-    PACK_FLOOR, PACK_MASK, SEGMENT, quantize_int8, winner_ids,
+    PACK_FLOOR, PACK_MASK, SEGMENT, block_plan, quantize_int8, winner_ids,
 )
 
-__all__ = ["mips_fused_topk", "mips_fused_topk_plain", "SUB_ROWS",
+__all__ = ["mips_fused_topk", "mips_fused_topk_plain", "segment_plan",
            "launches", "reset_launches"]
-
-SUB_ROWS = 1024
 
 # kernel launches on the CUDA path, by corpus dtype; the plain version
 # never counts
@@ -50,6 +48,8 @@ _VARIANTS = {torch.float32: ("f32", 0), torch.bfloat16: ("bf16", 1),
 
 # the sort of stage (b) works in windows of at most this many keys
 _MAX_SORT = 16384
+# queries a block of stage (a) scores (QT in csrc/mips_fused_topk.cu)
+_QUERY_TILE = 64
 
 
 def reset_launches() -> None:
@@ -79,11 +79,27 @@ def _decode(keys: torch.Tensor, sub_rows: int, q_scale):
             torch.where(alive, ids, -1).to(torch.int32))
 
 
+def segment_plan(corpus_dtype: torch.dtype, n: int, d: int, nq: int, k: int,
+                 query_tile: int = 1024) -> Tuple[int, int]:
+    """(sub_rows, candidates) of the JAX kernel for these shapes: the
+    sub-chunk size of its block plan for a query tile of min(query_tile,
+    nq), and its candidate count, one per 128 rows of the corpus padded to
+    its grid block (`mips_fused_topk.py:226-242`)."""
+    qt = min(query_tile, max(nq, 1))
+    itemsize = torch.empty((), dtype=corpus_dtype).element_size()
+    sub_rows, spb = block_plan(itemsize, qt, d + (-d) % 128)
+    kp = 1 << max(1, (max(k, 2) - 1).bit_length())
+    block_mult = 2 if kp >= 2 * spb * sub_rows // SEGMENT else 1
+    c_block = sub_rows * spb * block_mult
+    return sub_rows, -(-n // c_block) * c_block // SEGMENT
+
+
 def mips_fused_topk_plain(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                           valid_items: int, row_scale=None, q_scale=None,
-                          sub_rows: int = SUB_ROWS
+                          sub_rows: int = 1024
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch, in query chunks.
+    """The kernel's function in plain PyTorch, in query chunks, for
+    k <= ceil(N / sub_rows) · sub_rows / 128.
 
     bf16 inputs are upcast and multiplied in f32, which equals bf16 × bf16
     products summed in f32; int8 rows are exact integers in f32 while
@@ -127,16 +143,12 @@ def mips_fused_topk_plain(queries: torch.Tensor, corpus: torch.Tensor, k: int,
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("mips_fused_topk")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.recbox_mips_sub_rows.argtypes = []
-    lib.recbox_mips_sub_rows.restype = i
     lib.recbox_mips_score_winners.argtypes = [i, vp, vp, vp, vp, i, i, i, i,
-                                              vp]
+                                              i, i, vp]
     lib.recbox_mips_score_winners.restype = i
-    lib.recbox_mips_topk_winners.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
+    lib.recbox_mips_topk_winners.argtypes = [vp, vp, vp, vp, i, i, i, i, i,
+                                             vp]
     lib.recbox_mips_topk_winners.restype = i
-    if lib.recbox_mips_sub_rows() != SUB_ROWS:
-        raise RuntimeError("csrc/mips_fused_topk.cu and the wrapper disagree "
-                           "on the segment plan")
     return lib
 
 
@@ -159,7 +171,8 @@ def _check(rc: int, what: str) -> None:
                            f"{rc}")
 
 
-def _mips_fused_topk_cuda(queries, corpus, k, valid, row_scale, q_scale):
+def _mips_fused_topk_cuda(queries, corpus, k, valid, row_scale, q_scale,
+                          sub_rows):
     dev = corpus.device
     if not (corpus.is_cuda and queries.device == dev):
         raise ValueError(f"mips_fused_topk: queries on {queries.device}, "
@@ -172,11 +185,11 @@ def _mips_fused_topk_cuda(queries, corpus, k, valid, row_scale, q_scale):
         queries = F.pad(queries, (0, d_pad))
     queries, corpus = queries.contiguous(), corpus.contiguous()
     nq, (n, d) = queries.shape[0], corpus.shape
-    n_sub = -(-n // SUB_ROWS)
+    n_sub = -(-n // sub_rows)
     if n_sub > 65535:
         raise ValueError(f"mips_fused_topk: {n} rows exceed the kernel's "
-                         f"{65535 * SUB_ROWS}")
-    n_cand = n_sub * (SUB_ROWS // SEGMENT)
+                         f"{65535 * sub_rows} at sub_rows={sub_rows}")
+    n_cand = n_sub * (sub_rows // SEGMENT)
     width = _sort_width(n_cand, k)
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
@@ -186,19 +199,28 @@ def _mips_fused_topk_cuda(queries, corpus, k, valid, row_scale, q_scale):
         row_scale = row_scale.to(device=dev, dtype=torch.float32).contiguous()
     if q_scale is not None:
         q_scale = q_scale.contiguous()
-    winners = torch.empty((nq, n_cand), dtype=torch.float32, device=dev)
+    # a grid of fewer than two blocks per SM splits each sub-chunk's chunks
+    # into runs, merged by atomic max into winners that start at -inf
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = -(-nq // _QUERY_TILE) * n_sub
+    splits = min(sub_rows // SEGMENT, -(-2 * sms // blocks))
+    if splits > 1:
+        winners = torch.full((nq, n_cand), float("-inf"), device=dev)
+    else:
+        winners = torch.empty((nq, n_cand), dtype=torch.float32, device=dev)
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _check(lib.recbox_mips_score_winners(
             code, queries.data_ptr(), corpus.data_ptr(),
             None if row_scale is None else row_scale.data_ptr(),
-            winners.data_ptr(), nq, n, d, valid, stream), "score_winners")
+            winners.data_ptr(), nq, n, d, valid, sub_rows, splits, stream),
+            "score_winners")
         _check(lib.recbox_mips_topk_winners(
             winners.data_ptr(),
             None if q_scale is None else q_scale.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(), nq, n_cand, k, width, stream),
-            "topk_winners")
+            out_s.data_ptr(), out_i.data_ptr(), nq, n_cand, k, width,
+            sub_rows, stream), "topk_winners")
     launches[name] += 1
     return out_s, out_i
 
@@ -206,7 +228,7 @@ def _mips_fused_topk_cuda(queries, corpus, k, valid, row_scale, q_scale):
 def mips_fused_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                     valid_items: Optional[int] = None,
                     row_scale: Optional[torch.Tensor] = None,
-                    sub_rows: int = SUB_ROWS
+                    query_tile: int = 1024
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k (scores (Q, k) f32, ids (Q, k) int32) of ``corpus`` per query.
 
@@ -215,9 +237,9 @@ def mips_fused_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     `quantize_int8`, with its per-row ``row_scale`` (N,)) they are quantized
     per row on the fly and the per-query scale is applied to the k winners
     (a positive factor, so the ranking is the same). ``valid_items`` marks
-    rows >= it as padding. Slots past the live candidates return
-    score -inf and id -1. ``sub_rows`` other than 1024 is for the plain
-    version only.
+    rows >= it as padding. ``query_tile`` is the JAX kernel's query tile,
+    which sets the segment plan (`segment_plan`). Slots past the live
+    candidates return score -inf and id -1.
     """
     quantized = corpus.dtype == torch.int8
     if quantized and row_scale is None:
@@ -238,13 +260,14 @@ def mips_fused_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
         if row_scale.shape[0] != n:
             raise ValueError(f"row_scale has {row_scale.shape[0]} entries "
                              f"for a {n}-row corpus")
-    if sub_rows % SEGMENT:
-        raise ValueError(f"sub_rows={sub_rows} is not a multiple of "
-                         f"{SEGMENT}")
-    n_cand = -(-n // sub_rows) * (sub_rows // SEGMENT)
+    sub_rows, n_cand = segment_plan(corpus.dtype, n, corpus.shape[1],
+                                    queries.shape[0], k, query_tile)
     if k > n_cand:
         raise ValueError(f"mips_fused_topk: k={k} exceeds the {n_cand} "
                          f"segment candidates for a {n}-row corpus")
+    # candidates past ceil(N / sub_rows) sub-chunks hold only pad rows: JAX
+    # returns them as (-inf, -1), so they are appended, never computed
+    k_run = min(k, -(-n // sub_rows) * (sub_rows // SEGMENT))
     valid = n if valid_items is None else min(int(valid_items), n)
     q_scale = None
     if quantized:
@@ -252,10 +275,12 @@ def mips_fused_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     else:
         queries = queries.to(corpus.dtype)
     if corpus.device.type == "cpu":
-        return mips_fused_topk_plain(queries, corpus, k, valid, row_scale,
-                                     q_scale, sub_rows)
-    if sub_rows != SUB_ROWS:
-        raise ValueError(f"the CUDA kernel's segment plan is fixed at "
-                         f"sub_rows={SUB_ROWS}")
-    return _mips_fused_topk_cuda(queries, corpus, k, valid, row_scale,
-                                 q_scale)
+        s, i = mips_fused_topk_plain(queries, corpus, k_run, valid,
+                                     row_scale, q_scale, sub_rows)
+    else:
+        s, i = _mips_fused_topk_cuda(queries, corpus, k_run, valid,
+                                     row_scale, q_scale, sub_rows)
+    if k_run < k:
+        s = F.pad(s, (0, k - k_run), value=float("-inf"))
+        i = F.pad(i, (0, k - k_run), value=-1)
+    return s, i

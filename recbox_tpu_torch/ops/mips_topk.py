@@ -1,8 +1,9 @@
-"""Constants and id layout of the packed-mantissa MIPS kernels.
+"""Constants, block plan and id layout of the packed-mantissa MIPS kernels.
 
 Own copy of what `recbox_tpu/ops/pallas/mips_topk.py` defines for every
 segment-winner kernel (:89-114, :285-287, :455-456). The candidate kernel
-itself (`pallas_mips_topk`, `mips_segment_candidates`) waits for slice 2.
+itself (`pallas_mips_topk`, `mips_segment_candidates`) is not ported yet
+(`ROADMAP.md`, kernel B4).
 
 A corpus is cut into sub-chunks of ``sub_rows`` rows. Inside one, segment
 g (0 <= g < n_seg = sub_rows / SEGMENT) is the STRIDED row set
@@ -17,8 +18,8 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["SEGMENT", "PACK_FLOOR", "PACK_BITS", "PACK_MASK", "quantize_int8",
-           "winner_ids"]
+__all__ = ["SEGMENT", "PACK_FLOOR", "PACK_BITS", "PACK_MASK", "block_plan",
+           "quantize_int8", "winner_ids"]
 
 SEGMENT = 128          # items per candidate segment (one winner each)
 
@@ -28,6 +29,21 @@ SEGMENT = 128          # items per candidate segment (one winner each)
 PACK_FLOOR = 3.0e38
 PACK_BITS = 7                       # log2(SEGMENT): index bits packed
 PACK_MASK = (1 << PACK_BITS) - 1
+
+
+def block_plan(itemsize: int, qt: int, d: int) -> Tuple[int, int]:
+    """(sub_rows, subs_per_block) of the JAX kernels for a query tile of
+    ``qt`` rows over a corpus of ``itemsize``-byte values, ``d`` wide after
+    padding to 128 (`mips_topk.py:100-114`). The TPU sized both to its
+    4 MB VMEM block budget; the port keeps the plan because it decides the
+    segments, and so which candidates exist."""
+    block_budget = 4 * (1 << 20)
+    row_bytes = d * itemsize
+    sub_rows = max(SEGMENT, min((1 << 20) // max(qt, 1),
+                                block_budget // row_bytes))
+    sub_rows = max(SEGMENT, (sub_rows // SEGMENT) * SEGMENT)
+    spb = max(1, block_budget // (row_bytes * sub_rows))
+    return sub_rows, spb
 
 
 def quantize_int8(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -24,7 +24,7 @@ Methods:
 Not yet ported (each raises NotImplementedError): ``'refined'`` (two-phase
 rescore), the XLA int8 sweep `int8_mips_topk` (int8 with 'approx', or
 'auto' past the gates) and the mesh-sharded search. They belong to the
-retrieval slice that ports the candidate kernels (slice 2).
+retrieval slice that ports the candidate kernels (`ROADMAP.md`).
 """
 
 from __future__ import annotations
@@ -42,7 +42,8 @@ __all__ = ["BruteForceMIPS", "chunked_topk", "quantize_int8"]
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
-_LATER = "waits for retrieval slice 2 of the port"
+_LATER = ("waits for the retrieval slice that ports the candidate kernels "
+          "(ROADMAP.md)")
 
 
 def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -173,11 +174,13 @@ class BruteForceMIPS:
                     f"which {_LATER}")
             return mips_fused_topk(queries, self.q_items, topk,
                                    valid_items=self.num_items,
-                                   row_scale=self.item_scale)
+                                   row_scale=self.item_scale,
+                                   query_tile=self.query_chunk)
         if self._kernel_gate(topk):
             items = self._kernel_items if self.bf16 else self.items
             return mips_fused_topk(queries, items, topk,
-                                   valid_items=self.num_items)
+                                   valid_items=self.num_items,
+                                   query_tile=self.query_chunk)
         if self.method == "exact_sort":
             return chunked_topk(queries, self.items, topk, self.chunk_size)
         if self.method in ("approx", "segmented", "pallas", "auto") \

@@ -35,7 +35,9 @@ from recbox_tpu_torch.models.base import MatchingModel
 from recbox_tpu_torch.models.matching import two_tower as ptt
 from recbox_tpu_torch.nn.embedding import FeatureEmbedding
 from recbox_tpu_torch.ops import mips_fused_topk as fused_mod
-from recbox_tpu_torch.ops.mips_fused_topk import mips_fused_topk
+from recbox_tpu_torch.ops.mips_fused_topk import (
+    mips_fused_topk, mips_fused_topk_plain, segment_plan,
+)
 from recbox_tpu_torch.retrieval import (
     BruteForceMIPS, RetrievalService, chunked_topk, quantize_int8,
 )
@@ -77,13 +79,10 @@ def test_fused_topk_matches_jax(corpus50k, variant):
         js, ji = jfused(q, jc, 10, valid_items=50_000, interpret=True,
                         row_scale=np.asarray(jscale))
         pc, pscale = quantize_int8(torch.from_numpy(c))
-        sub = _jax_sub_rows(jnp.int8, 20, 64)
     else:
         js, ji = jfused(q, c, 10, interpret=True)
         pc, pscale = torch.from_numpy(c), None
-        sub = _jax_sub_rows(jnp.float32, 20, 64)
-    ps, pi = mips_fused_topk(torch.from_numpy(q), pc, 10, row_scale=pscale,
-                             sub_rows=sub)
+    ps, pi = mips_fused_topk(torch.from_numpy(q), pc, 10, row_scale=pscale)
     assert ps.dtype == torch.float32 and pi.dtype == torch.int32
     assert _sets_equal(pi, ji)
     np.testing.assert_allclose(ps.numpy(), np.asarray(js), rtol=2e-5)
@@ -97,8 +96,7 @@ def test_fused_topk_bf16_matches_jax(corpus50k):
     js, ji = jfused(qb, cb, 10, interpret=True)
     ps, pi = mips_fused_topk(
         torch.from_numpy(q).to(torch.bfloat16),
-        torch.from_numpy(c).to(torch.bfloat16), 10,
-        sub_rows=_jax_sub_rows(jnp.bfloat16, 20, 64))
+        torch.from_numpy(c).to(torch.bfloat16), 10)
     assert _overlap(pi, ji) >= 0.99
     np.testing.assert_allclose(ps.numpy(), np.asarray(js), rtol=1e-2)
 
@@ -111,17 +109,16 @@ def test_fused_topk_negative_scores_with_padding():
     rng = np.random.default_rng(13)
     q = np.abs(rng.normal(size=(8, 64))).astype(np.float32)
     c = -np.abs(rng.normal(size=(3000, 64))).astype(np.float32)
-    sub = _jax_sub_rows(jnp.float32, 8, 64)
     for valid, k in [(2900, 5), (200, 30)]:
         js, ji = jfused(q, c, k, valid_items=valid, interpret=True)
         ps, pi = mips_fused_topk(torch.from_numpy(q), torch.from_numpy(c), k,
-                                 valid_items=valid, sub_rows=sub)
+                                 valid_items=valid)
         assert _sets_equal(pi, ji)
         assert ((pi >= 0) & (pi < valid)).all()
         np.testing.assert_allclose(ps.numpy(), np.asarray(js), rtol=2e-5)
     # fewer live segments than k: trailing slots pad
     ps, pi = mips_fused_topk(torch.from_numpy(q), torch.from_numpy(c), 20,
-                             valid_items=3, sub_rows=1024)
+                             valid_items=3)
     assert (pi[:, :3] >= 0).all() and (pi[:, 3:] == -1).all()
     assert torch.isneginf(ps[:, 3:]).all() and (ps[:, :3] < 0).all()
 
@@ -132,11 +129,10 @@ def test_fused_topk_query_tiling():
     rng = np.random.default_rng(12)
     q = rng.normal(size=(20, 64)).astype(np.float32)
     c = rng.normal(size=(4000, 64)).astype(np.float32)
-    sub = _jax_sub_rows(jnp.float32, 8, 64)
     full_s, full_i = mips_fused_topk(torch.from_numpy(q), torch.from_numpy(c),
-                                     7, sub_rows=sub)
+                                     7, query_tile=8)
     part_s, part_i = mips_fused_topk(torch.from_numpy(q[5:9]),
-                                     torch.from_numpy(c), 7, sub_rows=sub)
+                                     torch.from_numpy(c), 7, query_tile=8)
     assert torch.equal(part_i, full_i[5:9]) and torch.equal(part_s,
                                                             full_s[5:9])
     js, ji = jfused(q, c, 7, interpret=True, query_tile=8)
@@ -160,6 +156,64 @@ def test_fused_topk_argument_errors():
         mips_fused_topk(q, c.to(torch.float16), 10)
 
 
+@pytest.mark.parametrize("dtype,nq,d", [
+    (jnp.float32, 20, 64), (jnp.bfloat16, 20, 64), (jnp.int8, 20, 64),
+    (jnp.bfloat16, 600, 64), (jnp.bfloat16, 1024, 128), (jnp.float32, 1, 200),
+])
+def test_segment_plan_follows_jax_block_plan(dtype, nq, d):
+    """The sub-chunk size is JAX's for the query tile: 20 queries at D=64
+    give 8192 (f32), 16384 (bf16), 32768 (int8) rows; 600 give 1664, which
+    is 13 segments, not a power of two."""
+    tdtype = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16,
+              jnp.int8: torch.int8}[dtype]
+    sub, _ = segment_plan(tdtype, 1_000_000, d, nq, 10)
+    assert sub == _jax_sub_rows(dtype, nq, d)
+    if (dtype, nq) == (jnp.bfloat16, 600):
+        assert sub == 1664
+
+
+def test_fused_topk_600_queries_odd_segment_count():
+    """At 600 queries the plan has 13 segments per sub-chunk. The JAX kernel
+    does not run there (its merge window of 52 winners is not a power of
+    two), so the port is held against the segment-winner rule in numpy."""
+    rng = np.random.default_rng(15)
+    q = rng.normal(size=(600, 16)).astype(np.float32)
+    c = rng.normal(size=(7000, 16)).astype(np.float32)
+    sub, _ = segment_plan(torch.float32, 7000, 16, 600, 5)
+    assert sub // 128 == 13
+    ps, pi = mips_fused_topk(torch.from_numpy(q), torch.from_numpy(c), 5)
+    scores = q.astype(np.float64) @ c.T.astype(np.float64)
+    rows = np.arange(7000)
+    seg = (rows // sub) * 13 + (rows % sub) % 13
+    win = np.stack([rows[seg == g][np.argmax(scores[:, seg == g], axis=1)]
+                    for g in np.unique(seg)], axis=1)          # (600, n_seg)
+    top = np.argsort(-np.take_along_axis(scores, win, axis=1), axis=1)[:, :5]
+    # packing truncates scores at 2^-17, which can flip near-ties
+    assert _overlap(pi, np.take_along_axis(win, top, axis=1)) >= 0.998
+    np.testing.assert_allclose(
+        ps.numpy(), np.take_along_axis(scores, pi.numpy().astype(np.int64),
+                                       axis=1), rtol=2e-5)
+
+
+@pytest.mark.parametrize("k", [40, 100])
+def test_fused_topk_k_past_live_candidates_pads_like_jax(k):
+    """N=3000, 4 queries: JAX counts candidates over the corpus padded to its
+    grid block and returns (-inf, -1) past the live ones; so does the port,
+    where it used to raise."""
+    rng = np.random.default_rng(16)
+    q = rng.normal(size=(4, 64)).astype(np.float32)
+    c = rng.normal(size=(3000, 64)).astype(np.float32)
+    js, ji = jfused(q, c, k, interpret=True)
+    ps, pi = mips_fused_topk(torch.from_numpy(q), torch.from_numpy(c), k)
+    assert pi.shape == (4, k) and ps.shape == (4, k)
+    np.testing.assert_array_equal(pi.numpy() == -1, np.asarray(ji) == -1)
+    assert _sets_equal(pi, ji)
+    live = np.isfinite(np.asarray(js))
+    np.testing.assert_array_equal(np.isfinite(ps.numpy()), live)
+    np.testing.assert_allclose(ps.numpy()[live], np.asarray(js)[live],
+                               rtol=2e-5)
+
+
 def test_fused_topk_non_cpu_tensor_never_takes_plain_version():
     """Only a CPU tensor reaches the plain version: any other device goes
     to the kernel path, which raises rather than fall back."""
@@ -168,8 +222,8 @@ def test_fused_topk_non_cpu_tensor_never_takes_plain_version():
     c = torch.empty((3000, 64), device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         mips_fused_topk(q, c, 5)
-    with pytest.raises(ValueError, match="sub_rows=1024"):
-        mips_fused_topk(q, c, 5, sub_rows=2048)
+    with pytest.raises(ValueError, match="CUDA device"):
+        mips_fused_topk(q, c, 100)      # past the live candidates: pads
     assert fused_mod.launches == before
 
 
@@ -403,7 +457,6 @@ def test_service_auto_matches_jax_kernel():
                             {"item_id": corpus["item_id"][:4]}, scale=1e3)
     ju = np.asarray(jm.apply(variables, users, method=jm.encode_user))
     ji_emb = np.asarray(jm.apply(variables, corpus, method=jm.encode_item))
-    assert _jax_sub_rows(jnp.float32, 1024, 16) == fused_mod.SUB_ROWS
     js, ji = jfused(ju, ji_emb, 10, valid_items=20_000, interpret=True)
     psvc = RetrievalService(pm, corpus, method="auto", bf16=False,
                             device="cpu")
@@ -411,6 +464,33 @@ def test_service_auto_matches_jax_kernel():
     ps, pi = psvc.query(users, k=10)
     assert _sets_equal(pi, ji)
     np.testing.assert_allclose(ps, np.asarray(js), rtol=2e-5, atol=1e-6)
+
+
+def test_service_auto_20_users_matches_jax_kernel():
+    """20 users: JAX's plan has 8192-row sub-chunks for this f32 corpus, and
+    the port's 'auto' route follows it, so the id sets agree with the JAX
+    kernel on the same towers."""
+    jm, pm = _youtubednn_pair()
+    rng = np.random.default_rng(9)
+    hist = rng.integers(0, 20_000, (20, 5)).astype(np.int32)
+    users = {"user_id": rng.integers(0, N_USERS, 20).astype(np.int32),
+             "hist": hist}
+    corpus = {"item_id": np.arange(20_000, dtype=np.int32)}
+    variables = _transplant(jm, pm, {k: v[:4] for k, v in users.items()},
+                            {"item_id": corpus["item_id"][:4]}, scale=1e3)
+    ju = np.asarray(jm.apply(variables, users, method=jm.encode_user))
+    ji_emb = np.asarray(jm.apply(variables, corpus, method=jm.encode_item))
+    js, ji = jfused(ju, ji_emb, 10, valid_items=20_000, interpret=True)
+    psvc = RetrievalService(pm, corpus, method="auto", bf16=False,
+                            device="cpu")
+    assert psvc.index._kernel_gate(10)
+    ps, pi = psvc.query(users, k=10)
+    assert _sets_equal(pi, ji)
+    np.testing.assert_allclose(ps, np.asarray(js), rtol=2e-5, atol=1e-6)
+    # a fixed 1024-row plan keeps other candidates here
+    _, old_i = mips_fused_topk_plain(torch.tensor(ju), torch.tensor(ji_emb),
+                                     10, 20_000, sub_rows=1024)
+    assert not _sets_equal(old_i, ji)
 
 
 def test_service_save_load_roundtrip(tmp_path):
