@@ -12,6 +12,10 @@ Phases (any failure raises and exits non-zero):
      shape, and at 20 and 600 queries (the JAX segment plan below 1024
      queries); the packed AdaGrad update (B1) at the Criteo training shape,
      ids uniform per field as `bench.py` draws them and Zipf-skewed;
+  3b. kernel B2 (flash-CE) against its plain versions: bench.py's 1M-item
+     SASRec shape (B=1024, V=1M, D=64), a ragged one (1000, 100,003, 100),
+     weights with zeros, all-160 and all--40 logits, the multinomial
+     variant (B=256, V=100,000, 20 positives);
   4. the serving path: a YoutubeDNN at the repository's width
      (`configs/models/youtubednn.yaml`: dim 64, MLP 256-128-64, 1M users,
      1M items, 50-long histories) with random weights from a seed, behind a
@@ -25,11 +29,21 @@ Phases (any failure raises and exits non-zero):
      label drawn from a fixed random logistic model over four fields, with
      B1's launch count reset just before and read just after; falling
      loss, examples/s, one step under torch.profiler, held-out AUC/logloss;
+  5b. the sequential training path: `Trainer(SASRec,
+     train_method='fused_ce_loss')` at `bench.py`'s 1M-item shape (V=1M,
+     L=50, d=64, 2 layers, 2 heads, dropout 0.1, bf16, batch 1024, Adam
+     1e-3 with clip 10), 3 + 12 steps on one batch with B2's counts reset
+     just before and read just after (one forward and one backward a
+     step), falling loss, examples/s, one step under torch.profiler; the
+     CPU Markov learning test trained on the card (hit@1 > 0.8); the 60k
+     regime through `full_scores` against `fused_ce_loss`;
   6. times with CUDA events (median after a warm-up): each kernel, its
      plain version, one PyTorch yardstick (torch.matmul + torch.topk for
-     B3, the `index_add_` scatter B1 absorbs; the port calls neither), the
-     bound, and the service's queries/s; one service query under
-     torch.profiler, for device time by kernel and the device's idle share.
+     B3, the `index_add_` scatter B1 absorbs, a bf16 matmul into 2 GB of
+     logits + F.cross_entropy for B2; the port calls none of them), the
+     bound (and B2's exp floor), and the service's queries/s; one service
+     query under torch.profiler, for device time by kernel and the
+     device's idle share.
 
 Earlier lines of stdout carry the measurements as JSON; the line before
 the last is the kernels' summary, the last one
@@ -39,6 +53,7 @@ the last is the kernels' summary, the last one
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -395,6 +410,332 @@ def time_b1(gen):
             "bytes": moved}
 
 
+# bench.py's SASRec regimes (`bench.py:354-356`, `:425`): V items, L, d, B
+SAS_V, SAS_L, SAS_D, SAS_B = 1_000_000, 50, 64, 1024
+SAS_V_SMALL = 60_000
+# one exp per logit at the special-function units' ~3.9e12/s (H100 SXM,
+# FlashAttention-3 paper)
+EXP_RATE = 3.9e12
+
+
+def b2_inputs(gen, b, v, d, u_std=1.0, t_std=0.125):
+    """user (b, d) and table (v, d) f32 on the card; logits of std
+    ~u_std * t_std * sqrt(d) (about 1 at the 1M shape)."""
+    user = u_std * torch.randn(b, d, generator=gen, device=DEVICE)
+    table = t_std * torch.randn(v, d, generator=gen, device=DEVICE)
+    return user, table
+
+
+def b2_sweeps_vs_plain(user, table, lse_shift=None):
+    """B2's two wrappers (forward sweep, backward sweeps) on the card
+    against their plain versions on the same bf16 operands. lse: rtol 1e-5
+    (ex2.approx and another summation order); du, dt: 0.5% of max |plain|
+    (p rounds to bf16, and the kernel's exp2 of x log2(e) may round a p to
+    the neighbouring bf16 value); rows whose lse_eff is +inf (weight 0)
+    exactly 0 in du."""
+    from recbox_tpu_torch.ops.fused_ce import (
+        ce_operands, fused_ce_bwd, fused_ce_bwd_plain, fused_ce_lse,
+        fused_ce_lse_plain,
+    )
+    u, t = ce_operands(user, table)
+    d = user.shape[1]
+    lse = fused_ce_lse(u, t)
+    lse_p = fused_ce_lse_plain(u, t)
+    lse_eff = lse_p if lse_shift is None else lse_p + lse_shift
+    scale = torch.tensor(1.0 / user.shape[0], device=DEVICE)
+    du, dt = fused_ce_bwd(u, t, lse_eff, scale, d)
+    du_p, dt_p = fused_ce_bwd_plain(u, t, lse_eff, scale, d)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+    errs = {"lse": float((lse - lse_p).abs().max())}
+    for name, got, want in (("du", du, du_p), ("dt", dt, dt_p)):
+        err = float((got - want).abs().max())
+        top = float(want.abs().max())
+        assert bool(torch.isfinite(got).all()), name
+        assert err <= 5e-3 * top, (name, err, top)
+        errs[name] = err
+        errs[name + "_rel_to_max"] = err / top if top else 0.0
+    if lse_shift is not None:
+        dead = torch.isinf(lse_shift)
+        assert float(du[dead].abs().max()) == 0.0
+        errs["zero_rows_exact"] = int(dead.sum())
+    return errs
+
+
+def check_b2(gen):
+    """B2 against its plain version on the card: bench.py's 1M shape, a
+    ragged shape (B, V, D all unaligned), weights with zeros, the all-160
+    and all--40 logit cases, and the multinomial variant."""
+    from recbox_tpu_torch.ops.fused_ce import (
+        fused_multinomial_ce, fused_softmax_ce,
+    )
+    out = []
+    for b, v, d in ((SAS_B, SAS_V, SAS_D), (1000, 100_003, 100)):
+        user, table = b2_inputs(gen, b, v, d, t_std=1.0 / math.sqrt(d))
+        out.append({"case": "shape", "b": b, "v": v, "d": d,
+                    **b2_sweeps_vs_plain(user, table)})
+    # weights with zeros: lse_eff = lse - log w, +inf where w = 0
+    user, table = b2_inputs(gen, SAS_B, SAS_V, SAS_D)
+    w = torch.rand(SAS_B, generator=gen, device=DEVICE)
+    w[::7] = 0.0
+    out.append({"case": "weights_with_zeros", "b": SAS_B, "v": SAS_V,
+                "d": SAS_D, **b2_sweeps_vs_plain(user, table, -torch.log(w))})
+    u = user.clone().requires_grad_(True)
+    labels = torch.randint(0, SAS_V, (SAS_B,), generator=gen, device=DEVICE)
+    fused_softmax_ce(u, table, labels, w).backward()
+    assert float(u.grad[w == 0].abs().max()) == 0.0
+    # extreme logits through the whole function: CE = log V exactly
+    for case, value, v in (("all_160", 10.0, 256), ("all_minus_40", 2.0, 300),
+                           ("all_minus_40_large_v", 2.0, 100_003)):
+        tv = 1.0 if value == 10.0 else -1.25
+        user = torch.full((8, 16), value, device=DEVICE, requires_grad=True)
+        table = torch.full((v, 16), tv, device=DEVICE, requires_grad=True)
+        loss = fused_softmax_ce(user, table,
+                                torch.arange(8, device=DEVICE))
+        loss.backward()
+        torch.cuda.synchronize()
+        loss = float(loss.detach())
+        assert abs(loss - math.log(v)) <= 1e-5 * math.log(v), \
+            (case, loss)
+        assert bool(torch.isfinite(user.grad).all()
+                    & torch.isfinite(table.grad).all()), case
+        out.append({"case": case, "v": v, "loss": loss,
+                    "log_v": math.log(v)})
+    # multinomial: 20 positives a row, an empty row, lse_eff = lse - log n
+    b, v, h = 256, 100_000, 20
+    user, table = b2_inputs(gen, b, v, SAS_D)
+    pos = torch.randint(0, v, (b, h), generator=gen, device=DEVICE)
+    mask = (torch.rand(b, h, generator=gen, device=DEVICE) > 0.3).float()
+    mask[3] = 0.0
+    errs = b2_sweeps_vs_plain(user, table, -torch.log(mask.sum(1)))
+    u = user.clone().requires_grad_(True)
+    loss = fused_multinomial_ce(u, table, pos, mask)
+    loss.backward()
+    loss = float(loss.detach())
+    assert math.isfinite(loss) and float(u.grad[3].abs().max()) == 0
+    out.append({"case": "multinomial", "b": b, "v": v, "h": h,
+                "loss": loss, **errs})
+    return out
+
+
+def b2_bounds(b, v, d):
+    """(fwd, bwd) least times in ms and what bounds each, and the exp
+    floor of one sweep: bytes each input read once and each output written
+    once (bf16 operands; fwd writes lse, bwd writes f32 du and dt), against
+    2BVD operations forward and 3 products backward at the bf16 peak."""
+    fwd_bytes = (b + v) * d * 2 + b * 4
+    bwd_bytes = (b + v) * d * 2 + b * 4 + (b + v) * d * 4
+    fwd_ops, bwd_ops = 2.0 * b * v * d, 3 * 2.0 * b * v * d
+    out = {}
+    for name, nbytes, ops in (("fwd", fwd_bytes, fwd_ops),
+                              ("bwd", bwd_bytes, bwd_ops)):
+        by_b = nbytes / HBM_BYTES_S * 1e3
+        by_o = ops / PEAK_OPS["bf16"] * 1e3
+        out[name] = (max(by_b, by_o), "bytes" if by_b > by_o
+                     else "operations", nbytes, ops)
+    return out, b * v / EXP_RATE * 1e3
+
+
+def time_b2(gen):
+    """B2 alone at the 1M shape: each wrapper (kernel), its plain version,
+    and the materialised PyTorch formulation (a bf16 torch.matmul into 2 GB
+    of logits, then F.cross_entropy; the port never calls it), forward and
+    forward + backward, CUDA events, median of 10."""
+    import torch.nn.functional as F
+    from recbox_tpu_torch.ops.fused_ce import (
+        ce_operands, fused_ce_bwd, fused_ce_bwd_plain, fused_ce_lse,
+        fused_ce_lse_plain,
+    )
+    user, table = b2_inputs(gen, SAS_B, SAS_V, SAS_D)
+    labels = torch.randint(0, SAS_V, (SAS_B,), generator=gen, device=DEVICE)
+    u, t = ce_operands(user, table)
+    lse = fused_ce_lse(u, t)
+    scale = torch.tensor(1.0 / SAS_B, device=DEVICE)
+    reps = 10
+    res = {
+        "fwd_ms": cuda_ms(lambda: fused_ce_lse(u, t), reps),
+        "bwd_ms": cuda_ms(lambda: fused_ce_bwd(u, t, lse, scale, SAS_D),
+                          reps),
+        "fwd_plain_ms": cuda_ms(lambda: fused_ce_lse_plain(u, t), reps),
+        "bwd_plain_ms": cuda_ms(
+            lambda: fused_ce_bwd_plain(u, t, lse, scale, SAS_D), reps)}
+    ul = u.detach().clone().requires_grad_(True)
+    tl = t.detach().clone().requires_grad_(True)
+
+    def library_fwd():
+        with torch.no_grad():
+            return F.cross_entropy(ul @ tl.T, labels)
+
+    def library_fwd_bwd():
+        F.cross_entropy(ul @ tl.T, labels).backward()
+
+    res["fwd_library_ms"] = cuda_ms(library_fwd, reps)
+    res["fwd_bwd_library_ms"] = cuda_ms(library_fwd_bwd, reps)
+    del ul, tl
+    bounds, exp_ms = b2_bounds(SAS_B, SAS_V, SAS_D)
+    for name in ("fwd", "bwd"):
+        b_ms, b_by, nbytes, ops = bounds[name]
+        res.update({f"{name}_bound_ms": b_ms, f"{name}_bound_by": b_by,
+                    f"{name}_bytes": nbytes, f"{name}_ops": ops})
+    res["exp_floor_ms_per_sweep"] = exp_ms
+    return res
+
+
+def sasrec_setup(vocab, train_method, seed=SEED):
+    """bench.py's SASRec regime (`bench.py:426-441`): 2 layers, 2 heads,
+    L = 50, d = 64, dropout 0.1, bf16 compute, Adam 1e-3 with clip 10;
+    the batch drawn as `bench.py:434-438` draws it."""
+    from recbox_tpu_torch.features import FeatureMap, FeatureSpec
+    from recbox_tpu_torch.models.sequential import SASRec
+    from recbox_tpu_torch.ops.losses import full_softmax_loss
+    from recbox_tpu_torch.training import Trainer, TrainerConfig
+    fm = FeatureMap("sasbench", (FeatureSpec(
+        "item_id", "categorical", vocab_size=vocab,
+        embedding_dim=SAS_D),), corpus_index="item_id", num_items=vocab)
+    model = SASRec(fm, embedding_dim=SAS_D, max_seq_len=SAS_L, n_layers=2,
+                   n_heads=2, dropout=0.1, compute_dtype="bfloat16",
+                   generator=torch.Generator(device=DEVICE).manual_seed(seed),
+                   device=DEVICE)
+    loss = (lambda o, b: o) if train_method == "fused_ce_loss" else \
+        (lambda o, b: full_softmax_loss(o, b["item_id"]))
+    trainer = Trainer(model, loss, TrainerConfig(learning_rate=1e-3,
+                                                 grad_clip_norm=10.0,
+                                                 seed=seed),
+                      device=DEVICE, train_method=train_method)
+    rng = np.random.default_rng(seed)
+    batch = {
+        "item_seq": rng.integers(1, vocab, (SAS_B, SAS_L)).astype(np.int32),
+        "seq_len": np.full(SAS_B, SAS_L, np.int32),
+        "item_id": rng.integers(1, vocab, SAS_B).astype(np.int32),
+    }
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+    return trainer, batch
+
+
+def timed_repeat_steps(trainer, batch):
+    """WARMUP_STEPS steps, then TIMED_STEPS one by one through
+    `train_steps_repeat`, CUDA events around each; (losses, step ms)."""
+    losses = [trainer.train_steps_repeat(batch, WARMUP_STEPS)]
+    events = []
+    for _ in range(TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(trainer.train_steps_repeat(batch, 1))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return ([float(x) for x in torch.cat(losses)],
+            [s.elapsed_time(e) for s, e in events])
+
+
+def train_sasrec_1m():
+    """The sequential training path at bench.py's 1M-item shape through
+    kernel B2: its counts reset just before the 15 steps, read just after."""
+    from recbox_tpu_torch.ops import fused_ce
+    trainer, batch = sasrec_setup(SAS_V, "fused_ce_loss")
+    t0 = time.perf_counter()
+    trainer.init(batch)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    fused_ce.reset_launches()
+    losses, step_ms = timed_repeat_steps(trainer, batch)
+    launches = dict(fused_ce.launches)
+    n = WARMUP_STEPS + TIMED_STEPS
+    assert launches == {"fused_ce_fwd": n, "fused_ce_bwd": n}, launches
+    assert all(np.isfinite(losses)), losses
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
+    med = statistics.median(step_ms)
+    return trainer, batch, {
+        "vocab": SAS_V, "batch": SAS_B, "seq_len": SAS_L, "dim": SAS_D,
+        "init_s": init_s, "losses": losses, "launches": launches,
+        "step_ms": step_ms, "median_step_ms": med,
+        "min_step_ms": min(step_ms), "max_step_ms": max(step_ms),
+        "examples_per_s": SAS_B / med * 1e3,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def sasrec_markov_on_card():
+    """The CPU learning test's model and data (`tests/test_torch_sequential
+    .py`), trained on the card through kernel B2: hit@1 > 0.8."""
+    from recbox_tpu_torch.data import ArrayLoader
+    from recbox_tpu_torch.data.sequential import leave_one_out_split
+    from recbox_tpu_torch.features import FeatureMap, FeatureSpec
+    from recbox_tpu_torch.models.sequential import SASRec
+    from recbox_tpu_torch.ops import fused_ce
+    from recbox_tpu_torch.training import Trainer, TrainerConfig
+    rng = np.random.default_rng(3)
+    n_items, seqs = 40, {}
+    for u in range(200):
+        start = rng.integers(1, n_items + 1)
+        seqs[u] = np.array([(start + k - 1) % n_items + 1
+                            for k in range(12)])
+    train, valid, _ = leave_one_out_split(seqs, max_len=8)
+    fm = FeatureMap("seq", (FeatureSpec(
+        "item_id", "categorical", source="item", vocab_size=n_items + 1,
+        embedding_dim=32),), query_index="user_id", corpus_index="item_id",
+        num_items=n_items + 1)
+    model = SASRec(fm, embedding_dim=32, max_seq_len=8, n_layers=1,
+                   n_heads=2, dropout=0.0, compute_dtype="bfloat16",
+                   generator=torch.Generator(device=DEVICE).manual_seed(0),
+                   device=DEVICE)
+    trainer = Trainer(model, lambda out, b: out,
+                      TrainerConfig(learning_rate=5e-3), device=DEVICE,
+                      train_method="fused_ce_loss")
+    before = fused_ce.launches["fused_ce_bwd"]
+    loader = ArrayLoader(train, batch_size=256, drop_last=True, seed=0)
+    for _ in range(6):
+        for batch in loader:
+            batch.pop("__mask__", None)
+            trainer.train_step(batch)
+    model.eval()
+    with torch.no_grad():
+        scores = model.full_scores(
+            {k: torch.from_numpy(valid[k]).to(DEVICE)
+             for k in ("item_seq", "seq_len")})
+    hit = float(np.mean(scores.argmax(-1).cpu().numpy() == valid["item_id"]))
+    steps = fused_ce.launches["fused_ce_bwd"] - before
+    assert steps == 6 * len(loader), steps
+    assert hit > 0.8, hit
+    return {"hit_at_1": hit, "b2_backward_launches": steps}
+
+
+def sasrec_60k_comparison():
+    """`_bench_sasrec`'s 60k-item regime (`bench.py:339-404`): the same
+    model and batch trained through `full_scores` (bf16 logits in memory,
+    cuBLAS, full_softmax_loss) and through `fused_ce_loss` (B2), in turns
+    (full, fused, fused, full), 12 timed steps each."""
+    out = {"full_scores": [], "fused_ce_loss": []}
+    for method in ("full_scores", "fused_ce_loss", "fused_ce_loss",
+                   "full_scores"):
+        trainer, batch = sasrec_setup(SAS_V_SMALL, method)
+        trainer.init(batch)
+        losses, step_ms = timed_repeat_steps(trainer, batch)
+        assert all(np.isfinite(losses)), (method, losses)
+        out[method].append(statistics.median(step_ms))
+        del trainer, batch
+    return {"vocab": SAS_V_SMALL,
+            **{f"{m}_median_step_ms": v for m, v in out.items()},
+            **{f"{m}_examples_per_s": SAS_B / statistics.mean(v) * 1e3
+               for m, v in out.items()}}
+
+
+def sasrec_breakdown(trainer, batch):
+    """Device time by kernel group of one steady SASRec 1M step
+    (torch.profiler): B2 forward and backward, GEMMs, the rest; the device
+    spans of the trainer's phases (Adam over the 1M x 64 table among them);
+    the device's idle share of the step's wall time."""
+    return train_breakdown(trainer, batch, (
+        ("b2_forward", ("lse_partial", "lse_combine")),
+        ("b2_backward", ("dt_sweep", "du_sweep", "du_reduce")),
+        ("gemm", ("gemm", "nvjet", "sm90", "cutlass", "xmma", "splitk")),
+        ("copies_casts", ("copy", "cast", "fill")),
+        ("embedding_gather_scatter", ("index", "embedding", "gather",
+                                      "scatter")),
+    ), steps=lambda: trainer.train_steps_repeat(batch, 1))
+
+
 def criteo_trainer(seed):
     """PackedEmbeddingTrainer over bench.py's DeepFM, as `bench.py:595-626`
     builds it: BCE, Adam 1e-3 with clip 10, AdaGrad on the packs."""
@@ -444,19 +785,27 @@ class CriteoBatches:
         return batch
 
 
-def train_breakdown(trainer, batch):
+CRITEO_GROUPS = (
+    ("b1_packed_adagrad_update", ("packed_adagrad_update",)),
+    ("gemm", ("gemm", "nvjet", "sm90", "cutlass", "xmma", "splitk")),
+    ("gather_index_select", ("gather", "indexselect", "index_select")),
+)
+
+
+def train_breakdown(trainer, batch, groups=CRITEO_GROUPS, steps=None):
     """Device time by kernel of one steady train step (torch.profiler),
-    grouped by kernel name (the gather, GEMMs, B1, the rest); the device
-    timeline's span of each of the trainer's phases (gather, forward,
-    backward, Adam, row update); and the device's idle share of the step's
-    wall time."""
+    summed into ``groups`` ((name, substrings of a lower-case kernel name),
+    first match wins, the rest "other"); the device timeline's span of each
+    of the trainer's phases (gather, forward, backward, Adam, row update);
+    and the device's idle share of the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    trainer.train_step(batch)
+    step = steps or (lambda: trainer.train_step(batch))
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_step(batch)
+        step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     phase_names = ("trainer::", "packed::")
@@ -472,24 +821,19 @@ def train_breakdown(trainer, batch):
             and not e.key.startswith(phase_names)]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    groups = {"b1_packed_adagrad_update": 0.0, "gemm": 0.0,
-              "gather_index_select": 0.0, "other": 0.0}
+    sums = {name: 0.0 for name, _ in groups}
+    sums["other"] = 0.0
     for name, ms, _ in rows:
-        low = name.lower()
-        if "packed_adagrad_update" in low:
-            groups["b1_packed_adagrad_update"] += ms
-        elif any(t in low for t in ("gemm", "nvjet", "sm90", "cutlass",
-                                    "xmma", "splitk")):
-            groups["gemm"] += ms
-        elif "gather" in low or ("index" in low and "select" in low):
-            groups["gather_index_select"] += ms
-        else:
-            groups["other"] += ms
+        low = name.lower().replace("_", "")
+        hit = next((g for g, keys in groups
+                    if any(k.replace("_", "") in low for k in keys)),
+                   "other")
+        sums[hit] += ms
     if device_ms == 0:
         return {"wall_ms": wall_ms, "device_ms": None, "idle_share": None,
                 "groups": None, "phase_span_ms": None, "by_kernel": []}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "idle_share": 1 - device_ms / wall_ms, "groups": groups,
+            "idle_share": 1 - device_ms / wall_ms, "groups": sums,
             "phase_span_ms": phases,
             "by_kernel": [{"name": name[:90], "ms": ms, "count": n}
                           for name, ms, n in rows[:14]]}
@@ -592,6 +936,9 @@ def main() -> int:
         emit({"phase": "b1_vs_plain", **b1_checks[ids_kind]})
     emit({"phase": "b1_check_launches",
           "launches": packed_delta.launches["packed_adagrad_update"]})
+    b2_checks = check_b2(gen)
+    for res in b2_checks:
+        emit({"phase": "b2_vs_plain", **res})
 
     # 4. the serving path
     fm, users, corpus = youtubednn_service_inputs()
@@ -644,6 +991,17 @@ def main() -> int:
           **train_breakdown(trainer, last_batch)})
     del trainer, last_batch
 
+    # 5b. the sequential training path: SASRec over 1M items through B2
+    t0 = time.perf_counter()
+    trainer, batch, sas = train_sasrec_1m()
+    emit({"phase": "train_sasrec_1m", "card": card,
+          "wall_s": time.perf_counter() - t0, **sas})
+    emit({"phase": "sasrec_breakdown", "card": card,
+          **sasrec_breakdown(trainer, batch)})
+    del trainer, batch
+    emit({"phase": "sasrec_markov", **sasrec_markov_on_card()})
+    emit({"phase": "sasrec_60k", "card": card, **sasrec_60k_comparison()})
+
     # 6. times
     qps = {}
     for name, s in (("bf16", svc), ("int8", svc8)):
@@ -661,6 +1019,8 @@ def main() -> int:
     b1_time = time_b1(gen)
     emit({"phase": "timing", "card": card, "kernel": "packed_adagrad_update",
           **b1_time})
+    b2_time = time_b2(gen)
+    emit({"phase": "timing", "card": card, "kernel": "fused_ce", **b2_time})
     timings = {}
     for variant in ("bf16", "int8", "f32"):
         for d in (DIM, 128):
@@ -698,6 +1058,30 @@ def main() -> int:
         "matches_plain": True,
         "shape": {"pack": [NUM_CAT * VOCAB, 128], "rows": NUM_CAT * BATCH,
                   "slots": list(B1_DIMS), "grads": "bf16"}})
+    b2_err = b2_checks[0]
+    for name, key, errs, replaces in (
+            ("fused_ce_forward", "fwd", {"lse": b2_err["lse"]},
+             "recbox_tpu/ops/pallas/fused_ce.py:100"),
+            ("fused_ce_backward", "bwd",
+             {"du": b2_err["du"], "dt": b2_err["dt"]},
+             "recbox_tpu/ops/pallas/fused_ce.py:212")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "recbox_tpu_torch/csrc/fused_ce.cu",
+            "replaces": replaces,
+            "launches": sas["launches"][f"fused_ce_{key}"],
+            "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
+            "ms": b2_time[f"{key}_ms"],
+            "plain_ms": b2_time[f"{key}_plain_ms"],
+            "bound_ms": b2_time[f"{key}_bound_ms"],
+            "bound_by": b2_time[f"{key}_bound_by"],
+            "exp_floor_ms": b2_time["exp_floor_ms_per_sweep"],
+            "library_ms": b2_time["fwd_library_ms" if key == "fwd"
+                                  else "fwd_bwd_library_ms"],
+            "library": "F.cross_entropy(u_bf16 @ t_bf16.T, labels)"
+                       + ("" if key == "fwd" else ", forward + backward"),
+            "matches_plain": True,
+            "shape": {"b": SAS_B, "v": SAS_V, "d": SAS_D}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

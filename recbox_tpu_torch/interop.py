@@ -5,23 +5,35 @@
 packs into the port's, so both packages then compute the same step. The
 caller unboxes flax's `Partitioned` leaves and converts them to numpy on
 the JAX side (``jax.tree_util.tree_map(np.asarray, nn.meta.unbox(params))``);
-this module imports neither JAX nor flax. The mapping:
+this module imports neither JAX nor flax. Each flax param has a list of
+candidate port keys, and the first one the port module has is taken:
 
-  .../emb_<table>          →  .../tables.<table>     (FeatureEmbedding)
+  .../emb_<table>          →  .../tables.<table>     (FeatureEmbedding),
+                              else .../emb_<table>   (a bare table, e.g.
+                                                      SASRec's emb_item)
   .../num_<feature>        →  .../numeric.<feature>  (FeatureEmbedding)
-  .../Dense_<i>/kernel     →  .../dense.<i>.weight   (MLP, transposed:
-                                                      flax (in, out), torch
-                                                      (out, in))
-  .../Dense_<i>/bias       →  .../dense.<i>.bias
+  .../Dense_<i>/kernel     →  .../dense.<i>.weight   (MLP), else
+                              .../Dense_<i>.weight   (a Linear of that name)
+  .../<m>/kernel (D, O)    →  .../<m>.weight, transposed (flax (in, out),
+                                                      torch (out, in)): the
+                                                      o<i> projections
+  .../<m>/kernel (D, H, K) →  .../<m>.weight (H·K, D): DenseGeneral's
+                                                      q<i>/k<i>/v<i> as one
+                                                      Linear, reshaped to
+                                                      (D, H·K), transposed
+  .../<m>/bias (H, K)      →  .../<m>.bias (H·K,)    (DenseGeneral's bias)
+  .../Dense_<i>/bias       →  .../dense.<i>.bias, else .../Dense_<i>.bias
   any other a/b/c          →  a.b.c, same layout     (e.g. DeepFM's lr/bias,
                                                       lr_bias, dnn_w1 (F, D,
-                                                      H), dnn_b1)
+                                                      H), dnn_b1; LayerNorm's
+                                                      scale and bias, which
+                                                      the port names alike)
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,19 +53,33 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
             yield path, value
 
 
-def _torch_key(path: Tuple[str, ...]) -> Tuple[str, bool]:
-    """(state_dict key, transpose?) for one flax param path."""
+def _kernel(arr: np.ndarray) -> np.ndarray:
+    """A flax Dense (in, out) or DenseGeneral (in, H, K) kernel as a torch
+    (out, in) weight."""
+    return arr.reshape(arr.shape[0], -1).T
+
+
+def _candidates(path: Tuple[str, ...], arr: np.ndarray
+                ) -> List[Tuple[str, Optional[Callable]]]:
+    """(state_dict key, transform) candidates for one flax param path, in
+    order of preference."""
     *mods, leaf = path
+    out: List[Tuple[List[str], Optional[Callable]]] = []
     if leaf.startswith("emb_"):
-        return ".".join(mods + ["tables", leaf[4:]]), False
+        out.append((mods + ["tables", leaf[4:]], None))
     if leaf.startswith("num_"):
-        return ".".join(mods + ["numeric", leaf[4:]]), False
+        out.append((mods + ["numeric", leaf[4:]], None))
     dense = _DENSE.match(mods[-1]) if mods else None
     if dense and leaf in ("kernel", "bias"):
-        key = ".".join(mods[:-1] + ["dense", dense.group(1),
-                                    "weight" if leaf == "kernel" else "bias"])
-        return key, leaf == "kernel"
-    return ".".join(path), False
+        out.append((mods[:-1] + ["dense", dense.group(1),
+                                 "weight" if leaf == "kernel" else "bias"],
+                    _kernel if leaf == "kernel" else None))
+    if leaf == "kernel" and mods:
+        out.append((mods + ["weight"], _kernel))
+    if leaf == "bias" and mods and arr.ndim == 2:
+        out.append((mods + ["bias"], lambda a: a.reshape(-1)))
+    out.append((list(path), None))
+    return [(".".join(k), f) for k, f in out]
 
 
 def from_jax_params(params: Mapping, model: nn.Module
@@ -70,14 +96,17 @@ def from_jax_params(params: Mapping, model: nn.Module
     target = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(params):
-        key, transpose = _torch_key(path)
-        if key not in target:
-            raise KeyError(f"flax param {'/'.join(path)} has no counterpart "
-                           f"in the port: it maps to {key!r}, which the port "
-                           "module does not have")
         arr = np.asarray(value)
-        if transpose:
-            arr = arr.T
+        cands = _candidates(path, arr)
+        found = [(k, f) for k, f in cands if k in target]
+        if not found:
+            raise KeyError(f"flax param {'/'.join(path)} has no counterpart "
+                           f"in the port: it maps to one of "
+                           f"{[k for k, _ in cands]}, which the port module "
+                           "does not have")
+        key, transform = found[0]
+        if transform is not None:
+            arr = transform(arr)
         ref = target[key]
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: flax shape {arr.shape} vs port "

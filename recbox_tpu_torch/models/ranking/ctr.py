@@ -16,13 +16,12 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from recbox_tpu_torch.features.schema import FeatureMap
 from recbox_tpu_torch.models.base import RankingModel
 from recbox_tpu_torch.nn.core import (
-    MLP, FactorizationMachine, LogisticRegression, get_activation,
+    MLP, Dropout, FactorizationMachine, LogisticRegression, get_activation,
     xavier_normal_,
 )
 from recbox_tpu_torch.nn.embedding import (
@@ -101,6 +100,7 @@ class DeepFM(_FieldModel):
             self.dnn_w1 = nn.Parameter(w1.reshape(n_fields, d, h0))
             self.dnn_b1 = nn.Parameter(torch.zeros(h0, device=dev))
             self._act = get_activation(activation)
+            self.dnn_drop = Dropout(dropout)
             self.dnn_rest = MLP(h0, self.hidden_units[1:],
                                 activation=activation, output_dim=1,
                                 dropout=dropout, dtype=self.dtype,
@@ -139,9 +139,7 @@ class DeepFM(_FieldModel):
                              - torch.sum(torch.square(x), dim=0), dim=-1)
         h = torch.einsum("fbd,fdh->bh", x, self.dnn_w1.to(x.dtype)) \
             + self.dnn_b1.to(x.dtype)
-        h = self._act(h)
-        if self.dropout > 0:
-            h = F.dropout(h, self.dropout, training=self.training)
+        h = self.dnn_drop(self._act(h))
         deep = self.dnn_rest(h)
         return (first.float() + fm.float()
                 + deep.reshape(-1).float()).reshape(-1)

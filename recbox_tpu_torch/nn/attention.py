@@ -1,0 +1,158 @@
+"""Transformer blocks of the sequential models.
+
+Counterpart of `recbox_tpu/nn/attention.py` `PositionalEmbedding` (:62-70)
+and `TransformerEncoder` (:73-127), recbole's TransformerEncoder contract:
+n_layers × [multi-head self-attention + GELU feed-forward], post-LN with
+eps 1e-12, an additive attention mask (-1e9 on padded keys, plus -1e9 above
+the diagonal when ``causal``). A padded query position sees only masked
+keys and gets a uniform softmax, as in JAX; the mask is never -inf, which
+would give NaN there. The attention is the einsum/softmax it is in JAX.
+
+With ``dtype=torch.bfloat16`` the projections, the feed-forward and the
+attention einsums run in bf16 (parameters stay f32) and the residual adds
+and LayerNorms promote back to f32, as flax's ``dtype=`` does. Parameter
+names follow the flax tree so `interop.from_jax_params` fills them:
+``q<i>``/``k<i>``/``v<i>`` (DenseGeneral to (heads, head_dim), a Linear to
+heads·head_dim here), ``o<i>``, ``Dense_<j>`` and ``LayerNorm_<j>``
+numbered across layers (flax names unnamed submodules in creation order).
+Initialization follows flax: lecun-normal (truncated, fan-in) kernels, zero
+biases, LayerNorm scale 1 and bias 0; ``pos_emb`` normal(0.02).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from recbox_tpu_torch.nn.core import _TRUNC_STD, Dropout
+
+__all__ = ["PositionalEmbedding", "TransformerEncoder", "LayerNorm",
+           "lecun_normal_"]
+
+NEG_INF = -1e9
+
+
+def lecun_normal_(weight: torch.Tensor,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """flax ``lecun_normal()`` on a torch (out, in) weight: N(0, 1/fan_in)
+    truncated to two standard deviations, fan_in = in."""
+    std = math.sqrt(1.0 / weight.shape[1]) / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                     generator=generator)
+
+
+def _linear(d_in: int, d_out: int, generator, device) -> nn.Linear:
+    lin = nn.Linear(d_in, d_out, device=device)
+    lecun_normal_(lin.weight, generator)
+    nn.init.zeros_(lin.bias)
+    return lin
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm``: f32 statistics over the last axis, learned
+    ``scale`` and ``bias`` (flax's names)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6,
+                 device: Optional[Union[str, torch.device]] = None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), x.shape[-1:], self.scale, self.bias,
+                            self.eps)
+
+
+class PositionalEmbedding(nn.Module):
+    """Learned absolute position embedding added to a (B, L, D) sequence."""
+
+    def __init__(self, max_len: int, dim: int,
+                 generator: Optional[torch.Generator] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        super().__init__()
+        self.pos_emb = nn.Parameter(0.02 * torch.randn(
+            max_len, dim, generator=generator, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.pos_emb[None, :x.shape[1], :]
+
+
+class TransformerEncoder(nn.Module):
+    """n_layers × [MHA → dropout → LN(x + h) → Dense(4D) → GELU (tanh,
+    ``jax.nn.gelu``'s default) → Dense(D) → dropout → LN(x + f)] over
+    (B, L, D); ``mask`` (B, L) is True at real positions."""
+
+    def __init__(self, dim: int, n_layers: int = 2, n_heads: int = 2,
+                 hidden_dropout: float = 0.2, attn_dropout: float = 0.2,
+                 inner_dim_multiple: int = 4, causal: bool = False,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        super().__init__()
+        if dim % n_heads:
+            raise ValueError(f"hidden dim {dim} must divide into {n_heads} "
+                             "heads")
+        self.n_layers, self.n_heads = n_layers, n_heads
+        self.head_dim = dim // n_heads
+        self.causal = causal
+        self.dtype = dtype or torch.float32
+        g, dev = generator, device
+        for i in range(n_layers):
+            for name in ("q", "k", "v", "o"):
+                self.add_module(f"{name}{i}", _linear(dim, dim, g, dev))
+            self.add_module(f"Dense_{2 * i}",
+                            _linear(dim, dim * inner_dim_multiple, g, dev))
+            self.add_module(f"Dense_{2 * i + 1}",
+                            _linear(dim * inner_dim_multiple, dim, g, dev))
+            for j in (2 * i, 2 * i + 1):
+                self.add_module(f"LayerNorm_{j}",
+                                LayerNorm(dim, 1e-12, device=dev))
+        self.attn_drop = Dropout(attn_dropout)
+        self.hidden_drop = Dropout(hidden_dropout)
+
+    def _dense(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        lin = getattr(self, name)
+        return F.linear(x.to(self.dtype), lin.weight.to(self.dtype),
+                        lin.bias.to(self.dtype))
+
+    def _attention_bias(self, mask: Optional[torch.Tensor], length: int,
+                       device) -> torch.Tensor:
+        """The additive (B or 1, 1, L, L) f32 mask: -1e9 on padded keys,
+        plus -1e9 above the diagonal when causal."""
+        bias = torch.zeros((1, 1, length, length), device=device)
+        if mask is not None:
+            bias = bias + torch.where(mask, 0.0, NEG_INF)[:, None, None, :]
+        if self.causal:
+            causal = torch.tril(torch.ones((length, length), dtype=torch.bool,
+                                           device=device))
+            bias = bias + torch.where(causal, 0.0, NEG_INF)[None, None]
+        return bias
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, length, dim = x.shape
+        h_, hd = self.n_heads, self.head_dim
+        bias = self._attention_bias(mask, length, x.device).to(self.dtype)
+        # sqrt(head_dim) rounded to the compute dtype, as jnp computes it
+        scale = float(torch.tensor(math.sqrt(hd), dtype=self.dtype))
+        for i in range(self.n_layers):
+            q = self._dense(f"q{i}", x).reshape(b, length, h_, hd)
+            k = self._dense(f"k{i}", x).reshape(b, length, h_, hd)
+            v = self._dense(f"v{i}", x).reshape(b, length, h_, hd)
+            att = torch.einsum("bqhd,bkhd->bhqk", q, k) / scale
+            att = self.attn_drop(torch.softmax(att + bias, dim=-1))
+            h = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(b, length,
+                                                                dim)
+            h = self.hidden_drop(self._dense(f"o{i}", h))
+            x = getattr(self, f"LayerNorm_{2 * i}")(x + h)
+            f = F.gelu(self._dense(f"Dense_{2 * i}", x), approximate="tanh")
+            f = self.hidden_drop(self._dense(f"Dense_{2 * i + 1}", f))
+            x = getattr(self, f"LayerNorm_{2 * i + 1}")(x + f)
+        return x

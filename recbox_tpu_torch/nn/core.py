@@ -1,9 +1,10 @@
 """Core NN blocks: MLP, FM, first-order term, activations, initializers.
 
 Counterpart of `recbox_tpu/nn/core.py` (`MLP` :69-104, `get_activation`
-:54-66, `FactorizationMachine` :107, `LogisticRegression` :122). The MLP
-carries Linear → activation → dropout in a compute dtype; its BatchNorm and
-Dice are not ported yet (they raise; DeepFM's default has no BatchNorm).
+:54-66, `FactorizationMachine` :107, `LogisticRegression` :122) and of
+flax's linen ``Dropout``. The MLP carries Linear → activation → dropout in
+a compute dtype; its BatchNorm and Dice are not ported yet (they raise;
+DeepFM's default has no BatchNorm).
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["MLP", "FactorizationMachine", "LogisticRegression",
-           "get_activation", "xavier_normal_", "xavier_uniform_"]
+__all__ = ["MLP", "Dropout", "FactorizationMachine", "LogisticRegression",
+           "get_activation", "set_dropout_generator", "xavier_normal_",
+           "xavier_uniform_"]
 
 # flax's xavier initializers are variance_scaling(1, 'fan_avg', ...); its
 # 'truncated_normal' draws N(0, 1) truncated to [-2, 2] and divides the
@@ -42,6 +44,47 @@ def xavier_uniform_(t: torch.Tensor, generator: Optional[torch.Generator] = None
     xavier_uniform_ computes the same bound)."""
     with torch.no_grad():
         return nn.init.xavier_uniform_(t, generator=generator)
+
+
+class Dropout(nn.Module):
+    """flax's linen ``Dropout``: keep each element with probability 1 - p
+    and scale the kept ones by 1 / (1 - p); a no-op in eval mode or at
+    p = 0.
+
+    The keep-mask is drawn from the module's own ``generator``, never from
+    torch's global one: `Trainer.init` hands every dropout of its model a
+    generator seeded from ``TrainerConfig.seed`` (`set_dropout_generator`),
+    so a run is fixed by its seed. Drawing without one raises."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        if not 0.0 <= p <= 1.0:
+            raise ValueError(f"Dropout: p={p} is not in [0, 1]")
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p == 1.0:
+            return torch.zeros_like(x)
+        if self.generator is None:
+            raise RuntimeError(
+                "Dropout in training mode draws from its own generator and "
+                "has none: Trainer.init hands one out, or call "
+                "set_dropout_generator(model, generator)")
+        keep_prob = 1.0 - self.p
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def set_dropout_generator(module: nn.Module,
+                          generator: torch.Generator) -> None:
+    """Give every `Dropout` under ``module`` the generator ``generator``."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 _ACTIVATIONS: dict = {
@@ -104,7 +147,7 @@ class MLP(nn.Module):
         drops = [dropout] * n if isinstance(dropout, (int, float)) \
             else list(dropout)
         self._acts = [get_activation(a) for a in acts]
-        self._drops = drops
+        self.drop = nn.ModuleList([Dropout(p) for p in drops])
         widths = list(hidden_units) + \
             ([output_dim] if output_dim is not None else [])
         self.dense = nn.ModuleList()
@@ -124,9 +167,7 @@ class MLP(nn.Module):
             bias = None if lin.bias is None else lin.bias.to(self.dtype)
             x = F.linear(x, lin.weight.to(self.dtype), bias)
             if i < n:
-                x = self._acts[i](x)
-                if self._drops[i] > 0:
-                    x = F.dropout(x, self._drops[i], training=self.training)
+                x = self.drop[i](self._acts[i](x))
         return x
 
 

@@ -26,7 +26,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 SOURCES = {"mips_fused_topk": "mips_fused_topk.cu",
-           "packed_delta": "packed_delta.cu"}
+           "packed_delta": "packed_delta.cu",
+           "fused_ce": "fused_ce.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

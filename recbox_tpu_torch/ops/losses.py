@@ -1,8 +1,8 @@
 """Training losses of the ported slices.
 
-Counterpart of `recbox_tpu/ops/losses.py` `binary_crossentropy` (:87-98)
-and `embedding_reg_loss` (:100-118). The matching and softmax losses of that
-file are not ported yet (`ROADMAP.md`).
+Counterpart of `recbox_tpu/ops/losses.py` `binary_crossentropy` (:87-98),
+`embedding_reg_loss` (:100-118) and `full_softmax_loss` (:120-125). The
+matching losses of that file are not ported yet (`ROADMAP.md`).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from recbox_tpu_torch import resolve_device
 
-__all__ = ["binary_crossentropy", "embedding_reg_loss"]
+__all__ = ["binary_crossentropy", "embedding_reg_loss", "full_softmax_loss"]
 
 _EPS = 1e-7
 
@@ -46,3 +46,13 @@ def embedding_reg_loss(params: Mapping[str, torch.Tensor], p: int = 2,
     if not leaves:
         return torch.zeros((), device=resolve_device(device))
     return sum(torch.sum(torch.abs(v) ** p) for v in leaves) / p
+
+
+def full_softmax_loss(full_scores: torch.Tensor,
+                      target_ids: torch.Tensor) -> torch.Tensor:
+    """CE over the full item vocabulary (recbole loss_type='CE'):
+    full_scores (B, vocab), target_ids (B,) int; the mean over rows of
+    -log_softmax(scores)[target]."""
+    logp = torch.log_softmax(full_scores, dim=-1)
+    return -torch.mean(torch.gather(
+        logp, 1, target_ids.reshape(-1, 1).to(torch.int64))[:, 0])

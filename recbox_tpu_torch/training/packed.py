@@ -235,7 +235,8 @@ class PackedEmbeddingTrainer(Trainer):
         else:
             self._init_exact(tables)
         # the packs own the table state from here on: drop the model's
-        # tables, so its parameters are the dense ones alone
+        # tables, so its parameters are the dense ones alone; Trainer.init
+        # then sets up Adam and hands the dropouts their seeded generator
         modules = dict(self.model.named_modules())
         for mname, tname in homes.values():
             del modules[mname].tables[tname]
@@ -369,7 +370,8 @@ class PackedEmbeddingTrainer(Trainer):
             rows, ctx = self._gather_rows(dbatch)
         self.model.train()
         with record_function("trainer::forward"):
-            loss = self.loss_fn(self.model({**dbatch, **rows}), dbatch)
+            loss = self.loss_fn(self._step_forward({**dbatch, **rows}),
+                                dbatch)
         if cfg.embedding_regularizer:
             # (1/2)·p2 on the touched rows, once per batch occurrence
             loss = loss + cfg.embedding_regularizer * 0.5 * sum(

@@ -2,13 +2,22 @@
 
 Counterpart of `recbox_tpu/training/trainer.py` `TrainerConfig` (:50-83),
 `_make_optimizer` (:86-101) and the `Trainer` methods `init`, `train_step`,
-`train_steps_repeat`, `predict`, `learning_rate` and `_set_learning_rate`.
-PyTorch runs eagerly, so a step is the model's forward, ``backward`` through
-`torch.autograd.grad`, and the optimizer, with nothing compiled. The phases
-run inside `torch.profiler.record_function` ranges (``trainer::forward``,
-``trainer::backward``, ``trainer::adam``, and the packed trainer's
-``packed::gather`` and ``packed::row_update``), so a profile attributes
-device time to them; without a profiler a range costs a few microseconds.
+`train_steps_repeat`, `predict`, `learning_rate` and `_set_learning_rate`,
+with ``train_method=`` (the model method a step drives, e.g. a sequential
+model's ``'full_scores'`` or ``'fused_ce_loss'``) and its guard against a
+mesh (:133-143). PyTorch runs eagerly, so a step is the model's forward,
+``backward`` through `torch.autograd.grad`, and the optimizer, with nothing
+compiled. The phases run inside `torch.profiler.record_function` ranges
+(``trainer::forward``, ``trainer::backward``, ``trainer::adam``, and the
+packed trainer's ``packed::gather`` and ``packed::row_update``), so a
+profile attributes device time to them; without a profiler a range costs a
+few microseconds.
+
+Dropout draws from a generator the trainer owns: `init` makes it on the
+trainer's device, seeded from ``TrainerConfig.seed``, and hands it to every
+`nn.core.Dropout` of the model, so the same seed gives the same steps
+whatever else uses torch's global generator. Its stream is Philox, not the
+JAX package's rbg/threefry, so the two packages drop different elements.
 
 The optimizer is optax's ``chain(clip_by_global_norm(max_norm), adam(lr))``
 written out with optax's formulas (`_Adam`): the clip scales every gradient
@@ -32,6 +41,7 @@ from torch.profiler import record_function
 
 from recbox_tpu_torch import resolve_device
 from recbox_tpu_torch.data.loader import MASK_KEY
+from recbox_tpu_torch.nn.core import set_dropout_generator
 from recbox_tpu_torch.ops.losses import embedding_reg_loss
 
 logger = logging.getLogger("recbox_tpu_torch")
@@ -112,12 +122,16 @@ class Trainer:
     """Trainer over a torch model + a loss adapter.
 
     Args:
-      model: a `torch.nn.Module`; ``model(batch)`` gives the outputs
+      model: a `torch.nn.Module`; ``model(batch)`` (or
+        ``getattr(model, train_method)(batch)``) gives the outputs
         ``loss_fn`` reads.
       loss_fn: ``loss_fn(outputs, batch) -> scalar tensor``.
       config: TrainerConfig.
-      eval_fn, mesh: as in the JAX package; ``mesh`` raises and
-        ``train_method`` is not taken (not ported).
+      eval_fn, mesh: as in the JAX package; a ``mesh`` raises (not ported).
+      train_method: name of the model method a step drives; None =
+        ``model(batch)``. ``'full_scores'`` (with `full_softmax_loss`) and
+        ``'fused_ce_loss'`` (with an identity loss) are the full-softmax
+        CE protocols of the sequential models.
       device: where the model trains; the CUDA device unless named
         (`recbox_tpu_torch.resolve_device`). The model is moved there.
     """
@@ -125,7 +139,15 @@ class Trainer:
     def __init__(self, model: torch.nn.Module, loss_fn: Callable,
                  config: TrainerConfig, eval_fn: Optional[Callable] = None,
                  mesh=None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 train_method: Optional[str] = None):
+        if mesh is not None and train_method == "fused_ce_loss":
+            # the flash-CE kernel is a single-shard op, as in the JAX
+            # package (`recbox_tpu/training/trainer.py:133-143`)
+            raise ValueError(
+                "train_method='fused_ce_loss' is a single-shard path and "
+                "cannot run under a mesh; use train_method='full_scores' "
+                "+ full_softmax_loss")
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh is not ported yet (ROADMAP.md, Queue A: "
@@ -135,6 +157,11 @@ class Trainer:
         self.loss_fn = loss_fn
         self.config = config
         self.eval_fn = eval_fn
+        self.train_method = train_method
+        # the step's forward; predict calls the model itself, as in JAX
+        self._step_forward = self.model if train_method is None \
+            else getattr(self.model, train_method)
+        self.dropout_generator: Optional[torch.Generator] = None
         self.params: Optional[Dict[str, torch.Tensor]] = None
         self._opt: Optional[_Adam] = None
         self.step = 0
@@ -143,7 +170,11 @@ class Trainer:
     # -- init ----------------------------------------------------------------
     def init(self, sample_batch: Dict[str, np.ndarray]) -> None:
         """Set up the optimizer over the model's parameters (drawn when the
-        model was built, from its generator)."""
+        model was built, from its generator) and hand the model's dropouts
+        a generator seeded from ``config.seed``."""
+        self.dropout_generator = torch.Generator(
+            device=self.device).manual_seed(self.config.seed)
+        set_dropout_generator(self.model, self.dropout_generator)
         self.params = dict(self.model.named_parameters())
         self._opt = _make_optimizer(self.config, list(self.params.values()))
         n_params = sum(p.numel() for p in self.params.values())
@@ -182,7 +213,7 @@ class Trainer:
         cfg = self.config
         self.model.train()
         with record_function("trainer::forward"):
-            loss = self.loss_fn(self.model(dbatch), dbatch)
+            loss = self.loss_fn(self._step_forward(dbatch), dbatch)
         if cfg.embedding_regularizer or cfg.net_regularizer:
             tables = {n: p for n, p in self.params.items()
                       if ".tables." in "." + n}
