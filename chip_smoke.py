@@ -16,6 +16,18 @@ Phases (any failure raises and exits non-zero):
      SASRec shape (B=1024, V=1M, D=64), a ragged one (1000, 100,003, 100),
      weights with zeros, all-160 and all--40 logits, the multinomial
      variant (B=256, V=100,000, 20 positives);
+  3c. the candidate kernels and the sequence pool against their plain
+     versions: B4 (`mips_segment_candidates`, packed bf16, packed int8,
+     unpacked bf16) at the profiling shape of `tools/prof_mips_batched.py`
+     (N=1M, D=128, Q=8192, the 1024-query plan), integer-valued inputs bit
+     for bit and N(0, 1) ones up to packed near-ties; every instantiation
+     (f32 too) on integer data at 3000 rows x 20 queries (the packed ones
+     split into runs merged by atomic max) and 100,000 x 1024, bit for bit;
+     B5 (bitonic top-k) at the merge-only (7812, 1024) shape, k=500 and
+     100, and the full path's (7936, 8192) with ties, bit for bit; B6
+     (`seq_embedding_pool`) at V=1M, B=8192, L=50, D=128 (mean, sum) and 64
+     over Zipf ids with ~20% pads and rows of pads, over uniform ids, and
+     with ids out of range (NaN rows on both);
   4. the serving path: a YoutubeDNN at the repository's width
      (`configs/models/youtubednn.yaml`: dim 64, MLP 256-128-64, 1M users,
      1M items, 50-long histories) with random weights from a seed, behind a
@@ -23,6 +35,14 @@ Phases (any failure raises and exits non-zero):
      queried for 8192 users at k=500 from a bf16 and from an int8 corpus,
      with the kernel launch counts reset just before and read just after;
      recall against an exact bf16 top-k oracle; seen-item exclusion;
+  4b. the candidate paths, with B4, B5 and B6's counts reset just before
+     and read just after: `pallas_mips_topk` at B4's shape packed (default
+     merge), unpacked through B5 (`merge='bitonic'`, ids equal to the exact
+     merge's) and over int8 rows, recall against an exact f32 top-k over
+     512 queries; `seq_embedding_pool` at B6's shapes; then the rest of
+     `BruteForceMIPS` behind `RetrievalService` on phase 4's corpus
+     ('refined', int8 'approx', int8 'refined'), recall against an exact
+     f32 oracle, refined scores against the f32 dot products, queries/s;
   5. the training path: `PackedEmbeddingTrainer(DeepFM)` at `bench.py`'s
      Criteo width (26 categorical fields of 100,000 ids, 13 numeric, dim
      64, MLP 1024-512-256, feature-major, bf16 compute, batch 32768) on a
@@ -37,11 +57,16 @@ Phases (any failure raises and exits non-zero):
      step), falling loss, examples/s, one step under torch.profiler; the
      CPU Markov learning test trained on the card (hit@1 > 0.8); the 60k
      regime through `full_scores` against `fused_ce_loss`;
-  6. times with CUDA events (median after a warm-up): each kernel, its
+  6. times with CUDA events (median after a warm-up; B6 and its yardstick,
+     tens of microseconds a call, over runs of 20 calls queued behind a
+     spin kernel, so the host's launch work is not timed): each kernel, its
      plain version, one PyTorch yardstick (torch.matmul + torch.topk for
      B3, the `index_add_` scatter B1 absorbs, a bf16 matmul into 2 GB of
-     logits + F.cross_entropy for B2; the port calls none of them), the
-     bound (and B2's exp floor), and the service's queries/s; one service
+     logits + F.cross_entropy for B2, cuBLAS scores + segment amax for B4,
+     torch.topk for B5, F.embedding_bag for B6, over Zipf ids that stay in
+     L2 and uniform ones that reach HBM; the port calls none of them), the
+     bound (and B2's exp floor, B5's compare-exchanges), and the
+     service's queries/s; one service
      query under torch.profiler, for device time by kernel and the
      device's idle share.
 
@@ -86,19 +111,25 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median device time of ``fn`` in ms, CUDA events around each call."""
+def cuda_ms(fn, reps: int = 5, inner: int = 1) -> float:
+    """Median device time of ``fn`` in ms, CUDA events around each call.
+    With ``inner`` > 1, around a run of that many calls queued behind a
+    ~10 ms spin kernel, divided by ``inner``: a call of tens of microseconds
+    then times the device's work alone, not the host's launch work."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if inner > 1:
+            torch.cuda._sleep(20_000_000)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -581,6 +612,454 @@ def time_b2(gen):
     return res
 
 
+# the candidate generator's profiling shape (`tools/prof_mips_batched.py:
+# 45-47`, query tile `:47`), the merge-only shape of
+# `tools/prof_retrieval_topk.py:161-175`, and the sequence pool's
+# (`embedding_gather.py:16-22`)
+B4_N, B4_D, B4_Q, B4_TILE = 1_000_000, 128, 8192, 1024
+B5_MERGE = (7812, 1024)
+B5_FULL = 7936        # the candidates of the B4 path at that shape
+B6_V, B6_B, B6_L = 1_000_000, 8192, 50
+B4_VARIANTS = (("packed", torch.bfloat16, True), ("packed_int8", torch.int8,
+                                                   True),
+               ("unpacked", torch.bfloat16, False))
+# the f32 instantiations, checked at the small shapes only
+B4_F32_VARIANTS = (("packed", torch.float32, True),
+                   ("unpacked", torch.float32, False))
+# a corpus and a few queries whose grid is too small for the card (the
+# packed variants split each sub-chunk into runs merged by atomic max), and
+# a mid-size one with no split runs; the last 37 rows past valid_items
+B4_SMALL = ((3000, 20), (100_000, 1024))
+
+
+def b4_inputs(gen, dtype, integer, n=None, nq=None):
+    """Queries (Q, D) and corpus (N, D) on the card as the candidate kernel
+    takes them (bf16 or f32; or int8 rows of `quantize_int8` with their
+    scales), from small integers or N(0, 1); B4's shape by default."""
+    from recbox_tpu_torch.ops.mips_topk import quantize_int8
+    n, nq = n or B4_N, nq or B4_Q
+    if integer:
+        q = torch.randint(-4, 5, (nq, B4_D), generator=gen,
+                          device=DEVICE).float()
+        c = torch.randint(-4, 5, (n, B4_D), generator=gen,
+                          device=DEVICE).float()
+    else:
+        q = torch.randn(nq, B4_D, generator=gen, device=DEVICE)
+        c = torch.randn(n, B4_D, generator=gen, device=DEVICE)
+    if dtype == torch.int8:
+        c8, scale = quantize_int8(c)
+        return quantize_int8(q)[0], c8, scale
+    return q.to(dtype), c.to(dtype), None
+
+
+def b4_candidates(q, c, scale, packed, valid=None):
+    """The kernel at the plan of a tile of min(1024, Q) queries, as
+    `pallas_mips_topk` launches it, and that plan's sub_rows."""
+    from recbox_tpu_torch.ops.mips_topk import _candidates, candidate_plan
+    n = c.shape[0]
+    sub, n_cand = candidate_plan(c.dtype, n, B4_D, min(B4_TILE, q.shape[0]))
+    return _candidates(q, c, n if valid is None else valid, packed, scale,
+                       sub, n_cand), sub
+
+
+def b4_pair(q, c, scale, packed, valid=None):
+    """The kernel (`b4_candidates`) and its plain version on the same inputs
+    over the rows that hold corpus rows (the rest the wrapper fills alike);
+    and the split runs of the launch."""
+    from recbox_tpu_torch.ops.mips_topk import (
+        mips_segment_candidates_plain, split_runs,
+    )
+    n, nq = c.shape[0], q.shape[0]
+    valid = n if valid is None else valid
+    got, sub = b4_candidates(q, c, scale, packed, valid)
+    want = mips_segment_candidates_plain(q, c, valid, packed, scale, sub)
+    n_live = (want if packed else want[0]).shape[0]
+    got = got[:n_live] if packed else (got[0][:n_live], got[1][:n_live])
+    return got, want, split_runs(nq, n, sub, packed, c.device)
+
+
+def check_b4_small(gen):
+    """Every instantiation of B4 (f32 too) at the `B4_SMALL` shapes on
+    integer-valued inputs, against the plain version bit for bit; at the
+    first shape the packed ones must run split."""
+    out = []
+    for n, nq in B4_SMALL:
+        for name, dtype, packed in B4_VARIANTS + B4_F32_VARIANTS:
+            q, c, scale = b4_inputs(gen, dtype, True, n, nq)
+            got, want, splits = b4_pair(q, c, scale, packed, n - 37)
+            torch.cuda.synchronize()
+            if packed:
+                equal = torch.equal(got.view(torch.int32),
+                                    want.view(torch.int32))
+            else:
+                equal = torch.equal(got[0].view(torch.int32),
+                                    want[0].view(torch.int32)) \
+                    and torch.equal(got[1], want[1])
+            assert equal, (n, nq, name, dtype)
+            if packed and n == B4_SMALL[0][0]:
+                assert splits > 1, (n, nq, name, splits)
+            out.append({"variant": name, "dtype": str(dtype), "n": n,
+                        "q": nq, "valid_items": n - 37, "splits": splits,
+                        "bits_equal": True, "max_abs_err": 0.0})
+    return out
+
+
+def check_b4(gen):
+    """B4's three variants against the plain version at the profiling
+    shape. Integer-valued inputs (and int8, always exact) must agree bit
+    for bit. N(0, 1) bf16 sums in another order: the share of candidates
+    whose winning row differs (a near-tie) must be <= 1e-3, and where the
+    row agrees the score within 3e-5 relative (packed: one 2^-16 packing
+    step and the rounding) or 1e-5 (unpacked)."""
+    from recbox_tpu_torch.ops.mips_topk import PACK_MASK
+    out = []
+    for name, dtype, packed in B4_VARIANTS:
+        for integer in (True, False):
+            q, c, scale = b4_inputs(gen, dtype, integer)
+            got, want, _ = b4_pair(q, c, scale, packed)
+            torch.cuda.synchronize()
+            if packed:
+                gb, wb = got.view(torch.int32), want.view(torch.int32)
+                g_row, w_row = gb & PACK_MASK, wb & PACK_MASK
+                g_s = (gb & ~PACK_MASK).view(torch.float32)
+                w_s = (wb & ~PACK_MASK).view(torch.float32)
+                bits_equal = torch.equal(gb, wb)
+            else:
+                (g_s, g_row), (w_s, w_row) = got, want
+                bits_equal = torch.equal(g_s.view(torch.int32),
+                                         w_s.view(torch.int32)) \
+                    and torch.equal(g_row, w_row)
+            same = g_row == w_row
+            mismatch = 1.0 - same.float().mean().item()
+            err = (g_s - w_s)[same].abs()
+            max_err = err.max().item()
+            if integer or dtype == torch.int8:
+                assert bits_equal, (name, integer)
+                tolerance = "bit for bit"
+            else:
+                rtol = 3e-5 if packed else 1e-5
+                assert mismatch <= 1e-3, (name, mismatch)
+                assert bool((err <= rtol * w_s[same].abs() + 1e-6).all()), \
+                    (name, max_err)
+                tolerance = (f"winner differs on <= 1e-3 of candidates; "
+                             f"scores rtol {rtol} atol 1e-6 elsewhere")
+            out.append({"variant": name, "inputs": "integer" if integer
+                        else "normal", "candidates": list(w_s.shape),
+                        "bits_equal": bits_equal,
+                        "winner_mismatch_share": mismatch,
+                        "max_abs_err": max_err, "tolerance": tolerance})
+            del q, c, scale, got, want
+    return out
+
+
+def b5_inputs(gen, c, q, ties=False):
+    """Candidate-major (C, Q) scores and distinct int32 ids on the card;
+    ``ties`` rounds the scores to bf16 so many are equal."""
+    s = torch.randn(c, q, generator=gen, device=DEVICE)
+    if ties:
+        s = s.to(torch.bfloat16).float()
+    ids = torch.randperm(c * q, generator=gen, device=DEVICE).view(c, q)
+    return s, ids.to(torch.int32)
+
+
+def check_b5(gen):
+    """B5 against its plain version: the merge-only shape at k=500 and 100,
+    and the B4 path's (7936, 8192) at k=500 with bf16-rounded scores (ties
+    that the total order breaks the same way on both). Bit for bit."""
+    from recbox_tpu_torch.ops.bitonic_topk import (
+        bitonic_topk_plain, pallas_bitonic_topk_cmajor,
+    )
+    out = []
+    for (c, q), k, ties in ((B5_MERGE, K, False), (B5_MERGE, 100, False),
+                            ((B5_FULL, B4_Q), K, True)):
+        s, ids = b5_inputs(gen, c, q, ties)
+        ts, ti = pallas_bitonic_topk_cmajor(s, ids, k)
+        ps, pi = bitonic_topk_plain(s.T, ids.T, k)
+        torch.cuda.synchronize()
+        assert ts.shape == (k, q) and ti.shape == (k, q)
+        assert torch.equal(ts.T, ps) and torch.equal(ti.T, pi), (c, q, k)
+        assert bool((ts[1:] <= ts[:-1]).all())
+        out.append({"c": c, "q": q, "k": k, "ties": ties,
+                    "equal_to_plain": True, "max_abs_err": 0.0})
+    return out
+
+
+def b6_inputs(d, seed=SEED, ids_kind="zipf"):
+    """A (V, d) f32 table and (B, L) ids on the card: Zipf(1.2) ids over
+    V - 1 rows (~51k distinct, which the 50 MB L2 holds at D=128) or
+    uniform ones (~280k distinct, 143 MB at D=128: they reach HBM), ~20% of
+    positions and every 97th row all pad_id = V - 1."""
+    rng = np.random.default_rng(seed)
+    if ids_kind == "zipf":
+        ids = (rng.zipf(1.2, (B6_B, B6_L)) - 1) % (B6_V - 1)
+    else:
+        ids = rng.integers(0, B6_V - 1, (B6_B, B6_L))
+    ids[rng.random((B6_B, B6_L)) < 0.2] = B6_V - 1
+    ids[::97] = B6_V - 1
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    table = torch.randn(B6_V, d, generator=gen, device=DEVICE)
+    return table, torch.from_numpy(ids).to(DEVICE), B6_V - 1
+
+
+def check_b6():
+    """B6 against its plain version at D=128 (mean and sum; Zipf and
+    uniform ids) and D=64: each entry within 1e-6 of the pooled |rows|
+    (another summation order), rows of pads exactly 0. Last, ids out of
+    range: -1 reads row V - 1, V and -V - 1 make their rows NaN, on both."""
+    from recbox_tpu_torch.ops.embedding_gather import (
+        seq_embedding_pool, seq_embedding_pool_plain,
+    )
+    out = []
+    for d, mode, kind in ((128, "mean", "zipf"), (128, "sum", "zipf"),
+                          (DIM, "mean", "zipf"), (128, "mean", "uniform"),
+                          (DIM, "mean", "bad")):
+        table, ids, pad = b6_inputs(d, ids_kind="uniform" if kind ==
+                                    "uniform" else "zipf")
+        if kind == "bad":
+            ids[5, 3], ids[7, 0], ids[11, 2] = -1, B6_V, -B6_V - 1
+        got = seq_embedding_pool(table, ids, pad, mode)
+        want = seq_embedding_pool_plain(table, ids, pad, mode)
+        mag = seq_embedding_pool_plain(table.abs(), ids, pad, mode)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan), (d, mode, kind)
+        assert int(nan.any(1).sum()) == (2 if kind == "bad" else 0)
+        err = (got - want).abs()[~nan]
+        assert got.dtype == torch.float32 and got.shape == (B6_B, d)
+        assert bool((err <= 1e-6 * mag[~nan] + 1e-30).all()), (d, mode)
+        assert float(got[::97].abs().max()) == 0.0
+        out.append({"d": d, "mode": mode, "ids": kind,
+                    "max_abs_err": float(err.max()),
+                    "pad_share": float((ids == pad).float().mean()),
+                    "tolerance": "1e-6 of the pooled |rows|; NaN rows alike"})
+    return out
+
+
+def recall_at(ids, exact):
+    ids, exact = np.asarray(ids), np.asarray(exact)
+    return float(np.mean([len(set(ids[r].tolist()) & set(exact[r].tolist()))
+                          / exact.shape[1] for r in range(exact.shape[0])]))
+
+
+def candidate_paths(gen):
+    """Phase 4b, the candidate paths: `pallas_mips_topk` at the profiling
+    shape packed (default merge), unpacked with the bitonic merge and with
+    the exact merge, and over int8 rows; `seq_embedding_pool` at B6's
+    shapes. Counts of B4, B5 and B6 reset just before, read just after."""
+    from recbox_tpu_torch.ops import bitonic_topk, embedding_gather, mips_topk
+    from recbox_tpu_torch.ops.mips_topk import pallas_mips_topk, quantize_int8
+    q = torch.randn(B4_Q, B4_D, generator=gen, device=DEVICE)
+    c = torch.randn(B4_N, B4_D, generator=gen, device=DEVICE)
+    qb, cb = q.to(torch.bfloat16), c.to(torch.bfloat16)
+    c8, scale = quantize_int8(c)
+    pools = [b6_inputs(d) for d in (128, DIM)]
+    for mod in (mips_topk, bitonic_topk, embedding_gather):
+        mod.reset_launches()
+    res = {"packed": pallas_mips_topk(qb, cb, K, query_tile=B4_TILE),
+           "bitonic": pallas_mips_topk(qb, cb, K, packed=False,
+                                       merge="bitonic", query_tile=B4_TILE),
+           "exact": pallas_mips_topk(qb, cb, K, packed=False,
+                                     exact_merge=True, query_tile=B4_TILE),
+           "int8": pallas_mips_topk(q, c8, K, row_scale=scale,
+                                    query_tile=B4_TILE)}
+    pooled = [embedding_gather.seq_embedding_pool(t, i, p, "mean")
+              for t, i, p in pools]
+    torch.cuda.synchronize()
+    counts = {**mips_topk.launches, **bitonic_topk.launches,
+              **embedding_gather.launches}
+    assert counts == {"packed": 1, "packed_int8": 1, "unpacked": 2,
+                      "bitonic_topk": 1, "seq_embedding_pool": 2}, counts
+    for name, (s, i) in res.items():
+        assert s.shape == (B4_Q, K) and i.shape == (B4_Q, K), name
+        assert bool(torch.isfinite(s).all()), name
+        assert bool(((i >= 0) & (i < B4_N)).all()), name
+        assert bool((s[:, 1:] <= s[:, :-1]).all()), name
+    assert torch.equal(res["bitonic"][1], res["exact"][1])
+    assert torch.equal(res["bitonic"][0], res["exact"][0])
+    exact = torch.topk(q[:512] @ c.T, K, dim=1).indices.cpu()
+    recall = {name: recall_at(i[:512].cpu(), exact)
+              for name, (s, i) in res.items()}
+    assert min(recall["packed"], recall["bitonic"]) >= 0.95, recall
+    assert recall["int8"] >= 0.90, recall
+    for out, (t, _, _) in zip(pooled, pools):
+        assert out.shape == (B6_B, t.shape[1])
+        assert bool(torch.isfinite(out).all())
+    return counts, {"k": K, "queries": 512, "recall": recall,
+                    "bitonic_equals_exact_merge": True,
+                    "predicted": 1 - K * 128 / (2 * B4_N)}
+
+
+def service_paths(model, item_embs, users):
+    """Phase 4b, the rest of `BruteForceMIPS` behind `RetrievalService` on
+    phase 4's corpus: 'refined' (bf16 over-retrieval, exact f32 rescore),
+    int8 'approx' and int8 'refined', against an exact f32 oracle over 512
+    users; refined scores equal the f32 dot products of their ids."""
+    from recbox_tpu_torch.retrieval import RetrievalService
+    svcs = {"refined": RetrievalService(model, item_embs=item_embs,
+                                        method="refined"),
+            "int8_approx": RetrievalService(model, item_embs=item_embs,
+                                            method="approx", quantize="int8"),
+            "int8_refined": RetrievalService(model, item_embs=item_embs,
+                                             method="refined",
+                                             quantize="int8")}
+    sub = {k: v[:512] for k, v in users.items()}
+    with torch.no_grad():
+        u = svcs["refined"]._encode(model.encode_user, sub)
+        exact = torch.topk(u @ item_embs.T, K, dim=1).indices.cpu()
+    out = {}
+    for name, svc in svcs.items():
+        s, i = svc.query(users, k=K)
+        assert s.shape == (N_QUERIES, K) and np.isfinite(s).all()
+        assert (i >= 0).all() and (i < N_ITEMS).all()
+        rec = recall_at(i[:512], exact)
+        out[name] = {"recall": rec}
+        if name.endswith("refined"):
+            assert rec >= 0.99, (name, rec)
+            with torch.no_grad():
+                true = torch.einsum(
+                    "qd,qkd->qk", u.double(),
+                    item_embs.double()[torch.from_numpy(i[:512]).long()
+                                       .to(item_embs.device)]).cpu().numpy()
+            np.testing.assert_allclose(s[:512], true, rtol=1e-5, atol=1e-6)
+        else:
+            assert rec >= 0.90, (name, rec)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            svc.query(users, k=K)
+            walls.append(time.perf_counter() - t0)
+        out[name]["qps"] = N_QUERIES / statistics.median(walls)
+    return out
+
+
+def b4_library(q, c_pad, scale_pad, sub, packed):
+    """One PyTorch formulation of B4's function: per 1024-query chunk, the
+    cuBLAS product (bf16 torch.matmul, or torch._int_mm and the row scale),
+    then the strided segment amax (and argmax unpacked) over a corpus
+    padded to whole sub-chunks; no packing."""
+    n_seg = sub // 128
+    out = []
+    for s0 in range(0, q.shape[0], B4_TILE):
+        qc = q[s0:s0 + B4_TILE]
+        if c_pad.dtype == torch.int8:
+            s = torch._int_mm(qc, c_pad.T).float() * scale_pad
+        else:
+            s = qc @ c_pad.T
+        seg = s.view(qc.shape[0], -1, 128, n_seg)
+        out.append(torch.amax(seg, dim=2) if packed else seg.max(dim=2))
+    return out
+
+
+def b4_bound(dtype, packed):
+    """Corpus, queries (and int8 row scales) read once, the candidates
+    written once, against 2QND operations at the type's peak."""
+    from recbox_tpu_torch.ops.mips_topk import candidate_plan
+    size = torch.empty((), dtype=dtype).element_size()
+    _, n_cand = candidate_plan(dtype, B4_N, B4_D, B4_TILE)
+    moved = (B4_N + B4_Q) * B4_D * size + n_cand * B4_Q * 4 * (
+        1 if packed else 2) + (B4_N * 4 if dtype == torch.int8 else 0)
+    by_ops = 2.0 * B4_Q * B4_N * B4_D / PEAK_OPS[
+        "int8" if dtype == torch.int8 else "bf16"] * 1e3
+    by_bytes = moved / HBM_BYTES_S * 1e3
+    return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes \
+        else "bytes"
+
+
+def time_b4(gen):
+    """Each B4 variant at the profiling shape: kernel, plain version, the
+    library formulation, the bound."""
+    import torch.nn.functional as F
+    from recbox_tpu_torch.ops.mips_topk import (
+        candidate_plan, mips_segment_candidates_plain,
+    )
+    out = {}
+    for name, dtype, packed in B4_VARIANTS:
+        q, c, scale = b4_inputs(gen, dtype, False)
+        sub, _ = candidate_plan(dtype, B4_N, B4_D, B4_TILE)
+        pad = (-B4_N) % sub
+        c_pad = F.pad(c, (0, 0, 0, pad))
+        scale_pad = None if scale is None else F.pad(scale, (0, pad))
+        ms = cuda_ms(lambda: b4_candidates(q, c, scale, packed))
+        plain_ms = cuda_ms(lambda: mips_segment_candidates_plain(
+            q, c, B4_N, packed, scale, sub), reps=3)
+        library_ms = cuda_ms(lambda: b4_library(q, c_pad, scale_pad, sub,
+                                                packed), reps=3)
+        b_ms, b_by = b4_bound(dtype, packed)
+        out[name] = {"variant": name, "n": B4_N, "d": B4_D, "q": B4_Q,
+                     "query_tile": B4_TILE, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": b_ms,
+                     "bound_by": b_by}
+        del q, c, scale, c_pad, scale_pad
+    return out
+
+
+def time_b5(gen):
+    """B5 on the B4 path's (7936, 8192) candidates at k=500 and the
+    merge-only shape at k=500 / 100: kernel, plain version, torch.topk on
+    the (Q, C) view, the byte bound, and the sort's compare-exchanges."""
+    from recbox_tpu_torch.ops.bitonic_topk import (
+        bitonic_topk_plain, pallas_bitonic_topk_cmajor, sort_width,
+    )
+    out = []
+    for (c, q), k in (((B5_FULL, B4_Q), K), (B5_MERGE, K), (B5_MERGE, 100)):
+        s, ids = b5_inputs(gen, c, q)
+        p = sort_width(c, k)
+        stages = int(math.log2(p)) * (int(math.log2(p)) + 1) // 2
+        windows = 1 if p >= c else 1 + -(-(c - p) // (p - k))
+        # every score read once; ids only of the k winners; k pairs written
+        moved = c * q * 4 + k * q * 4 + k * q * 8
+        out.append({
+            "c": c, "q": q, "k": k,
+            "ms": cuda_ms(lambda: pallas_bitonic_topk_cmajor(s, ids, k),
+                          reps=10),
+            "plain_ms": cuda_ms(lambda: bitonic_topk_plain(s.T, ids.T, k)),
+            "library_ms": cuda_ms(lambda: torch.topk(s.T, k, dim=1),
+                                  reps=10),
+            "bound_ms": moved / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+            "bytes": moved,
+            "compare_exchanges": stages * (p // 2) * windows * q})
+    return out
+
+
+def b6_bound(table, ids, pad):
+    """Each distinct non-pad row read once, the ids read once, the output
+    written once; one add an element is far below the f32 peak."""
+    rows = torch.unique(ids[ids != pad]).numel()
+    d = table.shape[1]
+    moved = rows * d * 4 + ids.numel() * 4 + ids.shape[0] * d * 4
+    return moved / HBM_BYTES_S * 1e3, moved, rows
+
+
+def time_b6():
+    """B6 at D=128 and 64 over Zipf ids (their rows stay in the 50 MB L2
+    across the timed run) and uniform ones (they reach HBM): kernel, plain
+    version, F.embedding_bag, the bound."""
+    import torch.nn.functional as F
+    from recbox_tpu_torch.ops.embedding_gather import (
+        seq_embedding_pool, seq_embedding_pool_plain,
+    )
+    out = []
+    for kind, d in (("zipf", 128), ("zipf", DIM), ("uniform", 128),
+                    ("uniform", DIM)):
+        table, ids, pad = b6_inputs(d, ids_kind=kind)
+        b_ms, moved, rows = b6_bound(table, ids, pad)
+        out.append({
+            "d": d, "v": B6_V, "b": B6_B, "l": B6_L, "mode": "mean",
+            "ids": kind, "distinct_rows_mb": rows * d * 4 / 1e6,
+            "ms": cuda_ms(lambda: seq_embedding_pool(table, ids, pad),
+                          reps=11, inner=20),
+            "plain_ms": cuda_ms(lambda: seq_embedding_pool_plain(
+                table, ids, pad)),
+            "library_ms": cuda_ms(lambda: F.embedding_bag(
+                ids, table, mode="mean", padding_idx=pad), reps=11, inner=20),
+            "bound_ms": b_ms, "bound_by": "bytes", "bytes": moved,
+            "distinct_rows": rows,
+            "bound_ms_every_position": (
+                int((ids != pad).sum()) * d * 4 + ids.numel() * 4
+                + B6_B * d * 4) / HBM_BYTES_S * 1e3})
+    return out
+
+
 def sasrec_setup(vocab, train_method, seed=SEED):
     """bench.py's SASRec regime (`bench.py:426-441`): 2 layers, 2 heads,
     L = 50, d = 64, dropout 0.1, bf16 compute, Adam 1e-3 with clip 10;
@@ -939,6 +1418,16 @@ def main() -> int:
     b2_checks = check_b2(gen)
     for res in b2_checks:
         emit({"phase": "b2_vs_plain", **res})
+    # 3c. the candidate kernels and the sequence pool against plain
+    b4_checks = check_b4(gen)
+    for res in b4_checks + check_b4_small(gen):
+        emit({"phase": "b4_vs_plain", **res})
+    b5_checks = check_b5(gen)
+    for res in b5_checks:
+        emit({"phase": "b5_vs_plain", **res})
+    b6_checks = check_b6()
+    for res in b6_checks:
+        emit({"phase": "b6_vs_plain", **res})
 
     # 4. the serving path
     fm, users, corpus = youtubednn_service_inputs()
@@ -980,6 +1469,12 @@ def main() -> int:
     assert (ex_ids[:, :K - 3] == base_ids[:, 3:K]).mean() > 0.99
     emit({"phase": "exclude", "ok": True})
     del results, base_ids, ex_s, ex_ids
+
+    # 4b. the candidate paths and the rest of BruteForceMIPS
+    cand_launches, cand = candidate_paths(gen)
+    emit({"phase": "candidate_paths", "launches": cand_launches, **cand})
+    emit({"phase": "index_paths", "card": card, "k": K, "users": N_QUERIES,
+          "items": N_ITEMS, **service_paths(model, svc.item_embs, users)})
 
     # 5. the training path
     torch.cuda.reset_peak_memory_stats()
@@ -1031,6 +1526,16 @@ def main() -> int:
         for nq in (20, 600):
             emit({"phase": "timing", "card": card,
                   **time_kernel(variant, N_ITEMS, DIM, nq, K, gen)})
+    b4_times = time_b4(gen)
+    for t in b4_times.values():
+        emit({"phase": "timing", "card": card, "kernel": "mips_topk", **t})
+    b5_times = time_b5(gen)
+    for t in b5_times:
+        emit({"phase": "timing", "card": card, "kernel": "bitonic_topk", **t})
+    b6_times = time_b6()
+    for t in b6_times:
+        emit({"phase": "timing", "card": card, "kernel": "embedding_gather",
+              **t})
 
     kernels = []
     for variant in ("bf16", "int8"):
@@ -1082,6 +1587,51 @@ def main() -> int:
                        + ("" if key == "fwd" else ", forward + backward"),
             "matches_plain": True,
             "shape": {"b": SAS_B, "v": SAS_V, "d": SAS_D}})
+    for (name, _, _), line in zip(B4_VARIANTS, (332, 315, 340)):
+        t = b4_times[name]
+        errs = [c["max_abs_err"] for c in b4_checks if c["variant"] == name]
+        kernels.append({
+            "name": f"mips_segment_candidates[{name}]", "route": "cuda",
+            "source": "recbox_tpu_torch/csrc/mips_topk.cu",
+            "replaces": f"recbox_tpu/ops/pallas/mips_topk.py:{line}",
+            "launches": cand_launches[name], "max_abs_err": max(errs),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library": "per 1024 queries: cuBLAS scores (bf16 matmul or "
+                       "torch._int_mm) + strided segment amax/max",
+            "matches_plain": True,
+            "shape": {"n": B4_N, "d": B4_D, "q": B4_Q,
+                      "query_tile": B4_TILE}})
+    t5 = b5_times[0]
+    kernels.append({
+        "name": "bitonic_topk", "route": "cuda",
+        "source": "recbox_tpu_torch/csrc/bitonic_topk.cu",
+        "replaces": "recbox_tpu/ops/pallas/bitonic_topk.py:123",
+        "launches": cand_launches["bitonic_topk"],
+        "max_abs_err": max(c["max_abs_err"] for c in b5_checks),
+        "ms": t5["ms"], "plain_ms": t5["plain_ms"],
+        "bound_ms": t5["bound_ms"], "bound_by": t5["bound_by"],
+        "library_ms": t5["library_ms"],
+        "library": "torch.topk on the (Q, C) view",
+        "compare_exchanges": t5["compare_exchanges"], "matches_plain": True,
+        "shape": {"c": t5["c"], "q": t5["q"], "k": t5["k"]}})
+    t6, t6u = b6_times[0], b6_times[2]
+    kernels.append({
+        "name": "seq_embedding_pool", "route": "cuda",
+        "source": "recbox_tpu_torch/csrc/embedding_gather.cu",
+        "replaces": "recbox_tpu/ops/pallas/embedding_gather.py:94",
+        "launches": cand_launches["seq_embedding_pool"],
+        "max_abs_err": max(c["max_abs_err"] for c in b6_checks),
+        "ms": t6["ms"], "plain_ms": t6["plain_ms"],
+        "bound_ms": t6["bound_ms"], "bound_by": t6["bound_by"],
+        "library_ms": t6["library_ms"],
+        "library": "F.embedding_bag(ids, table, mode='mean', padding_idx)",
+        "ids": "zipf(1.2), rows L2-resident across the timed run",
+        "uniform_ids": {key: t6u[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "distinct_rows_mb")},
+        "matches_plain": True,
+        "shape": {"v": B6_V, "b": B6_B, "l": B6_L, "d": t6["d"]}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 Each source in `recbox_tpu_torch/csrc/` compiles with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface under
 ``build/kernels/`` at the repository root (listed in `.gitignore`). A
-library's file name carries a hash of its source and flags, so an edited
-source builds anew and a stale library is never loaded. Nothing here runs
+library's file name carries a hash of its source, of every shared header
+(`csrc/*.cuh`) and of the flags, so an edited source or header builds anew
+and a stale library is never loaded. Nothing here runs
 at import: the CPU tests import every module on a machine without nvcc.
 """
 
@@ -27,7 +28,10 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 SOURCES = {"mips_fused_topk": "mips_fused_topk.cu",
            "packed_delta": "packed_delta.cu",
-           "fused_ce": "fused_ce.cu"}
+           "fused_ce": "fused_ce.cu",
+           "mips_topk": "mips_topk.cu",
+           "bitonic_topk": "bitonic_topk.cu",
+           "embedding_gather": "embedding_gather.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,7 +53,9 @@ def _nvcc() -> str:
 
 
 def _library(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    # the source and every shared header, so an edited header rebuilds too
+    src = (CSRC / SOURCES[name]).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

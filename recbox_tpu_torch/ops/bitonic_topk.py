@@ -1,0 +1,182 @@
+"""Row-wise exact top-k: the CUDA kernel, its plain PyTorch version, the
+wrappers.
+
+Port of the TPU kernel `recbox_tpu/ops/pallas/bitonic_topk.py`
+(`pallas_bitonic_topk_cmajor` :152, `pallas_bitonic_topk` :189): the k
+largest (score, id) pairs of each query, descending. The JAX kernel padded
+the candidates to a power of two with (-inf, -1), sorted 4096-candidate
+blocks in VMEM and recursed on the survivors; that recursion was for VMEM,
+and the function is what is ported.
+
+The order is total: score descending, then candidate position ascending,
+which is `lax.top_k`'s order (JAX's network leaves equal scores in no set
+order). Kernel and plain version sort the same 64-bit keys (`order_keys`),
+so they agree bit for bit. The kernel (`csrc/bitonic_topk.cu`, built by
+`ops/_build.py`) runs for CUDA tensors, `bitonic_topk_plain` for CPU
+tensors; a CUDA tensor never reaches the plain version, and a failed build
+or launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from recbox_tpu_torch.ops import _build
+
+__all__ = ["pallas_bitonic_topk", "pallas_bitonic_topk_cmajor",
+           "bitonic_topk_plain", "exact_topk", "order_keys", "launches",
+           "reset_launches"]
+
+# kernel launches on the CUDA path; the plain version never counts
+launches = {"bitonic_topk": 0}
+
+# the kernel sorts windows of at most this many keys in shared memory
+_MAX_SORT = 16384
+_LOW32 = 0xFFFFFFFF
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def order_keys(scores: torch.Tensor) -> torch.Tensor:
+    """int64 keys of f32 ``scores`` (..., C) that sort descending as the
+    port's top-k order: the float's bits made to sort as an integer in the
+    high 32 bits, the inverted position in the low 32 (the kernel's key)."""
+    bits = scores.to(torch.float32).view(torch.int32)
+    ks = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    pos = torch.arange(scores.shape[-1], dtype=torch.int64,
+                       device=scores.device)
+    return (ks.to(torch.int64) << 32) | (_LOW32 - pos)
+
+
+def _decode(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    ks = (keys >> 32).to(torch.int32)
+    bits = ks ^ ((ks >> 31) & 0x7FFFFFFF)
+    return bits.view(torch.float32), _LOW32 - (keys & _LOW32)
+
+
+def exact_topk(scores: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values f32, positions int64), each (Q, k), of the row-wise top-k
+    of ``scores`` (Q, C) in the port's order, in plain PyTorch. Values are
+    the input's f32 bits. The candidate generator's merges use it."""
+    keys = torch.topk(order_keys(scores), k, dim=1).values
+    return _decode(keys)
+
+
+def bitonic_topk_plain(scores: torch.Tensor, ids: Optional[torch.Tensor],
+                       k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function on row-major (Q, C) scores and ids (or the
+    column positions): ((Q, k) f32, (Q, k) int32)."""
+    vals, pos = exact_topk(scores, k)
+    if ids is None:
+        return vals, pos.to(torch.int32)
+    return vals, torch.gather(ids.to(torch.int32), 1, pos)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_lib() -> ctypes.CDLL:
+    lib = _build.load("bitonic_topk")
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.recbox_bitonic_topk.argtypes = [vp, vp, vp, vp, i, i, i, i, ll, ll,
+                                        ll, ll, ll, ll, vp]
+    lib.recbox_bitonic_topk.restype = i
+    return lib
+
+
+def sort_width(c: int, k: int, who: str = "bitonic_topk") -> int:
+    """Keys per window of the kernel's sort: every candidate when they fit
+    in one window, else a window with k <= width/2."""
+    full = 1 << max(1, (c - 1).bit_length())
+    width = min(full, 8192)
+    if width < full and 2 * k > width:
+        width = min(full, _MAX_SORT)
+    if width < full and 2 * k > width:
+        raise ValueError(f"{who}: k={k} is above the kernel's "
+                         f"{_MAX_SORT // 2} for {c} candidates")
+    return width
+
+
+def _bitonic_cuda(scores, ids, k, out_s, out_i):
+    """Launch the kernel on (Q, C) views ``scores``/``ids`` of any strides
+    into (Q, k) views ``out_s``/``out_i`` of any strides."""
+    dev = scores.device
+    if not (scores.is_cuda and (ids is None or ids.device == dev)):
+        raise ValueError(f"bitonic_topk: scores on {dev}; the kernel takes "
+                         "scores and ids on one CUDA device")
+    q, c = scores.shape
+    width = sort_width(c, k)
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        rc = lib.recbox_bitonic_topk(
+            scores.data_ptr(), None if ids is None else ids.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), q, c, k, width,
+            scores.stride(0), scores.stride(1),
+            0 if ids is None else ids.stride(0),
+            0 if ids is None else ids.stride(1),
+            out_s.stride(0), out_s.stride(1),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bitonic_topk: launch failed with CUDA error {rc}")
+    launches["bitonic_topk"] += 1
+
+
+def row_topk(scores: torch.Tensor, ids: Optional[torch.Tensor], k: int,
+             out_cmajor: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of (Q, C) views of any strides (a `.T` of a candidate-major
+    array is read in place): ((Q, k), (Q, k)), or ((k, Q), (k, Q)) with
+    ``out_cmajor``. The kernel for CUDA tensors, the plain version for CPU
+    tensors. Scores come back in their dtype, ids int32."""
+    q, c = scores.shape
+    if k > c:
+        raise ValueError(f"k={k} > {c} candidates")
+    if ids is not None:
+        ids = ids.to(torch.int32)
+        if tuple(ids.shape) != (q, c):
+            raise ValueError(f"ids {tuple(ids.shape)} vs scores {(q, c)}")
+    dtype = scores.dtype
+    scores = scores.to(torch.float32)
+    if scores.device.type == "cpu":
+        s, i = bitonic_topk_plain(scores, ids, k)
+        if out_cmajor:
+            s, i = s.T.contiguous(), i.T.contiguous()
+        return s.to(dtype), i
+    shape = (k, q) if out_cmajor else (q, k)
+    out_s = torch.empty(shape, dtype=torch.float32, device=scores.device)
+    out_i = torch.empty(shape, dtype=torch.int32, device=scores.device)
+    if q:
+        _bitonic_cuda(scores, ids, k,
+                      out_s.T if out_cmajor else out_s,
+                      out_i.T if out_cmajor else out_i)
+    return out_s.to(dtype), out_i
+
+
+def pallas_bitonic_topk_cmajor(scores_cm: torch.Tensor, ids_cm: torch.Tensor,
+                               k: int, q_tile: int = 128
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Candidate-major top-k: (C, Q) scores and ids → ((k, Q), (k, Q)),
+    descending down each column.
+
+    The layout the candidate generator emits, read in place (no transpose).
+    ``q_tile`` was the JAX kernel's query tile in VMEM and has no meaning
+    here: it is accepted and ignored. Raises ValueError for k > C, and for
+    k above 8192 over more than 16384 candidates (the kernel's window;
+    JAX's own limit is k < 2048 over more than 4096)."""
+    return row_topk(scores_cm.T, ids_cm.T, k, out_cmajor=True)
+
+
+def pallas_bitonic_topk(scores: torch.Tensor,
+                        ids: Optional[torch.Tensor] = None, k: int = 100,
+                        q_tile: int = 128
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise exact top-k, descending: (Q, C) → ((Q, k), (Q, k)).
+
+    ``ids`` defaults to the column index. ``q_tile`` is accepted and
+    ignored, as in `pallas_bitonic_topk_cmajor`."""
+    return row_topk(scores, ids, k)

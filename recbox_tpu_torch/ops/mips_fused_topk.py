@@ -32,8 +32,10 @@ import torch
 import torch.nn.functional as F
 
 from recbox_tpu_torch.ops import _build
+from recbox_tpu_torch.ops.bitonic_topk import sort_width
 from recbox_tpu_torch.ops.mips_topk import (
-    PACK_FLOOR, PACK_MASK, SEGMENT, block_plan, quantize_int8, winner_ids,
+    PACK_FLOOR, PACK_MASK, SEGMENT, block_plan, mips_segment_candidates_plain,
+    quantize_int8, winner_ids,
 )
 
 __all__ = ["mips_fused_topk", "mips_fused_topk_plain", "segment_plan",
@@ -46,8 +48,6 @@ launches = {"f32": 0, "bf16": 0, "int8": 0}
 _VARIANTS = {torch.float32: ("f32", 0), torch.bfloat16: ("bf16", 1),
              torch.int8: ("int8", 2)}
 
-# the sort of stage (b) works in windows of at most this many keys
-_MAX_SORT = 16384
 # queries a block of stage (a) scores (QT in csrc/mips_fused_topk.cu)
 _QUERY_TILE = 64
 
@@ -98,45 +98,19 @@ def mips_fused_topk_plain(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                           valid_items: int, row_scale=None, q_scale=None,
                           sub_rows: int = 1024
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch, in query chunks, for
-    k <= ceil(N / sub_rows) · sub_rows / 128.
+    """The kernel's function in plain PyTorch, for
+    k <= ceil(N / sub_rows) · sub_rows / 128: the packed segment winners of
+    the candidate generator's plain version (`mips_topk.py`), then their
+    exact top-k in the kernel's order.
 
     bf16 inputs are upcast and multiplied in f32, which equals bf16 × bf16
     products summed in f32; int8 rows are exact integers in f32 while
     D·127² < 2^24, else in f64. On the card it needs
     ``torch.backends.cuda.matmul.allow_tf32 = False``."""
-    n = corpus.shape[0]
-    dev = corpus.device
-    n_seg = sub_rows // SEGMENT
-    n_sub = -(-n // sub_rows)
-    n_pad = n_sub * sub_rows
-    wide = corpus.dtype == torch.int8 and corpus.shape[1] * 127 * 127 >= 2**24
-    work = torch.float64 if wide else torch.float32
-    cf = F.pad(corpus.to(work), (0, 0, 0, n_pad - n))
-    live = torch.arange(n_pad, device=dev) < valid_items
-    scale = None
-    if row_scale is not None:
-        scale = F.pad(row_scale.to(torch.float32), (0, n_pad - n), value=1.0)
-    idx = torch.arange(SEGMENT, dtype=torch.int32, device=dev)
-    idx = idx.view(1, 1, SEGMENT, 1)
-    # a (step, n_pad) score block of 2^24 elements on the CPU, 2^27 on a card
-    step = max(1, (2**24 if dev.type == "cpu" else 2**27) // n_pad)
-    out_s, out_i = [], []
-    for q0 in range(0, queries.shape[0], step):
-        s = (queries[q0:q0 + step].to(work) @ cf.T).to(torch.float32)
-        if scale is not None:
-            s = s * scale
-        s = torch.clamp(s, -PACK_FLOOR, PACK_FLOOR)
-        s = torch.where(live, s, -PACK_FLOOR)
-        bits = s.view(torch.int32).view(s.shape[0], n_sub, SEGMENT, n_seg)
-        packed = ((bits & ~PACK_MASK) | idx).view(torch.float32)
-        win = torch.amax(packed, dim=2).reshape(s.shape[0], n_sub * n_seg)
-        keys = torch.topk(_order_key(win), k, dim=1).values
-        qs = None if q_scale is None else q_scale[q0:q0 + step]
-        ts, ti = _decode(keys, sub_rows, qs)
-        out_s.append(ts)
-        out_i.append(ti)
-    return torch.cat(out_s), torch.cat(out_i)
+    win = mips_segment_candidates_plain(queries, corpus, valid_items, True,
+                                        row_scale, sub_rows).T
+    keys = torch.topk(_order_key(win), k, dim=1).values
+    return _decode(keys, sub_rows, q_scale)
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,19 +124,6 @@ def _kernel_lib() -> ctypes.CDLL:
                                              vp]
     lib.recbox_mips_topk_winners.restype = i
     return lib
-
-
-def _sort_width(n_cand: int, k: int) -> int:
-    """Keys per window of the top-k sort: all candidates when they fit,
-    else a window with k <= width/2."""
-    full = 1 << max(1, (n_cand - 1).bit_length())
-    width = min(full, 8192)
-    if width < full and 2 * k > width:
-        width = min(full, _MAX_SORT)
-    if width < full and 2 * k > width:
-        raise ValueError(f"mips_fused_topk: k={k} is above the kernel's "
-                         f"{_MAX_SORT // 2} for {n_cand} candidates")
-    return width
 
 
 def _check(rc: int, what: str) -> None:
@@ -190,7 +151,7 @@ def _mips_fused_topk_cuda(queries, corpus, k, valid, row_scale, q_scale,
         raise ValueError(f"mips_fused_topk: {n} rows exceed the kernel's "
                          f"{65535 * sub_rows} at sub_rows={sub_rows}")
     n_cand = n_sub * (sub_rows // SEGMENT)
-    width = _sort_width(n_cand, k)
+    width = sort_width(n_cand, k, "mips_fused_topk")
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:

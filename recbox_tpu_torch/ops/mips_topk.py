@@ -1,25 +1,38 @@
-"""Constants, block plan and id layout of the packed-mantissa MIPS kernels.
+"""MIPS segment candidates: the CUDA kernel, its plain PyTorch version, the
+wrappers, and the constants, block plan and id layout every segment-winner
+kernel shares.
 
-Own copy of what `recbox_tpu/ops/pallas/mips_topk.py` defines for every
-segment-winner kernel (:89-114, :285-287, :455-456). The candidate kernel
-itself (`pallas_mips_topk`, `mips_segment_candidates`) is not ported yet
-(`ROADMAP.md`, kernel B4).
+Port of the TPU kernel `recbox_tpu/ops/pallas/mips_topk.py`
+(`mips_segment_candidates` :269, `pallas_mips_topk` :351; constants and
+plan :89-114). A corpus is cut into sub-chunks of ``sub_rows`` rows.
+Inside one, segment g (0 <= g < n_seg = sub_rows / SEGMENT) is the STRIDED
+row set {g, g + n_seg, ..., g + (SEGMENT-1)·n_seg}; each segment gives one
+winner per query. Packed, the winner's position in the segment (7 bits)
+rides the low mantissa bits of its f32 score; unpacked, the winner is a
+score and a global row id.
 
-A corpus is cut into sub-chunks of ``sub_rows`` rows. Inside one, segment
-g (0 <= g < n_seg = sub_rows / SEGMENT) is the STRIDED row set
-{g, g + n_seg, ..., g + (SEGMENT-1)·n_seg}; each segment gives one winner
-per query, whose position in the segment (7 bits) rides the low mantissa
-bits of its f32 score.
+The kernel (`csrc/mips_topk.cu`, built by `ops/_build.py`) runs for CUDA
+tensors, `mips_segment_candidates_plain` for CPU tensors; a CUDA tensor
+never reaches the plain version, and a failed build or launch raises.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import functools
+import struct
+from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
+
+from recbox_tpu_torch.ops import _build
+from recbox_tpu_torch.ops.bitonic_topk import exact_topk, row_topk
 
 __all__ = ["SEGMENT", "PACK_FLOOR", "PACK_BITS", "PACK_MASK", "block_plan",
-           "quantize_int8", "winner_ids"]
+           "candidate_plan", "split_runs", "quantize_int8", "winner_ids",
+           "mips_segment_candidates", "mips_segment_candidates_plain",
+           "pallas_mips_topk", "launches", "reset_launches"]
 
 SEGMENT = 128          # items per candidate segment (one winner each)
 
@@ -29,6 +42,27 @@ SEGMENT = 128          # items per candidate segment (one winner each)
 PACK_FLOOR = 3.0e38
 PACK_BITS = 7                       # log2(SEGMENT): index bits packed
 PACK_MASK = (1 << PACK_BITS) - 1
+
+# kernel launches on the CUDA path, by variant; the plain version never
+# counts
+launches = {"packed": 0, "packed_int8": 0, "unpacked": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _all_pad_winner() -> float:
+    """The packed winner of a segment of pad rows: -PACK_FLOOR with index
+    0, the float max of its packed rows."""
+    bits = struct.unpack("<i", struct.pack("<f", -PACK_FLOOR))[0]
+    return struct.unpack("<f", struct.pack("<i", bits & ~PACK_MASK))[0]
+
+
+ALL_PAD_WINNER = _all_pad_winner()
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
 
 
 def block_plan(itemsize: int, qt: int, d: int) -> Tuple[int, int]:
@@ -44,6 +78,18 @@ def block_plan(itemsize: int, qt: int, d: int) -> Tuple[int, int]:
     sub_rows = max(SEGMENT, (sub_rows // SEGMENT) * SEGMENT)
     spb = max(1, block_budget // (row_bytes * sub_rows))
     return sub_rows, spb
+
+
+def candidate_plan(corpus_dtype: torch.dtype, n: int, d: int, qt: int
+                   ) -> Tuple[int, int]:
+    """(sub_rows, candidates) of the JAX candidate kernel for a query tile
+    of ``qt`` rows over an (n, d) corpus: one candidate per 128 rows of the
+    corpus padded to its grid block of sub_rows · subs_per_block rows
+    (`mips_topk.py:292-297`, `:408-410`)."""
+    itemsize = torch.empty((), dtype=corpus_dtype).element_size()
+    sub_rows, spb = block_plan(itemsize, qt, d + (-d) % 128)
+    c_block = sub_rows * spb
+    return sub_rows, -(-n // c_block) * c_block // SEGMENT
 
 
 def quantize_int8(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -63,3 +109,314 @@ def winner_ids(cand: torch.Tensor, idx: torch.Tensor, sub_rows: int
     (sub-chunk · n_seg + segment) and its packed in-segment index ``idx``."""
     n_seg = sub_rows // SEGMENT
     return (cand // n_seg) * sub_rows + cand % n_seg + idx * n_seg
+
+
+def _segment_base(n_sub: int, sub_rows: int, device) -> torch.Tensor:
+    """(n_sub · n_seg,) first row of each candidate's segment: the id JAX
+    gives the winner of a segment of pad rows (argmax 0)."""
+    n_seg = sub_rows // SEGMENT
+    return (torch.arange(n_sub, device=device)[:, None] * sub_rows
+            + torch.arange(n_seg, device=device)[None, :]).reshape(-1)
+
+
+def mips_segment_candidates_plain(queries: torch.Tensor,
+                                  corpus: torch.Tensor, valid: int,
+                                  packed: bool, row_scale=None,
+                                  sub_rows: int = 1024):
+    """The kernel's function in plain PyTorch over the ceil(N / sub_rows)
+    sub-chunks that hold corpus rows: candidate-major (n_seg · n_sub, Q)
+    packed f32 winners, or (scores f32, ids int32) unpacked.
+
+    Queries have the corpus's dtype. bf16 inputs are upcast and multiplied
+    in f32, which equals bf16 × bf16 products summed in f32; int8 rows are
+    exact integers in f32 while D·127² < 2^24, else in f64. On the card it
+    needs ``torch.backends.cuda.matmul.allow_tf32 = False``."""
+    n, nq = corpus.shape[0], queries.shape[0]
+    dev = corpus.device
+    n_seg = sub_rows // SEGMENT
+    n_sub = -(-n // sub_rows)
+    n_pad = n_sub * sub_rows
+    wide = corpus.dtype == torch.int8 and corpus.shape[1] * 127 * 127 >= 2**24
+    work = torch.float64 if wide else torch.float32
+    cf = F.pad(corpus.to(work), (0, 0, 0, n_pad - n))
+    live = torch.arange(n_pad, device=dev) < valid
+    scale = None
+    if row_scale is not None:
+        scale = F.pad(row_scale.to(torch.float32), (0, n_pad - n), value=1.0)
+    idx = torch.arange(SEGMENT, dtype=torch.int32, device=dev)
+    idx = idx.view(1, 1, SEGMENT, 1)
+    base = _segment_base(n_sub, sub_rows, dev)
+    out_s = torch.empty((n_sub * n_seg, nq), dtype=torch.float32, device=dev)
+    out_i = None if packed else torch.empty((n_sub * n_seg, nq),
+                                            dtype=torch.int32, device=dev)
+    # a (step, n_pad) score block of 2^24 elements on the CPU, 2^27 on a card
+    step = max(1, (2**24 if dev.type == "cpu" else 2**27) // n_pad)
+    for q0 in range(0, nq, step):
+        s = (queries[q0:q0 + step].to(work) @ cf.T).to(torch.float32)
+        m = s.shape[0]
+        if scale is not None:
+            s = s * scale
+        if packed:
+            s = torch.clamp(s, -PACK_FLOOR, PACK_FLOOR)
+            s = torch.where(live, s, -PACK_FLOOR)
+            bits = s.view(torch.int32).view(m, n_sub, SEGMENT, n_seg)
+            win = torch.amax(((bits & ~PACK_MASK) | idx).view(torch.float32),
+                             dim=2)
+        else:
+            s = torch.where(live, s, float("-inf"))
+            # torch.max returns the first index of the max, as jnp.argmax
+            win, arg = torch.max(s.view(m, n_sub, SEGMENT, n_seg), dim=2)
+            ids = base + arg.reshape(m, -1) * n_seg
+            out_i[:, q0:q0 + m] = ids.T.to(torch.int32)
+        out_s[:, q0:q0 + m] = win.reshape(m, -1).T
+    return out_s if packed else (out_s, out_i)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_lib() -> ctypes.CDLL:
+    lib = _build.load("mips_topk")
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.recbox_mips_segment_candidates.argtypes = [i, i, vp, vp, vp, vp, vp,
+                                                   i, i, i, i, i, i, vp]
+    lib.recbox_mips_segment_candidates.restype = i
+    return lib
+
+
+# queries a block of the kernel scores (QT in csrc/mips_tile.cuh)
+_QUERY_TILE = 64
+
+
+def split_runs(nq: int, n: int, sub_rows: int, packed: bool, device) -> int:
+    """Runs the kernel splits each sub-chunk's 128-row chunks into: a grid
+    of fewer than two blocks per SM takes more than one, merged by an
+    atomic float max into winners at -inf. Packed only; the unpacked
+    variant keeps its first-index rule by running whole sub-chunks."""
+    if not packed:
+        return 1
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = -(-nq // _QUERY_TILE) * -(-n // sub_rows)
+    return min(sub_rows // SEGMENT, -(-2 * sms // blocks))
+
+
+def _candidates_cuda(queries, corpus, valid, packed, row_scale, sub_rows,
+                     out_s, out_i):
+    """Launch the kernel into the first ceil(N / sub_rows) · n_seg rows of
+    the candidate-major ``out_s`` (and ``out_i``)."""
+    dev = corpus.device
+    if not (corpus.is_cuda and queries.device == dev):
+        raise ValueError(f"mips_segment_candidates: queries on "
+                         f"{queries.device}, corpus on {dev}; the kernel "
+                         "takes both on one CUDA device")
+    d_pad = (-corpus.shape[1]) % 16
+    if d_pad:   # the kernel loads 16-byte vectors along the depth
+        corpus = F.pad(corpus, (0, d_pad))
+        queries = F.pad(queries, (0, d_pad))
+    queries, corpus = queries.contiguous(), corpus.contiguous()
+    nq, (n, d) = queries.shape[0], corpus.shape
+    n_sub = -(-n // sub_rows)
+    if n_sub > 65535:
+        raise ValueError(f"mips_segment_candidates: {n} rows exceed the "
+                         f"kernel's {65535 * sub_rows} at sub_rows={sub_rows}")
+    splits = split_runs(nq, n, sub_rows, packed, dev)
+    if splits > 1:
+        out_s[:n_sub * (sub_rows // SEGMENT)].fill_(float("-inf"))
+    if row_scale is not None:
+        row_scale = row_scale.to(device=dev, dtype=torch.float32).contiguous()
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        rc = lib.recbox_mips_segment_candidates(
+            _DTYPES[corpus.dtype], int(packed), queries.data_ptr(),
+            corpus.data_ptr(),
+            None if row_scale is None else row_scale.data_ptr(),
+            out_s.data_ptr(), None if out_i is None else out_i.data_ptr(),
+            nq, n, d, valid, sub_rows, splits,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mips_segment_candidates: launch failed with "
+                           f"CUDA error {rc}")
+    variant = "unpacked" if not packed else (
+        "packed_int8" if corpus.dtype == torch.int8 else "packed")
+    launches[variant] += 1
+
+
+def _candidates(queries, corpus, valid, packed, row_scale, sub_rows,
+                n_cand):
+    """Candidate-major (n_cand, Q) winners of the plan with ``sub_rows``:
+    the kernel (CUDA) or the plain version (CPU) over the sub-chunks that
+    hold corpus rows, then the all-pad segments of JAX's padded grid block,
+    which are never computed: packed, ALL_PAD_WINNER; unpacked, -inf with
+    the segment's first row as id, as JAX's argmax gives them."""
+    dev, nq = corpus.device, queries.shape[0]
+    n_live = -(-corpus.shape[0] // sub_rows) * (sub_rows // SEGMENT)
+    if dev.type == "cpu":
+        got = mips_segment_candidates_plain(queries, corpus, valid, packed,
+                                            row_scale, sub_rows)
+        live_s, live_i = (got, None) if packed else got
+        out_s = torch.cat([live_s, live_s.new_empty((n_cand - n_live, nq))])
+        out_i = None if packed else torch.cat(
+            [live_i, live_i.new_empty((n_cand - n_live, nq))])
+    else:
+        out_s = torch.empty((n_cand, nq), dtype=torch.float32, device=dev)
+        out_i = None if packed else torch.empty((n_cand, nq),
+                                                dtype=torch.int32, device=dev)
+        if nq:
+            _candidates_cuda(queries, corpus, valid, packed, row_scale,
+                             sub_rows, out_s, out_i)
+    if packed:
+        out_s[n_live:] = ALL_PAD_WINNER
+        return out_s
+    out_s[n_live:] = float("-inf")
+    n_sub = n_cand * SEGMENT // sub_rows
+    out_i[n_live:] = _segment_base(n_sub, sub_rows, dev)[n_live:, None]
+    return out_s, out_i
+
+
+def _check_corpus(queries, corpus, row_scale, who):
+    if corpus.dtype not in _DTYPES:
+        raise TypeError(f"{who}: corpus dtype {corpus.dtype}; expected "
+                        "float32, bfloat16 or int8")
+    if queries.ndim != 2 or corpus.ndim != 2 \
+            or queries.shape[1] != corpus.shape[1]:
+        raise ValueError(f"{who}: queries {tuple(queries.shape)} vs corpus "
+                         f"{tuple(corpus.shape)}")
+    if row_scale is not None:
+        row_scale = row_scale.reshape(-1)
+        if row_scale.shape[0] != corpus.shape[0]:
+            raise ValueError(f"row_scale has {row_scale.shape[0]} entries "
+                             f"for a {corpus.shape[0]}-row corpus")
+    return row_scale
+
+
+def mips_segment_candidates(queries: torch.Tensor, corpus: torch.Tensor,
+                            valid_items: Optional[int] = None,
+                            packed: bool = False,
+                            row_scale: Optional[torch.Tensor] = None
+                            ) -> Union[torch.Tensor,
+                                       Tuple[torch.Tensor, torch.Tensor]]:
+    """Candidate-major (n_candidates, Qt) segment winners of ``corpus`` for
+    the query tile ``queries`` (Qt, D): packed f32 scores (low 7 mantissa
+    bits the in-segment index, pads near -PACK_FLOOR), or, with
+    ``packed=False``, (scores f32, global ids int32), pads -inf.
+
+    The segment plan is JAX's for a tile of Qt queries. JAX wants N a
+    multiple of its grid block and D of 128; here any N and D go, the
+    candidates are counted over N padded to the grid block as JAX counts
+    them, and rows >= N are padding. ``valid_items`` (default N) marks rows
+    >= it as padding too. Float queries are cast to the corpus's dtype; an
+    int8 corpus takes int8 queries and its per-row ``row_scale`` (N,) or
+    (N, 1), packed only. Global ids of packed winners come from
+    `winner_ids`; `pallas_mips_topk` does this. JAX's ``interpret`` picks a
+    JAX implementation and has no counterpart.
+    """
+    who = "mips_segment_candidates"
+    row_scale = _check_corpus(queries, corpus, row_scale, who)
+    if (corpus.dtype == torch.int8) != (row_scale is not None):
+        raise ValueError("an int8 corpus takes row_scale (the quantize_int8 "
+                         "per-row scales), and only an int8 corpus does")
+    if row_scale is not None:
+        if not packed:
+            raise ValueError("row_scale (int8 corpus) implies the packed "
+                             "kernel")
+        if queries.dtype != torch.int8:
+            raise TypeError(f"{who}: an int8 corpus takes int8 queries, got "
+                            f"{queries.dtype}")
+    else:
+        queries = queries.to(corpus.dtype)
+    n, nq = corpus.shape[0], queries.shape[0]
+    sub_rows, n_cand = candidate_plan(corpus.dtype, n, corpus.shape[1],
+                                      max(nq, 1))
+    valid = n if valid_items is None else min(int(valid_items), n)
+    return _candidates(queries, corpus, valid, packed, row_scale, sub_rows,
+                       n_cand)
+
+
+def _too_many(k, n_cand, n, tail=True):
+    msg = (f"pallas_mips_topk: k={k} exceeds the {n_cand} segment candidates "
+           f"for a {n}-row corpus")
+    if tail:
+        msg += "; use the 'segmented'/'approx' XLA paths for k this large"
+    return ValueError(msg)
+
+
+def pallas_mips_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                     valid_items: Optional[int] = None,
+                     exact_merge: bool = False, merge: Optional[str] = None,
+                     packed: Optional[bool] = None, query_tile: int = 1024,
+                     row_scale: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k (scores (Q, k) f32, ids (Q, k) int32) over the corpus through
+    the segment-candidate kernel and one merge; slots past the live
+    candidates are (-inf, -1).
+
+    JAX's signature (minus ``interpret``) and checks. ``query_tile`` sets
+    the segment plan (a tile of min(query_tile, Q) queries); JAX swept the
+    tiles one by one, here one launch covers every query, with the same
+    candidates. ``packed`` (default: on, except under ``merge='bitonic'``)
+    picks the packed-mantissa kernel, whose scores carry the 2^-17
+    truncation. An int8 corpus (`quantize_int8` rows and their
+    ``row_scale``) is packed-only: queries are quantized per row and the
+    per-query scale is applied to the k winners. Float queries are cast to
+    the corpus's dtype.
+
+    The merge: JAX takes `lax.top_k` when ``exact_merge`` or the candidates
+    are at most 2k, else `approx_max_k(0.95)`; both branches here are one
+    exact top-k in plain PyTorch in the port's total order (score
+    descending, candidate position ascending), so the two give the same
+    result. ``merge='bitonic'`` (unpacked only) runs the B5 kernel
+    (`ops/bitonic_topk.py`) on the candidate-major arrays in place.
+    """
+    int8_corpus = corpus.dtype == torch.int8
+    if int8_corpus:
+        if row_scale is None:
+            raise ValueError("int8 corpus requires row_scale (the "
+                             "quantize_int8 per-row scales)")
+        if packed is False or merge == "bitonic":
+            raise ValueError("the int8 corpus path is packed-only")
+        packed = True
+    elif row_scale is not None:
+        raise ValueError("row_scale is only meaningful for an int8 corpus")
+    if packed is None:
+        packed = merge != "bitonic"
+    if packed and merge == "bitonic":
+        raise ValueError("merge='bitonic' consumes the explicit-id "
+                         "candidate layout; pass packed=False")
+    row_scale = _check_corpus(queries, corpus, row_scale, "pallas_mips_topk")
+    n = corpus.shape[0]
+    n_items = n if valid_items is None else int(valid_items)
+    nq = queries.shape[0]
+    qt = min(query_tile, max(nq, 1))
+    sub_rows, n_cand = candidate_plan(corpus.dtype, n, corpus.shape[1], qt)
+    if k > n_cand:
+        raise _too_many(k, n_cand, n, tail=merge != "bitonic")
+    q_scale = None
+    if int8_corpus:
+        queries, q_scale = quantize_int8(queries)
+    else:
+        queries = queries.to(corpus.dtype)
+    # the tile's plan for every query at once: the candidates JAX's sweep
+    # of the tiles gives
+    cands = functools.partial(_candidates, queries, corpus, min(n_items, n),
+                              row_scale=row_scale, sub_rows=sub_rows,
+                              n_cand=n_cand)
+    if packed:
+        cs = cands(packed=True)
+        vals, pos = exact_topk(cs.T, k)
+        bits = vals.view(torch.int32)
+        clean = (bits & ~PACK_MASK).view(torch.float32)
+        ids = winner_ids(pos, (bits & PACK_MASK).to(torch.int64), sub_rows)
+        # pads sit near -PACK_FLOOR: the shared pad convention is (-inf, -1)
+        alive = clean > -PACK_FLOOR / 2
+        if q_scale is not None:
+            clean = clean * q_scale[:, None]
+        return (torch.where(alive, clean, float("-inf")),
+                torch.where(alive, ids, -1).to(torch.int32))
+    cs, ci = cands(packed=False)
+    if merge == "bitonic":
+        ts, ti = row_topk(cs.T, ci.T, k)
+        return ts, torch.where(torch.isfinite(ts), ti, -1)
+    # pad rows were scored -inf in the kernel; this only normalizes the
+    # all-pad segments' winners
+    cs = torch.where(ci < n_items, cs, float("-inf"))
+    top_s, pos = exact_topk(cs.T, k)
+    top_i = torch.gather(ci.T, 1, pos)
+    return top_s, torch.where(torch.isfinite(top_s), top_i, -1)

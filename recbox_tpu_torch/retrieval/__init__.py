@@ -1,7 +1,8 @@
 from recbox_tpu_torch.retrieval.index import (
-    BruteForceMIPS, chunked_topk, quantize_int8,
+    BruteForceMIPS, approx_mips_topk, chunked_topk, int8_mips_topk,
+    quantize_int8,
 )
 from recbox_tpu_torch.retrieval.service import RetrievalService
 
-__all__ = ["BruteForceMIPS", "chunked_topk", "quantize_int8",
-           "RetrievalService"]
+__all__ = ["BruteForceMIPS", "approx_mips_topk", "chunked_topk",
+           "int8_mips_topk", "quantize_int8", "RetrievalService"]

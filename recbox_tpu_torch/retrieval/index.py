@@ -15,16 +15,20 @@ Methods:
 * ``'approx'`` / ``'segmented'``: the JAX package serves these with
   `lax.approx_max_k`, which PyTorch lacks. Here both are an exact
   query-chunked `torch.topk` over the (bf16-rounded, when ``bf16``)
-  scores; its recall of 1.0 meets any ``recall_target``.
+  scores (`approx_mips_topk`); its recall of 1.0 meets any
+  ``recall_target``.
+* ``'refined'``: over-retrieve 4·k by `approx_mips_topk` (bf16), then
+  rescore those candidates exactly in f32 (`_two_phase_exact`); past the
+  corpus:k gate, `chunked_topk`.
 * ``'exact'`` / ``'exact_sort'``: item-chunked scan with a running top-k
   merge (`chunked_topk`), truly exact.
-* ``quantize='int8'``: per-row int8 corpus, served by the kernel's int8
-  variant on the 'auto' / 'pallas' route.
+* ``quantize='int8'``: per-row int8 corpus, served by the fused kernel's
+  int8 variant on the 'auto' / 'pallas' route, else by the int8 sweep
+  `int8_mips_topk` ('approx', 'refined' with an exact f32 rescore, and
+  'auto' past the kernel's gates), whose top-k is exact here as well.
 
-Not yet ported (each raises NotImplementedError): ``'refined'`` (two-phase
-rescore), the XLA int8 sweep `int8_mips_topk` (int8 with 'approx', or
-'auto' past the gates) and the mesh-sharded search. They belong to the
-retrieval slice that ports the candidate kernels (`ROADMAP.md`).
+The mesh-sharded search raises NotImplementedError (`ROADMAP.md` Queue A,
+`parallel/`).
 """
 
 from __future__ import annotations
@@ -38,12 +42,10 @@ from recbox_tpu_torch import resolve_device
 from recbox_tpu_torch.ops.mips_fused_topk import mips_fused_topk
 from recbox_tpu_torch.ops.mips_topk import SEGMENT, quantize_int8
 
-__all__ = ["BruteForceMIPS", "chunked_topk", "quantize_int8"]
+__all__ = ["BruteForceMIPS", "chunked_topk", "approx_mips_topk",
+           "int8_mips_topk", "quantize_int8"]
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
-
-_LATER = ("waits for the retrieval slice that ports the candidate kernels "
-          "(ROADMAP.md)")
 
 
 def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -70,11 +72,69 @@ def chunked_topk(queries: torch.Tensor, items: torch.Tensor, topk: int,
     return best_s, best_i.to(torch.int32)
 
 
-def _exact_query_chunked(queries: torch.Tensor, items: torch.Tensor,
-                         topk: int, query_chunk: int
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k of query-chunked full score rows (serves 'approx' and
-    'segmented'; see the module docstring)."""
+def _rescore_exact(queries: torch.Tensor, items_f32: torch.Tensor,
+                   cand: torch.Tensor, topk: int, query_chunk: int = 1024
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact f32 rescore of per-query candidate lists → (scores, ids): the
+    shared tail of every two-phase ('refined') path (`index.py:59-68`),
+    in query chunks so the (chunk, k1, D) gather stays small."""
+    out_s, out_i = [], []
+    for q0 in range(0, queries.shape[0], query_chunk):
+        c = cand[q0:q0 + query_chunk].long()
+        exact = torch.einsum("qd,qkd->qk", queries[q0:q0 + query_chunk],
+                             items_f32[c])
+        s, pos = torch.topk(exact, topk, dim=1)
+        out_s.append(s)
+        out_i.append(torch.gather(c, 1, pos).to(torch.int32))
+    return torch.cat(out_s), torch.cat(out_i)
+
+
+def int8_mips_topk(queries: torch.Tensor, q_items: torch.Tensor,
+                   item_scale: torch.Tensor, topk: int,
+                   query_chunk: int = 1024, recall_target: float = 0.95,
+                   oversample: int = 0,
+                   items_f32: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantized MIPS (`index.py:71-116`): queries quantized per row, the
+    exact s8 × s8 product rescaled to f32 (``s32 · item_scale ·
+    query_scale``), then the top-k, per query chunk.
+
+    The s8 × s8 sums are exact, as XLA's s32 ones: an f32 product of the
+    int8 values while D·127² < 2^24 (every sum an integer below 2^24), else
+    f64; on the card that needs ``torch.backends.cuda.matmul.allow_tf32 =
+    False``. JAX takes `approx_max_k(recall_target)`; here it is an exact
+    `torch.topk`, which meets any ``recall_target``. With ``oversample > 0``
+    and ``items_f32``, the sweep over-retrieves ``oversample × topk``
+    candidates and rescores them exactly in f32 (the 'refined' pattern)."""
+    refine = bool(oversample) and items_f32 is not None
+    k1 = min(oversample * topk, q_items.shape[0]) if refine else topk
+    wide = q_items.shape[1] * 127 * 127 >= 2**24
+    work = torch.float64 if wide else torch.float32
+    rows = q_items.to(work)
+    out_s, out_i = [], []
+    for q0 in range(0, queries.shape[0], query_chunk):
+        qq, qs = quantize_int8(queries[q0:q0 + query_chunk])
+        s32 = (qq.to(work) @ rows.T).to(torch.float32)
+        s = s32 * item_scale[None, :] * qs[:, None]
+        s, i = torch.topk(s, k1, dim=1)
+        out_s.append(s)
+        out_i.append(i.to(torch.int32))
+    s, i = torch.cat(out_s), torch.cat(out_i)
+    if refine:
+        return _rescore_exact(queries, items_f32, i, topk, query_chunk)
+    return s, i
+
+
+def approx_mips_topk(queries: torch.Tensor, items: torch.Tensor, topk: int,
+                     query_chunk: int = 1024, recall_target: float = 0.95,
+                     bf16: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Query-chunked MIPS top-k (`index.py:119-140`): with ``bf16``, both
+    sides rounded to bf16 and multiplied in f32 (bf16 × bf16 products summed
+    in f32, as XLA's preferred-f32 bf16 dot). JAX's `approx_max_k` is an
+    exact `torch.topk` here, which meets any ``recall_target``."""
+    if bf16:
+        items = items.to(torch.bfloat16).to(torch.float32)
+        queries = queries.to(torch.bfloat16).to(torch.float32)
     out_s, out_i = [], []
     for q0 in range(0, queries.shape[0], query_chunk):
         s, i = torch.topk(queries[q0:q0 + query_chunk] @ items.T, topk, dim=1)
@@ -83,17 +143,32 @@ def _exact_query_chunked(queries: torch.Tensor, items: torch.Tensor,
     return torch.cat(out_s), torch.cat(out_i)
 
 
+def _two_phase_exact(queries: torch.Tensor, items: torch.Tensor, topk: int,
+                     oversample: int = 4, query_chunk: int = 1024
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """bf16 over-retrieval of oversample·k + exact f32 rescore of the
+    candidates (`index.py:243-251`)."""
+    k1 = min(oversample * topk, items.shape[0])
+    _, cand = approx_mips_topk(queries, items, k1, query_chunk=query_chunk,
+                               recall_target=0.99, bf16=True)
+    return _rescore_exact(queries, items, cand, topk, query_chunk)
+
+
 class BruteForceMIPS:
     """MIPS top-k index over an (N, D) item matrix.
 
     Args mirror the JAX package's: metric 'ip' | 'cosine' (L2-normalized
-    at build and search); method 'auto' | 'pallas' | 'approx' |
-    'segmented' | 'exact' | 'exact_sort'; recall_target (the fused
-    kernel's structural-recall gate); chunk_size (exact scan); query_chunk
-    (query chunking of the exact-topk methods); bf16 (bf16 corpus and
+    at build and search); mesh (the sharded search, not ported: raises);
+    method 'auto' | 'pallas' | 'approx' | 'segmented' | 'refined' |
+    'exact' | 'exact_sort'; recall_target (the fused kernel's
+    structural-recall gate; the int8 'refined' sweep runs at
+    max(recall_target, 0.99), as JAX's does); chunk_size (exact scan);
+    query_chunk (query chunking of the sweeps); bf16 (bf16 corpus and
     queries for the kernel and the approx methods); quantize None | 'int8';
-    keep_f32 (keep the f32 corpus beside the int8 rows). ``device``
-    defaults to the CUDA device (`recbox_tpu_torch.resolve_device`).
+    keep_f32 (keep the f32 corpus beside the int8 rows: default only for
+    'refined', which rescores with it, and ``keep_f32=False`` with an int8
+    'refined' raises ValueError). ``device`` defaults to the CUDA device
+    (`recbox_tpu_torch.resolve_device`).
     """
 
     def __init__(self, item_embs: ArrayLike, metric: str = "ip",
@@ -111,13 +186,13 @@ class BruteForceMIPS:
         elif metric != "ip":
             raise NotImplementedError(f"metric={metric}")
         if mesh is not None:
-            raise NotImplementedError(f"the mesh-sharded search {_LATER}")
+            raise NotImplementedError(
+                "the mesh-sharded search is not ported (ROADMAP.md Queue A, "
+                "parallel/)")
         self.metric = metric
         self.method = "exact_sort" if method == "exact" else method
-        if self.method == "refined":
-            raise NotImplementedError(f"method='refined' {_LATER}")
         if self.method not in ("auto", "pallas", "approx", "segmented",
-                               "exact_sort"):
+                               "refined", "exact_sort"):
             raise NotImplementedError(f"method={method!r}")
         self.recall_target = recall_target
         self.num_items, self.dim = items.shape
@@ -126,16 +201,20 @@ class BruteForceMIPS:
         self.bf16 = bf16
         if quantize not in (None, "int8"):
             raise NotImplementedError(f"quantize={quantize!r}")
-        if quantize and self.method not in ("approx", "auto", "pallas"):
+        if quantize and self.method not in ("approx", "refined", "auto",
+                                            "pallas"):
             # an 'exact' request must not be answered with quantized scores
             raise NotImplementedError(
                 f"quantize='int8' supports method='auto'/'approx'/"
                 f"'refined'/'pallas', got method={method!r}")
-        if quantize and self.method == "approx":
-            raise NotImplementedError(
-                f"the XLA int8 sweep (int8_mips_topk, quantize='int8' with "
-                f"method='approx') {_LATER}")
+        if quantize and self.method == "refined" and keep_f32 is False:
+            raise ValueError(
+                "method='refined' needs the f32 corpus for the exact "
+                "rescore; keep_f32=False contradicts it")
+        if keep_f32 is None:
+            keep_f32 = self.method == "refined"
         self.quantize = quantize
+        self.keep_f32 = keep_f32
         self.q_items = self.item_scale = None
         self.items = items
         if quantize == "int8":
@@ -167,15 +246,20 @@ class BruteForceMIPS:
             queries = _l2_normalize(queries)
         topk = min(topk, self.num_items)
         if self.quantize == "int8":
-            if not self._kernel_gate(topk):
-                raise NotImplementedError(
-                    f"int8 search at k={topk} over {self.num_items} items "
-                    f"falls past the kernel's gates to the XLA int8 sweep, "
-                    f"which {_LATER}")
-            return mips_fused_topk(queries, self.q_items, topk,
-                                   valid_items=self.num_items,
-                                   row_scale=self.item_scale,
-                                   query_tile=self.query_chunk)
+            refine = self.method == "refined"
+            if not refine and self._kernel_gate(topk):
+                return mips_fused_topk(queries, self.q_items, topk,
+                                       valid_items=self.num_items,
+                                       row_scale=self.item_scale,
+                                       query_tile=self.query_chunk)
+            # the refined sweep runs at >= 0.99, as `_two_phase_exact`
+            return int8_mips_topk(
+                queries, self.q_items, self.item_scale, topk,
+                query_chunk=self.query_chunk,
+                recall_target=(max(self.recall_target, 0.99) if refine
+                               else self.recall_target),
+                oversample=4 if refine else 0,
+                items_f32=self.items if refine else None)
         if self._kernel_gate(topk):
             items = self._kernel_items if self.bf16 else self.items
             return mips_fused_topk(queries, items, topk,
@@ -183,12 +267,15 @@ class BruteForceMIPS:
                                    query_tile=self.query_chunk)
         if self.method == "exact_sort":
             return chunked_topk(queries, self.items, topk, self.chunk_size)
+        # JAX's 'segmented' branch (N > 16k) is inside this one here: both
+        # are the exact top-k
         if self.method in ("approx", "segmented", "pallas", "auto") \
                 and self.num_items > 4 * topk:
-            items = self.items
-            if self.bf16:
-                items = items.to(torch.bfloat16).to(torch.float32)
-                queries = queries.to(torch.bfloat16).to(torch.float32)
-            return _exact_query_chunked(queries, items, topk,
-                                        self.query_chunk)
+            return approx_mips_topk(queries, self.items, topk,
+                                    query_chunk=self.query_chunk,
+                                    recall_target=self.recall_target,
+                                    bf16=self.bf16)
+        if self.method == "refined" and self.num_items > 8 * topk:
+            return _two_phase_exact(queries, self.items, topk,
+                                    query_chunk=self.query_chunk)
         return chunked_topk(queries, self.items, topk, self.chunk_size)

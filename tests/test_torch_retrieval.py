@@ -26,6 +26,7 @@ from recbox_tpu.models.matching import two_tower as jtt
 from recbox_tpu.nn.embedding import FeatureEmbedding as JFeatureEmbedding
 from recbox_tpu.ops.pallas.mips_fused_topk import mips_fused_topk as jfused
 from recbox_tpu.ops.pallas.mips_topk import _block_plan
+from recbox_tpu.retrieval.index import BruteForceMIPS as JIndex
 from recbox_tpu.retrieval.index import quantize_int8 as jquantize
 from recbox_tpu.retrieval.service import RetrievalService as JService
 from recbox_tpu_torch import resolve_device
@@ -279,16 +280,52 @@ def test_index_auto_int8_and_cosine_route_to_kernel():
 
 
 def test_index_later_slice_paths_raise():
+    """Only the mesh-sharded search is left to port (ROADMAP.md Queue A,
+    parallel/)."""
     items = np.random.default_rng(6).normal(size=(256, 8)).astype(np.float32)
-    for kw in [dict(method="refined"), dict(mesh=object()),
-               dict(method="approx", quantize="int8"),
-               dict(method="exact", quantize="int8")]:
-        with pytest.raises(NotImplementedError):
-            BruteForceMIPS(items, device="cpu", **kw)
-    # int8 past the kernel's gate would be the XLA int8 sweep
-    idx = BruteForceMIPS(items, quantize="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        idx.search(items[:2], topk=50)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        BruteForceMIPS(items, device="cpu", mesh=object())
+
+
+@pytest.mark.parametrize("method,quantize", [
+    ("refined", None), ("refined", "int8"), ("approx", "int8"),
+    ("auto", "int8"),
+])
+def test_index_refined_and_int8_sweep_match_jax(method, quantize):
+    """'refined' (bf16 over-retrieval + exact f32 rescore), the int8 sweep
+    with and without the refine, and int8 'auto' past the kernel's recall
+    gate, against JAX's BruteForceMIPS on the CPU, where its approx_max_k
+    is exact: equal id sets, scores within rtol 1e-5."""
+    rng = np.random.default_rng(40)
+    items = rng.normal(size=(5000, 32)).astype(np.float32)
+    q = rng.normal(size=(16, 32)).astype(np.float32)
+    jidx = JIndex(items, method=method, quantize=quantize)
+    pidx = BruteForceMIPS(items, method=method, quantize=quantize,
+                          device="cpu")
+    assert (pidx.items is None) == (jidx.items is None)
+    js, ji = jidx.search(q, topk=20)
+    ps, pi = pidx.search(q, topk=20)
+    assert pi.dtype == torch.int32 and ps.shape == (16, 20)
+    assert _sets_equal(pi, ji)
+    np.testing.assert_allclose(ps.numpy(), js, rtol=1e-5, atol=1e-6)
+    if method == "refined":       # returned scores are the exact f32 ones
+        exact = np.take_along_axis(q @ items.T, pi.numpy().astype(np.int64),
+                                   axis=1)
+        np.testing.assert_allclose(ps.numpy(), exact, rtol=1e-5, atol=1e-6)
+
+
+def test_index_constructor_checks_match_jax():
+    """keep_f32=False contradicts an int8 'refined' index (ValueError); an
+    int8 'exact' request raises NotImplementedError, as in JAX."""
+    items = np.random.default_rng(41).normal(size=(256, 8)).astype(np.float32)
+    for cls, kw in ((JIndex, {}), (BruteForceMIPS, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="keep_f32"):
+            cls(items, method="refined", quantize="int8", keep_f32=False,
+                **kw)
+        with pytest.raises(NotImplementedError, match="int8"):
+            cls(items, method="exact", quantize="int8", **kw)
+        assert cls(items, method="refined", quantize="int8",
+                   **kw).keep_f32 is True
 
 
 def test_chunked_topk_matches_numpy():
