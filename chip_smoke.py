@@ -7,6 +7,8 @@ Phases (any failure raises and exits non-zero):
   1. the card, as nvidia-smi names it, with its power limit;
   2. build every CUDA kernel of the port from `recbox_tpu_torch/csrc/`
      (one nvcc per source, all started together) into `build/kernels/`;
+     each kernel's registers and spills as ptxas gives them (B4's wgmma
+     route and B5 must spill nothing);
   3. every kernel against its plain PyTorch version on the card: the MIPS
      top-k (B3) at a small shape, the serving path's shape and the 1M x 128
      shape, and at 20 and 600 queries (the JAX segment plan below 1024
@@ -19,15 +21,20 @@ Phases (any failure raises and exits non-zero):
   3c. the candidate kernels and the sequence pool against their plain
      versions: B4 (`mips_segment_candidates`, packed bf16, packed int8,
      unpacked bf16) at the profiling shape of `tools/prof_mips_batched.py`
-     (N=1M, D=128, Q=8192, the 1024-query plan), integer-valued inputs bit
-     for bit and N(0, 1) ones up to packed near-ties; every instantiation
-     (f32 too) on integer data at 3000 rows x 20 queries (the packed ones
-     split into runs merged by atomic max) and 100,000 x 1024, bit for bit;
-     B5 (bitonic top-k) at the merge-only (7812, 1024) shape, k=500 and
-     100, and the full path's (7936, 8192) with ties, bit for bit; B6
-     (`seq_embedding_pool`) at V=1M, B=8192, L=50, D=128 (mean, sum) and 64
-     over Zipf ids with ~20% pads and rows of pads, over uniform ids, and
-     with ids out of range (NaN rows on both);
+     (N=1M, D=128, Q=8192, the 1024-query plan, on the wgmma route),
+     integer-valued inputs bit for bit and N(0, 1) ones up to packed
+     near-ties; every instantiation (f32 too) on integer data at 3000 rows
+     x 20 queries (the tile route, the packed ones split into runs merged
+     by atomic max) and 100,000 x 1024, and bf16 packed and unpacked and
+     int8 at each plan of the wgmma route (query tiles of 8192, 4096, 2048
+     and 1024: 1, 2, 4 and 8 segments a sub-chunk) over 50,000 rows x 300
+     queries, bit for bit; B5 (the radix selection) at
+     the merge-only (7812, 1024) shape, k=500 and 100, the full path's
+     (7936, 8192) with ties, the merge-only shape row-major (ids and
+     positions), a windowed (40,000, 64) with ties and k = C at 16384, bit
+     for bit; B6 (`seq_embedding_pool`) at V=1M, B=8192, L=50, D=128
+     (mean, sum) and 64 over Zipf ids with ~20% pads and rows of pads, over
+     uniform ids, and with ids out of range (NaN rows on both);
   4. the serving path: a YoutubeDNN at the repository's width
      (`configs/models/youtubednn.yaml`: dim 64, MLP 256-128-64, 1M users,
      1M items, 50-long histories) with random weights from a seed, behind a
@@ -35,11 +42,14 @@ Phases (any failure raises and exits non-zero):
      queried for 8192 users at k=500 from a bf16 and from an int8 corpus,
      with the kernel launch counts reset just before and read just after;
      recall against an exact bf16 top-k oracle; seen-item exclusion;
-  4b. the candidate paths, with B4, B5 and B6's counts reset just before
-     and read just after: `pallas_mips_topk` at B4's shape packed (default
-     merge), unpacked through B5 (`merge='bitonic'`, ids equal to the exact
-     merge's) and over int8 rows, recall against an exact f32 top-k over
-     512 queries; `seq_embedding_pool` at B6's shapes; then the rest of
+  4b. the candidate paths, with B4 (by variant and by route), B5 and B6's
+     counts reset just before and read just after: `pallas_mips_topk` at
+     B4's shape packed (default merge), unpacked through B5
+     (`merge='bitonic'`, ids equal to the exact merge's) and over int8 rows,
+     recall against an exact f32 top-k over 512 queries, every call on
+     B4's wgmma route; `seq_embedding_pool` at B6's shapes; then each
+     `pallas_mips_topk` call timed (ms per 8192 queries, median of 3)
+     beside its candidate generation alone; then the rest of
      `BruteForceMIPS` behind `RetrievalService` on phase 4's corpus
      ('refined', int8 'approx', int8 'refined'), recall against an exact
      f32 oracle, refined scores against the f32 dot products, queries/s;
@@ -57,16 +67,16 @@ Phases (any failure raises and exits non-zero):
      step), falling loss, examples/s, one step under torch.profiler; the
      CPU Markov learning test trained on the card (hit@1 > 0.8); the 60k
      regime through `full_scores` against `fused_ce_loss`;
-  6. times with CUDA events (median after a warm-up; B6 and its yardstick,
-     tens of microseconds a call, over runs of 20 calls queued behind a
-     spin kernel, so the host's launch work is not timed): each kernel, its
+  6. times with CUDA events (median after a warm-up; B5, B6 and their
+     yardsticks over runs of 20 calls queued behind a spin kernel, so the
+     host's launch work is not timed): each kernel, its
      plain version, one PyTorch yardstick (torch.matmul + torch.topk for
      B3, the `index_add_` scatter B1 absorbs, a bf16 matmul into 2 GB of
      logits + F.cross_entropy for B2, cuBLAS scores + segment amax for B4,
      torch.topk for B5, F.embedding_bag for B6, over Zipf ids that stay in
      L2 and uniform ones that reach HBM; the port calls none of them), the
-     bound (and B2's exp floor, B5's compare-exchanges), and the
-     service's queries/s; one service
+     bound (and B2's exp floor), B4's tile route on the same inputs beside
+     its wgmma route, and the service's queries/s; one service
      query under torch.profiler, for device time by kernel and the
      device's idle share.
 
@@ -109,6 +119,33 @@ DEVICE = "cuda"
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers and spills of each entry function in an ``nvcc -Xptxas
+    -v`` log: {mangled name: {"registers", "spill_stores", "spill_loads",
+    "stack"}} (bytes for the last three)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = {}
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out[name].update(stack=nums[0], spill_stores=nums[1],
+                             spill_loads=nums[2])
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(line.split("Used")[1].split()[0])
+    return out
+
+
+def usage_of(logs: dict, lib: str, fragment: str) -> list:
+    """`ptxas_usage` of library ``lib``'s entry functions whose (mangled)
+    name holds ``fragment``, as a list of {"function", ...} entries."""
+    usage = ptxas_usage(logs.get(lib, ""))
+    return [{"function": name, **u} for name, u in sorted(usage.items())
+            if fragment in name]
 
 
 def cuda_ms(fn, reps: int = 5, inner: int = 1) -> float:
@@ -630,6 +667,12 @@ B4_F32_VARIANTS = (("packed", torch.float32, True),
 # packed variants split each sub-chunk into runs merged by atomic max), and
 # a mid-size one with no split runs; the last 37 rows past valid_items
 B4_SMALL = ((3000, 20), (100_000, 1024))
+# the plans the wgmma route takes at D=128 (bf16, int8): query tiles of
+# 8192, 4096, 2048 and 1024 queries give n_seg = 1, 2, 4 and 8; 300
+# queries (a ragged second tile of 256) over a corpus whose last sub-chunk
+# is ragged, rows past valid_items
+B4_PLAN_TILES = (8192, 4096, 2048, 1024)
+B4_PLAN_SHAPE = (50_000, 300)
 
 
 def b4_inputs(gen, dtype, integer, n=None, nq=None):
@@ -652,55 +695,69 @@ def b4_inputs(gen, dtype, integer, n=None, nq=None):
     return q.to(dtype), c.to(dtype), None
 
 
-def b4_candidates(q, c, scale, packed, valid=None):
-    """The kernel at the plan of a tile of min(1024, Q) queries, as
-    `pallas_mips_topk` launches it, and that plan's sub_rows."""
+def b4_candidates(q, c, scale, packed, valid=None, tile=None):
+    """The kernel at the plan of a tile of ``tile`` (default min(1024, Q))
+    queries, as `pallas_mips_topk` launches it, and that plan's sub_rows."""
     from recbox_tpu_torch.ops.mips_topk import _candidates, candidate_plan
     n = c.shape[0]
-    sub, n_cand = candidate_plan(c.dtype, n, B4_D, min(B4_TILE, q.shape[0]))
+    tile = tile or min(B4_TILE, q.shape[0])
+    sub, n_cand = candidate_plan(c.dtype, n, B4_D, tile)
     return _candidates(q, c, n if valid is None else valid, packed, scale,
                        sub, n_cand), sub
 
 
-def b4_pair(q, c, scale, packed, valid=None):
+def b4_pair(q, c, scale, packed, valid=None, tile=None):
     """The kernel (`b4_candidates`) and its plain version on the same inputs
     over the rows that hold corpus rows (the rest the wrapper fills alike);
-    and the split runs of the launch."""
+    the route the launch took and its split runs (the tile route's)."""
     from recbox_tpu_torch.ops.mips_topk import (
-        mips_segment_candidates_plain, split_runs,
+        candidate_route, mips_segment_candidates_plain, route_launches,
+        split_runs,
     )
     n, nq = c.shape[0], q.shape[0]
     valid = n if valid is None else valid
-    got, sub = b4_candidates(q, c, scale, packed, valid)
+    before = dict(route_launches)
+    got, sub = b4_candidates(q, c, scale, packed, valid, tile)
+    route = candidate_route(c.dtype, c.shape[1], sub)
+    assert route_launches[route] == before[route] + 1, (route, before)
     want = mips_segment_candidates_plain(q, c, valid, packed, scale, sub)
     n_live = (want if packed else want[0]).shape[0]
     got = got[:n_live] if packed else (got[0][:n_live], got[1][:n_live])
-    return got, want, split_runs(nq, n, sub, packed, c.device)
+    splits = 1 if route == "wgmma" else split_runs(nq, n, sub, packed,
+                                                   c.device)
+    return got, want, {"route": route, "sub_rows": sub, "splits": splits}
+
+
+def b4_bits_equal(got, want, packed):
+    if packed:
+        return torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)) \
+        and torch.equal(got[1], want[1])
 
 
 def check_b4_small(gen):
-    """Every instantiation of B4 (f32 too) at the `B4_SMALL` shapes on
-    integer-valued inputs, against the plain version bit for bit; at the
-    first shape the packed ones must run split."""
+    """Every instantiation of B4 (f32 too) at the `B4_SMALL` shapes, and
+    bf16 packed and unpacked and int8 at each plan of the wgmma route
+    (`B4_PLAN_TILES`), on integer-valued inputs, against the plain version
+    bit for bit; at the first small shape the packed ones must run split on
+    the tile route, and each plan tile must take the wgmma route."""
     out = []
-    for n, nq in B4_SMALL:
-        for name, dtype, packed in B4_VARIANTS + B4_F32_VARIANTS:
-            q, c, scale = b4_inputs(gen, dtype, True, n, nq)
-            got, want, splits = b4_pair(q, c, scale, packed, n - 37)
-            torch.cuda.synchronize()
-            if packed:
-                equal = torch.equal(got.view(torch.int32),
-                                    want.view(torch.int32))
-            else:
-                equal = torch.equal(got[0].view(torch.int32),
-                                    want[0].view(torch.int32)) \
-                    and torch.equal(got[1], want[1])
-            assert equal, (n, nq, name, dtype)
-            if packed and n == B4_SMALL[0][0]:
-                assert splits > 1, (n, nq, name, splits)
-            out.append({"variant": name, "dtype": str(dtype), "n": n,
-                        "q": nq, "valid_items": n - 37, "splits": splits,
-                        "bits_equal": True, "max_abs_err": 0.0})
+    cases = [(n, nq, None, v) for n, nq in B4_SMALL
+             for v in B4_VARIANTS + B4_F32_VARIANTS]
+    cases += [(*B4_PLAN_SHAPE, tile, v) for tile in B4_PLAN_TILES
+              for v in B4_VARIANTS]
+    for n, nq, tile, (name, dtype, packed) in cases:
+        q, c, scale = b4_inputs(gen, dtype, True, n, nq)
+        got, want, how = b4_pair(q, c, scale, packed, n - 37, tile)
+        torch.cuda.synchronize()
+        assert b4_bits_equal(got, want, packed), (n, nq, tile, name, dtype)
+        if packed and n == B4_SMALL[0][0]:
+            assert how["route"] == "tile" and how["splits"] > 1, (n, how)
+        if tile is not None:
+            assert how["route"] == "wgmma", (tile, how)
+        out.append({"variant": name, "dtype": str(dtype), "n": n, "q": nq,
+                    "plan_tile": tile, "valid_items": n - 37, **how,
+                    "bits_equal": True, "max_abs_err": 0.0})
     return out
 
 
@@ -716,7 +773,7 @@ def check_b4(gen):
     for name, dtype, packed in B4_VARIANTS:
         for integer in (True, False):
             q, c, scale = b4_inputs(gen, dtype, integer)
-            got, want, _ = b4_pair(q, c, scale, packed)
+            got, want, how = b4_pair(q, c, scale, packed)
             torch.cuda.synchronize()
             if packed:
                 gb, wb = got.view(torch.int32), want.view(torch.int32)
@@ -744,7 +801,8 @@ def check_b4(gen):
                 tolerance = (f"winner differs on <= 1e-3 of candidates; "
                              f"scores rtol {rtol} atol 1e-6 elsewhere")
             out.append({"variant": name, "inputs": "integer" if integer
-                        else "normal", "candidates": list(w_s.shape),
+                        else "normal", "route": how["route"],
+                        "candidates": list(w_s.shape),
                         "bits_equal": bits_equal,
                         "winner_mismatch_share": mismatch,
                         "max_abs_err": max_err, "tolerance": tolerance})
@@ -762,25 +820,50 @@ def b5_inputs(gen, c, q, ties=False):
     return s, ids.to(torch.int32)
 
 
+# B5's further checks: a windowed shape (C past the kernel's 16384-key
+# window: three windows carry the top k), and k = C at one window's width
+B5_WINDOWED = (40_000, 64)
+B5_FULL_K = (16384, 8)
+
+
 def check_b5(gen):
-    """B5 against its plain version: the merge-only shape at k=500 and 100,
-    and the B4 path's (7936, 8192) at k=500 with bf16-rounded scores (ties
-    that the total order breaks the same way on both). Bit for bit."""
+    """B5 against its plain version, bit for bit: the merge-only shape at
+    k=500 and 100, and the B4 path's (7936, 8192) at k=500 with bf16-rounded
+    scores (ties that the total order breaks the same way on both), all
+    candidate-major; the merge-only shape row-major through
+    `pallas_bitonic_topk` (ids and the default positions); the windowed
+    shape at k=500 with ties; k = C. Each at the plan's queries a block."""
     from recbox_tpu_torch.ops.bitonic_topk import (
-        bitonic_topk_plain, pallas_bitonic_topk_cmajor,
+        bitonic_topk_plain, pallas_bitonic_topk, pallas_bitonic_topk_cmajor,
+        select_plan,
     )
     out = []
-    for (c, q), k, ties in ((B5_MERGE, K, False), (B5_MERGE, 100, False),
-                            ((B5_FULL, B4_Q), K, True)):
+    cases = ((B5_MERGE, K, False, "cmajor"), (B5_MERGE, 100, False, "cmajor"),
+             ((B5_FULL, B4_Q), K, True, "cmajor"),
+             (B5_MERGE, K, False, "rows"), (B5_MERGE, K, False, "positions"),
+             (B5_WINDOWED, K, True, "cmajor"),
+             (B5_FULL_K, B5_FULL_K[0], True, "cmajor"))
+    for (c, q), k, ties, layout in cases:
         s, ids = b5_inputs(gen, c, q, ties)
-        ts, ti = pallas_bitonic_topk_cmajor(s, ids, k)
-        ps, pi = bitonic_topk_plain(s.T, ids.T, k)
+        if layout == "cmajor":
+            ts, ti = pallas_bitonic_topk_cmajor(s, ids, k)
+            ts, ti = ts.T, ti.T
+            ps, pi = bitonic_topk_plain(s.T, ids.T, k)
+        else:
+            rows = s.T.contiguous()
+            row_ids = None if layout == "positions" else ids.T.contiguous()
+            ts, ti = pallas_bitonic_topk(rows, row_ids, k)
+            ps, pi = bitonic_topk_plain(rows, row_ids, k)
         torch.cuda.synchronize()
-        assert ts.shape == (k, q) and ti.shape == (k, q)
-        assert torch.equal(ts.T, ps) and torch.equal(ti.T, pi), (c, q, k)
-        assert bool((ts[1:] <= ts[:-1]).all())
-        out.append({"c": c, "q": q, "k": k, "ties": ties,
-                    "equal_to_plain": True, "max_abs_err": 0.0})
+        assert ts.shape == (q, k) and ti.shape == (q, k)
+        assert torch.equal(ts, ps) and torch.equal(ti, pi), (c, q, k, layout)
+        assert bool((ts[:, 1:] <= ts[:, :-1]).all())
+        qb, window, kpt, _ = select_plan(c, k)
+        out.append({"c": c, "q": q, "k": k, "ties": ties, "layout": layout,
+                    "queries_a_block": qb, "keys_a_thread": kpt,
+                    "window": window,
+                    "windows": -(-c // window), "equal_to_plain": True,
+                    "max_abs_err": 0.0})
     return out
 
 
@@ -845,7 +928,11 @@ def candidate_paths(gen):
     """Phase 4b, the candidate paths: `pallas_mips_topk` at the profiling
     shape packed (default merge), unpacked with the bitonic merge and with
     the exact merge, and over int8 rows; `seq_embedding_pool` at B6's
-    shapes. Counts of B4, B5 and B6 reset just before, read just after."""
+    shapes. Counts of B4 (by variant and by route), B5 and B6 reset just
+    before, read just after: every call takes B4's wgmma route. Then each
+    `pallas_mips_topk` call is timed (ms per 8192
+    queries, median of 3, CUDA events) beside its candidate generation
+    alone, the difference being its merge."""
     from recbox_tpu_torch.ops import bitonic_topk, embedding_gather, mips_topk
     from recbox_tpu_torch.ops.mips_topk import pallas_mips_topk, quantize_int8
     q = torch.randn(B4_Q, B4_D, generator=gen, device=DEVICE)
@@ -853,22 +940,29 @@ def candidate_paths(gen):
     qb, cb = q.to(torch.bfloat16), c.to(torch.bfloat16)
     c8, scale = quantize_int8(c)
     pools = [b6_inputs(d) for d in (128, DIM)]
+    calls = {
+        "packed": lambda: pallas_mips_topk(qb, cb, K, query_tile=B4_TILE),
+        "bitonic": lambda: pallas_mips_topk(qb, cb, K, packed=False,
+                                            merge="bitonic",
+                                            query_tile=B4_TILE),
+        "exact": lambda: pallas_mips_topk(qb, cb, K, packed=False,
+                                          exact_merge=True,
+                                          query_tile=B4_TILE),
+        "int8": lambda: pallas_mips_topk(q, c8, K, row_scale=scale,
+                                         query_tile=B4_TILE)}
     for mod in (mips_topk, bitonic_topk, embedding_gather):
         mod.reset_launches()
-    res = {"packed": pallas_mips_topk(qb, cb, K, query_tile=B4_TILE),
-           "bitonic": pallas_mips_topk(qb, cb, K, packed=False,
-                                       merge="bitonic", query_tile=B4_TILE),
-           "exact": pallas_mips_topk(qb, cb, K, packed=False,
-                                     exact_merge=True, query_tile=B4_TILE),
-           "int8": pallas_mips_topk(q, c8, K, row_scale=scale,
-                                    query_tile=B4_TILE)}
+    res = {name: call() for name, call in calls.items()}
     pooled = [embedding_gather.seq_embedding_pool(t, i, p, "mean")
               for t, i, p in pools]
     torch.cuda.synchronize()
     counts = {**mips_topk.launches, **bitonic_topk.launches,
               **embedding_gather.launches}
+    routes = dict(mips_topk.route_launches)
     assert counts == {"packed": 1, "packed_int8": 1, "unpacked": 2,
                       "bitonic_topk": 1, "seq_embedding_pool": 2}, counts
+    # the 1024-query plan of every call on the new route
+    assert routes == {"wgmma": 4, "tile": 0}, routes
     for name, (s, i) in res.items():
         assert s.shape == (B4_Q, K) and i.shape == (B4_Q, K), name
         assert bool(torch.isfinite(s).all()), name
@@ -884,9 +978,24 @@ def candidate_paths(gen):
     for out, (t, _, _) in zip(pooled, pools):
         assert out.shape == (B6_B, t.shape[1])
         assert bool(torch.isfinite(out).all())
-    return counts, {"k": K, "queries": 512, "recall": recall,
-                    "bitonic_equals_exact_merge": True,
-                    "predicted": 1 - K * 128 / (2 * B4_N)}
+    del res, pooled
+    c8q = quantize_int8(q)[0]
+    gens = {"packed": lambda: b4_candidates(qb, cb, None, True),
+            "bitonic": lambda: b4_candidates(qb, cb, None, False),
+            "int8": lambda: b4_candidates(c8q, c8, scale, True)}
+    gens["exact"] = gens["bitonic"]
+    per = B4_Q / 8192
+    times = {}
+    for name, call in calls.items():
+        path_ms = cuda_ms(call, reps=3) / per
+        cand_ms = cuda_ms(gens[name], reps=3) / per
+        times[name] = {"path_ms": path_ms, "candidates_ms": cand_ms,
+                       "merge_ms": path_ms - cand_ms,
+                       "merge_share": (path_ms - cand_ms) / path_ms}
+    return counts, {"routes": routes, "k": K, "queries": 512,
+                    "recall": recall, "bitonic_equals_exact_merge": True,
+                    "predicted": 1 - K * 128 / (2 * B4_N),
+                    "ms_per_8192_queries": times}
 
 
 def service_paths(model, item_embs, users):
@@ -965,28 +1074,55 @@ def b4_bound(dtype, packed):
         else "bytes"
 
 
+def b4_tile_route(q, c, scale, packed, sub):
+    """B4's tile route (its first design) forced through the library's C
+    entry on inputs the wrapper sends to the wgmma route, for a same-run
+    comparison; the port's wrapper never does this."""
+    from recbox_tpu_torch.ops import mips_topk as m
+    nq, (n, d) = q.shape[0], c.shape
+    rows = -(-n // sub) * (sub // 128)
+    out_s = torch.empty((rows, nq), device=c.device)
+    out_i = None if packed else torch.empty((rows, nq), dtype=torch.int32,
+                                            device=c.device)
+    splits = m.split_runs(nq, n, sub, packed, c.device)
+    if splits > 1:
+        out_s.fill_(float("-inf"))
+    rc = m._kernel_lib().recbox_mips_segment_candidates(
+        m._DTYPES[c.dtype], int(packed), q.data_ptr(), c.data_ptr(),
+        None if scale is None else scale.data_ptr(), out_s.data_ptr(),
+        None if out_i is None else out_i.data_ptr(), nq, n, d, n, sub,
+        splits, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, rc
+    return out_s, out_i
+
+
 def time_b4(gen):
-    """Each B4 variant at the profiling shape: kernel, plain version, the
-    library formulation, the bound."""
+    """Each B4 variant at the profiling shape: kernel (on the route the
+    wrapper picks), plain version, the library formulation, the bound, and
+    the tile route on the same inputs."""
     import torch.nn.functional as F
     from recbox_tpu_torch.ops.mips_topk import (
-        candidate_plan, mips_segment_candidates_plain,
+        candidate_plan, candidate_route, mips_segment_candidates_plain,
     )
     out = {}
     for name, dtype, packed in B4_VARIANTS:
         q, c, scale = b4_inputs(gen, dtype, False)
         sub, _ = candidate_plan(dtype, B4_N, B4_D, B4_TILE)
+        route = candidate_route(dtype, B4_D, sub)
         pad = (-B4_N) % sub
         c_pad = F.pad(c, (0, 0, 0, pad))
         scale_pad = None if scale is None else F.pad(scale, (0, pad))
         ms = cuda_ms(lambda: b4_candidates(q, c, scale, packed))
+        tile_ms = cuda_ms(lambda: b4_tile_route(q, c, scale, packed, sub)) \
+            if route == "wgmma" else ms
         plain_ms = cuda_ms(lambda: mips_segment_candidates_plain(
             q, c, B4_N, packed, scale, sub), reps=3)
         library_ms = cuda_ms(lambda: b4_library(q, c_pad, scale_pad, sub,
                                                 packed), reps=3)
         b_ms, b_by = b4_bound(dtype, packed)
-        out[name] = {"variant": name, "n": B4_N, "d": B4_D, "q": B4_Q,
-                     "query_tile": B4_TILE, "ms": ms, "plain_ms": plain_ms,
+        out[name] = {"variant": name, "route": route, "n": B4_N, "d": B4_D,
+                     "q": B4_Q, "query_tile": B4_TILE, "ms": ms,
+                     "tile_route_ms": tile_ms, "plain_ms": plain_ms,
                      "library_ms": library_ms, "bound_ms": b_ms,
                      "bound_by": b_by}
         del q, c, scale, c_pad, scale_pad
@@ -995,29 +1131,32 @@ def time_b4(gen):
 
 def time_b5(gen):
     """B5 on the B4 path's (7936, 8192) candidates at k=500 and the
-    merge-only shape at k=500 / 100: kernel, plain version, torch.topk on
-    the (Q, C) view, the byte bound, and the sort's compare-exchanges."""
+    merge-only shape at k=500 / 100: kernel, plain version and torch.topk
+    on the (Q, C) view, the kernel and torch.topk over runs of 20 calls
+    behind a spin kernel; the byte bound; the compare-exchanges of the
+    survivors' sort."""
     from recbox_tpu_torch.ops.bitonic_topk import (
-        bitonic_topk_plain, pallas_bitonic_topk_cmajor, sort_width,
+        bitonic_topk_plain, pallas_bitonic_topk_cmajor, select_plan,
     )
     out = []
     for (c, q), k in (((B5_FULL, B4_Q), K), (B5_MERGE, K), (B5_MERGE, 100)):
         s, ids = b5_inputs(gen, c, q)
-        p = sort_width(c, k)
-        stages = int(math.log2(p)) * (int(math.log2(p)) + 1) // 2
-        windows = 1 if p >= c else 1 + -(-(c - p) // (p - k))
+        qb, _, kpt, p = select_plan(c, k)
+        width = max(p, 512)   # the kernel's register sort takes 512 keys
+        stages = int(math.log2(width)) * (int(math.log2(width)) + 1) // 2
         # every score read once; ids only of the k winners; k pairs written
         moved = c * q * 4 + k * q * 4 + k * q * 8
         out.append({
-            "c": c, "q": q, "k": k,
+            "c": c, "q": q, "k": k, "queries_a_block": qb,
+            "keys_a_thread": kpt,
             "ms": cuda_ms(lambda: pallas_bitonic_topk_cmajor(s, ids, k),
-                          reps=10),
+                          reps=11, inner=20),
             "plain_ms": cuda_ms(lambda: bitonic_topk_plain(s.T, ids.T, k)),
             "library_ms": cuda_ms(lambda: torch.topk(s.T, k, dim=1),
-                                  reps=10),
+                                  reps=11, inner=20),
             "bound_ms": moved / HBM_BYTES_S * 1e3, "bound_by": "bytes",
             "bytes": moved,
-            "compare_exchanges": stages * (p // 2) * windows * q})
+            "sort_compare_exchanges": stages * (width // 2) * q})
     return out
 
 
@@ -1395,6 +1534,15 @@ def main() -> int:
     for name, log in _build.build_logs.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         emit({"phase": "ptxas", "kernel": name, "usage": regs})
+    # the redesigned kernels (B4's wgmma route, B5's selection) spill nothing
+    redesigned = {"mips_topk": usage_of(_build.build_logs, "mips_topk",
+                                        "segment_candidates_wgmma"),
+                  "bitonic_topk": usage_of(_build.build_logs, "bitonic_topk",
+                                           "select_topk")}
+    for name, usage in redesigned.items():
+        emit({"phase": "ptxas_redesigned", "kernel": name, "usage": usage})
+        assert usage and all(u["spill_stores"] == u["spill_loads"] == 0
+                             for u in usage), (name, usage)
 
     # 3. kernel against plain
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1600,6 +1748,9 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "library": "per 1024 queries: cuBLAS scores (bf16 matmul or "
                        "torch._int_mm) + strided segment amax/max",
+            "kernel_route": t["route"], "tile_route_ms": t["tile_route_ms"],
+            "ptxas": redesigned["mips_topk"] if t["route"] == "wgmma"
+            else None,
             "matches_plain": True,
             "shape": {"n": B4_N, "d": B4_D, "q": B4_Q,
                       "query_tile": B4_TILE}})
@@ -1614,7 +1765,12 @@ def main() -> int:
         "bound_ms": t5["bound_ms"], "bound_by": t5["bound_by"],
         "library_ms": t5["library_ms"],
         "library": "torch.topk on the (Q, C) view",
-        "compare_exchanges": t5["compare_exchanges"], "matches_plain": True,
+        "design": "radix selection over keys in registers, then a sort of "
+                  "the k survivors",
+        "queries_a_block": t5["queries_a_block"],
+        "merge_only": {f"k={t['k']}": {key: t[key] for key in (
+            "ms", "library_ms", "bound_ms")} for t in b5_times[1:]},
+        "ptxas": redesigned["bitonic_topk"], "matches_plain": True,
         "shape": {"c": t5["c"], "q": t5["q"], "k": t5["k"]}})
     t6, t6u = b6_times[0], b6_times[2]
     kernels.append({

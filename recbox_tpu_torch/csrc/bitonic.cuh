@@ -1,6 +1,6 @@
-// Order keys and the shared-memory bitonic sort used by the top-k stages of
-// the port's kernels: B3's `topk_winners` (`mips_fused_topk.cu`) and B5's
-// `bitonic_topk` (`bitonic_topk.cu`).
+// Order keys and the shared-memory bitonic sort of B3's top-k stage
+// (`topk_winners` in `mips_fused_topk.cu`). B5 (`bitonic_topk.cu`) keys the
+// same order as 32-bit words of its own.
 
 #pragma once
 

@@ -23,17 +23,57 @@
 // (260 MB, twice that unpacked) are under 0.2 ms of HBM. Bound by
 // operations.
 //
-// Design: B3's stage (a) (`mips_tile.cuh`): a block takes 64 queries and
-// the 128-row chunks of one sub-chunk, scores each chunk into shared memory
-// and folds it into running winners of its (query, segment) pairs, then
-// stores them candidate-major, 64 consecutive queries of one candidate at a
-// time. The TPU looped over query tiles; here one launch covers every
-// query (the segment plan is the same for every tile). When there are too
-// few blocks to fill the card, the packed variants split a sub-chunk's
-// chunks over `splits` blocks merged by an atomic float max; the unpacked
-// variant runs without splits, so its first-index rule needs no 64-bit
-// atomics (rows reach a block's fold in ascending index order).
+// Two routes, picked by the wrapper's rule on (dtype, depth, plan):
+//
+// `segment_candidates_wgmma` (bf16 packed and unpacked, and int8 packed,
+// at D = 128 and n_seg in {1, 2, 4, 8}; the 1024-query plan is n_seg = 8).
+// The first design (below) reached 11x its bound: WMMA fragments,
+// synchronous loads with two barriers a k-block, the query tile staged
+// again for every 128-row chunk, every score through a shared f32 stage,
+// 64 queries a block (the corpus read 128 times from L2). This one:
+//  * a block takes 256 queries, loaded once by TMA and resident (64 KB of
+//    bf16, 32 of int8): the corpus is read 32 times from L2. Blocks run
+//    query tiles fastest, so the query tiles of one sub-chunk run together
+//    and the corpus comes from HBM about once;
+//  * one producer thread keeps a ring of 4 corpus tiles (64 rows x 128,
+//    128-byte-swizzled TMA boxes) filled, behind mbarriers; rows past N
+//    arrive as zeros and are masked by `valid`;
+//  * two consumer warpgroups each run `wgmma` over half the queries
+//    (m64n128k16 bf16 into f32, or m64n128k32 s8 into s32 then f32 times
+//    the row's scale; 32-byte k-slices, operands from shared memory,
+//    accumulators in registers), one's fold overlapping the other's
+//    product (a second
+//    accumulator set a warpgroup, to overlap its own fold, spilled past
+//    the registers and lost time);
+//  * the fold reads the accumulators in registers, no score stage. A
+//    thread holds rows 16w + lane/4 and +8 of every 64-row tile; row mod 8
+//    is lane/4, so for n_seg dividing 8 every row it sees is in segment
+//    (lane/4) mod n_seg, and it keeps one running winner per query column
+//    (32, plus their indices unpacked). The fold's instructions, not the
+//    products, set the pace, so the packed fold skips the clip to
+//    +-PACK_FLOOR (an identity there) unless a score of the tile passes
+//    it or is NaN, and the row mask unless the tile reaches `valid`.
+//    Unpacked, rows reach a thread in ascending order (tile by tile, row r
+//    before r + 8), so a strict `>` keeps the first index; lanes and warps
+//    of one segment are merged once a sub-chunk (shuffles, then shared
+//    memory), ties to the smaller index;
+//  * then the candidate-major store, consecutive threads on consecutive
+//    queries.
+//
+// `segment_candidates` (every other dtype and plan: f32, other depths,
+// n_seg not dividing 8) is the first design: B3's stage (a)
+// (`mips_tile.cuh`): a block takes 64 queries and the 128-row chunks of one
+// sub-chunk, scores each chunk into shared memory and folds it into running
+// winners of its (query, segment) pairs, then stores them candidate-major.
+// When there are too few blocks to fill the card, the packed variants split
+// a sub-chunk's chunks over `splits` blocks merged by an atomic float max;
+// the unpacked variant runs without splits, so its first-index rule needs
+// no 64-bit atomics (rows reach a block's fold in ascending index order).
+//
+// The TPU looped over query tiles; here one launch covers every query (the
+// segment plan is the same for every tile).
 
+#include "hopper.cuh"
 #include "mips_tile.cuh"
 
 namespace {
@@ -164,6 +204,322 @@ int launch(const void* q, const void* c, const void* row_scale, void* cand_s,
   return (int)cudaGetLastError();
 }
 
+
+// -- the wgmma route ---------------------------------------------------------
+
+// pack() of a live score within +-PACK_FLOOR, where the clip is the
+// identity: the in-segment index in the low mantissa bits.
+__device__ __forceinline__ float pack_bits(float s, int idx) {
+  return __int_as_float((__float_as_int(s) & ~PACK_MASK) | idx);
+}
+
+// One k-slice of the tile product: bf16 k16 into f32, s8 k32 into s32.
+__device__ __forceinline__ void mma_slice(float (&d)[64], uint64_t a,
+                                          uint64_t b, int accumulate) {
+  wgmma_m64n128k16_bf16(d, a, b, accumulate);
+}
+__device__ __forceinline__ void mma_slice(int (&d)[64], uint64_t a,
+                                          uint64_t b, int accumulate) {
+  wgmma_m64n128k32_s8(d, a, b, accumulate);
+}
+
+// A score from its accumulator: bf16's f32 sum as it is; s8's exact s32 sum
+// in f32 times the row's scale, as the tile route and the plain version
+// form it.
+__device__ __forceinline__ float score_of(float acc, float) { return acc; }
+__device__ __forceinline__ float score_of(int acc, float scale) {
+  return (float)acc * scale;
+}
+
+constexpr int WG = 128;                   // threads of a warpgroup
+constexpr int W_TILE_M = 64;              // corpus rows a stage
+constexpr int W_HALF_N = 128;             // queries a consumer warpgroup
+constexpr int W_TILE_N = 2 * W_HALF_N;    // queries a block
+constexpr int W_DEPTH = 128;
+constexpr int W_STAGES = 4;
+constexpr int W_A_BOX = W_TILE_M * 128;   // a 128-byte-wide box of the tile
+constexpr int W_Q_BOX = W_TILE_N * 128;   // and of the query tile
+constexpr int W_MERGE_LD = W_HALF_N + 8;  // merge buffer row stride
+constexpr int W_ROWS_PER_BLOCK = 4096;    // sub-chunks a block: this many rows
+
+// 128-byte boxes across a row of D values: 2 for bf16, 1 for s8.
+template <typename T> __host__ __device__ constexpr int w_boxes() {
+  return W_DEPTH * (int)sizeof(T) / 128;
+}
+
+// Dynamic shared memory: the query tile, the ring, then per consumer
+// warpgroup the (warp, segment, query) winners (and indices unpacked) it
+// merges; +1024 to align the swizzled tiles.
+__host__ __device__ constexpr int wgmma_merge_bytes(int n_seg) {
+  return 4 * n_seg * W_MERGE_LD * 4;
+}
+template <typename T>
+__host__ __device__ constexpr int wgmma_smem(bool packed, int n_seg) {
+  return 1024 + w_boxes<T>() * (W_Q_BOX + W_STAGES * W_A_BOX) +
+         2 * wgmma_merge_bytes(n_seg) * (packed ? 1 : 2);
+}
+
+// Grid (ceil(nq / 256), ceil(n_sub / subs_per_block)), 384 threads:
+// warpgroup 0 loads, 1 and 2 score queries [0, 128) and [128, 256) of the
+// block's tile. Sub-chunks [y * subs_per_block, ...) of NSEG * 128 rows.
+// T is bf16 or s8 (packed, with row_scale).
+template <typename T, bool PACKED, int NSEG>
+__global__ void __launch_bounds__(3 * WG, 1)
+    segment_candidates_wgmma(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap cmap,
+                             const float* __restrict__ row_scale,
+                             float* __restrict__ cand_s,
+                             int* __restrict__ cand_i, int nq, int n,
+                             int n_sub, int valid, int subs_per_block) {
+  using Acc = typename AccOf<T>::type;
+  constexpr int SUB_ROWS = NSEG * SEGMENT;
+  constexpr int TILES = SUB_ROWS / W_TILE_M;
+  constexpr int BOXES = w_boxes<T>();
+  constexpr int BOX_K = 128 / (int)sizeof(T);       // values in a box row
+  constexpr int STAGE = BOXES * W_A_BOX;
+  constexpr int SLICES = W_DEPTH / (32 / (int)sizeof(T));  // 32-byte k
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[W_STAGES], empty[W_STAGES], qfull;
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = smem + BOXES * W_Q_BOX;
+  const int wg = threadIdx.x / WG;
+  const int q0 = blockIdx.x * W_TILE_N;
+  const int sub0 = blockIdx.y * subs_per_block;
+  const int sub1 = min(n_sub, sub0 + subs_per_block);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival from each consumer warp
+    }
+    mbar_init(&qfull, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (wg == 0) {
+    regs_dealloc<40>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(&qfull, BOXES * W_Q_BOX);
+      for (int b = 0; b < BOXES; ++b)
+        tma_load_2d(smem + b * W_Q_BOX, &qmap, &qfull, b * BOX_K, q0);
+      const int tiles = (sub1 - sub0) * TILES;
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % W_STAGES;
+        if (t >= W_STAGES) mbar_wait(&empty[s], (t / W_STAGES - 1) & 1);
+        unsigned char* dst = ring + s * STAGE;
+        const int row = sub0 * SUB_ROWS + t * W_TILE_M;
+        mbar_arrive_tx(&full[s], STAGE);
+        for (int b = 0; b < BOXES; ++b)
+          tma_load_2d(dst + b * W_A_BOX, &cmap, &full[s], b * BOX_K, row);
+      }
+    }
+  } else {
+    regs_alloc<232>();
+    const int half = wg - 1;
+    const int t = threadIdx.x - wg * WG;
+    const int warp = t / 32, lane = t % 32;
+    const int seg = (lane >> 2) & (NSEG - 1);
+    float* mbuf = reinterpret_cast<float*>(ring + W_STAGES * STAGE +
+                                           half * wgmma_merge_bytes(NSEG));
+    int* mbuf_i = reinterpret_cast<int*>(ring + W_STAGES * STAGE +
+                                         (2 + half) * wgmma_merge_bytes(NSEG));
+    const uint64_t qdesc = sw128_desc(smem + half * W_HALF_N * 128);
+    const float neg_inf = __uint_as_float(NEG_INF_BITS);
+    Acc d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0;
+    float win[32];
+    int wi[PACKED ? 1 : 32];
+    mbar_wait(&qfull, 0);
+    int tile = 0;
+    for (int sub = sub0; sub < sub1; ++sub) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        win[j] = neg_inf;
+        if constexpr (!PACKED) wi[j] = 0;
+      }
+      for (int tt = 0; tt < TILES; ++tt, ++tile) {
+        const int s = tile % W_STAGES;
+        mbar_wait(&full[s], (tile / W_STAGES) & 1);
+        const uint64_t adesc = sw128_desc(ring + s * STAGE);
+        fence_regs(d);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < SLICES; ++kk) {
+          // four 32-byte slices to a 128-byte box
+          const uint64_t ka = (kk / 4) * (W_A_BOX >> 4) + (kk % 4) * 2;
+          const uint64_t kq = (kk / 4) * (W_Q_BOX >> 4) + (kk % 4) * 2;
+          mma_slice(d, adesc + ka, qdesc + kq, kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(d);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+        // this thread's two rows of the tile, within the sub-chunk
+        const int r0 = tt * W_TILE_M + 16 * warp + (lane >> 2);
+        const int idx0 = r0 / NSEG, idx1 = (r0 + 8) / NSEG;
+        const int row0 = sub * SUB_ROWS + tt * W_TILE_M;
+        // a tile wholly below `valid` (all but the corpus's last) needs no
+        // masking
+        const bool all_live = row0 + W_TILE_M <= valid;
+        const bool live0 = all_live || sub * SUB_ROWS + r0 < valid;
+        const bool live1 = all_live || sub * SUB_ROWS + r0 + 8 < valid;
+        float sc0 = 1.f, sc1 = 1.f;
+        if constexpr (kIsInt8<T>) {
+          const int row = sub * SUB_ROWS + r0;
+          sc0 = row < n ? __ldg(row_scale + row) : 1.f;
+          sc1 = row + 8 < n ? __ldg(row_scale + row + 8) : 1.f;
+        }
+        if constexpr (PACKED) {
+          // the clip to +-PACK_FLOOR changes nothing unless a score passes
+          // it (or is NaN): then the warp folds the tile with the clip
+          float big = 0.f;
+#pragma unroll
+          for (int j = 0; j < 32; ++j) {
+            big = fmax_nan(big, fabsf(score_of(d[4 * (j / 2) + j % 2], sc0)));
+            big = fmax_nan(big,
+                           fabsf(score_of(d[4 * (j / 2) + 2 + j % 2], sc1)));
+          }
+          if (all_live && !__any_sync(0xFFFFFFFFu, !(big <= PACK_FLOOR))) {
+#pragma unroll
+            for (int j = 0; j < 32; ++j)
+              win[j] = fmaxf(
+                  win[j],
+                  fmaxf(pack_bits(score_of(d[4 * (j / 2) + j % 2], sc0), idx0),
+                        pack_bits(score_of(d[4 * (j / 2) + 2 + j % 2], sc1),
+                                  idx1)));
+          } else {
+#pragma unroll
+            for (int j = 0; j < 32; ++j)
+              win[j] = fmaxf(
+                  win[j],
+                  fmaxf(pack(score_of(d[4 * (j / 2) + j % 2], sc0), live0,
+                             idx0),
+                        pack(score_of(d[4 * (j / 2) + 2 + j % 2], sc1), live1,
+                             idx1)));
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 32; ++j) {
+            // strictly greater: rows arrive in ascending order (r0 before
+            // r0 + 8, tile by tile), so the first index of the max is kept
+            const float s0 = score_of(d[4 * (j / 2) + j % 2], sc0);
+            const float s1 = score_of(d[4 * (j / 2) + 2 + j % 2], sc1);
+            if (live0 && s0 > win[j]) {
+              win[j] = s0;
+              wi[j] = idx0;
+            }
+            if (live1 && s1 > win[j]) {
+              win[j] = s1;
+              wi[j] = idx1;
+            }
+          }
+        }
+      }
+      // lanes of one segment (same lane%4 columns, lane/4 equal mod NSEG)
+#pragma unroll
+      for (int m = 4 * NSEG; m < 32; m <<= 1) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const float v = __shfl_xor_sync(0xFFFFFFFFu, win[j], m);
+          if constexpr (PACKED) {
+            win[j] = fmaxf(win[j], v);
+          } else {
+            const int vi = __shfl_xor_sync(0xFFFFFFFFu, wi[j], m);
+            if (v > win[j] || (v == win[j] && vi < wi[j])) {
+              win[j] = v;
+              wi[j] = vi;
+            }
+          }
+        }
+      }
+      if ((lane >> 2) < NSEG) {
+        const int base = (warp * NSEG + seg) * W_MERGE_LD + 2 * (lane & 3);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          *reinterpret_cast<float2*>(mbuf + base + 8 * j) =
+              make_float2(win[2 * j], win[2 * j + 1]);
+          if constexpr (!PACKED)
+            *reinterpret_cast<int2*>(mbuf_i + base + 8 * j) =
+                make_int2(wi[2 * j], wi[2 * j + 1]);
+        }
+      }
+      named_sync(wg, WG);
+      // the four warps, then the coalesced candidate-major store
+      for (int p = t; p < NSEG * W_HALF_N; p += WG) {
+        const int g = p / W_HALF_N, col = p % W_HALF_N;
+        float v = mbuf[g * W_MERGE_LD + col];
+        int vi = 0;
+        if constexpr (!PACKED) vi = mbuf_i[g * W_MERGE_LD + col];
+#pragma unroll
+        for (int w = 1; w < 4; ++w) {
+          const int at = (w * NSEG + g) * W_MERGE_LD + col;
+          if constexpr (PACKED) {
+            v = fmaxf(v, mbuf[at]);
+          } else {
+            const float u = mbuf[at];
+            const int ui = mbuf_i[at];
+            if (u > v || (u == v && ui < vi)) {
+              v = u;
+              vi = ui;
+            }
+          }
+        }
+        const int q = q0 + half * W_HALF_N + col;
+        if (q < nq) {
+          const size_t at = (size_t)(sub * NSEG + g) * nq + q;
+          cand_s[at] = v;
+          if constexpr (!PACKED) cand_i[at] = sub * SUB_ROWS + g + vi * NSEG;
+        }
+      }
+      named_sync(wg, WG);
+    }
+  }
+}
+
+template <typename T, bool PACKED, int NSEG>
+int launch_wgmma(const CUtensorMap& qmap, const CUtensorMap& cmap,
+                 const void* row_scale, void* cand_s, void* cand_i, int nq,
+                 int n, int valid, cudaStream_t stream) {
+  constexpr int SUB_ROWS = NSEG * SEGMENT;
+  const int smem = wgmma_smem<T>(PACKED, NSEG);
+  auto kernel = segment_candidates_wgmma<T, PACKED, NSEG>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_sub = (n + SUB_ROWS - 1) / SUB_ROWS;
+  const int spb = W_ROWS_PER_BLOCK / SUB_ROWS;
+  const dim3 grid((nq + W_TILE_N - 1) / W_TILE_N, (n_sub + spb - 1) / spb);
+  kernel<<<grid, 3 * WG, smem, stream>>>(
+      qmap, cmap, static_cast<const float*>(row_scale),
+      static_cast<float*>(cand_s), static_cast<int*>(cand_i), nq, n, n_sub,
+      valid, spb);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool PACKED>
+int launch_wgmma_plan(const CUtensorMap& qmap, const CUtensorMap& cmap,
+                      const void* row_scale, void* cand_s, void* cand_i,
+                      int nq, int n, int valid, int n_seg, cudaStream_t st) {
+  switch (n_seg) {
+    case 1:
+      return launch_wgmma<T, PACKED, 1>(qmap, cmap, row_scale, cand_s,
+                                        cand_i, nq, n, valid, st);
+    case 2:
+      return launch_wgmma<T, PACKED, 2>(qmap, cmap, row_scale, cand_s,
+                                        cand_i, nq, n, valid, st);
+    case 4:
+      return launch_wgmma<T, PACKED, 4>(qmap, cmap, row_scale, cand_s,
+                                        cand_i, nq, n, valid, st);
+    case 8:
+      return launch_wgmma<T, PACKED, 8>(qmap, cmap, row_scale, cand_s,
+                                        cand_i, nq, n, valid, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -205,6 +561,40 @@ int recbox_mips_segment_candidates(int dtype, int packed, const void* q,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The wgmma route: dtype 1 = bfloat16 (packed or not), 2 = int8 (packed,
+// row_scale required); q (nq, 128) and c (n, 128) row-major of that dtype;
+// sub_rows = 128 * n_seg with n_seg in {1, 2, 4, 8}; cand_s float32 and,
+// unpacked, cand_i int32, each with at least ceil(n / sub_rows) * n_seg
+// rows of nq. Every winner of those rows is written (no split runs).
+int recbox_mips_segment_candidates_wgmma(int dtype, int packed, const void* q,
+                                         const void* c, const void* row_scale,
+                                         void* cand_s, void* cand_i, int nq,
+                                         int n, int d, int valid,
+                                         int sub_rows, void* stream) {
+  const int n_seg = sub_rows / SEGMENT;
+  if (nq <= 0 || n <= 0 || d != W_DEPTH || sub_rows % SEGMENT != 0 ||
+      (n_seg != 1 && n_seg != 2 && n_seg != 4 && n_seg != 8) ||
+      (dtype != 1 && dtype != 2) || (dtype == 2) != (row_scale != nullptr) ||
+      (!packed && (dtype == 2 || cand_i == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int bytes = dtype == 1 ? 2 : 1;
+  CUtensorMap qmap, cmap;
+  int rc = k_major_map(&qmap, q, nq, d, bytes, W_TILE_N);
+  if (rc == 0) rc = k_major_map(&cmap, c, n, d, bytes, W_TILE_M);
+  if (rc != 0) return rc;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 2)
+    return launch_wgmma_plan<signed char, true>(qmap, cmap, row_scale, cand_s,
+                                                cand_i, nq, n, valid, n_seg,
+                                                st);
+  return packed ? launch_wgmma_plan<__nv_bfloat16, true>(
+                      qmap, cmap, row_scale, cand_s, cand_i, nq, n, valid,
+                      n_seg, st)
+                : launch_wgmma_plan<__nv_bfloat16, false>(
+                      qmap, cmap, row_scale, cand_s, cand_i, nq, n, valid,
+                      n_seg, st);
 }
 
 }  // extern "C"

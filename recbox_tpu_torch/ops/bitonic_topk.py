@@ -10,11 +10,12 @@ and the function is what is ported.
 
 The order is total: score descending, then candidate position ascending,
 which is `lax.top_k`'s order (JAX's network leaves equal scores in no set
-order). Kernel and plain version sort the same 64-bit keys (`order_keys`),
-so they agree bit for bit. The kernel (`csrc/bitonic_topk.cu`, built by
-`ops/_build.py`) runs for CUDA tensors, `bitonic_topk_plain` for CPU
-tensors; a CUDA tensor never reaches the plain version, and a failed build
-or launch raises.
+order). The kernel selects on, and the plain version sorts, the same 64-bit
+keys (`order_keys`), so they agree bit for bit. The kernel
+(`csrc/bitonic_topk.cu`, built by `ops/_build.py`: a radix selection over
+keys held in registers, then a sort of the k survivors) runs for CUDA
+tensors, `bitonic_topk_plain` for CPU tensors; a CUDA tensor never reaches
+the plain version, and a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -28,13 +29,14 @@ import torch
 from recbox_tpu_torch.ops import _build
 
 __all__ = ["pallas_bitonic_topk", "pallas_bitonic_topk_cmajor",
-           "bitonic_topk_plain", "exact_topk", "order_keys", "launches",
-           "reset_launches"]
+           "bitonic_topk_plain", "exact_topk", "order_keys", "select_plan",
+           "launches", "reset_launches"]
 
 # kernel launches on the CUDA path; the plain version never counts
 launches = {"bitonic_topk": 0}
 
-# the kernel sorts windows of at most this many keys in shared memory
+# the kernel's window: at most this many keys selected together in shared
+# memory (and B3's widest sort)
 _MAX_SORT = 16384
 _LOW32 = 0xFFFFFFFF
 
@@ -84,15 +86,16 @@ def bitonic_topk_plain(scores: torch.Tensor, ids: Optional[torch.Tensor],
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("bitonic_topk")
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.recbox_bitonic_topk.argtypes = [vp, vp, vp, vp, i, i, i, i, ll, ll,
-                                        ll, ll, ll, ll, vp]
-    lib.recbox_bitonic_topk.restype = i
+    lib.recbox_select_topk.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i,
+                                       ll, ll, ll, ll, ll, ll, vp]
+    lib.recbox_select_topk.restype = i
     return lib
 
 
 def sort_width(c: int, k: int, who: str = "bitonic_topk") -> int:
-    """Keys per window of the kernel's sort: every candidate when they fit
-    in one window, else a window with k <= width/2."""
+    """Keys per window of B3's winner sort (`csrc/mips_fused_topk.cu`):
+    every candidate when they fit in one window, else a window with
+    k <= width/2."""
     full = 1 << max(1, (c - 1).bit_length())
     width = min(full, 8192)
     if width < full and 2 * k > width:
@@ -103,6 +106,51 @@ def sort_width(c: int, k: int, who: str = "bitonic_topk") -> int:
     return width
 
 
+# the kernel's shapes (csrc/bitonic_topk.cu): 256 threads a query, each
+# with up to 64 keys in registers; a block's shared memory on sm_90 holds
+# the staging of two vector loads a thread, and per query a 2048-bin
+# histogram, a 32-byte state and the survivors' buffers
+_THREADS = 256
+_SMEM_LIMIT = 232448
+_GROUP_FIXED = 2048 * 4 + 32
+
+
+def select_smem(qb: int, c: int, window: int, p: int) -> int:
+    """Shared memory of the kernel's block for ``qb`` queries: the staging
+    of two vector loads a thread (qb > 1), then per query its histogram,
+    state and one buffer of p 8-byte survivors, 512 at least (two when
+    windowed: carry and next)."""
+    nbuf = 2 if window < c else 1
+    staging = 2 * qb * qb * _THREADS * 4 if qb > 1 else 0
+    return staging + qb * (_GROUP_FIXED + nbuf * max(p, 2 * _THREADS) * 8)
+
+
+def select_plan(c: int, k: int, who: str = "bitonic_topk"
+                ) -> Tuple[int, int, int, int]:
+    """(queries a block, keys a window, keys a thread, survivor sort
+    width) of the kernel. Every candidate fits one window up to 16384 (any
+    k <= C); past that, windows of 16384 carry the top k from one to the
+    next, which holds k <= 8192. A block takes 4 queries (16-byte loads of
+    a candidate-major row) while a thread holds at most 32 keys and the
+    block fits in shared memory; at 64 keys a thread 2 queries; else, and
+    when windowed, 1."""
+    if k > c:
+        raise ValueError(f"{who}: k={k} > {c} candidates")
+    p = 1 << max(1, (k - 1).bit_length())
+    window = min(c, _MAX_SORT)
+    if window < c and 2 * k > _MAX_SORT:
+        raise ValueError(f"{who}: k={k} is above the kernel's "
+                         f"{_MAX_SORT // 2} for {c} candidates")
+    kpt = max(8, 1 << (-(-window // _THREADS) - 1).bit_length())
+    for qb in ((4, 2, 1) if window == c else (1,)):
+        # the kernel's instantiations: 8-32 keys a thread at 4 queries a
+        # block, 64 at 2, 32 or 64 at 1
+        built = {4: kpt <= 32, 2: kpt == 64, 1: kpt >= 32}[qb]
+        if built and select_smem(qb, c, window, p) <= _SMEM_LIMIT:
+            return qb, window, kpt, p
+    raise AssertionError("one query's window always fits")  # pragma: no cover
+
+
 def _bitonic_cuda(scores, ids, k, out_s, out_i):
     """Launch the kernel on (Q, C) views ``scores``/``ids`` of any strides
     into (Q, k) views ``out_s``/``out_i`` of any strides."""
@@ -111,12 +159,13 @@ def _bitonic_cuda(scores, ids, k, out_s, out_i):
         raise ValueError(f"bitonic_topk: scores on {dev}; the kernel takes "
                          "scores and ids on one CUDA device")
     q, c = scores.shape
-    width = sort_width(c, k)
+    qb, window, kpt, p = select_plan(c, k)
     lib = _kernel_lib()
     with torch.cuda.device(dev):
-        rc = lib.recbox_bitonic_topk(
+        rc = lib.recbox_select_topk(
             scores.data_ptr(), None if ids is None else ids.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(), q, c, k, width,
+            out_s.data_ptr(), out_i.data_ptr(), q, c, k, p, window,
+            qb, kpt,
             scores.stride(0), scores.stride(1),
             0 if ids is None else ids.stride(0),
             0 if ids is None else ids.stride(1),

@@ -13,7 +13,11 @@ score and a global row id.
 
 The kernel (`csrc/mips_topk.cu`, built by `ops/_build.py`) runs for CUDA
 tensors, `mips_segment_candidates_plain` for CPU tensors; a CUDA tensor
-never reaches the plain version, and a failed build or launch raises.
+never reaches the plain version, and a failed build or launch raises. The
+kernel has two routes, chosen by `candidate_route` from the dtype, the
+depth and the plan: `wgmma` (bf16 and int8, D = 128, n_seg in {1, 2, 4,
+8}: TMA-fed `wgmma` with the segment fold in registers) and `tile` (every
+other case: WMMA / CUDA-core tiles through a shared score stage).
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from recbox_tpu_torch.ops.bitonic_topk import exact_topk, row_topk
 __all__ = ["SEGMENT", "PACK_FLOOR", "PACK_BITS", "PACK_MASK", "block_plan",
            "candidate_plan", "split_runs", "quantize_int8", "winner_ids",
            "mips_segment_candidates", "mips_segment_candidates_plain",
-           "pallas_mips_topk", "launches", "reset_launches"]
+           "pallas_mips_topk", "candidate_route", "launches",
+           "route_launches", "reset_launches"]
 
 SEGMENT = 128          # items per candidate segment (one winner each)
 
@@ -43,9 +48,10 @@ PACK_FLOOR = 3.0e38
 PACK_BITS = 7                       # log2(SEGMENT): index bits packed
 PACK_MASK = (1 << PACK_BITS) - 1
 
-# kernel launches on the CUDA path, by variant; the plain version never
-# counts
+# kernel launches on the CUDA path, by variant and by route; the plain
+# version never counts
 launches = {"packed": 0, "packed_int8": 0, "unpacked": 0}
+route_launches = {"wgmma": 0, "tile": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -61,8 +67,9 @@ ALL_PAD_WINNER = _all_pad_winner()
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, route_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def block_plan(itemsize: int, qt: int, d: int) -> Tuple[int, int]:
@@ -179,7 +186,30 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.recbox_mips_segment_candidates.argtypes = [i, i, vp, vp, vp, vp, vp,
                                                    i, i, i, i, i, i, vp]
     lib.recbox_mips_segment_candidates.restype = i
+    lib.recbox_mips_segment_candidates_wgmma.argtypes = [i, i, vp, vp, vp, vp,
+                                                         vp, i, i, i, i, i,
+                                                         vp]
+    lib.recbox_mips_segment_candidates_wgmma.restype = i
     return lib
+
+
+# the depth and segment counts the wgmma route is built for
+_WGMMA_DEPTH = 128
+_WGMMA_SEGMENTS = (1, 2, 4, 8)
+
+
+def candidate_route(dtype: torch.dtype, d: int, sub_rows: int) -> str:
+    """The kernel's route for a corpus of ``dtype`` and depth ``d`` at the
+    plan with ``sub_rows``: 'wgmma' for bf16 and int8 with D = 128 (after
+    padding to 16) and n_seg = sub_rows / 128 in {1, 2, 4, 8}, where every
+    row a thread of the `wgmma` tile holds is in one segment; 'tile' for
+    the rest (f32, other depths, plans with n_seg not dividing 8)."""
+    if (dtype in (torch.bfloat16, torch.int8)
+            and d + (-d) % 16 == _WGMMA_DEPTH
+            and sub_rows // SEGMENT in _WGMMA_SEGMENTS
+            and sub_rows % SEGMENT == 0):
+        return "wgmma"
+    return "tile"
 
 
 # queries a block of the kernel scores (QT in csrc/mips_tile.cuh)
@@ -217,26 +247,35 @@ def _candidates_cuda(queries, corpus, valid, packed, row_scale, sub_rows,
     if n_sub > 65535:
         raise ValueError(f"mips_segment_candidates: {n} rows exceed the "
                          f"kernel's {65535 * sub_rows} at sub_rows={sub_rows}")
-    splits = split_runs(nq, n, sub_rows, packed, dev)
-    if splits > 1:
-        out_s[:n_sub * (sub_rows // SEGMENT)].fill_(float("-inf"))
+    route = candidate_route(corpus.dtype, d, sub_rows)
+    lib = _kernel_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out_i_ptr = None if out_i is None else out_i.data_ptr()
     if row_scale is not None:
         row_scale = row_scale.to(device=dev, dtype=torch.float32).contiguous()
-    lib = _kernel_lib()
-    with torch.cuda.device(dev):
-        rc = lib.recbox_mips_segment_candidates(
-            _DTYPES[corpus.dtype], int(packed), queries.data_ptr(),
-            corpus.data_ptr(),
-            None if row_scale is None else row_scale.data_ptr(),
-            out_s.data_ptr(), None if out_i is None else out_i.data_ptr(),
-            nq, n, d, valid, sub_rows, splits,
-            torch.cuda.current_stream(dev).cuda_stream)
+    scale_ptr = None if row_scale is None else row_scale.data_ptr()
+    if route == "wgmma":
+        with torch.cuda.device(dev):
+            rc = lib.recbox_mips_segment_candidates_wgmma(
+                _DTYPES[corpus.dtype], int(packed), queries.data_ptr(),
+                corpus.data_ptr(), scale_ptr, out_s.data_ptr(), out_i_ptr,
+                nq, n, d, valid, sub_rows, stream)
+    else:
+        splits = split_runs(nq, n, sub_rows, packed, dev)
+        if splits > 1:
+            out_s[:n_sub * (sub_rows // SEGMENT)].fill_(float("-inf"))
+        with torch.cuda.device(dev):
+            rc = lib.recbox_mips_segment_candidates(
+                _DTYPES[corpus.dtype], int(packed), queries.data_ptr(),
+                corpus.data_ptr(), scale_ptr, out_s.data_ptr(), out_i_ptr,
+                nq, n, d, valid, sub_rows, splits, stream)
     if rc != 0:
-        raise RuntimeError(f"mips_segment_candidates: launch failed with "
-                           f"CUDA error {rc}")
+        raise RuntimeError(f"mips_segment_candidates: {route} launch failed "
+                           f"with CUDA error {rc}")
     variant = "unpacked" if not packed else (
         "packed_int8" if corpus.dtype == torch.int8 else "packed")
     launches[variant] += 1
+    route_launches[route] += 1
 
 
 def _candidates(queries, corpus, valid, packed, row_scale, sub_rows,
