@@ -7,13 +7,20 @@ Phases (any failure raises and exits non-zero):
   1. the card, as nvidia-smi names it, with its power limit;
   2. build every CUDA kernel of the port from `recbox_tpu_torch/csrc/`
      (one nvcc per source, all started together) into `build/kernels/`;
-     each kernel's registers and spills as ptxas gives them (B4's wgmma
-     route and B5 must spill nothing);
+     each kernel's registers and spills as ptxas gives them (B4's
+     wgmma route at D = 64 and 128, whose packed instantiations are B3's
+     stage (a), B5's selection and B3's selection with its epilogue must
+     spill nothing);
   3. every kernel against its plain PyTorch version on the card: the MIPS
-     top-k (B3) at a small shape, the serving path's shape and the 1M x 128
-     shape, and at 20 and 600 queries (the JAX segment plan below 1024
-     queries); the packed AdaGrad update (B1) at the Criteo training shape,
-     ids uniform per field as `bench.py` draws them and Zipf-skewed;
+     top-k (B3) on N(0, 1) data at a small shape, the serving path's shape
+     and the 1M x 128 shape (f32 and the small shape on B4's tile route),
+     and at 20 and 600 queries (the JAX segment plan below 1024 queries, on
+     the tile route), integer data bit for bit; B3 on integer data bit for
+     bit, bf16 and int8, on the wgmma route: at 1M x 64 and 1M x 128, at
+     each plan of the route over 50,000 x 300, and over a corpus of repeated
+     blocks whose tied winners must come out position ascending; the packed
+     AdaGrad update (B1) at the Criteo training shape, ids uniform per field
+     as `bench.py` draws them and Zipf-skewed;
   3b. kernel B2 (flash-CE) against its plain versions: bench.py's 1M-item
      SASRec shape (B=1024, V=1M, D=64), a ragged one (1000, 100,003, 100),
      weights with zeros, all-160 and all--40 logits, the multinomial
@@ -21,14 +28,15 @@ Phases (any failure raises and exits non-zero):
   3c. the candidate kernels and the sequence pool against their plain
      versions: B4 (`mips_segment_candidates`, packed bf16, packed int8,
      unpacked bf16) at the profiling shape of `tools/prof_mips_batched.py`
-     (N=1M, D=128, Q=8192, the 1024-query plan, on the wgmma route),
+     (N=1M, D=128, Q=8192, the 1024-query plan, on the wgmma route) and at
+     D = 64,
      integer-valued inputs bit for bit and N(0, 1) ones up to packed
      near-ties; every instantiation (f32 too) on integer data at 3000 rows
      x 20 queries (the tile route, the packed ones split into runs merged
      by atomic max) and 100,000 x 1024, and bf16 packed and unpacked and
      int8 at each plan of the wgmma route (query tiles of 8192, 4096, 2048
      and 1024: 1, 2, 4 and 8 segments a sub-chunk) over 50,000 rows x 300
-     queries, bit for bit; B5 (the radix selection) at
+     queries at D = 128 and 64, bit for bit; B5 (the radix selection) at
      the merge-only (7812, 1024) shape, k=500 and 100, the full path's
      (7936, 8192) with ties, the merge-only shape row-major (ids and
      positions), a windowed (40,000, 64) with ties and k = C at 16384, bit
@@ -40,8 +48,10 @@ Phases (any failure raises and exits non-zero):
      1M items, 50-long histories) with random weights from a seed, behind a
      `RetrievalService(method="auto")` over the whole 1M-item corpus,
      queried for 8192 users at k=500 from a bf16 and from an int8 corpus,
-     with the kernel launch counts reset just before and read just after;
-     recall against an exact bf16 top-k oracle; seen-item exclusion;
+     with the kernel launch counts reset just before and read just after
+     (each query one launch of B3's stage (a) on the wgmma route and one of
+     its selection); recall against an exact bf16 top-k oracle; successive
+     results in memory of their own; seen-item exclusion;
   4b. the candidate paths, with B4 (by variant and by route), B5 and B6's
      counts reset just before and read just after: `pallas_mips_topk` at
      B4's shape packed (default merge), unpacked through B5
@@ -75,9 +85,10 @@ Phases (any failure raises and exits non-zero):
      logits + F.cross_entropy for B2, cuBLAS scores + segment amax for B4,
      torch.topk for B5, F.embedding_bag for B6, over Zipf ids that stay in
      L2 and uniform ones that reach HBM; the port calls none of them), the
-     bound (and B2's exp floor), B4's tile route on the same inputs beside
-     its wgmma route, and the service's queries/s; one service
-     query under torch.profiler, for device time by kernel and the
+     bound (and B2's exp floor), B3's two stages alone and its stage (a) on
+     the tile route, B4 at D = 128 and 64 with its tile route on the same
+     inputs beside its wgmma route, and the service's queries/s; one service query under torch.profiler,
+     for device time by kernel, the results' copy to the host and the
      device's idle share.
 
 Earlier lines of stdout carry the measurements as JSON; the line before
@@ -195,6 +206,25 @@ def run_plain(q, c, k, valid, scale):
     return mips_fused_topk_plain(q.to(c.dtype), c, k, valid, sub_rows=sub)
 
 
+def b3_counts():
+    """B3's launches so far: its selection (one a call, counted by B3's
+    wrapper) and its stage (a), B4's packed kernel, by route (counted by
+    B4's)."""
+    from recbox_tpu_torch.ops import mips_fused_topk as fused
+    from recbox_tpu_torch.ops import mips_topk
+    return {"select": sum(fused.launches.values()),
+            **mips_topk.route_launches}
+
+
+def b3_route_taken(before):
+    """The route of B3's stage (a) in the one call since the counts were
+    ``before``; asserts that call made one launch of each stage."""
+    now = b3_counts()
+    diff = {key: now[key] - before[key] for key in now}
+    assert diff["select"] == 1 and diff["wgmma"] + diff["tile"] == 1, diff
+    return "wgmma" if diff["wgmma"] else "tile"
+
+
 def check_kernel(variant, n, d, nq, k, gen):
     """Kernel against plain on one shape: int8 (exact s32 sums) must be
     identical; bf16/f32 per-row id sets must agree on >= 99.9% of rows and
@@ -202,7 +232,9 @@ def check_kernel(variant, n, d, nq, k, gen):
     near-ties, whose scores differ by at most the 2^-16 packing step)."""
     from recbox_tpu_torch.ops.mips_fused_topk import mips_fused_topk
     q, c, scale = make_inputs(variant, n, d, nq, gen)
+    before = b3_counts()
     s, i = mips_fused_topk(q, c, k, row_scale=scale)
+    route = b3_route_taken(before)
     s2, i2 = run_plain(q, c, k, n, scale)
     torch.cuda.synchronize()
     assert s.shape == (nq, k) and i.shape == (nq, k)
@@ -218,7 +250,7 @@ def check_kernel(variant, n, d, nq, k, gen):
         torch.testing.assert_close(s, s2, rtol=2e-5, atol=1e-6)
         tolerance = "id sets on >= 99.9% of rows, scores rtol 2e-5 atol 1e-6"
     return {"variant": variant, "n": n, "d": d, "q": nq, "k": k,
-            "rows_same_ids": same_rows, "max_abs_err": err,
+            "route": route, "rows_same_ids": same_rows, "max_abs_err": err,
             "tolerance": tolerance}
 
 
@@ -304,22 +336,71 @@ def library_topk(q, c, scale, k, chunk=512):
     return out
 
 
+def b3_stages(q, c, scale, k):
+    """B3's two launches as separate calls on the inputs its wrapper would
+    hand them: stage (a) (B4's packed kernel, on the route the wrapper
+    takes) into candidate-major winners, and stage (b) (the selection with
+    B3's epilogue) from them; and stage (a) forced onto B4's tile route,
+    B3's first design of it, for a comparison in the same run."""
+    from recbox_tpu_torch.ops import mips_fused_topk as fused
+    from recbox_tpu_torch.ops.bitonic_topk import select_plan
+    from recbox_tpu_torch.ops.mips_topk import (
+        _candidates_cuda, quantize_int8,
+    )
+    (n, d), nq = c.shape, q.shape[0]
+    sub = fused.segment_plan(c.dtype, n, d, nq, k)[0]
+    q_scale = None
+    if c.dtype == torch.int8:
+        q, q_scale = quantize_int8(q)
+    else:
+        q = q.to(c.dtype)
+    n_cand = -(-n // sub) * (sub // 128)
+    win = torch.empty((n_cand, nq), device=c.device)
+    out_s = torch.empty((nq, k), device=c.device)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=c.device)
+    qb, window, kpt, p = select_plan(n_cand, k)
+    lib = fused._kernel_lib()
+
+    def stage_a():
+        _candidates_cuda(q, c, n, True, scale, sub, win, None)
+
+    def stage_b():
+        rc = lib.recbox_mips_select_winners(
+            win.data_ptr(), None if q_scale is None else q_scale.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), nq, n_cand, k, p, window, qb,
+            kpt, sub, torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+
+    return stage_a, stage_b, lambda: b4_tile_route(q, c, scale, True, sub)
+
+
 def time_kernel(variant, n, d, nq, k, gen):
+    """B3 (both launches, through its wrapper), its plain version, the
+    library formulation and the bound; at the serving query count also each
+    stage alone (the selection over runs of 20 calls behind a spin kernel)
+    and stage (a) on the tile route."""
     from recbox_tpu_torch.ops.mips_fused_topk import mips_fused_topk
     q, c, scale = make_inputs(variant, n, d, nq, gen)
     ms = cuda_ms(lambda: mips_fused_topk(q, c, k, row_scale=scale))
     plain_ms = cuda_ms(lambda: run_plain(q, c, k, n, scale))
     library_ms = cuda_ms(lambda: library_topk(q, c, scale, k))
     b_ms, b_by = bound_ms(variant, n, d, nq, k)
-    return {"variant": variant, "n": n, "d": d, "q": nq, "k": k, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
-            "bound_by": b_by}
+    out = {"variant": variant, "n": n, "d": d, "q": nq, "k": k, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+           "bound_by": b_by}
+    if variant != "f32" and nq == N_QUERIES:
+        stage_a, stage_b, tile_a = b3_stages(q, c, scale, k)
+        out.update(stage_a_ms=cuda_ms(stage_a),
+                   stage_b_ms=cuda_ms(stage_b, reps=11, inner=20),
+                   tile_route_stage_a_ms=cuda_ms(tile_a, reps=3))
+    return out
 
 
 def breakdown(svc, users):
     """Where one steady service query's time goes: device time by kernel
-    (torch.profiler, CUPTI) and the device's idle share of the call's wall
-    time. Device times are null when the profiler saw no device work."""
+    (torch.profiler, CUPTI), the copy of the results to the host among
+    them, and the device's idle share of the call's wall time. Device
+    times are null when the profiler saw no device work."""
     from torch.profiler import ProfilerActivity, profile
     svc.query(users, k=K)
     torch.cuda.synchronize()
@@ -336,9 +417,10 @@ def breakdown(svc, users):
     device_ms = sum(r[1] for r in rows)
     if device_ms == 0:
         return {"wall_ms": wall_ms, "device_ms": None, "idle_share": None,
-                "by_kernel": []}
+                "copy_ms": None, "by_kernel": []}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": 1 - device_ms / wall_ms,
+            "copy_ms": sum(ms for name, ms, _ in rows if "DtoH" in name),
             "by_kernel": [{"name": name[:90], "ms": ms, "count": n}
                           for name, ms, n in rows[:8]]}
 
@@ -359,13 +441,95 @@ def check_segment_plan(gen):
         q = torch.randint(-4, 5, (nq, DIM), generator=gen,
                           device=DEVICE).float()
         sub, n_cand = segment_plan(c.dtype, N_ITEMS, DIM, nq, K)
+        before = b3_counts()
         s, i = mips_fused_topk(q, c, K)
+        route = b3_route_taken(before)
         s2, i2 = run_plain(q, c, K, N_ITEMS, None)
         torch.cuda.synchronize()
         assert torch.equal(i, i2) and torch.equal(s, s2), nq
         assert bool(((i >= 0) & (i < N_ITEMS)).all())
+        assert route == "tile", (nq, route)
         out.append({"q": nq, "sub_rows": sub, "segments": sub // 128,
-                    "candidates": n_cand, "ids_equal": True})
+                    "candidates": n_cand, "route": route,
+                    "ids_equal": True})
+    return out
+
+
+# B3 on integer-valued towers: the serving shape at D = 64 and 128; each
+# plan of the wgmma route (`B4_PLAN_TILES`) over 50,000 rows x 300 queries;
+# a corpus of one 1024-row block repeated 128 times, at 1024 queries
+B3_TIES = (131_072, 1024)
+
+
+def b3_integer_inputs(gen, variant, n, d, nq, period=None):
+    """Integer-valued queries (f32, as the service hands them over) and a
+    bf16 or int8 (`quantize_int8`) corpus; with ``period`` the corpus
+    repeats its first ``period`` rows."""
+    from recbox_tpu_torch.ops.mips_topk import quantize_int8
+    q = torch.randint(-4, 5, (nq, d), generator=gen, device=DEVICE).float()
+    c = torch.randint(-4, 5, (period or n, d), generator=gen,
+                      device=DEVICE).float()
+    if period:
+        c = c.repeat(n // period, 1)
+    if variant == "int8":
+        c8, scale = quantize_int8(c)
+        return q, c8, scale
+    return q, c.to(torch.bfloat16), None
+
+
+def check_b3_integer(gen):
+    """B3 against its plain version on integer-valued data, bit for bit in
+    ids and scores, bf16 and int8, each call on the wgmma route with one
+    launch of each stage: the serving shape (1M x 64 and 1M x 128, Q=8192,
+    k=500); each plan of the route (query tiles of 8192, 4096, 2048, 1024:
+    1, 2, 4, 8 segments a sub-chunk) over 50,000 x 300 with the last 37
+    rows past valid_items, k=100; and `B3_TIES`, where every packed winner
+    recurs in all 128 sub-chunks, so the top 500 are runs of equal packed
+    winners that must come out candidate position ascending."""
+    from recbox_tpu_torch.ops.mips_fused_topk import (
+        _mips_fused_topk_cuda, mips_fused_topk_plain, segment_plan,
+    )
+    from recbox_tpu_torch.ops.mips_topk import quantize_int8
+    cases = [("serving", N_ITEMS, d, N_QUERIES, K, None) for d in (DIM, 128)]
+    cases += [("plan", B4_PLAN_SHAPE[0], DIM, B4_PLAN_SHAPE[1], 100, tile)
+              for tile in B4_PLAN_TILES]
+    cases += [("ties", B3_TIES[0], DIM, B3_TIES[1], K, None)]
+    out = []
+    for kind, n, d, nq, k, tile in cases:
+        for variant in ("bf16", "int8"):
+            q, c, scale = b3_integer_inputs(gen, variant, n, d, nq,
+                                            1024 if kind == "ties" else None)
+            valid = n - 37 if kind == "plan" else n
+            sub = segment_plan(c.dtype, n, d, tile or nq, k,
+                               query_tile=tile or 1024)[0]
+            if variant == "int8":
+                q, q_scale = quantize_int8(q)
+            else:
+                q, q_scale = q.to(c.dtype), None
+            before = b3_counts()
+            s, i = _mips_fused_topk_cuda(q, c, k, valid, scale, q_scale, sub)
+            route = b3_route_taken(before)
+            s2, i2 = mips_fused_topk_plain(q, c, k, valid, scale, q_scale,
+                                           sub)
+            torch.cuda.synchronize()
+            assert route == "wgmma", (kind, variant, d, route)
+            assert torch.equal(s, s2) and torch.equal(i, i2), \
+                (kind, variant, d, tile)
+            res = {"case": kind, "variant": variant, "n": n, "d": d, "q": nq,
+                   "k": k, "sub_rows": sub, "route": route,
+                   "bits_equal": True, "max_abs_err": 0.0}
+            if kind == "ties":
+                # equal packed winners (score and in-segment index) ascend
+                # by candidate position
+                n_seg = sub // 128
+                idx = (i % sub) // n_seg
+                cand = (i // sub) * n_seg + i % n_seg
+                tied = (s[:, 1:] == s[:, :-1]) & (idx[:, 1:] == idx[:, :-1])
+                assert int(tied.sum()) > 0
+                assert bool((cand[:, 1:][tied] > cand[:, :-1][tied]).all())
+                res["tied_neighbours"] = int(tied.sum())
+            out.append(res)
+            del q, c, scale, s, i, s2, i2
     return out
 
 
@@ -675,20 +839,20 @@ B4_PLAN_TILES = (8192, 4096, 2048, 1024)
 B4_PLAN_SHAPE = (50_000, 300)
 
 
-def b4_inputs(gen, dtype, integer, n=None, nq=None):
+def b4_inputs(gen, dtype, integer, n=None, nq=None, d=B4_D):
     """Queries (Q, D) and corpus (N, D) on the card as the candidate kernel
     takes them (bf16 or f32; or int8 rows of `quantize_int8` with their
     scales), from small integers or N(0, 1); B4's shape by default."""
     from recbox_tpu_torch.ops.mips_topk import quantize_int8
     n, nq = n or B4_N, nq or B4_Q
     if integer:
-        q = torch.randint(-4, 5, (nq, B4_D), generator=gen,
+        q = torch.randint(-4, 5, (nq, d), generator=gen,
                           device=DEVICE).float()
-        c = torch.randint(-4, 5, (n, B4_D), generator=gen,
+        c = torch.randint(-4, 5, (n, d), generator=gen,
                           device=DEVICE).float()
     else:
-        q = torch.randn(nq, B4_D, generator=gen, device=DEVICE)
-        c = torch.randn(n, B4_D, generator=gen, device=DEVICE)
+        q = torch.randn(nq, d, generator=gen, device=DEVICE)
+        c = torch.randn(n, d, generator=gen, device=DEVICE)
     if dtype == torch.int8:
         c8, scale = quantize_int8(c)
         return quantize_int8(q)[0], c8, scale
@@ -701,7 +865,7 @@ def b4_candidates(q, c, scale, packed, valid=None, tile=None):
     from recbox_tpu_torch.ops.mips_topk import _candidates, candidate_plan
     n = c.shape[0]
     tile = tile or min(B4_TILE, q.shape[0])
-    sub, n_cand = candidate_plan(c.dtype, n, B4_D, tile)
+    sub, n_cand = candidate_plan(c.dtype, n, c.shape[1], tile)
     return _candidates(q, c, n if valid is None else valid, packed, scale,
                        sub, n_cand), sub
 
@@ -738,16 +902,17 @@ def b4_bits_equal(got, want, packed):
 def check_b4_small(gen):
     """Every instantiation of B4 (f32 too) at the `B4_SMALL` shapes, and
     bf16 packed and unpacked and int8 at each plan of the wgmma route
-    (`B4_PLAN_TILES`), on integer-valued inputs, against the plain version
-    bit for bit; at the first small shape the packed ones must run split on
-    the tile route, and each plan tile must take the wgmma route."""
+    (`B4_PLAN_TILES`) at D = 128 and 64, on integer-valued inputs, against
+    the plain version bit for bit; at the first small shape the packed ones
+    must run split on the tile route, and each plan tile must take the
+    wgmma route."""
     out = []
-    cases = [(n, nq, None, v) for n, nq in B4_SMALL
+    cases = [(n, nq, None, B4_D, v) for n, nq in B4_SMALL
              for v in B4_VARIANTS + B4_F32_VARIANTS]
-    cases += [(*B4_PLAN_SHAPE, tile, v) for tile in B4_PLAN_TILES
-              for v in B4_VARIANTS]
-    for n, nq, tile, (name, dtype, packed) in cases:
-        q, c, scale = b4_inputs(gen, dtype, True, n, nq)
+    cases += [(*B4_PLAN_SHAPE, tile, d, v) for d in (B4_D, DIM)
+              for tile in B4_PLAN_TILES for v in B4_VARIANTS]
+    for n, nq, tile, d, (name, dtype, packed) in cases:
+        q, c, scale = b4_inputs(gen, dtype, True, n, nq, d)
         got, want, how = b4_pair(q, c, scale, packed, n - 37, tile)
         torch.cuda.synchronize()
         assert b4_bits_equal(got, want, packed), (n, nq, tile, name, dtype)
@@ -755,58 +920,61 @@ def check_b4_small(gen):
             assert how["route"] == "tile" and how["splits"] > 1, (n, how)
         if tile is not None:
             assert how["route"] == "wgmma", (tile, how)
-        out.append({"variant": name, "dtype": str(dtype), "n": n, "q": nq,
-                    "plan_tile": tile, "valid_items": n - 37, **how,
-                    "bits_equal": True, "max_abs_err": 0.0})
+        out.append({"variant": name, "dtype": str(dtype), "n": n, "d": d,
+                    "q": nq, "plan_tile": tile, "valid_items": n - 37,
+                    **how, "bits_equal": True, "max_abs_err": 0.0})
     return out
 
 
 def check_b4(gen):
     """B4's three variants against the plain version at the profiling
-    shape. Integer-valued inputs (and int8, always exact) must agree bit
+    shape, and at D = 64 (B3's serving depth, also on the wgmma route).
+    Integer-valued inputs (and int8, always exact) must agree bit
     for bit. N(0, 1) bf16 sums in another order: the share of candidates
     whose winning row differs (a near-tie) must be <= 1e-3, and where the
     row agrees the score within 3e-5 relative (packed: one 2^-16 packing
     step and the rounding) or 1e-5 (unpacked)."""
     from recbox_tpu_torch.ops.mips_topk import PACK_MASK
     out = []
-    for name, dtype, packed in B4_VARIANTS:
-        for integer in (True, False):
-            q, c, scale = b4_inputs(gen, dtype, integer)
-            got, want, how = b4_pair(q, c, scale, packed)
-            torch.cuda.synchronize()
-            if packed:
-                gb, wb = got.view(torch.int32), want.view(torch.int32)
-                g_row, w_row = gb & PACK_MASK, wb & PACK_MASK
-                g_s = (gb & ~PACK_MASK).view(torch.float32)
-                w_s = (wb & ~PACK_MASK).view(torch.float32)
-                bits_equal = torch.equal(gb, wb)
-            else:
-                (g_s, g_row), (w_s, w_row) = got, want
-                bits_equal = torch.equal(g_s.view(torch.int32),
-                                         w_s.view(torch.int32)) \
-                    and torch.equal(g_row, w_row)
-            same = g_row == w_row
-            mismatch = 1.0 - same.float().mean().item()
-            err = (g_s - w_s)[same].abs()
-            max_err = err.max().item()
-            if integer or dtype == torch.int8:
-                assert bits_equal, (name, integer)
-                tolerance = "bit for bit"
-            else:
-                rtol = 3e-5 if packed else 1e-5
-                assert mismatch <= 1e-3, (name, mismatch)
-                assert bool((err <= rtol * w_s[same].abs() + 1e-6).all()), \
-                    (name, max_err)
-                tolerance = (f"winner differs on <= 1e-3 of candidates; "
-                             f"scores rtol {rtol} atol 1e-6 elsewhere")
-            out.append({"variant": name, "inputs": "integer" if integer
-                        else "normal", "route": how["route"],
-                        "candidates": list(w_s.shape),
-                        "bits_equal": bits_equal,
-                        "winner_mismatch_share": mismatch,
-                        "max_abs_err": max_err, "tolerance": tolerance})
-            del q, c, scale, got, want
+    cases = [(v, d, i) for d in (B4_D, DIM) for v in B4_VARIANTS
+             for i in (True, False)]
+    for (name, dtype, packed), d, integer in cases:
+        q, c, scale = b4_inputs(gen, dtype, integer, d=d)
+        got, want, how = b4_pair(q, c, scale, packed)
+        torch.cuda.synchronize()
+        assert how["route"] == "wgmma", (name, d, how)
+        if packed:
+            gb, wb = got.view(torch.int32), want.view(torch.int32)
+            g_row, w_row = gb & PACK_MASK, wb & PACK_MASK
+            g_s = (gb & ~PACK_MASK).view(torch.float32)
+            w_s = (wb & ~PACK_MASK).view(torch.float32)
+            bits_equal = torch.equal(gb, wb)
+        else:
+            (g_s, g_row), (w_s, w_row) = got, want
+            bits_equal = torch.equal(g_s.view(torch.int32),
+                                     w_s.view(torch.int32)) \
+                and torch.equal(g_row, w_row)
+        same = g_row == w_row
+        mismatch = 1.0 - same.float().mean().item()
+        err = (g_s - w_s)[same].abs()
+        max_err = err.max().item()
+        if integer or dtype == torch.int8:
+            assert bits_equal, (name, integer)
+            tolerance = "bit for bit"
+        else:
+            rtol = 3e-5 if packed else 1e-5
+            assert mismatch <= 1e-3, (name, mismatch)
+            assert bool((err <= rtol * w_s[same].abs() + 1e-6).all()), \
+                (name, max_err)
+            tolerance = (f"winner differs on <= 1e-3 of candidates; "
+                         f"scores rtol {rtol} atol 1e-6 elsewhere")
+        out.append({"variant": name, "d": d, "inputs": "integer"
+                    if integer else "normal", "route": how["route"],
+                    "candidates": list(w_s.shape),
+                    "bits_equal": bits_equal,
+                    "winner_mismatch_share": mismatch,
+                    "max_abs_err": max_err, "tolerance": tolerance})
+        del q, c, scale, got, want
     return out
 
 
@@ -1059,15 +1227,15 @@ def b4_library(q, c_pad, scale_pad, sub, packed):
     return out
 
 
-def b4_bound(dtype, packed):
+def b4_bound(dtype, packed, d=B4_D):
     """Corpus, queries (and int8 row scales) read once, the candidates
     written once, against 2QND operations at the type's peak."""
     from recbox_tpu_torch.ops.mips_topk import candidate_plan
     size = torch.empty((), dtype=dtype).element_size()
-    _, n_cand = candidate_plan(dtype, B4_N, B4_D, B4_TILE)
-    moved = (B4_N + B4_Q) * B4_D * size + n_cand * B4_Q * 4 * (
+    _, n_cand = candidate_plan(dtype, B4_N, d, B4_TILE)
+    moved = (B4_N + B4_Q) * d * size + n_cand * B4_Q * 4 * (
         1 if packed else 2) + (B4_N * 4 if dtype == torch.int8 else 0)
-    by_ops = 2.0 * B4_Q * B4_N * B4_D / PEAK_OPS[
+    by_ops = 2.0 * B4_Q * B4_N * d / PEAK_OPS[
         "int8" if dtype == torch.int8 else "bf16"] * 1e3
     by_bytes = moved / HBM_BYTES_S * 1e3
     return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes \
@@ -1097,18 +1265,19 @@ def b4_tile_route(q, c, scale, packed, sub):
 
 
 def time_b4(gen):
-    """Each B4 variant at the profiling shape: kernel (on the route the
-    wrapper picks), plain version, the library formulation, the bound, and
-    the tile route on the same inputs."""
+    """Each B4 variant at the profiling shape and at D = 64: kernel (on the
+    route the wrapper picks), plain version, the library formulation, the
+    bound, and the tile route on the same inputs. Keyed (variant, D)."""
     import torch.nn.functional as F
     from recbox_tpu_torch.ops.mips_topk import (
         candidate_plan, candidate_route, mips_segment_candidates_plain,
     )
     out = {}
-    for name, dtype, packed in B4_VARIANTS:
-        q, c, scale = b4_inputs(gen, dtype, False)
-        sub, _ = candidate_plan(dtype, B4_N, B4_D, B4_TILE)
-        route = candidate_route(dtype, B4_D, sub)
+    for (name, dtype, packed), d in ((v, d) for d in (B4_D, DIM)
+                                     for v in B4_VARIANTS):
+        q, c, scale = b4_inputs(gen, dtype, False, d=d)
+        sub, _ = candidate_plan(dtype, B4_N, d, B4_TILE)
+        route = candidate_route(dtype, d, sub)
         pad = (-B4_N) % sub
         c_pad = F.pad(c, (0, 0, 0, pad))
         scale_pad = None if scale is None else F.pad(scale, (0, pad))
@@ -1119,8 +1288,8 @@ def time_b4(gen):
             q, c, B4_N, packed, scale, sub), reps=3)
         library_ms = cuda_ms(lambda: b4_library(q, c_pad, scale_pad, sub,
                                                 packed), reps=3)
-        b_ms, b_by = b4_bound(dtype, packed)
-        out[name] = {"variant": name, "route": route, "n": B4_N, "d": B4_D,
+        b_ms, b_by = b4_bound(dtype, packed, d)
+        out[name, d] = {"variant": name, "route": route, "n": B4_N, "d": d,
                      "q": B4_Q, "query_tile": B4_TILE, "ms": ms,
                      "tile_route_ms": tile_ms, "plain_ms": plain_ms,
                      "library_ms": library_ms, "bound_ms": b_ms,
@@ -1534,15 +1703,29 @@ def main() -> int:
     for name, log in _build.build_logs.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         emit({"phase": "ptxas", "kernel": name, "usage": regs})
-    # the redesigned kernels (B4's wgmma route, B5's selection) spill nothing
+    # the redesigned kernels spill nothing: B4's wgmma route at D = 64 and
+    # 128 (B3's stage (a) its packed instantiations), B5's selection and B3's
+    # selection with its epilogue
     redesigned = {"mips_topk": usage_of(_build.build_logs, "mips_topk",
                                         "segment_candidates_wgmma"),
                   "bitonic_topk": usage_of(_build.build_logs, "bitonic_topk",
-                                           "select_topk")}
+                                           "select_topk"),
+                  "mips_fused_topk": usage_of(_build.build_logs,
+                                              "mips_fused_topk",
+                                              "select_topk")}
     for name, usage in redesigned.items():
         emit({"phase": "ptxas_redesigned", "kernel": name, "usage": usage})
         assert usage and all(u["spill_stores"] == u["spill_loads"] == 0
                              for u in usage), (name, usage)
+    # 3 variants x 4 plans at each depth (the depth is the last template
+    # argument: ...ELi64EE / ...ELi128EE)
+    for depth in (64, 128):
+        found = [u for u in redesigned["mips_topk"]
+                 if f"ELi{depth}EE" in u["function"]]
+        assert len(found) == 12, (depth, len(found))
+    b3_ptxas = {"stage_a": [u for u in redesigned["mips_topk"]
+                            if "Lb1E" in u["function"]],
+                "stage_b": redesigned["mips_fused_topk"]}
 
     # 3. kernel against plain
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1557,6 +1740,9 @@ def main() -> int:
     emit({"phase": "pad_convention", "ok": True})
     for res in check_segment_plan(gen):
         emit({"phase": "segment_plan_vs_plain", **res})
+    b3_integer = check_b3_integer(gen)
+    for res in b3_integer:
+        emit({"phase": "b3_integer_vs_plain", **res})
     b1_checks = {}
     for ids_kind in ("uniform", "zipf"):
         b1_checks[ids_kind] = check_b1(gen, ids_kind)
@@ -1589,14 +1775,22 @@ def main() -> int:
     svc8 = RetrievalService(model, item_embs=svc.item_embs, method="auto",
                             quantize="int8")
     fused.reset_launches()
-    results = {}
+    results, stages = {}, {}
     for name, s in (("bf16", svc), ("int8", svc8)):
+        before = b3_counts()
         for _ in range(3):
             scores, ids = s.query(users, k=K)
         results[name] = (scores, ids)
+        stages[name] = {key: n - before[key]
+                        for key, n in b3_counts().items()}
     launches = dict(fused.launches)
-    emit({"phase": "serve", "launches": launches, "corpus_encode_s": encode_s})
+    emit({"phase": "serve", "launches": launches, "stage_launches": stages,
+          "corpus_encode_s": encode_s})
     assert launches["bf16"] >= 3 and launches["int8"] >= 3, launches
+    # each query: stage (a) on the wgmma route and the selection, once each
+    for name, counts in stages.items():
+        assert counts["wgmma"] >= 3 and counts["select"] >= 3 \
+            and counts["tile"] == 0, (name, counts)
     recall = {}
     for name, s in (("bf16", svc), ("int8", svc8)):
         scores, ids = results[name]
@@ -1605,6 +1799,13 @@ def main() -> int:
             and (ids < N_ITEMS).all()
         assert (np.diff(scores, axis=1) <= 0).all()
         recall[name] = recall_vs_bf16_oracle(s, users, ids)
+    # results of successive queries are arrays of their own (each copy
+    # goes to a pinned buffer made for its call)
+    again = svc.query(users, k=K)
+    assert not any(np.shares_memory(a, b) for a in results["bf16"]
+                   for b in again)
+    assert np.array_equal(again[1], results["bf16"][1])
+    del again
     emit({"phase": "recall", "k": K, "queries": 512, **recall,
           "predicted": 1 - K * 128 / (2 * N_ITEMS)})
     assert recall["bf16"] >= 0.95 and recall["int8"] >= 0.90, recall
@@ -1688,14 +1889,30 @@ def main() -> int:
     kernels = []
     for variant in ("bf16", "int8"):
         t, c = timings[(variant, DIM)], checks[(variant, N_ITEMS, DIM)]
+        t128 = timings[(variant, 128)]
         kernels.append({
             "name": f"mips_fused_topk[{variant}]", "route": "cuda",
             "source": "recbox_tpu_torch/csrc/mips_fused_topk.cu",
+            "stage_a_source": "recbox_tpu_torch/csrc/mips_topk.cu",
             "replaces": "recbox_tpu/ops/pallas/mips_fused_topk.py:100",
             "launches": launches[variant], "max_abs_err": c["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "design": "(a) B4's packed segment-candidate kernel on its wgmma "
+                      "route (TMA ring, two consumer warpgroups, the "
+                      "segment fold in registers), winners candidate-major; "
+                      "(b) B5's radix selection with B3's decode epilogue",
+            "kernel_route": c["route"], "stage_launches": stages[variant],
+            "stage_a_ms": t["stage_a_ms"], "stage_b_ms": t["stage_b_ms"],
+            "tile_route_stage_a_ms": t["tile_route_stage_a_ms"],
+            "earlier": "tile_route_stage_a_ms, timed in this run: stage (a) "
+                       "on B4's tile route (WMMA tiles through a shared "
+                       "score stage), as the first design computed it",
+            "d128": {key: t128[key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "stage_a_ms",
+                "stage_b_ms", "tile_route_stage_a_ms")},
+            "ptxas": b3_ptxas,
             "variants": ["bf16", "f32", "int8"], "matches_plain": True,
             "shape": {"n": N_ITEMS, "d": DIM, "q": N_QUERIES, "k": K}})
     kernels.append({
@@ -1736,7 +1953,7 @@ def main() -> int:
             "matches_plain": True,
             "shape": {"b": SAS_B, "v": SAS_V, "d": SAS_D}})
     for (name, _, _), line in zip(B4_VARIANTS, (332, 315, 340)):
-        t = b4_times[name]
+        t, t64 = b4_times[name, B4_D], b4_times[name, DIM]
         errs = [c["max_abs_err"] for c in b4_checks if c["variant"] == name]
         kernels.append({
             "name": f"mips_segment_candidates[{name}]", "route": "cuda",
@@ -1749,6 +1966,9 @@ def main() -> int:
             "library": "per 1024 queries: cuBLAS scores (bf16 matmul or "
                        "torch._int_mm) + strided segment amax/max",
             "kernel_route": t["route"], "tile_route_ms": t["tile_route_ms"],
+            "d64": {key: t64[key] for key in (
+                "route", "ms", "tile_route_ms", "plain_ms", "library_ms",
+                "bound_ms")},
             "ptxas": redesigned["mips_topk"] if t["route"] == "wgmma"
             else None,
             "matches_plain": True,

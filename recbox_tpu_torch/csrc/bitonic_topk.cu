@@ -1,12 +1,10 @@
-// Row-wise exact top-k of (score, id) pairs for Hopper (sm_90a): a radix
-// selection over keys held in registers, then a sort of the k survivors.
+// Row-wise exact top-k of (score, id) pairs for Hopper (sm_90a): B5.
 //
 // Replaces the TPU kernel `recbox_tpu/ops/pallas/bitonic_topk.py`
 // (`_make_kernel` :61, called from `_block_topk_call` :123 under
 // `pallas_bitonic_topk_cmajor` :152 and `pallas_bitonic_topk` :189). For
 // each query: the k largest of its C scores, descending, with their ids.
-// The order is total: score descending (the float's bits made to sort as an
-// integer, so -inf < finite < +inf < NaN), then candidate position
+// The order is total: score descending, then candidate position
 // ascending, which is lax.top_k's order; the plain PyTorch version sorts
 // the same keys.
 //
@@ -15,509 +13,48 @@
 // and write 33 MB: 0.092 ms of HBM. Selecting needs ~C operations a query,
 // far below the card's rate, so the bound is bytes.
 //
-// Design. The first version sorted every candidate (3.05e9
-// compare-exchanges at that shape) and read its column with one 32-byte
-// sector per 4-byte score. This one:
-//  * reads every score once. 256 threads take a query, each holding up to
-//    64 of its scores in registers as 32-bit order keys (positions t,
-//    t + 256, ...). A block takes QB queries: 4 while a thread holds at
-//    most 32 keys (1024 threads, the register file's 64 a thread), else 2
-//    or 1 as shared memory allows. In the candidate-major layout (queries
-//    contiguous) it loads each candidate's QB scores as one 16- or 8-byte
-//    vector and hands them to their queries' threads through shared
-//    memory; in the row-major layout each query's threads read its row.
-//  * selects by radix. The key of candidate i is the 64-bit (order key << 32
-//    | ~position), all distinct, so the k-th largest key is one key and
-//    exactly k keys are >= it: no tie rule is needed beyond the key itself,
-//    and the set is the total order's own. A first pass counts the top 11
-//    bits of every key into 2048 bins (shared atomics, spread enough that
-//    lanes rarely collide; a first version's 8-bit digit with
-//    __match_any_sync aggregation cost most of its time), later passes 8
-//    bits (cut at bit 32) of the keys that share the prefix chosen so far;
-//    a warp walks the bins from the top with `redux` sums and picks the
-//    bin that holds the k-th key, and the passes stop once that bin's keys
-//    are exactly the ones still needed: two passes for N(0, 1) scores, more
-//    when scores tie (the position bits then decide). Every pass sweeps
-//    registers, comparing the two 32-bit words of a key, not memory.
-//  * places the k survivors with one shared atomic a warp (a lane counts
-//    its own, a warp scan gives the offsets), sorts them (up to 512: a
-//    bitonic network in registers, two keys a thread, shuffles up to
-//    stride 32 and shared memory beyond; more: the network in shared
-//    memory) and gathers the ids of those k alone.
-// Each query's 256 threads sync on their own named barrier, so one query's
-// barriers overlap another's work. Candidates past what one pass holds
-// (C > 16384) come in windows of 16384: each window's keys are selected
-// together with the k survivors carried from the windows before it.
-// A persistent grid that asked L2 for the next query set's scores while
-// selecting the current one was tried and was slower on the card.
+// The selection (a radix select over keys in registers, then a sort of the
+// k survivors) is `select_topk.cuh`'s; this file gives it B5's epilogue,
+// which writes each winner's score and gathers its id.
 
-#include <cstdint>
-
-#include <cuda_runtime.h>
+#include "select_topk.cuh"
 
 namespace {
 
-constexpr int G = 256;                      // threads of a query
-constexpr int FIRST_BITS = 11;              // the first pass's digit
-constexpr int HIST_BINS = 1 << FIRST_BITS;  // bins of the largest digit
-constexpr int MAX_WINDOW = 16384;           // 64 keys a thread
-constexpr int SMEM_LIMIT = 232448;          // a block's shared memory, sm_90
-
-// What a query's warp 0 tells its other threads: the bin of the k-th key,
-// the keys still needed in it and its count; the survivors written so far.
-struct GroupState {
-  int bin;
-  int remaining;
-  int bin_count;
-  int filled;
-};
-
-// The float's bits made to sort as an unsigned integer: -NaN < -inf < ...
-// < -0 < +0 < ... < +inf < NaN (the high word of `bitonic.cuh`'s key with
-// its sign bit flipped).
-__device__ __forceinline__ unsigned int order_key(float v) {
-  const unsigned int b = __float_as_uint(v);
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
-
-__device__ __forceinline__ float key_score(unsigned long long key) {
-  const unsigned int u = (unsigned int)(key >> 32);
-  return __uint_as_float((u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u);
-}
-
-// bar.sync on barrier `id` for the G threads of one query.
-__device__ __forceinline__ void group_sync(int id) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(G) : "memory");
-}
-
-template <int QB> struct Vec;
-template <> struct Vec<4> {
-  using T = float4;
-  static __device__ __forceinline__ void put(float* s, int stride, T v) {
-    s[0] = v.x;
-    s[stride] = v.y;
-    s[2 * stride] = v.z;
-    s[3 * stride] = v.w;
-  }
-};
-template <> struct Vec<2> {
-  using T = float2;
-  static __device__ __forceinline__ void put(float* s, int stride, T v) {
-    s[0] = v.x;
-    s[stride] = v.y;
-  }
-};
-
-// One warp (lane) walks the `bins` histogram from the top, 32 bins at a
-// time, to the bin where the count of keys reaches `remaining`; writes the
-// bin, what is still needed inside it and its count to `st`.
-__device__ __forceinline__ void find_bin(const int* hist, int bins,
-                                         int remaining, int lane,
-                                         GroupState* st) {
-  int above = 0;
-  for (int top = bins - 1; top >= 0; top -= 32) {
-    const int b = top - lane;
-    const int v = b >= 0 ? hist[b] : 0;
-    const int total = __reduce_add_sync(0xFFFFFFFFu, v);
-    if (above + total >= remaining) {
-      int incl = v;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int x = __shfl_up_sync(0xFFFFFFFFu, incl, d);
-        if (lane >= d) incl += x;
-      }
-      const unsigned int hit =
-          __ballot_sync(0xFFFFFFFFu, above + incl >= remaining);
-      if (lane == __ffs(hit) - 1) {
-        st->bin = b;
-        st->remaining = remaining - (above + incl - v);
-        st->bin_count = v;
-      }
-      return;
-    }
-    above += total;
-  }
-}
-
-// The digit after the one ending at bit `shift` of the 64-bit key: 11 bits
-// first, then 8, cut at bit 32 so no digit spans the two words.
-__device__ __forceinline__ int next_bits(int shift) {
-  return shift == 64 ? FIRST_BITS : min(8, shift > 32 ? shift - 32 : shift);
-}
-
-// The bits of the k-th key found so far: the key's two 32-bit words under
-// their masks.
-struct Prefix {
-  unsigned int hi, mask_hi, lo, mask_lo;
-  __device__ __forceinline__ bool matches(unsigned int h,
-                                          unsigned int l) const {
-    return (h & mask_hi) == hi && (l & mask_lo) == lo;
-  }
-  __device__ __forceinline__ bool at_or_above(unsigned int h,
-                                              unsigned int l) const {
-    const unsigned int m = h & mask_hi;
-    return m > hi || (m == hi && (l & mask_lo) >= lo);
-  }
-};
-
-// The low word of a window key: the inverted position.
-__device__ __forceinline__ unsigned int low_word(int pos) {
-  return 0xFFFFFFFFu - (unsigned int)pos;
-}
-
-// Write into `out` the exactly k candidates whose keys are the k largest,
-// in no order: the w window keys (order key u[j], position off + t + G*j)
-// and nc carried 64-bit keys. All G threads of the query (barrier `bar`).
-// Keys are compared as their two 32-bit words, the low one (~position)
-// recomputed where needed, so a thread keeps KPT registers of keys.
-template <int KPT>
-__device__ __forceinline__ void radix_select(
-    const unsigned int (&u)[KPT], int w, int off,
-    const unsigned long long* carry, int nc, int k, unsigned long long* out,
-    int* hist, GroupState* st, int bar) {
-  const int t = threadIdx.x % G;
-  const int lane = threadIdx.x % 32;
-  Prefix pre{0u, 0u, 0u, 0u};
-  int remaining = k;
-  for (int shift = 64;;) {
-    const int bits = next_bits(shift);
-    shift -= bits;
-    const int bins = 1 << bits;
-    const bool high = shift >= 32;
-    const int s = high ? shift - 32 : shift;
-    for (int b = t; b < bins; b += G) hist[b] = 0;
-    group_sync(bar);
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      const int pos = t + G * j;
-      const unsigned int lo = low_word(off + pos);
-      if (pos < w && pre.matches(u[j], lo))
-        atomicAdd(hist + (((high ? u[j] : lo) >> s) & (bins - 1)), 1);
-    }
-    for (int i = t; i < nc; i += G) {
-      const unsigned int hi = (unsigned int)(carry[i] >> 32);
-      const unsigned int lo = (unsigned int)carry[i];
-      if (pre.matches(hi, lo))
-        atomicAdd(hist + (((high ? hi : lo) >> s) & (bins - 1)), 1);
-    }
-    group_sync(bar);
-    if (t < 32) find_bin(hist, bins, remaining, lane, st);
-    group_sync(bar);
-    if (high) {
-      pre.hi |= (unsigned int)st->bin << s;
-      pre.mask_hi |= (unsigned int)(bins - 1) << s;
-    } else {
-      pre.lo |= (unsigned int)st->bin << s;
-      pre.mask_lo |= (unsigned int)(bins - 1) << s;
-    }
-    remaining = st->remaining;
-    // every key left in the bin is needed (always so at the last bits: the
-    // keys are distinct)
-    if (st->bin_count == remaining || shift == 0) break;
-  }
-  // the k keys at or above the prefix, in no order: a lane counts its
-  // own, a warp scan places them, one shared atomic a warp
-  int mine = 0;
-#pragma unroll
-  for (int j = 0; j < KPT; ++j) {
-    const int pos = t + G * j;
-    mine += pos < w && pre.at_or_above(u[j], low_word(off + pos));
-  }
-  for (int i = t; i < nc; i += G)
-    mine += pre.at_or_above((unsigned int)(carry[i] >> 32),
-                            (unsigned int)carry[i]);
-  int incl = mine;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int x = __shfl_up_sync(0xFFFFFFFFu, incl, d);
-    if (lane >= d) incl += x;
-  }
-  if (t == 0) st->filled = 0;
-  group_sync(bar);
-  int slot = 0;
-  if (lane == 31 && incl > 0) slot = atomicAdd(&st->filled, incl);
-  slot = __shfl_sync(0xFFFFFFFFu, slot, 31) + incl - mine;
-#pragma unroll
-  for (int j = 0; j < KPT; ++j) {
-    const int pos = t + G * j;
-    const unsigned int lo = low_word(off + pos);
-    if (pos < w && pre.at_or_above(u[j], lo))
-      out[slot++] = ((unsigned long long)u[j] << 32) | lo;
-  }
-  for (int i = t; i < nc; i += G) {
-    const unsigned long long x = carry[i];
-    if (pre.at_or_above((unsigned int)(x >> 32), (unsigned int)x))
-      out[slot++] = x;
-  }
-  group_sync(bar);
-}
-
-// One compare-exchange of a bitonic network, seen from element i holding
-// `mine` against its partner's `other`: the lower index of a pair keeps the
-// larger key where the run sorts descending.
-__device__ __forceinline__ unsigned long long exchange(
-    unsigned long long mine, unsigned long long other, int i, int stride,
-    int size) {
-  const bool first = (i & stride) == 0;
-  const bool desc = (i & size) == 0;
-  const unsigned long long hi = mine > other ? mine : other;
-  const unsigned long long lo = mine > other ? other : mine;
-  return first == desc ? hi : lo;
-}
-
-// Sort s[0, 512) descending; the G threads of a query, two keys each
-// (positions 2t, 2t+1) in registers. Strides up to 32 pair threads of one
-// warp (shuffles, no barrier); strides of 64 and more go through s.
-__device__ void sort512_desc(unsigned long long* s, int bar) {
-  const int t = threadIdx.x % G;
-  const int i0 = 2 * t, i1 = 2 * t + 1;
-  unsigned long long v0 = s[i0], v1 = s[i1];
-  for (int size = 2; size <= 2 * G; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      unsigned long long o0, o1;
-      if (stride == 1) {
-        o0 = v1;
-        o1 = v0;
-      } else if (stride < 64) {
-        o0 = __shfl_xor_sync(0xFFFFFFFFu, v0, stride >> 1);
-        o1 = __shfl_xor_sync(0xFFFFFFFFu, v1, stride >> 1);
-      } else {
-        group_sync(bar);
-        s[i0] = v0;
-        s[i1] = v1;
-        group_sync(bar);
-        o0 = s[i0 ^ stride];
-        o1 = s[i1 ^ stride];
-      }
-      v0 = exchange(v0, o0, i0, stride, size);
-      v1 = exchange(v1, o1, i1, stride, size);
-    }
-  }
-  group_sync(bar);
-  s[i0] = v0;
-  s[i1] = v1;
-  group_sync(bar);
-}
-
-// Sort s[0, p) descending, p a power of two; the G threads of a query.
-__device__ void sort_desc(unsigned long long* s, int p, int bar) {
-  const int t = threadIdx.x % G;
-  for (int size = 2; size <= p; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = t; i < p / 2; i += G) {
-        const int lo = 2 * i - (i & (stride - 1));
-        const int hi = lo + stride;
-        const bool desc = (lo & size) == 0;
-        const unsigned long long a = s[lo], b = s[hi];
-        if ((a < b) == desc) {
-          s[lo] = b;
-          s[hi] = a;
-        }
-      }
-      group_sync(bar);
-    }
-  }
-}
-
-// Shared memory of a block: the staging of a batch of (up to 2) vector
-// loads of every thread (QB > 1), then per query the histogram, its state
-// and `nbuf` buffers of max(p, 512) 64-bit keys.
-constexpr int MAX_BATCH = 2;
-__host__ __device__ constexpr int staging_bytes(int qb) {
-  return qb > 1 ? MAX_BATCH * qb * qb * G * 4 : 0;
-}
-__host__ __device__ constexpr int group_bytes(int p, int nbuf) {
-  return HIST_BINS * 4 + 32 + nbuf * (p > 2 * G ? p : 2 * G) * 8;
-}
-__host__ __device__ constexpr int smem_bytes(int qb, int p, int nbuf) {
-  return staging_bytes(qb) + qb * group_bytes(p, nbuf);
-}
-
-// Grid (ceil(nq / QB)), QB * G threads. Score (q, c) at scores[q * s_q +
-// c * s_c], id at ids[q * i_q + c * i_c] (ids null: the position c);
-// output j of query q at out[q * o_q + j * o_k]. `window` keys a pass (C
-// when C fits), at most G * KPT; p a power of two >= k.
-template <int QB, int KPT>
-__global__ void __launch_bounds__(QB * G)
-    select_topk(const float* __restrict__ scores, const int* __restrict__ ids,
-                float* __restrict__ out_s, int* __restrict__ out_i, int nq,
-                int c, int k, int p, int window, long long s_q, long long s_c,
-                long long i_q, long long i_c, long long o_q, long long o_k) {
-  static_assert(KPT % QB == 0, "a vector load feeds QB keys a thread");
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int nbuf = window < c ? 2 : 1;
-  const int width = max(p, 2 * G);  // a buffer: p keys, 512 at least
-  const int group = threadIdx.x / G;
-  const int t = threadIdx.x % G;
-  const int bar = 1 + group;
-  const int q0 = blockIdx.x * QB;
-  const int q = q0 + group;
-  float* staging = reinterpret_cast<float*>(smem);
-  unsigned char* gmem =
-      smem + staging_bytes(QB) + group * group_bytes(p, nbuf);
-  int* hist = reinterpret_cast<int*>(gmem);
-  GroupState* st = reinterpret_cast<GroupState*>(gmem + HIST_BINS * 4);
-  unsigned long long* buf =
-      reinterpret_cast<unsigned long long*>(gmem + HIST_BINS * 4 + 32);
-  const bool vec = QB > 1 && s_q == 1 && q0 + QB <= nq && s_c % QB == 0 &&
-                   (reinterpret_cast<uintptr_t>(scores + q0) %
-                    (QB * sizeof(float))) == 0;
-  unsigned int u[KPT];
-  int nc = 0, rounds = 0;
-  for (int off = 0; off < c; off += window, ++rounds) {
-    const int w = min(window, c - off);
-    if constexpr (QB > 1) {
-      if (vec) {
-        // thread x loads rows r = x + QB*G*m (m < KPT/QB), all QB queries
-        // of each; row r's score of query j reaches register r / G of
-        // query j's thread r % G
-        using V = typename Vec<QB>::T;
-        constexpr int LOADS = KPT / QB;           // vectors a thread
-        constexpr int BATCH = LOADS < MAX_BATCH ? LOADS : MAX_BATCH;
-#pragma unroll
-        for (int m0 = 0; m0 < LOADS; m0 += BATCH) {
-          V v[BATCH];
-#pragma unroll
-          for (int b = 0; b < BATCH; ++b) {
-            const int r = threadIdx.x + QB * G * (m0 + b);
-            v[b] = r < w ? __ldg(reinterpret_cast<const V*>(
-                               scores + q0 + (long long)(off + r) * s_c))
-                         : V{};
-          }
-#pragma unroll
-          for (int b = 0; b < BATCH; ++b)
-            Vec<QB>::put(staging + b * QB * QB * G + threadIdx.x, QB * G,
-                         v[b]);
-          __syncthreads();
-#pragma unroll
-          for (int b = 0; b < BATCH; ++b)
-#pragma unroll
-            for (int i = 0; i < QB; ++i)
-              u[QB * (m0 + b) + i] = order_key(
-                  staging[b * QB * QB * G + group * QB * G + i * G + t]);
-          __syncthreads();
-        }
-      }
-    }
-    if (!vec && q < nq) {
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const int pos = t + G * j;
-        u[j] = pos < w ? order_key(__ldg(scores + q * s_q +
-                                         (long long)(off + pos) * s_c))
-                       : 0u;
-      }
-    }
-    if (q < nq) {
-      // rounds alternate the two buffers: carry in one, survivors to the
-      // other
-      unsigned long long* carry = buf + (rounds % 2 == 1 ? 0 : width);
-      unsigned long long* dest =
-          buf + (nbuf == 2 && rounds % 2 == 1 ? width : 0);
-      radix_select<KPT>(u, w, off, carry, nc, k, dest, hist, st, bar);
-    }
-    nc = k;
-  }
-  if (q >= nq) return;
-  unsigned long long* top =
-      buf + (nbuf == 2 && (rounds - 1) % 2 == 1 ? width : 0);
-  for (int j = k + t; j < width; j += G) top[j] = 0;  // below every key
-  group_sync(bar);
-  if (p <= 2 * G)
-    sort512_desc(top, bar);
-  else
-    sort_desc(top, p, bar);
-  for (int j = t; j < k; j += G) {
-    const unsigned long long key = top[j];
-    const long long pos = 0xFFFFFFFFu - (unsigned int)(key & 0xFFFFFFFFull);
+// Winner j of query q: its score at s[q * o_q + j * o_k], its id ids[q *
+// i_q + position * i_c] (ids null: the position) at the same place of i.
+struct RowOut {
+  float* s;
+  int* i;
+  const int* ids;
+  long long i_q, i_c, o_q, o_k;
+  __device__ __forceinline__ void operator()(int q, int j,
+                                             unsigned long long key) const {
+    const long long pos = key_position(key);
     const long long at = (long long)q * o_q + j * o_k;
-    out_s[at] = key_score(key);
-    out_i[at] = ids != nullptr ? __ldg(ids + (long long)q * i_q + pos * i_c)
-                               : (int)pos;
+    s[at] = key_score(key);
+    i[at] = ids != nullptr ? __ldg(ids + (long long)q * i_q + pos * i_c)
+                           : (int)pos;
   }
-}
-
-template <int QB, int KPT>
-int launch(const void* scores, const void* ids, void* out_s, void* out_i,
-           int nq, int c, int k, int p, int window, long long s_q,
-           long long s_c, long long i_q, long long i_c, long long o_q,
-           long long o_k, cudaStream_t stream) {
-  const int smem = smem_bytes(QB, p, window < c ? 2 : 1);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      select_topk<QB, KPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return (int)e;
-  select_topk<QB, KPT><<<(nq + QB - 1) / QB, QB * G, smem, stream>>>(
-      static_cast<const float*>(scores), static_cast<const int*>(ids),
-      static_cast<float*>(out_s), static_cast<int*>(out_i), nq, c, k, p,
-      window, s_q, s_c, i_q, i_c, o_q, o_k);
-  return (int)cudaGetLastError();
-}
-
-template <int QB>
-int launch_kpt(int kpt, const void* scores, const void* ids, void* out_s,
-               void* out_i, int nq, int c, int k, int p, int window,
-               long long s_q, long long s_c, long long i_q, long long i_c,
-               long long o_q, long long o_k, cudaStream_t st) {
-  // the plans: 4 queries a block with 8-32 keys a thread; 2 with 64; 1
-  // with 32 or 64 (survivors too many for more queries, or a window of
-  // 16384)
-  if constexpr (QB == 4) {
-    if (kpt == 8)
-      return launch<QB, 8>(scores, ids, out_s, out_i, nq, c, k, p, window,
-                           s_q, s_c, i_q, i_c, o_q, o_k, st);
-    if (kpt == 16)
-      return launch<QB, 16>(scores, ids, out_s, out_i, nq, c, k, p, window,
-                            s_q, s_c, i_q, i_c, o_q, o_k, st);
-  }
-  if constexpr (QB != 2) {
-    if (kpt == 32)
-      return launch<QB, 32>(scores, ids, out_s, out_i, nq, c, k, p, window,
-                            s_q, s_c, i_q, i_c, o_q, o_k, st);
-  }
-  if constexpr (QB != 4) {
-    if (kpt == 64)
-      return launch<QB, 64>(scores, ids, out_s, out_i, nq, c, k, p, window,
-                            s_q, s_c, i_q, i_c, o_q, o_k, st);
-  }
-  return (int)cudaErrorInvalidValue;
-}
+};
 
 }  // namespace
 
 extern "C" {
 
 // scores float32, ids int32 or null, out_s float32, out_i int32, all
-// addressed by the element strides given; 1 <= k <= c; p a power of two,
-// k <= p; window = c when c <= 16384, else 16384 with 2k <= window (the
-// carry and a window both fit); qb in {1, 2, 4}, 1 when windowed; kpt
-// keys a thread with window <= 256 * kpt: 8, 16 or 32 for qb 4, 64 for qb
-// 2, 32 or 64 for qb 1.
+// addressed by the element strides given; (k, p, window, qb, kpt) as
+// `launch_select` takes them.
 int recbox_select_topk(const void* scores, const void* ids, void* out_s,
                        void* out_i, int nq, int c, int k, int p, int window,
                        int qb, int kpt, long long s_q, long long s_c,
                        long long i_q, long long i_c, long long o_q,
                        long long o_k, void* stream) {
-  if (nq <= 0 || c <= 0 || k <= 0 || k > c || k > p || p < 2 ||
-      (p & (p - 1)) != 0 || window <= 0 || window > MAX_WINDOW ||
-      window > c || window > G * kpt ||
-      (window < c && (qb != 1 || 2 * k > window)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (qb) {
-    case 1:
-      return launch_kpt<1>(kpt, scores, ids, out_s, out_i, nq, c, k, p,
-                           window, s_q, s_c, i_q, i_c, o_q, o_k, st);
-    case 2:
-      return launch_kpt<2>(kpt, scores, ids, out_s, out_i, nq, c, k, p,
-                           window, s_q, s_c, i_q, i_c, o_q, o_k, st);
-    case 4:
-      return launch_kpt<4>(kpt, scores, ids, out_s, out_i, nq, c, k, p,
-                           window, s_q, s_c, i_q, i_c, o_q, o_k, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const RowOut out{static_cast<float*>(out_s), static_cast<int*>(out_i),
+                   static_cast<const int*>(ids), i_q, i_c, o_q, o_k};
+  return launch_select(static_cast<const float*>(scores), nq, c, k, p,
+                       window, qb, kpt, s_q, s_c, out,
+                       static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

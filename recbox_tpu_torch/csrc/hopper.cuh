@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels: TMA
-// tile loads into 128-byte-swizzled shared memory, mbarriers, warpgroup
+// tile loads into 128- or 64-byte-swizzled shared memory, mbarriers, warpgroup
 // matrix multiplies (`wgmma`, bf16 and s8) reading both operands from
 // shared memory, and the host-side tensor maps. Used by B4's `wgmma` route
-// (`mips_topk.cu` `segment_candidates_wgmma`).
+// (`mips_topk.cu` `segment_candidates_wgmma`), which B3's stage (a) runs.
 
 #pragma once
 
@@ -84,12 +84,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
 // -- wgmma -------------------------------------------------------------------
 
 // Descriptor of a K-major tile in shared memory as TMA writes it under the
-// 128-byte swizzle: rows of 128 bytes (64 bf16 or 128 s8 values), 8-row
-// groups 1024 bytes apart, the tile 1024-byte aligned. Adding 2 steps 32
-// bytes (one k16 bf16 or k32 s8 slice) along K.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+// 128- or 64-byte swizzle (SWIZZLE = 128 or 64): rows of SWIZZLE bytes, 8-row
+// groups 8 * SWIZZLE bytes apart, the tile 1024-byte aligned. Adding 2 steps
+// 32 bytes (one k16 bf16 or k32 s8 slice) along K.
+template <int SWIZZLE>
+__device__ __forceinline__ uint64_t swizzled_desc(const void* tile) {
+  static_assert(SWIZZLE == 128 || SWIZZLE == 64, "128- or 64-byte rows");
   return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+         ((uint64_t)(8 * SWIZZLE >> 4) << 32) |
+         ((uint64_t)(SWIZZLE == 128 ? 1 : 2) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -243,22 +246,24 @@ constexpr int MAP_NO_ENCODER = 9001;
 constexpr int MAP_ENCODE_FAILED = 9002;
 
 // Map of a row-major (rows, cols) matrix of 2-byte (bf16) or 1-byte (s8)
-// values in boxes of 128 bytes of a row x box_rows rows, 128-byte swizzle,
-// zeros past the edges.
+// values in boxes of box_bytes (128 or 64) of a row x box_rows rows, under
+// the swizzle of that width, zeros past the edges.
 inline int k_major_map(CUtensorMap* map, const void* ptr, uint64_t rows,
-                       uint64_t cols, int elem_bytes, uint32_t box_rows) {
+                       uint64_t cols, int elem_bytes, uint32_t box_rows,
+                       int box_bytes) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return MAP_NO_ENCODER;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {cols * elem_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)(box_bytes / elem_bytes), box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode(
       map,
       elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                       : CU_TENSOR_MAP_DATA_TYPE_UINT8,
       2, const_cast<void*>(ptr), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      box_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : MAP_ENCODE_FAILED;
 }

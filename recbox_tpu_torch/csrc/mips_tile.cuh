@@ -1,7 +1,8 @@
-// Tile scoring shared by the MIPS kernels for Hopper (sm_90a): the fused
-// top-k (`mips_fused_topk.cu`, B3) and the segment-candidate generator
-// (`mips_topk.cu`, B4) score a (64 query, 128 corpus row) tile the same way
-// and pack a segment winner the same way.
+// Tile scoring of the MIPS kernels for Hopper (sm_90a): the tile route of
+// the segment-candidate generator (`mips_topk.cu`, B4, which is also the
+// fused top-k's stage (a)) scores a (64 query, 128 corpus row) tile, and
+// the segment winners' packing is defined here for both routes and for the
+// fused top-k's decode (`mips_fused_topk.cu`, B3).
 //
 // A block stages one k-block of the corpus chunk and of the query tile in
 // shared memory and scores them: bf16 / int8 on the tensor cores through

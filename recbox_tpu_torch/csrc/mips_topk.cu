@@ -21,30 +21,33 @@
 // scoring is 2*Q*N*D = 2.1e12 operations, 2.2 ms at the bf16 tensor-core
 // peak and 1.1 ms at int8's; the corpus (128-256 MB) and the candidates
 // (260 MB, twice that unpacked) are under 0.2 ms of HBM. Bound by
-// operations.
+// operations; at D = 64 (B3's serving corpus) half of them.
 //
 // Two routes, picked by the wrapper's rule on (dtype, depth, plan):
 //
 // `segment_candidates_wgmma` (bf16 packed and unpacked, and int8 packed,
-// at D = 128 and n_seg in {1, 2, 4, 8}; the 1024-query plan is n_seg = 8).
-// The first design (below) reached 11x its bound: WMMA fragments,
-// synchronous loads with two barriers a k-block, the query tile staged
-// again for every 128-row chunk, every score through a shared f32 stage,
-// 64 queries a block (the corpus read 128 times from L2). This one:
+// at D = 64 or 128 and n_seg in {1, 2, 4, 8}; the 1024-query plan is n_seg
+// = 8). B3's stage (a) (`mips_fused_topk.py`) runs its packed form. The
+// first design (below) reached 11x its bound: WMMA fragments, synchronous
+// loads with two barriers a k-block, the query tile staged again for every
+// 128-row chunk, every score through a shared f32 stage, 64 queries a
+// block (the corpus read 128 times from L2). This one:
 //  * a block takes 256 queries, loaded once by TMA and resident (64 KB of
-//    bf16, 32 of int8): the corpus is read 32 times from L2. Blocks run
-//    query tiles fastest, so the query tiles of one sub-chunk run together
-//    and the corpus comes from HBM about once;
-//  * one producer thread keeps a ring of 4 corpus tiles (64 rows x 128,
-//    128-byte-swizzled TMA boxes) filled, behind mbarriers; rows past N
-//    arrive as zeros and are masked by `valid`;
+//    bf16 at D = 128, 32 at D = 64 or of int8 at 128, 16 of int8 at 64):
+//    the corpus is read 32 times from L2. Blocks run query tiles fastest,
+//    so the query tiles of one sub-chunk run together and the corpus comes
+//    from HBM about once;
+//  * one producer thread keeps a ring of 4 corpus tiles (64 rows x D) filled,
+//    behind mbarriers, in TMA boxes of 128 bytes of a row under the 128-byte
+//    swizzle (a 64-byte int8 row at D = 64: one box under the 64-byte
+//    swizzle); rows past N arrive as zeros and are masked by `valid`;
 //  * two consumer warpgroups each run `wgmma` over half the queries
 //    (m64n128k16 bf16 into f32, or m64n128k32 s8 into s32 then f32 times
-//    the row's scale; 32-byte k-slices, operands from shared memory,
-//    accumulators in registers), one's fold overlapping the other's
-//    product (a second
-//    accumulator set a warpgroup, to overlap its own fold, spilled past
-//    the registers and lost time);
+//    the row's scale; 32-byte k-slices, 2 to 8 of them by depth and type,
+//    operands from shared memory, accumulators in registers), one's fold
+//    overlapping the other's product (a second accumulator set a
+//    warpgroup, to overlap its own fold, spilled past the registers and
+//    lost time);
 //  * the fold reads the accumulators in registers, no score stage. A
 //    thread holds rows 16w + lane/4 and +8 of every 64-row tile; row mod 8
 //    is lane/4, so for n_seg dividing 8 every row it sees is in segment
@@ -61,7 +64,7 @@
 //    queries.
 //
 // `segment_candidates` (every other dtype and plan: f32, other depths,
-// n_seg not dividing 8) is the first design: B3's stage (a)
+// n_seg not dividing 8) is the first design, B3's first stage (a)
 // (`mips_tile.cuh`): a block takes 64 queries and the 128-row chunks of one
 // sub-chunk, scores each chunk into shared memory and folds it into running
 // winners of its (query, segment) pairs, then stores them candidate-major.
@@ -235,17 +238,26 @@ constexpr int WG = 128;                   // threads of a warpgroup
 constexpr int W_TILE_M = 64;              // corpus rows a stage
 constexpr int W_HALF_N = 128;             // queries a consumer warpgroup
 constexpr int W_TILE_N = 2 * W_HALF_N;    // queries a block
-constexpr int W_DEPTH = 128;
 constexpr int W_STAGES = 4;
-constexpr int W_A_BOX = W_TILE_M * 128;   // a 128-byte-wide box of the tile
-constexpr int W_Q_BOX = W_TILE_N * 128;   // and of the query tile
 constexpr int W_MERGE_LD = W_HALF_N + 8;  // merge buffer row stride
 constexpr int W_ROWS_PER_BLOCK = 4096;    // sub-chunks a block: this many rows
 
-// 128-byte boxes across a row of D values: 2 for bf16, 1 for s8.
-template <typename T> __host__ __device__ constexpr int w_boxes() {
-  return W_DEPTH * (int)sizeof(T) / 128;
-}
+// How a row of DEPTH values of T lies in shared memory: TMA boxes of BOX
+// bytes of the row (128, or 64 for a 64-byte s8 row), each under the
+// swizzle of its width, BOXES of them across the row; a box holds
+// BOX_SLICES of the product's 32-byte k-slices.
+template <typename T, int DEPTH> struct WRow {
+  static constexpr int BYTES = DEPTH * (int)sizeof(T);
+  static constexpr int BOX = BYTES < 128 ? BYTES : 128;
+  static constexpr int BOXES = BYTES / BOX;
+  static constexpr int BOX_K = BOX / (int)sizeof(T);  // values in a box row
+  static constexpr int BOX_SLICES = BOX / 32;
+  static constexpr int SLICES = BYTES / 32;
+  static constexpr int A_BOX = W_TILE_M * BOX;  // a box of a corpus tile
+  static constexpr int Q_BOX = W_TILE_N * BOX;  // and of the query tile
+  static constexpr int STAGE = BOXES * A_BOX;
+  static_assert(BOX == 128 || BOX == 64, "128- or 64-byte swizzled boxes");
+};
 
 // Dynamic shared memory: the query tile, the ring, then per consumer
 // warpgroup the (warp, segment, query) winners (and indices unpacked) it
@@ -253,17 +265,19 @@ template <typename T> __host__ __device__ constexpr int w_boxes() {
 __host__ __device__ constexpr int wgmma_merge_bytes(int n_seg) {
   return 4 * n_seg * W_MERGE_LD * 4;
 }
-template <typename T>
+template <typename T, int DEPTH>
 __host__ __device__ constexpr int wgmma_smem(bool packed, int n_seg) {
-  return 1024 + w_boxes<T>() * (W_Q_BOX + W_STAGES * W_A_BOX) +
+  return 1024 + WRow<T, DEPTH>::BOXES * WRow<T, DEPTH>::Q_BOX +
+         W_STAGES * WRow<T, DEPTH>::STAGE +
          2 * wgmma_merge_bytes(n_seg) * (packed ? 1 : 2);
 }
 
 // Grid (ceil(nq / 256), ceil(n_sub / subs_per_block)), 384 threads:
 // warpgroup 0 loads, 1 and 2 score queries [0, 128) and [128, 256) of the
 // block's tile. Sub-chunks [y * subs_per_block, ...) of NSEG * 128 rows.
-// T is bf16 or s8 (packed, with row_scale).
-template <typename T, bool PACKED, int NSEG>
+// T is bf16 or s8 (packed, with row_scale); rows are DEPTH (64 or 128)
+// values.
+template <typename T, bool PACKED, int NSEG, int DEPTH>
 __global__ void __launch_bounds__(3 * WG, 1)
     segment_candidates_wgmma(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap cmap,
@@ -272,17 +286,14 @@ __global__ void __launch_bounds__(3 * WG, 1)
                              int* __restrict__ cand_i, int nq, int n,
                              int n_sub, int valid, int subs_per_block) {
   using Acc = typename AccOf<T>::type;
+  using R = WRow<T, DEPTH>;
   constexpr int SUB_ROWS = NSEG * SEGMENT;
   constexpr int TILES = SUB_ROWS / W_TILE_M;
-  constexpr int BOXES = w_boxes<T>();
-  constexpr int BOX_K = 128 / (int)sizeof(T);       // values in a box row
-  constexpr int STAGE = BOXES * W_A_BOX;
-  constexpr int SLICES = W_DEPTH / (32 / (int)sizeof(T));  // 32-byte k
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[W_STAGES], empty[W_STAGES], qfull;
   unsigned char* smem =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* ring = smem + BOXES * W_Q_BOX;
+  unsigned char* ring = smem + R::BOXES * R::Q_BOX;
   const int wg = threadIdx.x / WG;
   const int q0 = blockIdx.x * W_TILE_N;
   const int sub0 = blockIdx.y * subs_per_block;
@@ -299,18 +310,18 @@ __global__ void __launch_bounds__(3 * WG, 1)
   if (wg == 0) {
     regs_dealloc<40>();
     if (threadIdx.x == 0) {
-      mbar_arrive_tx(&qfull, BOXES * W_Q_BOX);
-      for (int b = 0; b < BOXES; ++b)
-        tma_load_2d(smem + b * W_Q_BOX, &qmap, &qfull, b * BOX_K, q0);
+      mbar_arrive_tx(&qfull, R::BOXES * R::Q_BOX);
+      for (int b = 0; b < R::BOXES; ++b)
+        tma_load_2d(smem + b * R::Q_BOX, &qmap, &qfull, b * R::BOX_K, q0);
       const int tiles = (sub1 - sub0) * TILES;
       for (int t = 0; t < tiles; ++t) {
         const int s = t % W_STAGES;
         if (t >= W_STAGES) mbar_wait(&empty[s], (t / W_STAGES - 1) & 1);
-        unsigned char* dst = ring + s * STAGE;
+        unsigned char* dst = ring + s * R::STAGE;
         const int row = sub0 * SUB_ROWS + t * W_TILE_M;
-        mbar_arrive_tx(&full[s], STAGE);
-        for (int b = 0; b < BOXES; ++b)
-          tma_load_2d(dst + b * W_A_BOX, &cmap, &full[s], b * BOX_K, row);
+        mbar_arrive_tx(&full[s], R::STAGE);
+        for (int b = 0; b < R::BOXES; ++b)
+          tma_load_2d(dst + b * R::A_BOX, &cmap, &full[s], b * R::BOX_K, row);
       }
     }
   } else {
@@ -319,11 +330,12 @@ __global__ void __launch_bounds__(3 * WG, 1)
     const int t = threadIdx.x - wg * WG;
     const int warp = t / 32, lane = t % 32;
     const int seg = (lane >> 2) & (NSEG - 1);
-    float* mbuf = reinterpret_cast<float*>(ring + W_STAGES * STAGE +
+    float* mbuf = reinterpret_cast<float*>(ring + W_STAGES * R::STAGE +
                                            half * wgmma_merge_bytes(NSEG));
-    int* mbuf_i = reinterpret_cast<int*>(ring + W_STAGES * STAGE +
+    int* mbuf_i = reinterpret_cast<int*>(ring + W_STAGES * R::STAGE +
                                          (2 + half) * wgmma_merge_bytes(NSEG));
-    const uint64_t qdesc = sw128_desc(smem + half * W_HALF_N * 128);
+    const uint64_t qdesc =
+        swizzled_desc<R::BOX>(smem + half * W_HALF_N * R::BOX);
     const float neg_inf = __uint_as_float(NEG_INF_BITS);
     Acc d[64];
 #pragma unroll
@@ -341,14 +353,16 @@ __global__ void __launch_bounds__(3 * WG, 1)
       for (int tt = 0; tt < TILES; ++tt, ++tile) {
         const int s = tile % W_STAGES;
         mbar_wait(&full[s], (tile / W_STAGES) & 1);
-        const uint64_t adesc = sw128_desc(ring + s * STAGE);
+        const uint64_t adesc = swizzled_desc<R::BOX>(ring + s * R::STAGE);
         fence_regs(d);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < SLICES; ++kk) {
-          // four 32-byte slices to a 128-byte box
-          const uint64_t ka = (kk / 4) * (W_A_BOX >> 4) + (kk % 4) * 2;
-          const uint64_t kq = (kk / 4) * (W_Q_BOX >> 4) + (kk % 4) * 2;
+        for (int kk = 0; kk < R::SLICES; ++kk) {
+          // BOX_SLICES 32-byte slices to a box
+          const uint64_t ka = (kk / R::BOX_SLICES) * (R::A_BOX >> 4) +
+                              (kk % R::BOX_SLICES) * 2;
+          const uint64_t kq = (kk / R::BOX_SLICES) * (R::Q_BOX >> 4) +
+                              (kk % R::BOX_SLICES) * 2;
           mma_slice(d, adesc + ka, qdesc + kq, kk > 0);
         }
         wgmma_commit();
@@ -478,13 +492,13 @@ __global__ void __launch_bounds__(3 * WG, 1)
   }
 }
 
-template <typename T, bool PACKED, int NSEG>
+template <typename T, bool PACKED, int NSEG, int DEPTH>
 int launch_wgmma(const CUtensorMap& qmap, const CUtensorMap& cmap,
                  const void* row_scale, void* cand_s, void* cand_i, int nq,
                  int n, int valid, cudaStream_t stream) {
   constexpr int SUB_ROWS = NSEG * SEGMENT;
-  const int smem = wgmma_smem<T>(PACKED, NSEG);
-  auto kernel = segment_candidates_wgmma<T, PACKED, NSEG>;
+  const int smem = wgmma_smem<T, DEPTH>(PACKED, NSEG);
+  auto kernel = segment_candidates_wgmma<T, PACKED, NSEG, DEPTH>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -498,26 +512,44 @@ int launch_wgmma(const CUtensorMap& qmap, const CUtensorMap& cmap,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool PACKED>
-int launch_wgmma_plan(const CUtensorMap& qmap, const CUtensorMap& cmap,
-                      const void* row_scale, void* cand_s, void* cand_i,
-                      int nq, int n, int valid, int n_seg, cudaStream_t st) {
+template <typename T, bool PACKED, int DEPTH>
+int launch_wgmma_plan(const void* q, const void* c, const void* row_scale,
+                      void* cand_s, void* cand_i, int nq, int n, int valid,
+                      int n_seg, cudaStream_t st) {
+  using R = WRow<T, DEPTH>;
+  CUtensorMap qmap, cmap;
+  int rc = k_major_map(&qmap, q, nq, DEPTH, sizeof(T), W_TILE_N, R::BOX);
+  if (rc == 0)
+    rc = k_major_map(&cmap, c, n, DEPTH, sizeof(T), W_TILE_M, R::BOX);
+  if (rc != 0) return rc;
   switch (n_seg) {
     case 1:
-      return launch_wgmma<T, PACKED, 1>(qmap, cmap, row_scale, cand_s,
-                                        cand_i, nq, n, valid, st);
+      return launch_wgmma<T, PACKED, 1, DEPTH>(qmap, cmap, row_scale, cand_s,
+                                               cand_i, nq, n, valid, st);
     case 2:
-      return launch_wgmma<T, PACKED, 2>(qmap, cmap, row_scale, cand_s,
-                                        cand_i, nq, n, valid, st);
+      return launch_wgmma<T, PACKED, 2, DEPTH>(qmap, cmap, row_scale, cand_s,
+                                               cand_i, nq, n, valid, st);
     case 4:
-      return launch_wgmma<T, PACKED, 4>(qmap, cmap, row_scale, cand_s,
-                                        cand_i, nq, n, valid, st);
+      return launch_wgmma<T, PACKED, 4, DEPTH>(qmap, cmap, row_scale, cand_s,
+                                               cand_i, nq, n, valid, st);
     case 8:
-      return launch_wgmma<T, PACKED, 8>(qmap, cmap, row_scale, cand_s,
-                                        cand_i, nq, n, valid, st);
+      return launch_wgmma<T, PACKED, 8, DEPTH>(qmap, cmap, row_scale, cand_s,
+                                               cand_i, nq, n, valid, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename T, bool PACKED>
+int launch_wgmma_depth(const void* q, const void* c, const void* row_scale,
+                       void* cand_s, void* cand_i, int nq, int n, int d,
+                       int valid, int n_seg, cudaStream_t st) {
+  return d == 64 ? launch_wgmma_plan<T, PACKED, 64>(q, c, row_scale, cand_s,
+                                                    cand_i, nq, n, valid,
+                                                    n_seg, st)
+                 : launch_wgmma_plan<T, PACKED, 128>(q, c, row_scale, cand_s,
+                                                     cand_i, nq, n, valid,
+                                                     n_seg, st);
 }
 
 }  // namespace
@@ -564,36 +596,33 @@ int recbox_mips_segment_candidates(int dtype, int packed, const void* q,
 }
 
 // The wgmma route: dtype 1 = bfloat16 (packed or not), 2 = int8 (packed,
-// row_scale required); q (nq, 128) and c (n, 128) row-major of that dtype;
-// sub_rows = 128 * n_seg with n_seg in {1, 2, 4, 8}; cand_s float32 and,
-// unpacked, cand_i int32, each with at least ceil(n / sub_rows) * n_seg
-// rows of nq. Every winner of those rows is written (no split runs).
+// row_scale required); q (nq, d) and c (n, d) row-major of that dtype, d
+// 64 or 128; sub_rows = 128 * n_seg with n_seg in {1, 2, 4, 8}; cand_s
+// float32 and, unpacked, cand_i int32, each with at least ceil(n /
+// sub_rows) * n_seg rows of nq. Every winner of those rows is written (no
+// split runs).
 int recbox_mips_segment_candidates_wgmma(int dtype, int packed, const void* q,
                                          const void* c, const void* row_scale,
                                          void* cand_s, void* cand_i, int nq,
                                          int n, int d, int valid,
                                          int sub_rows, void* stream) {
   const int n_seg = sub_rows / SEGMENT;
-  if (nq <= 0 || n <= 0 || d != W_DEPTH || sub_rows % SEGMENT != 0 ||
+  if (nq <= 0 || n <= 0 || (d != 64 && d != 128) ||
+      sub_rows % SEGMENT != 0 ||
       (n_seg != 1 && n_seg != 2 && n_seg != 4 && n_seg != 8) ||
       (dtype != 1 && dtype != 2) || (dtype == 2) != (row_scale != nullptr) ||
       (!packed && (dtype == 2 || cand_i == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int bytes = dtype == 1 ? 2 : 1;
-  CUtensorMap qmap, cmap;
-  int rc = k_major_map(&qmap, q, nq, d, bytes, W_TILE_N);
-  if (rc == 0) rc = k_major_map(&cmap, c, n, d, bytes, W_TILE_M);
-  if (rc != 0) return rc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 2)
-    return launch_wgmma_plan<signed char, true>(qmap, cmap, row_scale, cand_s,
-                                                cand_i, nq, n, valid, n_seg,
-                                                st);
-  return packed ? launch_wgmma_plan<__nv_bfloat16, true>(
-                      qmap, cmap, row_scale, cand_s, cand_i, nq, n, valid,
+    return launch_wgmma_depth<signed char, true>(q, c, row_scale, cand_s,
+                                                 cand_i, nq, n, d, valid,
+                                                 n_seg, st);
+  return packed ? launch_wgmma_depth<__nv_bfloat16, true>(
+                      q, c, row_scale, cand_s, cand_i, nq, n, d, valid,
                       n_seg, st)
-                : launch_wgmma_plan<__nv_bfloat16, false>(
-                      qmap, cmap, row_scale, cand_s, cand_i, nq, n, valid,
+                : launch_wgmma_depth<__nv_bfloat16, false>(
+                      q, c, row_scale, cand_s, cand_i, nq, n, d, valid,
                       n_seg, st);
 }
 

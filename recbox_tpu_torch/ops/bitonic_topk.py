@@ -12,8 +12,9 @@ The order is total: score descending, then candidate position ascending,
 which is `lax.top_k`'s order (JAX's network leaves equal scores in no set
 order). The kernel selects on, and the plain version sorts, the same 64-bit
 keys (`order_keys`), so they agree bit for bit. The kernel
-(`csrc/bitonic_topk.cu`, built by `ops/_build.py`: a radix selection over
-keys held in registers, then a sort of the k survivors) runs for CUDA
+(`csrc/bitonic_topk.cu` over `csrc/select_topk.cuh`, built by
+`ops/_build.py`: a radix selection over keys held in registers, then a sort
+of the k survivors; B3's stage (b) runs the same selection) runs for CUDA
 tensors, `bitonic_topk_plain` for CPU tensors; a CUDA tensor never reaches
 the plain version, and a failed build or launch raises.
 """
@@ -35,8 +36,7 @@ __all__ = ["pallas_bitonic_topk", "pallas_bitonic_topk_cmajor",
 # kernel launches on the CUDA path; the plain version never counts
 launches = {"bitonic_topk": 0}
 
-# the kernel's window: at most this many keys selected together in shared
-# memory (and B3's widest sort)
+# the kernel's window: at most this many keys selected together
 _MAX_SORT = 16384
 _LOW32 = 0xFFFFFFFF
 
@@ -92,21 +92,7 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-def sort_width(c: int, k: int, who: str = "bitonic_topk") -> int:
-    """Keys per window of B3's winner sort (`csrc/mips_fused_topk.cu`):
-    every candidate when they fit in one window, else a window with
-    k <= width/2."""
-    full = 1 << max(1, (c - 1).bit_length())
-    width = min(full, 8192)
-    if width < full and 2 * k > width:
-        width = min(full, _MAX_SORT)
-    if width < full and 2 * k > width:
-        raise ValueError(f"{who}: k={k} is above the kernel's "
-                         f"{_MAX_SORT // 2} for {c} candidates")
-    return width
-
-
-# the kernel's shapes (csrc/bitonic_topk.cu): 256 threads a query, each
+# the kernel's shapes (csrc/select_topk.cuh): 256 threads a query, each
 # with up to 64 keys in registers; a block's shared memory on sm_90 holds
 # the staging of two vector loads a thread, and per query a 2048-bin
 # histogram, a 32-byte state and the survivors' buffers
@@ -128,12 +114,12 @@ def select_smem(qb: int, c: int, window: int, p: int) -> int:
 def select_plan(c: int, k: int, who: str = "bitonic_topk"
                 ) -> Tuple[int, int, int, int]:
     """(queries a block, keys a window, keys a thread, survivor sort
-    width) of the kernel. Every candidate fits one window up to 16384 (any
-    k <= C); past that, windows of 16384 carry the top k from one to the
-    next, which holds k <= 8192. A block takes 4 queries (16-byte loads of
-    a candidate-major row) while a thread holds at most 32 keys and the
-    block fits in shared memory; at 64 keys a thread 2 queries; else, and
-    when windowed, 1."""
+    width) of the selection kernel (B5's, and B3's stage (b)). Every
+    candidate fits one window up to 16384 (any k <= C); past that, windows
+    of 16384 carry the top k from one to the next, which holds k <= 8192.
+    A block takes 4 queries (16-byte loads of a candidate-major row) while
+    a thread holds at most 32 keys and the block fits in shared memory; at
+    64 keys a thread 2 queries; else, and when windowed, 1."""
     if k > c:
         raise ValueError(f"{who}: k={k} > {c} candidates")
     p = 1 << max(1, (k - 1).bit_length())
@@ -216,7 +202,8 @@ def pallas_bitonic_topk_cmajor(scores_cm: torch.Tensor, ids_cm: torch.Tensor,
     ``q_tile`` was the JAX kernel's query tile in VMEM and has no meaning
     here: it is accepted and ignored. Raises ValueError for k > C, and for
     k above 8192 over more than 16384 candidates (the kernel's window;
-    JAX's own limit is k < 2048 over more than 4096)."""
+    JAX's own limit is k <= 2048 over more than 4096: it raises once the
+    power of two at or above k reaches its 4096-candidate block)."""
     return row_topk(scores_cm.T, ids_cm.T, k, out_cmajor=True)
 
 

@@ -1,4 +1,5 @@
-"""Fused MIPS top-k: the CUDA kernel, its plain PyTorch version, the wrapper.
+"""Fused MIPS top-k: the CUDA kernels, their plain PyTorch version, the
+wrapper.
 
 Port of the TPU kernel `recbox_tpu/ops/pallas/mips_fused_topk.py`
 (`mips_fused_topk` :197). For each query it returns the exact top-k of the
@@ -9,11 +10,18 @@ segment keeps its float max (`ops/mips_topk.py` has the segment plan). Recall
 loses only to segment collisions, ~k·128/(2N); returned scores carry the
 2^-17 truncation of the packing.
 
-The kernel (`csrc/mips_fused_topk.cu`, built by `ops/_build.py`) runs for
-CUDA tensors, `mips_fused_topk_plain` for CPU tensors; a CUDA tensor never
-reaches the plain version, and a failed build or launch raises. The plain
-version also serves as the kernel's yardstick in `chip_smoke.py` and the
-tests.
+For CUDA tensors the function is two launches (`csrc/mips_fused_topk.cu`,
+built by `ops/_build.py`): stage (a), the packed form of B4's
+segment-candidate kernel (`ops/mips_topk.py`: its `wgmma` route where
+`candidate_route` takes the dtype, depth and plan, else its tile route),
+writes the winners candidate-major; stage (b), B5's selection with this
+kernel's epilogue, selects the k largest packed winners of each query and
+decodes them. `mips_fused_topk_plain` runs for CPU tensors; a CUDA tensor
+never reaches it, and a failed build or launch raises. The plain version
+also serves as the kernels' yardstick in `chip_smoke.py` and the tests.
+
+Ties: packed score descending, then candidate position ascending (B5's
+order, `lax.top_k`'s); the JAX kernel sets no order among equal scores.
 
 The segment plan, and so the candidate set, is the JAX package's: the
 sub-chunk size follows its block plan for the query tile (`block_plan`,
@@ -32,51 +40,26 @@ import torch
 import torch.nn.functional as F
 
 from recbox_tpu_torch.ops import _build
-from recbox_tpu_torch.ops.bitonic_topk import sort_width
+from recbox_tpu_torch.ops.bitonic_topk import exact_topk, select_plan
 from recbox_tpu_torch.ops.mips_topk import (
-    PACK_FLOOR, PACK_MASK, SEGMENT, block_plan, mips_segment_candidates_plain,
-    quantize_int8, winner_ids,
+    SEGMENT, _candidates_cuda, block_plan, decode_winners,
+    mips_segment_candidates_plain, quantize_int8,
 )
 
 __all__ = ["mips_fused_topk", "mips_fused_topk_plain", "segment_plan",
            "launches", "reset_launches"]
 
-# kernel launches on the CUDA path, by corpus dtype; the plain version
-# never counts
+# launches of the selection, one a call through the kernels, by corpus
+# dtype (stage (a) counts in `mips_topk`'s `launches` and
+# `route_launches`); the plain version never counts
 launches = {"f32": 0, "bf16": 0, "int8": 0}
 
-_VARIANTS = {torch.float32: ("f32", 0), torch.bfloat16: ("bf16", 1),
-             torch.int8: ("int8", 2)}
-
-# queries a block of stage (a) scores (QT in csrc/mips_fused_topk.cu)
-_QUERY_TILE = 64
+_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
-
-
-def _order_key(win: torch.Tensor) -> torch.Tensor:
-    """int64 keys that sort like the f32 winners, the candidate position in
-    the low 32 bits: a total order, the kernel's own (`order_key`)."""
-    bits = win.view(torch.int32)
-    ks = bits ^ ((bits >> 31) & 0x7FFFFFFF)
-    cand = torch.arange(win.shape[-1], dtype=torch.int64, device=win.device)
-    return (ks.to(torch.int64) << 32) | cand
-
-
-def _decode(keys: torch.Tensor, sub_rows: int, q_scale):
-    ks = (keys >> 32).to(torch.int32)
-    bits = ks ^ ((ks >> 31) & 0x7FFFFFFF)
-    cand = keys & 0xFFFFFFFF
-    clean = (bits & ~PACK_MASK).view(torch.float32)
-    ids = winner_ids(cand, (bits & PACK_MASK).to(torch.int64), sub_rows)
-    alive = clean > -PACK_FLOOR / 2
-    if q_scale is not None:
-        clean = clean * q_scale[:, None]
-    return (torch.where(alive, clean, float("-inf")),
-            torch.where(alive, ids, -1).to(torch.int32))
 
 
 def segment_plan(corpus_dtype: torch.dtype, n: int, d: int, nq: int, k: int,
@@ -98,91 +81,62 @@ def mips_fused_topk_plain(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                           valid_items: int, row_scale=None, q_scale=None,
                           sub_rows: int = 1024
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch, for
+    """The kernels' function in plain PyTorch, for
     k <= ceil(N / sub_rows) · sub_rows / 128: the packed segment winners of
-    the candidate generator's plain version (`mips_topk.py`), then their
-    exact top-k in the kernel's order.
+    the candidate generator's plain version (`mips_topk.py`), their exact
+    top-k in B5's order (`exact_topk`), then the decode.
 
     bf16 inputs are upcast and multiplied in f32, which equals bf16 × bf16
     products summed in f32; int8 rows are exact integers in f32 while
     D·127² < 2^24, else in f64. On the card it needs
     ``torch.backends.cuda.matmul.allow_tf32 = False``."""
     win = mips_segment_candidates_plain(queries, corpus, valid_items, True,
-                                        row_scale, sub_rows).T
-    keys = torch.topk(_order_key(win), k, dim=1).values
-    return _decode(keys, sub_rows, q_scale)
+                                        row_scale, sub_rows)
+    vals, pos = exact_topk(win.T, k)
+    return decode_winners(vals, pos, sub_rows, q_scale)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("mips_fused_topk")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.recbox_mips_score_winners.argtypes = [i, vp, vp, vp, vp, i, i, i, i,
-                                              i, i, vp]
-    lib.recbox_mips_score_winners.restype = i
-    lib.recbox_mips_topk_winners.argtypes = [vp, vp, vp, vp, i, i, i, i, i,
-                                             vp]
-    lib.recbox_mips_topk_winners.restype = i
+    lib.recbox_mips_select_winners.argtypes = [vp, vp, vp, vp, i, i, i, i, i,
+                                               i, i, i, vp]
+    lib.recbox_mips_select_winners.restype = i
     return lib
-
-
-def _check(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"mips_fused_topk: {what} failed with CUDA error "
-                           f"{rc}")
 
 
 def _mips_fused_topk_cuda(queries, corpus, k, valid, row_scale, q_scale,
                           sub_rows):
+    nq, n = queries.shape[0], corpus.shape[0]
+    n_cand = -(-n // sub_rows) * (sub_rows // SEGMENT)
+    # B5's plan takes the (C, k) the first B3 sort took: k <= C up to 16384
+    # winners, k <= 8192 above
+    qb, window, kpt, p = select_plan(n_cand, k, "mips_fused_topk")
     dev = corpus.device
     if not (corpus.is_cuda and queries.device == dev):
         raise ValueError(f"mips_fused_topk: queries on {queries.device}, "
                          f"corpus on {dev}; the kernel takes both on one "
                          "CUDA device")
-    name, code = _VARIANTS[corpus.dtype]
-    d_pad = (-corpus.shape[1]) % 16
-    if d_pad:   # the kernel loads 16-byte vectors along the depth
-        corpus = F.pad(corpus, (0, d_pad))
-        queries = F.pad(queries, (0, d_pad))
-    queries, corpus = queries.contiguous(), corpus.contiguous()
-    nq, (n, d) = queries.shape[0], corpus.shape
-    n_sub = -(-n // sub_rows)
-    if n_sub > 65535:
-        raise ValueError(f"mips_fused_topk: {n} rows exceed the kernel's "
-                         f"{65535 * sub_rows} at sub_rows={sub_rows}")
-    n_cand = n_sub * (sub_rows // SEGMENT)
-    width = sort_width(n_cand, k, "mips_fused_topk")
     out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return out_s, out_i
-    if row_scale is not None:
-        row_scale = row_scale.to(device=dev, dtype=torch.float32).contiguous()
+    winners = torch.empty((n_cand, nq), dtype=torch.float32, device=dev)
+    _candidates_cuda(queries, corpus, valid, True, row_scale, sub_rows,
+                     winners, None)
     if q_scale is not None:
         q_scale = q_scale.contiguous()
-    # a grid of fewer than two blocks per SM splits each sub-chunk's chunks
-    # into runs, merged by atomic max into winners that start at -inf
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = -(-nq // _QUERY_TILE) * n_sub
-    splits = min(sub_rows // SEGMENT, -(-2 * sms // blocks))
-    if splits > 1:
-        winners = torch.full((nq, n_cand), float("-inf"), device=dev)
-    else:
-        winners = torch.empty((nq, n_cand), dtype=torch.float32, device=dev)
-    lib = _kernel_lib()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _check(lib.recbox_mips_score_winners(
-            code, queries.data_ptr(), corpus.data_ptr(),
-            None if row_scale is None else row_scale.data_ptr(),
-            winners.data_ptr(), nq, n, d, valid, sub_rows, splits, stream),
-            "score_winners")
-        _check(lib.recbox_mips_topk_winners(
+        rc = _kernel_lib().recbox_mips_select_winners(
             winners.data_ptr(),
             None if q_scale is None else q_scale.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(), nq, n_cand, k, width,
-            sub_rows, stream), "topk_winners")
-    launches[name] += 1
+            out_s.data_ptr(), out_i.data_ptr(), nq, n_cand, k, p, window, qb,
+            kpt, sub_rows, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mips_fused_topk: the selection failed with CUDA "
+                           f"error {rc}")
+    launches[_NAMES[corpus.dtype]] += 1
     return out_s, out_i
 
 
@@ -208,7 +162,7 @@ def mips_fused_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                          "per-row scales)")
     if not quantized and row_scale is not None:
         raise ValueError("row_scale is only meaningful for an int8 corpus")
-    if corpus.dtype not in _VARIANTS:
+    if corpus.dtype not in _NAMES:
         raise TypeError(f"mips_fused_topk: corpus dtype {corpus.dtype}; "
                         "expected float32, bfloat16 or int8")
     if queries.ndim != 2 or corpus.ndim != 2 \

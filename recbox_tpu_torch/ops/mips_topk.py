@@ -15,9 +15,11 @@ The kernel (`csrc/mips_topk.cu`, built by `ops/_build.py`) runs for CUDA
 tensors, `mips_segment_candidates_plain` for CPU tensors; a CUDA tensor
 never reaches the plain version, and a failed build or launch raises. The
 kernel has two routes, chosen by `candidate_route` from the dtype, the
-depth and the plan: `wgmma` (bf16 and int8, D = 128, n_seg in {1, 2, 4,
-8}: TMA-fed `wgmma` with the segment fold in registers) and `tile` (every
-other case: WMMA / CUDA-core tiles through a shared score stage).
+depth and the plan: `wgmma` (bf16 and int8, D = 64 or 128, n_seg in {1, 2,
+4, 8}: TMA-fed `wgmma` with the segment fold in registers) and `tile`
+(every other case: WMMA / CUDA-core tiles through a shared score stage).
+B3's stage (a) (`mips_fused_topk.py`) launches the packed kernel through
+`_candidates_cuda`.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from recbox_tpu_torch.ops.bitonic_topk import exact_topk, row_topk
 
 __all__ = ["SEGMENT", "PACK_FLOOR", "PACK_BITS", "PACK_MASK", "block_plan",
            "candidate_plan", "split_runs", "quantize_int8", "winner_ids",
-           "mips_segment_candidates", "mips_segment_candidates_plain",
+           "decode_winners", "mips_segment_candidates",
+           "mips_segment_candidates_plain",
            "pallas_mips_topk", "candidate_route", "launches",
            "route_launches", "reset_launches"]
 
@@ -118,6 +121,25 @@ def winner_ids(cand: torch.Tensor, idx: torch.Tensor, sub_rows: int
     return (cand // n_seg) * sub_rows + cand % n_seg + idx * n_seg
 
 
+def decode_winners(vals: torch.Tensor, pos: torch.Tensor, sub_rows: int,
+                   q_scale: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scores f32, ids int32) of selected packed winners ``vals`` (Q, k)
+    at candidate positions ``pos``: the index bits cleared, the global row
+    rebuilt (`winner_ids`), scores times the per-query ``q_scale`` (int8);
+    a winner at or below -PACK_FLOOR / 2 (a segment of pad rows) becomes
+    the shared pad (-inf, -1)."""
+    bits = vals.view(torch.int32)
+    clean = (bits & ~PACK_MASK).view(torch.float32)
+    ids = winner_ids(pos.to(torch.int64), (bits & PACK_MASK).to(torch.int64),
+                     sub_rows)
+    alive = clean > -PACK_FLOOR / 2
+    if q_scale is not None:
+        clean = clean * q_scale[:, None]
+    return (torch.where(alive, clean, float("-inf")),
+            torch.where(alive, ids, -1).to(torch.int32))
+
+
 def _segment_base(n_sub: int, sub_rows: int, device) -> torch.Tensor:
     """(n_sub · n_seg,) first row of each candidate's segment: the id JAX
     gives the winner of a segment of pad rows (argmax 0)."""
@@ -193,19 +215,20 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-# the depth and segment counts the wgmma route is built for
-_WGMMA_DEPTH = 128
+# the depths and segment counts the wgmma route is built for
+_WGMMA_DEPTHS = (64, 128)
 _WGMMA_SEGMENTS = (1, 2, 4, 8)
 
 
 def candidate_route(dtype: torch.dtype, d: int, sub_rows: int) -> str:
     """The kernel's route for a corpus of ``dtype`` and depth ``d`` at the
-    plan with ``sub_rows``: 'wgmma' for bf16 and int8 with D = 128 (after
-    padding to 16) and n_seg = sub_rows / 128 in {1, 2, 4, 8}, where every
-    row a thread of the `wgmma` tile holds is in one segment; 'tile' for
-    the rest (f32, other depths, plans with n_seg not dividing 8)."""
+    plan with ``sub_rows``: 'wgmma' for bf16 and int8 with D = 64 or 128
+    (after padding to 16) and n_seg = sub_rows / 128 in {1, 2, 4, 8}, where
+    every row a thread of the `wgmma` tile holds is in one segment; 'tile'
+    for the rest (f32, which TF32 would change; other depths; plans with
+    n_seg not dividing 8). B3's stage (a) takes the same rule."""
     if (dtype in (torch.bfloat16, torch.int8)
-            and d + (-d) % 16 == _WGMMA_DEPTH
+            and d + (-d) % 16 in _WGMMA_DEPTHS
             and sub_rows // SEGMENT in _WGMMA_SEGMENTS
             and sub_rows % SEGMENT == 0):
         return "wgmma"
@@ -229,9 +252,10 @@ def split_runs(nq: int, n: int, sub_rows: int, packed: bool, device) -> int:
 
 
 def _candidates_cuda(queries, corpus, valid, packed, row_scale, sub_rows,
-                     out_s, out_i):
+                     out_s, out_i) -> str:
     """Launch the kernel into the first ceil(N / sub_rows) · n_seg rows of
-    the candidate-major ``out_s`` (and ``out_i``)."""
+    the candidate-major ``out_s`` (and ``out_i``); returns the route it
+    took."""
     dev = corpus.device
     if not (corpus.is_cuda and queries.device == dev):
         raise ValueError(f"mips_segment_candidates: queries on "
@@ -276,6 +300,7 @@ def _candidates_cuda(queries, corpus, valid, packed, row_scale, sub_rows,
         "packed_int8" if corpus.dtype == torch.int8 else "packed")
     launches[variant] += 1
     route_launches[route] += 1
+    return route
 
 
 def _candidates(queries, corpus, valid, packed, row_scale, sub_rows,
@@ -438,17 +463,8 @@ def pallas_mips_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                               row_scale=row_scale, sub_rows=sub_rows,
                               n_cand=n_cand)
     if packed:
-        cs = cands(packed=True)
-        vals, pos = exact_topk(cs.T, k)
-        bits = vals.view(torch.int32)
-        clean = (bits & ~PACK_MASK).view(torch.float32)
-        ids = winner_ids(pos, (bits & PACK_MASK).to(torch.int64), sub_rows)
-        # pads sit near -PACK_FLOOR: the shared pad convention is (-inf, -1)
-        alive = clean > -PACK_FLOOR / 2
-        if q_scale is not None:
-            clean = clean * q_scale[:, None]
-        return (torch.where(alive, clean, float("-inf")),
-                torch.where(alive, ids, -1).to(torch.int32))
+        vals, pos = exact_topk(cands(packed=True).T, k)
+        return decode_winners(vals, pos, sub_rows, q_scale)
     cs, ci = cands(packed=False)
     if merge == "bitonic":
         ts, ti = row_topk(cs.T, ci.T, k)

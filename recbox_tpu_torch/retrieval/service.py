@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,6 +49,31 @@ def _merge_interests(s: np.ndarray, i: np.ndarray, t: int
         out_s[r, :len(keep)] = s_d[r, keep]
         out_i[r, :len(keep)] = i_d[r, keep]
     return out_s, out_i
+
+
+def _to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """``tensors`` as numpy arrays on the host. From the card each is copied
+    asynchronously into a pinned buffer made for this call, then the stream
+    is synchronized: PyTorch's caching host allocator hands the block out
+    again only once the caller has dropped the array, whereas a buffer kept
+    across calls would be overwritten by the next query under a result the
+    caller still holds. A CPU tensor is returned as it is.
+
+    The cost: the arrays are views of page-locked memory, so a caller that
+    keeps its results holds that much pinned host memory (32 MB for 8192
+    queries at k=500), and the allocator caches every freed block for later
+    copies instead of returning it to the system. A caller that keeps many
+    results (a sweep over every user, say) should copy them
+    (``np.array(s)``): the block then goes back to the cache at once, and
+    the next call reuses it."""
+    if tensors[0].device.type != "cuda":
+        return [t.cpu().numpy() for t in tensors]
+    bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for buf, t in zip(bufs, tensors):
+        buf.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [buf.numpy() for buf in bufs]
 
 
 class RetrievalService:
@@ -165,12 +190,10 @@ class RetrievalService:
         t = min(k + extra, self.num_items)
         if q.ndim == 3:  # (B, K, D) multi-interest: retrieve per interest
             B, K, D = q.shape
-            s, i = self.index.search(q.reshape(B * K, D), topk=t)
-            s, i = _merge_interests(s.cpu().numpy().reshape(B, -1),
-                                    i.cpu().numpy().reshape(B, -1), t)
+            s, i = _to_host(*self.index.search(q.reshape(B * K, D), topk=t))
+            s, i = _merge_interests(s.reshape(B, -1), i.reshape(B, -1), t)
         else:
-            s, i = self.index.search(q, topk=t)
-            s, i = s.cpu().numpy(), i.cpu().numpy()
+            s, i = _to_host(*self.index.search(q, topk=t))
         if exclude is None:
             return s[:, :k], i[:, :k]
         # vectorized seen-filter: pad banned lists, mask to -inf, re-rank

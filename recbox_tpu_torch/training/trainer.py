@@ -46,7 +46,7 @@ from recbox_tpu_torch.ops.losses import embedding_reg_loss
 
 logger = logging.getLogger("recbox_tpu_torch")
 
-__all__ = ["Trainer", "TrainerConfig"]
+__all__ = ["Trainer", "TrainerConfig", "is_embedding_table"]
 
 _TRAINER_ITEM = ("is not ported yet (ROADMAP.md, Queue A: the training/"
                  "trainer.py remainder)")
@@ -107,6 +107,18 @@ class _Adam:
             v.copy_((1.0 - self.b2) * torch.square(g) + self.b2 * v)
             u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
             p.add_(u * -self.lr)
+
+
+def is_embedding_table(name: str) -> bool:
+    """Whether the regularizers take the parameter ``name`` as an embedding
+    table: as in the JAX package (`training/trainer.py:232-237`,
+    `ops/losses.py:100-117`), when a component of its flax name starts with
+    ``emb_``. The flax name of a `FeatureEmbedding` table
+    ``<module>.tables.<t>`` is ``<module>/emb_<t>`` (`interop`'s mapping);
+    a bare table such as SASRec's ``emb_item`` keeps its name."""
+    parts = name.split(".")
+    return any(p.startswith("emb_") or (i > 0 and parts[i - 1] == "tables")
+               for i, p in enumerate(parts))
 
 
 def _make_optimizer(cfg: TrainerConfig, params: List[torch.Tensor]) -> _Adam:
@@ -216,7 +228,7 @@ class Trainer:
             loss = self.loss_fn(self._step_forward(dbatch), dbatch)
         if cfg.embedding_regularizer or cfg.net_regularizer:
             tables = {n: p for n, p in self.params.items()
-                      if ".tables." in "." + n}
+                      if is_embedding_table(n)}
             if cfg.embedding_regularizer:
                 loss = loss + cfg.embedding_regularizer * embedding_reg_loss(
                     tables, prefix="", device=self.device)

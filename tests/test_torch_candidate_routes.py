@@ -1,12 +1,14 @@
 """The dispatch rules of the redesigned candidate kernels, on the CPU.
 
 B4 (`mips_segment_candidates`) has two CUDA routes chosen by an explicit
-rule on (dtype, depth, plan); B5 (`pallas_bitonic_topk`) selects in windows
-planned by `select_plan`. The kernels run on the card (`chip_smoke.py`);
-here the rules are held against the JAX package's block plan and against
-the domain the first B5 kernel took (`sort_width`), and the plain top-k's
-tie order against `lax.top_k`. Exact comparisons throughout: the rules are
-integer arithmetic and the top-k of equal values is a total order.
+rule on (dtype, depth, plan), and B3's stage (a) (`mips_fused_topk`) takes
+the same rule; B5 (`pallas_bitonic_topk`) and B3's stage (b) select in
+windows planned by `select_plan`. The kernels run on the card
+(`chip_smoke.py`); here the rules are held against the JAX package's block
+plan and against the (C, k) domain the first B5 and B3 kernels took (k <= C
+up to 16384 candidates, k <= 8192 above), and the plain top-k's tie order
+against `lax.top_k`. Exact comparisons throughout: the rules are integer
+arithmetic and the top-k of equal values is a total order.
 """
 
 import jax
@@ -16,9 +18,12 @@ import pytest
 import torch
 
 from recbox_tpu.ops.pallas.mips_topk import _block_plan
+from recbox_tpu_torch.ops import mips_fused_topk as fused_mod
 from recbox_tpu_torch.ops.bitonic_topk import (
     bitonic_topk_plain, pallas_bitonic_topk, select_plan, select_smem,
-    sort_width,
+)
+from recbox_tpu_torch.ops.mips_fused_topk import (
+    mips_fused_topk, segment_plan,
 )
 from recbox_tpu_torch.ops.mips_topk import (
     candidate_plan, candidate_route, mips_segment_candidates,
@@ -49,9 +54,18 @@ def test_bf16_d128_plans_take_the_wgmma_route(tile, n_seg):
 
 
 @pytest.mark.parametrize("dtype,d,tile", [
-    (torch.float32, 128, 1024),    # f32: no bf16 wgmma, TF32 would round
-    (torch.int8, 64, 1024),        # another depth
+    (torch.int8, 64, 1024),        # D = 64, the serving corpus's depth
     (torch.bfloat16, 64, 1024),
+])
+def test_d64_plans_take_the_wgmma_route(dtype, d, tile):
+    sub, _ = candidate_plan(dtype, 1_000_000, d, tile)
+    assert sub == 1024
+    assert candidate_route(dtype, d, sub) == "wgmma"
+
+
+@pytest.mark.parametrize("dtype,d,tile", [
+    (torch.float32, 128, 1024),    # f32: no bf16 wgmma, TF32 would round
+    (torch.bfloat16, 48, 1024),    # another depth
     (torch.bfloat16, 128, 512),    # n_seg = 16 > 8
     (torch.bfloat16, 128, 20),     # the small-query plans: n_seg = 128
 ])
@@ -62,10 +76,33 @@ def test_other_dtypes_depths_and_plans_take_the_tile_route(dtype, d, tile):
 
 def test_route_pads_depth_to_sixteen_first():
     """The wrapper pads the depth to a multiple of 16 before the launch, so
-    a 120-wide bf16 corpus is a 128-wide one to the rule; 112 is not."""
+    a 120-wide bf16 corpus is a 128-wide one to the rule and a 56-wide one
+    a 64-wide one; 112 and 48 are neither."""
     assert candidate_route(torch.bfloat16, 120, 1024) == "wgmma"
+    assert candidate_route(torch.int8, 56, 1024) == "wgmma"
     assert candidate_route(torch.bfloat16, 112, 1024) == "tile"
+    assert candidate_route(torch.bfloat16, 48, 1024) == "tile"
     assert candidate_route(torch.bfloat16, 128, 1536) == "tile"   # n_seg 12
+
+
+_JAX_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+               torch.int8: jnp.int8}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
+@pytest.mark.parametrize("d", [64, 120, 128, 112])
+@pytest.mark.parametrize("nq", [20, 600, 1024, 8192])
+def test_fused_stage_a_route_at_jax_plans(dtype, d, nq):
+    """B3's stage (a) at the JAX plan of its query tile (min(1024, Q)) over
+    1M rows: the `wgmma` route for bf16 and int8 at a depth that pads to
+    64 or 128 with the 1024-query plan (n_seg = 8); the tile route for f32,
+    for D = 112, and for the plans of 20 and 600 queries (n_seg 128 or 256,
+    and 13)."""
+    sub, _ = segment_plan(dtype, 1_000_000, d, nq, 500)
+    assert sub == _block_plan(_JAX_DTYPES[dtype], min(nq, 1024),
+                              d + (-d) % 128)[0]
+    wgmma = (dtype != torch.float32 and d != 112 and nq >= 1024)
+    assert candidate_route(dtype, d, sub) == ("wgmma" if wgmma else "tile")
 
 
 def test_cpu_tensors_count_no_route():
@@ -87,15 +124,15 @@ _SHAPES = [(c, k) for c in (10, 7936, 8192, 8193, 16384, 16385, 40_000)
 
 @pytest.mark.parametrize("c,k", _SHAPES)
 def test_select_plan_takes_the_first_kernels_domain(c, k):
-    """`select_plan` accepts exactly the (C, k) that `sort_width` (the
-    first B5 kernel's window rule, still B3's) accepts, and raises the same
-    ValueError elsewhere; every plan fits a block's shared memory."""
-    try:
-        sort_width(c, k)
-    except ValueError as err:
-        with pytest.raises(ValueError, match="candidates") as got:
+    """`select_plan` accepts exactly the (C, k) the first B5 and B3 kernels
+    (a bitonic sort in windows of up to 16384 keys) took, k <= C up to
+    16384 candidates and k <= 8192 above, and raises ValueError elsewhere;
+    every plan fits a block's shared memory."""
+    if c > 16384 and k > 8192:
+        with pytest.raises(ValueError,
+                           match=f"above the kernel's 8192 for {c} "
+                                 "candidates"):
             select_plan(c, k)
-        assert str(got.value) == str(err)
         return
     qb, window, kpt, p = select_plan(c, k)
     assert qb in (1, 2, 4) and p >= k and p & (p - 1) == 0
@@ -104,6 +141,30 @@ def test_select_plan_takes_the_first_kernels_domain(c, k):
     assert window == min(c, 16384)
     assert window == c or (qb == 1 and window >= k)
     assert select_smem(qb, c, window, p) <= _SMEM
+
+
+# corpora of 1024-row sub-chunks (8 winners each) for 1024 queries at D=64:
+# 16384 winners, and 16392 (past one window)
+@pytest.mark.parametrize("n,k,fits", [
+    (2_097_152, 16384, True), (2_098_176, 8192, True),
+    (2_098_176, 8193, False)])
+def test_fused_topk_domain_is_unchanged(n, k, fits):
+    """B3's (C, k) domain over its live winners is the first B3 kernel's:
+    k = C at 16384, k = 8192 over more, and k = 8193 over more raises. The
+    CUDA path plans its selection before it looks at the device, so meta
+    tensors reach the plan and then the device check, and launch
+    nothing."""
+    from recbox_tpu_torch.ops import mips_topk as mips_mod
+    before = (dict(fused_mod.launches), dict(mips_mod.route_launches))
+    q = torch.empty((1024, 64), dtype=torch.bfloat16, device="meta")
+    c = torch.empty((n, 64), dtype=torch.bfloat16, device="meta")
+    sub, n_cand = segment_plan(c.dtype, n, 64, 1024, k)
+    assert sub == 1024 and n_cand >= k
+    match = "CUDA device" if fits else \
+        f"above the kernel's 8192 for {-(-n // 1024) * 8} candidates"
+    with pytest.raises(ValueError, match=match):
+        mips_fused_topk(q, c, k)
+    assert (fused_mod.launches, mips_mod.route_launches) == before
 
 
 def test_select_plan_queries_a_block():

@@ -36,8 +36,12 @@ from recbox_tpu_torch.models.base import MatchingModel
 from recbox_tpu_torch.models.matching import two_tower as ptt
 from recbox_tpu_torch.nn.embedding import FeatureEmbedding
 from recbox_tpu_torch.ops import mips_fused_topk as fused_mod
+from recbox_tpu_torch.ops.bitonic_topk import bitonic_topk_plain
 from recbox_tpu_torch.ops.mips_fused_topk import (
     mips_fused_topk, mips_fused_topk_plain, segment_plan,
+)
+from recbox_tpu_torch.ops.mips_topk import (
+    decode_winners, mips_segment_candidates_plain,
 )
 from recbox_tpu_torch.retrieval import (
     BruteForceMIPS, RetrievalService, chunked_topk, quantize_int8,
@@ -54,6 +58,18 @@ def _jax_sub_rows(dtype, nq, d):
 def _sets_equal(a, b):
     return np.array_equal(np.sort(np.asarray(a), axis=1),
                           np.sort(np.asarray(b), axis=1))
+
+
+def _sets_equal_but_ties(ps, pi, js, ji):
+    """Per row, the port's ids are JAX's except among the winners whose
+    score equals the row's k-th: JAX ranks its winners in a bitonic network
+    that sets no order among equal packed scores, the port takes the lower
+    candidate position. There both keep as many."""
+    ps, pi, js, ji = (np.asarray(a) for a in (ps, pi, js, ji))
+    for r in range(pi.shape[0]):
+        assert set(pi[r][ps[r] > ps[r, -1]]) == set(ji[r][js[r] > js[r, -1]])
+        assert (ps[r] == ps[r, -1]).sum() == (js[r] == js[r, -1]).sum()
+    return True
 
 
 def _overlap(a, b):
@@ -226,6 +242,64 @@ def test_fused_topk_non_cpu_tensor_never_takes_plain_version():
     with pytest.raises(ValueError, match="CUDA device"):
         mips_fused_topk(q, c, 100)      # past the live candidates: pads
     assert fused_mod.launches == before
+
+
+def test_fused_topk_plain_ties_by_position_ascending():
+    """bf16 integer-valued towers over a corpus whose eight 1024-row
+    sub-chunks repeat the same rows: every segment's packed winner recurs
+    in each sub-chunk, so the top-k is full of equal packed scores. The
+    plain version (the kernels' yardstick) ranks them by candidate position
+    ascending, as B5 and `lax.top_k` do; numpy rebuilds the order from the
+    packed winners."""
+    rng = np.random.default_rng(17)
+    sub, n_sub, d, k = 1024, 8, 16, 60
+    base = rng.integers(-3, 4, (sub, d)).astype(np.float32)
+    c = np.tile(base, (n_sub, 1))
+    q = rng.integers(-3, 4, (5, d)).astype(np.float32)
+    ps, pi = mips_fused_topk_plain(torch.from_numpy(q).to(torch.bfloat16),
+                                   torch.from_numpy(c).to(torch.bfloat16), k,
+                                   n_sub * sub, sub_rows=sub)
+    bits = (q @ c.T).view(np.int32).reshape(5, n_sub, 128, 8)  # sub, idx, g
+    idx = np.arange(128, dtype=np.int32).reshape(1, 1, 128, 1)
+    packed = ((bits & ~127) | idx).view(np.float32).max(axis=2)
+    packed = packed.reshape(5, n_sub * 8)            # position sub * 8 + g
+    pos = np.arange(n_sub * 8)
+    for r in range(5):
+        top = np.lexsort((pos, -packed[r]))[:k]
+        win_bits = packed[r, top].view(np.int32)
+        ids = (top // 8) * sub + top % 8 + (win_bits & 127) * 8
+        np.testing.assert_array_equal(pi[r].numpy(), ids)
+        np.testing.assert_array_equal(ps[r].numpy(),
+                                      (win_bits & ~127).view(np.float32))
+    # equal packed winners (clean score and in-segment index): positions
+    # ascend
+    pi = pi.numpy().astype(np.int64)
+    idx, cand = (pi % sub) // 8, (pi // sub) * 8 + pi % 8
+    tied = (ps[:, 1:] == ps[:, :-1]).numpy() & (idx[:, 1:] == idx[:, :-1])
+    assert tied.sum() >= 5 * (k // n_sub)
+    assert (cand[:, 1:][tied] > cand[:, :-1][tied]).all()
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16", "int8"])
+def test_fused_topk_plain_is_b5_plain_over_winners(corpus50k, variant):
+    """The plain version is B5's plain version over the candidate-major
+    packed winners of the candidate generator's plain version, followed by
+    the decode: the two launches of the CUDA path, step for step."""
+    q, c = corpus50k
+    qt, ct = torch.from_numpy(q), torch.from_numpy(c)
+    scale = q_scale = None
+    if variant == "int8":
+        ct, scale = quantize_int8(ct)
+        qt, q_scale = quantize_int8(qt)
+    elif variant == "bf16":
+        qt, ct = qt.to(torch.bfloat16), ct.to(torch.bfloat16)
+    sub = segment_plan(ct.dtype, 50_000, 64, 20, 100)[0]
+    ps, pi = mips_fused_topk_plain(qt, ct, 100, 49_000, scale, q_scale, sub)
+    win = mips_segment_candidates_plain(qt, ct, 49_000, True, scale, sub)
+    vals, pos = bitonic_topk_plain(win.T, None, 100)
+    ws, wi = decode_winners(vals, pos, sub, q_scale)
+    assert torch.equal(ps, ws) and torch.equal(pi, wi)
+    assert bool((pi < 49_000).all())
 
 
 # -- 3. quantize_int8 ---------------------------------------------------------
@@ -482,7 +556,10 @@ def _youtubednn_pair(dim=16):
 def test_service_auto_matches_jax_kernel():
     """Port 'auto' (the kernel's plain version) over 20k items vs the JAX
     kernel in interpret mode over the JAX-encoded towers. At 1024 queries
-    JAX's segment plan is the port's sub_rows=1024, so the id sets agree."""
+    JAX's segment plan is the port's sub_rows=1024, so the id sets agree,
+    but where the k-th winner ties another (scores ~5e4 packed at 2^-17
+    relative tie in one row of the 1024): there JAX's order is unset and
+    the port's the lower candidate position."""
     jm, pm = _youtubednn_pair()
     rng = np.random.default_rng(8)
     hist = rng.integers(0, 20_000, (1024, 5)).astype(np.int32)
@@ -499,7 +576,11 @@ def test_service_auto_matches_jax_kernel():
                             device="cpu")
     assert psvc.index._kernel_gate(10)
     ps, pi = psvc.query(users, k=10)
-    assert _sets_equal(pi, ji)
+    assert _sets_equal_but_ties(ps, pi, js, ji)
+    # the one row whose k-th winner ties another: the only row whose id
+    # sets differ
+    same = [set(pi[r]) == set(np.asarray(ji)[r]) for r in range(1024)]
+    assert sum(same) == 1023, 1024 - sum(same)
     np.testing.assert_allclose(ps, np.asarray(js), rtol=2e-5, atol=1e-6)
 
 
@@ -528,6 +609,27 @@ def test_service_auto_20_users_matches_jax_kernel():
     _, old_i = mips_fused_topk_plain(torch.tensor(ju), torch.tensor(ji_emb),
                                      10, 20_000, sub_rows=1024)
     assert not _sets_equal(old_i, ji)
+
+
+@pytest.mark.parametrize("method", ["auto", "exact"])
+def test_service_results_do_not_share_memory(method):
+    """Each query returns arrays of its own: a second query leaves the
+    first one's results as they were (the card's path copies into a
+    pinned buffer made for each call, never one kept across calls)."""
+    jm, pm = _mf_pair(n_items=2000, dim=16)
+    users = {"user_id": np.arange(12, dtype=np.int32)}
+    corpus = {"item_id": np.arange(2000, dtype=np.int32)}
+    _transplant(jm, pm, users, corpus, scale=1e4)
+    svc = RetrievalService(pm, corpus, method=method, device="cpu")
+    s0, i0 = svc.query(users, k=10)
+    kept = s0.copy(), i0.copy()
+    s1, i1 = svc.query({"user_id": np.arange(12, 24, dtype=np.int32)}, k=10)
+    for a in (s0, i0):
+        for b in (s1, i1):
+            assert not np.shares_memory(a, b)
+    np.testing.assert_array_equal(s0, kept[0])
+    np.testing.assert_array_equal(i0, kept[1])
+    assert not np.array_equal(i0, i1)
 
 
 def test_service_save_load_roundtrip(tmp_path):

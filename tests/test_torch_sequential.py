@@ -254,6 +254,43 @@ def test_trainer_step_matches_jax(train_method, compute_dtype):
         (bad, n)
 
 
+@pytest.mark.parametrize("emb_reg,net_reg", [(10.0, 0.0), (0.0, 10.0),
+                                             (10.0, 0.1)])
+def test_trainer_regularizers_match_jax(emb_reg, net_reg):
+    """One SASRec step with the regularizers on, f32, dropout 0, against
+    the JAX `Trainer` on transplanted params. JAX takes the top-level
+    ``emb_item`` as the embedding table (a component starting ``emb_``)
+    and leaves it out of the net penalty. Adam's first step moves each
+    element by about ±lr, so a penalty on the wrong tensor flips the sign
+    of many of emb_item's updates, each a 2e-3 error: emb_item is held
+    element by element, the rest as in `test_trainer_step_matches_jax`."""
+    jm, pm = _pair("float32")
+    cfg = dict(learning_rate=1e-3, monitor="hit",
+               embedding_regularizer=emb_reg, net_regularizer=net_reg)
+    jt = JTrainer(jm, lambda o, b: o, JTrainerConfig(**cfg),
+                  train_method="fused_ce_loss")
+    pt = Trainer(pm, lambda o, b: o, TrainerConfig(**cfg), device="cpu",
+                 train_method="fused_ce_loss")
+    batch = _batch(7)
+    jt.init(batch)
+    pt.init(batch)
+    pm.load_state_dict(from_jax_params(_np_tree(jt.params), pm))
+    jl = float(jt.train_step(batch))
+    pl_ = float(pt.train_step(batch))
+    np.testing.assert_allclose(pl_, jl, rtol=1e-3)
+    expect = from_jax_params(_np_tree(jt.params), pm)
+    n = bad = 0
+    for k, v in pm.state_dict().items():
+        err = np.abs(v.numpy() - expect[k].numpy())
+        assert float(err.max()) <= 2e-3, k
+        n += err.size
+        bad += int(np.sum(err > 2e-5 + 1e-4 * np.abs(expect[k].numpy())))
+    assert bad <= 0.01 * n, (bad, n)
+    np.testing.assert_allclose(pm.emb_item.detach().numpy(),
+                               expect["emb_item"].numpy(), rtol=1e-4,
+                               atol=2e-5)
+
+
 def test_fused_ce_under_mesh_raises_and_unported_encoders():
     _, pm = _pair()
     with pytest.raises(ValueError, match="single-shard"):

@@ -13,10 +13,11 @@ from recbox_tpu.features import FeatureMap as JFeatureMap
 from recbox_tpu.features import FeatureSpec as JFeatureSpec
 from recbox_tpu.models.matching import two_tower as jtt
 from recbox_tpu_torch.features import FeatureMap, FeatureSpec
-from recbox_tpu_torch.interop import from_jax_params
+from recbox_tpu_torch.interop import _candidates, _flatten, from_jax_params
 from recbox_tpu_torch.models.matching import two_tower as ptt
 from recbox_tpu_torch.nn.core import MLP, get_activation
 from recbox_tpu_torch.nn.embedding import FeatureEmbedding
+from recbox_tpu_torch.training.trainer import is_embedding_table
 
 RTOL, ATOL = 1e-5, 1e-6
 N_USERS, N_ITEMS, N_CATS, L = 50, 40, 7, 6
@@ -147,6 +148,29 @@ def test_training_scores_match_jax():
         ps = pmodel(_t(batch)).numpy()
     assert ps.shape == (4, 3)
     np.testing.assert_allclose(ps, js, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("kind", ["youtubednn", "dssm", "mf"])
+def test_regularizer_selection_matches_jax(kind):
+    """The dense Trainer's regularizers take as embedding tables the
+    parameters JAX takes (a flax path component starting ``emb_``): for
+    the towers, every ``.tables.`` parameter and nothing else, as
+    before."""
+    rng = np.random.default_rng(2)
+    user, item = _batches(kind, rng)
+    jmodel, pmodel = _models(kind)
+    params = _jax_params(jmodel, user, item)
+    target = pmodel.state_dict()
+    jax_tables = set()
+    for path, arr in _flatten(params):
+        if any(part.startswith("emb_") for part in path):
+            jax_tables.add(next(k for k, _ in _candidates(path, arr)
+                                if k in target))
+    port = {n for n, _ in pmodel.named_parameters()
+            if is_embedding_table(n)}
+    assert port == jax_tables and port
+    assert port == {n for n, _ in pmodel.named_parameters()
+                    if ".tables." in "." + n}
 
 
 def test_shared_pad_row_lies_beyond_item_vocab():

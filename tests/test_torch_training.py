@@ -38,7 +38,9 @@ from recbox_tpu.training.packed import PackedEmbeddingTrainer as JPacked
 from recbox_tpu_torch import resolve_device
 from recbox_tpu_torch.evaluation import auc_score, log_loss
 from recbox_tpu_torch.features import FeatureMap, FeatureSpec
-from recbox_tpu_torch.interop import from_jax_params, load_packed_state
+from recbox_tpu_torch.interop import (
+    _candidates, _flatten, from_jax_params, load_packed_state,
+)
 from recbox_tpu_torch.models.ranking import DeepFM
 from recbox_tpu_torch.nn.embedding import rows_key_for
 from recbox_tpu_torch.ops import packed_delta as pd_mod
@@ -49,6 +51,7 @@ from recbox_tpu_torch.ops.packed_delta import (
 from recbox_tpu_torch.training import (
     PackedEmbeddingTrainer, Trainer, TrainerConfig,
 )
+from recbox_tpu_torch.training.trainer import is_embedding_table
 
 N_CAT, N_NUM, VOCAB, DIM, HIDDEN, B = 4, 2, 64, 8, (16,), 256
 
@@ -376,6 +379,25 @@ def test_dense_trainer_steps_and_lr():
     pt._set_learning_rate(1e-3)
     assert pt.learning_rate == 1e-3
     np.testing.assert_allclose(pt._emb_lr, 5e-3)
+
+
+@pytest.mark.parametrize("feature_major", [True, False])
+def test_regularizer_selection_matches_jax(feature_major):
+    """The dense Trainer's regularizers take as embedding tables the
+    parameters JAX takes (a flax path component starting ``emb_``): for
+    DeepFM, every ``.tables.`` parameter and nothing else, as before."""
+    jm, pm = _models(feature_major)
+    params = _transplant(jm, pm, _batch(72))
+    target = pm.state_dict()
+    jax_tables = set()
+    for path, arr in _flatten(params):
+        if any(part.startswith("emb_") for part in path):
+            jax_tables.add(next(k for k, _ in _candidates(path, arr)
+                                if k in target))
+    port = {n for n, _ in pm.named_parameters() if is_embedding_table(n)}
+    assert port == jax_tables
+    assert port == {n for n, _ in pm.named_parameters()
+                    if ".tables." in "." + n}
 
 
 # -- 4. metrics, losses, devices ---------------------------------------------------
