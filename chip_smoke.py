@@ -9,8 +9,8 @@ Phases (any failure raises and exits non-zero):
      (one nvcc per source, all started together) into `build/kernels/`;
      each kernel's registers and spills as ptxas gives them (B4's
      wgmma route at D = 64 and 128, whose packed instantiations are B3's
-     stage (a), B5's selection and B3's selection with its epilogue must
-     spill nothing);
+     stage (a), B5's selection, B3's selection with its epilogue and B2's
+     ce_fwd / ce_bwd at depth 64 and 128 must spill nothing);
   3. every kernel against its plain PyTorch version on the card: the MIPS
      top-k (B3) on N(0, 1) data at a small shape, the serving path's shape
      and the 1M x 128 shape (f32 and the small shape on B4's tile route),
@@ -23,8 +23,10 @@ Phases (any failure raises and exits non-zero):
      as `bench.py` draws them and Zipf-skewed;
   3b. kernel B2 (flash-CE) against its plain versions: bench.py's 1M-item
      SASRec shape (B=1024, V=1M, D=64), a ragged one (1000, 100,003, 100),
-     weights with zeros, all-160 and all--40 logits, the multinomial
-     variant (B=256, V=100,000, 20 positives);
+     B = 200, 500, 1500 and 8192 at V = 100,003 (clusters of one and two
+     blocks, a ragged pass, eight passes), D = 128 at B = 1024, weights with
+     zeros, all-160 and all--40 logits, the multinomial variant (B=256,
+     V=100,000, 20 positives); each kernel call twice, bit for bit;
   3c. the candidate kernels and the sequence pool against their plain
      versions: B4 (`mips_segment_candidates`, packed bf16, packed int8,
      unpacked bf16) at the profiling shape of `tools/prof_mips_batched.py`
@@ -85,7 +87,7 @@ Phases (any failure raises and exits non-zero):
      logits + F.cross_entropy for B2, cuBLAS scores + segment amax for B4,
      torch.topk for B5, F.embedding_bag for B6, over Zipf ids that stay in
      L2 and uniform ones that reach HBM; the port calls none of them), the
-     bound (and B2's exp floor), B3's two stages alone and its stage (a) on
+     bound (B2's counting its exps), B3's two stages alone and its stage (a) on
      the tile route, B4 at D = 128 and 64 with its tile route on the same
      inputs beside its wgmma route, and the service's queries/s; one service query under torch.profiler,
      for device time by kernel, the results' copy to the host and the
@@ -659,15 +661,16 @@ def b2_inputs(gen, b, v, d, u_std=1.0, t_std=0.125):
 
 
 def b2_sweeps_vs_plain(user, table, lse_shift=None):
-    """B2's two wrappers (forward sweep, backward sweeps) on the card
-    against their plain versions on the same bf16 operands. lse: rtol 1e-5
-    (ex2.approx and another summation order); du, dt: 0.5% of max |plain|
-    (p rounds to bf16, and the kernel's exp2 of x log2(e) may round a p to
-    the neighbouring bf16 value); rows whose lse_eff is +inf (weight 0)
-    exactly 0 in du."""
+    """B2's two wrappers (forward, backward) on the card against their
+    plain versions on the same bf16 operands. lse: rtol 1e-5 (ex2.approx
+    and another summation order); du, dt: 0.5% of max |plain| (p rounds to
+    bf16, and the kernel's exp2 of x log2(e) may round a p to the
+    neighbouring bf16 value); rows whose lse_eff is +inf (weight 0) exactly
+    0 in du; a second call of each on the same inputs gives the same bits.
+    With the kernel's plan (clusters of blocks, passes over B)."""
     from recbox_tpu_torch.ops.fused_ce import (
-        ce_operands, fused_ce_bwd, fused_ce_bwd_plain, fused_ce_lse,
-        fused_ce_lse_plain,
+        _device_plan, ce_operands, fused_ce_bwd, fused_ce_bwd_plain,
+        fused_ce_lse, fused_ce_lse_plain,
     )
     u, t = ce_operands(user, table)
     d = user.shape[1]
@@ -677,9 +680,16 @@ def b2_sweeps_vs_plain(user, table, lse_shift=None):
     scale = torch.tensor(1.0 / user.shape[0], device=DEVICE)
     du, dt = fused_ce_bwd(u, t, lse_eff, scale, d)
     du_p, dt_p = fused_ce_bwd_plain(u, t, lse_eff, scale, d)
+    lse2 = fused_ce_lse(u, t)
+    du2, dt2 = fused_ce_bwd(u, t, lse_eff, scale, d)
     torch.cuda.synchronize()
     torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
-    errs = {"lse": float((lse - lse_p).abs().max())}
+    assert torch.equal(lse, lse2) and torch.equal(du, du2) \
+        and torch.equal(dt, dt2), "B2: two calls differ"
+    errs = {"plan": list(_device_plan(u.shape[0], t.shape[0], u.shape[1],
+                                      u.device)) if u.is_cuda else None,
+            "repeats_bit_identical": True,
+            "lse": float((lse - lse_p).abs().max())}
     for name, got, want in (("du", du, du_p), ("dt", dt, dt_p)):
         err = float((got - want).abs().max())
         top = float(want.abs().max())
@@ -694,15 +704,25 @@ def b2_sweeps_vs_plain(user, table, lse_shift=None):
     return errs
 
 
+# B2's cluster plans at V = 100,003, D = 64 (B = 200 and 500: clusters of
+# one and two blocks; 1500: a second, ragged pass; 8192: eight passes), and
+# D = 128 at the 1M shape (clusters of four 128-row blocks, two passes)
+B2_PLAN_CASES = ((200, 100_003, 64), (500, 100_003, 64),
+                 (1500, 100_003, 64), (8192, 100_003, 64),
+                 (SAS_B, SAS_V, 128))
+
+
 def check_b2(gen):
     """B2 against its plain version on the card: bench.py's 1M shape, a
-    ragged shape (B, V, D all unaligned), weights with zeros, the all-160
-    and all--40 logit cases, and the multinomial variant."""
+    ragged shape (B, V, D all unaligned), `B2_PLAN_CASES`, weights with
+    zeros, the all-160 and all--40 logit cases, and the multinomial
+    variant; every call of the kernel twice, bit for bit."""
     from recbox_tpu_torch.ops.fused_ce import (
         fused_multinomial_ce, fused_softmax_ce,
     )
     out = []
-    for b, v, d in ((SAS_B, SAS_V, SAS_D), (1000, 100_003, 100)):
+    for b, v, d in ((SAS_B, SAS_V, SAS_D), (1000, 100_003, 100),
+                    *B2_PLAN_CASES):
         user, table = b2_inputs(gen, b, v, d, t_std=1.0 / math.sqrt(d))
         out.append({"case": "shape", "b": b, "v": v, "d": d,
                     **b2_sweeps_vs_plain(user, table)})
@@ -745,27 +765,49 @@ def check_b2(gen):
     loss.backward()
     loss = float(loss.detach())
     assert math.isfinite(loss) and float(u.grad[3].abs().max()) == 0
-    out.append({"case": "multinomial", "b": b, "v": v, "h": h,
+    out.append({"case": "multinomial", "b": b, "v": v, "h": h, "d": SAS_D,
                 "loss": loss, **errs})
     return out
 
 
 def b2_bounds(b, v, d):
-    """(fwd, bwd) least times in ms and what bounds each, and the exp
-    floor of one sweep: bytes each input read once and each output written
-    once (bf16 operands; fwd writes lse, bwd writes f32 du and dt), against
-    2BVD operations forward and 3 products backward at the bf16 peak."""
+    """(fwd, bwd): the least time in ms, "bytes" or "operations", which
+    of the three limits sets it ("bytes", "tensor_cores" or "exps"), the
+    bytes and the tensor-core operations: the largest of the bytes (each
+    input read once, each output written once: bf16 operands; fwd writes
+    lse, bwd f32 du and dt) at the HBM rate, 2BVD operations forward and 3
+    products backward at the bf16 peak, and one exp per logit (BV, each
+    direction) at `EXP_RATE`; and the exp floor alone."""
     fwd_bytes = (b + v) * d * 2 + b * 4
     bwd_bytes = (b + v) * d * 2 + b * 4 + (b + v) * d * 4
     fwd_ops, bwd_ops = 2.0 * b * v * d, 3 * 2.0 * b * v * d
+    exp_ms = b * v / EXP_RATE * 1e3
     out = {}
     for name, nbytes, ops in (("fwd", fwd_bytes, fwd_ops),
                               ("bwd", bwd_bytes, bwd_ops)):
-        by_b = nbytes / HBM_BYTES_S * 1e3
-        by_o = ops / PEAK_OPS["bf16"] * 1e3
-        out[name] = (max(by_b, by_o), "bytes" if by_b > by_o
-                     else "operations", nbytes, ops)
-    return out, b * v / EXP_RATE * 1e3
+        limits = {"bytes": nbytes / HBM_BYTES_S * 1e3,
+                  "tensor_cores": ops / PEAK_OPS["bf16"] * 1e3,
+                  "exps": exp_ms}
+        what = max(limits, key=limits.get)
+        out[name] = (limits[what], "bytes" if what == "bytes"
+                     else "operations", what, nbytes, ops)
+    return out, exp_ms
+
+
+B2_DESIGN = {
+    "fwd": "clusters over B (up to 4 blocks of 256 rows at D <= 64), a "
+           "persistent walk over V with one TMA multicast of each 64-row "
+           "table tile into the cluster, four consumer warpgroups on wgmma "
+           "(S = U T^T) folding an online max / sum of exp2 in registers; "
+           "lse_combine over the clusters",
+    "bwd": "one sweep on the forward's skeleton (two consumer warpgroups), "
+           "each exp formed once: p in registers feeds du += p T (wgmma, A "
+           "from registers, the tile MN-major) and, through shared memory, "
+           "dT = p^T U (MN-major A and B); du resident in registers over the "
+           "walk, summed over clusters by du_reduce; dT reduced and scattered "
+           "over the cluster: each block's share of a tile's partials sent by "
+           "bulk copy into that block's slots (distributed shared memory), "
+           "summed there in rank order one step later and written once"}
 
 
 def time_b2(gen):
@@ -806,10 +848,11 @@ def time_b2(gen):
     del ul, tl
     bounds, exp_ms = b2_bounds(SAS_B, SAS_V, SAS_D)
     for name in ("fwd", "bwd"):
-        b_ms, b_by, nbytes, ops = bounds[name]
+        b_ms, b_by, what, nbytes, ops = bounds[name]
         res.update({f"{name}_bound_ms": b_ms, f"{name}_bound_by": b_by,
-                    f"{name}_bytes": nbytes, f"{name}_ops": ops})
-    res["exp_floor_ms_per_sweep"] = exp_ms
+                    f"{name}_bound_what": what, f"{name}_bytes": nbytes,
+                    f"{name}_ops": ops})
+    res["exp_floor_ms"] = exp_ms
     return res
 
 
@@ -1514,8 +1557,8 @@ def sasrec_breakdown(trainer, batch):
     spans of the trainer's phases (Adam over the 1M x 64 table among them);
     the device's idle share of the step's wall time."""
     return train_breakdown(trainer, batch, (
-        ("b2_forward", ("lse_partial", "lse_combine")),
-        ("b2_backward", ("dt_sweep", "du_sweep", "du_reduce")),
+        ("b2_forward", ("ce_fwd", "lse_combine")),
+        ("b2_backward", ("ce_bwd", "du_reduce")),
         ("gemm", ("gemm", "nvjet", "sm90", "cutlass", "xmma", "splitk")),
         ("copies_casts", ("copy", "cast", "fill")),
         ("embedding_gather_scatter", ("index", "embedding", "gather",
@@ -1712,7 +1755,10 @@ def main() -> int:
                                            "select_topk"),
                   "mips_fused_topk": usage_of(_build.build_logs,
                                               "mips_fused_topk",
-                                              "select_topk")}
+                                              "select_topk"),
+                  "fused_ce": usage_of(_build.build_logs, "fused_ce",
+                                       "ce_fwd")
+                  + usage_of(_build.build_logs, "fused_ce", "ce_bwd")}
     for name, usage in redesigned.items():
         emit({"phase": "ptxas_redesigned", "kernel": name, "usage": usage})
         assert usage and all(u["spill_stores"] == u["spill_loads"] == 0
@@ -1723,6 +1769,8 @@ def main() -> int:
         found = [u for u in redesigned["mips_topk"]
                  if f"ELi{depth}EE" in u["function"]]
         assert len(found) == 12, (depth, len(found))
+    # B2: ce_fwd and ce_bwd at depth 64 and 128
+    assert len(redesigned["fused_ce"]) == 4, redesigned["fused_ce"]
     b3_ptxas = {"stage_a": [u for u in redesigned["mips_topk"]
                             if "Lb1E" in u["function"]],
                 "stage_b": redesigned["mips_fused_topk"]}
@@ -1945,12 +1993,18 @@ def main() -> int:
             "plain_ms": b2_time[f"{key}_plain_ms"],
             "bound_ms": b2_time[f"{key}_bound_ms"],
             "bound_by": b2_time[f"{key}_bound_by"],
-            "exp_floor_ms": b2_time["exp_floor_ms_per_sweep"],
+            "bound_what": b2_time[f"{key}_bound_what"],
+            "exp_floor_ms": b2_time["exp_floor_ms"],
             "library_ms": b2_time["fwd_library_ms" if key == "fwd"
                                   else "fwd_bwd_library_ms"],
             "library": "F.cross_entropy(u_bf16 @ t_bf16.T, labels)"
                        + ("" if key == "fwd" else ", forward + backward"),
-            "matches_plain": True,
+            "design": B2_DESIGN[key],
+            "ptxas": [u for u in redesigned["fused_ce"]
+                      if f"ce_{key}" in u["function"]],
+            "plans": {f"b{c['b']}_v{c['v']}_d{c['d']}": c["plan"]
+                      for c in b2_checks if c.get("plan")},
+            "matches_plain": True, "repeats_bit_identical": True,
             "shape": {"b": SAS_B, "v": SAS_V, "d": SAS_D}})
     for (name, _, _), line in zip(B4_VARIANTS, (332, 315, 340)):
         t, t64 = b4_times[name, B4_D], b4_times[name, DIM]

@@ -1,8 +1,11 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels: TMA
-// tile loads into 128- or 64-byte-swizzled shared memory, mbarriers, warpgroup
-// matrix multiplies (`wgmma`, bf16 and s8) reading both operands from
-// shared memory, and the host-side tensor maps. Used by B4's `wgmma` route
-// (`mips_topk.cu` `segment_candidates_wgmma`), which B3's stage (a) runs.
+// tile loads into 128- or 64-byte-swizzled shared memory (multicast into a
+// cluster too), mbarriers, warpgroup matrix multiplies (`wgmma`, bf16 and
+// s8; operands K-major or MN-major in shared memory, A from registers),
+// thread block clusters (ranks, distributed shared memory addresses,
+// remote arrivals) and the host-side tensor maps. Used by B4's `wgmma` route
+// (`mips_topk.cu` `segment_candidates_wgmma`), which B3's stage (a) runs,
+// and by B2 (`fused_ce.cu`).
 
 #pragma once
 
@@ -193,6 +196,156 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da,
         "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Descriptor of an MN-major tile in shared memory under the 128-byte
+// swizzle: rows of 64 bf16 along M (or N), one row for each k, as TMA
+// writes a row-major (k, 64) box or as `swz128` places values; 8-row groups
+// 1024 bytes apart (SBO), 64-wide chunks along M/N `chunk_bytes` apart (LBO;
+// unused for a 64-wide operand). Adding 128 steps 16 rows (one k16 slice).
+__device__ __forceinline__ uint64_t mn_major_desc(const void* tile,
+                                                  uint32_t chunk_bytes) {
+  return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) |
+         ((uint64_t)((chunk_bytes >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Byte offset of bf16 column `col` (0-63) of row `row` in a 128-byte-swizzled
+// tile of 128-byte rows (1024-byte aligned), as TMA's 128-byte swizzle
+// places it: 16-byte chunk c of row r lies at chunk c ^ (r % 8).
+__device__ __forceinline__ uint32_t swz128(int row, int col) {
+  return (uint32_t)(row * 128 + ((((col >> 3) ^ row) & 7) << 4) +
+                    (col & 7) * 2);
+}
+
+// The accumulator operands of an m64nNk16 product: N / 2 floats a thread.
+#define RB_D8(i)                                                            \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define RB_D32 RB_D8(0), RB_D8(8), RB_D8(16), RB_D8(24)
+#define RB_D64 RB_D32, RB_D8(32), RB_D8(40), RB_D8(48), RB_D8(56)
+#define RB_REGS32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "  \
+  "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "    \
+  "%27, %28, %29, %30, %31}"
+#define RB_REGS64 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "  \
+  "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "    \
+  "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "    \
+  "%55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// D (64 x N f32) [+]= A (64 x 16) B (16 x N), bf16, both from shared memory.
+// TA / TB: 0 = K-major, 1 = MN-major (the transpose bits). Thread t of the
+// warpgroup holds rows 16(t/32) + t%32/4 (+8) and columns 8j + 2(t%4) (+1):
+// d[4j + e] and d[4j + 2 + e]. N is 64 or 128.
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  static_assert(N == 64 || N == 128, "n64 or n128");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " RB_REGS32
+        ", %32, %33, p, 1, 1, %35, %36;\n}"
+        : RB_D32
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " RB_REGS64
+        ", %64, %65, p, 1, 1, %67, %68;\n}"
+        : RB_D64
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+}
+
+// D (64 x N f32) [+]= A (64 x 16, registers) B (16 x N, shared memory).
+// A as mma.sync's m16n8k16 A fragment in each warp's 16 rows: a[0] (row
+// t%32/4, k 2(t%4)..+1), a[1] (row +8), a[2] (k +8), a[3] (row +8, k +8),
+// bf16 pairs, the lower k in the low half. TB as in `wgmma_ss`.
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  static_assert(N == 64 || N == 128, "n64 or n128");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " RB_REGS32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}"
+        : RB_D32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " RB_REGS64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}"
+        : RB_D64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate), "n"(TB));
+  }
+}
+
+#undef RB_D8
+#undef RB_D32
+#undef RB_D64
+#undef RB_REGS32
+#undef RB_REGS64
+
+// Generic-proxy writes to shared memory (st.shared) made visible to the
+// async proxy (wgmma's operand reads, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// -- thread block clusters ---------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits; orders
+// the blocks' shared-memory writes before the others' later reads.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The shared::cluster address of `p` (a shared::cta pointer of this block)
+// in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p,
+                                                 uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+// Arrive once on the mbarrier at shared::cluster address `a` (this block's
+// or another's), with the default semantics (release at CTA scope), as
+// CUTLASS's cluster barriers arrive.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t a) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];" ::"r"(a)
+               : "memory");
+}
+
+// As tma_load_2d, the box written at the same offset of every block in
+// `mask` (bit i: cluster rank i), each completing its bytes on its own
+// mbarrier at `bar`'s offset.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar)), "h"(mask)
+      : "memory");
 }
 
 // -- registers and barriers of warp-specialised blocks -----------------------

@@ -16,11 +16,13 @@ the one-hot corrections use the original-precision ``table[labels]`` and
 ``user`` (:349-350), and ``weights`` / ``pos_mask`` get their true
 cotangents (:351-356, :450-454).
 
-The sweeps (`fused_ce_lse`, `fused_ce_bwd`) run the CUDA kernel
-(`csrc/fused_ce.cu`, built by `ops/_build.py`) for CUDA tensors and their
-plain versions (`fused_ce_lse_plain`, `fused_ce_bwd_plain`) for CPU
-tensors; a CUDA tensor
-never reaches a plain version, and a failed build or launch raises. The
+The sweeps (`fused_ce_lse`, `fused_ce_bwd`) run the CUDA kernels
+(`csrc/fused_ce.cu` `ce_fwd` + `lse_combine` and `ce_bwd` + `du_reduce`,
+built by `ops/_build.py`, launched by the plan of `_plan`: clusters of
+blocks over B, a persistent walk over V) for CUDA tensors and their plain
+versions (`fused_ce_lse_plain`, `fused_ce_bwd_plain`) for CPU tensors; a
+CUDA tensor never reaches a plain version, and a failed build or launch
+raises. The
 wrapper casts ``table`` to bf16 once per call (zero-padding D to a multiple
 of 16) and keeps that copy for the backward, as JAX keeps its residuals.
 Unlike the TPU kernel there is no bias column: the kernel masks rows past
@@ -31,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,8 +48,9 @@ __all__ = ["fused_softmax_ce", "fused_multinomial_ce", "fused_ce_lse",
 # backward); the plain versions never count
 launches = {"fused_ce_fwd": 0, "fused_ce_bwd": 0}
 
-_TILE = 64              # rows of t (forward) a stage, `NT` in the kernel
+_TILE = 64              # table rows a tile, `NT` in the kernel
 _MAX_DEPTH = 128        # the kernel's largest padded D
+_MAX_CLUSTER = 4        # blocks a cluster (1, 2 or 4: they split a tile)
 _PLAIN_CHUNK = 65536    # vocabulary rows a plain-version step
 
 
@@ -104,23 +107,65 @@ def fused_ce_bwd_plain(u: torch.Tensor, t: torch.Tensor,
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("fused_ce")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.recbox_fused_ce_lse.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+    lib.recbox_fused_ce_lse.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i,
+                                        i, vp]
     lib.recbox_fused_ce_lse.restype = i
     lib.recbox_fused_ce_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i,
-                                        i, i, i, vp]
+                                        i, i, i, i, i, vp]
     lib.recbox_fused_ce_bwd.restype = i
+    lib.recbox_fused_ce_max_clusters.argtypes = [i, i, i]
+    lib.recbox_fused_ce_max_clusters.restype = i
     return lib
 
 
-def _plan(b: int, v: int, dp: int, dev: torch.device) -> Tuple[int, int]:
-    """(n_chunks, tiles_per_chunk): V's 64-row tiles cut into chunks so the
-    (B tiles x chunks) grid holds about four blocks per SM."""
-    rows = 256 if dp <= 64 else 128       # `Cfg<KMAX>::ROWS` in the kernel
+class CePlan(NamedTuple):
+    """How the kernel covers a (B, V) problem: clusters of ``cluster``
+    blocks, each block ``rows`` rows of u; ``passes`` launches of cluster ×
+    rows rows each; ``clusters`` clusters, cluster k walking the 64-row
+    table tiles [k · per, min(tiles, (k + 1) · per))."""
+    cluster: int
+    rows: int
+    passes: int
+    clusters: int
+    per: int
+
+
+def _plan(b: int, v: int, dp: int, sms: int) -> CePlan:
+    """The kernel's plan for B rows, V table rows and padded depth dp on a
+    card of ``sms`` SMs: 256 rows a block at dp <= 64 (`Ce<64>::R`), 128
+    above; as many blocks a cluster as B needs, rounded up to 1, 2 or 4
+    (each block sums a 64 / cluster-row share of every tile's dT); floor(sms
+    / cluster) clusters, none without tiles."""
+    rows = 256 if dp <= 64 else 128
+    need = min(_MAX_CLUSTER, -(-b // rows))
+    cluster = 1 << (need - 1).bit_length()
+    passes = -(-b // (cluster * rows))
     tiles = -(-v // _TILE)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_chunks = max(1, min(tiles, -(-4 * sms // -(-b // rows))))
-    per = -(-tiles // n_chunks)
-    return -(-tiles // per), per
+    clusters = max(1, min(tiles, sms // cluster))
+    per = -(-tiles // clusters)
+    return CePlan(cluster, rows, passes, -(-tiles // per), per)
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_sms(index: int, dp: int, cluster: int) -> int:
+    """The SMs that clusters of ``cluster`` blocks fill on card ``index``:
+    the SM count, or fewer where the card runs fewer such clusters of the
+    kernel at once (`recbox_fused_ce_max_clusters`, the smaller of its two
+    directions)."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    lib = _kernel_lib()
+    with torch.cuda.device(index):
+        most = min(lib.recbox_fused_ce_max_clusters(cluster, dp, bwd)
+                   for bwd in (0, 1))
+    if most <= 0:
+        raise RuntimeError(f"fused_ce: cluster occupancy query failed "
+                           f"({most})")
+    return min(sms, most * cluster)
+
+
+def _device_plan(b: int, v: int, dp: int, dev: torch.device) -> CePlan:
+    cluster = _plan(b, v, dp, 1).cluster          # does not depend on sms
+    return _plan(b, v, dp, _cluster_sms(dev.index, dp, cluster))
 
 
 def _check_cuda(*tensors: torch.Tensor) -> torch.device:
@@ -138,16 +183,16 @@ def _check_cuda(*tensors: torch.Tensor) -> torch.device:
 def _lse_cuda(u: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     dev = _check_cuda(u, t)
     (b, dp), v = u.shape, t.shape[0]
-    n_chunks, per = _plan(b, v, dp, dev)
-    m_part = torch.empty((n_chunks, b), dtype=torch.float32, device=dev)
+    plan = _device_plan(b, v, dp, dev)
+    m_part = torch.empty((plan.clusters, b), dtype=torch.float32, device=dev)
     l_part = torch.empty_like(m_part)
     lse = torch.empty(b, dtype=torch.float32, device=dev)
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         rc = lib.recbox_fused_ce_lse(
             u.data_ptr(), t.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-            lse.data_ptr(), b, v, dp, n_chunks, per,
-            torch.cuda.current_stream(dev).cuda_stream)
+            lse.data_ptr(), b, v, dp, plan.cluster, plan.passes,
+            plan.clusters, plan.per, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_ce forward: launch failed with CUDA "
                            f"error {rc}")
@@ -160,8 +205,8 @@ def _bwd_cuda(u, t, lse_eff, scale, d_out):
     scale = scale.to(torch.float32).reshape(()).contiguous()
     dev = _check_cuda(u, t, lse_eff, scale)
     (b, dp), v = u.shape, t.shape[0]
-    n_chunks, per = _plan(b, v, dp, dev)
-    du_part = torch.empty((n_chunks, b, d_out), dtype=torch.float32,
+    plan = _device_plan(b, v, dp, dev)
+    du_part = torch.empty((plan.clusters, b, d_out), dtype=torch.float32,
                           device=dev)
     du = torch.empty((b, d_out), dtype=torch.float32, device=dev)
     dt = torch.empty((v, d_out), dtype=torch.float32, device=dev)
@@ -170,7 +215,8 @@ def _bwd_cuda(u, t, lse_eff, scale, d_out):
         rc = lib.recbox_fused_ce_bwd(
             u.data_ptr(), t.data_ptr(), lse_eff.data_ptr(), scale.data_ptr(),
             du_part.data_ptr(), du.data_ptr(), dt.data_ptr(), b, v, dp, d_out,
-            n_chunks, per, torch.cuda.current_stream(dev).cuda_stream)
+            plan.cluster, plan.passes, plan.clusters, plan.per,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_ce backward: launch failed with CUDA "
                            f"error {rc}")

@@ -185,6 +185,32 @@ def test_plain_sweeps_do_not_depend_on_the_chunk():
     torch.testing.assert_close(dt2, dt)
 
 
+@pytest.mark.parametrize("b", [1, 200, 256, 257, 1000, 1024, 1025, 8192])
+@pytest.mark.parametrize("v", [1, 63, 100_003, 1_000_000])
+@pytest.mark.parametrize("dp", [16, 64, 112, 128])
+def test_plan_covers_b_and_every_tile_once(b, v, dp):
+    """The kernel's cluster plan on a 132-SM card: clusters of one, two or
+    four blocks (the fewest that hold B, four at most), 256 rows a block up
+    to a padded depth of 64 and 128 above,
+    passes that cover B (the last one not empty), and runs of table tiles,
+    one a cluster, that cover every 64-row tile exactly once."""
+    plan = fce._plan(b, v, dp, 132)
+    assert plan.rows == (256 if dp <= 64 else 128)
+    need = -(-b // plan.rows)
+    assert plan.cluster in (1, 2, 4)
+    assert plan.cluster == 4 or plan.cluster >= need > plan.cluster // 2
+    pass_rows = plan.cluster * plan.rows
+    assert plan.passes * pass_rows >= b > (plan.passes - 1) * pass_rows
+    assert plan.clusters * plan.cluster <= 132
+    tiles = -(-v // 64)
+    seen = np.zeros(tiles, np.int64)
+    for k in range(plan.clusters):
+        lo, hi = k * plan.per, min(tiles, (k + 1) * plan.per)
+        assert lo < hi                              # no cluster without tiles
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+
+
 def test_cuda_path_never_takes_the_plain_version(monkeypatch, tmp_path):
     """Only a CPU tensor reaches a plain version: any other device goes to
     the kernel path, which raises rather than fall back; a kernel that
