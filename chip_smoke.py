@@ -9,8 +9,8 @@ Phases (any failure raises and exits non-zero):
      (one nvcc per source, all started together) into `build/kernels/`;
      each kernel's registers and spills as ptxas gives them (B4's
      wgmma route at D = 64 and 128, whose packed instantiations are B3's
-     stage (a), B5's selection, B3's selection with its epilogue and B2's
-     ce_fwd / ce_bwd at depth 64 and 128 must spill nothing);
+     stage (a), B5's selection, B3's selection with its epilogue, B2's
+     ce_fwd / ce_bwd at depth 64 and 128, B1 and B6 must spill nothing);
   3. every kernel against its plain PyTorch version on the card: the MIPS
      top-k (B3) on N(0, 1) data at a small shape, the serving path's shape
      and the 1M x 128 shape (f32 and the small shape on B4's tile route),
@@ -20,7 +20,9 @@ Phases (any failure raises and exits non-zero):
      each plan of the route over 50,000 x 300, and over a corpus of repeated
      blocks whose tied winners must come out position ascending; the packed
      AdaGrad update (B1) at the Criteo training shape, ids uniform per field
-     as `bench.py` draws them and Zipf-skewed;
+     as `bench.py` draws them and Zipf-skewed, and at each layout of
+     `B1_LAYOUTS` (every instantiation of the kernel), where the updates
+     themselves are held to the plain version's;
   3b. kernel B2 (flash-CE) against its plain versions: bench.py's 1M-item
      SASRec shape (B=1024, V=1M, D=64), a ragged one (1000, 100,003, 100),
      B = 200, 500, 1500 and 8192 at V = 100,003 (clusters of one and two
@@ -44,7 +46,8 @@ Phases (any failure raises and exits non-zero):
      positions), a windowed (40,000, 64) with ties and k = C at 16384, bit
      for bit; B6 (`seq_embedding_pool`) at V=1M, B=8192, L=50, D=128
      (mean, sum) and 64 over Zipf ids with ~20% pads and rows of pads, over
-     uniform ids, and with ids out of range (NaN rows on both);
+     uniform ids (D=128 and 64), and with ids out of range (NaN rows on
+     both), each call repeated bit for bit;
   4. the serving path: a YoutubeDNN at the repository's width
      (`configs/models/youtubednn.yaml`: dim 64, MLP 256-128-64, 1M users,
      1M items, 50-long histories) with random weights from a seed, behind a
@@ -83,10 +86,11 @@ Phases (any failure raises and exits non-zero):
      yardsticks over runs of 20 calls queued behind a spin kernel, so the
      host's launch work is not timed): each kernel, its
      plain version, one PyTorch yardstick (torch.matmul + torch.topk for
-     B3, the `index_add_` scatter B1 absorbs, a bf16 matmul into 2 GB of
-     logits + F.cross_entropy for B2, cuBLAS scores + segment amax for B4,
-     torch.topk for B5, F.embedding_bag for B6, over Zipf ids that stay in
-     L2 and uniform ones that reach HBM; the port calls none of them), the
+     B3, the `index_add_` scatter B1 absorbs (B1 over uniform and Zipf
+     ids), a bf16 matmul into 2 GB of logits + F.cross_entropy for B2,
+     cuBLAS scores + segment amax for B4, torch.topk for B5,
+     F.embedding_bag for B6, over Zipf ids that stay in L2 and uniform
+     ones that reach HBM; the port calls none of them), the
      bound (B2's counting its exps), B3's two stages alone and its stage (a) on
      the tile route, B4 at D = 128 and 64 with its tile route on the same
      inputs beside its wgmma route, and the service's queries/s; one service query under torch.profiler,
@@ -569,13 +573,37 @@ def b1_call(fn, pack, ids, G, grads):
               used=B1_USED, eps=B1_EPS)
 
 
+def b1_agreement(pack, plain, pre, ids, upd):
+    """Asserts the kernel's pack against the plain version's after one
+    update. Rows hit once: rtol 1e-5, atol 1e-7 (only the mean's sum order
+    differs). A row hit c > 1 times sums its c updates in a run-dependent
+    order (atomics, and the kernel's sums of a block's rows of one id; the
+    plain version's `index_add_` sums with atomics too), so there each
+    entry may differ by the rounding of that order, bounded by c * 2^-23 *
+    (|pre| + sum of the |updates|) on top."""
+    count = torch.bincount(ids.long(), minlength=pack.shape[0])
+    touched = count > 0
+    once, dup = count == 1, count > 1
+    err = (pack - plain).abs()
+    assert torch.equal(pack[~touched], plain[~touched])
+    torch.testing.assert_close(pack[once], plain[once], rtol=1e-5, atol=1e-7)
+    mag = pre.abs().index_add_(0, ids, upd.abs())[dup]
+    bound = (count[dup, None].float() * 2.0 ** -23 * mag
+             + 1e-5 * plain[dup].abs() + 1e-7)
+    assert bool((err[dup] <= bound).all()), float((err[dup] - bound).max())
+    return {"n": int(ids.shape[0]), "unique": int(touched.sum()),
+            "dup_rows": int(dup.sum()), "max_count": int(count.max()),
+            "max_abs_err": float(err.max()),
+            "max_abs_err_once": float(err[once].max()) if bool(once.any())
+            else 0.0,
+            "tolerance": "rows hit once rtol 1e-5 atol 1e-7; a row hit c "
+                         "times within c*2^-23*(|pre|+sum|upd|) + 1e-5*|x| "
+                         "+ 1e-7"}
+
+
 def check_b1(gen, ids_kind):
-    """B1 against its plain version after one update of the full pack.
-    Rows hit once: rtol 1e-5, atol 1e-7 (only the mean's sum order
-    differs). A row hit c > 1 times sums its c updates with atomics in a
-    run-dependent order, so there each entry may differ by the rounding of
-    that order (the plain version's `index_add_` sums with atomics too),
-    bounded by c * 2^-23 * (|pre| + sum of the |updates|) on top."""
+    """B1 against its plain version after one update of the full pack
+    (`b1_agreement`'s tolerances)."""
     from recbox_tpu_torch.ops.packed_delta import (
         fused_adagrad_delta_plain, packed_adagrad_update_,
         packed_adagrad_update_plain_,
@@ -585,26 +613,95 @@ def check_b1(gen, ids_kind):
     b1_call(packed_adagrad_update_, pack, ids, G, grads)
     b1_call(packed_adagrad_update_plain_, plain, ids, G, grads)
     torch.cuda.synchronize()
-    count = torch.bincount(ids.long(), minlength=pack.shape[0])
-    touched = count > 0
-    once, dup = count == 1, count > 1
-    err = (pack - plain).abs()
-    assert torch.equal(pack[~touched], plain[~touched])
-    torch.testing.assert_close(pack[once], plain[once], rtol=1e-5, atol=1e-7)
     upd = fused_adagrad_delta_plain(G, grads, B1_LR, dims=B1_DIMS,
                                     acc_cols=B1_ACC, used=B1_USED,
                                     store_w=128, eps=B1_EPS)
-    mag = pre.abs().index_add_(0, ids, upd.abs())[dup]
-    bound = (count[dup, None].float() * 2.0 ** -23 * mag
-             + 1e-5 * plain[dup].abs() + 1e-7)
-    assert bool((err[dup] <= bound).all()), float((err[dup] - bound).max())
-    return {"ids": ids_kind, "n": int(ids.shape[0]),
-            "unique": int(touched.sum()), "dup_rows": int(dup.sum()),
-            "max_count": int(count.max()), "max_abs_err": float(err.max()),
-            "max_abs_err_once": float(err[once].max()),
-            "tolerance": "rows hit once rtol 1e-5 atol 1e-7; a row hit c "
-                         "times within c*2^-23*(|pre|+sum|upd|) + 1e-5*|x| "
-                         "+ 1e-7"}
+    return {"ids": ids_kind, **b1_agreement(pack, plain, pre, ids, upd)}
+
+
+def b1_update_agreement(pack, plain, pre, ids, upd):
+    """Asserts the update the kernel added, pack - pre, against the plain
+    version's, plain - pre, entry by entry, relative to the updates
+    themselves: within 1e-5 of the sum of the |updates| of the entry's
+    row, plus the rounding of the two sums into pre (c + 1 roundings of
+    2^-23 (|pre| + sum |upd|) each for a row hit c times, whatever their
+    order)."""
+    count = torch.bincount(ids.long(), minlength=pack.shape[0])
+    touched = count > 0
+    mag = torch.zeros_like(pack).index_add_(0, ids, upd.abs())[touched]
+    got, want = (pack - pre)[touched], (plain - pre)[touched]
+    err = (got - want).abs()
+    bound = (1e-5 * mag + (count[touched, None].float() + 1) * 2.0 ** -23
+             * (pre[touched].abs() + mag))
+    assert bool((err <= bound).all()), float((err - bound).max())
+    rel = err / mag.clamp_min(1e-30)
+    return {"max_abs_err_update": float(err.max()),
+            "max_rel_err_update": float(rel[mag > 0].max()),
+            "update_tolerance": "|(pack-pre) - (plain-pre)| <= 1e-5*sum|upd| "
+                                "+ (c+1)*2^-23*(|pre|+sum|upd|)"}
+
+
+# (pack width, slot dims, accumulator columns in G, grad dtype, base offset
+# in floats): the Criteo layout, and with it every instantiation of B1
+# (bf16 / f32 gradients x reductions of 4 / 2 / 1 floats), slots whose
+# values straddle its chunks, rows wider than its 16 lanes' chunks, a pack
+# base aligned to 8 or 4 bytes only
+B1_LAYOUTS = ((128, (64, 1), (65, 66), torch.bfloat16, 0),
+              (130, (64, 1), (65, 66), torch.float32, 0),
+              (130, (64, 1), (65, 66), torch.bfloat16, 0),
+              (67, (64, 1), (65, 66), torch.bfloat16, 0),
+              (67, (64, 1), (65, 66), torch.float32, 0),
+              (16, (3, 5, 1), (15, 9, 13), torch.bfloat16, 0),
+              (132, (128, 1), (129, 130), torch.float32, 0),
+              (1028, (1000, 8, 3), (1026, 1020, 7), torch.bfloat16, 0),
+              (128, (64, 1), (65, 66), torch.bfloat16, 1),
+              (128, (64, 1), (65, 66), torch.float32, 2))
+
+
+def check_b1_layouts(gen, rows=5000, n=20_000):
+    """B1 against its plain version at each layout of `B1_LAYOUTS`, over
+    uniform and Zipf ids: the packs (`b1_agreement`'s tolerances) and the
+    updates themselves (`b1_update_agreement`). Every used column is drawn
+    near 0 (1e-6 rand), so the updates stand out of the pack and the g^2
+    the kernel adds (~1e-6 for 1e-3 gradients) weighs as much as the
+    accumulator in each delta."""
+    from recbox_tpu_torch.ops.packed_delta import (
+        fused_adagrad_delta_plain, packed_adagrad_update_,
+        packed_adagrad_update_plain_, reduction_width,
+    )
+    rng = np.random.default_rng(SEED)
+    out = []
+    for width, dims, accs, dtype, offset in B1_LAYOUTS:
+        for ids_kind in ("uniform", "zipf"):
+            used = sum(dims) + len(dims)
+            flat = torch.zeros(rows * width + offset, device=DEVICE)
+            pack = flat[offset:].view(rows, width)
+            pack[:, :used] = 1e-6 * torch.rand(rows, used, generator=gen,
+                                               device=DEVICE)
+            local = rng.integers(0, rows, n) if ids_kind == "uniform" \
+                else (rng.zipf(1.2, n) - 1) % rows
+            ids = torch.from_numpy(local.astype(np.int32)).to(DEVICE)
+            G = pack.index_select(0, ids)
+            grads = [(1e-3 * torch.randn(n, d, generator=gen,
+                                         device=DEVICE)).to(dtype)
+                     for d in dims]
+            kw = dict(dims=dims, acc_cols=accs, used=used, eps=B1_EPS)
+            pre, plain = pack.clone(), pack.clone()
+            packed_adagrad_update_(pack, ids, G, grads, B1_LR, **kw)
+            packed_adagrad_update_plain_(plain, ids, G, grads, B1_LR, **kw)
+            torch.cuda.synchronize()
+            upd = fused_adagrad_delta_plain(G, grads, B1_LR, store_w=width,
+                                            **kw)
+            out.append({"width": width, "dims": list(dims),
+                        "grads": str(dtype), "base_offset": offset,
+                        "ids": ids_kind,
+                        "vec": reduction_width(width, pack.data_ptr()),
+                        **b1_agreement(pack, plain, pre, ids, upd),
+                        **b1_update_agreement(pack, plain, pre, ids, upd)})
+    assert {(o["grads"], o["vec"]) for o in out} == {
+        (str(t), v) for t in (torch.float32, torch.bfloat16)
+        for v in (4, 2, 1)}, out
+    return out
 
 
 def b1_bound_ms(ids, grads):
@@ -623,12 +720,15 @@ def b1_bound_ms(ids, grads):
         else "operations", moved
 
 
-def time_b1(gen):
+def time_b1(gen, ids_kind):
+    """B1, its plain version, the `index_add_` scatter it absorbs and its
+    bound, over ids drawn as `check_b1` draws them (uniform per field as
+    `bench.py` draws them, or Zipf-skewed)."""
     from recbox_tpu_torch.ops.packed_delta import (
         fused_adagrad_delta_plain, packed_adagrad_update_,
         packed_adagrad_update_plain_,
     )
-    pack, ids, G, grads = b1_inputs(gen, "uniform")
+    pack, ids, G, grads = b1_inputs(gen, ids_kind)
     upd = fused_adagrad_delta_plain(G, grads, B1_LR, dims=B1_DIMS,
                                     acc_cols=B1_ACC, used=B1_USED,
                                     store_w=128, eps=B1_EPS)
@@ -639,9 +739,9 @@ def time_b1(gen):
     # the scatter alone that B1 absorbs, given the finished operand
     library_ms = cuda_ms(lambda: pack.index_add_(0, ids, upd), reps=20)
     b_ms, b_by, moved = b1_bound_ms(ids, grads)
-    return {"n": int(ids.shape[0]), "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": moved}
+    return {"ids": ids_kind, "n": int(ids.shape[0]), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": moved}
 
 
 # bench.py's SASRec regimes (`bench.py:354-356`, `:425`): V items, L, d, B
@@ -1098,25 +1198,28 @@ def b6_inputs(d, seed=SEED, ids_kind="zipf"):
 def check_b6():
     """B6 against its plain version at D=128 (mean and sum; Zipf and
     uniform ids) and D=64: each entry within 1e-6 of the pooled |rows|
-    (another summation order), rows of pads exactly 0. Last, ids out of
-    range: -1 reads row V - 1, V and -V - 1 make their rows NaN, on both."""
+    (another summation order), rows of pads exactly 0, a second call equal
+    bit for bit. Last, ids out of range: -1 reads row V - 1, V and -V - 1
+    make their rows NaN, on both."""
     from recbox_tpu_torch.ops.embedding_gather import (
         seq_embedding_pool, seq_embedding_pool_plain,
     )
     out = []
     for d, mode, kind in ((128, "mean", "zipf"), (128, "sum", "zipf"),
                           (DIM, "mean", "zipf"), (128, "mean", "uniform"),
-                          (DIM, "mean", "bad")):
+                          (DIM, "mean", "uniform"), (DIM, "mean", "bad")):
         table, ids, pad = b6_inputs(d, ids_kind="uniform" if kind ==
                                     "uniform" else "zipf")
         if kind == "bad":
             ids[5, 3], ids[7, 0], ids[11, 2] = -1, B6_V, -B6_V - 1
         got = seq_embedding_pool(table, ids, pad, mode)
+        again = seq_embedding_pool(table, ids, pad, mode)
         want = seq_embedding_pool_plain(table, ids, pad, mode)
         mag = seq_embedding_pool_plain(table.abs(), ids, pad, mode)
         torch.cuda.synchronize()
         nan = torch.isnan(want)
         assert torch.equal(torch.isnan(got), nan), (d, mode, kind)
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
         assert int(nan.any(1).sum()) == (2 if kind == "bad" else 0)
         err = (got - want).abs()[~nan]
         assert got.dtype == torch.float32 and got.shape == (B6_B, d)
@@ -1125,6 +1228,7 @@ def check_b6():
         out.append({"d": d, "mode": mode, "ids": kind,
                     "max_abs_err": float(err.max()),
                     "pad_share": float((ids == pad).float().mean()),
+                    "repeat_bit_identical": True,
                     "tolerance": "1e-6 of the pooled |rows|; NaN rows alike"})
     return out
 
@@ -1383,8 +1487,9 @@ def b6_bound(table, ids, pad):
 
 def time_b6():
     """B6 at D=128 and 64 over Zipf ids (their rows stay in the 50 MB L2
-    across the timed run) and uniform ones (they reach HBM): kernel, plain
-    version, F.embedding_bag, the bound."""
+    across the timed run) and uniform ones (they reach HBM): kernel (with
+    the wrapper's cast of the int64 ids, and on int32 ids), plain version,
+    F.embedding_bag, the bound."""
     import torch.nn.functional as F
     from recbox_tpu_torch.ops.embedding_gather import (
         seq_embedding_pool, seq_embedding_pool_plain,
@@ -1393,12 +1498,16 @@ def time_b6():
     for kind, d in (("zipf", 128), ("zipf", DIM), ("uniform", 128),
                     ("uniform", DIM)):
         table, ids, pad = b6_inputs(d, ids_kind=kind)
+        ids32 = ids.to(torch.int32)
         b_ms, moved, rows = b6_bound(table, ids, pad)
         out.append({
             "d": d, "v": B6_V, "b": B6_B, "l": B6_L, "mode": "mean",
             "ids": kind, "distinct_rows_mb": rows * d * 4 / 1e6,
             "ms": cuda_ms(lambda: seq_embedding_pool(table, ids, pad),
                           reps=11, inner=20),
+            # the kernel alone: the wrapper casts int64 ids to int32 first
+            "ms_int32_ids": cuda_ms(lambda: seq_embedding_pool(
+                table, ids32, pad), reps=11, inner=20),
             "plain_ms": cuda_ms(lambda: seq_embedding_pool_plain(
                 table, ids, pad)),
             "library_ms": cuda_ms(lambda: F.embedding_bag(
@@ -1747,8 +1856,8 @@ def main() -> int:
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         emit({"phase": "ptxas", "kernel": name, "usage": regs})
     # the redesigned kernels spill nothing: B4's wgmma route at D = 64 and
-    # 128 (B3's stage (a) its packed instantiations), B5's selection and B3's
-    # selection with its epilogue
+    # 128 (B3's stage (a) its packed instantiations), B5's selection, B3's
+    # selection with its epilogue, B2 both ways, B1 and B6
     redesigned = {"mips_topk": usage_of(_build.build_logs, "mips_topk",
                                         "segment_candidates_wgmma"),
                   "bitonic_topk": usage_of(_build.build_logs, "bitonic_topk",
@@ -1758,11 +1867,18 @@ def main() -> int:
                                               "select_topk"),
                   "fused_ce": usage_of(_build.build_logs, "fused_ce",
                                        "ce_fwd")
-                  + usage_of(_build.build_logs, "fused_ce", "ce_bwd")}
+                  + usage_of(_build.build_logs, "fused_ce", "ce_bwd"),
+                  "packed_delta": usage_of(_build.build_logs, "packed_delta",
+                                           "packed_adagrad_update"),
+                  "embedding_gather": usage_of(_build.build_logs,
+                                               "embedding_gather",
+                                               "seq_pool")}
     for name, usage in redesigned.items():
         emit({"phase": "ptxas_redesigned", "kernel": name, "usage": usage})
         assert usage and all(u["spill_stores"] == u["spill_loads"] == 0
                              for u in usage), (name, usage)
+    # B1: bf16 / f32 gradients x reductions of 4 / 2 / 1 floats
+    assert len(redesigned["packed_delta"]) == 6, redesigned["packed_delta"]
     # 3 variants x 4 plans at each depth (the depth is the last template
     # argument: ...ELi64EE / ...ELi128EE)
     for depth in (64, 128):
@@ -1795,6 +1911,8 @@ def main() -> int:
     for ids_kind in ("uniform", "zipf"):
         b1_checks[ids_kind] = check_b1(gen, ids_kind)
         emit({"phase": "b1_vs_plain", **b1_checks[ids_kind]})
+    for res in check_b1_layouts(gen):
+        emit({"phase": "b1_layouts_vs_plain", **res})
     emit({"phase": "b1_check_launches",
           "launches": packed_delta.launches["packed_adagrad_update"]})
     b2_checks = check_b2(gen)
@@ -1908,9 +2026,11 @@ def main() -> int:
           "items": N_ITEMS, **qps})
     for name, s in (("bf16", svc), ("int8", svc8)):
         emit({"phase": "breakdown", "variant": name, **breakdown(s, users)})
-    b1_time = time_b1(gen)
-    emit({"phase": "timing", "card": card, "kernel": "packed_adagrad_update",
-          **b1_time})
+    b1_times = {kind: time_b1(gen, kind) for kind in ("uniform", "zipf")}
+    for t in b1_times.values():
+        emit({"phase": "timing", "card": card,
+              "kernel": "packed_adagrad_update", **t})
+    b1_time = b1_times["uniform"]
     b2_time = time_b2(gen)
     emit({"phase": "timing", "card": card, "kernel": "fused_ce", **b2_time})
     timings = {}
@@ -1973,7 +2093,14 @@ def main() -> int:
         "bound_ms": b1_time["bound_ms"], "bound_by": b1_time["bound_by"],
         "library_ms": b1_time["library_ms"],
         "library": "pack.index_add_(0, ids, operand), the scatter alone",
-        "matches_plain": True,
+        "design": "operand rows staged in shared memory slot by slot, "
+                  "16-byte vector reductions (REDG.F32x4), a block's rows "
+                  "of one id summed before their reductions",
+        "ids": "uniform per field, as bench.py draws them",
+        "zipf_ids": {key: b1_times["zipf"][key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms")},
+        "max_abs_err_zipf": b1_checks["zipf"]["max_abs_err"],
+        "ptxas": redesigned["packed_delta"], "matches_plain": True,
         "shape": {"pack": [NUM_CAT * VOCAB, 128], "rows": NUM_CAT * BATCH,
                   "slots": list(B1_DIMS), "grads": "bf16"}})
     b2_err = b2_checks[0]
@@ -2058,9 +2185,12 @@ def main() -> int:
         "library_ms": t6["library_ms"],
         "library": "F.embedding_bag(ids, table, mode='mean', padding_idx)",
         "ids": "zipf(1.2), rows L2-resident across the timed run",
+        "ms_int32_ids": t6["ms_int32_ids"],
         "uniform_ids": {key: t6u[key] for key in (
-            "ms", "plain_ms", "library_ms", "bound_ms", "distinct_rows_mb")},
-        "matches_plain": True,
+            "ms", "ms_int32_ids", "plain_ms", "library_ms", "bound_ms",
+            "distinct_rows_mb")},
+        "ptxas": redesigned["embedding_gather"], "matches_plain": True,
+        "repeats_bit_identical": True,
         "shape": {"v": B6_V, "b": B6_B, "l": B6_L, "d": t6["d"]}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -15,12 +15,13 @@ g² (per-example AdaGrad, `packed.py:27-32`).
 
 `packed_adagrad_update_` runs the CUDA kernel (`csrc/packed_delta.cu`,
 built by `ops/_build.py`) for CUDA tensors, updating the pack in place
-without ever writing the (N, store_w) operand; for CPU tensors it runs
-`packed_adagrad_update_plain_`, which builds the operand with
-`fused_adagrad_delta_plain` (the JAX kernel's function) and applies it with
-``index_add_``. A CUDA tensor never reaches the plain version; a failed
-build or launch raises. ``lr`` is a runtime scalar, so a changed learning
-rate needs no rebuild.
+without ever writing the (N, store_w) operand, in reductions of the
+width `reduction_width` picks from the pack's row width and alignment; for
+CPU tensors it runs `packed_adagrad_update_plain_`, which builds the
+operand with `fused_adagrad_delta_plain` (the JAX kernel's function) and
+applies it with ``index_add_``. A CUDA tensor never reaches the plain
+version; a failed build or launch raises. ``lr`` is a runtime scalar, so
+a changed learning rate needs no rebuild.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ import torch
 from recbox_tpu_torch.ops import _build
 
 __all__ = ["fused_adagrad_delta_plain", "packed_adagrad_update_",
-           "packed_adagrad_update_plain_", "launches", "reset_launches"]
+           "packed_adagrad_update_plain_", "reduction_width", "launches",
+           "reset_launches"]
 
 # kernel launches on the CUDA path; the plain version never counts
 launches = {"packed_adagrad_update": 0}
@@ -81,13 +83,21 @@ def packed_adagrad_update_plain_(pack: torch.Tensor, ids: torch.Tensor,
     return pack.index_add_(0, ids, upd)
 
 
+def reduction_width(pack_w: int, pack_ptr: int) -> int:
+    """The kernel's reduction width in floats: the widest of 4, 2, 1 that
+    divides the pack's row width and its base address (16-, 8- or 4-byte
+    aligned)."""
+    return next(v for v in (4, 2, 1)
+                if pack_w % v == 0 and pack_ptr % (4 * v) == 0)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("packed_delta")
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.recbox_packed_adagrad_update.argtypes = [
         i, vp, ctypes.c_longlong, i, vp, vp, i, i, i, vp, vp, vp, vp, i, f,
-        f, vp]
+        f, i, vp]
     lib.recbox_packed_adagrad_update.restype = i
     return lib
 
@@ -140,6 +150,7 @@ def _update_cuda(pack, ids, G, grads, lr, dims, acc_cols, used, eps):
         cols.append(col)
         col += d
     k = len(dims)
+    vec = reduction_width(pack.shape[1], pack.data_ptr())
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         rc = lib.recbox_packed_adagrad_update(
@@ -147,7 +158,7 @@ def _update_cuda(pack, ids, G, grads, lr, dims, acc_cols, used, eps):
             pack.shape[1], ids.data_ptr(), G.data_ptr(), G.shape[1], n, k,
             (ctypes.c_void_p * k)(*[g.data_ptr() for g in grads]),
             (ctypes.c_int * k)(*dims), (ctypes.c_int * k)(*cols),
-            (ctypes.c_int * k)(*acc_cols), col, float(lr), float(eps),
+            (ctypes.c_int * k)(*acc_cols), col, float(lr), float(eps), vec,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"packed_adagrad_update_: launch failed with CUDA "

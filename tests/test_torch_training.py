@@ -217,6 +217,27 @@ def test_packed_update_cuda_tensor_never_takes_plain_version(monkeypatch):
             0.05, dims=(8, 1), acc_cols=(9, 10), used=12, eps=1e-8)
 
 
+_BASE = 0x7F0000000000      # a 16-byte aligned device address
+
+
+@pytest.mark.parametrize("pack_w,ptr,vec", [
+    (128, _BASE, 4),          # DeepFM's pack: 17 reductions of 4 a row
+    (130, _BASE, 2),          # rows of 130 floats
+    (67, _BASE, 1),           # odd rows: scalar reductions
+    (128, _BASE + 8, 2),      # base 8-byte aligned only
+    (128, _BASE + 4, 1),      # base 4-byte aligned only
+    (130, _BASE + 8, 2),
+    (130, _BASE + 4, 1),
+    (132, _BASE, 4),
+    (16, _BASE, 4),
+    (30000, _BASE + 24, 2),
+])
+def test_reduction_width(pack_w, ptr, vec):
+    """B1's reduction width: the widest of 4, 2, 1 floats that divides the
+    pack's row width and its base address."""
+    assert pd_mod.reduction_width(pack_w, ptr) == vec
+
+
 # -- 3. the packed trainer -------------------------------------------------------
 
 def _trainers(feature_major, compute_dtype="float32", **jkw):
