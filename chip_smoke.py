@@ -82,6 +82,35 @@ Phases (any failure raises and exits non-zero):
      step), falling loss, examples/s, one step under torch.profiler; the
      CPU Markov learning test trained on the card (hit@1 > 0.8); the 60k
      regime through `full_scores` against `fused_ce_loss`;
+  5c. training to a result, DeepFM: phase 5's trainer through `fit` for 2
+     epochs of 24 batches (phase 5's logistic label), 8 steps a
+     `train_steps_fused` call (one CUDA graph of the step, replayed a
+     step), `CTREvaluator` (AUC, logloss) on 4 held-out batches, B1's
+     count reset just before and read just after (one launch a step); a
+     plateau forced at the second evaluation, after which the lr and the
+     embedding lr are a tenth and the step, captured again, moves the pack
+     and the weights as an eager step at the new lr does; `save`, `load`
+     into a fresh trainer, `predict` bit for bit; checkpoint bytes and
+     seconds, capture and `_capture_best` seconds; held-out AUC above 0.5
+     at the best evaluation; ms a step of eager `train_step` against replayed
+     steps on the same batches, 6 blocks of 8 steps a side in turns; one
+     fused step under torch.profiler;
+  5d. training to a result, SASRec at V = 1M: phase 5b's trainer through
+     `fit` for 2 epochs of 16 batches (drawn as `bench.py:434-438` draws
+     one), 8 steps a fused call, `evaluate_retrieval` each epoch over 4096
+     held-out users (full sort over the 1M items, chunks clamped to 268
+     users), B2's counts reset just before and read just after (one
+     forward and one backward a step); two replays draw different dropout
+     masks; a replayed step and an eager one with the same dropout draws
+     give the same loss and move the 1M x 64 table and an encoder weight
+     alike; eager against fused ms a step (as in 5c); one fused step
+     profiled;
+  5e. the quality exits on the card: `recbox_tpu_torch.tools.quality_exit`
+     (the JAX package's DeepFM synthctr and SASRec synthseq parity runs)
+     at seeds 2024, 1, 2, 3, 4, valid and test metrics a seed and the
+     medians of the test metrics; then SASRec at seed 2024 through B2's
+     loss and 8-step graphs, one B2 forward and backward a step, its test
+     metrics within 0.02 of the median of the five;
   6. times with CUDA events (median after a warm-up; B5, B6 and their
      yardsticks over runs of 20 calls queued behind a spin kernel, so the
      host's launch work is not timed): each kernel, its
@@ -1660,7 +1689,7 @@ def sasrec_60k_comparison():
                for m, v in out.items()}}
 
 
-def sasrec_breakdown(trainer, batch):
+def sasrec_breakdown(trainer, batch, steps=None):
     """Device time by kernel group of one steady SASRec 1M step
     (torch.profiler): B2 forward and backward, GEMMs, the rest; the device
     spans of the trainer's phases (Adam over the 1M x 64 table among them);
@@ -1672,7 +1701,7 @@ def sasrec_breakdown(trainer, batch):
         ("copies_casts", ("copy", "cast", "fill")),
         ("embedding_gather_scatter", ("index", "embedding", "gather",
                                       "scatter")),
-    ), steps=lambda: trainer.train_steps_repeat(batch, 1))
+    ), steps=steps or (lambda: trainer.train_steps_repeat(batch, 1)))
 
 
 def criteo_trainer(seed):
@@ -1824,6 +1853,350 @@ def train_criteo():
         "held_out_auc": auc_score(labels, p),
         "held_out_logloss": log_loss(labels, p),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+# -- 5c-5e: training to a result ---------------------------------------------
+
+FIT_TRAIN_BATCHES, FIT_HELD_OUT_BATCHES, FIT_K, FIT_BLOCKS = 24, 4, 8, 6
+SAS_FIT_BATCHES, SAS_EVAL_USERS = 16, 4096
+EXIT_SEEDS = (2024, 1, 2, 3, 4)
+
+
+def clone_state(obj):
+    """A deep copy of a trainer's `state_dict` (its tensors are the live
+    ones)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().clone()
+    if isinstance(obj, dict):
+        return {k: clone_state(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [clone_state(v) for v in obj]
+    return obj
+
+
+def stacked(batches):
+    return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def fused_vs_eager(trainer, batches, launches):
+    """Ms a step of the same batches through eager `train_step` and through
+    `train_steps_fused`: FIT_BLOCKS blocks of FIT_K steps a side, in turns
+    (eager then fused, fused then eager, ...), the chunks of ``batches``
+    taken in a round, each block by the host clock to a synchronize. The
+    kernel's launches counted over the fused calls (one a step)."""
+    fused_counts = {k: 0 for k in launches}
+
+    def eager(chunk, _):
+        for b in chunk:
+            trainer.train_step(b)
+
+    def fused(_, stack):
+        before = dict(launches)
+        trainer.train_steps_fused(stack)
+        for k in fused_counts:
+            fused_counts[k] += launches[k] - before[k]
+
+    chunks = [batches[i:i + FIT_K]
+              for i in range(0, len(batches) - FIT_K + 1, FIT_K)]
+    stacks = [stacked(c) for c in chunks]
+    blocks = {"eager": [], "fused": []}
+    torch.cuda.synchronize()
+    for i in range(FIT_BLOCKS):
+        arg = (chunks[i % len(chunks)], stacks[i % len(chunks)])
+        order = (("eager", eager), ("fused", fused))
+        for name, call in (order if i % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            call(*arg)
+            torch.cuda.synchronize()
+            blocks[name].append((time.perf_counter() - t0) * 1e3 / FIT_K)
+    n_fused = FIT_K * FIT_BLOCKS
+    bsz = len(next(iter(batches[0].values())))
+    med = {name: statistics.median(v) for name, v in blocks.items()}
+    out = {"blocks_a_side": FIT_BLOCKS, "block_steps": FIT_K,
+           "fused_steps": n_fused, "fused_launches": fused_counts,
+           "per_step_launches": {k: v / n_fused
+                                 for k, v in fused_counts.items()},
+           "eager_over_fused": med["eager"] / med["fused"],
+           "eager_over_fused_range": [min(blocks["eager"])
+                                      / max(blocks["fused"]),
+                                      max(blocks["eager"])
+                                      / min(blocks["fused"])]}
+    for name, v in blocks.items():
+        out.update({f"{name}_block_ms_per_step": v,
+                    f"{name}_median_ms": med[name],
+                    f"{name}_min_ms": min(v), f"{name}_max_ms": max(v),
+                    f"{name}_examples_per_s": bsz / med[name] * 1e3})
+    return out
+
+
+def graph_step_matches_eager(trainer, batch, tensors):
+    """One replayed step and one eager step from the same state on the same
+    batch, with the same dropout draws (the trainer's generator set back
+    between them): the losses agree within 1e-5 of the loss, and each of
+    ``tensors()`` (name -> live tensor) moves by the same update (within
+    1e-3 of the update's largest entry: B1's atomics add duplicates in no
+    fixed order). An lr baked into the graph at another value would move
+    them by another factor; a replay that skipped a kernel, another loss."""
+    # detached copies: a copy that kept a parameter's autograd node alive
+    # would tie the capture to the stream that made it
+    snap = clone_state(trainer.state_dict())
+    gen = trainer.dropout_generator
+    draws = gen.get_state() if gen is not None else None
+    before = {k: v.detach().clone() for k, v in tensors().items()}
+    loss_graph = float(trainer.train_steps_fused(stacked([batch]))[0])
+    graph = {k: v.detach().clone() for k, v in tensors().items()}
+    trainer.load_state_dict(snap)
+    if gen is not None:
+        gen.set_state(draws)
+    loss_eager = float(trainer.train_step(batch))
+    assert abs(loss_graph - loss_eager) <= 1e-5 * abs(loss_eager), \
+        (loss_graph, loss_eager)
+    out = {"loss": {"graph": loss_graph, "eager": loss_eager}}
+    for k, v in tensors().items():
+        upd = (v - before[k]).abs().max().item()
+        err = (graph[k] - v).abs().max().item()
+        assert upd > 0 and err <= 1e-3 * upd, (k, err, upd)
+        out[k] = {"max_update": upd, "max_abs_diff": err}
+    trainer.load_state_dict(snap)
+    return out
+
+
+def fit_criteo():
+    """Phase 5c: `fit` of phase 5's trainer over 24 batches for 2 epochs,
+    FIT_K steps a `train_steps_fused` call, `CTREvaluator` on 4 held-out
+    batches; a plateau forced at the second evaluation (the monitored
+    value is 1 at the first and 0 at the second), then the replayed step
+    held to an eager one at the decayed lr; save / load into a fresh
+    trainer, `predict` bit for bit; eager against fused examples/s."""
+    import tempfile
+    from recbox_tpu_torch.evaluation import CTREvaluator
+    from recbox_tpu_torch.ops import packed_delta
+
+    from recbox_tpu_torch.training import Monitor
+
+    trainer = criteo_trainer(SEED)
+    cfg = trainer.config
+    cfg.epochs, cfg.fused_steps, cfg.lr_decay_factor = 2, FIT_K, 0.1
+    trainer.monitor = Monitor("forced", "max", patience=2)
+    data = CriteoBatches(SEED + 2)
+    batches = [data() for _ in range(FIT_TRAIN_BATCHES)]
+    held = [data() for _ in range(FIT_HELD_OUT_BATCHES)]
+    held_np = {k: torch.cat([b[k] for b in held]).cpu().numpy()
+               for k in held[0]}
+    ctr = CTREvaluator(held_np, label="click", metrics=["AUC", "logloss"],
+                       batch_size=BATCH)
+    evals = []
+
+    def eval_fn(tr):
+        t0 = time.perf_counter()
+        metrics = ctr(tr)
+        evals.append({"epoch": tr.epoch, "lr": tr.learning_rate,
+                      "emb_lr": tr._emb_lr, "eval_s":
+                      time.perf_counter() - t0, **metrics})
+        return {**metrics, "forced": 1.0 if len(evals) == 1 else 0.0}
+
+    trainer.eval_fn = eval_fn
+    trainer.init(batches[0])
+    lr0, emb0 = trainer.learning_rate, trainer._resolve_emb_lr()
+    packed_delta.reset_launches()
+    t0 = time.perf_counter()
+    trainer.fit(list(batches))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = packed_delta.launches["packed_adagrad_update"]
+    steps = cfg.epochs * FIT_TRAIN_BATCHES
+    assert trainer.step == steps and launches == steps, (trainer.step,
+                                                         launches)
+    assert len(evals) == 2 and trainer.monitor.best_epoch == 0, evals
+    # the label is a logistic rule of the ids of c0..c3, learnt by the best
+    # (first) epoch, whose weights the plateau reloads
+    assert evals[0]["AUC"] > 0.5, evals
+    lr1, emb1 = trainer.learning_rate, trainer._emb_lr
+    assert math.isclose(lr1, lr0 * 0.1, rel_tol=1e-6) \
+        and math.isclose(emb1, emb0 * 0.1, rel_tol=1e-6), (lr1, emb1)
+    capture_s = trainer._graph.capture_seconds
+    # the next fused step captures again, at the decayed embedding lr
+    (pname,) = trainer.packs
+    match = graph_step_matches_eager(
+        trainer, batches[0],
+        lambda: {"pack": trainer.packs[pname],
+                 "dnn_w1": trainer.params["dnn_w1"]})
+    assert trainer._graph.token == emb1, (trainer._graph.token, emb1)
+    t0 = time.perf_counter()
+    trainer._capture_best()
+    torch.cuda.synchronize()
+    best_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        trainer.save(path)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(path)
+        fresh = criteo_trainer(SEED + 7)
+        fresh.init(batches[0])
+        t0 = time.perf_counter()
+        fresh.load(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    probe = {k: v for k, v in held[0].items() if k != "click"}
+    same = np.array_equal(trainer.predict([dict(probe)]),
+                          fresh.predict([dict(probe)]))
+    assert same and fresh.step == trainer.step \
+        and fresh._emb_lr == trainer._emb_lr
+    del fresh
+    speed = fused_vs_eager(trainer, batches, packed_delta.launches)
+    assert speed["fused_launches"]["packed_adagrad_update"] \
+        == speed["fused_steps"], speed
+    return trainer, batches[0], {
+        "fit_s": fit_s, "steps": steps, "fused_steps": cfg.fused_steps,
+        "b1_launches": launches, "evals": evals,
+        "lr": [lr0, lr1], "emb_lr": [emb0, emb1],
+        "replay_vs_eager_after_plateau": match,
+        "capture_s": capture_s, "recapture_s": trainer._graph.capture_seconds,
+        "capture_best_s": best_s, "checkpoint_bytes": ckpt_bytes,
+        "save_s": save_s, "load_s": load_s, "predict_bit_equal": same,
+        **speed}
+
+
+def sasrec_batches(n, seed):
+    """``n`` batches drawn as `bench.py:434-438` draws one, on the card."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        b = {"item_seq": rng.integers(1, SAS_V, (SAS_B, SAS_L)),
+             "seq_len": np.full(SAS_B, SAS_L),
+             "item_id": rng.integers(1, SAS_V, SAS_B)}
+        out.append({k: torch.from_numpy(v.astype(np.int32)).to(DEVICE)
+                    for k, v in b.items()})
+    return out
+
+
+def fit_sasrec_1m():
+    """Phase 5d: `fit` of phase 5b's trainer over 16 batches for 2 epochs,
+    FIT_K steps a fused call, evaluated each epoch by `evaluate_retrieval`
+    (4096 held-out users, full sort over the 1M items through the chunk
+    clamp); two replays draw different dropout masks; a replayed step
+    equals an eager one with the same draws (loss, the 1M x 64 table, an
+    encoder weight); B2 launches once each way a step; eager against
+    fused examples/s."""
+    from recbox_tpu_torch.evaluation import evaluate_retrieval
+    from recbox_tpu_torch.nn.core import Dropout
+    from recbox_tpu_torch.ops import fused_ce
+    from recbox_tpu_torch.training import Monitor
+
+    trainer, _ = sasrec_setup(SAS_V, "fused_ce_loss")
+    cfg = trainer.config
+    cfg.epochs, cfg.fused_steps = 2, FIT_K
+    trainer.monitor = Monitor("NDCG(k=10)", "max", patience=2)
+    batches = sasrec_batches(SAS_FIT_BATCHES, SEED + 3)
+    held = sasrec_batches(SAS_EVAL_USERS // SAS_B, SEED + 4)
+    held = {k: torch.cat([b[k] for b in held]) for k in held[0]}
+    targets = held["item_id"].cpu().numpy()
+    evals = []
+
+    def eval_fn(tr):
+        t0 = time.perf_counter()
+        users = tr.apply({"item_seq": held["item_seq"],
+                          "seq_len": held["seq_len"]}, method="user_tower")
+        metrics = evaluate_retrieval(
+            users, tr.model.emb_item.detach(), {},
+            {u: [int(t)] for u, t in enumerate(targets)},
+            range(SAS_EVAL_USERS), ["Recall(k=10)", "NDCG(k=10)"],
+            chunk_size=4096, exclude_items=(0,), device=DEVICE)
+        torch.cuda.synchronize()
+        evals.append({"epoch": tr.epoch, "eval_s":
+                      time.perf_counter() - t0, **metrics})
+        return metrics
+
+    trainer.eval_fn = eval_fn
+    drop = next(m for m in trainer.model.modules() if isinstance(m, Dropout))
+    seen = []
+
+    def keep_output(module, inputs, output):
+        if module.training:
+            seen[:] = [output.detach()]
+
+    hook = drop.register_forward_hook(keep_output)
+    trainer.init(batches[0])
+    fused_ce.reset_launches()
+    t0 = time.perf_counter()
+    trainer.fit(list(batches))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(fused_ce.launches)
+    steps = cfg.epochs * SAS_FIT_BATCHES
+    assert launches == {"fused_ce_fwd": steps, "fused_ce_bwd": steps}, \
+        launches
+    assert len(evals) == 2 and all(np.isfinite(e["NDCG(k=10)"])
+                                   for e in evals), evals
+    # the hooked output is the captured step's, rewritten by each replay
+    masks = []
+    for b in batches[:2]:
+        trainer.train_steps_fused(stacked([b]))
+        torch.cuda.synchronize()
+        masks.append(seen[0] != 0)
+    hook.remove()
+    drop_rate = [1 - float(m.float().mean()) for m in masks]
+    differ = float((masks[0] != masks[1]).float().mean())
+    assert all(0.08 < r < 0.12 for r in drop_rate) and differ > 0.1, \
+        (drop_rate, differ)
+    # after the masks: the check's eager step replaces the hooked tensor
+    params = trainer.params
+    match = graph_step_matches_eager(
+        trainer, batches[0],
+        lambda: {k: params[k] for k in ("emb_item",
+                                        "sasrec.encoder.q0.weight")})
+    speed = fused_vs_eager(trainer, batches, fused_ce.launches)
+    n = speed["fused_steps"]
+    assert speed["fused_launches"] == {"fused_ce_fwd": n,
+                                       "fused_ce_bwd": n}, speed
+    return trainer, batches[0], {
+        "fit_s": fit_s, "steps": steps, "b2_launches": launches,
+        "evals": evals, "eval_users": SAS_EVAL_USERS,
+        "replay_vs_eager": match,
+        "eval_chunk": (1 << 28) // SAS_V,
+        "dropout_drop_rate": drop_rate, "dropout_masks_differ": differ,
+        "capture_s": trainer._graph.capture_seconds, **speed}
+
+
+def quality_exits_on_card():
+    """Phase 5e: `tools/quality_exit.py`'s DeepFM synthctr and SASRec
+    synthseq runs on the card, seeds EXIT_SEEDS; valid and test metrics
+    a seed and the medians of the test metrics. Then SASRec's first seed
+    again through the 1M-item trainer's path (`fused`: kernel B2's loss,
+    8-step `train_steps_fused` graphs), one B2 forward and backward a step,
+    its test metrics within 0.02 (the exit's SASRec limit) of the median
+    of the `full_scores` runs."""
+    import tempfile
+    from recbox_tpu_torch.ops import fused_ce
+    from recbox_tpu_torch.tools import quality_exit as qe
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (gen, run) in qe.RUNS.items():
+            data_dir = gen(tmp)
+            runs = []
+            for seed in EXIT_SEEDS:
+                t0 = time.perf_counter()
+                res = run(data_dir, seed, DEVICE)
+                res["seconds"] = time.perf_counter() - t0
+                assert all(np.isfinite(v) for v in res["test"].values()), res
+                runs.append({"seed": seed, **res})
+            out[name] = {"runs": runs, "median_test": {
+                k: statistics.median(r["test"][k] for r in runs)
+                for k in runs[0]["test"]}}
+        fused_ce.reset_launches()
+        t0 = time.perf_counter()
+        res = qe.run_sasrec(qe.gen_seq(tmp), EXIT_SEEDS[0], DEVICE,
+                            fused=True)
+        res["seconds"] = time.perf_counter() - t0
+    res["b2_launches"] = dict(fused_ce.launches)
+    assert res["b2_launches"] == {"fused_ce_fwd": res["steps"],
+                                  "fused_ce_bwd": res["steps"]}, res
+    median = out["sasrec"]["median_test"]
+    assert all(abs(res["test"][k] - median[k]) < 0.02 for k in median), \
+        (res, median)
+    out["sasrec_fused"] = {"seed": EXIT_SEEDS[0], **res}
+    return out
 
 
 def main() -> int:
@@ -1997,8 +2370,8 @@ def main() -> int:
     trainer, last_batch, train = train_criteo()
     emit({"phase": "train", "card": card, "wall_s": time.perf_counter() - t0,
           **train})
-    emit({"phase": "train_breakdown", "card": card,
-          **train_breakdown(trainer, last_batch)})
+    eager_c = train_breakdown(trainer, last_batch)
+    emit({"phase": "train_breakdown", "card": card, **eager_c})
     del trainer, last_batch
 
     # 5b. the sequential training path: SASRec over 1M items through B2
@@ -2006,11 +2379,30 @@ def main() -> int:
     trainer, batch, sas = train_sasrec_1m()
     emit({"phase": "train_sasrec_1m", "card": card,
           "wall_s": time.perf_counter() - t0, **sas})
-    emit({"phase": "sasrec_breakdown", "card": card,
-          **sasrec_breakdown(trainer, batch)})
+    eager_d = sasrec_breakdown(trainer, batch)
+    emit({"phase": "sasrec_breakdown", "card": card, **eager_d})
     del trainer, batch
     emit({"phase": "sasrec_markov", **sasrec_markov_on_card()})
     emit({"phase": "sasrec_60k", "card": card, **sasrec_60k_comparison()})
+
+    # 5c. DeepFM fit at the Criteo width: train_steps_fused over B1
+    trainer, batch, fit_c = fit_criteo()
+    emit({"phase": "fit_criteo", "card": card, **fit_c})
+    graph_c = train_breakdown(trainer, batch, steps=lambda:
+                              trainer.train_steps_fused(stacked([batch])))
+    emit({"phase": "fit_criteo_breakdown", "card": card, **graph_c})
+    del trainer, batch
+    # 5d. SASRec fit at V = 1M: train_steps_fused over B2
+    trainer, batch, fit_d = fit_sasrec_1m()
+    emit({"phase": "fit_sasrec_1m", "card": card, **fit_d})
+    graph_d = sasrec_breakdown(trainer, batch, steps=lambda:
+                               trainer.train_steps_fused(stacked([batch])))
+    emit({"phase": "fit_sasrec_breakdown", "card": card, **graph_d})
+    del trainer, batch
+    # 5e. the quality exits on the card
+    exits = quality_exits_on_card()
+    emit({"phase": "quality_exits", "card": card, "seeds": EXIT_SEEDS,
+          **exits})
 
     # 6. times
     qps = {}
@@ -2087,7 +2479,14 @@ def main() -> int:
         "name": "packed_adagrad_update", "route": "cuda",
         "source": "recbox_tpu_torch/csrc/packed_delta.cu",
         "replaces": "recbox_tpu/ops/pallas/packed_delta.py:62",
-        "launches": train["launches"],
+        "launches": fit_c["b1_launches"],
+        "launches_by_path": {"fit_fused_graph": fit_c["b1_launches"],
+                             "train_step_eager": train["launches"]},
+        "device_ms_in_profiled_step": {
+            "eager": (eager_c["groups"] or {}).get(
+                "b1_packed_adagrad_update"),
+            "graph_replay": (graph_c["groups"] or {}).get(
+                "b1_packed_adagrad_update")},
         "max_abs_err": b1_checks["uniform"]["max_abs_err"],
         "ms": b1_time["ms"], "plain_ms": b1_time["plain_ms"],
         "bound_ms": b1_time["bound_ms"], "bound_by": b1_time["bound_by"],
@@ -2114,7 +2513,16 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "recbox_tpu_torch/csrc/fused_ce.cu",
             "replaces": replaces,
-            "launches": sas["launches"][f"fused_ce_{key}"],
+            "launches": fit_d["b2_launches"][f"fused_ce_{key}"],
+            "launches_by_path": {
+                "fit_fused_graph": fit_d["b2_launches"][f"fused_ce_{key}"],
+                "train_steps_repeat_eager": sas["launches"][
+                    f"fused_ce_{key}"]},
+            "device_ms_in_profiled_step": {
+                "eager": (eager_d["groups"] or {}).get(
+                    "b2_forward" if key == "fwd" else "b2_backward"),
+                "graph_replay": (graph_d["groups"] or {}).get(
+                    "b2_forward" if key == "fwd" else "b2_backward")},
             "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
             "ms": b2_time[f"{key}_ms"],
             "plain_ms": b2_time[f"{key}_plain_ms"],

@@ -1,10 +1,11 @@
 """Batch iteration over dict-of-array datasets with fixed batch shapes.
 
-Own copy of `ArrayLoader` and `MASK_KEY` (`recbox_tpu/data/loader.py:28-95`):
-batches are dicts of numpy arrays; the final partial batch is either dropped
-or padded with a `__mask__` weight column, so every batch has one shape.
-`MatchingLoader` (negative sampling for training) waits for the training
-slice.
+Own copy of `ArrayLoader`, `MASK_KEY` and `num_batches`
+(`recbox_tpu/data/loader.py:28-95`): batches are dicts of numpy arrays; the
+final partial batch is either dropped or padded with a `__mask__` weight
+column, so every batch has one shape. `num_samples` and `peek_batch` are
+what `Trainer.fit` reads before its first epoch. `MatchingLoader` (negative
+sampling for training) waits for the data pipeline (`ROADMAP.md`, Queue A).
 """
 
 from __future__ import annotations
@@ -14,9 +15,13 @@ from typing import Dict, Iterator
 
 import numpy as np
 
-__all__ = ["ArrayLoader", "MASK_KEY"]
+__all__ = ["ArrayLoader", "MASK_KEY", "num_batches"]
 
 MASK_KEY = "__mask__"
+
+
+def num_batches(n: int, batch_size: int, drop_last: bool) -> int:
+    return n // batch_size if drop_last else math.ceil(n / batch_size)
 
 
 class ArrayLoader:
@@ -36,8 +41,23 @@ class ArrayLoader:
         self.rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
-        return self.n // self.batch_size if self.drop_last \
-            else math.ceil(self.n / self.batch_size)
+        return num_batches(self.n, self.batch_size, self.drop_last)
+
+    @property
+    def num_samples(self) -> int:
+        return self.n
+
+    def peek_batch(self) -> Dict[str, np.ndarray]:
+        """The first rows as one batch, padded to ``batch_size`` (no mask),
+        without shuffling or advancing the generator: the shapes
+        `Trainer.init` needs."""
+        bs = min(self.batch_size, self.n)
+        batch = {k: v[:bs] for k, v in self.arrays.items()}
+        if bs < self.batch_size:
+            pad = self.batch_size - bs
+            batch = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
+                     for k, v in batch.items()}
+        return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         idx = np.arange(self.n)

@@ -22,11 +22,14 @@ global-norm clip.
 
 Ported: the layout planner without block mode, exact and direct init, the
 per-feature gather, the AdaGrad acc-in-row update, `train_step`,
-`train_steps_repeat`, `predict` and the `tables` / `accumulators` views.
-Not ported yet, each raising NotImplementedError (`ROADMAP.md`): lazy Adam
-(``embedding_optimizer='adam'``), the split-accumulator layout (value
-columns already a multiple of 128), ``block_rows``, `train_steps_fused`,
-and the dense trainer's `fit` and checkpoints.
+`train_steps_fused` (one CUDA graph of the step on the card, captured again
+when the embedding lr changes, since B1 takes it by value),
+`train_steps_repeat`, `predict`, the `tables` / `accumulators` views, and
+the best-weight cache, `state_dict`, `save` and `load` carrying the packs
+and the embedding lr. Not ported yet, each raising NotImplementedError
+(`ROADMAP.md`): lazy Adam (``embedding_optimizer='adam'``), the
+split-accumulator layout (value columns already a multiple of 128) and
+``block_rows``.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from recbox_tpu_torch.nn.embedding import rows_key_for
 from recbox_tpu_torch.ops.losses import embedding_reg_loss
 from recbox_tpu_torch.ops.packed_delta import packed_adagrad_update_
 from recbox_tpu_torch.training.sparse import merge_params, split_sparse_params
-from recbox_tpu_torch.training.trainer import Trainer
+from recbox_tpu_torch.training.trainer import Trainer, _copy_into
 
 logger = logging.getLogger("recbox_tpu_torch")
 
@@ -131,6 +134,7 @@ class PackedEmbeddingTrainer(Trainer):
         self.table_initializer = table_initializer
         self.embedding_optimizer = embedding_optimizer
         self.packs: Dict[str, torch.Tensor] = {}
+        self._best_packs: Dict[str, torch.Tensor] = {}
         self._slots: Dict[str, List[_Slot]] = {}
         self._bundles: Dict[str, List[_Bundle]] = {}
         self._pack_store_width: Dict[str, int] = {}
@@ -383,11 +387,14 @@ class PackedEmbeddingTrainer(Trainer):
         grads = self._dense_step(loss, [rows[k] for k in keys])
         with record_function("packed::row_update"):
             self._apply_row_updates(dict(zip(keys, grads)), ctx, emb_lr)
-        self.step += 1
         return loss.detach()
 
-    def train_steps_fused(self, batches):
-        raise NotImplementedError(f"train_steps_fused {_PACKED_ITEM}")
+    def _graph_token(self):
+        """B1 takes the embedding lr by value: a captured step holds it, and
+        a new lr (plateau, `load`) needs a new capture. A kernel reading the
+        lr from a device pointer would change B1's interface for a capture
+        that happens at most once an evaluation."""
+        return self._resolve_emb_lr() if self.packs else None
 
     def _forward_inputs(self, dbatch: Dict[str, torch.Tensor]
                         ) -> Dict[str, torch.Tensor]:
@@ -435,3 +442,37 @@ class PackedEmbeddingTrainer(Trainer):
         super()._set_learning_rate(lr)
         if self._emb_lr is not None and old > 0:
             self._emb_lr = max(self._emb_lr * (lr / old), self.config.min_lr)
+
+    # -- best weights and checkpoints -------------------------------------------
+    def _capture_best(self) -> None:
+        """The dense parameters and the packs (values and accumulators),
+        cloned on their device: B1 updates the packs in place."""
+        super()._capture_best()
+        self._best_packs = {k: v.clone() for k, v in self.packs.items()}
+
+    @torch.no_grad()
+    def _restore_best(self) -> None:
+        super()._restore_best()
+        for k, v in self._best_packs.items():
+            self.packs[k].copy_(v)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The dense state, the packs and the embedding lr (-1.0 while not
+        yet resolved): the plateau decays it, and a resume at the
+        configured value would undo that."""
+        state = super().state_dict()
+        state["packs"] = dict(self.packs)
+        state["emb_lr"] = float(self._emb_lr if self._emb_lr is not None
+                                else -1.0)
+        return state
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        if set(state["packs"]) != set(self.packs):
+            raise ValueError(f"checkpoint packs {sorted(state['packs'])} do "
+                             f"not match the trainer's {sorted(self.packs)}")
+        for k, pack in self.packs.items():
+            _copy_into(pack, state["packs"][k], k)
+        if float(state.get("emb_lr", -1.0)) > 0:
+            self._emb_lr = float(state["emb_lr"])
+        super().load_state_dict(state)
