@@ -111,6 +111,31 @@ Phases (any failure raises and exits non-zero):
      medians of the test metrics; then SASRec at seed 2024 through B2's
      loss and 8-step graphs, one B2 forward and backward a step, its test
      metrics within 0.02 of the median of the five;
+  5f. matching from training to serving: LightGCN at `bench.py`'s width
+     (30,000 users, 41,000 items, 1M interactions with 64 planted blocks,
+     90% of a user's items from its block, the blocks scattered over the
+     ids; 10% of each user's items held out; d = 64, 3 hops), trained by
+     `fit` for 2 epochs of `MatchingLoader` batches (2048 rows, one
+     uniform negative drawn anew each epoch) under BPR and Adam 1e-3, 8
+     steps a `train_steps_fused` call (one CUDA graph of the step);
+     `RetrievalEvaluator` (Recall@20, NDCG@20, full sort) over 4096
+     held-out users each epoch, the last above 10x chance (20 / 41,000),
+     then once with protocol 'uni100'; eager against replayed ms a step
+     (6 blocks of 8 steps a side, in turns) and one replayed step profiled
+     (the hops' gathers and `index_add_` beside Adam); then
+     `RetrievalService.from_trainer` over the trained towers, queried for
+     8192 users at k = 20 from a bf16 and an int8 corpus, B3's and B4's
+     counts reset just before and read just after each query (one stage
+     (a) launch on the `wgmma` route and one selection a query), recall
+     against an exact bf16 top-k over 512 users (>= 0.95 / 0.90),
+     queries/s, and B3 timed and checked against its plain version at this
+     shape;
+  5g. matching on the card: `SparseEmbeddingTrainer(MF)` through 16 eager
+     steps against two 8-step `train_steps_fused` calls (a CUDA graph) from
+     the same weights, then served by `RetrievalService.from_trainer`; the
+     matching exits, `tools/quality_exit.py`'s MF-BPR and LightGCN on synth
+     at seeds 2024, 1, 2, 3, 4 and MF-BPR on ml1m_scale at seed 2024, valid
+     and test metrics a seed and the medians;
   6. times with CUDA events (median after a warm-up; B5, B6 and their
      yardsticks over runs of 20 calls queued behind a spin kernel, so the
      host's launch work is not timed): each kernel, its
@@ -329,17 +354,16 @@ def youtubednn_service_inputs():
     return fm, users, corpus
 
 
-def recall_vs_bf16_oracle(svc, users, ids, n=512):
+def recall_vs_bf16_oracle(svc, users, ids, n=512, k=K):
     """Mean |ids ∩ exact| / k over the first n users; the oracle is an
     exact torch.topk over bf16 towers scored in f32."""
     with torch.no_grad():
         u = svc._encode(svc.model.encode_user,
-                        {k: v[:n] for k, v in users.items()})
+                        {key: v[:n] for key, v in users.items()})
         items = svc.item_embs.to(torch.bfloat16).float()
-        exact = torch.topk(u.to(torch.bfloat16).float() @ items.T, K,
+        exact = torch.topk(u.to(torch.bfloat16).float() @ items.T, k,
                            dim=1).indices.cpu().numpy()
-    return float(np.mean([len(set(ids[r].tolist()) & set(exact[r].tolist()))
-                          / K for r in range(n)]))
+    return recall_at(ids[:n], exact)
 
 
 def bound_ms(variant, n, d, nq, k):
@@ -361,8 +385,12 @@ def library_topk(q, c, scale, k, chunk=512):
     if c.dtype == torch.int8:
         from recbox_tpu_torch.ops.mips_topk import quantize_int8
         q8, qs = quantize_int8(q)
+        # cuBLASLt's int8 product wants the corpus rows a multiple of 64:
+        # zero rows past N, their scores dropped before the top-k
+        n = c.shape[0]
+        c8 = torch.nn.functional.pad(c, (0, 0, 0, -n % 64))
         for s in range(0, q.shape[0], chunk):
-            sc = torch._int_mm(q8[s:s + chunk], c.T).float() * scale
+            sc = torch._int_mm(q8[s:s + chunk], c8.T)[:, :n].float() * scale
             out.append(torch.topk(sc * qs[s:s + chunk, None], k, dim=1))
     else:
         qc = q.to(c.dtype)
@@ -2172,7 +2200,8 @@ def quality_exits_on_card():
     from recbox_tpu_torch.tools import quality_exit as qe
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (gen, run) in qe.RUNS.items():
+        for name in ("deepfm", "sasrec"):
+            gen, run = qe.RUNS[name]
             data_dir = gen(tmp)
             runs = []
             for seed in EXIT_SEEDS:
@@ -2196,6 +2225,357 @@ def quality_exits_on_card():
     assert all(abs(res["test"][k] - median[k]) < 0.02 for k in median), \
         (res, median)
     out["sasrec_fused"] = {"seed": EXIT_SEEDS[0], **res}
+    return out
+
+
+# -- 5f-5g: matching, from training to serving ----------------------------------
+
+# bench.py's LightGCN regime (`bench.py:471-538`): 30,000 users x 41,000
+# items, 1M interactions, d = 64, 3 hops, BPR over one negative, batch 2048
+LG_USERS, LG_ITEMS, LG_INTER, LG_DIM, LG_HOPS, LG_BATCH = \
+    30_000, 41_000, 1_000_000, 64, 3, 2048
+LG_BLOCKS, LG_OWN, LG_HELD = 64, 0.9, 0.1
+LG_EPOCHS, LG_EVAL_USERS, LG_K, LG_TIMED_BATCHES = 2, 4096, 20, 16
+# held-out Recall@20 after training, as a multiple of chance (20 / 41,000)
+LG_CHANCE_FACTOR = 10.0
+LG_GROUPS = (
+    ("index_add", ("indexfunc", "index_add", "indexadd")),
+    ("gather_index_select", ("indexselect", "index_select", "gather")),
+    ("adam_foreach", ("multitensor", "multi_tensor", "foreach")),
+    ("gemm", ("gemm", "nvjet", "sm90", "cutlass", "xmma", "splitk")),
+)
+
+
+def lightgcn_data(seed=SEED):
+    """LG_INTER distinct (user, item) pairs with a planted structure: users
+    and items in LG_BLOCKS blocks (the items' blocks a random permutation
+    of the ids, so a block's items lie scattered over the corpus as a
+    catalog's ids would), a pair's item from its user's block with
+    probability LG_OWN, else uniform.
+    LG_HELD of each user's pairs (rounded down) are held out. Returns
+    (train users, train items, held-out user -> items, train user ->
+    items)."""
+    rng = np.random.default_rng(seed)
+    ub = rng.integers(0, LG_BLOCKS, LG_USERS)
+    # block b's items: members[b, :] (ids in a random order)
+    members = rng.permutation(LG_ITEMS)[:LG_ITEMS // LG_BLOCKS * LG_BLOCKS] \
+        .reshape(LG_ITEMS // LG_BLOCKS, LG_BLOCKS).T
+    extra = 1.05
+    while True:     # draw until LG_INTER distinct pairs, keep the first
+        n = int(LG_INTER * extra)
+        u = rng.integers(0, LG_USERS, n)
+        own = members[ub[u], rng.integers(0, LG_ITEMS // LG_BLOCKS, n)]
+        items = np.where(rng.random(n) < LG_OWN, own,
+                         rng.integers(0, LG_ITEMS, n))
+        _, first = np.unique(u * LG_ITEMS + items, return_index=True)
+        if len(first) >= LG_INTER:
+            break
+        extra += 0.25
+    keep = np.sort(first)[:LG_INTER]
+    u, items = u[keep], items[keep]
+    # rank of each pair inside its user, in a random order
+    order = np.lexsort((rng.random(LG_INTER), u))
+    us = u[order]
+    starts = np.flatnonzero(np.r_[True, us[1:] != us[:-1]])
+    counts = np.diff(np.r_[starts, LG_INTER])
+    rank = np.arange(LG_INTER) - np.repeat(starts, counts)
+    held = np.zeros(LG_INTER, bool)
+    held[order] = rank < np.floor(LG_HELD * np.repeat(counts, counts))
+
+    def u2i(sel):
+        out = {}
+        for a, b in zip(u[sel].tolist(), items[sel].tolist()):
+            out.setdefault(a, []).append(b)
+        return out
+
+    return (u[~held].astype(np.int32), items[~held].astype(np.int32),
+            u2i(held), u2i(~held))
+
+
+def lightgcn_trainer(train_users, train_items, seed=SEED):
+    """Trainer(LightGCN) at bench.py's width over the train edges."""
+    from recbox_tpu_torch.features import FeatureMap, FeatureSpec
+    from recbox_tpu_torch.models.matching import LightGCN, build_norm_edges
+    from recbox_tpu_torch.ops.losses import get_matching_loss
+    from recbox_tpu_torch.training import Trainer, TrainerConfig
+    fm = FeatureMap("lgcn", (
+        FeatureSpec("user_id", "categorical", "user", vocab_size=LG_USERS,
+                    embedding_dim=LG_DIM),
+        FeatureSpec("item_id", "categorical", "item", vocab_size=LG_ITEMS,
+                    embedding_dim=LG_DIM)),
+        query_index="user_id", corpus_index="item_id", num_items=LG_ITEMS)
+    eu, ei, c = build_norm_edges(train_users, train_items, LG_USERS,
+                                 LG_ITEMS)
+    model = LightGCN(fm, embedding_dim=LG_DIM, num_users=LG_USERS,
+                     num_items=LG_ITEMS, n_layers=LG_HOPS, edge_users=eu,
+                     edge_items=ei, edge_coefs=c,
+                     generator=torch.Generator(device=DEVICE).manual_seed(
+                         seed), device=DEVICE)
+    bpr = get_matching_loss("PairwiseLogisticLoss")
+    cfg = TrainerConfig(learning_rate=1e-3, epochs=LG_EPOCHS,
+                        fused_steps=FIT_K, patience=LG_EPOCHS + 1,
+                        monitor="Recall(k=20)", lr_decay_factor=1.0,
+                        reload_best_on_plateau=False, seed=seed)
+    return fm, Trainer(model, lambda o, b: bpr(o), cfg, device=DEVICE), \
+        len(eu)
+
+
+def fit_lightgcn():
+    """Phase 5f: LightGCN from training to serving at bench.py's width:
+    `MatchingLoader` (one uniform negative, drawn anew each epoch), `fit`
+    for LG_EPOCHS epochs in FIT_K-step `train_steps_fused` calls, a full
+    sort `RetrievalEvaluator` over LG_EVAL_USERS held-out users each epoch,
+    then once with protocol 'uni100'; eager against replayed ms a step; one
+    replayed step profiled; then `RetrievalService.from_trainer` over the
+    trained towers, bf16 and int8, queried for N_QUERIES users at k = 20,
+    B3's and B4's counts reset just before and read just after each
+    query."""
+    from recbox_tpu_torch.data import MatchingLoader
+    from recbox_tpu_torch.evaluation import RetrievalEvaluator
+    from recbox_tpu_torch.ops import mips_fused_topk as fused
+    from recbox_tpu_torch.ops import mips_topk
+    from recbox_tpu_torch.retrieval import RetrievalService
+    from recbox_tpu_torch.training.graph import kernel_counters
+
+    t0 = time.perf_counter()
+    tr_u, tr_i, held, train_u2i = lightgcn_data()
+    fm, trainer, n_edges = lightgcn_trainer(tr_u, tr_i)
+    data_s = time.perf_counter() - t0
+    corpus = {"item_id": np.arange(LG_ITEMS, dtype=np.int32)}
+    loader = MatchingLoader(fm, {"user_id": tr_u, "item_id": tr_i}, corpus,
+                            batch_size=LG_BATCH, num_negs=1,
+                            exclude_seen=False, seed=SEED)
+    eval_users = np.array(sorted(held)[:LG_EVAL_USERS], np.int32)
+    metrics = ["Recall(k=20)", "NDCG(k=20)"]
+    full = RetrievalEvaluator({"user_id": eval_users}, corpus, eval_users,
+                              train_u2i, held, metrics=metrics)
+    evals = []
+
+    def eval_fn(tr):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = full(tr)
+        torch.cuda.synchronize()
+        evals.append({"epoch": tr.epoch, "step": tr.step,
+                      "eval_s": time.perf_counter() - t, **out})
+        return out
+
+    trainer.eval_fn = eval_fn
+    epoch_s = []
+
+    class Timed:
+        """The loader, the seconds of each epoch (its sampling pass, the
+        steps and the evaluation) recorded."""
+
+        def __iter__(self):
+            t = time.perf_counter()
+            yield from loader
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - t)
+
+        def __getattr__(self, name):
+            return getattr(loader, name)
+
+    # the loader's sampling pass and batch assembly alone, one epoch
+    t = time.perf_counter()
+    n_batches = sum(1 for _ in loader)
+    host_epoch_s = time.perf_counter() - t
+    # the training step and the evaluators launch none of the port's
+    # kernels: LightGCN's hops are index_select / index_add_
+    kernel_counts = [dict(c) for c in kernel_counters()]
+    t = time.perf_counter()
+    trainer.fit(Timed())
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    assert [dict(c) for c in kernel_counters()] == kernel_counts
+    steps, fit_steps = LG_EPOCHS * n_batches, trainer.step
+    chance = LG_K / LG_ITEMS
+    recall = [e["Recall(k=20)"] for e in evals]
+    t = time.perf_counter()
+    uni = RetrievalEvaluator({"user_id": eval_users}, corpus, eval_users,
+                             train_u2i, held, metrics=metrics,
+                             protocol="uni100")(trainer)
+    torch.cuda.synchronize()
+    uni_s = time.perf_counter() - t
+
+    # eager against replayed steps, then one replayed step profiled
+    batches = []
+    for b in loader:
+        batches.append({k: torch.from_numpy(v).to(DEVICE)
+                        for k, v in b.items()})
+        if len(batches) == LG_TIMED_BATCHES:
+            break
+    speed = fused_vs_eager(trainer, batches, {})
+    profiled = train_breakdown(
+        trainer, batches[0], LG_GROUPS,
+        steps=lambda: trainer.train_steps_fused(stacked([batches[0]])))
+
+    # one forward propagation (3 hops, both sides): what every encode
+    # batch of the evaluators and of the service pays again
+    with torch.no_grad():
+        trainer.model.eval()
+        propagate_ms = cuda_ms(trainer.model.propagated) \
+            if DEVICE == "cuda" else None
+    # serving from the trained towers through B3
+    rng = np.random.default_rng(SEED + 5)
+    users = {"user_id": rng.integers(0, LG_USERS, N_QUERIES)
+             .astype(np.int32)}
+    t = time.perf_counter()
+    svc = RetrievalService.from_trainer(trainer, corpus)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t
+    svc8 = RetrievalService(trainer.model, item_embs=svc.item_embs,
+                            method="auto", quantize="int8",
+                            device=svc.device)
+    serve = {}
+    for name, s in (("bf16", svc), ("int8", svc8)):
+        s.query(users, k=LG_K)                   # warm
+        counts = []
+        for _ in range(3):
+            fused.reset_launches()
+            mips_topk.reset_launches()
+            scores, ids = s.query(users, k=LG_K)
+            counts.append({"select": sum(fused.launches.values()),
+                           **mips_topk.route_launches})
+        assert scores.shape == ids.shape == (N_QUERIES, LG_K)
+        assert np.isfinite(scores).all() and (ids >= 0).all() \
+            and (ids < LG_ITEMS).all()
+        assert (np.diff(scores, axis=1) <= 0).all()
+        walls = []
+        for _ in range(5):
+            t = time.perf_counter()
+            s.query(users, k=LG_K)
+            walls.append(time.perf_counter() - t)
+        serve[name] = {"launches_a_query": counts,
+                       "recall_vs_exact": recall_vs_bf16_oracle(
+                           s, users, ids, k=LG_K),
+                       "queries_per_s": N_QUERIES / statistics.median(walls),
+                       "query_wall_ms": [w * 1e3 for w in walls]}
+    res = {
+        "users": LG_USERS, "items": LG_ITEMS, "interactions": LG_INTER,
+        "train_edges": n_edges, "held_out": sum(map(len, held.values())),
+        "dim": LG_DIM, "hops": LG_HOPS, "batch": LG_BATCH,
+        "batches_an_epoch": n_batches, "steps": steps,
+        "data_and_model_s": data_s, "loader_epoch_host_s": host_epoch_s,
+        "fit_s": fit_s, "epoch_s": epoch_s, "evals": evals,
+        "chance_recall": chance,
+        "recall_over_chance": [r / chance for r in recall],
+        "uni100": uni, "uni100_eval_s": uni_s,
+        "capture_s": trainer._graph.capture_seconds,
+        "step_speed": speed, "replayed_step_profile": profiled,
+        "propagate_ms": propagate_ms, "corpus_encode_s": encode_s,
+        "serve": serve}
+    # the measurements first, then B3 alone at this shape, then the checks
+    emit({"phase": "fit_lightgcn_measured", **res})
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    res["b3_check"] = {v: check_kernel(v, LG_ITEMS, LG_DIM, N_QUERIES, LG_K,
+                                       gen) for v in ("bf16", "int8")}
+    res["b3_at_this_shape"] = {v: time_kernel(v, LG_ITEMS, LG_DIM,
+                                              N_QUERIES, LG_K, gen)
+                               for v in ("bf16", "int8")}
+    assert fit_steps == steps and len(evals) == LG_EPOCHS, \
+        (fit_steps, steps, evals)
+    assert all(np.isfinite(list(e.values())).all() for e in evals)
+    assert recall[-1] > LG_CHANCE_FACTOR * chance, (recall, chance)
+    assert uni["Recall(k=20)"] > recall[-1], (uni, recall)
+    for name, v in serve.items():
+        assert all(c["select"] == 1 and c["wgmma"] == 1 and c["tile"] == 0
+                   for c in v["launches_a_query"]), (name, v)
+    assert serve["bf16"]["recall_vs_exact"] >= 0.95 \
+        and serve["int8"]["recall_vs_exact"] >= 0.90, serve
+    return res
+
+
+def sparse_mf_graph_check():
+    """`SparseEmbeddingTrainer(MF)` on the card over the synth exit's data
+    (MatchingLoader batches of 256, one negative): 16 eager `train_step`s
+    against two 8-step `train_steps_fused` calls (the first warms up and
+    captures the step, the second only replays it) from the same initial
+    weights on the same batches; the losses within 1e-5 of the loss, the
+    tables and accumulators within 1e-3 of their largest total update
+    (`index_add_` adds repeated ids with atomics, in no fixed order).
+    Then `RetrievalService.from_trainer` serves the live tables."""
+    import tempfile
+    from recbox_tpu_torch.data import MatchingLoader
+    from recbox_tpu_torch.models.matching import MF
+    from recbox_tpu_torch.ops.losses import get_matching_loss
+    from recbox_tpu_torch.retrieval import RetrievalService
+    from recbox_tpu_torch.tools import quality_exit as qe
+    from recbox_tpu_torch.training import (
+        SparseEmbeddingTrainer, TrainerConfig,
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        (_, fm, arrays, corpus, *_rest) = qe.matching_setup(
+            qe.gen_synth(tmp), EXIT_SEEDS[0])
+    loader = MatchingLoader(fm, arrays, corpus, batch_size=256, num_negs=1,
+                            seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
+               for b in list(loader)[:2 * FIT_K]]
+    assert len(batches) == 2 * FIT_K
+    bpr = get_matching_loss("PairwiseLogisticLoss")
+    trainers = []
+    for _ in range(2):
+        model = MF(fm, embedding_dim=32, device=DEVICE,
+                   generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+        trainers.append(SparseEmbeddingTrainer(
+            model, lambda o, b: bpr(o),
+            TrainerConfig(learning_rate=5e-2, embedding_regularizer=1e-4),
+            device=DEVICE))
+    eager, fused = trainers
+    eager.init(batches[0])
+    fused.init(batches[0])
+    start = {k: t.detach().clone() for k, t in eager.tables.items()}
+    le = torch.stack([eager.train_step(b) for b in batches])
+    lf = torch.cat([fused.train_steps_fused(stacked(batches[i:i + FIT_K]))
+                    for i in (0, FIT_K)])
+    torch.cuda.synchronize()
+    loss_err = float((le - lf).abs().max() / le.abs().max())
+    assert loss_err <= 1e-5, (le, lf)
+    out = {"steps": len(batches), "loss_rel_err": loss_err,
+           "capture_s": fused._graph.capture_seconds}
+    for k in eager.tables:
+        live, other = eager.tables[k].detach(), fused.tables[k].detach()
+        upd = float((live - start[k]).abs().max())
+        err = float((live - other).abs().max())
+        acc_err = float((eager.accumulators[k] - fused.accumulators[k])
+                        .abs().max() / eager.accumulators[k].abs().max())
+        assert upd > 0 and err <= 1e-3 * upd and acc_err <= 1e-3, \
+            (k, err, upd, acc_err)
+        out[k] = {"max_update": upd, "max_abs_diff": err,
+                  "acc_rel_diff": acc_err}
+    svc = RetrievalService.from_trainer(fused, corpus)
+    assert svc.model.item_embedding.tables["item_id"] is \
+        fused.tables["item_embedding/emb_item_id"]
+    s, i = svc.query({"user_id": np.arange(64, dtype=np.int32)}, k=20)
+    assert np.isfinite(s).all() and i.shape == (64, 20)
+    return out
+
+
+def matching_exits_on_card():
+    """Phase 5g: the sparse trainer's graph check, then
+    `tools/quality_exit.py`'s MF-BPR and LightGCN runs on synth at seeds
+    EXIT_SEEDS and MF-BPR on ml1m_scale at the first seed, on the card:
+    valid and test metrics a seed, and the medians."""
+    import tempfile
+    from recbox_tpu_torch.tools import quality_exit as qe
+    out = {"sparse_trainer_graph": sparse_mf_graph_check()}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [("bpr", qe.gen_synth, EXIT_SEEDS),
+                ("lightgcn", qe.gen_synth, EXIT_SEEDS),
+                ("bpr_ml1m_scale", qe.gen_ml1m_scale, EXIT_SEEDS[:1])]
+        for name, gen, seeds in runs:
+            data_dir = gen(tmp)
+            run = qe.run_lightgcn if name == "lightgcn" else qe.run_bpr
+            res = []
+            for seed in seeds:
+                t0 = time.perf_counter()
+                r = run(data_dir, seed, DEVICE)
+                r["seconds"] = time.perf_counter() - t0
+                assert all(np.isfinite(v) for v in r["test"].values()), r
+                res.append({"seed": seed, **r})
+            out[name] = {"runs": res, "median_test": {
+                k: statistics.median(r["test"][k] for r in res)
+                for k in res[0]["test"]}}
     return out
 
 
@@ -2403,6 +2783,16 @@ def main() -> int:
     exits = quality_exits_on_card()
     emit({"phase": "quality_exits", "card": card, "seeds": EXIT_SEEDS,
           **exits})
+    # 5f. LightGCN from training to serving at bench.py's width, through B3
+    t0 = time.perf_counter()
+    lgcn = fit_lightgcn()
+    emit({"phase": "fit_lightgcn", "card": card,
+          "wall_s": time.perf_counter() - t0, **lgcn})
+    # 5g. the matching exits on the card
+    t0 = time.perf_counter()
+    mexits = matching_exits_on_card()
+    emit({"phase": "matching_exits", "card": card, "seeds": EXIT_SEEDS,
+          "wall_s": time.perf_counter() - t0, **mexits})
 
     # 6. times
     qps = {}
@@ -2474,7 +2864,17 @@ def main() -> int:
                 "stage_b_ms", "tile_route_stage_a_ms")},
             "ptxas": b3_ptxas,
             "variants": ["bf16", "f32", "int8"], "matches_plain": True,
-            "shape": {"n": N_ITEMS, "d": DIM, "q": N_QUERIES, "k": K}})
+            "shape": {"n": N_ITEMS, "d": DIM, "q": N_QUERIES, "k": K},
+            "behind_trained_lightgcn": {
+                "shape": {"n": LG_ITEMS, "d": LG_DIM, "q": N_QUERIES,
+                          "k": LG_K},
+                "launches_a_query": lgcn["serve"][variant][
+                    "launches_a_query"],
+                "max_abs_err": lgcn["b3_check"][variant]["max_abs_err"],
+                "kernel_route": lgcn["b3_check"][variant]["route"],
+                **{key: lgcn["b3_at_this_shape"][variant][key] for key in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "stage_a_ms", "stage_b_ms")}}})
     kernels.append({
         "name": "packed_adagrad_update", "route": "cuda",
         "source": "recbox_tpu_torch/csrc/packed_delta.cu",

@@ -1,3 +1,10 @@
+from recbox_tpu_torch.evaluation.beyond_accuracy import (
+    evaluate_beyond_accuracy,
+)
+from recbox_tpu_torch.evaluation.candidate import (
+    candidate_topk, evaluate_candidate_retrieval, parse_protocol,
+    sample_eval_candidates,
+)
 from recbox_tpu_torch.evaluation.ctr import (
     auc_score, auc_torch, evaluate_ctr, grouped_auc, log_loss,
 )
@@ -12,4 +19,6 @@ from recbox_tpu_torch.evaluation.retrieval import (
 __all__ = ["evaluate_ctr", "auc_score", "log_loss", "grouped_auc",
            "auc_torch", "evaluate_retrieval", "retrieval_metrics_from_topk",
            "parse_metric", "full_sort_topk", "std_gauc", "CTREvaluator",
-           "MultiTaskEvaluator", "RetrievalEvaluator"]
+           "MultiTaskEvaluator", "RetrievalEvaluator", "parse_protocol",
+           "sample_eval_candidates", "candidate_topk",
+           "evaluate_candidate_retrieval", "evaluate_beyond_accuracy"]

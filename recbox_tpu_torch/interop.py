@@ -21,6 +21,10 @@ candidate port keys, and the first one the port module has is taken:
                                                       q<i>/k<i>/v<i> as one
                                                       Linear, reshaped to
                                                       (D, H·K), transposed
+  .../<m>/kernel (kh, kw, I, O) → .../<m>.weight (O, I, kh, kw): a Conv
+  .../<m>/kernel (k, I, O)  →  .../<m>.weight (O, I, k) where the port's
+                                                      weight is 3-D: a 1-D
+                                                      Conv
   .../<m>/bias (H, K)      →  .../<m>.bias (H·K,)    (DenseGeneral's bias)
   .../Dense_<i>/bias       →  .../dense.<i>.bias, else .../Dense_<i>.bias
   any other a/b/c          →  a.b.c, same layout     (e.g. DeepFM's lr/bias,
@@ -53,9 +57,15 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
             yield path, value
 
 
-def _kernel(arr: np.ndarray) -> np.ndarray:
-    """A flax Dense (in, out) or DenseGeneral (in, H, K) kernel as a torch
-    (out, in) weight."""
+def _kernel(arr: np.ndarray, port_ndim: int = 2) -> np.ndarray:
+    """A flax kernel as the torch weight: Dense (in, out) and DenseGeneral
+    (in, H, K) as (out, in); Conv (kh, kw, in, out) as (out, in, kh, kw)
+    and a 1-D Conv (k, in, out) as (out, in, k), the port's weight being
+    4-D or 3-D."""
+    if arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)
+    if arr.ndim == 3 and port_ndim == 3:
+        return arr.transpose(2, 1, 0)
     return arr.reshape(arr.shape[0], -1).T
 
 
@@ -105,9 +115,11 @@ def from_jax_params(params: Mapping, model: nn.Module
                            f"{[k for k, _ in cands]}, which the port module "
                            "does not have")
         key, transform = found[0]
-        if transform is not None:
-            arr = transform(arr)
         ref = target[key]
+        if transform is _kernel:
+            arr = _kernel(arr, ref.ndim)
+        elif transform is not None:
+            arr = transform(arr)
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: flax shape {arr.shape} vs port "
                              f"{tuple(ref.shape)}")

@@ -8,7 +8,9 @@ Counterparts of `recbox_tpu/models/matching/two_tower.py`:
 
 Submodule names (``user_embedding``, ``item_embedding``, ``user_mlp``,
 ``item_mlp``) are the flax ones, so `interop.from_jax_params` maps a JAX
-param tree onto them.
+param tree onto them; the embedding modules carry the flax names as their
+``path`` too, so their table keys (``item_embedding/emb_item_id``) and
+`__rows__` keys are the JAX package's.
 """
 
 from __future__ import annotations
@@ -43,8 +45,10 @@ class MF(MatchingModel):
         g, dev = self.init_rng(generator, device)
         kw = dict(embedding_dim=embedding_dim,
                   emb_init_scheme=emb_init_scheme, generator=g, device=dev)
-        self.user_embedding = FeatureEmbedding(feature_map, source="user", **kw)
-        self.item_embedding = FeatureEmbedding(feature_map, source="item", **kw)
+        self.user_embedding = FeatureEmbedding(
+            feature_map, source="user", name="user_embedding", **kw)
+        self.item_embedding = FeatureEmbedding(
+            feature_map, source="item", name="item_embedding", **kw)
 
     def user_tower(self, batch):
         return _sum_features(self.user_embedding(batch),
@@ -68,10 +72,12 @@ class DSSM(MatchingModel):
                  device: Device = None):
         super().__init__(feature_map, embedding_dim, similarity, temperature)
         g, dev = self.init_rng(generator, device)
-        self.user_embedding = FeatureEmbedding(feature_map, source="user",
-                                               generator=g, device=dev)
-        self.item_embedding = FeatureEmbedding(feature_map, source="item",
-                                               generator=g, device=dev)
+        self.user_embedding = FeatureEmbedding(
+            feature_map, source="user", name="user_embedding", generator=g,
+            device=dev)
+        self.item_embedding = FeatureEmbedding(
+            feature_map, source="item", name="item_embedding", generator=g,
+            device=dev)
         self.user_mlp = MLP(self.user_embedding.out_dim,
                             user_hidden_units[:-1], activation=activation,
                             output_dim=user_hidden_units[-1], dropout=dropout,
@@ -110,10 +116,10 @@ class YoutubeDNN(MatchingModel):
         g, dev = self.init_rng(generator, device)
         self.user_embedding = FeatureEmbedding(
             feature_map, source="user", embedding_dim=embedding_dim,
-            generator=g, device=dev)
+            name="user_embedding", generator=g, device=dev)
         self.item_embedding = FeatureEmbedding(
             feature_map, source="item", embedding_dim=embedding_dim,
-            generator=g, device=dev)
+            name="item_embedding", generator=g, device=dev)
         self.user_mlp = MLP(self.user_embedding.out_dim, hidden_units[:-1],
                             activation=activation, output_dim=embedding_dim,
                             dropout=dropout, generator=g, device=dev)

@@ -13,7 +13,10 @@ separate variables tree); the service moves it to its device and serves in
 eval mode. The encoded corpus stays on the device; `query` returns numpy
 (scores f32, ids int32) like the JAX package. Multi-interest towers
 returning (B, K, D) retrieve per interest, then merge by max score with
-per-row dedup. `from_trainer` waits for the training slice.
+per-row dedup. `from_trainer` serves a trainer's model as it stands: its
+parameters are the trained ones (`SparseEmbeddingTrainer` updates the
+model's own tables in place, so nothing needs merging), and the service
+puts the model in eval mode on the trainer's device.
 """
 
 from __future__ import annotations
@@ -104,6 +107,15 @@ class RetrievalService:
             self.refresh_items(corpus_arrays)
         else:
             self._build_index(torch.as_tensor(item_embs))
+
+    @classmethod
+    def from_trainer(cls, trainer, corpus_arrays: Dict[str, np.ndarray],
+                     **kwargs) -> "RetrievalService":
+        """A service over ``trainer``'s model, the corpus encoded now, on
+        the trainer's device unless ``device`` is given; ``method`` is
+        "auto" unless given (the kernel gate of `BruteForceMIPS`)."""
+        kwargs.setdefault("device", trainer.device)
+        return cls(trainer.model, corpus_arrays, **kwargs)
 
     @torch.no_grad()
     def _encode(self, fn, arrays: Dict[str, np.ndarray]) -> torch.Tensor:

@@ -1,24 +1,60 @@
-"""Split a model's embedding tables from its dense parameters, and merge
-them back.
+"""Sparse embedding training: row-wise AdaGrad on the rows a batch touches.
 
-Counterpart of `recbox_tpu/training/sparse.py` `split_sparse_params` and
-`_merge_params` (:61-100). A table is a parameter in the ``tables`` of a
-`FeatureEmbedding`; its key is the JAX package's param path
-(``embedding/emb_c0``: the module's flax name, then ``emb_<table>``), so
-the packed trainer's layout and views carry the JAX keys.
-`SparseEmbeddingTrainer` is not ported yet (`ROADMAP.md`).
+Counterpart of `recbox_tpu/training/sparse.py`: `split_sparse_params`,
+`merge_params` (:61-100) and `SparseEmbeddingTrainer` (:102-425). A table is
+a parameter in the ``tables`` of a `FeatureEmbedding`; its key is the JAX
+package's param path (``item_embedding/emb_item_id``: the module's flax
+name, then ``emb_<table>``).
+
+`SparseEmbeddingTrainer` trains the other parameters with the dense
+optimizer and each table with row-wise AdaGrad, one accumulator a row. A
+step gathers each routed feature's rows outside autograd and hands them to
+the model through the `__rows__` protocol (`nn/embedding.py`) as leaf
+tensors, so the backward gives (n, D) row gradients and no table-sized
+one. Then, table by table, in JAX's order (`sparse.py:240-248`): the mean
+g² of every occurrence is added into the accumulator first, then each
+occurrence is scaled by ``emb_lr / (sqrt(v[id]) + eps)`` from the summed
+accumulator, then added into the table (``index_add_``; on the card with
+atomics, in no fixed order). A repeated id thus takes its scale from all
+of the batch's occurrences, not from those before it.
+
+The tables stay the model's own parameters and are updated in place, so
+evaluation, serving (`RetrievalService.from_trainer`) and a captured step
+read them with no merge; `_restore_best` and `load` write in place too.
+The embedding lr is a device tensor (the plateau decays it by the dense
+lr's factor), so `train_steps_fused`'s CUDA graph needs no new capture.
+
+Routing. As in JAX, each categorical or sequence feature of the batch goes
+to its module's table. For a `MatchingModel` (which JAX's trainer does not
+run: its item tower reads the ``item::`` columns, where no rows are
+handed), the port routes an item-side module's features from those
+columns (``item::<feature>`` rows under ``item::<rows key>``, which
+`extract_item_batch` hands to the item tower) and the others from the top
+level: the rows the towers read, each occurrence once.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import logging
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
-from recbox_tpu_torch.nn.embedding import FeatureEmbedding
+from recbox_tpu_torch.features.schema import CATEGORICAL, SEQUENCE
+from recbox_tpu_torch.models.base import ITEM_PREFIX, MatchingModel
+from recbox_tpu_torch.nn.core import set_dropout_generator
+from recbox_tpu_torch.nn.embedding import FeatureEmbedding, rows_key_for
+from recbox_tpu_torch.ops.losses import embedding_reg_loss
+from recbox_tpu_torch.training.trainer import (
+    Trainer, _copy_into, _make_optimizer,
+)
 
-__all__ = ["split_sparse_params", "merge_params"]
+logger = logging.getLogger("recbox_tpu_torch")
+
+__all__ = ["SparseEmbeddingTrainer", "split_sparse_params", "merge_params"]
 
 
 def split_sparse_params(model: nn.Module
@@ -59,3 +95,169 @@ def merge_params(dense: Dict[str, torch.Tensor],
         mname, tname = homes[key]
         out[f"{mname}.tables.{tname}" if mname else f"tables.{tname}"] = t
     return out
+
+
+class SparseEmbeddingTrainer(Trainer):
+    """Trainer with row-wise AdaGrad on the embedding tables.
+
+    Extra knobs, as in JAX: ``embedding_lr`` (default the config's
+    learning rate), ``adagrad_init`` (the accumulators' start) and
+    ``adagrad_eps``. A model without `FeatureEmbedding` tables trains
+    densely, with a warning."""
+
+    def __init__(self, *args, embedding_lr: Optional[float] = None,
+                 adagrad_init: float = 0.0, adagrad_eps: float = 1e-8,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.embedding_lr = embedding_lr
+        self.adagrad_init = adagrad_init
+        self.adagrad_eps = adagrad_eps
+        self.tables: Dict[str, torch.Tensor] = {}
+        self.accumulators: Dict[str, torch.Tensor] = {}
+        # (batch key of the ids, table key, batch key of the rows)
+        self._routes: List[Tuple[str, str, str]] = []
+        self._emb_lr: Optional[torch.Tensor] = None
+        self._best_tables: Dict[str, torch.Tensor] = {}
+        self._best_accums: Dict[str, torch.Tensor] = {}
+
+    def init(self, sample_batch: Mapping[str, Any]) -> None:
+        dense, tables, homes = split_sparse_params(self.model)
+        if not tables:
+            logger.warning("SparseEmbeddingTrainer found no tables; "
+                           "training densely")
+            super().init(sample_batch)
+            return
+        self.dropout_generator = torch.Generator(
+            device=self.device).manual_seed(self.config.seed)
+        set_dropout_generator(self.model, self.dropout_generator)
+        self.params = dense
+        self._opt = _make_optimizer(self.config, list(dense.values()))
+        self.tables = tables
+        self.accumulators = {
+            k: torch.full((t.shape[0],), float(self.adagrad_init),
+                          dtype=torch.float32, device=self.device)
+            for k, t in tables.items()}
+        emb_lr = self.embedding_lr if self.embedding_lr is not None \
+            else self.config.learning_rate
+        self._emb_lr = torch.tensor(float(emb_lr), dtype=torch.float32,
+                                    device=self.device)
+        modules = dict(self.model.named_modules())
+        matching = isinstance(self.model, MatchingModel)
+        fm = self.model.feature_map
+        self._routes = []
+        for tkey, (mname, tname) in homes.items():
+            module = modules[mname]
+            from_items = matching and module.source == "item"
+            for f in fm.input_features:
+                if f.type not in (CATEGORICAL, SEQUENCE) \
+                        or f.table_name != tname:
+                    continue
+                rkey = rows_key_for(module.path, f.name)
+                if from_items:
+                    f_key, rkey = ITEM_PREFIX + f.name, ITEM_PREFIX + rkey
+                else:
+                    f_key = f.name
+                if f_key in sample_batch:
+                    self._routes.append((f_key, tkey, rkey))
+        n_rows = sum(int(t.shape[0]) for t in tables.values())
+        logger.info("sparse embedding training: %d tables, %s rows",
+                    len(tables), f"{n_rows:,}")
+
+    # -- the step ---------------------------------------------------------------
+    def _train_step(self, dbatch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if not self.tables:
+            return super()._train_step(dbatch)
+        cfg = self.config
+        with record_function("sparse::gather"):
+            rows = {rkey: F.embedding(dbatch[fkey], self.tables[tkey]
+                                      .detach()).requires_grad_(True)
+                    for fkey, tkey, rkey in self._routes}
+        self.model.train()
+        with record_function("trainer::forward"):
+            loss = self.loss_fn(self._step_forward({**dbatch, **rows}),
+                                dbatch)
+        if cfg.embedding_regularizer:
+            # (1/2)·p2 on the touched rows, once per batch occurrence
+            loss = loss + cfg.embedding_regularizer * 0.5 * sum(
+                torch.sum(torch.square(r.float())) for r in rows.values())
+        if cfg.net_regularizer:
+            loss = loss + cfg.net_regularizer * embedding_reg_loss(
+                self.params, prefix="", device=self.device)
+        keys = list(rows)
+        grads = dict(zip(keys, self._dense_step(loss,
+                                                [rows[k] for k in keys])))
+        with record_function("sparse::row_update"):
+            self._row_updates(dbatch, grads)
+        return loss.detach()
+
+    @torch.no_grad()
+    def _row_updates(self, dbatch: Dict[str, torch.Tensor],
+                     grads: Dict[str, torch.Tensor]) -> None:
+        """Row-wise AdaGrad, table by table: every occurrence's mean g²
+        into the accumulator, then each occurrence scaled from the summed
+        accumulator and added into the table."""
+        by_table: Dict[str, List[Tuple[str, str]]] = {}
+        for fkey, tkey, rkey in self._routes:
+            by_table.setdefault(tkey, []).append((fkey, rkey))
+        for tkey, routes in by_table.items():
+            table, v = self.tables[tkey], self.accumulators[tkey]
+            d = table.shape[1]
+            ids = torch.cat([dbatch[f].reshape(-1) for f, _ in routes]) \
+                .to(torch.int64)
+            g = torch.cat([grads[r].reshape(-1, d) for _, r in routes]) \
+                .float()
+            v.index_add_(0, ids, torch.mean(torch.square(g), dim=-1))
+            scale = self._emb_lr / (torch.sqrt(v[ids]) + self.adagrad_eps)
+            table.index_add_(0, ids, (-scale)[:, None] * g)
+
+    # -- lr plateau ---------------------------------------------------------------
+    @property
+    def emb_lr(self) -> Optional[float]:
+        return None if self._emb_lr is None else float(self._emb_lr)
+
+    def _set_learning_rate(self, lr: float) -> None:
+        """The dense lr, and the embedding lr by the same factor (at least
+        ``min_lr``)."""
+        old = self.learning_rate
+        super()._set_learning_rate(lr)
+        if self._emb_lr is not None and old > 0:
+            self._emb_lr.fill_(max(float(self._emb_lr) * (lr / old),
+                                   self.config.min_lr))
+
+    # -- best weights and checkpoints ---------------------------------------------
+    def _capture_best(self) -> None:
+        super()._capture_best()
+        self._best_tables = {k: t.detach().clone()
+                             for k, t in self.tables.items()}
+        self._best_accums = {k: v.clone()
+                             for k, v in self.accumulators.items()}
+
+    @torch.no_grad()
+    def _restore_best(self) -> None:
+        super()._restore_best()
+        for k, v in self._best_tables.items():
+            self.tables[k].copy_(v)
+        for k, v in self._best_accums.items():
+            self.accumulators[k].copy_(v)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The dense state, the tables, their accumulators and the embedding
+        lr (-1.0 before `init`)."""
+        state = super().state_dict()
+        state["tables"] = dict(self.tables)
+        state["accumulators"] = dict(self.accumulators)
+        state["emb_lr"] = self.emb_lr if self._emb_lr is not None else -1.0
+        return state
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        for name, live in (("tables", self.tables),
+                           ("accumulators", self.accumulators)):
+            if set(state[name]) != set(live):
+                raise ValueError(f"checkpoint {name} {sorted(state[name])} "
+                                 f"do not match the trainer's {sorted(live)}")
+            for k, t in live.items():
+                _copy_into(t, state[name][k], k)
+        if float(state.get("emb_lr", -1.0)) > 0 and self._emb_lr is not None:
+            self._emb_lr.fill_(float(state["emb_lr"]))
+        super().load_state_dict(state)

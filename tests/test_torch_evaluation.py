@@ -14,8 +14,9 @@
   few terms); `retrieval_metrics_from_topk`, `full_sort_topk` and
   `std_gauc` likewise (`std_gauc` to 1e-12, numpy on both sides).
 - `CTREvaluator` and `RetrievalEvaluator` on a trainer against JAX's on the
-  same params (transplanted through `interop`) within 1e-6; the sampled
-  protocols and beyond-accuracy metrics raise NotImplementedError.
+  same params (transplanted through `interop`) within 1e-6, the full
+  sort and 'uni100' with a beyond-accuracy metric; a protocol of another
+  spelling raises NotImplementedError.
 """
 
 import flax.linen as fnn
@@ -251,12 +252,19 @@ def test_retrieval_evaluator_on_a_trainer_matches_jax():
                              valid, **kw)(pt)
     for m in kw["metrics"]:
         np.testing.assert_allclose(got[m], want[m], rtol=1e-6, err_msg=m)
-    with pytest.raises(NotImplementedError, match="candidate.py"):
+    # the sampled protocol and the beyond-accuracy metrics (ported since
+    # the matching slice) against JAX's too; a bad spelling still raises
+    kw.update(protocol="uni100", beyond_accuracy_metrics=["GiniIndex"])
+    want = JRetrievalEvaluator(users, corpus, np.arange(n_users), train,
+                               valid, **kw)(jt)
+    got = RetrievalEvaluator(users, corpus, np.arange(n_users), train,
+                             valid, **kw)(pt)
+    assert list(got) == list(want)
+    for m in want:
+        np.testing.assert_allclose(got[m], want[m], rtol=1e-6, err_msg=m)
+    with pytest.raises(NotImplementedError, match="protocol"):
         RetrievalEvaluator(users, corpus, [0], train, valid,
-                           protocol="uni100")
-    with pytest.raises(NotImplementedError, match="beyond_accuracy"):
-        RetrievalEvaluator(users, corpus, [0], train, valid,
-                           beyond_accuracy_metrics=["GiniIndex"])
+                           protocol="neg100")
 
 
 def test_multitask_evaluator_matches_jax():

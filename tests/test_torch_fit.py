@@ -19,7 +19,8 @@ the port against the JAX package, on the CPU.
 - `save` / `load` round trips (packs, embedding lr, optimizer state,
   monitor) bit for bit, and a resumed `fit` that starts at the next epoch.
 - The DeepFM synthctr exit (`tools/quality_exit.py`, seed 2024, 30 epochs,
-  ~5 s here) reaches a valid AUC above 0.70.
+  ~5 s here) reaches a valid AUC above 0.70; the MF-BPR synth exit (seed
+  2024, ~3 s) a test Recall@20 above 0.55.
 - The SASRec synthseq exit through kernel B2's loss and 8-step
   `train_steps_fused` calls (its `fused` run, 3 epochs, seed 2024) takes
   the same 63 steps as the `full_scores` run and lands within 0.02 of its
@@ -380,3 +381,13 @@ def test_sasrec_synthseq_exit_through_fused_ce_and_fused_steps(tmp_path):
     for k in ("Recall10", "NDCG10"):
         assert abs(runs[1]["test"][k] - runs[0]["test"][k]) < 0.02, runs
         assert runs[1]["test"][k] > 0.5, runs
+
+
+def test_bpr_synth_exit_learns(tmp_path):
+    """The MF-BPR synth exit at seed 2024, 30 epochs (early stop, patience
+    10; ~3 s here): test Recall@20 above 0.55, below the lowest of the
+    port's five CPU seeds (0.5783, seed 4; JAX's median 0.5917)."""
+    res = quality_exit.run_bpr(quality_exit.gen_synth(str(tmp_path)), 2024,
+                               "cpu")
+    assert res["test"]["Recall(k=20)"] > 0.55, res
+    assert res["test"]["NDCG(k=20)"] > 0.2, res
