@@ -106,11 +106,12 @@ Phases (any failure raises and exits non-zero):
      alike; eager against fused ms a step (as in 5c); one fused step
      profiled;
   5e. the quality exits on the card: `recbox_tpu_torch.tools.quality_exit`
-     (the JAX package's DeepFM synthctr and SASRec synthseq parity runs)
-     at seeds 2024, 1, 2, 3, 4, valid and test metrics a seed and the
-     medians of the test metrics; then SASRec at seed 2024 through B2's
-     loss and 8-step graphs, one B2 forward and backward a step, its test
-     metrics within 0.02 of the median of the five;
+     (the JAX package's DeepFM synthctr and SASRec synthseq parity runs,
+     and DCNv2 / xDeepFM in DeepFM's place) at seeds 2024, 1, 2, 3, 4,
+     valid and test metrics a seed and the medians of the test metrics;
+     then SASRec at seed 2024 through B2's loss and 8-step graphs, one
+     B2 forward and backward a step, its test metrics within 0.02 of the
+     median of the five;
   5f. matching from training to serving: LightGCN at `bench.py`'s width
      (30,000 users, 41,000 items, 1M interactions with 64 planted blocks,
      90% of a user's items from its block, the blocks scattered over the
@@ -136,6 +137,25 @@ Phases (any failure raises and exits non-zero):
      matching exits, `tools/quality_exit.py`'s MF-BPR and LightGCN on synth
      at seeds 2024, 1, 2, 3, 4 and MF-BPR on ml1m_scale at seed 2024, valid
      and test metrics a seed and the medians;
+  5h. the CTR zoo through B1 at the Criteo width (phase 5's 26 + 13
+     fields, batch 32768, the logistic label of phase 5):
+     `run_ranking_experiment` over DCNv2 at `configs/models/dcnv2.yaml`'s
+     widths (dim 16, f32, 3 cross layers, MLP 400-400, 'parallel') with
+     `trainer: packed`, 1 epoch of 24 batches at 8 steps a fused call,
+     `CTREvaluator` on 4 held-out batches (AUC above 0.5), B1's count
+     reset just before and read just after (one launch a step); the same
+     `PackedEmbeddingTrainer(DCNv2)` eager against replayed (6 blocks of 8
+     steps a side, in turns), a replayed step equal to an eager one (the
+     pack and a cross weight), one replayed step profiled (GEMMs, the
+     gather, B1, copies, elementwise; idle share); B1 at DCNv2's one-slot
+     layout checked and timed against its plain version, its bound and
+     `index_add_`; xDeepFM at `configs/models/xdeepfm.yaml`'s widths for
+     16 steps (falling loss, one B1 launch a step, ms a replayed step),
+     and B1 at its 16 + 1 layout checked and timed as the one-slot one;
+  5i. the cascade on the card: `run_cascade_experiment("ml1m_scale",
+     matcher="MF", ranker="DCN", reranker="PRM")` over ml1m_scale (6040 x
+     3706, 834,915 interactions) at `tools/cascade_ml1m_scale.py`'s knobs,
+     seed 2024: every metric and the seconds of each stage;
   6. times with CUDA events (median after a warm-up; B5, B6 and their
      yardsticks over runs of 20 calls queued behind a spin kernel, so the
      host's launch work is not timed): each kernel, its
@@ -596,20 +616,34 @@ def check_b3_integer(gen):
     return out
 
 
-B1_DIMS, B1_ACC, B1_USED, B1_LR, B1_EPS = (DIM, 1), (DIM + 1, DIM + 2), \
-    DIM + 3, 0.05, 1e-8
+# DeepFM's slots at the Criteo width (64 embedding + 1 linear), B1's lr
+# and eps; DCNv2's one slot of 16 (`configs/models/dcnv2.yaml`) and
+# xDeepFM's 16 + 1 (`configs/models/xdeepfm.yaml`)
+B1_DIMS, B1_LR, B1_EPS = (DIM, 1), 0.05, 1e-8
+B1_ZOO_DIMS = (16,)
+B1_XDEEPFM_DIMS = (16, 1)
 
 
-def b1_inputs(gen, ids_kind):
-    """A (2.6M, 128) pack laid out as the trainer lays out DeepFM's
-    [64 embedding | 1 linear | 2 accumulators | 0 pad], 851,968 ids (one per
-    field and example), the gathered rows G and bf16 row gradients."""
+def b1_slots(dims):
+    """(accumulator columns, used columns) of a pack row laid out as the
+    trainer lays it out: [values of each slot | one g2 a slot | 0 pad]."""
+    w = sum(dims)
+    return tuple(w + i for i in range(len(dims))), w + len(dims)
+
+
+def b1_inputs(gen, ids_kind, dims=B1_DIMS, grad_dtype=torch.bfloat16):
+    """A (2.6M, 128) pack laid out as the trainer lays out the Criteo
+    fields' rows (DeepFM's [64 embedding | 1 linear | 2 accumulators | 0
+    pad] by default, DCNv2's [16 | 1 accumulator | 0 pad] with dims (16,)),
+    851,968 ids (one per field and example), the gathered rows G and the
+    row gradients (bf16 from DeepFM's bf16 model, f32 from DCNv2's)."""
     rows = NUM_CAT * VOCAB
+    acc, used = b1_slots(dims)
+    w = sum(dims)
     pack = torch.zeros(rows, 128, device=DEVICE)
-    pack[:, :DIM + 1] = 1e-2 * torch.randn(rows, DIM + 1, generator=gen,
-                                           device=DEVICE)
-    pack[:, DIM + 1:B1_USED] = torch.rand(rows, 2, generator=gen,
-                                          device=DEVICE)
+    pack[:, :w] = 1e-2 * torch.randn(rows, w, generator=gen, device=DEVICE)
+    pack[:, w:used] = torch.rand(rows, len(dims), generator=gen,
+                                 device=DEVICE)
     rng = np.random.default_rng(SEED)
     if ids_kind == "uniform":          # bench.py: uniform per field
         local = rng.integers(0, VOCAB, (NUM_CAT, BATCH))
@@ -621,13 +655,14 @@ def b1_inputs(gen, ids_kind):
     G = pack.index_select(0, ids)
     n = ids.shape[0]
     grads = [(1e-3 * torch.randn(n, d, generator=gen, device=DEVICE)).to(
-        torch.bfloat16) for d in B1_DIMS]
+        grad_dtype) for d in dims]
     return pack, ids, G, grads
 
 
-def b1_call(fn, pack, ids, G, grads):
-    return fn(pack, ids, G, grads, B1_LR, dims=B1_DIMS, acc_cols=B1_ACC,
-              used=B1_USED, eps=B1_EPS)
+def b1_call(fn, pack, ids, G, grads, dims=B1_DIMS):
+    acc, used = b1_slots(dims)
+    return fn(pack, ids, G, grads, B1_LR, dims=dims, acc_cols=acc,
+              used=used, eps=B1_EPS)
 
 
 def b1_agreement(pack, plain, pre, ids, upd):
@@ -658,22 +693,24 @@ def b1_agreement(pack, plain, pre, ids, upd):
                          "+ 1e-7"}
 
 
-def check_b1(gen, ids_kind):
-    """B1 against its plain version after one update of the full pack
-    (`b1_agreement`'s tolerances)."""
+def check_b1(gen, ids_kind, dims=B1_DIMS, grad_dtype=torch.bfloat16):
+    """B1 against its plain version after one update of the full pack at
+    the layout of ``dims`` (`b1_agreement`'s tolerances)."""
     from recbox_tpu_torch.ops.packed_delta import (
         fused_adagrad_delta_plain, packed_adagrad_update_,
         packed_adagrad_update_plain_,
     )
-    pack, ids, G, grads = b1_inputs(gen, ids_kind)
+    pack, ids, G, grads = b1_inputs(gen, ids_kind, dims, grad_dtype)
     pre, plain = pack.clone(), pack.clone()
-    b1_call(packed_adagrad_update_, pack, ids, G, grads)
-    b1_call(packed_adagrad_update_plain_, plain, ids, G, grads)
+    b1_call(packed_adagrad_update_, pack, ids, G, grads, dims)
+    b1_call(packed_adagrad_update_plain_, plain, ids, G, grads, dims)
     torch.cuda.synchronize()
-    upd = fused_adagrad_delta_plain(G, grads, B1_LR, dims=B1_DIMS,
-                                    acc_cols=B1_ACC, used=B1_USED,
+    acc, used = b1_slots(dims)
+    upd = fused_adagrad_delta_plain(G, grads, B1_LR, dims=dims,
+                                    acc_cols=acc, used=used,
                                     store_w=128, eps=B1_EPS)
-    return {"ids": ids_kind, **b1_agreement(pack, plain, pre, ids, upd)}
+    return {"ids": ids_kind, "dims": list(dims), "grads": str(grad_dtype),
+            **b1_agreement(pack, plain, pre, ids, upd)}
 
 
 def b1_update_agreement(pack, plain, pre, ids, upd):
@@ -699,7 +736,8 @@ def b1_update_agreement(pack, plain, pre, ids, upd):
 
 
 # (pack width, slot dims, accumulator columns in G, grad dtype, base offset
-# in floats): the Criteo layout, and with it every instantiation of B1
+# in floats): the Criteo layout, the zoo's (DCNv2's one slot of 16, and
+# xDeepFM's 16 + 1, f32 gradients), and with them every instantiation of B1
 # (bf16 / f32 gradients x reductions of 4 / 2 / 1 floats), slots whose
 # values straddle its chunks, rows wider than its 16 lanes' chunks, a pack
 # base aligned to 8 or 4 bytes only
@@ -712,7 +750,9 @@ B1_LAYOUTS = ((128, (64, 1), (65, 66), torch.bfloat16, 0),
               (132, (128, 1), (129, 130), torch.float32, 0),
               (1028, (1000, 8, 3), (1026, 1020, 7), torch.bfloat16, 0),
               (128, (64, 1), (65, 66), torch.bfloat16, 1),
-              (128, (64, 1), (65, 66), torch.float32, 2))
+              (128, (64, 1), (65, 66), torch.float32, 2),
+              (128, (16,), (16,), torch.float32, 0),
+              (128, (16, 1), (17, 18), torch.float32, 0))
 
 
 def check_b1_layouts(gen, rows=5000, n=20_000):
@@ -761,42 +801,45 @@ def check_b1_layouts(gen, rows=5000, n=20_000):
     return out
 
 
-def b1_bound_ms(ids, grads):
+def b1_bound_ms(ids, grads, dims=B1_DIMS):
     """Each input read once, each output written once: ids, the slots'
     accumulators in G, the gradients, and a read-modify-write of the used
     columns of every touched pack row; against ~6 f32 operations an
     element at 67 TFLOP/s."""
     n = ids.shape[0]
     unique = int(torch.unique(ids).numel())
-    moved = n * (ids.element_size() + 4 * len(B1_DIMS)) \
+    _, used = b1_slots(dims)
+    moved = n * (ids.element_size() + 4 * len(dims)) \
         + sum(g.numel() * g.element_size() for g in grads) \
-        + unique * B1_USED * 4 * 2
+        + unique * used * 4 * 2
     by_bytes = moved / HBM_BYTES_S * 1e3
-    by_ops = 6.0 * n * sum(B1_DIMS) / PEAK_OPS["f32"] * 1e3
+    by_ops = 6.0 * n * sum(dims) / PEAK_OPS["f32"] * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops \
         else "operations", moved
 
 
-def time_b1(gen, ids_kind):
+def time_b1(gen, ids_kind, dims=B1_DIMS, grad_dtype=torch.bfloat16):
     """B1, its plain version, the `index_add_` scatter it absorbs and its
-    bound, over ids drawn as `check_b1` draws them (uniform per field as
-    `bench.py` draws them, or Zipf-skewed)."""
+    bound at the layout of ``dims``, over ids drawn as `check_b1` draws
+    them (uniform per field as `bench.py` draws them, or Zipf-skewed)."""
     from recbox_tpu_torch.ops.packed_delta import (
         fused_adagrad_delta_plain, packed_adagrad_update_,
         packed_adagrad_update_plain_,
     )
-    pack, ids, G, grads = b1_inputs(gen, ids_kind)
-    upd = fused_adagrad_delta_plain(G, grads, B1_LR, dims=B1_DIMS,
-                                    acc_cols=B1_ACC, used=B1_USED,
+    pack, ids, G, grads = b1_inputs(gen, ids_kind, dims, grad_dtype)
+    acc, used = b1_slots(dims)
+    upd = fused_adagrad_delta_plain(G, grads, B1_LR, dims=dims,
+                                    acc_cols=acc, used=used,
                                     store_w=128, eps=B1_EPS)
     ms = cuda_ms(lambda: b1_call(packed_adagrad_update_, pack, ids, G,
-                                 grads), reps=20)
+                                 grads, dims), reps=20)
     plain_ms = cuda_ms(lambda: b1_call(packed_adagrad_update_plain_, pack,
-                                       ids, G, grads), reps=20)
+                                       ids, G, grads, dims), reps=20)
     # the scatter alone that B1 absorbs, given the finished operand
     library_ms = cuda_ms(lambda: pack.index_add_(0, ids, upd), reps=20)
-    b_ms, b_by, moved = b1_bound_ms(ids, grads)
-    return {"ids": ids_kind, "n": int(ids.shape[0]), "ms": ms,
+    b_ms, b_by, moved = b1_bound_ms(ids, grads, dims)
+    return {"ids": ids_kind, "dims": list(dims), "grads": str(grad_dtype),
+            "n": int(ids.shape[0]), "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": moved}
 
@@ -2189,8 +2232,9 @@ def fit_sasrec_1m():
 
 def quality_exits_on_card():
     """Phase 5e: `tools/quality_exit.py`'s DeepFM synthctr and SASRec
-    synthseq runs on the card, seeds EXIT_SEEDS; valid and test metrics
-    a seed and the medians of the test metrics. Then SASRec's first seed
+    synthseq runs, and the DCNv2 ('stacked') / xDeepFM (CIN relu) synthctr
+    runs, on the card, seeds EXIT_SEEDS; valid and test metrics a seed and
+    the medians of the test metrics. Then SASRec's first seed
     again through the 1M-item trainer's path (`fused`: kernel B2's loss,
     8-step `train_steps_fused` graphs), one B2 forward and backward a step,
     its test metrics within 0.02 (the exit's SASRec limit) of the median
@@ -2200,7 +2244,7 @@ def quality_exits_on_card():
     from recbox_tpu_torch.tools import quality_exit as qe
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name in ("deepfm", "sasrec"):
+        for name in ("deepfm", "sasrec", "dcnv2", "xdeepfm"):
             gen, run = qe.RUNS[name]
             data_dir = gen(tmp)
             runs = []
@@ -2579,6 +2623,213 @@ def matching_exits_on_card():
     return out
 
 
+# -- 5h-5i: the cascade's ranking and reranking stages -------------------------
+
+# the CTR zoo at the Criteo width: `configs/models/dcnv2.yaml` and
+# `configs/models/xdeepfm.yaml` (dim 16, f32), over phase 5's 26 + 13 fields
+ZOO_DIM = 16
+ZOO_MODELS = {"DCNv2": dict(num_cross_layers=3, hidden_units=(400, 400),
+                            dropout=0.0, model_structure="parallel",
+                            use_low_rank_mixture=False),
+              "xDeepFM": dict(cin_layer_sizes=(16, 16),
+                              hidden_units=(400, 400), dropout=0.0)}
+ZOO_XDEEPFM_STEPS = 16
+ZOO_GROUPS = (
+    ("b1_packed_adagrad_update", ("packed_adagrad_update",)),
+    ("gemm", ("gemm", "nvjet", "sm90", "cutlass", "xmma", "splitk")),
+    ("gather_index_select", ("gather", "indexselect", "index_select")),
+    ("copies", ("copy", "catarray", "memcpy", "memset")),
+    ("elementwise", ("elementwise", "reduce")),
+)
+
+
+def zoo_feature_map():
+    from recbox_tpu_torch.features import FeatureMap, FeatureSpec
+    feats = tuple(
+        FeatureSpec(f"c{i}", "categorical", vocab_size=VOCAB,
+                    embedding_dim=ZOO_DIM) for i in range(NUM_CAT)) + tuple(
+        FeatureSpec(f"n{i}", "numeric", embedding_dim=ZOO_DIM)
+        for i in range(NUM_NUM))
+    return FeatureMap("criteo_zoo", feats, labels=("click",))
+
+
+def zoo_trainer(name, seed):
+    """PackedEmbeddingTrainer over ``name`` at its config's widths: BCE,
+    Adam 1e-3 with clip 10, AdaGrad on the packs, 8 steps a fused call."""
+    from recbox_tpu_torch.models import ranking
+    from recbox_tpu_torch.ops.losses import binary_crossentropy
+    from recbox_tpu_torch.training import (
+        PackedEmbeddingTrainer, TrainerConfig,
+    )
+    model = getattr(ranking, name)(
+        zoo_feature_map(), embedding_dim=ZOO_DIM, **ZOO_MODELS[name],
+        generator=torch.Generator(device=DEVICE).manual_seed(seed),
+        device=DEVICE)
+    cfg = TrainerConfig(learning_rate=1e-3, grad_clip_norm=10.0, epochs=1,
+                        seed=seed, fused_steps=FIT_K)
+    return PackedEmbeddingTrainer(
+        model, lambda o, b: binary_crossentropy(o, b["click"]), cfg,
+        device=DEVICE)
+
+
+def zoo_criteo():
+    """Phase 5h: the CTR zoo through B1 at the Criteo width.
+
+    `run_ranking_experiment(model: DCNv2, trainer: packed)` over phase 5's
+    arrays (24 batches of 32768, 1 epoch, 8 steps a fused call, the
+    logistic label of `CriteoBatches`), `CTREvaluator` on 4 held-out
+    batches (AUC above 0.5), B1's count reset just before and read just
+    after (one launch a step). Then the same trainer alone: eager against
+    replayed ms a step (`fused_vs_eager`), a replayed step equal to an
+    eager one (the pack and a cross weight), one replayed step under
+    torch.profiler (device time by group, idle share). Then B1 at DCNv2's
+    one-slot layout against its plain version, its bound and
+    `index_add_`; then xDeepFM at its config's widths: 16 steps in two
+    fused calls, falling loss, one B1 launch a step, ms a replayed step,
+    and B1 at xDeepFM's 16 + 1 layout (f32 gradients) checked against its
+    plain version at the full shape and timed."""
+    from recbox_tpu_torch.ops import packed_delta
+    from recbox_tpu_torch.quick_start import run_ranking_experiment
+
+    data = CriteoBatches(SEED + 3)
+    batches = [data() for _ in range(FIT_TRAIN_BATCHES)]
+    held = [data() for _ in range(FIT_HELD_OUT_BATCHES)]
+
+    def arrays(bs):
+        return {k: torch.cat([b[k] for b in bs]).cpu().numpy()
+                for k in bs[0]}
+
+    config = {"model": "DCNv2", "embedding_dim": ZOO_DIM,
+              **ZOO_MODELS["DCNv2"], "trainer": "packed",
+              "batch_size": BATCH, "epochs": 1, "fused_steps": FIT_K,
+              "learning_rate": 1e-3, "grad_clip_norm": 10.0, "seed": SEED,
+              "monitor": "AUC", "metrics": ["AUC", "logloss"]}
+    packed_delta.reset_launches()
+    t0 = time.perf_counter()
+    result = run_ranking_experiment(config, zoo_feature_map(),
+                                    arrays(batches), arrays(held),
+                                    device=DEVICE)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = packed_delta.launches["packed_adagrad_update"]
+    assert launches == FIT_TRAIN_BATCHES, launches
+    assert result["AUC"] > 0.5 and np.isfinite(result["logloss"]), result
+    out = {"run_ranking_experiment": {
+        "model": "DCNv2", "steps": FIT_TRAIN_BATCHES, "fit_s": fit_s,
+        "b1_launches": launches, **result}}
+
+    trainer = zoo_trainer("DCNv2", SEED)
+    trainer.init(batches[0])
+    (pname, pack), = trainer.packs.items()
+    slots = trainer._slots[pname]
+    assert tuple(pack.shape) == (NUM_CAT * VOCAB, 128) \
+        and [s.dim for s in slots] == list(B1_ZOO_DIMS), (pname, slots)
+    speed = fused_vs_eager(trainer, batches, packed_delta.launches)
+    assert speed["fused_launches"]["packed_adagrad_update"] \
+        == speed["fused_steps"], speed
+    match = graph_step_matches_eager(
+        trainer, batches[0],
+        lambda: {"pack": trainer.packs[pname],
+                 "cross_dense0": trainer.params["CrossNetV2_0.dense0.weight"]})
+    profile = train_breakdown(
+        trainer, batches[0], groups=ZOO_GROUPS,
+        steps=lambda: trainer.train_steps_fused(stacked([batches[0]])))
+    out["dcnv2"] = {"pack": pname, "pack_shape": list(pack.shape),
+                    "slots": [s.dim for s in slots],
+                    "replay_vs_eager": match, "replayed_step_profile":
+                    profile, **speed}
+    del trainer
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    out["b1_one_slot_check"] = check_b1(gen, "uniform", B1_ZOO_DIMS,
+                                        torch.float32)
+    out["b1_one_slot_time"] = time_b1(gen, "uniform", B1_ZOO_DIMS,
+                                      torch.float32)
+
+    trainer = zoo_trainer("xDeepFM", SEED)
+    trainer.init(batches[0])
+    (xname, xpack), = trainer.packs.items()
+    xslots = trainer._slots[xname]
+    # the layout `check_b1` holds below: [16 values | 1 | 2 accumulators]
+    assert tuple(xpack.shape) == (NUM_CAT * VOCAB, 128) \
+        and [s.dim for s in xslots] == list(B1_XDEEPFM_DIMS) \
+        and tuple(s.acc_col for s in xslots) \
+        == b1_slots(B1_XDEEPFM_DIMS)[0], (xname, xpack.shape)
+    packed_delta.reset_launches()
+    losses = torch.cat([
+        trainer.train_steps_fused(stacked(batches[i:i + FIT_K]))
+        for i in range(0, ZOO_XDEEPFM_STEPS, FIT_K)]).float().cpu().numpy()
+    xl = packed_delta.launches["packed_adagrad_update"]
+    assert xl == ZOO_XDEEPFM_STEPS and np.isfinite(losses).all(), (xl, losses)
+    assert losses[-4:].mean() < losses[:4].mean(), losses
+    walls = []
+    for i in range(3):
+        chunk = stacked(batches[FIT_K * i:FIT_K * (i + 1)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_steps_fused(chunk)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / FIT_K)
+    out["xdeepfm"] = {"pack": xname, "steps": ZOO_XDEEPFM_STEPS,
+                      "b1_launches": xl, "losses": losses.tolist(),
+                      "replayed_ms_per_step": walls,
+                      "median_replayed_ms": statistics.median(walls)}
+    del trainer, xpack
+    out["b1_xdeepfm_check"] = check_b1(gen, "uniform", B1_XDEEPFM_DIMS,
+                                       torch.float32)
+    out["b1_xdeepfm_time"] = time_b1(gen, "uniform", B1_XDEEPFM_DIMS,
+                                     torch.float32)
+    return out
+
+
+# the JAX package's `run_cascade_experiment` at the same knobs and seed,
+# on a CPU (PERF.md §7), and the exit's limits for each metric
+JAX_CASCADE = {"stage1_test_Recall(k=20)": 0.4922590445209023,
+               "stage1_test_NDCG(k=20)": 0.4966593053956695,
+               "candidate_recall": 0.8897261534734825,
+               "stage2_AUC": 0.884200632340689,
+               "stage3_NDCG@10": 0.6312478709377872,
+               "stage3_MAP@10": 0.7100689910652758}
+CASCADE_LIMITS = {"stage1_test_Recall(k=20)": 0.01,
+                  "stage1_test_NDCG(k=20)": 0.01, "candidate_recall": 0.01,
+                  "stage2_AUC": 0.01, "stage3_NDCG@10": 0.02,
+                  "stage3_MAP@10": 0.02}
+
+
+def cascade_on_card():
+    """Phase 5i: `run_cascade_experiment("ml1m_scale", matcher="MF",
+    ranker="DCN", reranker="PRM")` over `quality_exit.gen_ml1m_scale`'s
+    files (6040 x 3706, 834,915 interactions) at
+    `tools/cascade_ml1m_scale.py`'s knobs (`quality_exit.CASCADE_KNOBS`),
+    seed 2024: every metric, the seconds of each stage, and the checks
+    that each stage learns what it owns (stage 1 above chance, the ranker's
+    AUC above 0.5, the reranker's lists no worse than the ranker's); the
+    differences from JAX's run (`JAX_CASCADE`) are reported beside the
+    exit's limits, not asserted: a miss is a finding for PERF.md §7."""
+    import tempfile
+    from recbox_tpu_torch.tools import quality_exit as qe
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data_dir = qe.gen_ml1m_scale(tmp)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = qe.run_cascade(data_dir, EXIT_SEEDS[0], DEVICE)
+        wall_s = time.perf_counter() - t0
+    r = res["test"]
+    assert all(np.isfinite(v) for v in r.values()), r
+    vs_jax = {k: r[k] - v for k, v in JAX_CASCADE.items()}
+    # chance Recall@20 over 3706 items is ~0.005
+    assert r["stage1_test_Recall(k=20)"] > 0.1, r
+    assert r["candidate_recall"] > r["stage1_test_Recall(k=20)"], r
+    assert r["stage2_AUC"] > 0.5, r
+    assert r["stage3_NDCG@10"] >= r["list_ranker_NDCG@10"] - 0.02, r
+    return {"seed": EXIT_SEEDS[0], "knobs": {
+        k: list(v) if isinstance(v, tuple) else v
+        for k, v in qe.CASCADE_KNOBS.items()},
+        "gen_s": gen_s, "wall_s": wall_s, "stage_s": res["timings"],
+        "metrics": r, "minus_jax": vs_jax, "within_exit_limits": {
+            k: abs(d) <= CASCADE_LIMITS[k] for k, d in vs_jax.items()}}
+
+
 def main() -> int:
     from recbox_tpu_torch.models.matching import YoutubeDNN
     from recbox_tpu_torch.ops import _build
@@ -2793,6 +3044,14 @@ def main() -> int:
     mexits = matching_exits_on_card()
     emit({"phase": "matching_exits", "card": card, "seeds": EXIT_SEEDS,
           "wall_s": time.perf_counter() - t0, **mexits})
+    # 5h. the CTR zoo through B1 at the Criteo width
+    t0 = time.perf_counter()
+    zoo = zoo_criteo()
+    emit({"phase": "zoo_criteo", "card": card,
+          "wall_s": time.perf_counter() - t0, **zoo})
+    # 5i. the cascade on the card
+    emit({"phase": "cascade_ml1m_scale", "card": card,
+          **cascade_on_card()})
 
     # 6. times
     qps = {}
@@ -2879,9 +3138,15 @@ def main() -> int:
         "name": "packed_adagrad_update", "route": "cuda",
         "source": "recbox_tpu_torch/csrc/packed_delta.cu",
         "replaces": "recbox_tpu/ops/pallas/packed_delta.py:62",
-        "launches": fit_c["b1_launches"],
-        "launches_by_path": {"fit_fused_graph": fit_c["b1_launches"],
-                             "train_step_eager": train["launches"]},
+        "launches": fit_c["b1_launches"]
+        + zoo["run_ranking_experiment"]["b1_launches"]
+        + zoo["xdeepfm"]["b1_launches"],
+        "launches_by_path": {
+            "fit_fused_graph": fit_c["b1_launches"],
+            "train_step_eager": train["launches"],
+            "zoo_dcnv2_run_ranking_experiment":
+                zoo["run_ranking_experiment"]["b1_launches"],
+            "zoo_xdeepfm_fused": zoo["xdeepfm"]["b1_launches"]},
         "device_ms_in_profiled_step": {
             "eager": (eager_c["groups"] or {}).get(
                 "b1_packed_adagrad_update"),
@@ -2899,6 +3164,19 @@ def main() -> int:
         "zipf_ids": {key: b1_times["zipf"][key] for key in (
             "ms", "plain_ms", "library_ms", "bound_ms")},
         "max_abs_err_zipf": b1_checks["zipf"]["max_abs_err"],
+        "one_slot_dcnv2": {
+            "slots": list(B1_ZOO_DIMS), "grads": "f32",
+            "max_abs_err": zoo["b1_one_slot_check"]["max_abs_err"],
+            **{key: zoo["b1_one_slot_time"][key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "device_ms_in_replayed_step": (zoo["dcnv2"][
+                "replayed_step_profile"]["groups"] or {}).get(
+                "b1_packed_adagrad_update")},
+        "xdeepfm_layout": {
+            "slots": list(B1_XDEEPFM_DIMS), "grads": "f32",
+            "max_abs_err": zoo["b1_xdeepfm_check"]["max_abs_err"],
+            **{key: zoo["b1_xdeepfm_time"][key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
         "ptxas": redesigned["packed_delta"], "matches_plain": True,
         "shape": {"pack": [NUM_CAT * VOCAB, 128], "rows": NUM_CAT * BATCH,
                   "slots": list(B1_DIMS), "grads": "bf16"}})

@@ -27,11 +27,22 @@ candidate port keys, and the first one the port module has is taken:
                                                       Conv
   .../<m>/bias (H, K)      →  .../<m>.bias (H·K,)    (DenseGeneral's bias)
   .../Dense_<i>/bias       →  .../dense.<i>.bias, else .../Dense_<i>.bias
+  .../BatchNorm_<i>/<leaf> →  .../bn.<i>.<leaf>     (MLP; scale, bias and,
+                                                      from ``batch_stats``,
+                                                      mean and var), else
+                                                      .../BatchNorm_<i>.<leaf>
   any other a/b/c          →  a.b.c, same layout     (e.g. DeepFM's lr/bias,
                                                       lr_bias, dnn_w1 (F, D,
                                                       H), dnn_b1; LayerNorm's
                                                       scale and bias, which
-                                                      the port names alike)
+                                                      the port names alike;
+                                                      the crosses' w<i>,
+                                                      U<l>, the CIN's w<i>
+                                                      (h, m, F), kept in
+                                                      flax's layout)
+
+The flax variables' ``batch_stats`` collection (BatchNorm running mean and
+variance) maps by the same rules onto the port's buffers of those names.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from torch import nn
 __all__ = ["from_jax_params", "load_packed_state"]
 
 _DENSE = re.compile(r"Dense_(\d+)$")
+_NORM = re.compile(r"BatchNorm_(\d+)$")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -84,6 +96,9 @@ def _candidates(path: Tuple[str, ...], arr: np.ndarray
         out.append((mods[:-1] + ["dense", dense.group(1),
                                  "weight" if leaf == "kernel" else "bias"],
                     _kernel if leaf == "kernel" else None))
+    norm = _NORM.match(mods[-1]) if mods else None
+    if norm:
+        out.append((mods[:-1] + ["bn", norm.group(1), leaf], None))
     if leaf == "kernel" and mods:
         out.append((mods + ["weight"], _kernel))
     if leaf == "bias" and mods and arr.ndim == 2:
@@ -96,16 +111,19 @@ def from_jax_params(params: Mapping, model: nn.Module
                     ) -> Dict[str, torch.Tensor]:
     """A `state_dict` for ``model`` from a flax param tree of numpy arrays.
 
-    ``params`` may be the flax variables dict (with a top-level "params")
-    or the params tree itself. Raises KeyError on a flax param with no
+    ``params`` may be the flax variables dict (with a top-level "params",
+    and "batch_stats" where the model has BatchNorms) or the params tree
+    itself. Raises KeyError on a flax param with no
     counterpart, on a port parameter no flax param fills, and ValueError on
     a shape mismatch. Load the result with ``model.load_state_dict``.
     """
+    stats: Mapping = {}
     if "params" in params and isinstance(params["params"], Mapping):
+        stats = params.get("batch_stats", {})
         params = params["params"]
     target = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
-    for path, value in _flatten(params):
+    for path, value in list(_flatten(params)) + list(_flatten(stats)):
         arr = np.asarray(value)
         cands = _candidates(path, arr)
         found = [(k, f) for k, f in cands if k in target]
@@ -127,13 +145,15 @@ def from_jax_params(params: Mapping, model: nn.Module
             dtype=ref.dtype, device=ref.device)
     missing = sorted(set(target) - set(out))
     if missing:
-        raise KeyError(f"port parameters without a flax counterpart: "
-                       f"{missing}")
+        raise KeyError(f"port parameters (or buffers: BatchNorm statistics "
+                       f"come from the variables' batch_stats) without a "
+                       f"flax counterpart: {missing}")
     return out
 
 
 def load_packed_state(trainer, dense_params: Mapping,
-                      packs: Mapping[str, np.ndarray]) -> None:
+                      packs: Mapping[str, np.ndarray],
+                      model_state: Optional[Mapping] = None) -> None:
     """Put a JAX `PackedEmbeddingTrainer`'s state into an initialized port
     trainer: its dense params tree (``t.params``, numpy leaves) onto the
     model, its packs (``t.packs``, numpy, same names and layout) into

@@ -173,8 +173,8 @@ def _not_ported(name: str):
     class _Model(SequentialRecommender):
         def __init__(self, *args, **kwargs):
             raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP.md, Queue A item 8: the "
-                "other sequential encoders)")
+                f"{name} is not ported yet (ROADMAP.md, Queue A: "
+                "\"Sequential remainder and zoo\")")
     _Model.__name__ = _Model.__qualname__ = name
     return _Model
 

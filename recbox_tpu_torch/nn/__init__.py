@@ -2,7 +2,7 @@ from recbox_tpu_torch.nn.attention import (
     LayerNorm, PositionalEmbedding, TransformerEncoder,
 )
 from recbox_tpu_torch.nn.core import (
-    MLP, Dropout, FactorizationMachine, LogisticRegression, get_activation,
+    MLP, BatchNorm, Dropout, FactorizationMachine, LogisticRegression, get_activation,
     set_dropout_generator,
 )
 from recbox_tpu_torch.nn.embedding import (
@@ -10,7 +10,7 @@ from recbox_tpu_torch.nn.embedding import (
     rows_key_for, stack_embeddings,
 )
 
-__all__ = ["MLP", "Dropout", "set_dropout_generator", "LayerNorm",
+__all__ = ["MLP", "BatchNorm", "Dropout", "set_dropout_generator", "LayerNorm",
            "PositionalEmbedding", "TransformerEncoder",
            "FactorizationMachine", "LogisticRegression", "get_activation",
            "FeatureEmbedding", "concat_embeddings", "stack_embeddings",

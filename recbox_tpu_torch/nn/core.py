@@ -1,10 +1,12 @@
-"""Core NN blocks: MLP, FM, first-order term, activations, initializers.
+"""Core NN blocks: MLP, BatchNorm, FM, first-order term, activations,
+initializers.
 
 Counterpart of `recbox_tpu/nn/core.py` (`MLP` :69-104, `get_activation`
 :54-66, `FactorizationMachine` :107, `LogisticRegression` :122) and of
-flax's linen ``Dropout``. The MLP carries Linear → activation → dropout in
-a compute dtype; its BatchNorm and Dice are not ported yet (they raise;
-DeepFM's default has no BatchNorm).
+flax's linen ``Dropout`` and ``BatchNorm``. The MLP carries Linear →
+(BatchNorm) → activation → dropout in a compute dtype. `Dice` is not ported
+yet (it raises; only the sequence CTR models call it, `ROADMAP.md`, Queue
+A: "Ranking zoo remainder").
 """
 
 from __future__ import annotations
@@ -16,9 +18,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["MLP", "Dropout", "FactorizationMachine", "LogisticRegression",
-           "get_activation", "set_dropout_generator", "xavier_normal_",
-           "xavier_uniform_"]
+__all__ = ["MLP", "BatchNorm", "Dropout", "FactorizationMachine",
+           "LogisticRegression", "get_activation", "set_dropout_generator",
+           "xavier_normal_", "xavier_uniform_"]
 
 # flax's xavier initializers are variance_scaling(1, 'fan_avg', ...); its
 # 'truncated_normal' draws N(0, 1) truncated to [-2, 2] and divides the
@@ -26,13 +28,22 @@ __all__ = ["MLP", "Dropout", "FactorizationMachine", "LogisticRegression",
 _TRUNC_STD = .87962566103423978
 
 
+def _flax_fans(shape) -> tuple:
+    """(fan_in, fan_out) of a flax kernel of ``shape``: the last two axes
+    are (in, out), the leading ones a receptive field that multiplies
+    both (flax's ``_compute_fans``)."""
+    receptive = math.prod(shape[:-2])
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
 def xavier_normal_(t: torch.Tensor, generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
     """flax `xavier_normal()`: truncated normal at fan_avg variance.
 
     fan_avg = (rows + cols) / 2 of a 2-D tensor, which is the same for a
-    flax (in, out) kernel and the transposed torch (out, in) weight."""
-    std = math.sqrt(2.0 / (t.shape[0] + t.shape[1])) / _TRUNC_STD
+    flax (in, out) kernel and the transposed torch (out, in) weight; a
+    tensor of more axes is taken in flax's layout (`_flax_fans`)."""
+    std = math.sqrt(2.0 / sum(_flax_fans(tuple(t.shape)))) / _TRUNC_STD
     with torch.no_grad():
         return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
                                      generator=generator)
@@ -112,20 +123,64 @@ def get_activation(act: Union[str, Callable, None]) -> Callable:
         return act
     key = act.lower()
     if key == "dice":
-        raise ValueError("Dice is stateful and not ported yet (ROADMAP.md)")
+        raise ValueError("Dice is stateful and not ported yet (ROADMAP.md, "
+                         "Queue A: \"Ranking zoo remainder\")")
     if key not in _ACTIVATIONS:
         raise NotImplementedError(f"activation={act}")
     return _ACTIVATIONS[key]
 
 
-class MLP(nn.Module):
-    """[Linear → act → (dropout)]* → optional ``output_dim`` head.
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the last axis, with its defaults
+    (momentum 0.99, epsilon 1e-5, learned ``scale`` and ``bias``).
 
-    Layer ``i`` is ``dense[i]``, the counterpart of flax's ``Dense_i``
-    (`interop.from_jax_params` maps one onto the other). Weights are flax's
-    xavier_normal draw, biases zero. With ``dtype`` bfloat16 each layer
-    casts its input, weight and bias to bf16, as flax's ``Dense(dtype=)``
-    does; the parameters stay float32.
+    In training mode it normalizes by the batch's mean and biased variance,
+    E[x²] − E[x]² clipped at 0 (flax's fast variance), and moves the
+    running statistics ``mean`` / ``var`` (buffers, flax's ``batch_stats``
+    names) as ``r = momentum · r + (1 − momentum) · batch``; in eval mode it
+    normalizes by them. Statistics are f32 and the output is the
+    promotion of the input's dtype and f32, as flax's without ``dtype=``.
+    (``torch.nn.BatchNorm1d`` keeps an unbiased running variance and
+    weighs the new batch by its ``momentum``: it would drift from JAX's
+    statistics at the first step.)"""
+
+    def __init__(self, dim: int, momentum: float = 0.99, eps: float = 1e-5,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+        self.register_buffer("mean", torch.zeros(dim, device=device))
+        self.register_buffer("var", torch.ones(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            axes = tuple(range(xf.ndim - 1))
+            mean = torch.mean(xf, dim=axes)
+            var = torch.clamp(torch.mean(torch.square(xf), dim=axes)
+                              - torch.square(mean), min=0.0)
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_(
+                    (1.0 - self.momentum) * mean.detach())
+                self.var.mul_(self.momentum).add_(
+                    (1.0 - self.momentum) * var.detach())
+        else:
+            mean, var = self.mean, self.var
+        return (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale) \
+            + self.bias
+
+
+class MLP(nn.Module):
+    """[Linear → (BatchNorm) → act → (dropout)]* → optional ``output_dim``
+    head.
+
+    Layer ``i`` is ``dense[i]`` and its norm ``bn[i]``, the counterparts of
+    flax's ``Dense_i`` and ``BatchNorm_i`` (`interop.from_jax_params` maps
+    one onto the other). Weights are flax's xavier_normal draw, biases
+    zero. With ``dtype`` bfloat16 each layer casts its input, weight and
+    bias to bf16, as flax's ``Dense(dtype=)`` does; the parameters stay
+    float32, and a BatchNorm's output is f32 (flax promotes it).
     """
 
     def __init__(self, in_dim: int, hidden_units: Sequence[int],
@@ -137,9 +192,6 @@ class MLP(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device: Optional[torch.device] = None):
         super().__init__()
-        if batch_norm:
-            raise NotImplementedError(
-                "MLP(batch_norm=True) is not ported yet (ROADMAP.md)")
         self.dtype = dtype
         n = len(hidden_units)
         acts = [activation] * n if isinstance(activation, str) \
@@ -148,6 +200,9 @@ class MLP(nn.Module):
             else list(dropout)
         self._acts = [get_activation(a) for a in acts]
         self.drop = nn.ModuleList([Dropout(p) for p in drops])
+        self.bn = nn.ModuleList(
+            [BatchNorm(u, device=device) for u in hidden_units]
+            if batch_norm else [])
         widths = list(hidden_units) + \
             ([output_dim] if output_dim is not None else [])
         self.dense = nn.ModuleList()
@@ -162,11 +217,12 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = len(self._acts)
-        x = x.to(self.dtype)
         for i, lin in enumerate(self.dense):
             bias = None if lin.bias is None else lin.bias.to(self.dtype)
-            x = F.linear(x, lin.weight.to(self.dtype), bias)
+            x = F.linear(x.to(self.dtype), lin.weight.to(self.dtype), bias)
             if i < n:
+                if self.bn:
+                    x = self.bn[i](x)
                 x = self.drop[i](self._acts[i](x))
         return x
 
@@ -182,17 +238,27 @@ class FactorizationMachine(nn.Module):
 
 
 class LogisticRegression(nn.Module):
-    """First-order term over stacked (B, F, 1) dim-1 lookups: their sum plus
-    a global ``bias`` (zeros) → (B, 1). The JAX block's flat-input branch (a
-    bias-free Dense) and its ``use_bias=False`` have no ported caller; a
-    flat input raises."""
+    """First-order term → (B, 1): over stacked (B, F, 1) dim-1 lookups their
+    sum, over a flat (B, K) input a bias-free ``Dense_0`` (K → 1, flax's
+    xavier_normal; give ``in_dim`` = K), plus a global ``bias`` (zeros)
+    unless ``use_bias`` is False."""
 
-    def __init__(self, device: Optional[torch.device] = None):
+    def __init__(self, in_dim: Optional[int] = None, use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 device: Optional[torch.device] = None):
         super().__init__()
-        self.bias = nn.Parameter(torch.zeros(1, device=device))
+        if in_dim is not None:
+            self.Dense_0 = nn.Linear(in_dim, 1, bias=False, device=device)
+            xavier_normal_(self.Dense_0.weight, generator)
+        self.bias = nn.Parameter(torch.zeros(1, device=device)) \
+            if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.ndim != 3:
-            raise NotImplementedError(
-                "LogisticRegression over a flat (B, K) input is not ported")
-        return torch.sum(x, dim=(1, 2))[:, None] + self.bias
+        if x.ndim == 3:
+            out = torch.sum(x, dim=(1, 2))[:, None]
+        elif hasattr(self, "Dense_0"):
+            out = self.Dense_0(x)
+        else:
+            raise ValueError("LogisticRegression over a flat (B, K) input "
+                             "needs in_dim=K at construction")
+        return out if self.bias is None else out + self.bias

@@ -6,6 +6,9 @@ port's `fit`.
         --seeds 2024 1 --device cuda
     python3 -m recbox_tpu_torch.tools.quality_exit --models bpr lightgcn \\
         --dataset synth --device cpu [--init-from DIR]
+    python3 -m recbox_tpu_torch.tools.quality_exit --models dcnv2 xdeepfm
+    python3 -m recbox_tpu_torch.tools.quality_exit --models cascade \\
+        --seeds 2024
 
 The data are the JAX package's offline synthetic sets, written as atomic
 files into a temporary directory by copies of its generators (the same
@@ -27,7 +30,9 @@ dropout 0.1, Adam 1e-3, batch 512, 30 epochs, patience 10, no plateau
 decay, monitor valid AUC, a 80/10/10 split) and
 `tools/parity_run_ours_sasrec.py` (SASRec dim 32, L 20, 1 layer, 2 heads,
 dropout 0.2, full-softmax CE through `full_scores`, leave-one-out, monitor
-valid NDCG@10), with every seed of the runner (the split's permutation,
+valid NDCG@10), DCNv2 ('stacked') and xDeepFM (its CIN with recbole's
+relu) in DeepFM's place at DeepFM's knobs (`docs/QUALITY_PARITY.md:186-190`),
+with every seed of the runner (the split's permutation,
 the loader's shuffle, the trainer's seed) and the model's initial draw
 taken from ``--seed``. The matching runs are
 `tools/parity_run_ours_bpr.py` (MF dim 32, BPR over one negative a
@@ -40,32 +45,41 @@ Recall@20 and NDCG@20 of a full sort with the train and valid items
 masked. Their seeds: the split's permutation, the trainer's and the
 model's draw (and LightGCN's loader) from ``--seed``.
 
+``--models cascade`` runs `run_cascade_experiment("ml1m_scale",
+matcher="MF", ranker="DCN", reranker="PRM")` on ml1m_scale at
+`tools/cascade_ml1m_scale.py`'s knobs (MF 8 epochs, DCN 3 epochs with 2
+cross layers and MLP 64-32, PRM 5 epochs with 4 heads, 200 candidates,
+lists of 50, dim 32, an 'RO' split, Recall@20 / NDCG@20), printing every
+metric and the seconds of each stage.
+
 ``--init-from DIR`` pairs a run with JAX: it loads the JAX model's
 initial params from ``DIR/<model>_seed<seed>.npz`` (``bpr_ml1m_scale``
 for BPR on ml1m_scale), flattened to '/'-joined keys, as
 `tests/test_torch_exit_pairing.py` writes them when run as a script, and
 moves them onto the port's model (`interop.from_jax_params`) before
-`fit`. Each run prints one JSON line with its valid and test metrics; the
+`fit`. ``--dropout 0`` (synthctr runs) removes the one difference a
+paired run keeps, the dropout masks (Philox against threefry). Each run prints one JSON line with its valid and test metrics; the
 last line holds the medians over the seeds.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
 import sys
 import tempfile
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 __all__ = ["gen_ctr", "gen_seq", "gen_synth", "gen_ml1m_scale",
-           "run_deepfm", "run_sasrec", "run_bpr", "run_lightgcn",
-           "deepfm_trainer", "matching_setup", "matching_trainer",
-           "load_init", "main"]
+           "run_deepfm", "run_ctr", "run_sasrec", "run_bpr",
+           "run_lightgcn", "run_cascade", "ctr_trainer", "matching_setup",
+           "matching_trainer", "load_init", "main"]
 
 
 _INTER_HEADER = ("user_id:token\titem_id:token\trating:float\t"
@@ -191,21 +205,44 @@ def _fit(trainer, loader, test_fn) -> Dict[str, Dict[str, float]]:
             "best_epoch": trainer.monitor.best_epoch, "steps": trainer.step}
 
 
+# the synthctr models and their arguments beyond the runner's (embedding
+# 16, MLP 64-32, dropout 0.1): DeepFM's runner, and the DCNv2 / xDeepFM
+# head-to-head of `docs/QUALITY_PARITY.md:186-190` (DCNv2 'stacked',
+# xDeepFM with recbole's per-layer CIN relu)
+CTR_MODELS = {"deepfm": ("DeepFM", {}),
+              "dcnv2": ("DCNv2", {"model_structure": "stacked"}),
+              "xdeepfm": ("xDeepFM", {"cin_activation": "relu"})}
+
+
+def run_ctr(kind: str, data_dir: str, seed: int, device: str,
+            epochs: int = 30, init_from: Optional[str] = None,
+            dropout: float = 0.1) -> Dict[str, Dict[str, float]]:
+    """The synthctr run of ``kind`` (a key of `CTR_MODELS`) through the
+    port: `tools/parity_run_ours_deepfm.py`, its model swapped for
+    DCNv2 / xDeepFM."""
+    return _fit(*ctr_trainer(kind, data_dir, seed, device, epochs,
+                             init_from, dropout))
+
+
 def run_deepfm(data_dir: str, seed: int, device: str, epochs: int = 30,
-               init_from: Optional[str] = None
+               init_from: Optional[str] = None, dropout: float = 0.1
                ) -> Dict[str, Dict[str, float]]:
     """`tools/parity_run_ours_deepfm.py` through the port."""
-    return _fit(*deepfm_trainer(data_dir, seed, device, epochs, init_from))
+    return run_ctr("deepfm", data_dir, seed, device, epochs, init_from,
+                   dropout)
 
 
-def deepfm_trainer(data_dir: str, seed: int, device: str, epochs: int = 30,
-                 init_from: Optional[str] = None):
-    """(trainer, train loader, test metrics function) of the DeepFM run."""
+def ctr_trainer(kind: str, data_dir: str, seed: int, device: str,
+                epochs: int = 30, init_from: Optional[str] = None,
+                dropout: float = 0.1):
+    """(trainer, train loader, test metrics function) of the synthctr run
+    of ``kind`` (a key of `CTR_MODELS`); ``dropout`` is the runner's 0.1
+    unless a pairing diagnosis asks for 0 (`main`'s ``--dropout``)."""
     from recbox_tpu_torch.data import ArrayLoader
     from recbox_tpu_torch.data.atomic import load_atomic_dataset
     from recbox_tpu_torch.evaluation import CTREvaluator
     from recbox_tpu_torch.features import FeatureMap, FeatureSpec
-    from recbox_tpu_torch.models.ranking import DeepFM
+    from recbox_tpu_torch.models import ranking
     from recbox_tpu_torch.ops.losses import binary_crossentropy
     from recbox_tpu_torch.training import Trainer, TrainerConfig
 
@@ -226,10 +263,12 @@ def deepfm_trainer(data_dir: str, seed: int, device: str, epochs: int = 30,
                     embedding_dim=16),
         FeatureSpec("item_id", "categorical", vocab_size=ds.num_items,
                     embedding_dim=16)), labels=("label",))
-    model = DeepFM(fm, embedding_dim=16, hidden_units=(64, 32), dropout=0.1,
-                   generator=torch.Generator(device=device).manual_seed(seed),
-                   device=device)
-    load_init(init_from, "deepfm", seed, model)
+    cls_name, extra = CTR_MODELS[kind]
+    model = getattr(ranking, cls_name)(
+        fm, embedding_dim=16, hidden_units=(64, 32), dropout=dropout,
+        generator=torch.Generator(device=device).manual_seed(seed),
+        device=device, **extra)
+    load_init(init_from, kind, seed, model)
     cfg = TrainerConfig(seed=seed, learning_rate=1e-3, epochs=epochs,
                         patience=10, monitor="AUC", lr_decay_factor=1.0,
                         reload_best_on_plateau=False)
@@ -239,6 +278,32 @@ def deepfm_trainer(data_dir: str, seed: int, device: str, epochs: int = 30,
     loader = ArrayLoader(train, batch_size=512, drop_last=True, seed=seed)
     return trainer, loader, CTREvaluator(test, label="label",
                                          metrics=["AUC", "logloss"])
+
+
+# the cascade at ml1m_scale: `tools/cascade_ml1m_scale.py`'s knobs
+# (:25, :103, :245-246, :320) and its 'RO' split and metrics (:86, :117)
+# through `run_cascade_experiment` (whose default split would be 'TO' on
+# these timestamps, which put each user's off-block items last)
+CASCADE_KNOBS = dict(embedding_dim=32, matcher_epochs=8, ranker_epochs=3,
+                     reranker_epochs=5, candidates=200, list_len=50,
+                     num_cross_layers=2, hidden_units=(64, 32), n_heads=4,
+                     order="RO", metrics=("Recall(k=20)", "NDCG(k=20)"))
+
+
+def run_cascade(data_dir: str, seed: int, device: str,
+                init_from: Optional[str] = None) -> Dict[str, Any]:
+    """`run_cascade_experiment("ml1m_scale", matcher="MF", ranker="DCN",
+    reranker="PRM")` at `CASCADE_KNOBS`; its metrics as ``test`` and the
+    seconds of each stage as ``timings``."""
+    if init_from is not None:
+        raise ValueError("the cascade runs unpaired")
+    from recbox_tpu_torch.quick_start import run_cascade_experiment
+    timings: Dict[str, float] = {}
+    result = run_cascade_experiment(
+        "ml1m_scale", matcher="MF", ranker="DCN", reranker="PRM",
+        data_dir=os.path.dirname(os.path.normpath(data_dir)), seed=seed,
+        device=device, timings=timings, **CASCADE_KNOBS)
+    return {"test": result, "timings": timings}
 
 
 def _eval_split(trainer, split) -> Dict[str, float]:
@@ -397,7 +462,10 @@ def run_lightgcn(data_dir: str, seed: int, device: str, epochs: int = 30,
 
 
 RUNS = {"deepfm": (gen_ctr, run_deepfm), "sasrec": (gen_seq, run_sasrec),
-        "bpr": (gen_synth, run_bpr), "lightgcn": (gen_synth, run_lightgcn)}
+        "bpr": (gen_synth, run_bpr), "lightgcn": (gen_synth, run_lightgcn),
+        "dcnv2": (gen_ctr, functools.partial(run_ctr, "dcnv2")),
+        "xdeepfm": (gen_ctr, functools.partial(run_ctr, "xdeepfm")),
+        "cascade": (gen_ml1m_scale, run_cascade)}
 MATCHING_DATA = {"synth": gen_synth, "ml1m_scale": gen_ml1m_scale}
 
 
@@ -413,6 +481,10 @@ def main(argv=None) -> int:
     ap.add_argument("--init-from", default=None,
                     help="a directory of <model>_seed<seed>.npz: the JAX "
                          "models' initial params, loaded before fit")
+    ap.add_argument("--dropout", type=float, default=None,
+                    help="the synthctr runs' dropout (the runner's 0.1 by "
+                         "default): 0 pairs a run with JAX's to rounding, "
+                         "the two packages' dropout streams being apart")
     args = ap.parse_args(argv)
     medians = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -422,18 +494,21 @@ def main(argv=None) -> int:
                 gen = MATCHING_DATA[args.dataset]
             data_dir = gen(tmp)
             tests = []
+            kw = {} if args.dropout is None or name not in CTR_MODELS \
+                else {"dropout": args.dropout}
             for seed in args.seeds:
                 res = run(data_dir, seed, args.device,
-                          init_from=args.init_from)
+                          init_from=args.init_from, **kw)
                 tests.append(res["test"])
                 print(json.dumps({"model": name, "seed": seed,
                                   "device": args.device, **res}),
                       flush=True)
-            medians[name] = {k: statistics.median(t[k] for t in tests)
+            medians[name] = {k: statistics.median(float(t[k]) for t in tests)
                              for k in tests[0]}
     print(json.dumps({"medians": medians, "seeds": args.seeds,
                       "device": args.device, "dataset": args.dataset,
-                      "init_from": args.init_from}),
+                      "init_from": args.init_from,
+                      "dropout": args.dropout}),
           flush=True)
     return 0
 

@@ -26,7 +26,12 @@ per-feature gather, the AdaGrad acc-in-row update, `train_step`,
 when the embedding lr changes, since B1 takes it by value),
 `train_steps_repeat`, `predict`, the `tables` / `accumulators` views, and
 the best-weight cache, `state_dict`, `save` and `load` carrying the packs
-and the embedding lr. Not ported yet, each raising NotImplementedError
+and the embedding lr. The model's state beside its parameters (BatchNorm
+statistics) is the dense trainer's `model_state`, moved by each step's
+forward, as JAX's packed step threads ``model_state`` (`packed.py:703-725`).
+A model with one embedding module (DCNv2: one value slot a pack row) and
+one with two (DeepFM, xDeepFM: values and first-order weights) plan their
+packs alike, as JAX's planner does. Not ported yet, each raising NotImplementedError
 (`ROADMAP.md`): lazy Adam (``embedding_optimizer='adam'``), the
 split-accumulator layout (value columns already a multiple of 128) and
 ``block_rows``.

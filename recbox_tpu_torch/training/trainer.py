@@ -17,6 +17,14 @@ microseconds. On the card `train_steps_fused` replays one CUDA graph of the
 step a batch (`training/graph.py`); on the CPU it is a loop of the same
 steps.
 
+The model's state beside its parameters (``model_state``: its persistent
+buffers, the BatchNorm running statistics, flax's ``batch_stats``) moves
+in the forward of a training step, in place, so a replayed graph moves it
+too; it goes with the parameters through the best-weight cache,
+`state_dict` / `load_state_dict`, `save` and `load`, as JAX's
+``model_state`` does (`recbox_tpu/training/trainer.py:148`, :182, :214-225,
+:353-362, :574).
+
 Dropout draws from a generator the trainer owns: `init` makes it on the
 trainer's device, seeded from ``TrainerConfig.seed``, and hands it to every
 `nn.core.Dropout` of the model, so the same seed gives the same steps
@@ -351,10 +359,12 @@ class Trainer:
                                patience=config.patience)
         self.dropout_generator: Optional[torch.Generator] = None
         self.params: Optional[Dict[str, torch.Tensor]] = None
+        self.model_state: Dict[str, torch.Tensor] = {}
         self._opt: Optional[_Optimizer] = None
         self.step = 0
         self.epoch = 0
         self._best: Optional[Dict[str, torch.Tensor]] = None
+        self._best_model_state: Dict[str, torch.Tensor] = {}
         self._stopped = False
         # optional external stop poll, checked between steps in fit();
         # returning True ends the loop
@@ -371,6 +381,9 @@ class Trainer:
             device=self.device).manual_seed(self.config.seed)
         set_dropout_generator(self.model, self.dropout_generator)
         self.params = dict(self.model.named_parameters())
+        self.model_state = {
+            n: t for n, t in self.model.state_dict(keep_vars=True).items()
+            if not isinstance(t, torch.nn.Parameter)}
         self._opt = _make_optimizer(self.config, list(self.params.values()))
         n_params = sum(p.numel() for p in self.params.values())
         logger.info("initialized model: %s params", f"{n_params:,}")
@@ -478,9 +491,11 @@ class Trainer:
         self._opt.lr.fill_(float(lr))
 
     def _capture_best(self) -> None:
-        """A copy of the parameters on their device (a clone: the steps
-        update the parameters in place)."""
+        """A copy of the parameters and the model state on their device (a
+        clone: the steps update both in place)."""
         self._best = {n: p.detach().clone() for n, p in self.params.items()}
+        self._best_model_state = {n: t.detach().clone()
+                                  for n, t in self.model_state.items()}
 
     @torch.no_grad()
     def _restore_best(self) -> None:
@@ -488,6 +503,8 @@ class Trainer:
             return
         for n, p in self.params.items():
             p.copy_(self._best[n])
+        for n, t in self.model_state.items():
+            t.copy_(self._best_model_state[n])
 
     def _on_plateau(self) -> None:
         new_lr = max(self.learning_rate * self.config.lr_decay_factor,
@@ -666,9 +683,11 @@ class Trainer:
 
     # -- checkpointing -------------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
-        """The full training state: parameters, optimizer state (its lr and
-        step count included), step, epoch and the monitor."""
+        """The full training state: parameters, the model state, optimizer
+        state (its lr and step count included), step, epoch and the
+        monitor."""
         return {"params": dict(self.params),
+                "model_state": dict(self.model_state),
                 "opt_state": self._opt.state_dict(),
                 "step": self.step, "epoch": self.epoch,
                 "monitor": self.monitor.state()}
@@ -684,6 +703,15 @@ class Trainer:
                              " do not match the model's")
         for n, p in self.params.items():
             _copy_into(p, state["params"][n], n)
+        # a checkpoint written before the trainer carried model state has
+        # none: it loads into a model without buffers, else the names differ
+        model_state = state.get("model_state", {})
+        if set(model_state) != set(self.model_state):
+            raise ValueError(f"checkpoint model state "
+                             f"{sorted(model_state)} does not match "
+                             f"the model's {sorted(self.model_state)}")
+        for n, t in self.model_state.items():
+            _copy_into(t, model_state[n], n)
         self._opt.load_state_dict(state["opt_state"])
         self.step = int(state["step"])
         self.epoch = int(state["epoch"])

@@ -11,23 +11,30 @@ params, flattened to '/'-joined keys, to ``<out>/<model>_seed<seed>.npz``
 (``bpr_ml1m_scale`` for MF-BPR on ml1m_scale)::
 
     env JAX_PLATFORMS=cpu python -m tests.test_torch_exit_pairing \\
-        --out DIR [--models deepfm sasrec bpr lightgcn] \\
+        --out DIR [--models deepfm dcnv2 xdeepfm sasrec bpr lightgcn] \\
         [--seeds 2024 1 2 3 4] [--dataset synth|ml1m_scale]
 
 ``python3 -m recbox_tpu_torch.tools.quality_exit --init-from DIR`` then
 trains the port from them. The data come from the port's copies of the
 generators (`quality_exit.gen_*`), which write the JAX tools' files byte
-for byte. Dropout masks still differ (Philox against threefry).
+for byte. Dropout masks still differ (Philox against threefry); with
+``--dropout 0`` (synthctr models) both sides drop nothing, and ``--fit``
+also trains each JAX runner and prints its test metrics, one JSON line a
+run, for ``quality_exit --dropout 0 --init-from DIR`` to be held to.
 
-The test: DeepFM on synthctr and MF-BPR on synth at seed 2024, the port's
-exit trainer loaded from the dumped params gives the JAX runner's
+The test: DeepFM, DCNv2 and xDeepFM on synthctr and MF-BPR on synth at
+seed 2024, the port's exit trainer loaded from the dumped params gives
+the JAX runner's
 validation metrics before the first step within 1e-6 (AUC / logloss;
-Recall@20 / NDCG@20), and every port parameter is transplanted.
+Recall@20 / NDCG@20), and every port parameter is transplanted; at
+dropout 0 a paired DCNv2 run follows JAX's for three epochs.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
+import json
 import os
 import sys
 
@@ -45,7 +52,7 @@ from recbox_tpu.evaluation import CTREvaluator, RetrievalEvaluator
 from recbox_tpu.features import FeatureMap, FeatureSpec
 from recbox_tpu.models.matching.graph import LightGCN, build_norm_edges
 from recbox_tpu.models.matching.two_tower import MF
-from recbox_tpu.models.ranking.ctr import DeepFM
+from recbox_tpu.models.ranking.ctr import DCNv2, DeepFM, xDeepFM
 from recbox_tpu.models.sequential.models import SASRec
 from recbox_tpu.ops import (
     binary_crossentropy, full_softmax_loss, get_matching_loss,
@@ -54,15 +61,14 @@ from recbox_tpu.training import Trainer, TrainerConfig
 from recbox_tpu_torch.tools import quality_exit as qe
 
 
-def _cfg(seed, monitor):
+def _cfg(seed, monitor, epochs=30):
     return TrainerConfig(rng_impl="threefry", seed=seed, learning_rate=1e-3,
-                         epochs=30, patience=10, monitor=monitor,
+                         epochs=epochs, patience=10, monitor=monitor,
                          lr_decay_factor=1.0, reload_best_on_plateau=False)
 
 
-def jax_deepfm(data_dir, seed):
-    """`tools/parity_run_ours_deepfm.py` at ``seed``: (trainer, loader,
-    valid evaluator)."""
+def _ctr_split(data_dir, seed):
+    """synthctr's arrays and the runner's (train, valid, test) split."""
     ds = load_atomic_dataset(data_dir, "synthctr")
     arrays = {"user_id": ds.inter["user_id"].astype(np.int32),
               "item_id": ds.inter["item_id"].astype(np.int32),
@@ -71,21 +77,41 @@ def jax_deepfm(data_dir, seed):
     idx = np.random.default_rng(seed).permutation(n)
     n_va = int(0.1 * n)
     n_tr = n - 2 * n_va
-    tr, va, _ = np.split(idx, [n_tr, n_tr + n_va])
+    return ds, [{k: v[part] for k, v in arrays.items()}
+                for part in np.split(idx, [n_tr, n_tr + n_va])]
+
+
+def jax_deepfm(data_dir, seed, cls=DeepFM, dropout=0.1, epochs=30,
+               **extra):
+    """`tools/parity_run_ours_deepfm.py` at ``seed`` (with ``cls`` and its
+    ``extra`` arguments in DeepFM's place: the DCNv2 / xDeepFM runs of
+    `docs/QUALITY_PARITY.md:186-190`): (trainer, loader, valid
+    evaluator)."""
+    ds, (train, valid, _) = _ctr_split(data_dir, seed)
     fm = FeatureMap("sctr", (
         FeatureSpec("user_id", "categorical", vocab_size=ds.num_users,
                     embedding_dim=16),
         FeatureSpec("item_id", "categorical", vocab_size=ds.num_items,
                     embedding_dim=16)), labels=("label",))
-    model = DeepFM(feature_map=fm, embedding_dim=16, hidden_units=(64, 32),
-                   dropout=0.1)
-    ev = CTREvaluator({k: v[va] for k, v in arrays.items()}, label="label",
-                      metrics=["AUC", "logloss"])
+    model = cls(feature_map=fm, embedding_dim=16, hidden_units=(64, 32),
+                dropout=dropout, **extra)
+    ev = CTREvaluator(valid, label="label", metrics=["AUC", "logloss"])
     trainer = Trainer(model, lambda o, b: binary_crossentropy(o, b["label"]),
-                      _cfg(seed, "AUC"), eval_fn=ev)
-    loader = ArrayLoader({k: v[tr] for k, v in arrays.items()},
-                         batch_size=512, drop_last=True, seed=seed)
+                      _cfg(seed, "AUC", epochs), eval_fn=ev)
+    loader = ArrayLoader(train, batch_size=512, drop_last=True, seed=seed)
     return trainer, loader, ev
+
+
+def jax_ctr_fit(trainer, loader, data_dir, seed) -> dict:
+    """`fit` of a `jax_deepfm` runner, then its test metrics, as
+    `quality_exit` reports a port run."""
+    valid = trainer.fit(loader)
+    _, (_, _, test) = _ctr_split(data_dir, seed)
+    ev = CTREvaluator(test, label="label", metrics=["AUC", "logloss"])
+    return {"valid": {k: float(v) for k, v in valid.items()},
+            "test": {k: float(v) for k, v in ev(trainer).items()},
+            "best_epoch": trainer.monitor.best_epoch,
+            "steps": int(trainer.step)}
 
 
 def jax_sasrec(data_dir, seed):
@@ -156,6 +182,10 @@ def jax_matching(kind, data_dir, seed):
 
 BUILDERS = {
     "deepfm": (qe.gen_ctr, jax_deepfm),
+    "dcnv2": (qe.gen_ctr, lambda d, s, **k: jax_deepfm(
+        d, s, DCNv2, model_structure="stacked", **k)),
+    "xdeepfm": (qe.gen_ctr, lambda d, s, **k: jax_deepfm(
+        d, s, xDeepFM, cin_activation="relu", **k)),
     "sasrec": (qe.gen_seq, jax_sasrec),
     "bpr": (qe.gen_synth, lambda d, s: jax_matching("bpr", d, s)),
     "lightgcn": (qe.gen_synth, lambda d, s: jax_matching("lightgcn", d, s)),
@@ -187,10 +217,13 @@ def dump(out_dir, name, seed, trainer, loader) -> str:
 
 
 @pytest.mark.parametrize("model,gen,port_trainer", [
-    ("deepfm", qe.gen_ctr, qe.deepfm_trainer),
+    ("deepfm", qe.gen_ctr, functools.partial(qe.ctr_trainer, "deepfm")),
+    ("dcnv2", qe.gen_ctr, functools.partial(qe.ctr_trainer, "dcnv2")),
+    ("xdeepfm", qe.gen_ctr, functools.partial(qe.ctr_trainer, "xdeepfm")),
     ("bpr", qe.gen_synth,
      lambda *a, **k: qe.matching_trainer("bpr", *a, **k)),
-], ids=["deepfm_synthctr", "mf_bpr_synth"])
+], ids=["deepfm_synthctr", "dcnv2_synthctr", "xdeepfm_synthctr",
+         "mf_bpr_synth"])
 def test_paired_exit_starts_from_jax_weights(tmp_path, model, gen,
                                              port_trainer):
     seed = 2024
@@ -212,6 +245,29 @@ def test_paired_exit_starts_from_jax_weights(tmp_path, model, gen,
     assert any(abs(up.eval_fn(up)[k] - want[k]) > 1e-4 for k in want)
 
 
+def test_dropout_free_pairing_follows_jax(tmp_path):
+    """At dropout 0 nothing drawn is left apart: the port's DCNv2 exit
+    run from JAX's initial weights (`quality_exit --dropout 0
+    --init-from`) follows JAX's runner through three epochs, valid and
+    test AUC / logloss within 1e-5 (the two packages' f32 sums in another
+    order; at dropout 0.1 the two runs are 3e-4 to 2e-3 apart here)."""
+    seed, epochs = 2024, 3
+    data_dir = qe.gen_ctr(str(tmp_path))
+    jt, jl, _ = BUILDERS["dcnv2"][1](data_dir, seed, dropout=0.0,
+                                     epochs=epochs)
+    dump(str(tmp_path), "dcnv2", seed, jt, jl)
+    want = jax_ctr_fit(jt, jl, data_dir, seed)
+    got = qe.run_ctr("dcnv2", data_dir, seed, "cpu", epochs=epochs,
+                     init_from=str(tmp_path), dropout=0.0)
+    assert (got["steps"], got["best_epoch"]) == (want["steps"],
+                                                 want["best_epoch"])
+    for split in ("valid", "test"):
+        for k in ("AUC", "logloss"):
+            np.testing.assert_allclose(got[split][k], want[split][k],
+                                       rtol=0, atol=1e-5,
+                                       err_msg=f"{split} {k}")
+
+
 def main(argv=None) -> int:
     import tempfile
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -222,6 +278,12 @@ def main(argv=None) -> int:
                     default=[2024, 1, 2, 3, 4])
     ap.add_argument("--dataset", default="synth",
                     choices=list(qe.MATCHING_DATA))
+    ap.add_argument("--dropout", type=float, default=None,
+                    help="the synthctr runners' dropout (their 0.1 by "
+                         "default)")
+    ap.add_argument("--fit", action="store_true",
+                    help="also train each synthctr runner (30 epochs) and "
+                         "print its test metrics")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -233,9 +295,18 @@ def main(argv=None) -> int:
                 if args.dataset != "synth":
                     tag = f"{name}_{args.dataset}"
             data_dir = gen(tmp)
+            ctr = name in ("deepfm", "dcnv2", "xdeepfm")
+            kw = {} if args.dropout is None or not ctr \
+                else {"dropout": args.dropout}
             for seed in args.seeds:
-                trainer, loader, _ = build(data_dir, seed)
+                trainer, loader, _ = build(data_dir, seed, **kw)
                 print(dump(args.out, tag, seed, trainer, loader), flush=True)
+                if args.fit and ctr:
+                    print(json.dumps({
+                        "model": name, "seed": seed, "package": "jax",
+                        "dropout": args.dropout,
+                        **jax_ctr_fit(trainer, loader, data_dir, seed)}),
+                        flush=True)
     return 0
 
 

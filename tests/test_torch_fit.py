@@ -71,10 +71,11 @@ def _data(n, seed=0):
     return d
 
 
-def _port_deepfm(seed=0, hidden_units=(16,)):
+def _port_deepfm(seed=0, hidden_units=(16,), **kw):
     fm = FeatureMap("t", _specs(FeatureSpec), labels=("click",))
     return DeepFM(fm, embedding_dim=DIM, hidden_units=hidden_units,
-                  device="cpu", generator=torch.Generator().manual_seed(seed))
+                  device="cpu", generator=torch.Generator().manual_seed(seed),
+                  **kw)
 
 
 def _bce(o, b):
@@ -322,6 +323,31 @@ def test_load_refuses_other_shapes(tmp_path):
     fewer.init(_batches(1)[0])
     with pytest.raises(ValueError, match="does not fit"):
         fewer.load(str(tmp_path / "ckpt"))
+
+
+def test_load_checkpoint_without_model_state(tmp_path):
+    """A checkpoint saved before the trainer carried model state has no
+    ``model_state``: it loads into a model without buffers, and a model
+    with BatchNorm statistics refuses it with the names it misses."""
+    t = Trainer(_port_deepfm(), _bce, TrainerConfig(), device="cpu")
+    t.train_step(_batches(1)[0])
+    state = t.state_dict()
+    assert state.pop("model_state") == {}
+    torch.save(state, tmp_path / "old.ckpt")
+    fresh = Trainer(_port_deepfm(seed=4), _bce, TrainerConfig(),
+                    device="cpu")
+    fresh.init(_batches(1)[0])
+    fresh.load(str(tmp_path / "old.ckpt"))
+    for k in t.params:
+        assert torch.equal(fresh.params[k], t.params[k]), k
+    normed = Trainer(_port_deepfm(batch_norm=True), _bce, TrainerConfig(),
+                     device="cpu")
+    normed.train_step(_batches(1)[0])
+    state = normed.state_dict()
+    assert state.pop("model_state")
+    torch.save(state, tmp_path / "old_normed.ckpt")
+    with pytest.raises(ValueError, match=r"model state \[\] does not match"):
+        normed.load(str(tmp_path / "old_normed.ckpt"))
 
 
 def test_resumed_fit_starts_at_next_epoch(tmp_path):

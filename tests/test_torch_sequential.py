@@ -299,7 +299,7 @@ def test_fused_ce_under_mesh_raises_and_unported_encoders():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Trainer(pm, lambda o, b: o, TrainerConfig(), mesh=object(),
                 device="cpu", train_method="full_scores")
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(NotImplementedError, match="Sequential remainder and zoo"):
         NARM(_fm(FeatureMap, FeatureSpec), device="cpu")
 
 
