@@ -156,6 +156,32 @@ Phases (any failure raises and exits non-zero):
      matcher="MF", ranker="DCN", reranker="PRM")` over ml1m_scale (6040 x
      3706, 834,915 interactions) at `tools/cascade_ml1m_scale.py`'s knobs,
      seed 2024: every metric and the seconds of each stage;
+  5j. the sequential stage from the user's first call: (1) BERT4Rec at
+     `configs/models/bert4rec.yaml`'s widths (d 64, 2 layers, 2 heads, L
+     50, dropout 0.2), bf16, over 1M items, through
+     `recbox_tpu_torch.run.main` on a pre-encoded config dir written here
+     (`FeatureMap.save`, npz splits of Zipf draws with a planted next
+     item, 2 epochs of 32 batches of 1024, 8 steps a graph replay, 2048
+     valid and test rows), B2's counts reset just before and read just
+     after: the route `_use_fused_ce` took, one forward and one backward
+     launch a step, a falling loss, test Recall@10 above chance, the
+     seconds of fit and evaluation, eager against replayed ms a step,
+     and the replayed step with the history gathered by `F.embedding`
+     (the port's) against indexing;
+     (2) `fused_cloze_loss`'s B2 call at B·P = 10,240 over V = 1M with a
+     tenth of the weights 0: B2's sweeps against their plain versions at
+     that shape, and the whole call against the call on the plain sweeps
+     (loss, gradients of the states and of the (V + 1)-row table, the
+     [MASK] row's exactly 0, two calls bit for bit), timed beside its
+     bound and weighted F.cross_entropy over the logits; (3) the other 19
+     sequential models through `run_sequential_experiment` at their
+     `configs/models/*.yaml` widths over V = 20,000 (1 epoch of 16
+     batches of 256, ``fused_ce: True``): falling loss, the route (CORE
+     and RepeatNet keep `full_scores`), B2's launches, B2 against its
+     plain version on each kernel-route model's operands (D = 64, 65 /
+     66 padded to 80, 128), ms a step; (4) `run_experiment(
+     "SASRec", "ml1m_scale", epochs=2)` over 5i's files: seconds of data,
+     fit and test, and the metrics;
   6. times with CUDA events (median after a warm-up; B5, B6 and their
      yardsticks over runs of 20 calls queued behind a spin kernel, so the
      host's launch work is not timed): each kernel, its
@@ -189,7 +215,8 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
 
 # the H100's dense peaks (NVIDIA data sheet, SXM part) and HBM rate
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -850,6 +877,9 @@ SAS_V_SMALL = 60_000
 # one exp per logit at the special-function units' ~3.9e12/s (H100 SXM,
 # FlashAttention-3 paper)
 EXP_RATE = 3.9e12
+# rows of one materialised F.cross_entropy call in `time_b2` (5120 x 1M
+# bf16 logits: 10 GB, with their gradient 20 GB)
+LIB_ROWS = 5120
 
 
 def b2_inputs(gen, b, v, d, u_std=1.0, t_std=0.125):
@@ -1010,43 +1040,55 @@ B2_DESIGN = {
            "summed there in rank order one step later and written once"}
 
 
-def time_b2(gen):
-    """B2 alone at the 1M shape: each wrapper (kernel), its plain version,
-    and the materialised PyTorch formulation (a bf16 torch.matmul into 2 GB
-    of logits, then F.cross_entropy; the port never calls it), forward and
-    forward + backward, CUDA events, median of 10."""
+def time_b2(user, table, labels, w=None, reps=10):
+    """B2 alone at the shape of ``user`` (B, D) over ``table`` (V, D), with
+    per-row weights ``w`` or none: each wrapper (kernel), its plain
+    version, and the materialised PyTorch formulation (a bf16 torch.matmul
+    into the logits, then F.cross_entropy, weighted with ``w``; chunks of
+    at most LIB_ROWS rows, so the logits stay within 10 GB; the port never
+    calls it), forward and forward + backward, CUDA events, median of
+    ``reps``; the bounds at this shape."""
     import torch.nn.functional as F
     from recbox_tpu_torch.ops.fused_ce import (
         ce_operands, fused_ce_bwd, fused_ce_bwd_plain, fused_ce_lse,
         fused_ce_lse_plain,
     )
-    user, table = b2_inputs(gen, SAS_B, SAS_V, SAS_D)
-    labels = torch.randint(0, SAS_V, (SAS_B,), generator=gen, device=DEVICE)
+    (b, d), v = user.shape, table.shape[0]
     u, t = ce_operands(user, table)
     lse = fused_ce_lse(u, t)
-    scale = torch.tensor(1.0 / SAS_B, device=DEVICE)
-    reps = 10
+    if w is None:
+        scale = torch.tensor(1.0 / b, device=DEVICE)
+    else:
+        scale = 1.0 / w.sum()
+        lse = lse - torch.log(w)
     res = {
         "fwd_ms": cuda_ms(lambda: fused_ce_lse(u, t), reps),
-        "bwd_ms": cuda_ms(lambda: fused_ce_bwd(u, t, lse, scale, SAS_D),
-                          reps),
+        "bwd_ms": cuda_ms(lambda: fused_ce_bwd(u, t, lse, scale, d), reps),
         "fwd_plain_ms": cuda_ms(lambda: fused_ce_lse_plain(u, t), reps),
         "bwd_plain_ms": cuda_ms(
-            lambda: fused_ce_bwd_plain(u, t, lse, scale, SAS_D), reps)}
+            lambda: fused_ce_bwd_plain(u, t, lse, scale, d), reps)}
     ul = u.detach().clone().requires_grad_(True)
     tl = t.detach().clone().requires_grad_(True)
+    chunks = range(0, b, LIB_ROWS)
 
-    def library_fwd():
-        with torch.no_grad():
-            return F.cross_entropy(ul @ tl.T, labels)
+    def library(backward):
+        for s in chunks:
+            logits, lbl = ul[s:s + LIB_ROWS] @ tl.T, labels[s:s + LIB_ROWS]
+            if w is None:
+                loss = F.cross_entropy(logits, lbl) * (len(lbl) / b)
+            else:
+                loss = torch.sum(w[s:s + LIB_ROWS] * F.cross_entropy(
+                    logits, lbl, reduction="none")) / w.sum()
+            if backward:
+                loss.backward()
 
-    def library_fwd_bwd():
-        F.cross_entropy(ul @ tl.T, labels).backward()
-
-    res["fwd_library_ms"] = cuda_ms(library_fwd, reps)
-    res["fwd_bwd_library_ms"] = cuda_ms(library_fwd_bwd, reps)
+    with torch.no_grad():
+        res["fwd_library_ms"] = cuda_ms(lambda: library(False), reps)
+    res["fwd_bwd_library_ms"] = cuda_ms(lambda: library(True), reps)
+    res["library_calls"] = len(chunks)
     del ul, tl
-    bounds, exp_ms = b2_bounds(SAS_B, SAS_V, SAS_D)
+    torch.cuda.empty_cache()
+    bounds, exp_ms = b2_bounds(b, v, d)
     for name in ("fwd", "bwd"):
         b_ms, b_by, what, nbytes, ops = bounds[name]
         res.update({f"{name}_bound_ms": b_ms, f"{name}_bound_by": b_by,
@@ -2795,25 +2837,20 @@ CASCADE_LIMITS = {"stage1_test_Recall(k=20)": 0.01,
                   "stage3_MAP@10": 0.02}
 
 
-def cascade_on_card():
+def cascade_on_card(data_dir):
     """Phase 5i: `run_cascade_experiment("ml1m_scale", matcher="MF",
     ranker="DCN", reranker="PRM")` over `quality_exit.gen_ml1m_scale`'s
-    files (6040 x 3706, 834,915 interactions) at
+    files in ``data_dir`` (6040 x 3706, 834,915 interactions) at
     `tools/cascade_ml1m_scale.py`'s knobs (`quality_exit.CASCADE_KNOBS`),
     seed 2024: every metric, the seconds of each stage, and the checks
     that each stage learns what it owns (stage 1 above chance, the ranker's
     AUC above 0.5, the reranker's lists no worse than the ranker's); the
     differences from JAX's run (`JAX_CASCADE`) are reported beside the
     exit's limits, not asserted: a miss is a finding for PERF.md §7."""
-    import tempfile
     from recbox_tpu_torch.tools import quality_exit as qe
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        data_dir = qe.gen_ml1m_scale(tmp)
-        gen_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        res = qe.run_cascade(data_dir, EXIT_SEEDS[0], DEVICE)
-        wall_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = qe.run_cascade(data_dir, EXIT_SEEDS[0], DEVICE)
+    wall_s = time.perf_counter() - t0
     r = res["test"]
     assert all(np.isfinite(v) for v in r.values()), r
     vs_jax = {k: r[k] - v for k, v in JAX_CASCADE.items()}
@@ -2825,9 +2862,439 @@ def cascade_on_card():
     return {"seed": EXIT_SEEDS[0], "knobs": {
         k: list(v) if isinstance(v, tuple) else v
         for k, v in qe.CASCADE_KNOBS.items()},
-        "gen_s": gen_s, "wall_s": wall_s, "stage_s": res["timings"],
+        "wall_s": wall_s, "stage_s": res["timings"],
         "metrics": r, "minus_jax": vs_jax, "within_exit_limits": {
             k: abs(d) <= CASCADE_LIMITS[k] for k, d in vs_jax.items()}}
+
+
+# -- phase 5j: the sequential stage from the user's first call -------------------
+# BERT4Rec at `configs/models/bert4rec.yaml`'s widths over 1M items through
+# `python -m recbox_tpu_torch.run`'s `main` (2 epochs of 32 batches of 1024,
+# 2048 valid and test rows); the cloze call at B = 1024, P = 10; the other
+# 19 sequential models at V = 20,000 (1 epoch of 16 batches of 256)
+SEQ_V, SEQ_L, SEQ_B, SEQ_STEPS, SEQ_EPOCHS = 1_000_000, 50, 1024, 32, 2
+SEQ_EVAL_ROWS, SEQ_P, SEQ_FOLLOW = 2048, 10, 0.7
+SEQ_ZOO_V, SEQ_ZOO_B, SEQ_ZOO_STEPS, SEQ_ZOO_EVAL = 20_000, 256, 16, 512
+SEQ_ZOO = ("GRU4Rec", "NARM", "STAMP", "Caser", "NextItNet", "FPMC",
+           "TransRec", "HGN", "SHAN", "FOSSIL", "HRM", "NPE", "CORE",
+           "LightSANs", "FDSA", "RepeatNet", "SINE", "SRGNN", "GCSAN")
+# the models whose own scoring keeps them off the kernel (`_use_fused_ce`)
+SEQ_PLAIN_ROUTE = ("CORE", "RepeatNet")
+# keys added to the BERT4Rec expid (a CPU rehearsal at a small V lowers
+# `fused_ce_threshold` here, so the gate opens by its threshold there too)
+SEQ_EXTRA = {}
+
+
+def seq_synth(v, n_rows, seed, full=False):
+    """Next-item rows over ids 1..v-1: a Zipf(1.2) draw of ranks scattered
+    over the ids by a fixed permutation, then each step the planted
+    successor x % (v - 1) + 1 with probability SEQ_FOLLOW, else a fresh
+    draw; the last item is the target, the 5-50 before it the left-padded
+    history (all 50 with ``full``)."""
+    rng = np.random.default_rng(seed)
+    ids = np.random.default_rng(12345).permutation(v - 1) + 1
+
+    def draw(shape):
+        return ids[(rng.zipf(1.2, shape) - 1) % (v - 1)]
+
+    x = np.empty((n_rows, SEQ_L + 1), np.int64)
+    x[:, 0] = draw(n_rows)
+    follow = rng.random((n_rows, SEQ_L)) < SEQ_FOLLOW
+    fresh = draw((n_rows, SEQ_L))
+    for t in range(1, SEQ_L + 1):
+        x[:, t] = np.where(follow[:, t - 1], x[:, t - 1] % (v - 1) + 1,
+                           fresh[:, t - 1])
+    lens = np.full(n_rows, SEQ_L) if full else rng.integers(5, SEQ_L + 1,
+                                                            n_rows)
+    hist = x[:, :-1].copy()
+    hist[np.arange(SEQ_L)[None, :] < (SEQ_L - lens)[:, None]] = 0
+    return {"user_id": (np.arange(n_rows) % 4096).astype(np.int32),
+            "item_seq": hist.astype(np.int32),
+            "seq_len": lens.astype(np.int32),
+            "item_id": x[:, -1].astype(np.int32)}
+
+
+def seq_feature_map(v):
+    from recbox_tpu_torch.features import FeatureMap, FeatureSpec
+    return FeatureMap("synthseq", (FeatureSpec(
+        "item_id", "categorical", source="item", vocab_size=v,
+        embedding_dim=64),), query_index="user_id", corpus_index="item_id",
+        num_items=v)
+
+
+def recording_trainer():
+    """A `Trainer` that keeps each step's loss, the seconds of `fit` and of
+    each evaluation, and the moment it was made: put in `quick_start`'s
+    place, it reads a pipeline's run without changing it."""
+    from recbox_tpu_torch.training import Trainer
+
+    class Recording(Trainer):
+        made = []
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            Recording.made.append(self)
+            self.made_at = time.perf_counter()
+            self.step_losses, self.eval_s, self.fit_s = [], [], None
+
+        def train_step(self, batch):
+            loss = super().train_step(batch)
+            self.step_losses.append(loss.detach().clone().reshape(1))
+            return loss
+
+        def train_steps_fused(self, batches):
+            out = super().train_steps_fused(batches)
+            self.step_losses.append(out.detach().clone())
+            return out
+
+        def fit(self, *args, **kw):
+            t0 = time.perf_counter()
+            out = super().fit(*args, **kw)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            self.fit_end = time.perf_counter()
+            self.fit_s = self.fit_end - t0
+            return out
+
+        def _evaluate_and_checkpoint(self):
+            t0 = time.perf_counter()
+            out = super()._evaluate_and_checkpoint()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            self.eval_s.append(time.perf_counter() - t0)
+            return out
+
+    return Recording
+
+
+def run_recorded(call):
+    """``call()`` with `quick_start.Trainer` recording; (its result, the
+    trainer it made)."""
+    from recbox_tpu_torch import quick_start as qs
+    recording = recording_trainer()
+    orig = qs.Trainer
+    qs.Trainer = recording
+    try:
+        out = call()
+    finally:
+        qs.Trainer = orig
+    return out, recording.made[-1]
+
+
+def step_losses(trainer):
+    return torch.cat(trainer.step_losses).float().cpu().numpy()
+
+
+def write_bert4rec_expdir(root):
+    """A pre-encoded config dir for `run.py`: `FeatureMap.save`'s
+    feature_map.json, train / valid / test npz, a model_config.yaml expid
+    at bert4rec.yaml's widths and a dataset_config.yaml naming the data."""
+    import yaml
+    data = os.path.join(root, "data")
+    seq_feature_map(SEQ_V).save(os.path.join(data, "feature_map.json"))
+    splits = {"train": seq_synth(SEQ_V, SEQ_STEPS * SEQ_B, SEED + 31),
+              "valid": seq_synth(SEQ_V, SEQ_EVAL_ROWS, SEED + 32),
+              "test": seq_synth(SEQ_V, SEQ_EVAL_ROWS, SEED + 33)}
+    for name, arrays in splits.items():
+        np.savez(os.path.join(data, f"{name}.npz"), **arrays)
+    with open(os.path.join(REPO, "configs", "models", "bert4rec.yaml")) as fh:
+        widths = yaml.safe_load(fh)
+    widths.pop("stage")
+    expid = {**widths, "model": "BERT4Rec", "dataset_id": "synthseq",
+             "compute_dtype": "bfloat16", "batch_size": SEQ_B,
+             "epochs": SEQ_EPOCHS, "eval_batch_size": SEQ_B,
+             "learning_rate": 1e-3, "monitor": "NDCG(k=10)",
+             "topk": [10, 20], "fused_steps": FIT_K, "seed": 2024,
+             **SEQ_EXTRA}
+    cfg = os.path.join(root, "config")
+    os.makedirs(cfg)
+    with open(os.path.join(cfg, "model_config.yaml"), "w") as fh:
+        yaml.safe_dump({"bert4rec_1m": expid}, fh)
+    with open(os.path.join(cfg, "dataset_config.yaml"), "w") as fh:
+        yaml.safe_dump({"synthseq": {"data_dir": data}}, fh)
+    return cfg, splits
+
+
+def bert4rec_from_cli(root):
+    """5j (1): `recbox_tpu_torch.run.main` on the BERT4Rec expid, B2's
+    counts reset just before and read just after: the route
+    `_use_fused_ce` took (the threshold's: bf16, 1M items), one forward
+    and one backward launch a step, a finite falling loss, test Recall@10
+    above chance (10 / V); then eager against replayed ms a step on the
+    run's own batches, and one replayed step profiled."""
+    from recbox_tpu_torch import run as prun
+    from recbox_tpu_torch.ops import fused_ce
+    t0 = time.perf_counter()
+    cfg, splits = write_bert4rec_expdir(root)
+    data_s = time.perf_counter() - t0
+    fused_ce.reset_launches()
+    t0 = time.perf_counter()
+    result, trainer = run_recorded(lambda: prun.main(
+        [f"--config={cfg}", "--expid=bert4rec_1m", f"--device={DEVICE}"]))
+    t_end = time.perf_counter()
+    launches = dict(fused_ce.launches)
+    steps = SEQ_EPOCHS * SEQ_STEPS
+    assert trainer.train_method == "fused_ce_loss", trainer.train_method
+    assert launches == {"fused_ce_fwd": steps, "fused_ce_bwd": steps}, \
+        launches
+    losses = step_losses(trainer)
+    assert len(losses) == steps and np.isfinite(losses).all(), losses
+    assert losses[-8:].mean() < losses[:8].mean(), losses
+    chance = 10 / SEQ_V
+    assert result["test_Recall(k=10)"] > chance, result
+    train = splits["train"]
+    batches = [{k: torch.from_numpy(v[i * SEQ_B:(i + 1) * SEQ_B]).to(DEVICE)
+                for k, v in train.items()} for i in range(2 * FIT_K)]
+    speed = fused_vs_eager(trainer, batches, fused_ce.launches)
+    n = speed["fused_steps"]
+    assert speed["fused_launches"] == {"fused_ce_fwd": n,
+                                       "fused_ce_bwd": n}, speed
+    profile = sasrec_breakdown(trainer, batches[0], steps=lambda:
+                               trainer.train_steps_fused(stacked(
+                                   [batches[0]])))
+    capture_s = trainer._graph.capture_seconds \
+        if trainer._graph is not None else None
+    gather_ab = bert4rec_gather_ab(trainer, batches)
+    return trainer, splits["test"], {
+        "replayed_step_profile": profile, "gather_ab": gather_ab,
+        "vocab": SEQ_V, "batch": SEQ_B, "seq_len": SEQ_L,
+        "steps": steps, "route": trainer.train_method,
+        "b2_launches": launches,
+        "b2_launches_a_step": {k: v / steps for k, v in launches.items()},
+        "data_s": data_s, "wall_s": t_end - t0, "fit_s": trainer.fit_s,
+        "fit_ms_a_step": (trainer.fit_s - sum(trainer.eval_s)) / steps
+        * 1e3, "eval_s": trainer.eval_s, "test_s": t_end - trainer.fit_end,
+        "loss_first": losses[:8].tolist(), "loss_last": losses[-8:].tolist(),
+        "chance_recall_10": chance, "result": result,
+        "graph_capture_s": capture_s, **speed}
+
+
+def bert4rec_gather_ab(trainer, batches, rounds=3):
+    """BERT4Rec's replayed step two ways on the run's Zipf batches: the
+    history gathered by `F.embedding(item_seq, table)`, as `models.py`
+    `_masked_history` does (a dense backward that sums repeated
+    ids in parallel segments), and by indexing, `table[item_seq]` (its
+    backward an accumulating `index_put_`, which adds a repeated id's rows
+    one after another). Each way its own graph of FIT_K steps, captured
+    once; ms a step of the two replayed in turns over ``rounds`` rounds
+    (CUDA events, median of 3 a round), and each way's profiled replayed
+    step. The gather is swapped where BERT4Rec reads it, `extended`'s
+    binding of `_masked_history`."""
+    from recbox_tpu_torch.models.sequential import extended
+    embedding = extended._masked_history
+
+    def indexing(table, item_seq):
+        item_seq = item_seq.to(torch.int64)
+        mask = item_seq != 0
+        emb = table[item_seq]
+        return emb * mask[..., None].to(emb.dtype), mask
+
+    stack = stacked(batches[:FIT_K])
+    graphs, out = {}, {}
+    try:
+        for name, fn in (("embedding", embedding), ("indexing", indexing)):
+            extended._masked_history = fn
+            trainer._graph = None
+            trainer.train_steps_fused(stack)
+            graphs[name] = trainer._graph
+            prof = sasrec_breakdown(trainer, batches[0], steps=lambda:
+                                    trainer.train_steps_fused(stacked(
+                                        [batches[0]])))
+            out[name] = {"profile_groups": prof["groups"],
+                         "profile_device_ms": prof["device_ms"],
+                         "profile_wall_ms": prof["wall_ms"],
+                         "by_kernel": prof["by_kernel"][:6], "ms": []}
+        for i in range(rounds):
+            order = ("embedding", "indexing")
+            for name in (order if i % 2 == 0 else order[::-1]):
+                trainer._graph = graphs[name]
+                out[name]["ms"].append(cuda_ms(
+                    lambda: trainer.train_steps_fused(stack), 3) / FIT_K)
+    finally:
+        extended._masked_history = embedding
+        trainer._graph = None
+    for name in graphs:
+        out[name]["median_ms_a_step"] = statistics.median(out[name]["ms"])
+    return out
+
+
+class plain_sweeps:
+    """Within the block, B2's wrappers run their plain versions on the
+    card's tensors too (the autograd function around them unchanged): the
+    plain version of the whole call, for comparison and timing."""
+
+    def __enter__(self):
+        from recbox_tpu_torch.ops import fused_ce
+        self.saved = fused_ce.fused_ce_lse, fused_ce.fused_ce_bwd
+        fused_ce.fused_ce_lse = fused_ce.fused_ce_lse_plain
+        fused_ce.fused_ce_bwd = fused_ce.fused_ce_bwd_plain
+        return self
+
+    def __exit__(self, *exc):
+        from recbox_tpu_torch.ops import fused_ce
+        fused_ce.fused_ce_lse, fused_ce.fused_ce_bwd = self.saved
+
+
+def cloze_inputs(model, seed=SEED + 41):
+    """The cloze caller's operands at B = 1024, P = 10 over 50-long
+    histories: [MASK] at 10 distinct positions a row, the encoder's states
+    there (B·P, D) as a leaf, the (V + 1)-row table as a leaf, labels, and
+    weights of which a tenth are 0."""
+    rng = np.random.default_rng(seed)
+    rows = seq_synth(SEQ_V, SEQ_B, seed, full=True)
+    seq = torch.from_numpy(rows["item_seq"]).long().to(DEVICE)
+    pos = np.sort(rng.permuted(np.tile(np.arange(SEQ_L), (SEQ_B, 1)),
+                               axis=1)[:, :SEQ_P], axis=1)
+    pos = torch.from_numpy(pos).to(DEVICE)
+    labels = torch.gather(seq, 1, pos)
+    masked = seq.scatter(1, pos, model.mask_token)
+    w = torch.ones(SEQ_B * SEQ_P, device=DEVICE)
+    w[torch.from_numpy(rng.permutation(SEQ_B * SEQ_P)[:SEQ_B * SEQ_P // 10]
+                       ).to(DEVICE)] = 0.0
+    model.eval()
+    with torch.no_grad():
+        h = model._gathered(masked, torch.from_numpy(rows["seq_len"]).to(
+            DEVICE), pos).reshape(-1, model.embedding_dim).float()
+    return (h.detach().clone().requires_grad_(True),
+            model.emb_item.detach().clone().requires_grad_(True),
+            labels.reshape(-1), w)
+
+
+def cloze_on_card(model):
+    """5j (2): `fused_cloze_loss`'s B2 call at the cloze shape (B·P =
+    10,240 rows over V = 1M, weights with zeros). B2's sweeps against their
+    plain versions at this shape (`b2_sweeps_vs_plain`: lse row by row,
+    du, dt, zero-weight rows exact, two calls bit for bit). The whole call
+    through autograd against the same call on the plain sweeps: the loss
+    within 1e-4 relative, the gradients of the encoder's states and of the
+    (V + 1)-row table leaf within 0.5% of their largest entry (`ROADMAP.md`
+    Queue C #7), the [MASK] row's gradient and zero-weight rows exactly 0,
+    two calls bit for bit. Then `time_b2` at this shape."""
+    from recbox_tpu_torch.ops.fused_ce import fused_softmax_ce
+    x, table, labels, w = cloze_inputs(model)
+    sweeps = b2_sweeps_vs_plain(x.detach(), table.detach()[:SEQ_V],
+                                -torch.log(w))
+
+    def call():
+        x.grad = table.grad = None
+        loss = fused_softmax_ce(x, table[:SEQ_V], labels, w)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.detach().clone(), x.grad.clone(), table.grad.clone()
+
+    first, second = call(), call()
+    with plain_sweeps():
+        plain = call()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    assert same, "B2 at the cloze shape: two calls differ"
+    loss, gx, gt = first
+    loss_p, gx_p, gt_p = plain
+    out = {"rows": SEQ_B * SEQ_P, "b": SEQ_B, "p": SEQ_P, "v": SEQ_V,
+           "d": x.shape[1], "zero_weights": int((w == 0).sum()),
+           "loss": float(loss), "loss_plain": float(loss_p),
+           "repeats_bit_identical": same, "sweeps": sweeps}
+    assert abs(float(loss) - float(loss_p)) <= 1e-4 * abs(float(loss_p)), out
+    for name, got, want in (("d_states", gx, gx_p), ("d_table", gt, gt_p)):
+        err, top = float((got - want).abs().max()), float(want.abs().max())
+        assert bool(torch.isfinite(got).all()) and err <= 5e-3 * top, \
+            (name, err, top)
+        out[name] = {"max_abs_err": err, "rel_to_max": err / top}
+    assert float(gt[SEQ_V].abs().max()) == 0.0, "the [MASK] row moved"
+    assert float(gx[w == 0].abs().max()) == 0.0, "a zero-weight row moved"
+    out["mask_row_grad_zero"] = out["zero_weight_rows_zero"] = True
+    del first, second, plain, gx, gt, gx_p, gt_p
+    return {**out, **time_b2(x.detach(), table.detach()[:SEQ_V], labels, w,
+                             reps=5)}
+
+
+def seq_zoo_on_card():
+    """5j (3): the other 19 sequential models through
+    `run_sequential_experiment` at their `configs/models/*.yaml` widths
+    over V = 20,000 (1 epoch of 16 batches of 256, ``fused_ce: True``,
+    512 valid and test rows): a finite falling loss, the route
+    `_use_fused_ce` took (CORE and RepeatNet keep `full_scores`), B2's
+    launches (one each way a step on the kernel route, none on the
+    other), B2 against its plain version on each kernel-route model's own
+    operands on the first batch (`b2_sweeps_vs_plain`) and ms a step (8
+    eager steps after the run)."""
+    import yaml
+    from recbox_tpu_torch import quick_start as qs
+    from recbox_tpu_torch.ops import fused_ce
+    train = seq_synth(SEQ_ZOO_V, SEQ_ZOO_STEPS * SEQ_ZOO_B, SEED + 51)
+    valid = seq_synth(SEQ_ZOO_V, SEQ_ZOO_EVAL, SEED + 52)
+    test = seq_synth(SEQ_ZOO_V, SEQ_ZOO_EVAL, SEED + 53)
+    fm = seq_feature_map(SEQ_ZOO_V)
+    batch = {k: torch.from_numpy(v[:SEQ_ZOO_B]).to(DEVICE)
+             for k, v in train.items()}
+    out = {}
+    for name in SEQ_ZOO:
+        with open(os.path.join(REPO, "configs", "models",
+                               f"{name.lower()}.yaml")) as fh:
+            cfg = yaml.safe_load(fh)
+        cfg.pop("stage")
+        if "num_users" in cfg:
+            cfg["num_users"] = 4096
+        cfg.update(model=name, batch_size=SEQ_ZOO_B, epochs=1,
+                   fused_ce=True, learning_rate=5e-3, eval_batch_size=512,
+                   monitor="NDCG(k=10)", seed=2024)
+        fused_ce.reset_launches()
+        t0 = time.perf_counter()
+        res, tr = run_recorded(lambda: qs.run_sequential_experiment(
+            cfg, fm, train, valid, test_arrays=test, device=DEVICE))
+        wall_s = time.perf_counter() - t0
+        launches = dict(fused_ce.launches)
+        losses = step_losses(tr)
+        want = "full_scores" if name in SEQ_PLAIN_ROUTE else "fused_ce_loss"
+        n = SEQ_ZOO_STEPS if want == "fused_ce_loss" else 0
+        assert tr.train_method == want, (name, tr.train_method)
+        assert launches == {"fused_ce_fwd": n, "fused_ce_bwd": n}, \
+            (name, launches)
+        assert len(losses) == SEQ_ZOO_STEPS and np.isfinite(losses).all(), \
+            (name, losses)
+        assert losses[-4:].mean() < losses[:4].mean(), (name, losses)
+        assert all(np.isfinite(v) for v in res.values()), (name, res)
+        check = {}
+        if want == "fused_ce_loss":
+            # B2 at the operands this model hands it (D = 64; 65 / 66,
+            # padded to 80; 128), after the launches were read
+            model = tr.model
+            with torch.no_grad():
+                user = model.user_tower(batch) / model.temperature
+                table = model._table().detach()
+            check = {"b2_check": {"d": user.shape[1],
+                                  **b2_sweeps_vs_plain(user, table)}}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(8):
+            tr.train_step(batch)
+        torch.cuda.synchronize()
+        out[name] = {**check, "route": tr.train_method,
+                     "b2_launches": launches,
+                     "loss_first4": losses[:4].tolist(),
+                     "loss_last4": losses[-4:].tolist(),
+                     "ms_a_step": (time.perf_counter() - t1) / 8 * 1e3,
+                     "wall_s": wall_s, "test_NDCG(k=10)":
+                     res["test_NDCG(k=10)"]}
+        del tr
+    return out
+
+
+def run_experiment_on_card(data_root):
+    """5j (4): `run_experiment("SASRec", "ml1m_scale", epochs=2,
+    device="cuda")` over phase 5i's staged atomic files: the seconds of
+    the data preparation, `fit` and the test evaluation, and the metrics."""
+    from recbox_tpu_torch.quick_start import run_experiment
+    t0 = time.perf_counter()
+    res, tr = run_recorded(lambda: run_experiment(
+        "SASRec", "ml1m_scale", data_dir=data_root, epochs=2,
+        monitor="NDCG(k=10)", device=DEVICE))
+    t_end = time.perf_counter()
+    assert all(np.isfinite(v) for v in res.values()), res
+    # chance Recall@10 over 3706 items is ~0.0027
+    return {"data_s": tr.made_at - t0, "fit_s": tr.fit_s,
+            "eval_s": tr.eval_s, "test_s": t_end - tr.fit_end,
+            "wall_s": t_end - t0, "steps": len(step_losses(tr)),
+            "metrics": res}
 
 
 def main() -> int:
@@ -3049,9 +3516,33 @@ def main() -> int:
     zoo = zoo_criteo()
     emit({"phase": "zoo_criteo", "card": card,
           "wall_s": time.perf_counter() - t0, **zoo})
-    # 5i. the cascade on the card
-    emit({"phase": "cascade_ml1m_scale", "card": card,
-          **cascade_on_card()})
+    # 5i. the cascade on the card; 5j. the sequential stage from the
+    # user's first call (its step 4 reads 5i's staged files)
+    import tempfile
+    from recbox_tpu_torch.ops import fused_ce
+    from recbox_tpu_torch.tools import quality_exit as qe
+    with tempfile.TemporaryDirectory() as stage_dir:
+        t0 = time.perf_counter()
+        ml1m_dir = qe.gen_ml1m_scale(stage_dir)
+        emit({"phase": "cascade_ml1m_scale", "card": card,
+              "gen_s": time.perf_counter() - t0,
+              **cascade_on_card(ml1m_dir)})
+        t0 = time.perf_counter()
+        trainer, _, seq_cli = bert4rec_from_cli(
+            os.path.join(stage_dir, "bert4rec"))
+        emit({"phase": "bert4rec_1m_run_main", "card": card, **seq_cli})
+        cloze = cloze_on_card(trainer.model)
+        emit({"phase": "bert4rec_cloze_b2", "card": card, **cloze})
+        del trainer
+        torch.cuda.empty_cache()
+        fused_ce.reset_launches()
+        seq_zoo = seq_zoo_on_card()
+        emit({"phase": "seq_zoo", "card": card, "vocab": SEQ_ZOO_V,
+              "batch": SEQ_ZOO_B, "steps": SEQ_ZOO_STEPS, "models": seq_zoo})
+        emit({"phase": "run_experiment_sasrec_ml1m_scale", "card": card,
+              **run_experiment_on_card(os.path.dirname(
+                  os.path.normpath(ml1m_dir)))})
+        emit({"phase": "seq_stage", "wall_s": time.perf_counter() - t0})
 
     # 6. times
     qps = {}
@@ -3072,7 +3563,10 @@ def main() -> int:
         emit({"phase": "timing", "card": card,
               "kernel": "packed_adagrad_update", **t})
     b1_time = b1_times["uniform"]
-    b2_time = time_b2(gen)
+    user, table = b2_inputs(gen, SAS_B, SAS_V, SAS_D)
+    b2_time = time_b2(user, table, torch.randint(
+        0, SAS_V, (SAS_B,), generator=gen, device=DEVICE))
+    del user, table
     emit({"phase": "timing", "card": card, "kernel": "fused_ce", **b2_time})
     timings = {}
     for variant in ("bf16", "int8", "f32"):
@@ -3187,15 +3681,47 @@ def main() -> int:
             ("fused_ce_backward", "bwd",
              {"du": b2_err["du"], "dt": b2_err["dt"]},
              "recbox_tpu/ops/pallas/fused_ce.py:212")):
+        zoo_launches = sum(m["b2_launches"][f"fused_ce_{key}"]
+                           for m in seq_zoo.values())
         kernels.append({
             "name": name, "route": "cuda",
             "source": "recbox_tpu_torch/csrc/fused_ce.cu",
             "replaces": replaces,
-            "launches": fit_d["b2_launches"][f"fused_ce_{key}"],
+            "launches": fit_d["b2_launches"][f"fused_ce_{key}"]
+            + seq_cli["b2_launches"][f"fused_ce_{key}"],
             "launches_by_path": {
                 "fit_fused_graph": fit_d["b2_launches"][f"fused_ce_{key}"],
                 "train_steps_repeat_eager": sas["launches"][
-                    f"fused_ce_{key}"]},
+                    f"fused_ce_{key}"],
+                "bert4rec_run_main_5j": seq_cli["b2_launches"][
+                    f"fused_ce_{key}"],
+                "seq_zoo_5j": zoo_launches},
+            "cloze": {
+                "shape": {"rows": cloze["rows"], "v": cloze["v"],
+                          "d": cloze["d"], "zero_weights":
+                          cloze["zero_weights"]},
+                # no pipeline calls `fused_cloze_loss`: BERT4Rec's run
+                # trains through the next-item `fused_ce_loss` (1024 rows,
+                # no weights), counted under bert4rec_run_main_5j
+                "launches": 0,
+                "max_abs_err": cloze["sweeps"]["lse"] if key == "fwd"
+                else max(cloze["sweeps"]["du"], cloze["sweeps"]["dt"]),
+                "plan": cloze["sweeps"]["plan"],
+                **{k: cloze[f"{key}_{k}"] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by")},
+                "library_ms": cloze["fwd_library_ms" if key == "fwd"
+                                    else "fwd_bwd_library_ms"],
+                "library": "F.cross_entropy(reduction='none') over the "
+                           f"bf16 logits, weighted, {cloze['library_calls']} "
+                           f"calls of {LIB_ROWS} rows"
+                           + ("" if key == "fwd" else
+                              ", forward + backward"),
+                "repeats_bit_identical": cloze["repeats_bit_identical"]},
+            "seq_zoo_shapes": {
+                m: {"d": z["b2_check"]["d"], "plan": z["b2_check"]["plan"],
+                    "max_abs_err": z["b2_check"]["lse"] if key == "fwd"
+                    else max(z["b2_check"]["du"], z["b2_check"]["dt"])}
+                for m, z in seq_zoo.items() if "b2_check" in z},
             "device_ms_in_profiled_step": {
                 "eager": (eager_d["groups"] or {}).get(
                     "b2_forward" if key == "fwd" else "b2_backward"),

@@ -10,9 +10,8 @@ One config system replacing the reference's four (SURVEY §5.6):
   4. daisy's basic+algo yaml + argparse.
 
 The port's own copy of `recbox_tpu/config/config.py` (it imports no JAX,
-but the port imports nothing of the JAX package), unchanged in function.
-`autotuner.py` and `hyper_tuning.py` are not copied yet (`ROADMAP.md`,
-Queue A: "Orchestration remainder").
+but the port imports nothing of the JAX package), unchanged in function;
+`autotuner.py` and `hyper_tuning.py` beside it are copies too.
 
 `load_config(config_dir, experiment_id)` reads both files, resolves
 `Base` inheritance and the experiment's `dataset_id`; `Config.merge`

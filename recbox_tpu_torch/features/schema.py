@@ -1,17 +1,25 @@
 """Feature schema: typed specs for every input feature and the dataset map.
 
-Own copy of the part of `recbox_tpu/features/schema.py` that the ported
-slices read: the feature types, `FeatureSpec.table_name`, and the
-`FeatureMap` fields and lookups (`labels`, `by_source`, `input_features`,
-`feature_dict`). Fields no ported path reads (pretrained tables, frozen
-tables, table placement, JSON persistence) wait for the slices that need
-them. A numeric feature is one scalar column, embedded as value × a learned
-(1, d) vector by `nn.embedding.FeatureEmbedding`, as in the JAX package.
+Own copy of `recbox_tpu/features/schema.py` (:39-204): the feature types,
+`FeatureSpec` (`table_name`, `to_dict`), and the `FeatureMap` fields,
+lookups (`labels`, `by_type`, `by_source`, `input_features`,
+`num_fields`, `sum_emb_out_dim`, `feature_dict`) and JSON persistence
+(`to_json`, `save`, `load`, `from_dict`, `replace`, JAX :165-203). The
+file format is JAX's byte for byte: the specs carry JAX's fields in JAX's
+order, so a ``feature_map.json`` either package writes loads in the other.
+Two of those fields name work the port has not done yet: a spec with a
+``pretrain_path`` or ``freeze_emb`` raises NotImplementedError
+(`ROADMAP.md` Queue A: "nn/embedding.py remainder"); ``shard_table`` is a
+mesh placement and the port has no mesh, so it is kept and not read. A
+numeric feature is one scalar column, embedded as value × a learned (1, d)
+vector by `nn.embedding.FeatureEmbedding`, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Mapping, Optional, Tuple
 
 __all__ = ["CATEGORICAL", "NUMERIC", "SEQUENCE", "META", "FeatureSpec",
@@ -41,7 +49,10 @@ class FeatureSpec:
       share_embedding: name of the feature whose table this one reuses.
       padding_idx: id whose embedding is masked to zeros; None disables
         (a sequence feature then pads with ``vocab_size - 1``).
+      pretrain_path, freeze_emb: a pretrained table and whether it trains
+        (not ported: set, they raise).
       pooling: sequence pooling, 'mean' | 'sum' | 'concat' | 'none'.
+      shard_table: JAX's per-table mesh placement (kept, not read).
     """
 
     name: str
@@ -52,17 +63,34 @@ class FeatureSpec:
     max_len: int = 0
     share_embedding: Optional[str] = None
     padding_idx: Optional[int] = None
+    pretrain_path: Optional[str] = None
+    freeze_emb: bool = False
     pooling: str = "mean"
+    shard_table: Optional[bool] = None
 
     def __post_init__(self):
         if self.type not in _VALID_TYPES:
             raise ValueError(f"feature {self.name}: invalid type {self.type!r}")
         if self.type == SEQUENCE and self.max_len <= 0:
             raise ValueError(f"sequence feature {self.name} needs max_len > 0")
+        if self.pretrain_path or self.freeze_emb:
+            raise NotImplementedError(
+                f"feature {self.name}: pretrained / frozen tables are not "
+                "ported yet (ROADMAP.md, Queue A: \"nn/embedding.py "
+                "remainder\")")
 
     @property
     def table_name(self) -> str:
         return self.share_embedding or self.name
+
+    def to_dict(self) -> dict:
+        """The non-default fields (name, type, vocab_size and embedding_dim
+        always; ``shard_table`` whenever it is not None), JAX's rule."""
+        d = dataclasses.asdict(self)
+        return {k: v for k, v in d.items()
+                if v not in (None, "", 0, False)
+                or k in ("name", "type", "vocab_size", "embedding_dim")
+                or (k == "shard_table" and v is not None)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +120,9 @@ class FeatureMap:
     def __getitem__(self, name: str) -> FeatureSpec:
         return self.feature_dict[name]
 
+    def by_type(self, ftype: str) -> Tuple[FeatureSpec, ...]:
+        return tuple(f for f in self.features if f.type == ftype)
+
     def by_source(self, source: str) -> Tuple[FeatureSpec, ...]:
         """Features routed to a tower; '' (unset) features go to every tower."""
         return tuple(f for f in self.features
@@ -100,3 +131,54 @@ class FeatureMap:
     @property
     def input_features(self) -> Tuple[FeatureSpec, ...]:
         return tuple(f for f in self.features if f.type != META)
+
+    @property
+    def num_fields(self) -> int:
+        return len(self.input_features)
+
+    def sum_emb_out_dim(self, source: Optional[str] = None) -> int:
+        """Total embedded width (a 'concat' sequence counts max_len times)."""
+        feats = self.input_features if source is None \
+            else self.by_source(source)
+        return sum(f.embedding_dim * f.max_len
+                   if f.type == SEQUENCE and f.pooling == "concat"
+                   else f.embedding_dim for f in feats)
+
+    # -- persistence ---------------------------------------------------------
+    def to_json(self) -> str:
+        return json.dumps({
+            "dataset_id": self.dataset_id,
+            "features": [f.to_dict() for f in self.features],
+            "labels": list(self.labels),
+            "query_index": self.query_index,
+            "corpus_index": self.corpus_index,
+            "group_id": self.group_id,
+            "num_items": self.num_items,
+            "num_samples": self.num_samples,
+        }, indent=2)
+
+    def save(self, path: str) -> None:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as fh:
+            fh.write(self.to_json())
+
+    @classmethod
+    def load(cls, path: str) -> "FeatureMap":
+        with open(path) as fh:
+            return cls.from_dict(json.load(fh))
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FeatureMap":
+        return cls(
+            dataset_id=d["dataset_id"],
+            features=tuple(FeatureSpec(**fd) for fd in d["features"]),
+            labels=tuple(d.get("labels", ())),
+            query_index=d.get("query_index", ""),
+            corpus_index=d.get("corpus_index", ""),
+            group_id=d.get("group_id", ""),
+            num_items=d.get("num_items", 0),
+            num_samples=d.get("num_samples", 0),
+        )
+
+    def replace(self, **kw) -> "FeatureMap":
+        return dataclasses.replace(self, **kw)

@@ -43,6 +43,17 @@ candidate port keys, and the first one the port module has is taken:
 
 The flax variables' ``batch_stats`` collection (BatchNorm running mean and
 variance) maps by the same rules onto the port's buffers of those names.
+
+The sequential zoo takes the same rules: Caser's NHWC kernels (h, D, 1,
+n_h) / (L, 1, 1, n_v) become `Conv2d` weights (n_h, 1, h, D) / (n_v, 1,
+L, 1), NextItNet's (k, D, D) `Conv1d` weights (D, D, k); a flax
+``GRUCell``'s ``ir`` / ``iz`` / ``in`` / ``hr`` / ``hz`` / ``hn`` Denses
+(``GRUCell_<i>`` where ``nn.RNN`` scans it, ``gru`` in the GGNN) map onto
+`nn.recurrent.GRUCell`'s Linears of those names; BERT4Rec's (V + 1)-row
+``emb_item``, SINE's ``prototypes`` and LightSANs' ``pos`` are bare
+parameters; LightSANs' DenseGeneral heads (``q``, ``k``, ``v``,
+``theta``, ``pq``, ``pk``) are one Linear each
+(`tests/test_torch_sequential_zoo.py`).
 """
 
 from __future__ import annotations

@@ -24,7 +24,11 @@ from recbox_tpu_torch.models.ranking.ctr import (
 from recbox_tpu_torch.models.reranking.models import (
     DLCM, GSF, PRM, MiDNN, SetRank,
 )
-from recbox_tpu_torch.models.sequential import SASRec
+from recbox_tpu_torch.models.sequential import (
+    CORE, FDSA, FOSSIL, FPMC, GCSAN, HGN, HRM, NARM, NPE, SHAN, SINE, SRGNN,
+    STAMP, BERT4Rec, Caser, GRU4Rec, LightSANs, NextItNet, RepeatNet, SASRec,
+    TransRec,
+)
 
 __all__ = ["MODEL_REGISTRY", "get_model", "register_model", "list_models"]
 
@@ -32,17 +36,14 @@ MODEL_REGISTRY: Dict[str, Tuple[Type, str]] = {}
 
 # the JAX registry's names the port does not have yet: (stage, the
 # ROADMAP.md Queue A item that ports them)
-_SEQ, _RANK, _MATCH = ("Sequential remainder and zoo", "Ranking zoo remainder",
+_SEQ, _RANK, _MATCH = ("Sequential pretraining", "Ranking zoo remainder",
                        "Matching zoo remainder")
 _RERANK, _KG, _FULL = ("Reranking remainder", "Knowledge",
                        "The full registry")
 _PENDING: Dict[str, Tuple[str, str]] = {}
 for _names, _stage, _item in [
         (("SharedBottom", "ESMM", "MMOE", "PLE", "AITM"), "multitask", _RANK),
-        (("GRU4Rec", "NARM", "STAMP", "Caser", "NextItNet", "BERT4Rec",
-          "FPMC", "TransRec", "HGN", "SHAN", "FOSSIL", "HRM", "NPE", "CORE",
-          "LightSANs", "FDSA", "RepeatNet", "SINE", "SRGNN", "GCSAN",
-          "S3Rec", "GRU4RecF"), "sequential", _SEQ),
+        (("S3Rec", "GRU4RecF"), "sequential", _SEQ),
         (("KSR",), "sequential", _KG),
         (("DIN", "BST", "DIEN", "DSIN", "FFM", "FwFM", "FmFM", "FEFM",
           "DeepFEFM", "ONN", "CCPM", "FGCNN", "FLEN", "IFM", "DIFM", "EDCN",
@@ -100,7 +101,15 @@ for _name, _cls in [("LR", LR), ("FM", FM), ("DNN", DNN),
                     ("xDeepFM", xDeepFM), ("AutoInt", AutoInt), ("PNN", PNN),
                     ("FiBiNET", FiBiNET), ("WDL", WideDeep)]:
     register_model(_name, _cls, "ranking")
-register_model("SASRec", SASRec, "sequential")
+for _name, _cls in [("SASRec", SASRec), ("GRU4Rec", GRU4Rec), ("NARM", NARM),
+                    ("STAMP", STAMP), ("Caser", Caser),
+                    ("NextItNet", NextItNet), ("BERT4Rec", BERT4Rec),
+                    ("FPMC", FPMC), ("TransRec", TransRec), ("HGN", HGN),
+                    ("SHAN", SHAN), ("FOSSIL", FOSSIL), ("HRM", HRM),
+                    ("NPE", NPE), ("CORE", CORE), ("LightSANs", LightSANs),
+                    ("FDSA", FDSA), ("RepeatNet", RepeatNet),
+                    ("SINE", SINE), ("SRGNN", SRGNN), ("GCSAN", GCSAN)]:
+    register_model(_name, _cls, "sequential")
 for _name, _cls in [("PRM", PRM), ("DLCM", DLCM), ("SetRank", SetRank),
                     ("MiDNN", MiDNN), ("GSF", GSF)]:
     register_model(_name, _cls, "reranking")

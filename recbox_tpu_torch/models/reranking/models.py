@@ -10,10 +10,8 @@ moves a flax tree over. Each model takes ``generator`` and ``device``
 (`models.base.init_rng`).
 
 DLCM's GRU is flax's ``GRUCell`` run by ``nn.RNN`` over the whole padded
-length: bias on the three input projections and on ``hn`` only, the
-recurrent kernels drawn orthogonal. It is written out as a loop over the
-list: ``torch.nn.GRU`` carries trainable biases on the r and z recurrent
-projections too, which an optimizer would move apart from JAX's model.
+length: `nn.recurrent.GRUCell` and `nn.recurrent.rnn`, shared with the
+recurrent sequential models.
 """
 
 from __future__ import annotations
@@ -26,9 +24,10 @@ from torch import nn
 
 from recbox_tpu_torch.models.base import init_rng
 from recbox_tpu_torch.nn.attention import (
-    PositionalEmbedding, TransformerEncoder, lecun_normal_,
+    PositionalEmbedding, TransformerEncoder, dense,
 )
 from recbox_tpu_torch.nn.core import MLP
+from recbox_tpu_torch.nn.recurrent import GRUCell, rnn
 
 __all__ = ["PRM", "DLCM", "SetRank", "MiDNN", "GSF", "listwise_bce",
            "listwise_softmax_ce"]
@@ -59,16 +58,6 @@ def listwise_softmax_ce(scores: torch.Tensor, labels: torch.Tensor,
     return -torch.mean(torch.sum(target * logp, dim=-1))
 
 
-def _dense(d_in: int, d_out: int, generator, device,
-           bias: bool = True) -> nn.Linear:
-    """A flax ``Dense``: lecun_normal kernel, zero bias."""
-    lin = nn.Linear(d_in, d_out, bias=bias, device=device)
-    lecun_normal_(lin.weight, generator)
-    if bias:
-        nn.init.zeros_(lin.bias)
-    return lin
-
-
 class _Reranker(nn.Module):
     def __init__(self, generator, device):
         super().__init__()
@@ -86,52 +75,19 @@ class PRM(_Reranker):
                  device: Device = None):
         super().__init__(generator, device)
         g, dev = self._gen, self._dev
-        self.input_proj = _dense(in_dim, d_model, g, dev)
+        self.input_proj = dense(in_dim, d_model, g, dev)
         self.pos = PositionalEmbedding(max_list_len, d_model, generator=g,
                                        device=dev)
         self.encoder = TransformerEncoder(
             d_model, n_layers=n_layers, n_heads=n_heads,
             hidden_dropout=dropout, attn_dropout=dropout, generator=g,
             device=dev)
-        self.score = _dense(d_model, 1, g, dev)
+        self.score = dense(d_model, 1, g, dev)
 
     def forward(self, item_feats: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
         x = self.pos(self.input_proj(item_feats))
         return self.score(self.encoder(x, mask=mask))[..., 0]
-
-
-class _GRUCell(nn.Module):
-    """flax ``GRUCell``: r = σ(ir(x) + hr(h)), z = σ(iz(x) + hz(h)),
-    n = tanh(in(x) + r · hn(h)), h' = (1 − z) · n + z · h."""
-
-    def __init__(self, in_dim: int, hidden: int, generator, device):
-        super().__init__()
-        for name in ("ir", "iz", "in"):
-            self.add_module(name, _dense(in_dim, hidden, generator, device))
-        for name, bias in (("hr", False), ("hz", False), ("hn", True)):
-            lin = nn.Linear(hidden, hidden, bias=bias, device=device)
-            with torch.no_grad():
-                nn.init.orthogonal_(lin.weight, generator=generator)
-            if bias:
-                nn.init.zeros_(lin.bias)
-            self.add_module(name, lin)
-        self.hidden = hidden
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, L, D) → the (B, L, H) states, from a zero carry over all L
-        steps."""
-        xr, xz, xn = self.ir(x), self.iz(x), getattr(self, "in")(x)
-        h = torch.zeros(x.shape[0], self.hidden, dtype=xr.dtype,
-                        device=x.device)
-        out = []
-        for t in range(x.shape[1]):
-            r = torch.sigmoid(xr[:, t] + self.hr(h))
-            z = torch.sigmoid(xz[:, t] + self.hz(h))
-            n = torch.tanh(xn[:, t] + r * self.hn(h))
-            h = (1.0 - z) * n + z * h
-            out.append(h)
-        return torch.stack(out, dim=1)
 
 
 class DLCM(_Reranker):
@@ -143,12 +99,12 @@ class DLCM(_Reranker):
                  device: Device = None):
         super().__init__(generator, device)
         g, dev = self._gen, self._dev
-        self.GRUCell_0 = _GRUCell(in_dim, hidden_size, g, dev)
-        self.wc = _dense(hidden_size, hidden_size, g, dev, bias=False)
+        self.GRUCell_0 = GRUCell(in_dim, hidden_size, g, dev)
+        self.wc = dense(hidden_size, hidden_size, g, dev, bias=False)
 
     def forward(self, item_feats: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
-        h = self.GRUCell_0(item_feats)
+        h = rnn(self.GRUCell_0, item_feats)
         seq_len = torch.sum(mask.to(torch.int64), dim=-1)
         idx = torch.clamp(seq_len - 1, min=0)
         ctx = h[torch.arange(h.shape[0], device=h.device), idx]
@@ -165,12 +121,12 @@ class SetRank(_Reranker):
                  device: Device = None):
         super().__init__(generator, device)
         g, dev = self._gen, self._dev
-        self.input_proj = _dense(in_dim, d_model, g, dev)
+        self.input_proj = dense(in_dim, d_model, g, dev)
         self.encoder = TransformerEncoder(
             d_model, n_layers=n_layers, n_heads=n_heads,
             hidden_dropout=dropout, attn_dropout=dropout, generator=g,
             device=dev)
-        self.score = _dense(d_model, 1, g, dev)
+        self.score = dense(d_model, 1, g, dev)
 
     def forward(self, item_feats: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,7 @@ from torch import nn
 from recbox_tpu_torch.nn.core import _TRUNC_STD, Dropout
 
 __all__ = ["PositionalEmbedding", "TransformerEncoder", "LayerNorm",
-           "lecun_normal_"]
+           "dense", "lecun_normal_"]
 
 NEG_INF = -1e9
 
@@ -47,10 +47,13 @@ def lecun_normal_(weight: torch.Tensor,
                                      generator=generator)
 
 
-def _linear(d_in: int, d_out: int, generator, device) -> nn.Linear:
-    lin = nn.Linear(d_in, d_out, device=device)
+def dense(d_in: int, d_out: int, generator, device,
+          bias: bool = True) -> nn.Linear:
+    """A flax ``Dense``: lecun-normal kernel, zero bias."""
+    lin = nn.Linear(d_in, d_out, bias=bias, device=device)
     lecun_normal_(lin.weight, generator)
-    nn.init.zeros_(lin.bias)
+    if bias:
+        nn.init.zeros_(lin.bias)
     return lin
 
 
@@ -106,11 +109,11 @@ class TransformerEncoder(nn.Module):
         g, dev = generator, device
         for i in range(n_layers):
             for name in ("q", "k", "v", "o"):
-                self.add_module(f"{name}{i}", _linear(dim, dim, g, dev))
+                self.add_module(f"{name}{i}", dense(dim, dim, g, dev))
             self.add_module(f"Dense_{2 * i}",
-                            _linear(dim, dim * inner_dim_multiple, g, dev))
+                            dense(dim, dim * inner_dim_multiple, g, dev))
             self.add_module(f"Dense_{2 * i + 1}",
-                            _linear(dim * inner_dim_multiple, dim, g, dev))
+                            dense(dim * inner_dim_multiple, dim, g, dev))
             for j in (2 * i, 2 * i + 1):
                 self.add_module(f"LayerNorm_{j}",
                                 LayerNorm(dim, 1e-12, device=dev))

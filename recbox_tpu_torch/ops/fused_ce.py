@@ -13,8 +13,9 @@ logit, the bf16 x bf16 -> f32 gather-dot (:202). The backward recomputes
 p = bf16(exp(x - lse_eff)), lse_eff = lse - log w (a row of weight 0 drops
 out exactly: its ``du`` is exactly 0), and takes du = p T and dt = p^T U;
 the one-hot corrections use the original-precision ``table[labels]`` and
-``user`` (:349-350), and ``weights`` / ``pos_mask`` get their true
-cotangents (:351-356, :450-454).
+``user`` (:349-350), added into dT by a sort-based accumulation (repeated
+labels in a fixed order: two calls give the same bits), and ``weights`` /
+``pos_mask`` get their true cotangents (:351-356, :450-454).
 
 The sweeps (`fused_ce_lse`, `fused_ce_bwd`) run the CUDA kernels
 (`csrc/fused_ce.cu` `ce_fwd` + `lse_combine` and `ce_bwd` + `du_reduce`,
@@ -270,6 +271,19 @@ def _gather_dot(u: torch.Tensor, t: torch.Tensor,
     return torch.sum(uf * rows, dim=-1)
 
 
+def _add_rows(dt: torch.Tensor, ids: torch.Tensor,
+              rows: torch.Tensor) -> None:
+    """dt[ids] += rows, repeated ids in a fixed order, so that two calls
+    give the same bits: on the card a sort-based ``index_put_`` (CUDA's
+    ``index_add_`` adds by atomics in no fixed order), on the CPU
+    ``index_add_`` (there ``index_put_``'s accumulation is the unordered
+    one)."""
+    if dt.is_cuda:
+        dt.index_put_((ids,), rows, accumulate=True)
+    else:
+        dt.index_add_(0, ids, rows)
+
+
 class _FusedCE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, user, table, labels, weights):
@@ -294,7 +308,7 @@ class _FusedCE(torch.autograd.Function):
         du, dt = fused_ce_bwd(u, t, lse - torch.log(w), scale, d)
         ws = (w * scale)[:, None]
         du = du - ws * table[lbl].to(torch.float32)
-        dt.index_add_(0, lbl, -ws * user.to(torch.float32))
+        _add_rows(dt, lbl, -ws * user.to(torch.float32))
         dw = None
         if ctx.needs_input_grad[3]:
             # L = sum(w a) / sum(w) -> dL/dw_i = (a_i - L) / sum(w)
@@ -328,7 +342,7 @@ class _FusedMCE(torch.autograd.Function):
         tg = table[ids].to(torch.float32)                     # (B, H, D)
         du = du - scale * torch.einsum("bh,bhd->bd", mm, tg)
         add = scale * mm[:, :, None] * user.to(torch.float32)[:, None, :]
-        dt.index_add_(0, ids.reshape(-1), -add.reshape(-1, d))
+        _add_rows(dt, ids.reshape(-1), -add.reshape(-1, d))
         dm = None
         if ctx.needs_input_grad[3]:
             # dL/dm_ih = (lse_i - ll_ih) / B

@@ -1,20 +1,32 @@
-"""One-call experiment pipelines: the ranking, reranking and cascade ones.
+"""One-call experiment pipelines, from a dataset name or arrays to metrics.
 
-Counterpart of `recbox_tpu/quick_start.py`: `build_model` (:84),
-`build_trainer_config` (:95), `run_ranking_experiment` (:101, with
-``trainer: packed`` → `PackedEmbeddingTrainer`, :135-142),
-`run_rerank_experiment` (:389), `_user2items`, `_acquire_interactions` and
-`_filter_and_remap` (:603-645) and `run_cascade_experiment` (:886-1213).
+Counterpart of `recbox_tpu/quick_start.py`: `_use_fused_ce` (:41-81),
+`build_model` (:84), `build_trainer_config` (:95), `run_ranking_experiment`
+(:101, with ``trainer: packed`` → `PackedEmbeddingTrainer`, :135-142),
+`run_matching_experiment` (:162-261), `run_sequential_experiment`
+(:264-386), `run_rerank_experiment` (:389), `_user2items`,
+`_acquire_interactions` and `_filter_and_remap` (:603-645),
+`run_experiment` (:647-883) and `run_cascade_experiment` (:886-1213).
 A model's hyperparameters come from the config by the names of its
 constructor's arguments (JAX's: its dataclass fields); its initial draw
 from a generator seeded with the config's ``seed`` (2024 by default; JAX
 draws it from ``TrainerConfig.seed``, the same key). Every entry point
 takes ``device=`` and runs on the CUDA device unless the caller names
 another (`recbox_tpu_torch.resolve_device`, which raises without a card).
+``mesh`` is accepted for JAX's signatures; the port has no mesh
+(`parallel/` is not ported), so a mesh reaching a trainer raises there.
 
-`run_matching_experiment`, `run_sequential_experiment`,
-`run_kg_experiment` and `run_experiment` are not ported yet: they raise,
-naming `ROADMAP.md` Queue A's "Orchestration remainder"; so do the
+The sequential pipeline scores its evaluation chunks on the device and
+ranks there: a row's hit position under 'full' is the count of items that
+score above the target plus those that score equal and come before it in
+index order (JAX copies the (rows, V) scores to the host and argsorts
+them; the positions agree wherever the target's score is untied, and JAX's
+quicksort has no fixed tie order). Under 'uniN' / 'popN' the candidates
+are JAX's numpy draws, value for value, and the position is the stable
+sort's, as in JAX.
+
+`run_kg_experiment`, and `run_experiment` on a knowledge model, raise
+NotImplementedError naming `ROADMAP.md` Queue A's "Knowledge"; so does the
 multitask branch of `run_ranking_experiment` ("Ranking zoo remainder").
 
 `run_cascade_experiment` keeps two behaviours of the reference that
@@ -40,7 +52,9 @@ from recbox_tpu_torch.evaluation.evaluators import (
 )
 from recbox_tpu_torch.features.schema import FeatureMap
 from recbox_tpu_torch.models.registry import get_model
-from recbox_tpu_torch.ops.losses import binary_crossentropy, get_matching_loss
+from recbox_tpu_torch.ops.losses import (
+    binary_crossentropy, full_softmax_loss, get_matching_loss,
+)
 from recbox_tpu_torch.training import Trainer, TrainerConfig
 
 logger = logging.getLogger("recbox_tpu_torch")
@@ -51,7 +65,47 @@ __all__ = ["build_model", "build_reranker", "build_trainer_config",
            "run_kg_experiment", "run_experiment", "run_cascade_experiment"]
 
 Device = Optional[Union[str, torch.device]]
-_ORCHESTRATION = "(ROADMAP.md, Queue A: \"Orchestration remainder\")"
+_KNOWLEDGE = "(ROADMAP.md, Queue A: \"Knowledge\")"
+
+
+def _use_fused_ce(config: Mapping[str, Any], feature_map: FeatureMap,
+                  model, mesh=None) -> bool:
+    """Whether the sequential CE trains through kernel B2
+    (``fused_ce_loss``) instead of the (B, V) logits (``full_scores``):
+    JAX's gate, gate for gate and in its order.
+
+    Correctness gates first, and they override an explicit ``fused_ce:
+    True`` (with JAX's warning): the kernel computes the base
+    ``full_scores`` protocol (plain dot / temperature), so a model that
+    overrides ``full_scores`` or ``fused_ce_loss`` (CORE's cosine,
+    RepeatNet's mixture) keeps the logits, and so does a mesh run. Then an
+    explicit ``fused_ce`` decides. Otherwise the kernel takes models that
+    already compute in bf16 with a corpus of at least
+    ``fused_ce_threshold`` (150,000) items."""
+    from recbox_tpu_torch.models.sequential.models import (
+        SequentialRecommender,
+    )
+
+    if not isinstance(model, SequentialRecommender):
+        return False
+    overridden = (
+        type(model).full_scores is not SequentialRecommender.full_scores
+        or type(model).fused_ce_loss
+        is not SequentialRecommender.fused_ce_loss)
+    if overridden or mesh is not None:
+        if config.get("fused_ce"):
+            logger.warning(
+                "fused_ce requested but %s — keeping the XLA "
+                "full_scores path",
+                "the model overrides full_scores (its scoring protocol "
+                "is not the plain dot the kernel computes)" if overridden
+                else "the flash-CE kernel is single-shard (mesh run)")
+        return False
+    if "fused_ce" in config:
+        return bool(config["fused_ce"])
+    n_corpus = feature_map[feature_map.corpus_index].vocab_size
+    return (n_corpus >= int(config.get("fused_ce_threshold", 150_000))
+            and getattr(model, "compute_dtype", None) == "bfloat16")
 
 
 def _model_kwargs(cls, config: Mapping[str, Any]) -> Dict[str, Any]:
@@ -218,19 +272,242 @@ def run_rerank_experiment(
     return result
 
 
-def _not_ported(name: str):
-    def run(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet "
-                                  f"{_ORCHESTRATION}")
-    run.__name__ = run.__qualname__ = name
-    run.__doc__ = f"Not ported yet {_ORCHESTRATION}: raises."
-    return run
+def run_matching_experiment(
+    config: Mapping[str, Any],
+    feature_map: FeatureMap,
+    train_arrays: Dict[str, np.ndarray],
+    corpus_arrays: Dict[str, np.ndarray],
+    eval_user_arrays: Dict[str, np.ndarray],
+    query_indices: np.ndarray,
+    train_user2items: Mapping[int, Any],
+    valid_user2items: Mapping[int, Any],
+    mesh=None,
+    test_user2items: Optional[Mapping[int, Any]] = None,
+    test_user_arrays: Optional[Dict[str, np.ndarray]] = None,
+    device: Device = None,
+) -> Dict[str, float]:
+    """Two-tower / graph / sequential matching pipeline with retrieval
+    evaluation. ``loss: FullSoftmaxCE`` trains a sequential model on
+    whole-vocabulary CE (through B2 where `_use_fused_ce` opens); any other
+    loss trains on `MatchingLoader`'s sampled negatives. With
+    ``test_user2items`` the best-valid weights are evaluated on them after
+    `fit`, train ∪ valid positives masked (recbole's test phase), as
+    ``test_*`` keys. The protocol and beyond-accuracy keys
+    (``eval_protocol``, ``beyond_accuracy_metrics``, ``beyond_topk``,
+    ``exclude_items``) reach both evaluators."""
+    config = Config(config)
+    dev = resolve_device(device)
+    model, _ = build_model(config, feature_map, dev)
+    metrics = list(config.get("metrics", ["Recall(k=20)", "NDCG(k=10)"]))
+
+    def evaluator(users, queries, masks, truth):
+        return RetrievalEvaluator(
+            users, corpus_arrays, queries, masks, truth, metrics=metrics,
+            batch_size=config.get("eval_batch_size", 4096),
+            beyond_accuracy_metrics=config.get("beyond_accuracy_metrics",
+                                               ()),
+            beyond_topk=config.get("beyond_topk", 20),
+            protocol=config.get("eval_protocol", "full"),
+            protocol_seed=config.get("seed", 2024),
+            exclude_items=tuple(config.get("exclude_items", ())))
+
+    loss_name = config.get("loss", "PairwiseLogisticLoss")
+    train_method = None
+    if loss_name == "FullSoftmaxCE":
+        if _use_fused_ce(config, feature_map, model, mesh):
+            train_method = "fused_ce_loss"
+            logger.info("FullSoftmaxCE: flash-CE kernel path (%d items)",
+                        feature_map[feature_map.corpus_index].vocab_size)
+
+            def loss_fn(outputs, batch):
+                return outputs
+        else:
+            train_method = "full_scores"
+
+            def loss_fn(outputs, batch):
+                return full_softmax_loss(outputs,
+                                         batch[feature_map.corpus_index])
+
+        loader = ArrayLoader(train_arrays,
+                             batch_size=config.get("batch_size", 2048),
+                             drop_last=True, seed=config.get("seed", 2024))
+    else:
+        match_loss = get_matching_loss(loss_name)
+
+        def loss_fn(outputs, batch):
+            return match_loss(outputs)
+
+        loader = MatchingLoader(
+            feature_map, train_arrays, corpus_arrays,
+            batch_size=config.get("batch_size", 2048),
+            num_negs=config.get("num_negs", 10),
+            seed=config.get("seed", 2024),
+            exclude_ids=tuple(config.get("exclude_items", ())))
+
+    trainer = Trainer(model, loss_fn, build_trainer_config(config),
+                      eval_fn=evaluator(eval_user_arrays, query_indices,
+                                        train_user2items, valid_user2items),
+                      mesh=mesh, device=dev, train_method=train_method)
+    result = trainer.fit(loader, epochs=config.get("epochs"))
+    if test_user2items:
+        tq = np.asarray(sorted(test_user2items), dtype=np.int64)
+        tu = test_user_arrays if test_user_arrays is not None else {
+            (feature_map.query_index or "user_id"): tq.astype(np.int32)}
+        merged: Dict[int, list] = {}
+        for u2i in (train_user2items, valid_user2items):
+            for u, its in u2i.items():
+                merged.setdefault(int(u), []).extend(int(i) for i in its)
+        test_eval = evaluator(tu, tq, merged, test_user2items)
+        result = {**result, **{f"test_{k}": v
+                               for k, v in test_eval(trainer).items()}}
+    logger.info("experiment %s: %s", config.get("experiment_id", "?"), result)
+    return result
 
 
-run_matching_experiment = _not_ported("run_matching_experiment")
-run_sequential_experiment = _not_ported("run_sequential_experiment")
-run_kg_experiment = _not_ported("run_kg_experiment")
-run_experiment = _not_ported("run_experiment")
+def _eval_candidates(protocol: str, split: Mapping[str, np.ndarray],
+                     feature_map: FeatureMap, train_items: np.ndarray,
+                     config: Mapping[str, Any]) -> np.ndarray:
+    """(rows, 1 + N) int64 candidates of a 'uniN' / 'popN' protocol, the
+    target in column 0: JAX's draws (`quick_start.py:285-323`) call for
+    call — a generator from ``seed``, uniform ids in [1, num_items) or
+    `AliasTable` draws over the train counts, the row's history, target
+    and excluded ids drawn again up to 20 rounds."""
+    from recbox_tpu_torch.data.sampling import AliasTable
+    from recbox_tpu_torch.evaluation.candidate import parse_protocol
+
+    dist, n_neg = parse_protocol(protocol)
+    rng = np.random.default_rng(config.get("seed", 2024))
+    tgt = split[feature_map.corpus_index]
+    n_items = feature_map.num_items
+    excluded = set(int(x) for x in config.get("exclude_items", ()))
+    excluded.add(0)                       # the PAD row
+    if dist == "popularity":
+        counts = np.bincount(train_items, minlength=n_items).astype(
+            np.float64)
+        for e in excluded:
+            if 0 <= e < n_items:
+                counts[e] = 0.0
+        alias = AliasTable(counts if counts.sum() else np.ones(n_items))
+
+        def draw(size):
+            return alias.sample(size, rng)
+    else:
+        def draw(size):
+            return rng.integers(1, n_items, size=size)
+    negs = draw((len(tgt), n_neg))
+    excl_arr = np.asarray(sorted(excluded), np.int64)
+    hist = split["item_seq"]
+    for _ in range(20):
+        bad = (negs[:, :, None] == hist[:, None, :]).any(-1) \
+            | (negs == tgt[:, None]) | np.isin(negs, excl_arr)
+        if not bad.any():
+            break
+        negs[bad] = draw(int(bad.sum()))
+    return np.concatenate([tgt[:, None], negs], axis=1).astype(np.int64)
+
+
+def hit_positions(scores: torch.Tensor, targets: torch.Tensor,
+                  candidates: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """0-based rank of each row's target, on the scores' device.
+
+    'full' (``candidates`` None): the items that score above the target,
+    plus those that score equal and come before it in index order.
+    Candidates (target in column 0): the columns that score above it, the
+    position of column 0 in a stable descending sort."""
+    if candidates is not None:
+        cs = torch.gather(scores, 1, candidates)
+        return torch.sum(cs[:, 1:] > cs[:, :1], dim=1)
+    ts = torch.gather(scores, 1, targets[:, None])
+    before = torch.arange(scores.shape[1], device=scores.device)[None, :] \
+        < targets[:, None]
+    return torch.sum((scores > ts) | ((scores == ts) & before), dim=1)
+
+
+def rank_metrics(pos: np.ndarray, ks) -> Dict[str, float]:
+    """Recall@k and NDCG@k of the targets' 0-based positions (JAX
+    `quick_start.py:357-363`)."""
+    out = {}
+    for k in ks:
+        hit = pos < k
+        out[f"Recall(k={k})"] = float(hit.mean())
+        gains = 1.0 / np.log2(np.maximum(pos, 0) + 2.0)
+        out[f"NDCG(k={k})"] = float(np.where(hit, gains, 0.0).mean())
+    return out
+
+
+def run_sequential_experiment(
+    config: Mapping[str, Any],
+    feature_map: FeatureMap,
+    train_arrays: Dict[str, np.ndarray],
+    valid_arrays: Dict[str, np.ndarray],
+    test_arrays: Optional[Dict[str, np.ndarray]] = None,
+    ks=(10, 20),
+    mesh=None,
+    device: Device = None,
+) -> Dict[str, float]:
+    """Next-item pipeline (recbole's sequential protocol): leave-one-out
+    arrays from `data.sequential`, full-softmax CE (through B2 where
+    `_use_fused_ce` opens), Recall / NDCG@k of the held-out target under
+    ``eval_protocol`` 'full' (the whole catalog) or 'uniN' / 'popN' (N
+    sampled negatives outside the row's history). The scores are taken in
+    chunks of ``eval_batch_size`` rows and ranked on the device; the
+    best-valid weights give the ``test_*`` keys."""
+    config = Config(config)
+    dev = resolve_device(device)
+    model, _ = build_model(config, feature_map, dev)
+    protocol = config.get("eval_protocol", "full")
+    if protocol != "full":
+        from recbox_tpu_torch.evaluation.candidate import parse_protocol
+        parse_protocol(protocol)          # a bad spelling fails here
+    corpus = feature_map.corpus_index
+    cand_cache: Dict[int, np.ndarray] = {}
+
+    def eval_split(trainer, split, split_id):
+        if protocol != "full" and split_id not in cand_cache:
+            cand_cache[split_id] = _eval_candidates(
+                protocol, split, feature_map, train_arrays[corpus], config)
+        bs = config.get("eval_batch_size", 4096)
+        keys = [k for k in ("item_seq", "seq_len", "user_id") if k in split]
+        n = len(split[corpus])
+        pos = []
+        for s in range(0, n, bs):
+            scores = trainer.apply({k: split[k][s:s + bs] for k in keys},
+                                   method="full_scores")
+            tgt = torch.as_tensor(split[corpus][s:s + bs].astype(np.int64),
+                                  device=scores.device)
+            cand = None if protocol == "full" else torch.as_tensor(
+                cand_cache[split_id][s:s + bs], device=scores.device)
+            pos.append(hit_positions(scores, tgt, cand))
+        return rank_metrics(torch.cat(pos).cpu().numpy(), ks)
+
+    use_fused = _use_fused_ce(config, feature_map, model, mesh)
+    if use_fused:
+        logger.info("sequential CE: flash-CE kernel path (%d items)",
+                    feature_map[corpus].vocab_size)
+    trainer = Trainer(
+        model,
+        (lambda o, b: o) if use_fused else
+        (lambda o, b: full_softmax_loss(o, b[corpus])),
+        build_trainer_config(config),
+        eval_fn=lambda tr: eval_split(tr, valid_arrays, 0),
+        mesh=mesh, device=dev,
+        train_method="fused_ce_loss" if use_fused else "full_scores")
+    loader = ArrayLoader(train_arrays,
+                         batch_size=config.get("batch_size", 2048),
+                         drop_last=True, seed=config.get("seed", 2024))
+    result = trainer.fit(loader, epochs=config.get("epochs"))
+    if test_arrays is not None:
+        result = {**result, **{f"test_{k}": v for k, v in
+                               eval_split(trainer, test_arrays, 1).items()}}
+    logger.info("experiment %s: %s", config.get("experiment_id", "?"), result)
+    return result
+
+
+def run_kg_experiment(*args, **kwargs):
+    """Not ported yet: raises, naming its `ROADMAP.md` item."""
+    raise NotImplementedError(f"run_kg_experiment is not ported yet "
+                              f"{_KNOWLEDGE}")
 
 
 def _user2items(split) -> Dict[int, list]:
@@ -274,6 +551,205 @@ def _filter_and_remap(inter, cfg: Mapping[str, Any]):
             int(cfg.get("min_user_inter", 0) or 0),
             int(cfg.get("min_item_inter", 0) or 0))
     return inter.remap_ids(start=1)
+
+
+def run_experiment(
+    model: str,
+    dataset: str,
+    config: Optional[Mapping[str, Any]] = None,
+    data_dir: Optional[str] = None,
+    mesh=None,
+    device: Device = None,
+    **overrides,
+) -> Dict[str, float]:
+    """One call from a dataset NAME to trained and evaluated metrics (the
+    `run_recbole(model, dataset)` analog): acquire the atomic files by name
+    (`data/acquire.py`), load, filter, remap contiguously, split, then the
+    stage's pipeline. Returns the best-valid metrics, plus ``test_*``
+    where the stage evaluates a test split.
+
+    Config / overrides, as JAX's (`quick_start.py:647-700`): dataset_url /
+    dataset_sha256; user_field / item_field / rating_field / time_field;
+    min_rating; min_user_inter / min_item_inter (k-core); split 'RS'
+    (default) or 'LS' (leave-one-out; not the ranking stage);
+    split_ratios (0.8, 0.1, 0.1); order 'TO' or 'RO' (default 'TO' when
+    timestamps exist, else 'RO'; the ranking stage defaults to 'RO');
+    binarize_threshold (ranking labels); max_seq_len (50); embedding_dim
+    (64); topk (sequential, (10, 20)); everything else passes through to
+    the pipeline and the model. Multitask and reranking models raise (a
+    single .inter file cannot express their supervision), and so do
+    knowledge models (not ported)."""
+    from recbox_tpu_torch.features.schema import FeatureSpec
+
+    dev = resolve_device(device)
+    cfg = dict(config or {})
+    cfg.update(overrides)
+    cfg["model"] = model
+    cfg.setdefault("experiment_id", f"{model}-{dataset}")
+    _, stage = get_model(model)
+    if stage in ("multitask", "reranking"):
+        raise NotImplementedError(
+            f"model {model!r} is stage {stage!r}: a single .inter file "
+            "cannot express its supervision (multiple labels / slates) — "
+            f"use quick_start.run_{'ranking' if stage == 'multitask' else 'rerank'}"
+            "_experiment with explicit arrays.")
+    if stage == "knowledge":
+        raise NotImplementedError(f"model {model!r} is stage 'knowledge', "
+                                  f"not ported yet {_KNOWLEDGE}")
+
+    _, inter, rf, _ = _acquire_interactions(dataset, cfg, data_dir)
+    inter = _filter_and_remap(inter, cfg)
+    n_users, n_items = inter.num_users, inter.num_items
+    seed = cfg.get("seed", 2024)
+    emb_dim = cfg.get("embedding_dim", 64)
+    order = cfg.get("order", "TO" if inter.timestamps is not None else "RO")
+
+    if stage == "sequential":
+        from recbox_tpu_torch.data.sequential import (
+            group_user_sequences, leave_one_out_split,
+        )
+        seqs = group_user_sequences(inter.user_ids, inter.item_ids,
+                                    inter.timestamps)
+        train, valid, test = leave_one_out_split(
+            seqs, max_len=cfg.get("max_seq_len", 50))
+        fm = FeatureMap(dataset, (
+            FeatureSpec("item_id", "categorical", source="item",
+                        vocab_size=n_items, embedding_dim=emb_dim),),
+            query_index="user_id", corpus_index="item_id",
+            num_items=n_items)
+        ks = cfg.get("topk", (10, 20))
+        ks = (int(ks),) if isinstance(ks, int) else tuple(ks)
+        return run_sequential_experiment(cfg, fm, train, valid,
+                                         test_arrays=test, ks=ks, mesh=mesh,
+                                         device=dev)
+
+    if stage == "ranking":
+        if rf is None:
+            raise ValueError(
+                f"CTR model {model!r} needs a rating/label column in "
+                f"{dataset}.inter (set rating_field=) to derive labels")
+        vals = np.unique(inter.ratings)
+        if cfg.get("binarize_threshold") is not None:
+            inter = inter.binarize(float(cfg["binarize_threshold"]))
+        elif not np.isin(vals, (0.0, 1.0)).all():
+            raise ValueError(
+                f"{dataset!r} ratings take values {vals[:8]}... — set "
+                "binarize_threshold (recbole's label-by-threshold, e.g. 4.0 "
+                "for 1-5 star scales) to derive a binary CTR label")
+        arrays = {"user_id": inter.user_ids.astype(np.int32),
+                  "item_id": inter.item_ids.astype(np.int32),
+                  "label": inter.ratings.astype(np.float32)}
+        if cfg.get("split", "RS") != "RS":
+            raise NotImplementedError(
+                "ranking stage uses row-wise RS splits (recbole CTR "
+                "protocol); leave-one-out has no meaning for pointwise "
+                "labels")
+        n = len(inter)
+        if cfg.get("order", "RO") == "TO":
+            if inter.timestamps is None:
+                raise ValueError("order='TO' needs a timestamp column")
+            idx = np.argsort(inter.timestamps, kind="mergesort")
+        else:
+            idx = np.random.default_rng(seed).permutation(n)
+        ratios = tuple(cfg.get("split_ratios", (0.8, 0.1, 0.1)))
+        c1 = n - int(ratios[1] * n) - int(ratios[2] * n)
+        c2 = n - int(ratios[2] * n)
+        tr, va, te = idx[:c1], idx[c1:c2], idx[c2:]
+        fm = FeatureMap(dataset, (
+            FeatureSpec("user_id", "categorical", source="user",
+                        vocab_size=n_users, embedding_dim=emb_dim),
+            FeatureSpec("item_id", "categorical", source="item",
+                        vocab_size=n_items, embedding_dim=emb_dim)),
+            labels=("label",))
+
+        def sel(rows):
+            return {k: v[rows] for k, v in arrays.items()}
+
+        return run_ranking_experiment(
+            cfg, fm, sel(tr), sel(va),
+            test_arrays=sel(te) if len(te) else None, mesh=mesh, device=dev)
+
+    # matching / traditional: interaction splits + retrieval evaluation
+    if cfg.get("split", "RS") == "LS":
+        train, valid, test = inter.split_leave_one_out(
+            order=order if inter.timestamps is not None else "RO", seed=seed)
+    else:
+        train, valid, test = inter.split_ratio(
+            tuple(cfg.get("split_ratios", (0.8, 0.1, 0.1))), order=order,
+            group_by_user=True, seed=seed)
+    train_u2i, valid_u2i, test_u2i = map(_user2items, (train, valid, test))
+    if not valid_u2i:
+        raise ValueError(
+            f"dataset {dataset!r}: the valid split is EMPTY after "
+            f"filtering/splitting ({len(train)} train rows) — per-user "
+            "ratio splits floor(n*ratio) each part, so users need enough "
+            "interactions (>= 10 at the default 0.8/0.1/0.1) or use "
+            "split='LS' (leave-one-out)")
+    exclude = tuple(cfg.get("exclude_items", (0,)))   # the PAD / OOV row
+    cfg.setdefault("exclude_items", list(exclude))
+    metrics = list(cfg.get("metrics", ["Recall(k=20)", "NDCG(k=10)"]))
+
+    if stage == "traditional":
+        return _run_traditional(cfg, model, train, valid_u2i, test_u2i,
+                                train_u2i, n_users, n_items, exclude,
+                                metrics, dev)
+
+    fm = FeatureMap(dataset, (
+        FeatureSpec("user_id", "categorical", source="user",
+                    vocab_size=n_users, embedding_dim=emb_dim),
+        FeatureSpec("item_id", "categorical", source="item",
+                    vocab_size=n_items, embedding_dim=emb_dim)),
+        query_index="user_id", corpus_index="item_id", num_items=n_items)
+    vu = np.asarray(sorted(valid_u2i), dtype=np.int64)
+    return run_matching_experiment(
+        cfg, fm, {"user_id": train.user_ids.astype(np.int32),
+                  "item_id": train.item_ids.astype(np.int32)},
+        {"item_id": np.arange(n_items, dtype=np.int32)},
+        {"user_id": vu.astype(np.int32)}, vu, train_u2i, valid_u2i,
+        mesh=mesh, test_user2items=test_u2i or None, device=dev)
+
+
+def _run_traditional(cfg, model, train, valid_u2i, test_u2i, train_u2i,
+                     n_users, n_items, exclude, metrics, dev):
+    """The closed-form / neighbourhood route of `run_experiment` (JAX
+    :800-830): ``fit(user_ids, item_ids)``, then full-sort evaluation of
+    ``full_scores`` in chunks of 4096 users with the known positives and
+    ``exclude`` masked."""
+    from recbox_tpu_torch.evaluation.retrieval import (
+        _pad_lists, parse_metric, retrieval_metrics_from_topk,
+    )
+    cls, _ = get_model(model)
+    accepted = set(inspect.signature(cls.__init__).parameters) - {
+        "self", "device"}
+    m = cls(**{k: v for k, v in cfg.items() if k in accepted}, device=dev)
+    m.fit(train.user_ids, train.item_ids, n_users, n_items)
+    max_topk = max(parse_metric(s)[1] for s in metrics)
+
+    def evaluate(u2i_truth, u2i_masks):
+        q = np.asarray(sorted(u2i_truth), dtype=np.int64)
+        out: Dict[str, float] = {}
+        for s in range(0, len(q), 4096):
+            qs = q[s:s + 4096]
+            scores = _numpy(m.full_scores(qs)).copy()
+            for r, u in enumerate(qs):
+                for mask in u2i_masks:
+                    scores[r, list(mask.get(int(u), ()))] = -np.inf
+                scores[r, list(exclude)] = -np.inf
+            topk = np.argsort(-scores, axis=1)[:, :max_topk]
+            true_p = _pad_lists(
+                [list(dict.fromkeys(u2i_truth.get(int(u), ())))
+                 for u in qs], pad=-1)
+            vals = retrieval_metrics_from_topk(topk, true_p, metrics,
+                                               device=dev)
+            for k, v in vals.items():
+                out[k] = out.get(k, 0.0) + v * len(qs)
+        return {k: v / max(len(q), 1) for k, v in out.items()}
+
+    result = evaluate(valid_u2i, (train_u2i,))
+    result.update({f"test_{k}": v for k, v in
+                   evaluate(test_u2i, (train_u2i, valid_u2i)).items()})
+    logger.info("experiment %s: %s", cfg["experiment_id"], result)
+    return result
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:

@@ -1,8 +1,8 @@
 """The port's one-call cascade, `run_cascade_experiment`, on the CPU.
 
 * The toy dataset of `tests/test_cascade_api.py:27` at that file's knobs,
-  held to its thresholds (:68-101); its `run.py` route (:104) waits for
-  `ROADMAP.md` Queue A's "Orchestration remainder".
+  held to its thresholds (:68-101); its `run.py` route (:104) is in
+  `tests/test_torch_run.py`.
 * A paired run: the port's three models start from the JAX run's initial
   params (recorded from JAX's `Trainer.init`, in the order the stages
   build them), and the whole result equals JAX's on a dataset where every
@@ -156,11 +156,14 @@ def test_cascade_refuses_wrong_stages_and_unported_pipelines(tmp_path):
     with pytest.raises(ValueError, match="stage"):
         qs.run_cascade_experiment("casc_err", data_dir=root,
                                   matcher="DeepFM", device="cpu")
-    for fn in (qs.run_experiment, qs.run_matching_experiment,
-               qs.run_sequential_experiment, qs.run_kg_experiment):
-        with pytest.raises(NotImplementedError,
-                           match="Orchestration remainder"):
-            fn("MF", "casc_err")
+    # the knowledge stage stays unported: its pipeline and run_experiment
+    # on a knowledge model raise naming the item (the other pipelines are
+    # ported, tests/test_torch_seq_pipeline.py and test_torch_run.py)
+    for call in (lambda: qs.run_kg_experiment("MF", "casc_err"),
+                 lambda: qs.run_experiment("KGAT", "casc_err",
+                                           data_dir=root, device="cpu")):
+        with pytest.raises(NotImplementedError, match="Knowledge"):
+            call()
 
 
 def _zip(tmp_path, inner, base):

@@ -299,8 +299,12 @@ def test_fused_ce_under_mesh_raises_and_unported_encoders():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Trainer(pm, lambda o, b: o, TrainerConfig(), mesh=object(),
                 device="cpu", train_method="full_scores")
-    with pytest.raises(NotImplementedError, match="Sequential remainder and zoo"):
-        NARM(_fm(FeatureMap, FeatureSpec), device="cpu")
+    # the encoders are ported (tests/test_torch_sequential_zoo.py); what
+    # stays unported in the stage raises naming its ROADMAP.md item
+    assert NARM(_fm(FeatureMap, FeatureSpec), device="cpu").right_align
+    from recbox_tpu_torch.models.registry import get_model
+    with pytest.raises(NotImplementedError, match="Sequential pretraining"):
+        get_model("S3Rec")
 
 
 # -- 3. learning ----------------------------------------------------------------
