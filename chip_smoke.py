@@ -182,6 +182,31 @@ Phases (any failure raises and exits non-zero):
      66 padded to 80, 128), ms a step; (4) `run_experiment(
      "SASRec", "ml1m_scale", epochs=2)` over 5i's files: seconds of data,
      fit and test, and the metrics;
+  5k. sequence CTR at Taobao UserBehavior's vocabularies (987,994 users,
+     4,162,024 items + PAD, 9,439 categories, 50-long shared-table
+     histories): DIN at din.yaml's widths through `run_ranking_experiment(
+     trainer: packed)`, 2 epochs of 24 batches of 4096, 8 steps a fused
+     call: one B1 launch a step, a falling loss, held-out AUC > 0.6;
+     eager against replayed ms a step, a replayed step equal to an eager
+     one (the pack and the Dice statistics), one replayed step profiled;
+     B1 against its plain version on one step's own 4096 x 53 ids and
+     gradients over the 5.16M-row pack, PAD runs included, and timed;
+     BST, DIEN (with its auxiliary loss on a neg_hist column) and DSIN:
+     8 eager steps on one batch, a falling loss, ms a step;
+  5l. the multitask models at the Criteo width (26 x 100,000 ids, 13
+     numeric, dim 16; click and a conversion only where click is 1): MMOE
+     through `run_ranking_experiment(trainer: packed)`, 2 epochs of 16
+     batches of 32768, B1 once a step, both tasks' AUC > 0.5;
+     SharedBottom, PLE, ESMM, AITM: 8 eager steps on one batch each,
+     ESMM's pCTCVR <= pCTR;
+  5m. the 19 models of ctr_extended.py, DAGFM and KD_DAGFM (distilled from
+     a DCNv2 teacher) at their yaml widths over 5l's schema under the
+     packed trainer, 8 eager steps on one batch of 4096 each; S3Rec at
+     s3rec.yaml's widths over a synthetic Amazon Beauty (22,363 users,
+     12,101 items, 1,221 attributes): 2 pretraining epochs (the joint
+     loss on a fixed probe falls), the graft, a fine-tune through
+     `run_sequential_experiment` with test Recall@10 above chance;
+     GRU4RecF with a feat_seq column: 8 eager steps, a falling loss;
   6. times with CUDA events (median after a warm-up; B5, B6 and their
      yardsticks over runs of 20 calls queued behind a spin kernel, so the
      host's launch work is not timed): each kernel, its
@@ -858,17 +883,25 @@ def time_b1(gen, ids_kind, dims=B1_DIMS, grad_dtype=torch.bfloat16):
     upd = fused_adagrad_delta_plain(G, grads, B1_LR, dims=dims,
                                     acc_cols=acc, used=used,
                                     store_w=128, eps=B1_EPS)
-    ms = cuda_ms(lambda: b1_call(packed_adagrad_update_, pack, ids, G,
-                                 grads, dims), reps=20)
-    plain_ms = cuda_ms(lambda: b1_call(packed_adagrad_update_plain_, pack,
-                                       ids, G, grads, dims), reps=20)
-    # the scatter alone that B1 absorbs, given the finished operand
+    return {"ids": ids_kind, "dims": list(dims), "grads": str(grad_dtype),
+            **b1_times(lambda: b1_call(packed_adagrad_update_, pack, ids, G,
+                                       grads, dims),
+                       lambda: b1_call(packed_adagrad_update_plain_, pack,
+                                       ids, G, grads, dims),
+                       pack, ids, upd, grads, dims)}
+
+
+def b1_times(kernel, plain, pack, ids, upd, grads, dims):
+    """ms of one B1 update (``kernel()``), of its plain version
+    (``plain()``) and of the `index_add_` scatter B1 absorbs, given the
+    finished operand ``upd``, beside the bound (`b1_bound_ms`)."""
+    ms = cuda_ms(kernel, reps=20)
+    plain_ms = cuda_ms(plain, reps=20)
     library_ms = cuda_ms(lambda: pack.index_add_(0, ids, upd), reps=20)
     b_ms, b_by, moved = b1_bound_ms(ids, grads, dims)
-    return {"ids": ids_kind, "dims": list(dims), "grads": str(grad_dtype),
-            "n": int(ids.shape[0]), "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": moved}
+    return {"n": int(ids.shape[0]), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": moved}
 
 
 # bench.py's SASRec regimes (`bench.py:354-356`, `:425`): V items, L, d, B
@@ -2685,14 +2718,14 @@ ZOO_GROUPS = (
 )
 
 
-def zoo_feature_map():
+def zoo_feature_map(labels=("click",)):
     from recbox_tpu_torch.features import FeatureMap, FeatureSpec
     feats = tuple(
         FeatureSpec(f"c{i}", "categorical", vocab_size=VOCAB,
                     embedding_dim=ZOO_DIM) for i in range(NUM_CAT)) + tuple(
         FeatureSpec(f"n{i}", "numeric", embedding_dim=ZOO_DIM)
         for i in range(NUM_NUM))
-    return FeatureMap("criteo_zoo", feats, labels=("click",))
+    return FeatureMap("criteo_zoo", feats, labels=labels)
 
 
 def zoo_trainer(name, seed):
@@ -2885,6 +2918,16 @@ SEQ_PLAIN_ROUTE = ("CORE", "RepeatNet")
 SEQ_EXTRA = {}
 
 
+def model_yaml(name):
+    import yaml
+    with open(os.path.join(REPO, "configs", "models",
+                           f"{name.lower()}.yaml")) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg.pop("stage", None)
+    cfg["model"] = name
+    return cfg
+
+
 def seq_synth(v, n_rows, seed, full=False):
     """Next-item rows over ids 1..v-1: a Zipf(1.2) draw of ranks scattered
     over the ids by a fixed permutation, then each step the planted
@@ -2922,13 +2965,14 @@ def seq_feature_map(v):
         num_items=v)
 
 
-def recording_trainer():
-    """A `Trainer` that keeps each step's loss, the seconds of `fit` and of
-    each evaluation, and the moment it was made: put in `quick_start`'s
-    place, it reads a pipeline's run without changing it."""
-    from recbox_tpu_torch.training import Trainer
+def recording_trainer(base=None):
+    """``base`` (by default `Trainer`) keeping each step's loss, the seconds
+    of `fit` and of each evaluation, and the moment it was made: put in a
+    pipeline's place, it reads the run without changing it."""
+    if base is None:
+        from recbox_tpu_torch.training import Trainer as base
 
-    class Recording(Trainer):
+    class Recording(base):
         made = []
 
         def __init__(self, *args, **kw):
@@ -3217,7 +3261,6 @@ def seq_zoo_on_card():
     other), B2 against its plain version on each kernel-route model's own
     operands on the first batch (`b2_sweeps_vs_plain`) and ms a step (8
     eager steps after the run)."""
-    import yaml
     from recbox_tpu_torch import quick_start as qs
     from recbox_tpu_torch.ops import fused_ce
     train = seq_synth(SEQ_ZOO_V, SEQ_ZOO_STEPS * SEQ_ZOO_B, SEED + 51)
@@ -3228,10 +3271,7 @@ def seq_zoo_on_card():
              for k, v in train.items()}
     out = {}
     for name in SEQ_ZOO:
-        with open(os.path.join(REPO, "configs", "models",
-                               f"{name.lower()}.yaml")) as fh:
-            cfg = yaml.safe_load(fh)
-        cfg.pop("stage")
+        cfg = model_yaml(name)
         if "num_users" in cfg:
             cfg["num_users"] = 4096
         cfg.update(model=name, batch_size=SEQ_ZOO_B, epochs=1,
@@ -3295,6 +3335,578 @@ def run_experiment_on_card(data_root):
             "eval_s": tr.eval_s, "test_s": t_end - tr.fit_end,
             "wall_s": t_end - t0, "steps": len(step_losses(tr)),
             "metrics": res}
+
+
+# -- 5k-5m: the rest of the ranking, multitask and sequential stages -----------
+
+# Taobao UserBehavior's published vocabularies (Tianchi dataset 649; the TDM
+# paper, KDD 2018): users, items (the table's last row is PAD), categories;
+# 50-long behaviour histories over the item table, pre-padded
+TB_USERS, TB_ITEMS, TB_CATES, TB_L = 987_994, 4_162_024, 9_439, 50
+TB_BATCH, TB_TRAIN_BATCHES, TB_HELD_OUT_BATCHES = 4096, 24, 4
+TB_ADAGRAD_INIT = 0.1
+# eager steps of a model on one batch (the loss must fall as it fits it)
+ZOO_EAGER_STEPS = 8
+SEQ_CTR_OTHERS = ("BST", "DIEN", "DSIN")
+MT_TRAIN_BATCHES, MT_HELD_OUT_BATCHES = 16, 4
+MT_OTHERS = ("SharedBottom", "PLE", "ESMM", "AITM")
+CTRX_BATCH = 4096
+CTRX_MODELS = ("FFM", "FwFM", "FmFM", "FEFM", "DeepFEFM", "ONN", "CCPM",
+               "FGCNN", "FLEN", "IFM", "DIFM", "EDCN", "MLR", "FiGNN",
+               "EulerNet", "DeepIM", "HFM", "DCNMix", "FNN", "DAGFM",
+               "KD_DAGFM")
+# Amazon Beauty at the S3Rec paper's scale (its Table 1): users, items,
+# attributes; `configs/models/s3rec.yaml`'s widths
+BEAUTY_USERS, BEAUTY_ITEMS, BEAUTY_ATTRS = 22_363, 12_101, 1_221
+S3_PRETRAIN_EPOCHS, S3_PRETRAIN_BATCH = 2, 256
+S3_FINE_EPOCHS, S3_FINE_BATCH = 2, 2048
+
+
+def run_packed_recorded(call):
+    """``call()`` with `PackedEmbeddingTrainer` recording (the pipelines
+    import it from `training.packed` when they run); (its result, the
+    trainer it made)."""
+    from recbox_tpu_torch.training import packed
+    orig = packed.PackedEmbeddingTrainer
+    rec = recording_trainer(orig)
+    packed.PackedEmbeddingTrainer = rec
+    try:
+        out = call()
+    finally:
+        packed.PackedEmbeddingTrainer = orig
+    return out, rec.made[-1]
+
+
+def taobao_feature_map(neg=False):
+    from recbox_tpu_torch.features import FeatureMap, FeatureSpec
+    seq = dict(vocab_size=TB_ITEMS + 1, embedding_dim=16, max_len=TB_L,
+               padding_idx=TB_ITEMS, share_embedding="item_id")
+    specs = (FeatureSpec("user_id", "categorical", vocab_size=TB_USERS,
+                         embedding_dim=16),
+             FeatureSpec("item_id", "categorical", vocab_size=TB_ITEMS + 1,
+                         embedding_dim=16),
+             FeatureSpec("cate_id", "categorical", vocab_size=TB_CATES,
+                         embedding_dim=16),
+             FeatureSpec("hist", "sequence", **seq))
+    if neg:
+        specs += (FeatureSpec("neg_hist", "sequence", **seq),)
+    return FeatureMap("taobao", specs, labels=("click",))
+
+
+def taobao_arrays(n, seed, neg=False):
+    """Synthetic Taobao rows: items by Zipf(1.2) popularity (ranks
+    scattered over the ids by a fixed permutation), history lengths
+    uniform on [5, 50] pre-padded with PAD, half the targets drawn from the
+    history, an item's category fixed (id mod the categories), click =
+    target in the history (`tests/test_sequence_ctr.py:14`'s plant);
+    ``neg`` adds a Zipf ``neg_hist`` column, PAD where the history is."""
+    rng = np.random.default_rng(seed)
+    perm = np.random.default_rng(4321).permutation(TB_ITEMS)
+
+    def item(shape):
+        return perm[(rng.zipf(1.2, shape) - 1) % TB_ITEMS]
+
+    hist = item((n, TB_L))
+    lens = rng.integers(5, TB_L + 1, n)
+    pad = np.arange(TB_L)[None, :] < (TB_L - lens)[:, None]
+    hist[pad] = TB_ITEMS
+    pick = hist[np.arange(n), TB_L - 1 - rng.integers(0, lens)]
+    target = np.where(rng.random(n) < 0.5, pick, item(n))
+    out = {"user_id": rng.integers(0, TB_USERS, n).astype(np.int32),
+           "item_id": target.astype(np.int32),
+           "cate_id": (target % TB_CATES).astype(np.int32),
+           "hist": hist.astype(np.int32),
+           "click": (hist == target[:, None]).any(1).astype(np.float32)}
+    if neg:
+        out["neg_hist"] = np.where(pad, TB_ITEMS, item((n, TB_L))).astype(
+            np.int32)
+    return out
+
+
+def device_batches(arrays, size):
+    n = len(next(iter(arrays.values()))) // size
+    return [{k: torch.from_numpy(v[i * size:(i + 1) * size]).to(DEVICE)
+             for k, v in arrays.items()} for i in range(n)]
+
+
+def capture_b1_call(trainer, batch):
+    """One eager step of ``trainer`` with B1's call recorded: (the pack
+    before the update, ids, G, slot gradients, lr, the layout keywords).
+    The step's own update goes through as usual."""
+    from recbox_tpu_torch.training import packed
+    orig = packed.packed_adagrad_update_
+    seen = {}
+
+    def record(pack, ids, G, grads, lr, **kw):
+        seen.update(pre=pack.detach().clone(), ids=ids.detach().clone(),
+                    G=G.detach().clone(),
+                    grads=[g.detach().clone() for g in grads], lr=lr, kw=kw)
+        return orig(pack, ids, G, grads, lr, **kw)
+
+    packed.packed_adagrad_update_ = record
+    try:
+        trainer.train_step(batch)
+    finally:
+        packed.packed_adagrad_update_ = orig
+    torch.cuda.synchronize()
+    return seen
+
+
+def b1_on_captured(rec):
+    """B1 against its plain version on a step's own operands
+    (`b1_agreement` and `b1_update_agreement`, check_b1's tolerances), then
+    its ms, the plain version's, the `index_add_` scatter's and the bound
+    (`b1_bound_ms`) at them."""
+    from recbox_tpu_torch.ops.packed_delta import (
+        fused_adagrad_delta_plain, packed_adagrad_update_,
+        packed_adagrad_update_plain_,
+    )
+    pre, ids, G, grads, lr, kw = (rec[k] for k in ("pre", "ids", "G",
+                                                    "grads", "lr", "kw"))
+    pack, plain = pre.clone(), pre.clone()
+    packed_adagrad_update_(pack, ids, G, grads, lr, **kw)
+    packed_adagrad_update_plain_(plain, ids, G, grads, lr, **kw)
+    torch.cuda.synchronize()
+    upd = fused_adagrad_delta_plain(G, grads, lr, store_w=pre.shape[1], **kw)
+    check = {**b1_agreement(pack, plain, pre, ids, upd),
+             **b1_update_agreement(pack, plain, pre, ids, upd)}
+    del plain
+    times = b1_times(
+        lambda: packed_adagrad_update_(pack, ids, G, grads, lr, **kw),
+        lambda: packed_adagrad_update_plain_(pack, ids, G, grads, lr, **kw),
+        pack, ids, upd, grads, kw["dims"])
+    return {"check": check,
+            "time": {"pack": list(pre.shape), "dims": list(kw["dims"]),
+                     "grads": str(grads[0].dtype), **times,
+                     "hottest_row_count": int(torch.bincount(
+                         ids.long()).max())}}
+
+
+def eager_repeat(trainer, batch, steps=ZOO_EAGER_STEPS):
+    """``steps`` eager steps on one batch (finite, the last loss below the
+    first: the model fits the batch), then ms a step over 4 more."""
+    losses = trainer.train_steps_repeat(batch, steps).float().cpu().numpy()
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_steps_repeat(batch, 4)
+    torch.cuda.synchronize()
+    return {"losses": losses.tolist(),
+            "ms_a_step": (time.perf_counter() - t0) / 4 * 1e3}
+
+
+def din_taobao():
+    """Phase 5k: DIN at `configs/models/din.yaml`'s widths through
+    `run_ranking_experiment(trainer: packed)` over the Taobao schema (2
+    epochs of 24 batches of 4096, 8 steps a `train_steps_fused` call, 4
+    held-out batches): B1's count reset just before and read just after
+    (one launch a step), a falling loss, held-out AUC above 0.6. Then the
+    same trainer: eager against replayed ms a step (6 blocks of 8 a side),
+    a replayed step equal to an eager one (the pack and the Dice running
+    means: the statistics move in a replay as in an eager step), one
+    replayed step under torch.profiler, and B1 against its plain version
+    on one step's own ids and gradients (4096 x 53 rows over the 5.16M-row
+    pack, PAD runs included), timed. Then BST, DIEN (its loss plus the
+    auxiliary loss of `auxiliary_logits` on a ``neg_hist`` column) and DSIN
+    at their yaml widths under the dense trainer: 8 eager steps on one
+    batch each, a falling loss, ms a step."""
+    from recbox_tpu_torch.ops import packed_delta
+    from recbox_tpu_torch.ops.losses import binary_crossentropy
+    from recbox_tpu_torch.quick_start import (
+        build_model, run_ranking_experiment,
+    )
+    from recbox_tpu_torch.training import Trainer, TrainerConfig
+    t0 = time.perf_counter()
+    train = taobao_arrays(TB_TRAIN_BATCHES * TB_BATCH, SEED + 61)
+    held = taobao_arrays(TB_HELD_OUT_BATCHES * TB_BATCH, SEED + 62)
+    data_s = time.perf_counter() - t0
+    fm = taobao_feature_map()
+    # the AdaGrad accumulators start at 0.1 (TensorFlow's and optax's
+    # initial value): at the trainer's 0.0 each of the ~39,000 duplicates
+    # of the top item in a step moves its row by ~lr, and DIN diverges
+    cfg = {**model_yaml("DIN"), "trainer": "packed", "batch_size": TB_BATCH,
+           "epochs": 2, "fused_steps": FIT_K, "learning_rate": 1e-3,
+           "grad_clip_norm": 10.0, "seed": SEED, "monitor": "AUC",
+           "metrics": ["AUC", "logloss"], "adagrad_init": TB_ADAGRAD_INIT}
+    packed_delta.reset_launches()
+    t0 = time.perf_counter()
+    res, tr = run_packed_recorded(lambda: run_ranking_experiment(
+        cfg, fm, train, held, device=DEVICE))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = packed_delta.launches["packed_adagrad_update"]
+    losses = step_losses(tr)
+    assert launches == 2 * TB_TRAIN_BATCHES == len(losses), \
+        (launches, len(losses))
+    assert np.isfinite(losses).all() \
+        and losses[-8:].mean() < losses[:8].mean(), losses
+    assert res["AUC"] > 0.6 and np.isfinite(res["logloss"]), res
+    (pname, pack), = tr.packs.items()
+    slots = tr._slots[pname]
+    assert pack.shape[0] == TB_USERS + TB_ITEMS + 1 + TB_CATES \
+        and [s.dim for s in slots] == [16], (pname, pack.shape)
+    out = {"data_s": data_s, "run_ranking_experiment": {
+        "model": "DIN", "steps": len(losses), "fit_s": fit_s,
+        "b1_launches": launches, "loss_first8": losses[:8].tolist(),
+        "loss_last8": losses[-8:].tolist(), **res},
+        "pack": pname, "pack_shape": list(pack.shape),
+        "click_rate": float(train["click"].mean()),
+        "pad_share": float((train["hist"] == TB_ITEMS).mean())}
+    batches = device_batches(train, TB_BATCH)
+    speed = fused_vs_eager(tr, batches, packed_delta.launches)
+    assert speed["fused_launches"]["packed_adagrad_update"] \
+        == speed["fused_steps"], speed
+    dice = tr.model.attention.MLP_0.dice
+    out["replay_vs_eager"] = graph_step_matches_eager(
+        tr, batches[0], lambda: {"pack": tr.packs[pname],
+                                 "dice0_mean": dice[0].BatchNorm_0.mean,
+                                 "dice1_var": dice[1].BatchNorm_0.var})
+    out["replayed_step_profile"] = train_breakdown(
+        tr, batches[0], groups=ZOO_GROUPS,
+        steps=lambda: tr.train_steps_fused(stacked([batches[0]])))
+    out.update(speed)
+    b1 = b1_on_captured(capture_b1_call(tr, batches[1]))
+    assert b1["time"]["n"] == TB_BATCH * (TB_L + 3), b1["time"]
+    out["b1_din"] = b1
+    del tr, pack, batches
+    torch.cuda.empty_cache()
+
+    def dien_loss(model):
+        def loss(o, b):
+            aux = model.auxiliary_logits(b)
+            valid = (b["hist"][:, 1:] != TB_ITEMS).float()
+            per = (torch.nn.functional.softplus(-aux[..., 0])
+                   + torch.nn.functional.softplus(aux[..., 1]))
+            return binary_crossentropy(o, b["click"]) \
+                + torch.sum(per * valid) / valid.sum()
+        return loss
+
+    others = {}
+    for name in SEQ_CTR_OTHERS:
+        neg = name == "DIEN"
+        ofm = taobao_feature_map(neg)
+        batch = device_batches(taobao_arrays(TB_BATCH, SEED + 63, neg),
+                               TB_BATCH)[0]
+        model, _ = build_model({**model_yaml(name), "seed": SEED}, ofm,
+                               DEVICE)
+        loss = dien_loss(model) if neg else \
+            (lambda o, b: binary_crossentropy(o, b["click"]))
+        trainer = Trainer(model, loss, TrainerConfig(
+            learning_rate=1e-3, grad_clip_norm=10.0, seed=SEED),
+            device=DEVICE)
+        others[name] = eager_repeat(trainer, batch)
+        del trainer, model
+    out["eager"] = others
+    return out
+
+
+def criteo_mt_arrays(n_train, n_held, seed):
+    """`CriteoBatches`' fields and click, and a conversion only where click
+    is 1, drawn from a second logistic model over fields c4..c7 (the
+    CTCVR structure ESMM assumes): (train, held-out) arrays of ``n_train``
+    and ``n_held`` batches under the same two models."""
+    data = CriteoBatches(seed)
+    conv_w = torch.randn(4, VOCAB, generator=data.gen, device=DEVICE)
+    out = []
+    for _ in range(n_train + n_held):
+        b = data()
+        logit = sum(conv_w[f, b[f"c{f + 4}"].long()] for f in range(4)) - 1
+        b["conv"] = b["click"] * (torch.rand(BATCH, generator=data.gen,
+                                             device=DEVICE)
+                                  < torch.sigmoid(logit)).float()
+        out.append(b)
+    return tuple({k: torch.cat([b[k] for b in part]).cpu().numpy()
+                  for k in part[0]}
+                 for part in (out[:n_train], out[n_train:]))
+
+
+def multitask_criteo():
+    """Phase 5l: MMOE at `configs/models/mmoe.yaml`'s widths through
+    `run_ranking_experiment(trainer: packed)` over the Criteo schema (26 x
+    100,000 ids, 13 numeric, dim 16; 2 epochs of 16 batches of 32768, 8
+    steps a fused call, 4 held-out batches): B1 once a step, the
+    `MultiTaskEvaluator` AUC of both tasks above 0.5. Then SharedBottom,
+    PLE, ESMM and AITM at their yaml widths under `PackedEmbeddingTrainer`:
+    8 eager steps on one batch each (a falling loss), ms a step; ESMM's
+    probabilities on a held-out batch hold pCTCVR <= pCTR."""
+    from recbox_tpu_torch.models.multitask import multitask_loss
+    from recbox_tpu_torch.ops import packed_delta
+    from recbox_tpu_torch.quick_start import (
+        build_model, run_ranking_experiment,
+    )
+    from recbox_tpu_torch.training import (
+        PackedEmbeddingTrainer, TrainerConfig,
+    )
+    labels = ("click", "conv")
+    t0 = time.perf_counter()
+    train, held = criteo_mt_arrays(MT_TRAIN_BATCHES, MT_HELD_OUT_BATCHES,
+                                   SEED + 71)
+    data_s = time.perf_counter() - t0
+    fm = zoo_feature_map(labels)
+    cfg = {**model_yaml("MMOE"), "trainer": "packed", "batch_size": BATCH,
+           "epochs": 2, "fused_steps": FIT_K, "learning_rate": 1e-3,
+           "grad_clip_norm": 10.0, "seed": SEED, "monitor": "AUC",
+           "metrics": ["AUC", "logloss"]}
+    packed_delta.reset_launches()
+    t0 = time.perf_counter()
+    res, tr = run_packed_recorded(lambda: run_ranking_experiment(
+        cfg, fm, train, held, device=DEVICE))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = packed_delta.launches["packed_adagrad_update"]
+    losses = step_losses(tr)
+    assert launches == 2 * MT_TRAIN_BATCHES == len(losses), launches
+    assert res["click_AUC"] > 0.5 and res["conv_AUC"] > 0.5, res
+    assert np.isfinite(losses).all(), losses
+    out = {"data_s": data_s, "conv_rate": float(train["conv"].mean()),
+           "click_rate": float(train["click"].mean()),
+           "run_ranking_experiment": {
+               "model": "MMOE", "steps": len(losses), "fit_s": fit_s,
+               "b1_launches": launches, "loss_first8": losses[:8].tolist(),
+               "loss_last8": losses[-8:].tolist(), **res}}
+    del tr
+    batch = {k: torch.from_numpy(v[:BATCH]).to(DEVICE)
+             for k, v in train.items()}
+    test = {k: torch.from_numpy(v[:BATCH]).to(DEVICE)
+            for k, v in held.items()}
+    others = {}
+    packed_delta.reset_launches()
+    for name in MT_OTHERS:
+        model, _ = build_model({**model_yaml(name), "seed": SEED}, fm,
+                               DEVICE)
+        from_logits = getattr(model, "output_type", "logits") == "logits"
+
+        def loss(o, b, _fl=from_logits):
+            return multitask_loss(o, torch.stack([b[k] for k in labels], 1),
+                                  from_logits=_fl)
+
+        trainer = PackedEmbeddingTrainer(model, loss, TrainerConfig(
+            learning_rate=1e-3, grad_clip_norm=10.0, seed=SEED),
+            device=DEVICE)
+        others[name] = eager_repeat(trainer, batch)
+        if name == "ESMM":
+            probs = trainer.apply(test)
+            assert bool((probs[:, 1] <= probs[:, 0]).all()) \
+                and bool((probs >= 0).all() & (probs <= 1).all())
+            others[name]["pctcvr_le_pctr"] = True
+        del trainer, model
+    out["eager"] = others
+    out["eager_b1_launches"] = packed_delta.launches["packed_adagrad_update"]
+    return out
+
+
+def ctr_zoo_rest():
+    """Phase 5m (1): the 19 models of `ctr_extended.py`, DAGFM and KD_DAGFM
+    (distilled from a DCNv2 teacher at `configs/models/dcnv2.yaml`'s
+    widths through `distillation_loss`) at their yaml widths over the
+    Criteo schema under `PackedEmbeddingTrainer` (FFM and ONN carry their
+    field-aware tables, 2.6M x 39 x 16 floats, in the pack): 8 eager steps
+    on one batch of 4096 each (finite, falling losses), ms a step, B1
+    launches."""
+    from recbox_tpu_torch.models.ranking import distillation_loss
+    from recbox_tpu_torch.ops import packed_delta
+    from recbox_tpu_torch.ops.losses import binary_crossentropy
+    from recbox_tpu_torch.quick_start import build_model
+    from recbox_tpu_torch.training import (
+        PackedEmbeddingTrainer, TrainerConfig,
+    )
+    data = CriteoBatches(SEED + 81)
+    batch = {k: v[:CTRX_BATCH] for k, v in data().items()}
+    fm = zoo_feature_map()
+    teacher, _ = build_model({**model_yaml("DCNv2"), "seed": SEED + 1}, fm,
+                             DEVICE)
+    teacher.eval()
+    out = {}
+    packed_delta.reset_launches()
+    for name in CTRX_MODELS:
+        model, _ = build_model({**model_yaml(name), "seed": SEED}, fm,
+                               DEVICE)
+        if name == "KD_DAGFM":
+            with torch.no_grad():
+                t_logits = teacher(batch)
+
+            def loss(o, b, _t=t_logits):
+                return distillation_loss(o, _t, b["click"])
+        else:
+            def loss(o, b):
+                return binary_crossentropy(o, b["click"])
+        before = packed_delta.launches["packed_adagrad_update"]
+        trainer = PackedEmbeddingTrainer(model, loss, TrainerConfig(
+            learning_rate=1e-3, grad_clip_norm=10.0, seed=SEED),
+            device=DEVICE)
+        res = eager_repeat(trainer, batch)
+        res["b1_launches"] = packed_delta.launches[
+            "packed_adagrad_update"] - before
+        res["packs"] = {k: list(v.shape) for k, v in trainer.packs.items()}
+        assert res["b1_launches"] == ZOO_EAGER_STEPS + 4, (name, res)
+        out[name] = res
+        del trainer, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def beauty_data(seed=SEED + 91):
+    """Synthetic Amazon Beauty: each user's history 5 + Poisson(4) items
+    long (<= 50; ~9 on average, the 5-core's mean), each next item the
+    current one's planted successor with probability 0.6, else a Zipf(1.2)
+    draw; each item 1-3 attributes. Returns the right-padded histories,
+    their lengths, the (V + 1, A) multi-hot attribute table and each
+    item's first attribute (GRU4RecF's feature id)."""
+    rng = np.random.default_rng(seed)
+    v, n = BEAUTY_ITEMS, BEAUTY_USERS
+    ids = np.random.default_rng(99).permutation(v) + 1
+    lens = np.minimum(5 + rng.poisson(4, n), SEQ_L)
+    x = np.zeros((n, SEQ_L), np.int64)
+    x[:, 0] = ids[(rng.zipf(1.2, n) - 1) % v]
+    follow = rng.random((n, SEQ_L)) < 0.6
+    fresh = ids[(rng.zipf(1.2, (n, SEQ_L)) - 1) % v]
+    for t in range(1, SEQ_L):
+        x[:, t] = np.where(follow[:, t], x[:, t - 1] % v + 1, fresh[:, t])
+    x[np.arange(SEQ_L)[None, :] >= lens[:, None]] = 0
+    n_att = rng.integers(1, 4, v + 2)
+    att = np.zeros((v + 2, BEAUTY_ATTRS), np.float32)
+    first = np.zeros(v + 2, np.int64)
+    for i in range(1, v + 1):
+        a = rng.choice(BEAUTY_ATTRS, n_att[i], replace=False)
+        att[i, a] = 1.0
+        first[i] = a[0] + 1
+    return x.astype(np.int32), lens.astype(np.int32), att, first
+
+
+def leave_one_out(x, lens):
+    """recbole's leave-one-out over right-padded histories: every prefix
+    of the first n - 2 items a training row, the last two the valid and
+    the test targets; left-padded ``item_seq`` (B, 50) rows."""
+    from recbox_tpu_torch.training.pretrain import _left_pad
+    rows = {"train": [], "valid": [], "test": []}
+    for u in range(len(x)):
+        s, n = x[u, :lens[u]], int(lens[u])
+        for t in range(1, n - 2):
+            rows["train"].append((s[:t], s[t]))
+        rows["valid"].append((s[:n - 2], s[n - 2]))
+        rows["test"].append((s[:n - 1], s[n - 1]))
+    out = {}
+    for split, rr in rows.items():
+        m = len(rr)
+        seq = np.zeros((m, SEQ_L), np.int32)
+        sl = np.array([len(h) for h, _ in rr], np.int32)
+        for i, (h, _) in enumerate(rr):
+            seq[i, :len(h)] = h
+        out[split] = {"item_seq": _left_pad(seq, sl).astype(np.int32),
+                      "seq_len": sl,
+                      "item_id": np.array([t for _, t in rr], np.int32)}
+    return out
+
+
+def s3rec_beauty():
+    """Phase 5m (2): S3Rec at `configs/models/s3rec.yaml`'s widths (dim 64,
+    2 layers, 2 heads, L = 50, dropout 0.2; the 1,221 attributes for AAP /
+    MAP) at the Amazon Beauty scale of the S3Rec paper (22,363 users,
+    12,101 items), synthetic from the seed: `S3RecPretrainer` for 2 epochs
+    of batch 256 (AAP + MIP + MAP + SP), the joint loss on a fixed probe
+    batch falling; `transfer_pretrained` onto the model that
+    `run_sequential_experiment` builds (its `build_model`, wrapped), then
+    its fine-tune `fit` (2 epochs of 2048, full-softmax CE: 12,102 items
+    are below `_use_fused_ce`'s threshold) with test Recall@10 above
+    chance (10 / 12,101). Then GRU4RecF at its yaml widths with a
+    ``feat_seq`` column (each item's first attribute): 8 eager steps on
+    one batch, a falling loss, ms a step."""
+    from recbox_tpu_torch import quick_start as qs
+    from recbox_tpu_torch.features import FeatureMap, FeatureSpec
+    from recbox_tpu_torch.models.sequential import S3Rec
+    from recbox_tpu_torch.ops.losses import full_softmax_loss
+    from recbox_tpu_torch.training import Trainer, TrainerConfig
+    from recbox_tpu_torch.training.pretrain import (
+        S3RecPretrainer, reconstruct_pretrain_batch, transfer_pretrained,
+    )
+    t0 = time.perf_counter()
+    x, lens, att, first = beauty_data()
+    splits = leave_one_out(x, lens)
+    data_s = time.perf_counter() - t0
+    fm = FeatureMap("beauty", (FeatureSpec(
+        "item_id", "categorical", source="item",
+        vocab_size=BEAUTY_ITEMS + 1, embedding_dim=64),),
+        query_index="user_id", corpus_index="item_id",
+        num_items=BEAUTY_ITEMS + 1)
+    cfg = {**model_yaml("S3Rec"), "n_attributes": BEAUTY_ATTRS,
+           "seed": SEED}
+    model, _ = qs.build_model(cfg, fm, DEVICE)
+    assert isinstance(model, S3Rec)
+    # the pretrain phase sees each user's history up to the valid target
+    pre_len = lens - 2
+    pre_seq = np.where(np.arange(SEQ_L)[None, :] < pre_len[:, None], x, 0)
+    probe = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in reconstruct_pretrain_batch(
+                 pre_seq[:512], pre_len[:512], BEAUTY_ITEMS + 1,
+                 BEAUTY_ITEMS + 1, np.random.default_rng(SEED + 92), 0.2,
+                 att).items()}
+
+    def probe_loss():
+        model.eval()
+        with torch.no_grad():
+            return float(model.pretrain_losses(probe))
+
+    loss0 = probe_loss()
+    pre = S3RecPretrainer(model, learning_rate=1e-3, mask_ratio=0.2,
+                          attribute_table=att, seed=SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = pre.pretrain(pre_seq, pre_len, epochs=S3_PRETRAIN_EPOCHS,
+                          batch_size=S3_PRETRAIN_BATCH)
+    torch.cuda.synchronize()
+    pretrain_s = time.perf_counter() - t0
+    loss1 = probe_loss()
+    assert np.isfinite(pre.epoch_losses).all() and loss1 < loss0, \
+        (loss0, loss1, pre.epoch_losses)
+    steps = S3_PRETRAIN_EPOCHS * (BEAUTY_USERS // S3_PRETRAIN_BATCH)
+    out = {"data_s": data_s, "train_rows": len(splits["train"]["item_id"]),
+           "pretrain": {"epochs": S3_PRETRAIN_EPOCHS, "steps": steps,
+                        "epoch_losses": pre.epoch_losses,
+                        "probe_loss_before": loss0,
+                        "probe_loss_after": loss1, "wall_s": pretrain_s,
+                        "ms_a_step": pretrain_s / steps * 1e3}}
+    del pre, model
+    build = qs.build_model
+
+    def build_pretrained(*args, **kw):
+        built, stage = build(*args, **kw)
+        built.load_state_dict(transfer_pretrained(built.state_dict(),
+                                                  params))
+        return built, stage
+
+    fine_cfg = {**cfg, "batch_size": S3_FINE_BATCH,
+                "epochs": S3_FINE_EPOCHS, "learning_rate": 1e-3,
+                "eval_batch_size": 4096, "monitor": "NDCG(k=10)"}
+    qs.build_model = build_pretrained
+    t0 = time.perf_counter()
+    try:
+        res, tr = run_recorded(lambda: qs.run_sequential_experiment(
+            fine_cfg, fm, splits["train"], splits["valid"],
+            test_arrays=splits["test"], device=DEVICE))
+    finally:
+        qs.build_model = build
+    fine_s = time.perf_counter() - t0
+    chance = 10 / BEAUTY_ITEMS
+    assert tr.train_method == "full_scores", tr.train_method
+    assert res["test_Recall(k=10)"] > chance, (res, chance)
+    out["fine_tune"] = {"wall_s": fine_s, "steps": len(step_losses(tr)),
+                        "route": tr.train_method, "chance_recall10": chance,
+                        **res}
+    del tr
+
+    gfm = FeatureMap("beauty", fm.features, query_index="user_id",
+                     corpus_index="item_id", num_items=BEAUTY_ITEMS + 1)
+    gcfg = {**model_yaml("GRU4RecF"), "feature_vocab": BEAUTY_ATTRS + 1,
+            "seed": SEED}
+    gmodel, _ = qs.build_model(gcfg, gfm, DEVICE)
+    rows = {k: v[:S3_FINE_BATCH] for k, v in splits["train"].items()}
+    rows["feat_seq"] = first[rows["item_seq"]].astype(np.int32)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in rows.items()}
+    gt = Trainer(gmodel, lambda o, b: full_softmax_loss(o, b["item_id"]),
+                 TrainerConfig(learning_rate=1e-3, seed=SEED),
+                 device=DEVICE, train_method="full_scores")
+    out["gru4recf"] = eager_repeat(gt, batch)
+    return out
 
 
 def main() -> int:
@@ -3544,6 +4156,27 @@ def main() -> int:
                   os.path.normpath(ml1m_dir)))})
         emit({"phase": "seq_stage", "wall_s": time.perf_counter() - t0})
 
+    # 5k. DIN at Taobao scale through B1; BST, DIEN, DSIN
+    t0 = time.perf_counter()
+    din = din_taobao()
+    emit({"phase": "din_taobao", "card": card,
+          "wall_s": time.perf_counter() - t0, **din})
+    # 5l. the multitask models at the Criteo width, MMOE through B1
+    t0 = time.perf_counter()
+    mtl = multitask_criteo()
+    emit({"phase": "multitask_criteo", "card": card,
+          "wall_s": time.perf_counter() - t0, **mtl})
+    # 5m. the ranking zoo's remainder, then S3Rec and GRU4RecF
+    t0 = time.perf_counter()
+    ctrx = ctr_zoo_rest()
+    emit({"phase": "ctr_zoo_rest", "card": card,
+          "wall_s": time.perf_counter() - t0, "batch": CTRX_BATCH,
+          "models": ctrx})
+    t0 = time.perf_counter()
+    s3 = s3rec_beauty()
+    emit({"phase": "s3rec_beauty", "card": card,
+          "wall_s": time.perf_counter() - t0, **s3})
+
     # 6. times
     qps = {}
     for name, s in (("bf16", svc), ("int8", svc8)):
@@ -3634,13 +4267,37 @@ def main() -> int:
         "replaces": "recbox_tpu/ops/pallas/packed_delta.py:62",
         "launches": fit_c["b1_launches"]
         + zoo["run_ranking_experiment"]["b1_launches"]
-        + zoo["xdeepfm"]["b1_launches"],
+        + zoo["xdeepfm"]["b1_launches"]
+        + din["run_ranking_experiment"]["b1_launches"]
+        + mtl["run_ranking_experiment"]["b1_launches"],
         "launches_by_path": {
             "fit_fused_graph": fit_c["b1_launches"],
             "train_step_eager": train["launches"],
             "zoo_dcnv2_run_ranking_experiment":
                 zoo["run_ranking_experiment"]["b1_launches"],
-            "zoo_xdeepfm_fused": zoo["xdeepfm"]["b1_launches"]},
+            "zoo_xdeepfm_fused": zoo["xdeepfm"]["b1_launches"],
+            "din_5k_run_ranking_experiment":
+                din["run_ranking_experiment"]["b1_launches"],
+            "mmoe_5l_run_ranking_experiment":
+                mtl["run_ranking_experiment"]["b1_launches"],
+            "multitask_5l_eager": mtl["eager_b1_launches"],
+            "ctr_zoo_5m_eager": sum(m["b1_launches"]
+                                    for m in ctrx.values())},
+        "din_5k": {
+            "launches": din["run_ranking_experiment"]["b1_launches"],
+            "pack": din["pack_shape"], "slots": [16], "grads": "f32",
+            "ids": "4096 x 53 a step: Zipf(1.2) items, 50-long histories "
+                   "pre-padded on one PAD row",
+            "max_abs_err": din["b1_din"]["check"]["max_abs_err"],
+            "max_abs_err_update": din["b1_din"]["check"][
+                "max_abs_err_update"],
+            **{key: din["b1_din"]["time"][key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "hottest_row_count")},
+            "device_ms_in_replayed_step": (din["replayed_step_profile"][
+                "groups"] or {}).get("b1_packed_adagrad_update")},
+        "mmoe_5l": {"launches": mtl["run_ranking_experiment"][
+            "b1_launches"]},
         "device_ms_in_profiled_step": {
             "eager": (eager_c["groups"] or {}).get(
                 "b1_packed_adagrad_update"),

@@ -54,6 +54,19 @@ L, 1), NextItNet's (k, D, D) `Conv1d` weights (D, D, k); a flax
 parameters; LightSANs' DenseGeneral heads (``q``, ``k``, ``v``,
 ``theta``, ``pq``, ``pk``) are one Linear each
 (`tests/test_torch_sequential_zoo.py`).
+
+The ranking zoo's remainder takes them too: an MLP's ``Dice_<j>``
+(``alpha``, and its ``BatchNorm_0`` statistics from ``batch_stats``)
+becomes the MLP's ``dice.<j>``; the multitask experts' ``w<i>`` (E, in,
+out) / ``b<i>`` (E, out), the field-aware tables (``ffm_embedding``, a
+FeatureEmbedding F·D wide), the pair kernels, DAGFM's ``w<l>`` /
+``p<l>`` / ``q<l>`` and EulerNet's orders keep flax's layout; DIEN's
+``gru1`` / ``augru`` cells sit under ``cell`` as in ``nn.RNN``, DSIN's two
+cells are ``GRUCell_0`` / ``GRUCell_1``; CCPM's 1-D and FGCNN's 2-D
+convolutions take the Conv rules above; S3Rec's (V + 1)-row ``emb_item``
+and GRU4RecF's ``emb_feat`` are bare tables
+(`tests/test_torch_sequence_ctr.py`, `tests/test_torch_ctr_extended.py`,
+`tests/test_torch_multitask.py`, `tests/test_torch_pretrain.py`).
 """
 
 from __future__ import annotations
@@ -68,6 +81,7 @@ from torch import nn
 __all__ = ["from_jax_params", "load_packed_state"]
 
 _DENSE = re.compile(r"Dense_(\d+)$")
+_DICE = re.compile(r"Dice_(\d+)$")
 _NORM = re.compile(r"BatchNorm_(\d+)$")
 
 
@@ -96,6 +110,11 @@ def _candidates(path: Tuple[str, ...], arr: np.ndarray
                 ) -> List[Tuple[str, Optional[Callable]]]:
     """(state_dict key, transform) candidates for one flax param path, in
     order of preference."""
+    # an MLP's Dice_<j> is its dice[j] (its alpha and, from batch_stats,
+    # its BatchNorm_0's statistics)
+    path = tuple(p for part in path for p in (
+        ("dice", _DICE.match(part).group(1)) if _DICE.match(part)
+        else (part,)))
     *mods, leaf = path
     out: List[Tuple[List[str], Optional[Callable]]] = []
     if leaf.startswith("emb_"):
@@ -168,11 +187,14 @@ def load_packed_state(trainer, dense_params: Mapping,
     """Put a JAX `PackedEmbeddingTrainer`'s state into an initialized port
     trainer: its dense params tree (``t.params``, numpy leaves) onto the
     model, its packs (``t.packs``, numpy, same names and layout) into
-    ``trainer.packs``. Raises on a missing or extra pack or a shape
-    mismatch. Adam's moments stay at the port trainer's (zeros after
-    init)."""
+    ``trainer.packs``; its ``model_state`` (the variables beside
+    ``params``, e.g. ``{"batch_stats": ...}``: BatchNorm and Dice
+    statistics) onto the model's buffers. Raises on a missing or extra
+    pack or a shape mismatch. Adam's moments stay at the port trainer's
+    (zeros after init)."""
     model = trainer.model
-    model.load_state_dict(from_jax_params(dense_params, model))
+    model.load_state_dict(from_jax_params(
+        {"params": dense_params, **(model_state or {})}, model))
     if set(packs) != set(trainer.packs):
         raise KeyError(f"JAX packs {sorted(packs)} vs port packs "
                        f"{sorted(trainer.packs)}")

@@ -17,6 +17,10 @@ from recbox_tpu_torch.models.matching import (
     DSSM, ENMF, FISM, MF, NAIS, NNCF, ADMMSLIM, EASE, ConvNCF, ItemKNN,
     LightGCN, NCEPLRec, NeuMF, NGCF, Pop, PureSVD, SLIM, YoutubeDNN,
 )
+from recbox_tpu_torch.models import ranking
+from recbox_tpu_torch.models.multitask import (
+    AITM, ESMM, MMOE, PLE, SharedBottom,
+)
 from recbox_tpu_torch.models.ranking.ctr import (
     AFM, DCN, DNN, FM, LR, NFM, PNN, AutoInt, DCNv2, DeepFM, FiBiNET,
     WideDeep, xDeepFM,
@@ -26,8 +30,8 @@ from recbox_tpu_torch.models.reranking.models import (
 )
 from recbox_tpu_torch.models.sequential import (
     CORE, FDSA, FOSSIL, FPMC, GCSAN, HGN, HRM, NARM, NPE, SHAN, SINE, SRGNN,
-    STAMP, BERT4Rec, Caser, GRU4Rec, LightSANs, NextItNet, RepeatNet, SASRec,
-    TransRec,
+    STAMP, BERT4Rec, Caser, GRU4Rec, GRU4RecF, LightSANs, NextItNet,
+    RepeatNet, S3Rec, SASRec, TransRec,
 )
 
 __all__ = ["MODEL_REGISTRY", "get_model", "register_model", "list_models"]
@@ -36,19 +40,12 @@ MODEL_REGISTRY: Dict[str, Tuple[Type, str]] = {}
 
 # the JAX registry's names the port does not have yet: (stage, the
 # ROADMAP.md Queue A item that ports them)
-_SEQ, _RANK, _MATCH = ("Sequential pretraining", "Ranking zoo remainder",
-                       "Matching zoo remainder")
-_RERANK, _KG, _FULL = ("Reranking remainder", "Knowledge",
-                       "The full registry")
+_MATCH, _RERANK, _KG, _FULL = ("Matching zoo remainder",
+                               "Reranking remainder", "Knowledge",
+                               "The full registry")
 _PENDING: Dict[str, Tuple[str, str]] = {}
 for _names, _stage, _item in [
-        (("SharedBottom", "ESMM", "MMOE", "PLE", "AITM"), "multitask", _RANK),
-        (("S3Rec", "GRU4RecF"), "sequential", _SEQ),
         (("KSR",), "sequential", _KG),
-        (("DIN", "BST", "DIEN", "DSIN", "FFM", "FwFM", "FmFM", "FEFM",
-          "DeepFEFM", "ONN", "CCPM", "FGCNN", "FLEN", "IFM", "DIFM", "EDCN",
-          "MLR", "FiGNN", "EulerNet", "DeepIM", "HFM", "DCNMix", "FNN",
-          "DAGFM", "KD_DAGFM"), "ranking", _RANK),
         (("MIND", "ComiRec", "SimpleX", "YoutubeSBC", "MultiVAE",
           "MacridVAE", "RecVAE", "CDAE", "RaCT", "SGL", "NCL", "DGCF",
           "SpectralCF", "GCMC", "LINE", "Item2Vec"), "matching", _MATCH),
@@ -101,6 +98,15 @@ for _name, _cls in [("LR", LR), ("FM", FM), ("DNN", DNN),
                     ("xDeepFM", xDeepFM), ("AutoInt", AutoInt), ("PNN", PNN),
                     ("FiBiNET", FiBiNET), ("WDL", WideDeep)]:
     register_model(_name, _cls, "ranking")
+# the sequence CTR models, the extended zoo and DAGFM / KD_DAGFM
+for _name in ("DIN", "BST", "DIEN", "DSIN", "FFM", "FwFM", "FmFM", "FEFM",
+              "DeepFEFM", "ONN", "CCPM", "FGCNN", "FLEN", "IFM", "DIFM",
+              "EDCN", "MLR", "FiGNN", "EulerNet", "DeepIM", "HFM", "DCNMix",
+              "FNN", "DAGFM", "KD_DAGFM"):
+    register_model(_name, getattr(ranking, _name), "ranking")
+for _name, _cls in [("SharedBottom", SharedBottom), ("ESMM", ESMM),
+                    ("MMOE", MMOE), ("PLE", PLE), ("AITM", AITM)]:
+    register_model(_name, _cls, "multitask")
 for _name, _cls in [("SASRec", SASRec), ("GRU4Rec", GRU4Rec), ("NARM", NARM),
                     ("STAMP", STAMP), ("Caser", Caser),
                     ("NextItNet", NextItNet), ("BERT4Rec", BERT4Rec),
@@ -108,7 +114,8 @@ for _name, _cls in [("SASRec", SASRec), ("GRU4Rec", GRU4Rec), ("NARM", NARM),
                     ("SHAN", SHAN), ("FOSSIL", FOSSIL), ("HRM", HRM),
                     ("NPE", NPE), ("CORE", CORE), ("LightSANs", LightSANs),
                     ("FDSA", FDSA), ("RepeatNet", RepeatNet),
-                    ("SINE", SINE), ("SRGNN", SRGNN), ("GCSAN", GCSAN)]:
+                    ("SINE", SINE), ("SRGNN", SRGNN), ("GCSAN", GCSAN),
+                    ("S3Rec", S3Rec), ("GRU4RecF", GRU4RecF)]:
     register_model(_name, _cls, "sequential")
 for _name, _cls in [("PRM", PRM), ("DLCM", DLCM), ("SetRank", SetRank),
                     ("MiDNN", MiDNN), ("GSF", GSF)]:

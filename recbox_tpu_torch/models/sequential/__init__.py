@@ -6,6 +6,7 @@ from recbox_tpu_torch.models.sequential.models import (
     NARM, STAMP, Caser, GRU4Rec, NextItNet, SASRec, SequentialRecommender,
     right_align_to_left,
 )
+from recbox_tpu_torch.models.sequential.pretrain import GRU4RecF, S3Rec
 from recbox_tpu_torch.models.sequential.session_graph import (
     GCSAN, SRGNN, session_adjacency,
 )
@@ -13,5 +14,5 @@ from recbox_tpu_torch.models.sequential.session_graph import (
 __all__ = ["SequentialRecommender", "SASRec", "GRU4Rec", "NARM", "STAMP",
            "Caser", "NextItNet", "BERT4Rec", "FPMC", "TransRec", "HGN",
            "SHAN", "FOSSIL", "HRM", "NPE", "CORE", "LightSANs", "FDSA",
-           "RepeatNet", "SINE", "SRGNN", "GCSAN", "right_align_to_left",
-           "session_adjacency"]
+           "RepeatNet", "SINE", "SRGNN", "GCSAN", "S3Rec", "GRU4RecF",
+           "right_align_to_left", "session_adjacency"]

@@ -1,8 +1,12 @@
-"""Transformer blocks of the sequential models.
+"""Attention blocks: DIN's target attention and the transformer blocks of
+the sequential models.
 
-Counterpart of `recbox_tpu/nn/attention.py` `PositionalEmbedding` (:62-70)
-and `TransformerEncoder` (:73-127), recbole's TransformerEncoder contract:
-n_layers × [multi-head self-attention + GELU feed-forward], post-LN with
+Counterpart of `recbox_tpu/nn/attention.py` `TargetAttention` (:36-59),
+`PositionalEmbedding` (:62-70) and `TransformerEncoder` (:73-127). The
+target attention scores each position of a behaviour sequence by an MLP
+(``MLP_0``) over [seq, t, seq − t, seq · t]; a masked score is 0 without a
+softmax and −1e9 with one. The transformer follows recbole's
+TransformerEncoder contract: n_layers × [multi-head self-attention + GELU feed-forward], post-LN with
 eps 1e-12, an additive attention mask (-1e9 on padded keys, plus -1e9 above
 the diagonal when ``causal``). A padded query position sees only masked
 keys and gets a uniform softmax, as in JAX; the mask is never -inf, which
@@ -22,16 +26,16 @@ biases, LayerNorm scale 1 and bias 0; ``pos_emb`` normal(0.02).
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from recbox_tpu_torch.nn.core import _TRUNC_STD, Dropout
+from recbox_tpu_torch.nn.core import _TRUNC_STD, MLP, Dropout
 
-__all__ = ["PositionalEmbedding", "TransformerEncoder", "LayerNorm",
-           "dense", "lecun_normal_"]
+__all__ = ["PositionalEmbedding", "TargetAttention", "TransformerEncoder",
+           "LayerNorm", "dense", "lecun_normal_"]
 
 NEG_INF = -1e9
 
@@ -59,18 +63,58 @@ def dense(d_in: int, d_out: int, generator, device,
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm``: f32 statistics over the last axis, learned
-    ``scale`` and ``bias`` (flax's names)."""
+    ``scale`` and ``bias`` (flax's names). ``fast_variance`` computes the
+    variance as flax does, E[x²] − E[x]² clipped at 0, where an input far
+    from centred rounds it apart from `F.layer_norm`'s two-pass one
+    (EulerNet's moduli)."""
 
     def __init__(self, dim: int, eps: float = 1e-6,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 fast_variance: bool = False):
         super().__init__()
-        self.eps = eps
+        self.eps, self.fast_variance = eps, fast_variance
         self.scale = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), x.shape[-1:], self.scale, self.bias,
-                            self.eps)
+        if not self.fast_variance:
+            return F.layer_norm(x.float(), x.shape[-1:], self.scale,
+                                self.bias, self.eps)
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp(torch.square(xf).mean(-1, keepdim=True)
+                          - torch.square(mean), min=0.0)
+        return (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale) \
+            + self.bias
+
+
+class TargetAttention(nn.Module):
+    """DIN-style attention of a target (B, D) over a sequence (B, L, D) →
+    (B, D): the score MLP (``MLP_0``, f32, Dice by default) over
+    [seq, t, seq − t, seq · t], masked (0, or −1e9 before the optional
+    softmax), then the score-weighted sum of the sequence. The Dice
+    statistics take every position, padded ones included, as JAX's do."""
+
+    def __init__(self, dim: int, hidden_units: Sequence[int] = (80, 40),
+                 activation: str = "dice", use_softmax: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        super().__init__()
+        self.use_softmax = use_softmax
+        self.MLP_0 = MLP(4 * dim, tuple(hidden_units), activation=activation,
+                         output_dim=1, generator=generator, device=device)
+
+    def forward(self, target: torch.Tensor, sequence: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        t = target[:, None, :].expand_as(sequence)
+        att_in = torch.cat([sequence, t, sequence - t, sequence * t], dim=-1)
+        score = self.MLP_0(att_in)[..., 0]                       # (B, L)
+        if mask is not None:
+            score = torch.where(mask, score, torch.full_like(
+                score, NEG_INF if self.use_softmax else 0.0))
+        if self.use_softmax:
+            score = torch.softmax(score, dim=-1)
+        return torch.einsum("bl,bld->bd", score, sequence)
 
 
 class PositionalEmbedding(nn.Module):

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["MLP", "BatchNorm", "Dropout", "FactorizationMachine",
+__all__ = ["MLP", "BatchNorm", "Dice", "Dropout", "FactorizationMachine",
            "LogisticRegression", "get_activation", "set_dropout_generator",
            "xavier_normal_", "xavier_uniform_"]
 
@@ -123,8 +123,8 @@ def get_activation(act: Union[str, Callable, None]) -> Callable:
         return act
     key = act.lower()
     if key == "dice":
-        raise ValueError("Dice is stateful and not ported yet (ROADMAP.md, "
-                         "Queue A: \"Ranking zoo remainder\")")
+        raise ValueError("Dice is stateful; instantiate "
+                         "recbox_tpu_torch.nn.Dice directly")
     if key not in _ACTIVATIONS:
         raise NotImplementedError(f"activation={act}")
     return _ACTIVATIONS[key]
@@ -145,11 +145,15 @@ class BatchNorm(nn.Module):
     statistics at the first step.)"""
 
     def __init__(self, dim: int, momentum: float = 0.99, eps: float = 1e-5,
+                 affine: bool = True,
                  device: Optional[torch.device] = None):
         super().__init__()
         self.momentum, self.eps = momentum, eps
-        self.scale = nn.Parameter(torch.ones(dim, device=device))
-        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+        # affine=False: flax's use_scale=False, use_bias=False
+        self.scale = nn.Parameter(torch.ones(dim, device=device)) \
+            if affine else None
+        self.bias = nn.Parameter(torch.zeros(dim, device=device)) \
+            if affine else None
         self.register_buffer("mean", torch.zeros(dim, device=device))
         self.register_buffer("var", torch.ones(dim, device=device))
 
@@ -167,8 +171,28 @@ class BatchNorm(nn.Module):
                     (1.0 - self.momentum) * var.detach())
         else:
             mean, var = self.mean, self.var
+        if self.scale is None:
+            return (xf - mean) * torch.rsqrt(var + self.eps)
         return (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale) \
             + self.bias
+
+
+class Dice(nn.Module):
+    """Data-adaptive activation of the DIN paper: p = sigmoid(BatchNorm(x))
+    with no scale or bias and ε = 1e-9, out = p·x + (1 − p)·alpha·x, a
+    learned ``alpha`` initialized to zeros. The statistics (``BatchNorm_0``,
+    flax's name) are taken over every leading axis of x and move in
+    training mode."""
+
+    def __init__(self, dim: int, device: Optional[torch.device] = None):
+        super().__init__()
+        self.BatchNorm_0 = BatchNorm(dim, eps=1e-9, affine=False,
+                                     device=device)
+        self.alpha = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = torch.sigmoid(self.BatchNorm_0(x))
+        return p * x + (1.0 - p) * self.alpha * x
 
 
 class MLP(nn.Module):
@@ -176,9 +200,10 @@ class MLP(nn.Module):
     head.
 
     Layer ``i`` is ``dense[i]`` and its norm ``bn[i]``, the counterparts of
-    flax's ``Dense_i`` and ``BatchNorm_i`` (`interop.from_jax_params` maps
-    one onto the other). Weights are flax's xavier_normal draw, biases
-    zero. With ``dtype`` bfloat16 each layer casts its input, weight and
+    flax's ``Dense_i`` and ``BatchNorm_i``; an activation 'dice' is a
+    `Dice`, ``dice[j]`` for flax's ``Dice_j`` (numbered over the Dice layers
+    alone), so `interop.from_jax_params` maps one onto the other. Weights
+    are flax's xavier_normal draw, biases zero. With ``dtype`` bfloat16 each layer casts its input, weight and
     bias to bf16, as flax's ``Dense(dtype=)`` does; the parameters stay
     float32, and a BatchNorm's output is f32 (flax promotes it).
     """
@@ -198,7 +223,12 @@ class MLP(nn.Module):
             else list(activation)
         drops = [dropout] * n if isinstance(dropout, (int, float)) \
             else list(dropout)
-        self._acts = [get_activation(a) for a in acts]
+        self.dice = nn.ModuleList(
+            [Dice(u, device=device) for u, a in zip(hidden_units, acts)
+             if str(a).lower() == "dice"])
+        dice = iter(self.dice)
+        self._acts = [next(dice) if str(a).lower() == "dice"
+                      else get_activation(a) for a in acts]
         self.drop = nn.ModuleList([Dropout(p) for p in drops])
         self.bn = nn.ModuleList(
             [BatchNorm(u, device=device) for u in hidden_units]

@@ -26,8 +26,11 @@ are JAX's numpy draws, value for value, and the position is the stable
 sort's, as in JAX.
 
 `run_kg_experiment`, and `run_experiment` on a knowledge model, raise
-NotImplementedError naming `ROADMAP.md` Queue A's "Knowledge"; so does the
-multitask branch of `run_ranking_experiment` ("Ranking zoo remainder").
+NotImplementedError naming `ROADMAP.md` Queue A's "Knowledge".
+`run_ranking_experiment` trains a multitask model on `multitask_loss` over
+the labels and evaluates it with `MultiTaskEvaluator`, both reading
+probabilities where the model's ``output_type`` is 'probs' (ESMM), as in
+JAX (:117-126, :149-156).
 
 `run_cascade_experiment` keeps two behaviours of the reference that
 `ADVICE.md:3-4` records as defects, so that both packages compute the same
@@ -48,7 +51,7 @@ from recbox_tpu_torch import resolve_device
 from recbox_tpu_torch.config.config import Config
 from recbox_tpu_torch.data import ArrayLoader, MatchingLoader
 from recbox_tpu_torch.evaluation.evaluators import (
-    CTREvaluator, RetrievalEvaluator,
+    CTREvaluator, MultiTaskEvaluator, RetrievalEvaluator,
 )
 from recbox_tpu_torch.features.schema import FeatureMap
 from recbox_tpu_torch.models.registry import get_model
@@ -161,26 +164,39 @@ def run_ranking_experiment(
     mesh=None,
     device: Device = None,
 ) -> Dict[str, float]:
-    """CTR pipeline: loader → model → trainer.fit → metrics (valid, and
-    ``test_*`` with ``test_arrays``). ``trainer: packed`` in the config
-    trains the tables with `PackedEmbeddingTrainer` (one row gather and
-    one B1 update a step)."""
+    """CTR / multitask pipeline: loader → model → trainer.fit → metrics
+    (valid, and ``test_*`` with ``test_arrays``). ``trainer: packed`` in
+    the config trains the tables with `PackedEmbeddingTrainer` (one row
+    gather and one B1 update a step), its AdaGrad accumulators starting
+    at the config's ``adagrad_init`` (0.0, the trainer's default; a key
+    JAX's pipeline does not read: at 0 each duplicate of a hot row moves
+    it by ~lr, see `ROADMAP.md` Queue C)."""
     config = Config(config)
     dev = resolve_device(device)
     model, stage = build_model(config, feature_map, dev)
-    if stage == "multitask":
-        raise NotImplementedError(
-            "the multitask branch is not ported yet (ROADMAP.md, Queue A: "
-            "\"Ranking zoo remainder\")")
     batch_size = config.get("batch_size", 2048)
-    label = list(feature_map.labels)[0]
+    labels = list(feature_map.labels)
     metrics = list(config.get("metrics", ["AUC", "logloss"]))
     group_id = config.get("group_id") or None
-    evaluator = CTREvaluator(valid_arrays, label=label, metrics=metrics,
-                             group_id=group_id)
+    from_logits = getattr(model, "output_type", "logits") == "logits"
 
-    def loss_fn(outputs, batch):
-        return binary_crossentropy(outputs, batch[label])
+    def make_evaluator(arrays):
+        if stage == "multitask":
+            return MultiTaskEvaluator(arrays, labels, metrics=metrics,
+                                      from_logits=from_logits)
+        return CTREvaluator(arrays, label=labels[0], metrics=metrics,
+                            group_id=group_id)
+
+    evaluator = make_evaluator(valid_arrays)
+    if stage == "multitask":
+        from recbox_tpu_torch.models.multitask import multitask_loss
+
+        def loss_fn(outputs, batch):
+            y = torch.stack([batch[name] for name in labels], dim=1)
+            return multitask_loss(outputs, y, from_logits=from_logits)
+    else:
+        def loss_fn(outputs, batch):
+            return binary_crossentropy(outputs, batch[labels[0]])
 
     if config.get("trainer", "dense") == "packed":
         from recbox_tpu_torch.training.packed import PackedEmbeddingTrainer
@@ -188,7 +204,8 @@ def run_ranking_experiment(
             model, loss_fn, build_trainer_config(config), eval_fn=evaluator,
             mesh=mesh, device=dev,
             embedding_optimizer=config.get("embedding_optimizer", "adagrad"),
-            embedding_lr=config.get("embedding_lr"))
+            embedding_lr=config.get("embedding_lr"),
+            adagrad_init=float(config.get("adagrad_init", 0.0)))
     else:
         trainer = Trainer(model, loss_fn, build_trainer_config(config),
                           eval_fn=evaluator, mesh=mesh, device=dev)
@@ -196,10 +213,8 @@ def run_ranking_experiment(
                          seed=config.get("seed", 2024))
     result = trainer.fit(loader, epochs=config.get("epochs"))
     if test_arrays is not None:
-        test_eval = CTREvaluator(test_arrays, label=label, metrics=metrics,
-                                 group_id=group_id)
-        result = {**result, **{f"test_{k}": v
-                               for k, v in test_eval(trainer).items()}}
+        result = {**result, **{f"test_{k}": v for k, v in
+                               make_evaluator(test_arrays)(trainer).items()}}
     logger.info("experiment %s: %s", config.get("experiment_id", "?"), result)
     return result
 

@@ -7,6 +7,7 @@ port's `fit`.
     python3 -m recbox_tpu_torch.tools.quality_exit --models bpr lightgcn \\
         --dataset synth --device cpu [--init-from DIR]
     python3 -m recbox_tpu_torch.tools.quality_exit --models dcnv2 xdeepfm
+    python3 -m recbox_tpu_torch.tools.quality_exit --models fignn eulernet
     python3 -m recbox_tpu_torch.tools.quality_exit --models cascade \\
         --seeds 2024
 
@@ -32,6 +33,9 @@ decay, monitor valid AUC, a 80/10/10 split) and
 dropout 0.2, full-softmax CE through `full_scores`, leave-one-out, monitor
 valid NDCG@10), DCNv2 ('stacked') and xDeepFM (its CIN with recbole's
 relu) in DeepFM's place at DeepFM's knobs (`docs/QUALITY_PARITY.md:186-190`),
+FiGNN (2 steps, 2 heads of 16) and EulerNet (one layer of 16 orders)
+at `tools/parity_run_ours_ctrx.py`'s knobs (no MLP, xavier_normal tables,
+the rest DeepFM's; `docs/QUALITY_PARITY.md:160-176`),
 with every seed of the runner (the split's permutation,
 the loader's shuffle, the trainer's seed) and the model's initial draw
 taken from ``--seed``. The matching runs are
@@ -211,7 +215,17 @@ def _fit(trainer, loader, test_fn) -> Dict[str, Dict[str, float]]:
 # xDeepFM with recbole's per-layer CIN relu)
 CTR_MODELS = {"deepfm": ("DeepFM", {}),
               "dcnv2": ("DCNv2", {"model_structure": "stacked"}),
-              "xdeepfm": ("xDeepFM", {"cin_activation": "relu"})}
+              "xdeepfm": ("xDeepFM", {"cin_activation": "relu"}),
+              # `tools/parity_run_ours_ctrx.py`'s two: no MLP, recbole's
+              # xavier_normal tables (`docs/QUALITY_PARITY.md:160-176`)
+              "fignn": ("FiGNN", {"gnn_steps": 2, "att_dim": 16,
+                                  "num_heads": 2,
+                                  "emb_init_scheme": "xavier_normal"}),
+              "eulernet": ("EulerNet", {"order_layers": (16,),
+                                        "apply_norm": False,
+                                        "emb_init_scheme": "xavier_normal"})}
+# the models whose runner has DeepFM's MLP 64-32
+_MLP_64_32 = ("deepfm", "dcnv2", "xdeepfm")
 
 
 def run_ctr(kind: str, data_dir: str, seed: int, device: str,
@@ -264,8 +278,10 @@ def ctr_trainer(kind: str, data_dir: str, seed: int, device: str,
         FeatureSpec("item_id", "categorical", vocab_size=ds.num_items,
                     embedding_dim=16)), labels=("label",))
     cls_name, extra = CTR_MODELS[kind]
+    if kind in _MLP_64_32:
+        extra = {"hidden_units": (64, 32), **extra}
     model = getattr(ranking, cls_name)(
-        fm, embedding_dim=16, hidden_units=(64, 32), dropout=dropout,
+        fm, embedding_dim=16, dropout=dropout,
         generator=torch.Generator(device=device).manual_seed(seed),
         device=device, **extra)
     load_init(init_from, kind, seed, model)
@@ -465,6 +481,8 @@ RUNS = {"deepfm": (gen_ctr, run_deepfm), "sasrec": (gen_seq, run_sasrec),
         "bpr": (gen_synth, run_bpr), "lightgcn": (gen_synth, run_lightgcn),
         "dcnv2": (gen_ctr, functools.partial(run_ctr, "dcnv2")),
         "xdeepfm": (gen_ctr, functools.partial(run_ctr, "xdeepfm")),
+        "fignn": (gen_ctr, functools.partial(run_ctr, "fignn")),
+        "eulernet": (gen_ctr, functools.partial(run_ctr, "eulernet")),
         "cascade": (gen_ml1m_scale, run_cascade)}
 MATCHING_DATA = {"synth": gen_synth, "ml1m_scale": gen_ml1m_scale}
 

@@ -11,7 +11,8 @@ params, flattened to '/'-joined keys, to ``<out>/<model>_seed<seed>.npz``
 (``bpr_ml1m_scale`` for MF-BPR on ml1m_scale)::
 
     env JAX_PLATFORMS=cpu python -m tests.test_torch_exit_pairing \\
-        --out DIR [--models deepfm dcnv2 xdeepfm sasrec bpr lightgcn] \\
+        --out DIR [--models deepfm dcnv2 xdeepfm fignn eulernet sasrec bpr \\
+        lightgcn] \\
         [--seeds 2024 1 2 3 4] [--dataset synth|ml1m_scale]
 
 ``python3 -m recbox_tpu_torch.tools.quality_exit --init-from DIR`` then
@@ -22,7 +23,8 @@ for byte. Dropout masks still differ (Philox against threefry); with
 also trains each JAX runner and prints its test metrics, one JSON line a
 run, for ``quality_exit --dropout 0 --init-from DIR`` to be held to.
 
-The test: DeepFM, DCNv2 and xDeepFM on synthctr and MF-BPR on synth at
+The test: DeepFM, DCNv2, xDeepFM, FiGNN and EulerNet on synthctr and
+MF-BPR on synth at
 seed 2024, the port's exit trainer loaded from the dumped params gives
 the JAX runner's
 validation metrics before the first step within 1e-6 (AUC / logloss;
@@ -53,6 +55,7 @@ from recbox_tpu.features import FeatureMap, FeatureSpec
 from recbox_tpu.models.matching.graph import LightGCN, build_norm_edges
 from recbox_tpu.models.matching.two_tower import MF
 from recbox_tpu.models.ranking.ctr import DCNv2, DeepFM, xDeepFM
+from recbox_tpu.models.ranking.ctr_extended import EulerNet, FiGNN
 from recbox_tpu.models.sequential.models import SASRec
 from recbox_tpu.ops import (
     binary_crossentropy, full_softmax_loss, get_matching_loss,
@@ -82,19 +85,21 @@ def _ctr_split(data_dir, seed):
 
 
 def jax_deepfm(data_dir, seed, cls=DeepFM, dropout=0.1, epochs=30,
-               **extra):
+               mlp=True, **extra):
     """`tools/parity_run_ours_deepfm.py` at ``seed`` (with ``cls`` and its
     ``extra`` arguments in DeepFM's place: the DCNv2 / xDeepFM runs of
-    `docs/QUALITY_PARITY.md:186-190`): (trainer, loader, valid
-    evaluator)."""
+    `docs/QUALITY_PARITY.md:186-190`, and without the MLP (``mlp``
+    False) `tools/parity_run_ours_ctrx.py`'s FiGNN / EulerNet): (trainer,
+    loader, valid evaluator)."""
     ds, (train, valid, _) = _ctr_split(data_dir, seed)
     fm = FeatureMap("sctr", (
         FeatureSpec("user_id", "categorical", vocab_size=ds.num_users,
                     embedding_dim=16),
         FeatureSpec("item_id", "categorical", vocab_size=ds.num_items,
                     embedding_dim=16)), labels=("label",))
-    model = cls(feature_map=fm, embedding_dim=16, hidden_units=(64, 32),
-                dropout=dropout, **extra)
+    if mlp:
+        extra = {"hidden_units": (64, 32), **extra}
+    model = cls(feature_map=fm, embedding_dim=16, dropout=dropout, **extra)
     ev = CTREvaluator(valid, label="label", metrics=["AUC", "logloss"])
     trainer = Trainer(model, lambda o, b: binary_crossentropy(o, b["label"]),
                       _cfg(seed, "AUC", epochs), eval_fn=ev)
@@ -186,6 +191,12 @@ BUILDERS = {
         d, s, DCNv2, model_structure="stacked", **k)),
     "xdeepfm": (qe.gen_ctr, lambda d, s, **k: jax_deepfm(
         d, s, xDeepFM, cin_activation="relu", **k)),
+    "fignn": (qe.gen_ctr, lambda d, s, **k: jax_deepfm(
+        d, s, FiGNN, mlp=False, gnn_steps=2, att_dim=16, num_heads=2,
+        emb_init_scheme="xavier_normal", **k)),
+    "eulernet": (qe.gen_ctr, lambda d, s, **k: jax_deepfm(
+        d, s, EulerNet, mlp=False, order_layers=(16,), apply_norm=False,
+        emb_init_scheme="xavier_normal", **k)),
     "sasrec": (qe.gen_seq, jax_sasrec),
     "bpr": (qe.gen_synth, lambda d, s: jax_matching("bpr", d, s)),
     "lightgcn": (qe.gen_synth, lambda d, s: jax_matching("lightgcn", d, s)),
@@ -220,10 +231,12 @@ def dump(out_dir, name, seed, trainer, loader) -> str:
     ("deepfm", qe.gen_ctr, functools.partial(qe.ctr_trainer, "deepfm")),
     ("dcnv2", qe.gen_ctr, functools.partial(qe.ctr_trainer, "dcnv2")),
     ("xdeepfm", qe.gen_ctr, functools.partial(qe.ctr_trainer, "xdeepfm")),
+    ("fignn", qe.gen_ctr, functools.partial(qe.ctr_trainer, "fignn")),
+    ("eulernet", qe.gen_ctr, functools.partial(qe.ctr_trainer, "eulernet")),
     ("bpr", qe.gen_synth,
      lambda *a, **k: qe.matching_trainer("bpr", *a, **k)),
 ], ids=["deepfm_synthctr", "dcnv2_synthctr", "xdeepfm_synthctr",
-         "mf_bpr_synth"])
+         "fignn_synthctr", "eulernet_synthctr", "mf_bpr_synth"])
 def test_paired_exit_starts_from_jax_weights(tmp_path, model, gen,
                                              port_trainer):
     seed = 2024
@@ -295,7 +308,7 @@ def main(argv=None) -> int:
                 if args.dataset != "synth":
                     tag = f"{name}_{args.dataset}"
             data_dir = gen(tmp)
-            ctr = name in ("deepfm", "dcnv2", "xdeepfm")
+            ctr = name in qe.CTR_MODELS
             kw = {} if args.dropout is None or not ctr \
                 else {"dropout": args.dropout}
             for seed in args.seeds:
