@@ -3344,9 +3344,21 @@ def run_experiment_on_card(data_root):
 # 50-long behaviour histories over the item table, pre-padded
 TB_USERS, TB_ITEMS, TB_CATES, TB_L = 987_994, 4_162_024, 9_439, 50
 TB_BATCH, TB_TRAIN_BATCHES, TB_HELD_OUT_BATCHES = 4096, 24, 4
-TB_ADAGRAD_INIT = 0.1
-# eager steps of a model on one batch (the loss must fall as it fits it)
+# From a zero accumulator (the trainer's default in both packages) AdaGrad
+# moves a row by lr * sign(g) at its first update, the embedding lr being
+# max(lr, 5e-2). 5k's trainer starts the accumulators at 0.1 (TensorFlow's
+# and optax's initial value), an argument of the trainer that
+# `run_ranking_experiment` leaves at 0.0: at 0 each of the top item's
+# ~21,000 duplicates a step moves its row by ~lr and DIN diverges.
+PACKED_ADAGRAD_INIT = 0.1
+# 5l's and 5m's eager checks train the tables at 1e-2: at 5e-2 the first
+# step moves every row of the normal(1e-4) tables by 5e-2 and KD_DAGFM's
+# loss jumps 24x, HFM's 4x, before they fall.
+EAGER_EMBEDDING_LR = 1e-2
+# eager steps of a model on one batch (the loss must fall as it fits it,
+# and no step's loss may exceed EAGER_LOSS_BOUND times the first)
 ZOO_EAGER_STEPS = 8
+EAGER_LOSS_BOUND = 3.0
 SEQ_CTR_OTHERS = ("BST", "DIEN", "DSIN")
 MT_TRAIN_BATCHES, MT_HELD_OUT_BATCHES = 16, 4
 MT_OTHERS = ("SharedBottom", "PLE", "ESMM", "AITM")
@@ -3362,14 +3374,20 @@ S3_PRETRAIN_EPOCHS, S3_PRETRAIN_BATCH = 2, 256
 S3_FINE_EPOCHS, S3_FINE_BATCH = 2, 2048
 
 
-def run_packed_recorded(call):
+def run_packed_recorded(call, **trainer_kw):
     """``call()`` with `PackedEmbeddingTrainer` recording (the pipelines
-    import it from `training.packed` when they run); (its result, the
-    trainer it made)."""
+    import it from `training.packed` when they run) and made with
+    ``trainer_kw`` over the pipeline's keywords; (its result, the trainer
+    it made)."""
     from recbox_tpu_torch.training import packed
     orig = packed.PackedEmbeddingTrainer
     rec = recording_trainer(orig)
-    packed.PackedEmbeddingTrainer = rec
+
+    class Made(rec):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **{**kw, **trainer_kw})
+
+    packed.PackedEmbeddingTrainer = Made
     try:
         out = call()
     finally:
@@ -3452,17 +3470,21 @@ def capture_b1_call(trainer, batch):
     return seen
 
 
-def b1_on_captured(rec):
+def b1_on_captured(rec, pad_row):
     """B1 against its plain version on a step's own operands
     (`b1_agreement` and `b1_update_agreement`, check_b1's tolerances), then
     its ms, the plain version's, the `index_add_` scatter's and the bound
-    (`b1_bound_ms`) at them."""
+    (`b1_bound_ms`) at them; with the ids of the PAD row (pack row
+    ``pad_row``) and of the hottest other row."""
     from recbox_tpu_torch.ops.packed_delta import (
         fused_adagrad_delta_plain, packed_adagrad_update_,
         packed_adagrad_update_plain_,
     )
     pre, ids, G, grads, lr, kw = (rec[k] for k in ("pre", "ids", "G",
                                                     "grads", "lr", "kw"))
+    counts = torch.bincount(ids.long(), minlength=pre.shape[0])
+    pad_count = int(counts[pad_row])
+    counts[pad_row] = 0
     pack, plain = pre.clone(), pre.clone()
     packed_adagrad_update_(pack, ids, G, grads, lr, **kw)
     packed_adagrad_update_plain_(plain, ids, G, grads, lr, **kw)
@@ -3478,15 +3500,18 @@ def b1_on_captured(rec):
     return {"check": check,
             "time": {"pack": list(pre.shape), "dims": list(kw["dims"]),
                      "grads": str(grads[0].dtype), **times,
-                     "hottest_row_count": int(torch.bincount(
-                         ids.long()).max())}}
+                     "pad_row_count": pad_count,
+                     "hottest_row_count": int(counts.max())}}
 
 
 def eager_repeat(trainer, batch, steps=ZOO_EAGER_STEPS):
     """``steps`` eager steps on one batch (finite, the last loss below the
-    first: the model fits the batch), then ms a step over 4 more."""
+    first: the model fits the batch; none above `EAGER_LOSS_BOUND` times
+    the first: a step that blows the loss up fails), then ms a step over 4
+    more."""
     losses = trainer.train_steps_repeat(batch, steps).float().cpu().numpy()
-    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert np.isfinite(losses).all() and losses[-1] < losses[0] \
+        and losses.max() <= EAGER_LOSS_BOUND * losses[0], losses
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer.train_steps_repeat(batch, 4)
@@ -3499,17 +3524,20 @@ def din_taobao():
     """Phase 5k: DIN at `configs/models/din.yaml`'s widths through
     `run_ranking_experiment(trainer: packed)` over the Taobao schema (2
     epochs of 24 batches of 4096, 8 steps a `train_steps_fused` call, 4
-    held-out batches): B1's count reset just before and read just after
+    held-out batches; the pipeline's trainer made with its AdaGrad
+    accumulators at `PACKED_ADAGRAD_INIT`, where the pipeline leaves them at
+    0.0, as JAX's does): B1's count reset just before and read just after
     (one launch a step), a falling loss, held-out AUC above 0.6. Then the
-    same trainer: eager against replayed ms a step (6 blocks of 8 a side),
-    a replayed step equal to an eager one (the pack and the Dice running
+    same trainer: eager against replayed ms a step (6 blocks of 8 a side), a
+    replayed step equal to an eager one (the pack and the Dice running
     means: the statistics move in a replay as in an eager step), one
-    replayed step under torch.profiler, and B1 against its plain version
-    on one step's own ids and gradients (4096 x 53 rows over the 5.16M-row
-    pack, PAD runs included), timed. Then BST, DIEN (its loss plus the
-    auxiliary loss of `auxiliary_logits` on a ``neg_hist`` column) and DSIN
-    at their yaml widths under the dense trainer: 8 eager steps on one
-    batch each, a falling loss, ms a step."""
+    replayed step under torch.profiler, and B1 against its plain version on
+    one step's own ids and gradients (4096 x 53 rows over the 5.16M-row
+    pack, PAD runs included), timed, with the step's ids of the PAD row and
+    of the hottest item. Then BST, DIEN (its loss plus the auxiliary loss of
+    `auxiliary_logits` on a ``neg_hist`` column) and DSIN at their yaml
+    widths under the dense trainer: 8 eager steps on one batch each, a
+    falling, bounded loss (`eager_repeat`), ms a step."""
     from recbox_tpu_torch.ops import packed_delta
     from recbox_tpu_torch.ops.losses import binary_crossentropy
     from recbox_tpu_torch.quick_start import (
@@ -3521,17 +3549,15 @@ def din_taobao():
     held = taobao_arrays(TB_HELD_OUT_BATCHES * TB_BATCH, SEED + 62)
     data_s = time.perf_counter() - t0
     fm = taobao_feature_map()
-    # the AdaGrad accumulators start at 0.1 (TensorFlow's and optax's
-    # initial value): at the trainer's 0.0 each of the ~39,000 duplicates
-    # of the top item in a step moves its row by ~lr, and DIN diverges
     cfg = {**model_yaml("DIN"), "trainer": "packed", "batch_size": TB_BATCH,
            "epochs": 2, "fused_steps": FIT_K, "learning_rate": 1e-3,
            "grad_clip_norm": 10.0, "seed": SEED, "monitor": "AUC",
-           "metrics": ["AUC", "logloss"], "adagrad_init": TB_ADAGRAD_INIT}
+           "metrics": ["AUC", "logloss"]}
     packed_delta.reset_launches()
     t0 = time.perf_counter()
     res, tr = run_packed_recorded(lambda: run_ranking_experiment(
-        cfg, fm, train, held, device=DEVICE))
+        cfg, fm, train, held, device=DEVICE),
+        adagrad_init=PACKED_ADAGRAD_INIT)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = packed_delta.launches["packed_adagrad_update"]
@@ -3565,7 +3591,9 @@ def din_taobao():
         tr, batches[0], groups=ZOO_GROUPS,
         steps=lambda: tr.train_steps_fused(stacked([batches[0]])))
     out.update(speed)
-    b1 = b1_on_captured(capture_b1_call(tr, batches[1]))
+    item_rows, = (b for b in tr._bundles[pname] if "hist" in b.features)
+    b1 = b1_on_captured(capture_b1_call(tr, batches[1]),
+                        pad_row=item_rows.row_offset + TB_ITEMS)
     assert b1["time"]["n"] == TB_BATCH * (TB_L + 3), b1["time"]
     out["b1_din"] = b1
     del tr, pack, batches
@@ -3626,8 +3654,9 @@ def multitask_criteo():
     100,000 ids, 13 numeric, dim 16; 2 epochs of 16 batches of 32768, 8
     steps a fused call, 4 held-out batches): B1 once a step, the
     `MultiTaskEvaluator` AUC of both tasks above 0.5. Then SharedBottom,
-    PLE, ESMM and AITM at their yaml widths under `PackedEmbeddingTrainer`:
-    8 eager steps on one batch each (a falling loss), ms a step; ESMM's
+    PLE, ESMM and AITM at their yaml widths under `PackedEmbeddingTrainer`
+    (tables at `EAGER_EMBEDDING_LR`): 8 eager steps on one batch each
+    (a falling, bounded loss: `eager_repeat`), ms a step; ESMM's
     probabilities on a held-out batch hold pCTCVR <= pCTR."""
     from recbox_tpu_torch.models.multitask import multitask_loss
     from recbox_tpu_torch.ops import packed_delta
@@ -3682,7 +3711,7 @@ def multitask_criteo():
 
         trainer = PackedEmbeddingTrainer(model, loss, TrainerConfig(
             learning_rate=1e-3, grad_clip_norm=10.0, seed=SEED),
-            device=DEVICE)
+            device=DEVICE, embedding_lr=EAGER_EMBEDDING_LR)
         others[name] = eager_repeat(trainer, batch)
         if name == "ESMM":
             probs = trainer.apply(test)
@@ -3699,9 +3728,10 @@ def ctr_zoo_rest():
     """Phase 5m (1): the 19 models of `ctr_extended.py`, DAGFM and KD_DAGFM
     (distilled from a DCNv2 teacher at `configs/models/dcnv2.yaml`'s
     widths through `distillation_loss`) at their yaml widths over the
-    Criteo schema under `PackedEmbeddingTrainer` (FFM and ONN carry their
-    field-aware tables, 2.6M x 39 x 16 floats, in the pack): 8 eager steps
-    on one batch of 4096 each (finite, falling losses), ms a step, B1
+    Criteo schema under `PackedEmbeddingTrainer` (tables at
+    `EAGER_EMBEDDING_LR`; FFM and ONN carry their field-aware tables, 2.6M
+    x 39 x 16 floats, in the pack): 8 eager steps on one batch of 4096 each
+    (finite, falling, bounded losses: `eager_repeat`), ms a step, B1
     launches."""
     from recbox_tpu_torch.models.ranking import distillation_loss
     from recbox_tpu_torch.ops import packed_delta
@@ -3733,7 +3763,7 @@ def ctr_zoo_rest():
         before = packed_delta.launches["packed_adagrad_update"]
         trainer = PackedEmbeddingTrainer(model, loss, TrainerConfig(
             learning_rate=1e-3, grad_clip_norm=10.0, seed=SEED),
-            device=DEVICE)
+            device=DEVICE, embedding_lr=EAGER_EMBEDDING_LR)
         res = eager_repeat(trainer, batch)
         res["b1_launches"] = packed_delta.launches[
             "packed_adagrad_update"] - before
@@ -4293,7 +4323,7 @@ def main() -> int:
                 "max_abs_err_update"],
             **{key: din["b1_din"]["time"][key] for key in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "hottest_row_count")},
+                "pad_row_count", "hottest_row_count")},
             "device_ms_in_replayed_step": (din["replayed_step_profile"][
                 "groups"] or {}).get("b1_packed_adagrad_update")},
         "mmoe_5l": {"launches": mtl["run_ranking_experiment"][

@@ -167,10 +167,7 @@ def run_ranking_experiment(
     """CTR / multitask pipeline: loader → model → trainer.fit → metrics
     (valid, and ``test_*`` with ``test_arrays``). ``trainer: packed`` in
     the config trains the tables with `PackedEmbeddingTrainer` (one row
-    gather and one B1 update a step), its AdaGrad accumulators starting
-    at the config's ``adagrad_init`` (0.0, the trainer's default; a key
-    JAX's pipeline does not read: at 0 each duplicate of a hot row moves
-    it by ~lr, see `ROADMAP.md` Queue C)."""
+    gather and one B1 update a step)."""
     config = Config(config)
     dev = resolve_device(device)
     model, stage = build_model(config, feature_map, dev)
@@ -204,8 +201,7 @@ def run_ranking_experiment(
             model, loss_fn, build_trainer_config(config), eval_fn=evaluator,
             mesh=mesh, device=dev,
             embedding_optimizer=config.get("embedding_optimizer", "adagrad"),
-            embedding_lr=config.get("embedding_lr"),
-            adagrad_init=float(config.get("adagrad_init", 0.0)))
+            embedding_lr=config.get("embedding_lr"))
     else:
         trainer = Trainer(model, loss_fn, build_trainer_config(config),
                           eval_fn=evaluator, mesh=mesh, device=dev)
