@@ -207,6 +207,31 @@ Phases (any failure raises and exits non-zero):
      loss on a fixed probe falls), the graft, a fine-tune through
      `run_sequential_experiment` with test Recall@10 above chance;
      GRU4RecF with a feat_seq column: 8 eager steps, a falling loss;
+  5n. the matching stage's remainder: ComiRec-SA and MIND at their yaml
+     widths (d 64, L 50, 4 interests) over the 1M-item catalog through
+     `run_matching_experiment` (1 epoch of 16 batches of 2048, 10
+     negatives; histories of Zipf(1.2) ranks inside 2-4 planted clusters
+     a user, each cluster's ids scattered over the catalog), validation
+     Recall@20 over 4096 users above chance; `RetrievalService.
+     from_trainer` serving 8192 users at k = 500 through B3's
+     multi-interest route (32,768 query rows), ComiRec from bf16 and int8
+     corpora and MIND from bf16, B3's counts reset just before and read
+     just after each query (one launch of each stage), recall against an
+     exact max-over-interests top-k (>= 0.95 / 0.90), queries/s, the
+     device's idle share; B3 alone at 32,768 x 1M x 64, k = 500 against
+     its plain version and timed; then 8 eager steps on one batch each
+     (a falling loss, never above 3x the first) of SimpleX, YoutubeSBC
+     (1M items), MultiVAE, MacridVAE, CDAE, RaCT (actor, then critic) at
+     ML-20M's 20,108 items, SGL, NCL, DGCF, SpectralCF, GCMC, LINE on
+     5f's data, Item2Vec; RecVAE through `RecVAETrainer` for one epoch;
+  5o. the knowledge stage: `run_experiment("CKE")` over staged atomic
+     files (ml1m_scale's interactions, a synthetic KG of genre, director,
+     actor and year triples), KGAT at kgat.yaml's widths through
+     `run_kg_experiment` on the collaborative KG, both Recall@20 above
+     chance; CFKG, KTUP, MKR, KGCN, KGNNLS, RippleNet, KGIN, MCCLK and
+     KSR: 8 eager steps each, KGNNLS / KGIN / MCCLK on BPR plus their own
+     term (KGNNLS's losses differ from KGCN's), then 8 eager steps of the
+     ``kg_loss`` of CFKG, KTUP, MKR and RippleNet;
   6. times with CUDA events (median after a warm-up; B5, B6 and their
      yardsticks over runs of 20 calls queued behind a spin kernel, so the
      host's launch work is not timed): each kernel, its
@@ -509,16 +534,16 @@ def b3_stages(q, c, scale, k):
     return stage_a, stage_b, lambda: b4_tile_route(q, c, scale, True, sub)
 
 
-def time_kernel(variant, n, d, nq, k, gen):
+def time_kernel(variant, n, d, nq, k, gen, reps=5):
     """B3 (both launches, through its wrapper), its plain version, the
-    library formulation and the bound; at the serving query count also each
-    stage alone (the selection over runs of 20 calls behind a spin kernel)
-    and stage (a) on the tile route."""
+    library formulation and the bound, medians of ``reps`` calls; at the
+    serving query count also each stage alone (the selection over runs of
+    20 calls behind a spin kernel) and stage (a) on the tile route."""
     from recbox_tpu_torch.ops.mips_fused_topk import mips_fused_topk
     q, c, scale = make_inputs(variant, n, d, nq, gen)
-    ms = cuda_ms(lambda: mips_fused_topk(q, c, k, row_scale=scale))
-    plain_ms = cuda_ms(lambda: run_plain(q, c, k, n, scale))
-    library_ms = cuda_ms(lambda: library_topk(q, c, scale, k))
+    ms = cuda_ms(lambda: mips_fused_topk(q, c, k, row_scale=scale), reps)
+    plain_ms = cuda_ms(lambda: run_plain(q, c, k, n, scale), reps)
+    library_ms = cuda_ms(lambda: library_topk(q, c, scale, k), reps)
     b_ms, b_by = bound_ms(variant, n, d, nq, k)
     out = {"variant": variant, "n": n, "d": d, "q": nq, "k": k, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
@@ -3939,6 +3964,704 @@ def s3rec_beauty():
     return out
 
 
+# -- 5n: the matching stage's remainder ----------------------------------------
+
+# ComiRec-SA / MIND at their yaml widths (`configs/models/comirec.yaml`,
+# `mind.yaml`: d 64, L 50, K 4) over the serving catalog of 1M items
+# (`bench.py:246`): 16 batches of 2048 through `run_matching_experiment`,
+# 10 sampled negatives; histories of Zipf(1.2) ranks inside 2-4 planted
+# clusters a user, each cluster's items scattered over the ids
+MI_USERS, MI_BATCH, MI_STEPS, MI_NEGS = 32_768, 2048, 16, 10
+MI_CLUSTERS, MI_EVAL_USERS, MI_EVAL_BATCH = 1000, 4096, 256
+MI_MIN_LEN, MI_MAX_LEN = 5, 50
+# Adam at 1e-2: from emb_init's 1e-4 rows a capsule's squash leaves ~1e-8
+# vectors, whose gradients sit near Adam's eps at 1e-3
+MI_LR = 1e-2
+# the autoencoders over ML-20M's catalog (the MultiVAE paper, Liang et al.,
+# WWW 2018, Table 1: 20,108 items after its filter), 8192 users, batch 500
+AE_ITEMS, AE_USERS, AE_BATCH = 20_108, 8192, 500
+# the SSL terms' weights: NCL's published ssl_reg (recbole `ncl.yaml`), for
+# both (the InfoNCE terms are sums over the batch)
+SGL_SSL_WEIGHT, NCL_SSL_WEIGHT = 1e-7, 1e-7
+I2V_USERS, I2V_BATCH, I2V_NEGS = 5000, 4096, 5
+
+
+def mi_data(seed=SEED + 101):
+    """MI_USERS rows (one a user): a history of MI_MIN_LEN..MI_MAX_LEN
+    items and a target, a held-out item for validation; each item drawn
+    from one of the user's 2-4 clusters (uniformly), its rank in the
+    cluster Zipf(1.2). Cluster c's items are members[c], a random
+    permutation of the ids 1..N-1 (0 is the PAD row): ids scattered as a
+    catalog's are, since B3 keeps one winner a 128-row segment."""
+    rng = np.random.default_rng(seed)
+    size = (N_ITEMS - 1) // MI_CLUSTERS
+    members = rng.permutation(np.arange(1, N_ITEMS))[:MI_CLUSTERS * size] \
+        .reshape(MI_CLUSTERS, size)
+    n_c = rng.integers(2, 5, MI_USERS)
+    clusters = rng.integers(0, MI_CLUSTERS, (MI_USERS, 4))
+
+    def draw(shape):
+        pick = (rng.random(shape) * n_c.reshape((-1,) + (1,) * (
+            len(shape) - 1))).astype(np.int64)
+        c = np.take_along_axis(clusters, pick.reshape(MI_USERS, -1),
+                               axis=1).reshape(shape)
+        rank = (rng.zipf(1.2, shape) - 1) % size
+        return members[c, rank].astype(np.int32)
+
+    lens = rng.integers(MI_MIN_LEN, MI_MAX_LEN + 1, MI_USERS)
+    seq = draw((MI_USERS, MI_MAX_LEN))
+    seq[np.arange(MI_MAX_LEN)[None, :] >= lens[:, None]] = 0
+    target, held = draw((MI_USERS,)), draw((MI_USERS,))
+    users = np.arange(MI_USERS, dtype=np.int32)
+    train = {"user_id": users, "item_id": target, "item_seq": seq,
+             "seq_len": lens.astype(np.int32)}
+    # the evaluation masks what a user consumed: history and target
+    eval_users = users[:MI_EVAL_USERS]
+    train_u2i = {int(u): seq[u][:lens[u]].tolist() + [int(target[u])]
+                 for u in eval_users}
+    valid_u2i = {int(u): [int(held[u])] for u in eval_users}
+    return train, train_u2i, valid_u2i
+
+
+def mi_feature_map():
+    from recbox_tpu_torch.features import FeatureMap, FeatureSpec
+    return FeatureMap("mi_1m", (
+        FeatureSpec("user_id", "categorical", "user", vocab_size=MI_USERS,
+                    embedding_dim=DIM),
+        FeatureSpec("item_id", "categorical", "item", vocab_size=N_ITEMS,
+                    embedding_dim=DIM)),
+        query_index="user_id", corpus_index="item_id", num_items=N_ITEMS)
+
+
+def mi_recall_vs_exact(svc, users, ids, n=512, chunk=64):
+    """Mean |ids ∩ exact| / k over the first n users; the oracle scores
+    each item by its best interest, bf16 towers in f32, exact top-k."""
+    out = []
+    with torch.no_grad():
+        u = svc._encode(svc.model.encode_user,
+                        {key: v[:n] for key, v in users.items()})
+        items = svc.item_embs.to(torch.bfloat16).float()
+        for s in range(0, n, chunk):
+            sc = torch.einsum("ukd,id->uki",
+                              u[s:s + chunk].to(torch.bfloat16).float(),
+                              items).amax(dim=1)
+            out.append(torch.topk(sc, K, dim=1).indices.cpu().numpy())
+    return recall_at(ids[:n], np.concatenate(out))
+
+
+def mi_serve(trainer, users, variants):
+    """`RetrievalService.from_trainer` over the trained model, queried for
+    N_QUERIES users at k = K from each corpus of ``variants``: B3's
+    counts reset just before each query and read just after, queries/s,
+    recall against the exact max-over-interests top-k, the device's idle
+    share (`breakdown`)."""
+    from recbox_tpu_torch.ops import mips_fused_topk as fused
+    from recbox_tpu_torch.ops import mips_topk
+    from recbox_tpu_torch.retrieval import RetrievalService
+    corpus = {"item_id": np.arange(N_ITEMS, dtype=np.int32)}
+    t = time.perf_counter()
+    svc = RetrievalService.from_trainer(trainer, corpus)
+    torch.cuda.synchronize()
+    out = {"corpus_encode_s": time.perf_counter() - t}
+    for name in variants:
+        s = svc if name == "bf16" else RetrievalService(
+            trainer.model, item_embs=svc.item_embs, method="auto",
+            quantize="int8", device=svc.device)
+        counts, walls = [], []
+        for _ in range(3):
+            fused.reset_launches()
+            mips_topk.reset_launches()
+            t = time.perf_counter()
+            scores, ids = s.query(users, k=K)
+            walls.append(time.perf_counter() - t)
+            counts.append({"select": sum(fused.launches.values()),
+                           **mips_topk.route_launches})
+        assert scores.shape == ids.shape == (N_QUERIES, K)
+        assert np.isfinite(scores).all() and (ids >= 0).all() \
+            and (ids < N_ITEMS).all()
+        assert (np.diff(scores, axis=1) <= 0).all()
+        assert all(len(set(r)) == K for r in ids[:256].tolist())
+        out[name] = {"launches_a_query": counts,
+                     "queries_per_s": N_QUERIES / statistics.median(walls),
+                     "query_wall_ms": [w * 1e3 for w in walls],
+                     "recall_vs_exact": mi_recall_vs_exact(s, users, ids),
+                     "breakdown": breakdown(s, users)
+                     if DEVICE == "cuda" else None}
+    return out
+
+
+def multi_interest_1m():
+    """Phase 5n (1): ComiRec-SA and MIND at their yaml widths over 1M items
+    through `run_matching_experiment` (1 epoch of MI_STEPS batches of
+    MI_BATCH, MI_NEGS sampled negatives, Recall@20 / NDCG@20 over
+    MI_EVAL_USERS users at ``eval_batch_size`` 256: the evaluator scores a
+    (chunk, 4, 1M) f32 block), then served by `RetrievalService.
+    from_trainer` through B3's multi-interest route (8192 users x 4
+    interests = 32,768 query rows, k = 500): ComiRec from a bf16 and an
+    int8 corpus, MIND from bf16; then B3 alone at that shape against its
+    plain version, and timed."""
+    from recbox_tpu_torch import quick_start as qs
+    t0 = time.perf_counter()
+    train, train_u2i, valid_u2i = mi_data()
+    fm = mi_feature_map()
+    corpus = {"item_id": np.arange(N_ITEMS, dtype=np.int32)}
+    eval_users = np.arange(MI_EVAL_USERS, dtype=np.int32)
+    eval_arrays = {k: train[k][:MI_EVAL_USERS]
+                   for k in ("user_id", "item_seq", "seq_len")}
+    rows = MI_STEPS * MI_BATCH
+    train_rows = {k: v[:rows] for k, v in train.items()}
+    users = {k: train[k][:N_QUERIES]
+             for k in ("user_id", "item_seq", "seq_len")}
+    out = {"data_s": time.perf_counter() - t0, "items": N_ITEMS,
+           "train_rows": rows, "chance_recall20": 20 / N_ITEMS,
+           "history_len_mean": float(train["seq_len"].mean())}
+    for name, variants in (("ComiRec", ("bf16", "int8")),
+                           ("MIND", ("bf16",))):
+        cfg = {**model_yaml(name), "epochs": 1, "batch_size": MI_BATCH,
+               "num_negs": MI_NEGS, "eval_batch_size": MI_EVAL_BATCH,
+               "learning_rate": MI_LR, "metrics": ["Recall(k=20)",
+                                                   "NDCG(k=20)"],
+               "monitor": "Recall(k=20)", "exclude_items": [0],
+               "seed": SEED}
+        t0 = time.perf_counter()
+        res, trainer = run_recorded(lambda: qs.run_matching_experiment(
+            cfg, fm, train_rows, corpus, eval_arrays, eval_users, train_u2i,
+            valid_u2i, device=DEVICE))
+        wall = time.perf_counter() - t0
+        losses = step_losses(trainer)
+        with torch.no_grad():
+            trainer.model.eval()
+            shape = tuple(trainer.model.encode_user(trainer._device_batch(
+                {k: v[:8] for k, v in users.items()})).shape)
+        entry = {"wall_s": wall, "fit_s": trainer.fit_s,
+                 "eval_s": trainer.eval_s, "steps": int(trainer.step),
+                 "losses": losses.tolist(), "user_tower_shape": shape,
+                 **res, "serve": mi_serve(trainer, users, variants)}
+        emit({"phase": "multi_interest_measured", "model": name, **entry})
+        assert trainer.step == MI_STEPS and np.isfinite(losses).all() \
+            and losses[-1] < losses[0], losses
+        assert shape == (8, 4, DIM), shape
+        assert res["Recall(k=20)"] > out["chance_recall20"], res
+        for v, serve in entry["serve"].items():
+            if v == "corpus_encode_s":
+                continue
+            assert all(c["select"] == 1 and c["wgmma"] == 1
+                       and c["tile"] == 0
+                       for c in serve["launches_a_query"]), (name, v, serve)
+            assert serve["recall_vs_exact"] >= (0.95 if v == "bf16"
+                                                else 0.90), (name, v, serve)
+        out[name] = entry
+        del trainer
+        torch.cuda.empty_cache()
+    # B3 alone at the multi-interest shape
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 102)
+    nq = N_QUERIES * 4
+    out["b3_check"] = {v: check_kernel(v, N_ITEMS, DIM, nq, K, gen)
+                       for v in ("bf16", "int8")}
+    out["b3_time"] = {v: time_kernel(v, N_ITEMS, DIM, nq, K, gen, reps=3)
+                      for v in ("bf16", "int8")}
+    return out
+
+
+def matching_batch(loader):
+    """The first batch of ``loader`` as tensors on the card."""
+    return {k: torch.from_numpy(v).to(DEVICE)
+            for k, v in next(iter(loader)).items()}
+
+
+def ae_history(seed=SEED + 103):
+    """(AE_USERS, AE_ITEMS) multi-hot rows: 20-200 Zipf(1.1) items a user
+    over a random popularity order (ML-20M's users rate >= 20 items)."""
+    from recbox_tpu_torch.models.matching import build_history_matrix
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(AE_ITEMS)
+    n = rng.integers(20, 201, AE_USERS)
+    u = np.repeat(np.arange(AE_USERS), n)
+    i = order[(rng.zipf(1.1, len(u)) - 1) % AE_ITEMS]
+    return build_history_matrix(u, i, AE_USERS, AE_ITEMS)
+
+
+def ract_target(logits, history, k=100):
+    """Per-user NDCG@k of ``logits`` against the user's own history (what
+    RaCT's critic learns to predict)."""
+    top = torch.topk(logits, k, dim=1).indices
+    hits = torch.gather(history, 1, top)
+    disc = 1.0 / torch.log2(torch.arange(k, device=logits.device) + 2.0)
+    ideal = torch.cumsum(disc, 0)[torch.clamp(history.sum(1).long(), 1, k)
+                                  - 1]
+    return (hits * disc).sum(1) / ideal
+
+
+def autoencoders_ml20m():
+    """Phase 5n (2): MultiVAE, MacridVAE, CDAE and RaCT at their yaml
+    widths over ML-20M's 20,108-item catalog (8192 synthetic users): 8
+    eager steps each on one batch of AE_BATCH rows (`eager_repeat`);
+    RaCT's actor phase on `elbo_loss`, then its critic on the actor's
+    per-user NDCG@100 (the features standardised); RecVAE through `RecVAETrainer.fit` for one epoch (3
+    encoder sweeps, a prior refresh, 1 decoder sweep) over the 8192
+    users."""
+    from recbox_tpu_torch.models.matching import (
+        CDAE, MacridVAE, MultiVAE, RaCT, RecVAE, cdae_loss, multivae_loss,
+        ract_critic_features,
+    )
+    from recbox_tpu_torch.training import Trainer, TrainerConfig
+    from recbox_tpu_torch.training.recvae import RecVAETrainer
+    t0 = time.perf_counter()
+    hist = ae_history()
+    out = {"data_s": time.perf_counter() - t0, "items": AE_ITEMS,
+           "users": AE_USERS, "batch": AE_BATCH,
+           "interactions_mean": float(hist.sum(1).mean())}
+    batch = {"history": torch.from_numpy(hist[:AE_BATCH]).to(DEVICE),
+             "user_id": torch.arange(AE_BATCH, device=DEVICE)}
+    g = lambda: torch.Generator(device=DEVICE).manual_seed(SEED)
+    cfg = TrainerConfig(learning_rate=1e-3, seed=SEED)
+
+    def yaml_kw(name):
+        return {k: v for k, v in model_yaml(name).items() if k != "model"}
+
+    mvae = MultiVAE(AE_ITEMS, **yaml_kw("MultiVAE"), generator=g(),
+                    device=DEVICE)
+    out["MultiVAE"] = eager_repeat(Trainer(
+        mvae, lambda o, b: o, cfg, device=DEVICE, train_method="elbo_loss"),
+        batch)
+    macrid = MacridVAE(AE_ITEMS, **yaml_kw("MacridVAE"), generator=g(),
+                       device=DEVICE)
+    out["MacridVAE"] = eager_repeat(Trainer(
+        macrid, lambda o, b: multivae_loss(o[0], b, o[1]), cfg,
+        device=DEVICE, train_method="forward_with_kl"), batch)
+    cdae = CDAE(AE_USERS, AE_ITEMS, **yaml_kw("CDAE"), generator=g(),
+                device=DEVICE)
+    out["CDAE"] = eager_repeat(Trainer(cdae, cdae_loss, cfg, device=DEVICE),
+                               batch)
+    ract = RaCT(AE_ITEMS, **yaml_kw("RaCT"), generator=g(), device=DEVICE)
+    actor = eager_repeat(Trainer(ract.actor, lambda o, b: o, cfg,
+                                 device=DEVICE, train_method="elbo_loss"),
+                         batch)
+    with torch.no_grad():
+        ract.eval()
+        logits, kl = ract.actor.forward_with_kl(batch)
+        feats = ract_critic_features(logits, batch, kl)
+        # standardised per column: the raw CE (~10^3) saturates the critic
+        feats = (feats - feats.mean(0)) / (feats.std(0) + 1e-6)
+        target = ract_target(logits, batch["history"])
+
+    class CriticPhase(torch.nn.Module):
+        def __init__(self, model):
+            super().__init__()
+            self.model = model
+
+        def forward(self, b):
+            return self.model.critic_score(b["feats"])
+
+    critic = eager_repeat(Trainer(
+        CriticPhase(ract), lambda o, b: torch.mean((o - b["target"]) ** 2),
+        TrainerConfig(learning_rate=1e-2, seed=SEED), device=DEVICE),
+        {"feats": feats, "target": target})
+    out["RaCT"] = {"actor": actor, "critic": critic,
+                   "target_ndcg100_mean": float(target.mean())}
+    recvae = RecVAE(AE_ITEMS, **yaml_kw("RecVAE"), generator=g(),
+                    device=DEVICE)
+    rt = RecVAETrainer(recvae, seed=SEED, device=DEVICE)
+    t0 = time.perf_counter()
+    rt.fit(hist, epochs=1, batch_size=AE_BATCH)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    sweeps = AE_USERS // AE_BATCH
+    scores = rt.scores(hist[:AE_BATCH])
+    out["RecVAE"] = {"fit_s": fit_s, "steps": 4 * sweeps,
+                     "ms_a_step": fit_s / (4 * sweeps) * 1e3,
+                     "enc_steps": int(rt._opts[False].count),
+                     "dec_steps": int(rt._opts[True].count)}
+    assert out["RecVAE"]["enc_steps"] == 3 * sweeps \
+        and out["RecVAE"]["dec_steps"] == sweeps, out["RecVAE"]
+    assert np.isfinite(scores).all() and scores.shape == (AE_BATCH,
+                                                          AE_ITEMS)
+    return out
+
+
+def graph_extended_gowalla():
+    """Phase 5n (3): SGL, NCL, DGCF, SpectralCF, GCMC and LINE at their yaml
+    widths over phase 5f's LightGCN data (30,000 x 41,000, 1M
+    interactions): 8 eager steps each on one `MatchingLoader` batch of
+    LG_BATCH at Adam EAGER_EMBEDDING_LR (BPR over one negative; SGL adds SGL_SSL_WEIGHT x its
+    InfoNCE over two edge-dropout views, NCL NCL_SSL_WEIGHT x its
+    structural and prototype terms on `kmeans_prototypes`' centers)."""
+    from recbox_tpu_torch.data import MatchingLoader
+    from recbox_tpu_torch.models.matching import build_norm_edges
+    from recbox_tpu_torch.models.matching import graph_extended as ge
+    from recbox_tpu_torch.ops.losses import get_matching_loss
+    from recbox_tpu_torch.training import Trainer, TrainerConfig
+    t0 = time.perf_counter()
+    tr_u, tr_i, _, _ = lightgcn_data()
+    eu, ei, c = build_norm_edges(tr_u, tr_i, LG_USERS, LG_ITEMS)
+    fm, _, _ = lightgcn_trainer(tr_u[:1], tr_i[:1])
+    loader = MatchingLoader(fm, {"user_id": tr_u, "item_id": tr_i},
+                            {"item_id": np.arange(LG_ITEMS, dtype=np.int32)},
+                            batch_size=LG_BATCH, num_negs=1, seed=SEED)
+    batch = matching_batch(loader)
+    out = {"data_s": time.perf_counter() - t0, "edges": len(eu)}
+    bpr = get_matching_loss("PairwiseLogisticLoss")
+    for name in ("SGL", "NCL", "DGCF", "SpectralCF", "GCMC", "LINE"):
+        kw = {k: v for k, v in model_yaml(name).items()
+              if k not in ("model", "edge_users", "edge_items", "edge_coefs",
+                           "num_users", "num_items")}
+        model = getattr(ge, name)(
+            fm, num_users=LG_USERS, num_items=LG_ITEMS, edge_users=eu,
+            edge_items=ei, edge_coefs=c, **kw,
+            generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+            device=DEVICE)
+        if name == "SGL":
+            def loss(o, b, _m=model):
+                return bpr(o) + SGL_SSL_WEIGHT * _m.ssl_loss(b)
+        elif name == "NCL":
+            with torch.no_grad():
+                uc, ua = ge.kmeans_prototypes(
+                    model.emb_user.cpu().numpy(), 64, n_iters=5, seed=SEED)
+                ic, ia = ge.kmeans_prototypes(
+                    model.emb_item.cpu().numpy(), 64, n_iters=5, seed=SEED)
+
+            def loss(o, b, _m=model):
+                return bpr(o) + NCL_SSL_WEIGHT * (
+                    _m.structural_loss(b)
+                    + _m.prototype_loss(b, uc, ic, ua, ia))
+        else:
+            def loss(o, b):
+                return bpr(o)
+        trainer = Trainer(model, loss, TrainerConfig(
+            learning_rate=EAGER_EMBEDDING_LR, seed=SEED), device=DEVICE)
+        out[name] = eager_repeat(trainer, batch)
+        del trainer, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def simplex_sbc_item2vec():
+    """Phase 5n (4): SimpleX (cosine contrastive loss over the negatives)
+    and YoutubeSBC (in-batch sampled softmax with the log popularity of
+    the batch's items) at their yaml widths over phase (1)'s 1M-item data,
+    and Item2Vec (SGNS, I2V_NEGS uniform negatives) over skip-gram pairs
+    of phase 5f's users: 8 eager steps each on one batch."""
+    from recbox_tpu_torch.data import MatchingLoader
+    from recbox_tpu_torch.models.matching import (
+        Item2Vec, SimpleX, YoutubeSBC, build_skipgram_pairs,
+        sampled_softmax_inbatch_loss, sgns_loss,
+    )
+    from recbox_tpu_torch.ops.losses import get_matching_loss
+    from recbox_tpu_torch.training import Trainer, TrainerConfig
+    train, _, _ = mi_data()
+    fm = mi_feature_map()
+    rows = {k: v[:MI_BATCH] for k, v in train.items()}
+    loader = MatchingLoader(fm, rows, {"item_id": np.arange(
+        N_ITEMS, dtype=np.int32)}, batch_size=MI_BATCH, num_negs=MI_NEGS,
+        seed=SEED, exclude_ids=(0,))
+    batch = matching_batch(loader)
+    cfg = TrainerConfig(learning_rate=1e-3, seed=SEED)
+    g = lambda: torch.Generator(device=DEVICE).manual_seed(SEED)
+    out = {}
+    kw = {k: v for k, v in model_yaml("SimpleX").items() if k != "model"}
+    out["SimpleX"] = eager_repeat(Trainer(
+        SimpleX(fm, **kw, generator=g(), device=DEVICE),
+        lambda o, b: get_matching_loss("CosineContrastiveLoss")(o), cfg,
+        device=DEVICE), batch)
+    counts = np.bincount(train["item_id"], minlength=N_ITEMS) + 1.0
+    log_q = torch.from_numpy(np.log(counts / counts.sum()).astype(
+        np.float32)).to(DEVICE)
+    kw = {k: (tuple(v) if isinstance(v, list) else v)
+          for k, v in model_yaml("YoutubeSBC").items() if k != "model"}
+    out["YoutubeSBC"] = eager_repeat(Trainer(
+        YoutubeSBC(fm, **kw, generator=g(), device=DEVICE),
+        lambda o, b: sampled_softmax_inbatch_loss(
+            o, log_q[b["item_id"].long()]), cfg, device=DEVICE,
+        train_method="inbatch_scores"), batch)
+    tr_u, tr_i, _, _ = lightgcn_data()
+    keep = tr_u < I2V_USERS
+    u2i = {}
+    for a, b in zip(tr_u[keep].tolist(), tr_i[keep].tolist()):
+        u2i.setdefault(a, []).append(b)
+    t0 = time.perf_counter()
+    centers, contexts = build_skipgram_pairs(u2i, window=2, seed=SEED)
+    pairs_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 104)
+    sel = rng.choice(len(centers), I2V_BATCH, replace=False)
+    ib = {"center": centers[sel], "context": contexts[sel],
+          "neg": rng.integers(0, LG_ITEMS, (I2V_BATCH, I2V_NEGS)
+                              ).astype(np.int32)}
+    ib = {k: torch.from_numpy(v).to(DEVICE) for k, v in ib.items()}
+    i2v = Item2Vec(LG_ITEMS, **{k: v for k, v in model_yaml(
+        "Item2Vec").items() if k != "model"}, generator=g(), device=DEVICE)
+    out["Item2Vec"] = {"pairs": len(centers), "pairs_s": pairs_s,
+                       **eager_repeat(Trainer(i2v, lambda o, b: sgns_loss(o),
+                                              TrainerConfig(
+                                                  learning_rate=1e-2,
+                                                  seed=SEED),
+                                              device=DEVICE), ib)}
+    return out
+
+
+# -- 5o: the knowledge stage ---------------------------------------------------
+
+# a synthetic KG over ml1m_scale's 3706 items (ML-1M's own size), in the
+# shape of KB4Rec's MovieLens-1M links (Zhao et al., Data Intelligence
+# 2019): genre, director, actors and year of each film
+KG_GENRES, KG_DIRECTORS, KG_ACTORS, KG_YEARS, KG_CAST = 18, 2000, 8000, 80, 3
+KG_EAGER_BATCH = 2048
+KG_BATCH = 512          # run_kg_experiment's kg_batch_size default
+# KGCN's and KGNNLS's depth in 5o (the yamls' 1): at one hop an item's
+# neighbours are its attribute entities, whose labels are 0, so the
+# propagated label is 0 and KGNNLS's label-smoothness term is its clipped
+# constant, with no gradient
+KG_LS_HOPS = 2
+
+
+def kg_own_loss(name, model, labels):
+    """BPR plus the term of ``name``'s own (None where the model has none):
+    KGNNLS's label smoothness over ``labels`` (a (users, entities) 0/1
+    matrix of the training items; the positive column's target is 1),
+    KGIN's intent independence, MCCLK's cross-view contrast."""
+    from recbox_tpu_torch.ops.losses import get_matching_loss
+    bpr = get_matching_loss("PairwiseLogisticLoss")
+
+    def ls(o, b):
+        ids = b["__item_ids__"]
+        targets = torch.zeros(ids.shape, device=ids.device)
+        targets[:, 0] = 1.0
+        return bpr(o) + model.ls_loss(b, ids, labels[b["user_id"].long()],
+                                      targets)
+    return {"KGNNLS": ls,
+            "KGIN": lambda o, b: bpr(o) + model.independence_loss(),
+            "MCCLK": lambda o, b: bpr(o) + model.contrastive_loss(b),
+            }.get(name)
+
+
+def sized_yaml(name):
+    """`model_yaml` without the graph's sizes (the yaml's 0 placeholders,
+    which `run_experiment` fills from the loaded graph)."""
+    return {k: v for k, v in model_yaml(name).items()
+            if k not in ("num_users", "num_items", "n_entities",
+                         "n_relations")}
+
+
+def stage_ml1m_kg(root):
+    """``root``/ml1m_kg/ml1m_kg.{inter,link,kg}: ml1m_scale's interactions,
+    each item linked to an entity of its own, and the item's genre,
+    director, KG_CAST actors and year as triples."""
+    from recbox_tpu_torch.tools import quality_exit as qe
+    src = os.path.join(qe.gen_ml1m_scale(root), "ml1m_scale.inter")
+    d = os.path.join(root, "ml1m_kg")
+    os.makedirs(d, exist_ok=True)
+    items = []
+    with open(src) as fh, open(os.path.join(d, "ml1m_kg.inter"), "w") as out:
+        header = fh.readline()
+        out.write(header)
+        col = header.rstrip("\n").split("\t").index("item_id:token")
+        for line in fh:
+            out.write(line)
+            items.append(line.rstrip("\n").split("\t")[col])
+    items = sorted(set(items))
+    rng = np.random.default_rng(SEED + 105)
+    with open(os.path.join(d, "ml1m_kg.link"), "w") as fh:
+        fh.write("item_id:token\tentity_id:token\n")
+        fh.writelines(f"{i}\tm{i}\n" for i in items)
+    triples = 0
+    with open(os.path.join(d, "ml1m_kg.kg"), "w") as fh:
+        fh.write("head_id:token\trelation_id:token\ttail_id:token\n")
+        for i in items:
+            rows = [("genre", f"g{rng.integers(KG_GENRES)}"),
+                    ("directed_by", f"d{rng.zipf(1.5) % KG_DIRECTORS}"),
+                    ("year", f"y{rng.integers(KG_YEARS)}")]
+            rows += [("starring", f"a{a}") for a in rng.choice(
+                KG_ACTORS, KG_CAST, replace=False)]
+            fh.writelines(f"m{i}\t{r}\t{t}\n" for r, t in rows)
+            triples += len(rows)
+    return root, {"items": len(items), "triples": triples}
+
+
+def knowledge_ml1m(root):
+    """Phase 5o: (1) `run_experiment("CKE", "ml1m_kg")` over the staged
+    files at cke.yaml's widths (1 epoch: the CF phase, then the KG phase
+    under its own Adam), Recall@20 above chance; (2) KGAT at kgat.yaml's
+    widths through `run_kg_experiment` over the collaborative KG of the
+    same split (`collaborative_kg_edges`), 1 epoch; (3) CFKG, KTUP, MKR,
+    KGCN, KGNNLS, RippleNet, KGIN, MCCLK and KSR at their yaml widths: 8
+    eager steps each on one batch of KG_EAGER_BATCH (BPR over one
+    negative; KSR full-softmax CE over the items). The three models whose
+    own term sets them apart train on BPR plus that term at unit weight
+    (`kg_own_loss`: KGNNLS's ``ls_loss`` over the batch users' training
+    items, KGIN's ``independence_loss``, MCCLK's ``contrastive_loss``;
+    JAX's pipeline trains none of them and no yaml weights them), and
+    KGNNLS's losses must differ from KGCN's (both at KG_LS_HOPS over the
+    KG with its inverse edges, where the term has a gradient). Then each
+    model with a ``kg_loss`` (CFKG, KTUP, MKR on one batch of KG_BATCH
+    triples drawn as `run_kg_experiment` draws them, RippleNet on its
+    ripple batch) takes 8 eager steps of it under an Adam of its own."""
+    from recbox_tpu_torch import quick_start as qs
+    from recbox_tpu_torch.data import MatchingLoader, load_atomic_dataset
+    from recbox_tpu_torch.data.knowledge import (
+        build_neighbor_table, build_ripple_sets, collaborative_kg_edges,
+    )
+    from recbox_tpu_torch.data.sequential import (
+        group_user_sequences, leave_one_out_split,
+    )
+    from recbox_tpu_torch.features import FeatureMap, FeatureSpec
+    from recbox_tpu_torch.ops.losses import (
+        full_softmax_loss, get_matching_loss,
+    )
+    from recbox_tpu_torch.training import Trainer, TrainerConfig
+    t0 = time.perf_counter()
+    root, staged = stage_ml1m_kg(root)
+    out = {"stage_s": time.perf_counter() - t0, **staged}
+    cfg = {**sized_yaml("CKE"), "epochs": 1, "batch_size": 2048,
+           "monitor": "Recall(k=20)", "seed": SEED}
+    t0 = time.perf_counter()
+    res, trainer = run_recorded(lambda: qs.run_experiment(
+        "CKE", "ml1m_kg", config=cfg, data_dir=root, device=DEVICE))
+    out["CKE_run_experiment"] = {
+        "wall_s": time.perf_counter() - t0, "fit_steps": int(trainer.step),
+        "losses_first_last": step_losses(trainer)[[0, -1]].tolist(), **res}
+    del trainer
+
+    ds = load_atomic_dataset(os.path.join(root, "ml1m_kg"), "ml1m_kg")
+    inter = ds.to_interactions(rating_field="rating",
+                               time_field="timestamp")
+    kg = ds.to_knowledge_graph()
+    n_users, n_items = inter.num_users, inter.num_items
+    train, valid, _ = inter.split_ratio((0.8, 0.1, 0.1), order="TO",
+                                        group_by_user=True, seed=SEED)
+    u2i = {}
+    for a, b in zip(train.user_ids.tolist(), train.item_ids.tolist()):
+        u2i.setdefault(a, []).append(b)
+    v2i = {}
+    for a, b in zip(valid.user_ids.tolist(), valid.item_ids.tolist()):
+        v2i.setdefault(a, []).append(b)
+    fm = FeatureMap("ml1m_kg", (
+        FeatureSpec("user_id", "categorical", "user", vocab_size=n_users,
+                    embedding_dim=64),
+        FeatureSpec("item_id", "categorical", "item", vocab_size=n_items,
+                    embedding_dim=64)),
+        query_index="user_id", corpus_index="item_id", num_items=n_items)
+    tr = {"user_id": train.user_ids.astype(np.int32),
+          "item_id": train.item_ids.astype(np.int32)}
+    corpus = {"item_id": np.arange(n_items, dtype=np.int32)}
+    vu = np.asarray(sorted(v2i), np.int64)
+    chance = 20 / n_items
+    h, r, t = collaborative_kg_edges(kg, tr["user_id"], tr["item_id"],
+                                     n_users)
+    kcfg = {**sized_yaml("KGAT"), "num_users": n_users,
+            "n_entities": kg.n_entities, "n_relations": kg.n_relations,
+            "ckg_heads": h, "ckg_relations": r, "ckg_tails": t,
+            "epochs": 1, "batch_size": 2048, "monitor": "Recall(k=20)",
+            "exclude_items": [0], "seed": SEED}
+    t0 = time.perf_counter()
+    res, trainer = run_recorded(lambda: qs.run_kg_experiment(
+        kcfg, fm, tr, corpus, kg, {"user_id": vu.astype(np.int32)}, vu,
+        u2i, v2i, device=DEVICE))
+    out["KGAT_run_kg_experiment"] = {
+        "wall_s": time.perf_counter() - t0, "ckg_edges": len(h),
+        "fit_steps": int(trainer.step),
+        "losses_first_last": step_losses(trainer)[[0, -1]].tolist(), **res}
+    del trainer
+    out.update(users=n_users, entities=kg.n_entities,
+               relations=kg.n_relations, kg_triples=kg.n_triples,
+               chance_recall20=chance)
+
+    loader = MatchingLoader(fm, tr, corpus, batch_size=KG_EAGER_BATCH,
+                            num_negs=1, seed=SEED, exclude_ids=(0,))
+    batch = matching_batch(loader)
+    ents, rels = build_neighbor_table(kg, 4, seed=SEED)
+    rs = build_ripple_sets(kg, {u: u2i[u] for u in sorted(u2i)}, 2, 16,
+                           seed=SEED)
+    row = np.full(n_users, 0, np.int64)
+    row[rs["users"]] = np.arange(len(rs["users"]))
+    sel = row[batch["user_id"].cpu().numpy()]
+    rb = dict(batch, **{f"ripple_{k}": torch.from_numpy(rs[k][sel]).to(
+        DEVICE) for k in ("heads", "relations", "tails")})
+    # KGCN and KGNNLS over the KG with its inverse edges (recbole's KGCN
+    # adjacency is undirected) at KG_LS_HOPS: a label reaches an item only
+    # back through its attributes
+    ikg = kg.with_inverse()
+    iens, irels = build_neighbor_table(ikg, 4, seed=SEED)
+    lsg = dict(neighbor_entities=iens, neighbor_relations=irels,
+               n_relations=ikg.n_relations, n_hops=KG_LS_HOPS)
+    graph = {"KGCN": lsg, "KGNNLS": lsg,
+             "KGIN": dict(inter_users=tr["user_id"],
+                          inter_items=tr["item_id"], kg_heads=kg.heads,
+                          kg_relations=kg.relations, kg_tails=kg.tails),
+             "KSR": dict(kg_neighbors=ents)}
+    graph["MCCLK"] = graph["KGIN"]
+    labels = torch.zeros(n_users, kg.n_entities, device=DEVICE)
+    labels[torch.from_numpy(tr["user_id"]).long(),
+           torch.from_numpy(tr["item_id"]).long()] = 1.0
+    kg_rng = np.random.default_rng(SEED + 7)
+    idx = kg_rng.integers(0, kg.n_triples, size=KG_BATCH)
+    kb = {"kg_head": kg.heads[idx], "kg_relation": kg.relations[idx],
+          "kg_tail": kg.tails[idx],
+          "kg_neg_tail": kg_rng.integers(0, kg.n_entities, size=KG_BATCH)}
+    kb = {k: torch.as_tensor(np.asarray(v)).to(DEVICE)
+          for k, v in kb.items()}
+    bpr = get_matching_loss("PairwiseLogisticLoss")
+    sizes = dict(num_users=n_users, num_items=n_items,
+                 n_entities=kg.n_entities, n_relations=kg.n_relations)
+    for name in ("CFKG", "KTUP", "MKR", "KGCN", "KGNNLS", "RippleNet",
+                 "KGIN", "MCCLK", "KSR"):
+        mcfg = {**sized_yaml(name), **sizes, **graph.get(name, {}),
+                "seed": SEED}
+        if name == "KSR":
+            seqs = group_user_sequences(inter.user_ids, inter.item_ids,
+                                        inter.timestamps)
+            sq, _, _ = leave_one_out_split(seqs, max_len=50)
+            sfm = FeatureMap("ml1m_kg", (FeatureSpec(
+                "item_id", "categorical", "item", vocab_size=n_items,
+                embedding_dim=64),), query_index="user_id",
+                corpus_index="item_id", num_items=n_items)
+            model, _ = qs.build_model(mcfg, sfm, DEVICE)
+            b = {k: torch.from_numpy(v[:KG_EAGER_BATCH]).to(DEVICE)
+                 for k, v in sq.items()}
+            trainer = Trainer(model, lambda o, b: full_softmax_loss(
+                o, b["item_id"]), TrainerConfig(learning_rate=1e-3,
+                                                seed=SEED),
+                device=DEVICE, train_method="full_scores")
+        else:
+            model, _ = qs.build_model(mcfg, fm, DEVICE)
+            b = rb if name == "RippleNet" else batch
+            loss = kg_own_loss(name, model, labels) or (lambda o, b: bpr(o))
+            trainer = Trainer(model, loss, TrainerConfig(
+                learning_rate=1e-3, seed=SEED), device=DEVICE)
+        out[name] = eager_repeat(trainer, b)
+        if hasattr(model, "kg_loss"):
+            trainer = Trainer(model, lambda o, b: o, TrainerConfig(
+                learning_rate=1e-3, seed=SEED), device=DEVICE,
+                train_method="kg_loss")
+            out[name]["kg_loss"] = eager_repeat(
+                trainer, rb if name == "RippleNet" else kb)
+        del trainer, model
+        torch.cuda.empty_cache()
+    # KGNNLS is KGCN with label smoothness: the same seed and batch, so
+    # equal losses would mean its own term never ran
+    assert out["KGNNLS"]["losses"] != out["KGCN"]["losses"], \
+        (out["KGNNLS"], out["KGCN"])
+    for key in ("CKE_run_experiment", "KGAT_run_kg_experiment"):
+        assert np.isfinite(out[key]["Recall(k=20)"]) \
+            and out[key]["Recall(k=20)"] > chance, (key, out[key])
+    return out
+
+
+def mi_kernel_entry(mi, variant):
+    """B3 on the multi-interest path of phase 5n: its launches there (one
+    a counted query), and B3 alone at that shape."""
+    c, t = mi["b3_check"][variant], mi["b3_time"][variant]
+    return {"shape": {"n": t["n"], "d": t["d"], "q": t["q"], "k": t["k"]},
+            "served": [m for m in ("ComiRec", "MIND")
+                       if variant in mi[m]["serve"]],
+            "launches": sum(q["select"] for m in ("ComiRec", "MIND")
+                            if variant in mi[m]["serve"]
+                            for q in mi[m]["serve"][variant][
+                                "launches_a_query"]),
+            "max_abs_err": c["max_abs_err"], "kernel_route": c["route"],
+            "rows_same_ids": c["rows_same_ids"],
+            **{key: t[key] for key in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by")}}
+
+
 def main() -> int:
     from recbox_tpu_torch.models.matching import YoutubeDNN
     from recbox_tpu_torch.ops import _build
@@ -4206,6 +4929,26 @@ def main() -> int:
     s3 = s3rec_beauty()
     emit({"phase": "s3rec_beauty", "card": card,
           "wall_s": time.perf_counter() - t0, **s3})
+    # 5n. the matching stage's remainder: ComiRec and MIND over 1M items
+    # served through B3's multi-interest route, then the kernel-free zoo
+    t0 = time.perf_counter()
+    mi = multi_interest_1m()
+    emit({"phase": "multi_interest_1m", "card": card,
+          "wall_s": time.perf_counter() - t0, **mi})
+    for name, call in (("autoencoders_ml20m", autoencoders_ml20m),
+                       ("graph_extended_gowalla", graph_extended_gowalla),
+                       ("simplex_sbc_item2vec", simplex_sbc_item2vec)):
+        t0 = time.perf_counter()
+        res = call()
+        emit({"phase": name, "card": card,
+              "wall_s": time.perf_counter() - t0, **res})
+    torch.cuda.empty_cache()
+    # 5o. the knowledge stage over ml1m_scale and a synthetic KG
+    with tempfile.TemporaryDirectory() as kg_dir:
+        t0 = time.perf_counter()
+        kg = knowledge_ml1m(kg_dir)
+        emit({"phase": "knowledge_ml1m", "card": card,
+              "wall_s": time.perf_counter() - t0, **kg})
 
     # 6. times
     qps = {}
@@ -4279,6 +5022,7 @@ def main() -> int:
                 "ms", "plain_ms", "library_ms", "bound_ms", "stage_a_ms",
                 "stage_b_ms", "tile_route_stage_a_ms")},
             "ptxas": b3_ptxas,
+            "multi_interest": mi_kernel_entry(mi, variant),
             "variants": ["bf16", "f32", "int8"], "matches_plain": True,
             "shape": {"n": N_ITEMS, "d": DIM, "q": N_QUERIES, "k": K},
             "behind_trained_lightgcn": {

@@ -12,8 +12,7 @@ bridge into `InteractionDataset` / `KnowledgeGraph`.
 Own copy of `recbox_tpu/data/atomic.py` (numpy only). The reference does
 all of this on pandas with mutable state; here each step is a pure
 dict→dict function over numpy columns. `AtomicDataset.to_knowledge_graph`
-waits for `data/knowledge.py` (`ROADMAP.md`, Queue A: knowledge) and
-raises NotImplementedError.
+builds the port's `data.knowledge.KnowledgeGraph`.
 """
 
 from __future__ import annotations
@@ -265,9 +264,21 @@ class AtomicDataset:
                              dict(self.relation_vocab))
 
     def to_knowledge_graph(self):
-        raise NotImplementedError(
-            "to_knowledge_graph is not ported yet (ROADMAP.md, Queue A: "
-            "knowledge, data/knowledge.py)")
+        """The loaded .kg as a `data.knowledge.KnowledgeGraph`: entities
+        sized to cover the item and entity vocabularies and every id in
+        the triples, relations numbered from 1 (0 = interact)."""
+        from recbox_tpu_torch.data.knowledge import KnowledgeGraph
+        if self.kg is None:
+            raise ValueError("no .kg file was loaded")
+        n_entities = max(len(self.item_vocab), len(self.entity_vocab)) + 1
+        return KnowledgeGraph(
+            heads=self.kg["head_id"], relations=self.kg["relation_id"],
+            tails=self.kg["tail_id"],
+            n_entities=int(max(n_entities,
+                               self.kg["head_id"].max() + 1,
+                               self.kg["tail_id"].max() + 1)),
+            n_relations=len(self.relation_vocab) + 1,
+            n_items=self.num_items)
 
 
 def load_atomic_dataset(data_dir: str, name: str,

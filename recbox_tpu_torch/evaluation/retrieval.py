@@ -79,8 +79,26 @@ def _topk_chunk(user_embs: torch.Tensor, item_embs: torch.Tensor,
     masked = scores.index_put((rows[keep], train_items[keep]),
                               torch.tensor(NEG_INF, device=scores.device),
                               accumulate=True)
-    top_items = torch.topk(masked, max_topk, dim=1).indices
+    top_items = topk_lowest_index(masked, max_topk)
     return top_items, torch.gather(scores, 1, top_items)
+
+
+def topk_lowest_index(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Row-wise top-k ids in `jax.lax.top_k`'s order: by score, equal
+    scores by ascending id (`torch.topk` sets no order among ties, which
+    moves an NDCG where a row's scores tie, as an empty history's all-zero
+    interests do). A row whose k-th score ties one left out is ranked by a
+    stable sort of the whole row."""
+    vals, idx = torch.topk(scores, k, dim=1)
+    over = torch.sum(scores >= vals[:, -1:], dim=1) > k
+    if bool(over.any()):
+        rows = torch.nonzero(over).squeeze(1)
+        idx[rows] = torch.sort(scores[rows], dim=1, descending=True,
+                               stable=True).indices[:, :k]
+    idx = torch.sort(idx, dim=1).values
+    order = torch.sort(torch.gather(scores, 1, idx), dim=1, descending=True,
+                       stable=True).indices
+    return torch.gather(idx, 1, order)
 
 
 def _metrics_chunk(topk_items: torch.Tensor, true_items: torch.Tensor,

@@ -38,7 +38,7 @@ from recbox_tpu_torch.models.base import (
     MatchingModel, _l2_normalize, similarity_scores,
 )
 from recbox_tpu_torch.nn.core import (
-    _TRUNC_STD, Dropout, xavier_normal_, xavier_uniform_,
+    _TRUNC_STD, Dropout, normal_table, xavier_normal_, xavier_uniform_,
 )
 
 __all__ = ["LightGCN", "NGCF", "build_norm_edges"]
@@ -72,14 +72,13 @@ def _lecun_normal_(t: torch.Tensor, generator: Optional[torch.Generator]
 
 def _table(rows: int, dim: int, scheme: str, generator, device
            ) -> nn.Parameter:
+    if scheme == "normal":
+        return normal_table((rows, dim), 1e-4, generator, device)
     w = torch.empty(rows, dim, device=device)
     if scheme == "xavier_uniform":
         xavier_uniform_(w, generator)
     elif scheme == "xavier_normal":
         xavier_normal_(w, generator)
-    elif scheme == "normal":
-        with torch.no_grad():
-            w.normal_(0.0, 1e-4, generator=generator)
     else:   # a typo would silently confound init experiments: refuse
         raise ValueError(f"emb_init_scheme={scheme!r}: expected 'normal' | "
                          "'xavier_uniform' | 'xavier_normal'")

@@ -29,7 +29,9 @@ from torch import nn
 
 from recbox_tpu_torch.features.schema import FeatureMap
 from recbox_tpu_torch.models.base import MatchingModel
-from recbox_tpu_torch.nn.core import MLP, Dropout, xavier_normal_
+from recbox_tpu_torch.nn.core import (
+    MLP, Dropout, normal_table, xavier_normal_,
+)
 
 __all__ = ["PairScoringModel", "NeuMF", "ConvNCF", "NAIS", "FISM", "ENMF",
            "NNCF", "enmf_loss"]
@@ -38,10 +40,7 @@ Device = Optional[Union[str, torch.device]]
 
 
 def _table(rows: int, dim: int, generator, device) -> nn.Parameter:
-    w = torch.empty(rows, dim, device=device)
-    with torch.no_grad():
-        w.normal_(0.0, 1e-4, generator=generator)
-    return nn.Parameter(w)
+    return normal_table((rows, dim), 1e-4, generator, device)
 
 
 def _lecun_(w: torch.Tensor, fan_in: int, generator) -> None:

@@ -13,11 +13,11 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple, Type
 
+from recbox_tpu_torch.models import knowledge, matching, ranking
 from recbox_tpu_torch.models.matching import (
     DSSM, ENMF, FISM, MF, NAIS, NNCF, ADMMSLIM, EASE, ConvNCF, ItemKNN,
     LightGCN, NCEPLRec, NeuMF, NGCF, Pop, PureSVD, SLIM, YoutubeDNN,
 )
-from recbox_tpu_torch.models import ranking
 from recbox_tpu_torch.models.multitask import (
     AITM, ESMM, MMOE, PLE, SharedBottom,
 )
@@ -40,17 +40,9 @@ MODEL_REGISTRY: Dict[str, Tuple[Type, str]] = {}
 
 # the JAX registry's names the port does not have yet: (stage, the
 # ROADMAP.md Queue A item that ports them)
-_MATCH, _RERANK, _KG, _FULL = ("Matching zoo remainder",
-                               "Reranking remainder", "Knowledge",
-                               "The full registry")
+_RERANK, _FULL = "Reranking remainder", "The full registry"
 _PENDING: Dict[str, Tuple[str, str]] = {}
 for _names, _stage, _item in [
-        (("KSR",), "sequential", _KG),
-        (("MIND", "ComiRec", "SimpleX", "YoutubeSBC", "MultiVAE",
-          "MacridVAE", "RecVAE", "CDAE", "RaCT", "SGL", "NCL", "DGCF",
-          "SpectralCF", "GCMC", "LINE", "Item2Vec"), "matching", _MATCH),
-        (("CKE", "CFKG", "KTUP", "MKR", "KGCN", "KGNNLS", "KGAT",
-          "RippleNet", "KGIN", "MCCLK"), "knowledge", _KG),
         (("EGREvaluator", "EGRDiscriminator", "PPOReranker", "EGR"),
          "reranking", _RERANK),
         (("LambdaMART",), "ranker", _RERANK),
@@ -117,6 +109,15 @@ for _name, _cls in [("SASRec", SASRec), ("GRU4Rec", GRU4Rec), ("NARM", NARM),
                     ("SINE", SINE), ("SRGNN", SRGNN), ("GCSAN", GCSAN),
                     ("S3Rec", S3Rec), ("GRU4RecF", GRU4RecF)]:
     register_model(_name, _cls, "sequential")
+register_model("KSR", knowledge.KSR, "sequential")
+# the matching zoo's remainder and the knowledge models
+for _name in ("MIND", "ComiRec", "SimpleX", "YoutubeSBC", "MultiVAE",
+              "MacridVAE", "RecVAE", "CDAE", "RaCT", "SGL", "NCL", "DGCF",
+              "SpectralCF", "GCMC", "LINE", "Item2Vec"):
+    register_model(_name, getattr(matching, _name), "matching")
+for _name in ("CKE", "CFKG", "KTUP", "MKR", "KGCN", "KGNNLS", "KGAT",
+              "RippleNet", "KGIN", "MCCLK"):
+    register_model(_name, getattr(knowledge, _name), "knowledge")
 for _name, _cls in [("PRM", PRM), ("DLCM", DLCM), ("SetRank", SetRank),
                     ("MiDNN", MiDNN), ("GSF", GSF)]:
     register_model(_name, _cls, "reranking")

@@ -1,9 +1,10 @@
 from recbox_tpu_torch.nn.attention import (
-    LayerNorm, PositionalEmbedding, TargetAttention, TransformerEncoder,
+    CapsuleNetwork, LayerNorm, MultiInterestSA, PositionalEmbedding,
+    TargetAttention, TransformerEncoder,
 )
 from recbox_tpu_torch.nn.core import (
     MLP, BatchNorm, Dice, Dropout, FactorizationMachine, LogisticRegression,
-    get_activation, set_dropout_generator,
+    Reparam, get_activation, set_dropout_generator, set_reparam_generator,
 )
 from recbox_tpu_torch.nn.embedding import (
     ROWS_PREFIX, FeatureEmbedding, concat_embeddings, masked_pool,
@@ -11,8 +12,9 @@ from recbox_tpu_torch.nn.embedding import (
 )
 
 __all__ = ["MLP", "BatchNorm", "Dice", "Dropout", "set_dropout_generator",
+           "Reparam", "set_reparam_generator",
            "LayerNorm", "PositionalEmbedding", "TargetAttention",
-           "TransformerEncoder",
+           "TransformerEncoder", "CapsuleNetwork", "MultiInterestSA",
            "FactorizationMachine", "LogisticRegression", "get_activation",
            "FeatureEmbedding", "concat_embeddings", "stack_embeddings",
            "masked_pool", "ROWS_PREFIX", "rows_key_for"]

@@ -2,7 +2,8 @@
 the sequential models.
 
 Counterpart of `recbox_tpu/nn/attention.py` `TargetAttention` (:36-59),
-`PositionalEmbedding` (:62-70) and `TransformerEncoder` (:73-127). The
+`PositionalEmbedding` (:62-70), `TransformerEncoder` (:73-127),
+`CapsuleNetwork` and `MultiInterestSA` (:130-189). The
 target attention scores each position of a behaviour sequence by an MLP
 (``MLP_0``) over [seq, t, seq − t, seq · t]; a masked score is 0 without a
 softmax and −1e9 with one. The transformer follows recbole's
@@ -32,10 +33,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from recbox_tpu_torch.nn.core import _TRUNC_STD, MLP, Dropout
+from recbox_tpu_torch.nn.core import _TRUNC_STD, MLP, Dropout, xavier_normal_
+from recbox_tpu_torch.nn.fixed_draws import jax_normal
 
 __all__ = ["PositionalEmbedding", "TargetAttention", "TransformerEncoder",
-           "LayerNorm", "dense", "lecun_normal_"]
+           "CapsuleNetwork", "MultiInterestSA", "LayerNorm", "dense",
+           "lecun_normal_"]
 
 NEG_INF = -1e9
 
@@ -203,3 +206,78 @@ class TransformerEncoder(nn.Module):
             f = self.hidden_drop(self._dense(f"Dense_{2 * i + 1}", f))
             x = getattr(self, f"LayerNorm_{2 * i + 1}")(x + f)
         return x
+
+
+class CapsuleNetwork(nn.Module):
+    """MIND's behaviour-to-interest dynamic routing, (B, L, D) → (B, K, D).
+
+    The routing logits start from JAX's fixed draw ``normal(PRNGKey(17),
+    (1, K, L))`` (`nn.fixed_draws.jax_normal`, a numpy copy), shared by
+    the batch: zero logits would keep the K capsules equal forever.
+    ``routing_rounds`` rounds of squash(softmax-routing) with one bilinear
+    map ``bilinear`` (D, D, flax's layout) for every capsule; the logits'
+    update reads the mapped history without its gradient. A padded
+    behaviour's routing weight is zeroed after the softmax over K."""
+
+    def __init__(self, dim: int, interest_num: int = 4,
+                 routing_rounds: int = 3,
+                 generator: Optional[torch.Generator] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        super().__init__()
+        self.interest_num, self.routing_rounds = interest_num, routing_rounds
+        self.bilinear = nn.Parameter(torch.empty(dim, dim, device=device))
+        xavier_normal_(self.bilinear, generator)
+        self._draws = {}
+
+    def routing_logits(self, length: int, device) -> torch.Tensor:
+        """The (1, K, L) initial logits on ``device`` (cached: a captured
+        step reads the tensor its warm-up made)."""
+        key = (length, str(device))
+        if key not in self._draws:
+            self._draws[key] = torch.from_numpy(jax_normal(
+                17, (1, self.interest_num, length))).to(device)
+        return self._draws[key]
+
+    @staticmethod
+    def squash(v: torch.Tensor) -> torch.Tensor:
+        n2 = torch.sum(v * v, dim=-1, keepdim=True)
+        return (n2 / (1.0 + n2)) * v * torch.rsqrt(n2 + 1e-9)
+
+    def forward(self, history: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        b, length, dim = history.shape
+        u = torch.einsum("bld,de->ble", history, self.bilinear)
+        logits = self.routing_logits(length, u.device).to(u.dtype).expand(
+            b, self.interest_num, length)
+        keep = mask[:, None, :].to(u.dtype)
+        u_fixed = u.detach()
+        caps = u.new_zeros(b, self.interest_num, dim)
+        for _ in range(self.routing_rounds):
+            w = torch.softmax(logits, dim=1) * keep
+            caps = self.squash(torch.einsum("bkl,bld->bkd", w, u))
+            logits = logits + torch.einsum("bkd,bld->bkl", caps, u_fixed)
+        return caps
+
+
+class MultiInterestSA(nn.Module):
+    """ComiRec's self-attentive extractor, (B, L, D) → (B, K, D):
+    ``Dense_1(tanh(Dense_0(h)))`` (bias-free, flax's names) gives K
+    attention heads, −1e9 on padded positions, a softmax over L, then the
+    heads' weighted sums of the history."""
+
+    def __init__(self, dim: int, interest_num: int = 4,
+                 hidden_dim: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        super().__init__()
+        hidden = hidden_dim or dim * 4
+        self.Dense_0 = dense(dim, hidden, generator, device, bias=False)
+        self.Dense_1 = dense(hidden, interest_num, generator, device,
+                             bias=False)
+
+    def forward(self, history: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        att = self.Dense_1(torch.tanh(self.Dense_0(history)))    # (B, L, K)
+        att = att + torch.where(mask, 0.0, NEG_INF)[..., None]
+        att = torch.softmax(att, dim=1)
+        return torch.einsum("blk,bld->bkd", att, history)

@@ -4,9 +4,9 @@ initializers.
 Counterpart of `recbox_tpu/nn/core.py` (`MLP` :69-104, `get_activation`
 :54-66, `FactorizationMachine` :107, `LogisticRegression` :122) and of
 flax's linen ``Dropout`` and ``BatchNorm``. The MLP carries Linear →
-(BatchNorm) → activation → dropout in a compute dtype. `Dice` is not ported
-yet (it raises; only the sequence CTR models call it, `ROADMAP.md`, Queue
-A: "Ranking zoo remainder").
+(BatchNorm) → activation (or `Dice`) → dropout in a compute dtype.
+`Dropout` and `Reparam` draw from generators the trainer hands out (flax's
+``'dropout'`` and ``'reparam'`` streams).
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ from torch import nn
 
 __all__ = ["MLP", "BatchNorm", "Dice", "Dropout", "FactorizationMachine",
            "LogisticRegression", "get_activation", "set_dropout_generator",
-           "xavier_normal_", "xavier_uniform_"]
+           "Reparam", "set_reparam_generator", "normal_table",
+           "xavier_param", "xavier_normal_", "xavier_uniform_"]
 
 # flax's xavier initializers are variance_scaling(1, 'fan_avg', ...); its
 # 'truncated_normal' draws N(0, 1) truncated to [-2, 2] and divides the
@@ -47,6 +48,22 @@ def xavier_normal_(t: torch.Tensor, generator: Optional[torch.Generator] = None
     with torch.no_grad():
         return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
                                      generator=generator)
+
+
+def normal_table(shape, std: float, generator, device) -> nn.Parameter:
+    """A table drawn as JAX's ``emb_init(std)`` / flax's ``normal(std)``:
+    normal(0, std)."""
+    w = torch.empty(tuple(shape), device=device)
+    with torch.no_grad():
+        w.normal_(0.0, std, generator=generator)
+    return nn.Parameter(w)
+
+
+def xavier_param(shape, generator, device) -> nn.Parameter:
+    """A flax ``xavier_normal()`` parameter in flax's layout."""
+    w = torch.empty(tuple(shape), device=device)
+    xavier_normal_(w, generator)
+    return nn.Parameter(w)
 
 
 def xavier_uniform_(t: torch.Tensor, generator: Optional[torch.Generator] = None
@@ -79,15 +96,20 @@ class Dropout(nn.Module):
             return x
         if self.p == 1.0:
             return torch.zeros_like(x)
+        keep_prob = 1.0 - self.p
+        keep = self.keep_mask(x.shape, x.device)
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+    def keep_mask(self, shape, device) -> torch.Tensor:
+        """A Bernoulli(1 - p) bool mask of ``shape`` from the module's
+        generator (SGL's edge masks draw their bits here)."""
         if self.generator is None:
             raise RuntimeError(
                 "Dropout in training mode draws from its own generator and "
                 "has none: Trainer.init hands one out, or call "
                 "set_dropout_generator(model, generator)")
-        keep_prob = 1.0 - self.p
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep_prob
-        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+        return torch.rand(tuple(shape), generator=self.generator,
+                          device=device) < 1.0 - self.p
 
 
 def set_dropout_generator(module: nn.Module,
@@ -95,6 +117,43 @@ def set_dropout_generator(module: nn.Module,
     """Give every `Dropout` under ``module`` the generator ``generator``."""
     for m in module.modules():
         if isinstance(m, Dropout):
+            m.generator = generator
+
+
+class Reparam(nn.Module):
+    """The draws of flax's ``'reparam'`` stream: a VAE's reparameterisation
+    noise and CDAE's input corruption. They come from the module's own
+    ``generator``, which `Trainer.init` hands out
+    (`set_reparam_generator`) apart from the dropout one, as JAX folds the
+    stream out of the step's key (`recbox_tpu/training/trainer.py:225-229`).
+    Drawing without one raises."""
+
+    def __init__(self):
+        super().__init__()
+        self.generator: Optional[torch.Generator] = None
+
+    def _gen(self) -> torch.Generator:
+        if self.generator is None:
+            raise RuntimeError(
+                "a 'reparam' draw needs a generator: Trainer.init hands one "
+                "out, or call set_reparam_generator(model, generator)")
+        return self.generator
+
+    def normal(self, shape, device) -> torch.Tensor:
+        """Standard normal noise of ``shape``."""
+        return torch.randn(tuple(shape), generator=self._gen(), device=device)
+
+    def keep(self, keep_prob: float, shape, device) -> torch.Tensor:
+        """A Bernoulli(``keep_prob``) bool mask of ``shape``."""
+        return torch.rand(tuple(shape), generator=self._gen(),
+                          device=device) < keep_prob
+
+
+def set_reparam_generator(module: nn.Module,
+                          generator: torch.Generator) -> None:
+    """Give every `Reparam` under ``module`` the generator ``generator``."""
+    for m in module.modules():
+        if isinstance(m, Reparam):
             m.generator = generator
 
 

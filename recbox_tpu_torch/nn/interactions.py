@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from recbox_tpu_torch.nn.attention import lecun_normal_
-from recbox_tpu_torch.nn.core import xavier_normal_
+from recbox_tpu_torch.nn.core import xavier_normal_, xavier_param
 
 __all__ = [
     "CrossNet", "CrossNetV2", "CrossNetMix", "CompressedInteractionNet",
@@ -38,12 +38,9 @@ __all__ = [
 
 
 def _param(shape, generator, device, init="xavier") -> nn.Parameter:
-    t = torch.empty(shape, device=device)
     if init == "xavier":
-        xavier_normal_(t, generator)
-    else:
-        nn.init.zeros_(t)
-    return nn.Parameter(t)
+        return xavier_param(shape, generator, device)
+    return nn.Parameter(torch.zeros(shape, device=device))
 
 
 def _linear(d_in: int, d_out: int, bias: bool, generator, device,

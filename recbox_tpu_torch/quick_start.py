@@ -25,8 +25,12 @@ quicksort has no fixed tie order). Under 'uniN' / 'popN' the candidates
 are JAX's numpy draws, value for value, and the position is the stable
 sort's, as in JAX.
 
-`run_kg_experiment`, and `run_experiment` on a knowledge model, raise
-NotImplementedError naming `ROADMAP.md` Queue A's "Knowledge".
+`run_kg_experiment` (:484-600) alternates a CF phase and a KG phase
+(``model.kg_loss`` under its own Adam) each epoch; its KG batches are
+JAX's numpy draws, value for value. `run_experiment` on a knowledge model
+remaps items and entities jointly (`AtomicDataset.filter_interactions`)
+and fills the graph's sizes (:708-725, :868-878); a knowledge model whose
+graph arrays it does not fill raises, as JAX's does.
 `run_ranking_experiment` trains a multitask model on `multitask_loss` over
 the labels and evaluates it with `MultiTaskEvaluator`, both reading
 probabilities where the model's ``output_type`` is 'probs' (ESMM), as in
@@ -59,6 +63,7 @@ from recbox_tpu_torch.ops.losses import (
     binary_crossentropy, full_softmax_loss, get_matching_loss,
 )
 from recbox_tpu_torch.training import Trainer, TrainerConfig
+from recbox_tpu_torch.training.trainer import _ForeachAdam
 
 logger = logging.getLogger("recbox_tpu_torch")
 
@@ -68,7 +73,6 @@ __all__ = ["build_model", "build_reranker", "build_trainer_config",
            "run_kg_experiment", "run_experiment", "run_cascade_experiment"]
 
 Device = Optional[Union[str, torch.device]]
-_KNOWLEDGE = "(ROADMAP.md, Queue A: \"Knowledge\")"
 
 
 def _use_fused_ce(config: Mapping[str, Any], feature_map: FeatureMap,
@@ -111,10 +115,26 @@ def _use_fused_ce(config: Mapping[str, Any], feature_map: FeatureMap,
             and getattr(model, "compute_dtype", None) == "bfloat16")
 
 
+def _init_arguments(cls) -> set:
+    """The named arguments of ``cls``'s constructor and, where it passes
+    ``**kwargs`` on, of its bases' (JAX's dataclass fields include the
+    inherited ones)."""
+    names = set()
+    for klass in cls.__mro__:
+        if "__init__" not in vars(klass):
+            continue
+        params = inspect.signature(klass.__init__).parameters.values()
+        names |= {p.name for p in params
+                  if p.kind not in (p.VAR_KEYWORD, p.VAR_POSITIONAL)}
+        if not any(p.kind == p.VAR_KEYWORD for p in params):
+            break
+    return names
+
+
 def _model_kwargs(cls, config: Mapping[str, Any]) -> Dict[str, Any]:
     """The config's entries that name arguments of ``cls``'s constructor
     (lists as tuples), as JAX's picks its dataclass fields."""
-    names = set(inspect.signature(cls.__init__).parameters) - {
+    names = _init_arguments(cls) - {
         "self", "feature_map", "generator", "device", "in_dim"}
     return {k: (tuple(v) if isinstance(v, list) else v)
             for k, v in config.items() if k in names}
@@ -133,7 +153,9 @@ def build_model(config: Mapping[str, Any], feature_map: FeatureMap,
     drawn from a generator seeded with the config's ``seed``."""
     cls, stage = get_model(config["model"])
     dev = resolve_device(device)
-    return cls(feature_map, **_model_kwargs(cls, config),
+    # by keyword, as JAX's: a model that takes no feature map (the
+    # autoencoders, Item2Vec) raises TypeError in both packages
+    return cls(feature_map=feature_map, **_model_kwargs(cls, config),
                generator=_generator(config, dev), device=dev), stage
 
 
@@ -515,10 +537,101 @@ def run_sequential_experiment(
     return result
 
 
-def run_kg_experiment(*args, **kwargs):
-    """Not ported yet: raises, naming its `ROADMAP.md` item."""
-    raise NotImplementedError(f"run_kg_experiment is not ported yet "
-                              f"{_KNOWLEDGE}")
+def run_kg_experiment(
+    config: Mapping[str, Any],
+    feature_map: FeatureMap,
+    train_arrays: Dict[str, np.ndarray],
+    corpus_arrays: Dict[str, np.ndarray],
+    kg,
+    eval_user_arrays: Dict[str, np.ndarray],
+    query_indices: np.ndarray,
+    train_user2items: Mapping[int, Any],
+    valid_user2items: Mapping[int, Any],
+    mesh=None,
+    device: Device = None,
+) -> Dict[str, float]:
+    """Knowledge-enhanced retrieval (recbole's KGTrainer protocol): each
+    epoch runs a CF phase (the pairwise loss over `MatchingLoader`'s
+    sampled negatives) and then, for a model with ``kg_loss``, a KG phase
+    of ``kg_steps_per_epoch`` steps (default: the CF epoch's length) over
+    ``kg_batch_size`` (512) triples with corrupted tails, under an Adam of
+    its own at ``kg_learning_rate`` (default: learning_rate); then the
+    retrieval evaluation, best-weight capture and early stop of `Trainer`.
+
+    ``kg`` is a `data.knowledge.KnowledgeGraph`. The KG batches are drawn
+    from ``default_rng(seed + 7)``, JAX's draws in JAX's order (one batch
+    goes to JAX's initialisation of the KG heads first, and is drawn and
+    dropped here)."""
+    config = Config(config)
+    dev = resolve_device(device)
+    model, _ = build_model(config, feature_map, dev)
+    metrics = list(config.get("metrics", ["Recall(k=20)", "NDCG(k=10)"]))
+    evaluator = RetrievalEvaluator(
+        eval_user_arrays, corpus_arrays, query_indices, train_user2items,
+        valid_user2items, metrics=metrics,
+        batch_size=config.get("eval_batch_size", 4096),
+        protocol=config.get("eval_protocol", "full"),
+        protocol_seed=config.get("seed", 2024),
+        exclude_items=tuple(config.get("exclude_items", ())))
+    match_loss = get_matching_loss(config.get("loss",
+                                              "PairwiseLogisticLoss"))
+    trainer = Trainer(model, lambda out, b: match_loss(out),
+                      build_trainer_config(config), eval_fn=evaluator,
+                      mesh=mesh, device=dev)
+    loader = MatchingLoader(
+        feature_map, train_arrays, corpus_arrays,
+        batch_size=config.get("batch_size", 2048),
+        num_negs=config.get("num_negs", 1), seed=config.get("seed", 2024),
+        exclude_ids=tuple(config.get("exclude_items", ())))
+    # JAX initialises from the loader's first batch, which moves the
+    # loader's generator by one epoch
+    trainer.init(next(iter(loader)))
+
+    np_rng = np.random.default_rng(config.get("seed", 2024) + 7)
+    kg_bs = config.get("kg_batch_size", 512)
+
+    def kg_batch():
+        idx = np_rng.integers(0, kg.n_triples, size=kg_bs)
+        arrays = {"kg_head": kg.heads[idx], "kg_relation": kg.relations[idx],
+                  "kg_tail": kg.tails[idx],
+                  "kg_neg_tail": np_rng.integers(0, kg.n_entities,
+                                                 size=kg_bs)}
+        return {k: torch.as_tensor(np.asarray(v)).to(dev)
+                for k, v in arrays.items()}
+
+    kg_step = None
+    if hasattr(model, "kg_loss"):
+        kg_batch()   # JAX's model.init(..., kg_batch(), method=kg_loss)
+        params = list(trainer.params.values())
+        kg_opt = _ForeachAdam(params, config.get(
+            "kg_learning_rate", config.get("learning_rate", 1e-3)),
+            max_norm=None)
+
+        def kg_step():
+            model.eval()     # JAX applies kg_loss with train=False
+            loss = model.kg_loss(kg_batch())
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            kg_opt.step([torch.zeros_like(p) if g is None else g
+                         for p, g in zip(params, grads)])
+            return loss.detach()
+
+    result: Dict[str, float] = {}
+    kg_steps = config.get("kg_steps_per_epoch", len(loader))
+    for epoch in range(config.get("epochs", 10)):
+        trainer.epoch = epoch
+        for batch in loader:
+            trainer.train_step(batch)
+        if kg_step is not None:
+            kg_losses = [kg_step() for _ in range(kg_steps)]
+            logger.info("kg phase epoch %d: loss %.4f", epoch,
+                        float(torch.stack(kg_losses).mean()))
+        result = trainer._evaluate_and_checkpoint()
+        if trainer._stopped:
+            break
+    trainer._restore_best()
+    logger.info("kg experiment %s: %s", config.get("experiment_id", "?"),
+                result)
+    return result
 
 
 def _user2items(split) -> Dict[int, list]:
@@ -588,8 +701,10 @@ def run_experiment(
     binarize_threshold (ranking labels); max_seq_len (50); embedding_dim
     (64); topk (sequential, (10, 20)); everything else passes through to
     the pipeline and the model. Multitask and reranking models raise (a
-    single .inter file cannot express their supervision), and so do
-    knowledge models (not ported)."""
+    single .inter file cannot express their supervision). A knowledge
+    model's items and KG entities are filtered and remapped jointly, and
+    ``n_entities``, ``n_relations``, ``num_users`` and ``num_items`` come
+    from the loaded graph unless the config pins them."""
     from recbox_tpu_torch.features.schema import FeatureSpec
 
     dev = resolve_device(device)
@@ -604,12 +719,25 @@ def run_experiment(
             "cannot express its supervision (multiple labels / slates) — "
             f"use quick_start.run_{'ranking' if stage == 'multitask' else 'rerank'}"
             "_experiment with explicit arrays.")
+    ds, inter, rf, tf = _acquire_interactions(dataset, cfg, data_dir)
     if stage == "knowledge":
-        raise NotImplementedError(f"model {model!r} is stage 'knowledge', "
-                                  f"not ported yet {_KNOWLEDGE}")
-
-    _, inter, rf, _ = _acquire_interactions(dataset, cfg, data_dir)
-    inter = _filter_and_remap(inter, cfg)
+        # the KG's entities are the items' ids: filter, then remap items
+        # and entities jointly (recbole's filter-then-remap); without a
+        # filter the loaded ids stand
+        if (cfg.get("min_rating") is not None or cfg.get("min_user_inter")
+                or cfg.get("min_item_inter")):
+            uf = cfg.get("user_field", "user_id")
+            itf = cfg.get("item_field", "item_id")
+            ds = ds.filter_interactions(
+                min_rating=(None if cfg.get("min_rating") is None
+                            else float(cfg["min_rating"])),
+                min_user_inter=int(cfg.get("min_user_inter", 0) or 0),
+                min_item_inter=int(cfg.get("min_item_inter", 0) or 0),
+                rating_field=rf or "rating", user_field=uf, item_field=itf)
+            inter = ds.to_interactions(user_field=uf, item_field=itf,
+                                       rating_field=rf, time_field=tf)
+    else:
+        inter = _filter_and_remap(inter, cfg)
     n_users, n_items = inter.num_users, inter.num_items
     seed = cfg.get("seed", 2024)
     emb_dim = cfg.get("embedding_dim", 64)
@@ -680,7 +808,8 @@ def run_experiment(
             cfg, fm, sel(tr), sel(va),
             test_arrays=sel(te) if len(te) else None, mesh=mesh, device=dev)
 
-    # matching / traditional: interaction splits + retrieval evaluation
+    # matching / traditional / knowledge: interaction splits + retrieval
+    # evaluation
     if cfg.get("split", "RS") == "LS":
         train, valid, test = inter.split_leave_one_out(
             order=order if inter.timestamps is not None else "RO", seed=seed)
@@ -712,12 +841,23 @@ def run_experiment(
                     vocab_size=n_items, embedding_dim=emb_dim)),
         query_index="user_id", corpus_index="item_id", num_items=n_items)
     vu = np.asarray(sorted(valid_u2i), dtype=np.int64)
+    train_arrays = {"user_id": train.user_ids.astype(np.int32),
+                    "item_id": train.item_ids.astype(np.int32)}
+    corpus_arrays = {"item_id": np.arange(n_items, dtype=np.int32)}
+    eval_user_arrays = {"user_id": vu.astype(np.int32)}
+    if stage == "knowledge":
+        kg = ds.to_knowledge_graph()
+        cfg.setdefault("n_entities", kg.n_entities)
+        cfg.setdefault("n_relations", kg.n_relations)
+        cfg.setdefault("num_users", n_users)
+        cfg.setdefault("num_items", n_items)
+        return run_kg_experiment(
+            cfg, fm, train_arrays, corpus_arrays, kg, eval_user_arrays, vu,
+            train_u2i, valid_u2i, mesh=mesh, device=dev)
     return run_matching_experiment(
-        cfg, fm, {"user_id": train.user_ids.astype(np.int32),
-                  "item_id": train.item_ids.astype(np.int32)},
-        {"item_id": np.arange(n_items, dtype=np.int32)},
-        {"user_id": vu.astype(np.int32)}, vu, train_u2i, valid_u2i,
-        mesh=mesh, test_user2items=test_u2i or None, device=dev)
+        cfg, fm, train_arrays, corpus_arrays, eval_user_arrays, vu,
+        train_u2i, valid_u2i, mesh=mesh,
+        test_user2items=test_u2i or None, device=dev)
 
 
 def _run_traditional(cfg, model, train, valid_u2i, test_u2i, train_u2i,

@@ -17,8 +17,9 @@ step, `_restore_best`, `load`) must write them in place too.
 What the capture must not bake in:
   - the optimizers keep their step count and learning rate in device
     tensors (`trainer._Optimizer`), read and advanced by the graph;
-  - dropout draws from the trainer's generator, registered with the graph
-    (`register_generator_state`), so each replay draws new bits;
+  - dropout and the reparam draws come from the trainer's two generators,
+    registered with the graph (`register_generator_state`), so each replay
+    draws new bits;
   - a value passed by value to a kernel, such as kernel B1's embedding
     learning rate, is part of the trainer's ``_graph_token()``: the step is
     captured again when the token changes (the packed trainer's plateau);
@@ -109,9 +110,10 @@ class StepGraph:
         counters = kernel_counters()
         before = [dict(c) for c in counters]
         graph = torch.cuda.CUDAGraph()
-        gen = self.trainer.dropout_generator
-        if gen is not None:
-            graph.register_generator_state(gen)
+        for gen in (self.trainer.dropout_generator,
+                    self.trainer.reparam_generator):
+            if gen is not None:
+                graph.register_generator_state(gen)
         t0 = time.perf_counter()
         with torch.cuda.graph(graph):
             self._body()

@@ -30,6 +30,11 @@ trainer's device, seeded from ``TrainerConfig.seed``, and hands it to every
 `nn.core.Dropout` of the model, so the same seed gives the same steps
 whatever else uses torch's global generator. Its stream is Philox, not the
 JAX package's rbg/threefry, so the two packages drop different elements.
+The draws of flax's ``'reparam'`` stream (a VAE's noise, CDAE's
+corruption: `nn.core.Reparam`) come from a second generator of the
+trainer, ``reparam_generator``, seeded with ``seed + REPARAM_SEED_OFFSET``
+so the two streams differ, as JAX folds one key out of the other; only a
+model with a `Reparam` gets one.
 
 The optimizers are optax's ``chain(clip_by_global_norm(max_norm),
 <rule>(lr))`` written out with optax's formulas, not `torch.optim`'s: the
@@ -58,7 +63,9 @@ from torch.profiler import record_function
 
 from recbox_tpu_torch import resolve_device
 from recbox_tpu_torch.data.loader import MASK_KEY
-from recbox_tpu_torch.nn.core import set_dropout_generator
+from recbox_tpu_torch.nn.core import (
+    Reparam, set_dropout_generator, set_reparam_generator,
+)
 from recbox_tpu_torch.ops.losses import embedding_reg_loss
 from recbox_tpu_torch.training.checkpoint import (
     load_checkpoint, save_checkpoint,
@@ -68,7 +75,12 @@ from recbox_tpu_torch.training.monitor import Monitor
 
 logger = logging.getLogger("recbox_tpu_torch")
 
-__all__ = ["Trainer", "TrainerConfig", "is_embedding_table"]
+__all__ = ["Trainer", "TrainerConfig", "is_embedding_table",
+           "REPARAM_SEED_OFFSET"]
+
+# the reparam generator's seed is TrainerConfig.seed + this (beyond any
+# int32 seed, so it never equals another trainer's dropout seed)
+REPARAM_SEED_OFFSET = 1 << 32
 
 
 @dataclasses.dataclass
@@ -358,6 +370,7 @@ class Trainer:
         self.monitor = Monitor(config.monitor, config.monitor_mode,
                                patience=config.patience)
         self.dropout_generator: Optional[torch.Generator] = None
+        self.reparam_generator: Optional[torch.Generator] = None
         self.params: Optional[Dict[str, torch.Tensor]] = None
         self.model_state: Dict[str, torch.Tensor] = {}
         self._opt: Optional[_Optimizer] = None
@@ -376,10 +389,18 @@ class Trainer:
     def init(self, sample_batch: Dict[str, np.ndarray]) -> None:
         """Set up the optimizer over the model's parameters (drawn when the
         model was built, from its generator) and hand the model's dropouts
-        a generator seeded from ``config.seed``."""
+        a generator seeded from ``config.seed`` and, where the model has a
+        `Reparam`, its reparam draws one seeded from
+        ``config.seed + REPARAM_SEED_OFFSET`` (else ``reparam_generator``
+        stays None and no captured graph registers it)."""
         self.dropout_generator = torch.Generator(
             device=self.device).manual_seed(self.config.seed)
         set_dropout_generator(self.model, self.dropout_generator)
+        if any(isinstance(m, Reparam) for m in self.model.modules()):
+            self.reparam_generator = torch.Generator(
+                device=self.device).manual_seed(self.config.seed
+                                                + REPARAM_SEED_OFFSET)
+            set_reparam_generator(self.model, self.reparam_generator)
         self.params = dict(self.model.named_parameters())
         self.model_state = {
             n: t for n, t in self.model.state_dict(keep_vars=True).items()

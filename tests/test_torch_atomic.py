@@ -80,8 +80,11 @@ def test_load_atomic_dataset_matches_jax(tmp_path):
     for name in ("inter", "user", "item"):
         _same(getattr(pf, name), getattr(jf, name), name)
     assert pf.item_vocab == jf.item_vocab
-    with pytest.raises(NotImplementedError, match="knowledge"):
-        p.to_knowledge_graph()
+    # no .kg file here: both raise (tests/test_torch_knowledge.py holds the
+    # graph of one against JAX's)
+    for ds in (j, p):
+        with pytest.raises(ValueError, match="no .kg"):
+            ds.to_knowledge_graph()
 
 
 def test_column_helpers_match_jax():

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 from recbox_tpu.quick_start import run_cascade_experiment as jrun
+from recbox_tpu.quick_start import run_experiment as jrun_experiment
 from recbox_tpu_torch import quick_start as qs
 from recbox_tpu_torch.data.acquire import (
     DATASET_URLS, acquire_dataset, register_dataset_url,
@@ -156,13 +157,13 @@ def test_cascade_refuses_wrong_stages_and_unported_pipelines(tmp_path):
     with pytest.raises(ValueError, match="stage"):
         qs.run_cascade_experiment("casc_err", data_dir=root,
                                   matcher="DeepFM", device="cpu")
-    # the knowledge stage stays unported: its pipeline and run_experiment
-    # on a knowledge model raise naming the item (the other pipelines are
-    # ported, tests/test_torch_seq_pipeline.py and test_torch_run.py)
-    for call in (lambda: qs.run_kg_experiment("MF", "casc_err"),
+    # the knowledge stage is ported (tests/test_torch_kg_pipeline.py): on
+    # a dataset without a .kg file run_experiment raises ValueError, as
+    # JAX's does
+    for call in (lambda: jrun_experiment("KGAT", "casc_err", data_dir=root),
                  lambda: qs.run_experiment("KGAT", "casc_err",
                                            data_dir=root, device="cpu")):
-        with pytest.raises(NotImplementedError, match="Knowledge"):
+        with pytest.raises(ValueError, match="no .kg"):
             call()
 
 

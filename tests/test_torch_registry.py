@@ -26,12 +26,19 @@ SLICE_NAMES = ("DIN", "BST", "DIEN", "DSIN", "FFM", "FwFM", "FmFM", "FEFM",
                "EDCN", "MLR", "FiGNN", "EulerNet", "DeepIM", "HFM", "DCNMix",
                "FNN", "DAGFM", "KD_DAGFM", "SharedBottom", "ESMM", "MMOE",
                "PLE", "AITM", "S3Rec", "GRU4RecF")
+# the matching zoo's remainder and the knowledge stage (KSR, sequential)
+MATCH_KG_NAMES = ("MIND", "ComiRec", "SimpleX", "YoutubeSBC", "MultiVAE",
+                  "MacridVAE", "RecVAE", "CDAE", "RaCT", "SGL", "NCL",
+                  "DGCF", "SpectralCF", "GCMC", "LINE", "Item2Vec", "CKE",
+                  "CFKG", "KTUP", "MKR", "KGCN", "KGNNLS", "KGAT",
+                  "RippleNet", "KGIN", "MCCLK", "KSR")
 
 
 def test_every_jax_name_is_known():
     assert set(R.MODEL_REGISTRY) | set(R._PENDING) == set(JREG)
     assert not set(R.MODEL_REGISTRY) & set(R._PENDING)
-    assert len(R.MODEL_REGISTRY) == 59 + len(SLICE_NAMES) == 91
+    assert len(R.MODEL_REGISTRY) == 59 + len(SLICE_NAMES) \
+        + len(MATCH_KG_NAMES) == 118
 
 
 @pytest.mark.parametrize("name", sorted(R.MODEL_REGISTRY))
@@ -83,11 +90,23 @@ def test_slice_names_resolve_to_port_classes(name):
     assert cls.__module__.startswith("recbox_tpu_torch.models.")
 
 
-def test_only_ksr_of_the_three_stages_is_pending():
-    """Of the ranking, multitask and sequential stages only KSR is not
-    ported: it raises naming the Knowledge item."""
+@pytest.mark.parametrize("name", MATCH_KG_NAMES)
+def test_matching_and_knowledge_names_resolve_to_port_classes(name):
+    """The 27 names of the matching zoo's remainder and the knowledge
+    stage give the port's class of that name, at JAX's stage."""
+    cls, stage = R.get_model(name)
+    assert cls.__name__ == name and stage == jget(name)[1]
+    assert cls.__module__.startswith("recbox_tpu_torch.models.")
+
+
+def test_no_matching_knowledge_or_sequential_name_is_pending():
+    """Only the reranking remainder and the exlib boosters are not ported:
+    no name of the matching, knowledge or sequential stages raises."""
     left = {n for n, (stage, _) in R._PENDING.items()
-            if stage in ("ranking", "multitask", "sequential")}
-    assert left == {"ksr"}
-    with pytest.raises(NotImplementedError, match='"Knowledge"'):
-        R.get_model("KSR")
+            if stage in ("matching", "knowledge", "sequential", "ranking",
+                         "multitask", "traditional")}
+    assert not left
+    assert set(R._PENDING) == {"egrevaluator", "egrdiscriminator",
+                               "pporeranker", "egr", "lambdamart",
+                               "xgboost", "lightgbm"}
+    assert R.get_model("KSR")[1] == "sequential"

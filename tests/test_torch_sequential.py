@@ -299,14 +299,15 @@ def test_fused_ce_under_mesh_raises_and_unported_encoders():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Trainer(pm, lambda o, b: o, TrainerConfig(), mesh=object(),
                 device="cpu", train_method="full_scores")
-    # the encoders are ported (tests/test_torch_sequential_zoo.py), and
-    # pretraining (tests/test_torch_pretrain.py); what stays unported in
-    # the stage (KSR) raises naming its ROADMAP.md item
+    # the encoders are ported (tests/test_torch_sequential_zoo.py),
+    # pretraining (tests/test_torch_pretrain.py) and the knowledge stage's
+    # KSR (tests/test_torch_knowledge.py): none of the stage raises
     assert NARM(_fm(FeatureMap, FeatureSpec), device="cpu").right_align
     from recbox_tpu_torch.models.registry import get_model
     assert get_model("S3Rec")[0].__name__ == "S3Rec"
-    with pytest.raises(NotImplementedError, match="Knowledge"):
-        get_model("KSR")
+    assert get_model("KSR") == (get_model("KSR")[0], "sequential")
+    assert get_model("KSR")[0].__module__.startswith(
+        "recbox_tpu_torch.models.knowledge")
 
 
 # -- 3. learning ----------------------------------------------------------------
