@@ -232,6 +232,31 @@ Phases (any failure raises and exits non-zero):
      KSR: 8 eager steps each, KGNNLS / KGIN / MCCLK on BPR plus their own
      term (KGNNLS's losses differ from KGCN's), then 8 eager steps of the
      ``kg_loss`` of CFKG, KTUP, MKR and RippleNet;
+  5p. the packed trainer's other layouts and the registry's rest: phase
+     5's DeepFM (bench.py's 26 x 100,000 ids, 13 numeric, dim 64, batch
+     32,768, bf16) with `block_rows=True`, confirmed in block mode: 16
+     steps in two 8-step fused calls (one B1 launch a step, a falling
+     loss), B1 on one step's own block gradients against its plain
+     version and timed, a replayed step equal to an eager one, one block
+     step against the per-feature path's on the same batch (an f32 pair
+     of trainers from an accumulator of 0.1, the loss within 1e-5, the
+     packs within 1e-3 of the update), eager and replayed ms a step and
+     one replayed step under torch.profiler by group; DeepFM at
+     deepfm.yaml's widths through `run_ranking_experiment(trainer: packed,
+     embedding_optimizer: adam)` (1 epoch of 16 batches; held-out AUC above
+     0.5, a falling loss, the [values | m | v] pack 3 x 17 -> 128 wide, no
+     B1 launch); DCNv2 at dcnv2.yaml's widths with embedding_dim 128 (the
+     split-accumulator layout): 16 eager steps, a falling loss, ``accs``
+     equal to the squared-gradient row means accumulated over the steps'
+     ids, no B1 launch, ms a step; EGR and EGREvaluator through
+     `run_rerank_experiment` over 16,384 training and 4,096 validation
+     lists of 30 slots x 65 features (clicks from a planted linear
+     scorer; NDCG@10 above the random order's), a PPO loop (8 updates of
+     rollouts from a frozen old policy, `ppo_loss` under Adam; the mean
+     list reward rises) and EGR's generator loop (REINFORCE on the trained
+     evaluator's `list_value`, 8 updates), ms a rollout and an update;
+     `get_model` for all 125 names; LambdaMART (10 trees, depth 4) on
+     1,000 lists, its NDCG@10 against the ranker-score column's order;
   6. times with CUDA events (median after a warm-up; B5, B6 and their
      yardsticks over runs of 20 calls queued behind a spin kernel, so the
      host's launch work is not timed): each kernel, its
@@ -1875,9 +1900,10 @@ def sasrec_breakdown(trainer, batch, steps=None):
     ), steps=steps or (lambda: trainer.train_steps_repeat(batch, 1)))
 
 
-def criteo_trainer(seed):
+def criteo_trainer(seed, compute_dtype="bfloat16", **trainer_kw):
     """PackedEmbeddingTrainer over bench.py's DeepFM, as `bench.py:595-626`
-    builds it: BCE, Adam 1e-3 with clip 10, AdaGrad on the packs."""
+    builds it: BCE, Adam 1e-3 with clip 10, AdaGrad on the packs;
+    ``trainer_kw`` to the trainer (5p's ``block_rows``)."""
     from recbox_tpu_torch.features import FeatureMap, FeatureSpec
     from recbox_tpu_torch.models.ranking import DeepFM
     from recbox_tpu_torch.ops.losses import binary_crossentropy
@@ -1891,14 +1917,14 @@ def criteo_trainer(seed):
         for i in range(NUM_NUM))
     fm = FeatureMap("criteo_bench", feats, labels=("click",))
     model = DeepFM(fm, embedding_dim=DIM, hidden_units=HIDDEN,
-                   compute_dtype="bfloat16", feature_major_compute=True,
+                   compute_dtype=compute_dtype, feature_major_compute=True,
                    generator=torch.Generator(device=DEVICE).manual_seed(seed),
                    device=DEVICE)
     cfg = TrainerConfig(learning_rate=1e-3, grad_clip_norm=10.0, epochs=1,
                         seed=seed)
     return PackedEmbeddingTrainer(
         model, lambda o, b: binary_crossentropy(o, b["click"]), cfg,
-        device=DEVICE)
+        device=DEVICE, **trainer_kw)
 
 
 class CriteoBatches:
@@ -2743,12 +2769,12 @@ ZOO_GROUPS = (
 )
 
 
-def zoo_feature_map(labels=("click",)):
+def zoo_feature_map(labels=("click",), dim=ZOO_DIM):
     from recbox_tpu_torch.features import FeatureMap, FeatureSpec
     feats = tuple(
         FeatureSpec(f"c{i}", "categorical", vocab_size=VOCAB,
-                    embedding_dim=ZOO_DIM) for i in range(NUM_CAT)) + tuple(
-        FeatureSpec(f"n{i}", "numeric", embedding_dim=ZOO_DIM)
+                    embedding_dim=dim) for i in range(NUM_CAT)) + tuple(
+        FeatureSpec(f"n{i}", "numeric", embedding_dim=dim)
         for i in range(NUM_NUM))
     return FeatureMap("criteo_zoo", feats, labels=labels)
 
@@ -4645,6 +4671,459 @@ def knowledge_ml1m(root):
     return out
 
 
+# -- 5p: the packed trainer's other layouts, the RL rerankers, the registry --
+
+ADAM_STEPS = 16
+# lazy Adam's table lr: the default (the dense lr, 1e-3) moves a row seen
+# ~5 times in the epoch by ~5e-3, and the held-out AUC then sits ~0.007
+# above chance (CPU rehearsal at 20,000 ids a field, 16 x 6554 rows: 0.5066;
+# at 1e-2: 0.5115)
+ADAM_EMBEDDING_LR = 1e-2
+SPLIT_DIM, SPLIT_STEPS = 128, 16
+RL_TRAIN, RL_VALID, RL_N, RL_FEATS = 16_384, 4_096, 30, 65
+RL_BATCH, RL_EPOCHS, RL_LR = 256, 2, 1e-3
+PPO_UPDATES, PPO_INNER, PPO_LISTS, PPO_LR = 8, 4, 2048, 5e-3
+LM_LISTS, LM_TREES, LM_DEPTH = 1000, 10, 4
+
+
+def block_rows_criteo(per_feature=None):
+    """Phase 5p (1): phase 5's DeepFM trainer with ``block_rows=True``:
+    block mode confirmed; 16 steps in two fused calls of 8 (one B1 launch
+    a step, counted from 0 just before, a falling loss); B1 on one eager
+    step's own (F·B, d) block gradients against its plain version, and its
+    time, bound and `index_add_` there; a replayed step equal to an eager
+    one; one step of an f32 block trainer against an f32 per-feature one
+    from the same draw on the same batch, accumulators from 0.1 (the
+    losses within 1e-5, the packs' difference within 1e-3 of the largest
+    update); eager against replayed
+    ms a step (`fused_vs_eager`) beside ``per_feature`` (5c's), and one
+    replayed step under torch.profiler by group."""
+    from recbox_tpu_torch.ops import packed_delta
+
+    data = CriteoBatches(SEED + 11)
+    batches = [data() for _ in range(2 * FIT_K)]
+    trainer = criteo_trainer(SEED, block_rows=True)
+    trainer.init(batches[0])
+    (pname, pack), = trainer.packs.items()
+    assert trainer._block_mode == {pname: True}, trainer._block_mode
+    packed_delta.reset_launches()
+    losses = torch.cat([trainer.train_steps_fused(stacked(
+        batches[i:i + FIT_K])) for i in range(0, 2 * FIT_K, FIT_K)])
+    losses = losses.float().cpu().numpy()
+    launches = packed_delta.launches["packed_adagrad_update"]
+    assert launches == 2 * FIT_K, launches
+    assert np.isfinite(losses).all() \
+        and losses[-4:].mean() < losses[:4].mean(), losses
+    rec = capture_b1_call(trainer, batches[0])
+    assert rec["grads"][0].shape == (NUM_CAT * BATCH, DIM), \
+        rec["grads"][0].shape
+    b1 = b1_on_captured(rec, pad_row=0)
+    del rec
+    match = graph_step_matches_eager(
+        trainer, batches[1],
+        lambda: {"pack": trainer.packs[pname],
+                 "dnn_w1": trainer.params["dnn_w1"]})
+    speed = fused_vs_eager(trainer, batches, packed_delta.launches)
+    assert speed["fused_launches"]["packed_adagrad_update"] \
+        == speed["fused_steps"], speed
+    profile = train_breakdown(
+        trainer, batches[0], groups=ZOO_GROUPS,
+        steps=lambda: trainer.train_steps_fused(stacked([batches[0]])))
+    del trainer, pack
+    torch.cuda.empty_cache()
+    # the block path against the per-feature one, in f32 (bf16 sums the
+    # feature runs in another order than the whole stack), the
+    # accumulators from PACKED_ADAGRAD_INIT: from 0, AdaGrad's first
+    # update of a row is g / rms(g), which turns the rounding of a
+    # near-cancelling row gradient into differences of up to 1e-3 of the
+    # largest update (on the H100: 4.2e-4 of 0.46)
+    pair = {}
+    for mode in (True, False):
+        t = criteo_trainer(SEED + 1, block_rows=mode,
+                           compute_dtype="float32",
+                           adagrad_init=PACKED_ADAGRAD_INIT)
+        t.init(batches[2])
+        assert t._block_mode == {pname: mode}, t._block_mode
+        before = t.packs[pname].clone()
+        pair[mode] = (float(t.train_step(batches[2])),
+                      t.packs[pname] - before)
+        del t, before
+    (lb, db), (lf, df) = pair[True], pair[False]
+    upd = float(df.abs().max())
+    err = float((db - df).abs().max())
+    assert abs(lb - lf) <= 1e-5 * abs(lf) and upd > 0 \
+        and err <= 1e-3 * upd, (lb, lf, err, upd)
+    del pair, db, df
+    torch.cuda.empty_cache()
+    return {"pack": pname, "block_mode": True, "steps": 2 * FIT_K,
+            "fused_calls": 2, "b1_launches": launches,
+            "losses": losses.tolist(), "b1_block_grads": b1,
+            "replay_vs_eager": match,
+            "block_vs_per_feature_f32": {"loss": [lb, lf],
+                                         "max_pack_update": upd,
+                                         "max_abs_diff": err},
+            "per_feature_5c": per_feature or {},
+            "replayed_step_profile": profile, **speed}
+
+
+def lazy_adam_criteo():
+    """Phase 5p (2): DeepFM at deepfm.yaml's widths (dim 16, (400, 400,
+    400), f32) through `run_ranking_experiment(trainer: packed,
+    embedding_optimizer: adam)` over phase 5's schema at dim 16: 1 epoch
+    of 16 batches of 32,768, eager steps, the tables at ADAM_EMBEDDING_LR;
+    held-out AUC above 0.5, a falling loss, the [values | m | v] pack (3 x
+    17 used of 128) and its bytes, no B1 launch (lazy Adam is plain torch,
+    as JAX's jnp chain); then ms a step over 8 more eager steps."""
+    from recbox_tpu_torch.ops import packed_delta
+    from recbox_tpu_torch.quick_start import run_ranking_experiment
+
+    data = CriteoBatches(SEED + 12)
+    batches = [data() for _ in range(ADAM_STEPS)]
+    held = [data() for _ in range(FIT_HELD_OUT_BATCHES)]
+
+    def arrays(bs):
+        return {k: torch.cat([b[k] for b in bs]).cpu().numpy()
+                for k in bs[0]}
+
+    config = {"model": "DeepFM", **model_yaml("deepfm"),
+              "trainer": "packed", "embedding_optimizer": "adam",
+              "embedding_lr": ADAM_EMBEDDING_LR,
+              "batch_size": BATCH, "epochs": 1, "learning_rate": 1e-3,
+              "grad_clip_norm": 10.0, "seed": SEED, "monitor": "AUC",
+              "metrics": ["AUC", "logloss"]}
+    packed_delta.reset_launches()
+    t0 = time.perf_counter()
+    result, trainer = run_packed_recorded(lambda: run_ranking_experiment(
+        config, zoo_feature_map(), arrays(batches), arrays(held),
+        device=DEVICE))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = packed_delta.launches["packed_adagrad_update"]
+    losses = step_losses(trainer)
+    (pname, pack), = trainer.packs.items()
+    w_val = trainer._value_width[pname]
+    assert launches == 0 and trainer.embedding_optimizer == "adam", launches
+    assert w_val == ZOO_DIM + 1 and pack.shape[1] == 128 \
+        and not trainer.accs, (w_val, tuple(pack.shape))
+    assert len(losses) == ADAM_STEPS and np.isfinite(losses).all() \
+        and losses[-4:].mean() < losses[:4].mean(), losses
+    assert result["AUC"] > 0.5, result
+    # the v block moved where ids were touched
+    assert float(pack[:, 2 * w_val:3 * w_val].max()) > 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[:8]:
+        trainer.train_step(b)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 8 * 1e3
+    out = {"model": "DeepFM", "steps": ADAM_STEPS, "fit_s": fit_s,
+           "b1_launches": launches, "losses": losses.tolist(),
+           "pack": pname, "pack_shape": list(pack.shape),
+           "used_columns": 3 * w_val, "pack_bytes": pack.numel() * 4,
+           "emb_lr": trainer._emb_lr, "eager_ms_a_step": ms, **result}
+    del trainer, pack
+    torch.cuda.empty_cache()
+    return out
+
+
+def split_accumulators_criteo():
+    """Phase 5p (3): DCNv2 at dcnv2.yaml's widths with embedding_dim 128
+    over phase 5's schema (the cut: MLPerf's DLRM-DCNv2 vocabularies, to
+    26 x 100,000): one value slot of 128 fills the pad, so the AdaGrad
+    accumulators sit in the split ``accs``. 16 eager steps with each
+    step's row gradients recorded, a falling loss, no B1 launch; ``accs``
+    against the squared-gradient row means accumulated over the steps' ids
+    (f64, rtol 1e-5); ms a step, eager and replayed."""
+    from recbox_tpu_torch.models import ranking
+    from recbox_tpu_torch.ops import packed_delta
+    from recbox_tpu_torch.ops.losses import binary_crossentropy
+    from recbox_tpu_torch.training import (
+        PackedEmbeddingTrainer, TrainerConfig,
+    )
+    from recbox_tpu_torch.training import packed
+
+    yaml = {k: v for k, v in model_yaml("dcnv2").items()
+            if k not in ("model", "embedding_dim")}
+    model = ranking.DCNv2(
+        zoo_feature_map(dim=SPLIT_DIM), embedding_dim=SPLIT_DIM, **yaml,
+        generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+        device=DEVICE)
+    trainer = PackedEmbeddingTrainer(
+        model, lambda o, b: binary_crossentropy(o, b["click"]),
+        TrainerConfig(learning_rate=1e-3, grad_clip_norm=10.0, seed=SEED,
+                      epochs=1), device=DEVICE)
+    data = CriteoBatches(SEED + 13)
+    batches = [data() for _ in range(SPLIT_STEPS)]
+    trainer.init(batches[0])
+    (pname, pack), = trainer.packs.items()
+    accs = trainer.accs[pname]
+    assert not trainer._acc_in_row[pname] and pack.shape[1] == SPLIT_DIM \
+        and tuple(accs.shape) == (NUM_CAT * VOCAB, 1), (pname, pack.shape)
+    want = accs.double().clone()
+    orig = PackedEmbeddingTrainer._apply_row_updates
+
+    def record(self, row_grads, ctx, emb_lr):
+        for name, (ids, segs, _, _) in ctx.items():
+            slots = self._slots[name]
+            (g,) = self._slot_grads(slots, segs, row_grads)
+            want.index_add_(0, ids.long(), torch.mean(
+                torch.square(g.double()), dim=-1, keepdim=True))
+        return orig(self, row_grads, ctx, emb_lr)
+
+    packed_delta.reset_launches()
+    packed.PackedEmbeddingTrainer._apply_row_updates = record
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = torch.stack([trainer.train_step(b) for b in batches])
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / SPLIT_STEPS * 1e3
+    finally:
+        packed.PackedEmbeddingTrainer._apply_row_updates = orig
+    losses = losses.float().cpu().numpy()
+    launches = packed_delta.launches["packed_adagrad_update"]
+    assert launches == 0, launches
+    assert np.isfinite(losses).all() \
+        and losses[-4:].mean() < losses[:4].mean(), losses
+    err = (accs.double() - want).abs()
+    rel = float((err / want.abs().clamp_min(1e-30))[want > 0].max())
+    assert bool((err <= 1e-5 * want.abs() + 1e-12).all()), rel
+    touched = int((want > 0).sum())
+    walls = []
+    for i in range(2):
+        chunk = stacked(batches[FIT_K * i:FIT_K * (i + 1)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_steps_fused(chunk)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / FIT_K)
+    assert packed_delta.launches["packed_adagrad_update"] == 0
+    out = {"model": "DCNv2", "embedding_dim": SPLIT_DIM,
+           "steps": SPLIT_STEPS, "b1_launches": launches,
+           "losses": losses.tolist(), "pack": pname,
+           "pack_shape": list(pack.shape), "accs_shape": list(accs.shape),
+           "accs_rows_touched": touched, "accs_max_rel_err": rel,
+           "eager_ms_a_step": eager_ms,
+           "replayed_ms_a_step": walls,
+           "params": sum(p.numel() for p in trainer.params.values())}
+    del trainer, pack, accs, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def rl_lists(n, seed, w, scorer_noise=1.0):
+    """``n`` lists of RL_N slots x RL_FEATS features on the card: features
+    N(0, 1), the last column a ranker's score (the planted linear score
+    plus noise of ``scorer_noise`` times its spread, in units of the
+    score's std), a click where the planted score is in the list's top
+    third; every fourth list has its last 5 slots padded."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    feats = torch.randn(n, RL_N, RL_FEATS, generator=g, device=DEVICE)
+    score = feats[..., :-1] @ w
+    feats[..., -1] = (score + scorer_noise * float(score.std())
+                      * torch.randn(n, RL_N, generator=g, device=DEVICE)) \
+        / float(score.std())
+    mask = torch.ones(n, RL_N, dtype=torch.bool, device=DEVICE)
+    mask[::4, -5:] = False
+    rank = torch.argsort(torch.argsort(
+        torch.where(mask, score, torch.full_like(score, -1e9)), dim=1,
+        descending=True), dim=1)
+    labels = ((rank < RL_N // 3) & mask).float()
+    return {"item_feats": feats, "labels": labels, "mask": mask}
+
+
+def rl_rerankers():
+    """Phase 5p (4): EGR and EGREvaluator at their yaml widths through
+    `run_rerank_experiment` (NDCG@10 above the random order's); a PPO loop
+    (PPOReranker at pporeranker.yaml's widths: 8 updates, each a rollout
+    of PPO_LISTS lists from a frozen copy of the policy, `list_reward_ndcg`,
+    then PPO_INNER Adam steps of `ppo_loss` over `evaluate_actions`, the
+    draws from a generator seeded from the config; the mean list reward of
+    the last two rollouts above the first two's); EGR's generator loop
+    (REINFORCE on the trained evaluator's `list_value`, 8 updates); ms a
+    rollout and an update."""
+    import copy
+
+    from recbox_tpu_torch import quick_start as qs
+    from recbox_tpu_torch.evaluation.rerank import evaluate_rerank
+    from recbox_tpu_torch.models.reranking import rl
+    from recbox_tpu_torch.training.trainer import (
+        TrainerConfig, _make_optimizer,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    w = torch.randn(RL_FEATS - 1, generator=gen, device=DEVICE)
+    train = rl_lists(RL_TRAIN, SEED + 15, w)
+    valid = rl_lists(RL_VALID, SEED + 16, w)
+    host = {k: {n: v.cpu().numpy() for n, v in d.items()}
+            for k, d in (("train", train), ("valid", valid))}
+    rng = np.random.default_rng(SEED)
+    random_order = evaluate_rerank(
+        rng.random(host["valid"]["labels"].shape), host["valid"]["labels"],
+        host["valid"]["mask"], ks=(10,))
+    ranker_order = evaluate_rerank(
+        host["valid"]["item_feats"][..., -1], host["valid"]["labels"],
+        host["valid"]["mask"], ks=(10,))
+    out = {"lists": [RL_TRAIN, RL_VALID], "slots": RL_N,
+           "features": RL_FEATS, "random_order": random_order,
+           "ranker_order": ranker_order}
+    evaluator = None
+    for name in ("EGR", "EGREvaluator"):
+        cfg = {"model": name, **model_yaml(name.lower()),
+               "epochs": RL_EPOCHS, "batch_size": RL_BATCH,
+               "learning_rate": RL_LR, "seed": SEED, "monitor": "NDCG@10"}
+        t0 = time.perf_counter()
+        result, trainer = run_recorded(lambda: qs.run_rerank_experiment(
+            cfg, host["train"], host["valid"], ks=(10,), device=DEVICE))
+        torch.cuda.synchronize()
+        losses = step_losses(trainer)
+        assert np.isfinite(losses).all() \
+            and losses[-8:].mean() < losses[:8].mean(), losses
+        assert result["NDCG@10"] > random_order["NDCG@10"], result
+        out[name] = {"run_s": time.perf_counter() - t0,
+                     "steps": len(losses), "first_losses":
+                     losses[:4].tolist(), "last_losses":
+                     losses[-4:].tolist(), **result}
+        evaluator = trainer.model.inner
+    evaluator.eval()
+    for p in evaluator.parameters():
+        p.requires_grad_(False)
+
+    ppo_cfg = {"model": "PPOReranker", **model_yaml("pporeranker"),
+               "seed": SEED + 17}
+    draws = torch.Generator(device=DEVICE).manual_seed(ppo_cfg["seed"])
+    sub = {k: v[:PPO_LISTS] for k, v in train.items()}
+    step_mask = torch.arange(RL_N, device=DEVICE)[None, :] \
+        < sub["mask"].sum(1)[:, None]
+
+    def timed(call):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def ppo_loop():
+        policy = qs.build_reranker(ppo_cfg, RL_FEATS, DEVICE)
+        params = list(policy.parameters())
+        opt = _make_optimizer(TrainerConfig(learning_rate=PPO_LR,
+                                            grad_clip_norm=0.0), params)
+        rewards, rollout_ms, update_ms = [], [], []
+        for _ in range(PPO_UPDATES):
+            old = copy.deepcopy(policy)
+            with torch.no_grad():
+                (perm, logp_old, value_old), ms = timed(lambda: old.rollout(
+                    sub["item_feats"], sub["mask"], draws))
+                r = rl.list_reward_ndcg(perm, sub["labels"], sub["mask"])
+            rollout_ms.append(ms)
+            rewards.append(float(r.mean()))
+
+            def update():
+                for _ in range(PPO_INNER):
+                    logp, ent, value = policy.evaluate_actions(
+                        sub["item_feats"], sub["mask"], perm)
+                    loss = rl.ppo_loss(logp, logp_old, r - value_old, value,
+                                       r, ent_coef=0.01, entropy=ent,
+                                       step_mask=step_mask)
+                    opt.step(torch.autograd.grad(loss, params))
+                return loss
+
+            loss, ms = timed(update)
+            assert torch.isfinite(loss), loss
+            update_ms.append(ms / PPO_INNER)
+        return rewards, rollout_ms, update_ms
+
+    rewards, rollout_ms, update_ms = ppo_loop()
+    assert np.mean(rewards[-2:]) > np.mean(rewards[:2]), rewards
+    out["ppo"] = {"updates": PPO_UPDATES, "inner_steps": PPO_INNER,
+                  "lists": PPO_LISTS, "mean_rewards": rewards,
+                  "ms_a_rollout": statistics.median(rollout_ms),
+                  "ms_an_update_step": statistics.median(update_ms)}
+
+    # EGR's generator: a policy trained on the evaluator's list value
+    policy = qs.build_reranker(ppo_cfg, RL_FEATS, DEVICE)
+    params = list(policy.parameters())
+    opt = _make_optimizer(TrainerConfig(learning_rate=PPO_LR,
+                                        grad_clip_norm=0.0), params)
+    values, ndcgs, gen_ms = [], [], []
+    for _ in range(PPO_UPDATES):
+        def step():
+            perm, logp, _ = policy.rollout(sub["item_feats"], sub["mask"],
+                                           draws)
+            idx = perm.long()
+            re_feats = torch.gather(sub["item_feats"], 1, idx[..., None]
+                                    .expand(-1, -1, RL_FEATS))
+            re_mask = torch.gather(sub["mask"], 1, idx)
+            value = evaluator.list_value(re_feats, re_mask)
+            loss = rl.reinforce_loss(logp, value, baseline=value.mean(),
+                                     step_mask=step_mask)
+            # the critic head takes no part in REINFORCE: zero gradients
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            opt.step([torch.zeros_like(p) if g is None else g
+                      for p, g in zip(params, grads)])
+            return value, rl.list_reward_ndcg(perm, sub["labels"],
+                                              sub["mask"])
+
+        (value, ndcg), ms = timed(step)
+        assert torch.isfinite(value).all()
+        values.append(float(value.mean()))
+        ndcgs.append(float(ndcg.mean()))
+        gen_ms.append(ms)
+    out["egr_generator"] = {"updates": PPO_UPDATES,
+                            "mean_list_value": values,
+                            "mean_true_ndcg": ndcgs,
+                            "ms_an_update": statistics.median(gen_ms)}
+    return out, host
+
+
+def host_models(host):
+    """Phase 5p (5): `get_model` resolves all 125 names on the card's
+    machine; LambdaMART (10 trees, depth 4) fit on the first LM_LISTS
+    training lists (rows of 65 features, the list as the query) and
+    scored on as many validation lists: its NDCG@10 beside the
+    ranker-score column's order and a random one's (`LambdaMART.ndcg`)."""
+    from recbox_tpu_torch.models.registry import MODEL_REGISTRY, get_model
+    from recbox_tpu_torch.models.reranking.lambdamart import LambdaMART
+
+    names = sorted(MODEL_REGISTRY)
+    resolved = [get_model(n.upper()) for n in names]
+    assert len(names) == 125 and all(c is not None for c, _ in resolved)
+
+    def rows(lists):
+        m = lists["mask"][:LM_LISTS]
+        X = lists["item_feats"][:LM_LISTS][m].astype(np.float64)
+        rel = lists["labels"][:LM_LISTS][m].astype(np.float64)
+        qid = np.broadcast_to(np.arange(LM_LISTS)[:, None], m.shape)[m]
+        return X, rel, qid
+
+    X, rel, qid = rows(host["train"])
+    Xv, relv, qidv = rows(host["valid"])
+    t0 = time.perf_counter()
+    lm = LambdaMART(n_trees=LM_TREES, max_depth=LM_DEPTH).fit(X, rel, qid)
+    fit_s = time.perf_counter() - t0
+    ndcg = lm.ndcg(Xv, relv, qidv, k=10)
+
+    class Column:
+        def __init__(self, scores):
+            self.scores = scores
+
+        def predict(self, _):
+            return self.scores
+
+    def order_ndcg(scores):
+        return LambdaMART.ndcg(Column(scores), Xv, relv, qidv, k=10)
+
+    ranker = order_ndcg(Xv[:, -1])
+    rand = order_ndcg(np.random.default_rng(SEED).random(len(Xv)))
+    assert np.isfinite(ndcg) and ndcg > rand, (ndcg, rand)
+    return {"registry_names": len(names),
+            "stages": sorted({s for _, s in resolved}),
+            "lambdamart": {"trees": LM_TREES, "depth": LM_DEPTH,
+                           "train_rows": int(len(X)), "fit_s": fit_s,
+                           "ndcg@10": ndcg, "ranker_order_ndcg@10": ranker,
+                           "random_order_ndcg@10": rand}}
+
+
 def mi_kernel_entry(mi, variant):
     """B3 on the multi-interest path of phase 5n: its launches there (one
     a counted query), and B3 alone at that shape."""
@@ -4949,6 +5428,34 @@ def main() -> int:
         kg = knowledge_ml1m(kg_dir)
         emit({"phase": "knowledge_ml1m", "card": card,
               "wall_s": time.perf_counter() - t0, **kg})
+    torch.cuda.empty_cache()
+    # 5p. the packed trainer's block rows, lazy Adam and split
+    # accumulators at the Criteo width; the RL rerankers; the host models
+    t5p = time.perf_counter()
+    t0 = time.perf_counter()
+    blk = block_rows_criteo(per_feature={
+        key: fit_c[key] for key in ("eager_median_ms", "fused_median_ms",
+                                    "eager_examples_per_s",
+                                    "fused_examples_per_s")})
+    emit({"phase": "block_rows_criteo", "card": card,
+          "wall_s": time.perf_counter() - t0, **blk})
+    layouts = {}
+    for name, call in (("lazy_adam_criteo", lazy_adam_criteo),
+                       ("split_accumulators_criteo",
+                        split_accumulators_criteo)):
+        t0 = time.perf_counter()
+        layouts[name] = call()
+        emit({"phase": name, "card": card,
+              "wall_s": time.perf_counter() - t0, **layouts[name]})
+    t0 = time.perf_counter()
+    rl_out, rl_host = rl_rerankers()
+    emit({"phase": "rl_rerankers", "card": card,
+          "wall_s": time.perf_counter() - t0, **rl_out})
+    t0 = time.perf_counter()
+    hosts = host_models(rl_host)
+    emit({"phase": "host_models", "wall_s": time.perf_counter() - t0,
+          **hosts})
+    emit({"phase": "5p", "wall_s": time.perf_counter() - t5p})
 
     # 6. times
     qps = {}
@@ -5043,8 +5550,10 @@ def main() -> int:
         + zoo["run_ranking_experiment"]["b1_launches"]
         + zoo["xdeepfm"]["b1_launches"]
         + din["run_ranking_experiment"]["b1_launches"]
-        + mtl["run_ranking_experiment"]["b1_launches"],
+        + mtl["run_ranking_experiment"]["b1_launches"]
+        + blk["b1_launches"],
         "launches_by_path": {
+            "deepfm_block_rows_5p_fused": blk["b1_launches"],
             "fit_fused_graph": fit_c["b1_launches"],
             "train_step_eager": train["launches"],
             "zoo_dcnv2_run_ranking_experiment":
@@ -5072,6 +5581,23 @@ def main() -> int:
                 "groups"] or {}).get("b1_packed_adagrad_update")},
         "mmoe_5l": {"launches": mtl["run_ranking_experiment"][
             "b1_launches"]},
+        "block_rows_5p": {
+            "launches": blk["b1_launches"], "pack": blk["b1_block_grads"][
+                "time"]["pack"], "slots": blk["b1_block_grads"]["time"][
+                "dims"], "grads": blk["b1_block_grads"]["time"]["grads"],
+            "ids": "26 x 32,768 a step, uniform per field, the (F, B, d) "
+                   "block gradients of one eager step",
+            "max_abs_err": blk["b1_block_grads"]["check"]["max_abs_err"],
+            "max_abs_err_update": blk["b1_block_grads"]["check"][
+                "max_abs_err_update"],
+            **{key: blk["b1_block_grads"]["time"][key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "device_ms_in_replayed_step": (blk["replayed_step_profile"][
+                "groups"] or {}).get("b1_packed_adagrad_update")},
+        "not_called_5p": {
+            "lazy_adam": layouts["lazy_adam_criteo"]["b1_launches"],
+            "split_accumulators": layouts["split_accumulators_criteo"][
+                "b1_launches"]},
         "device_ms_in_profiled_step": {
             "eager": (eager_c["groups"] or {}).get(
                 "b1_packed_adagrad_update"),

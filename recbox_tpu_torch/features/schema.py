@@ -7,10 +7,10 @@ lookups (`labels`, `by_type`, `by_source`, `input_features`,
 (`to_json`, `save`, `load`, `from_dict`, `replace`, JAX :165-203). The
 file format is JAX's byte for byte: the specs carry JAX's fields in JAX's
 order, so a ``feature_map.json`` either package writes loads in the other.
-Two of those fields name work the port has not done yet: a spec with a
-``pretrain_path`` or ``freeze_emb`` raises NotImplementedError
-(`ROADMAP.md` Queue A: "nn/embedding.py remainder"); ``shard_table`` is a
-mesh placement and the port has no mesh, so it is kept and not read. A
+``pretrain_path`` and ``freeze_emb`` are read by
+`nn.embedding.FeatureEmbedding` (a pretrained table, no gradient to the
+table); ``shard_table`` is a mesh placement and the port has no mesh, so
+it is kept and not read. A
 numeric feature is one scalar column, embedded as value × a learned (1, d)
 vector by `nn.embedding.FeatureEmbedding`, as in the JAX package.
 """
@@ -49,8 +49,8 @@ class FeatureSpec:
       share_embedding: name of the feature whose table this one reuses.
       padding_idx: id whose embedding is masked to zeros; None disables
         (a sequence feature then pads with ``vocab_size - 1``).
-      pretrain_path, freeze_emb: a pretrained table and whether it trains
-        (not ported: set, they raise).
+      pretrain_path, freeze_emb: a pretrained table (a local .npy / .npz)
+        and whether it trains.
       pooling: sequence pooling, 'mean' | 'sum' | 'concat' | 'none'.
       shard_table: JAX's per-table mesh placement (kept, not read).
     """
@@ -73,11 +73,6 @@ class FeatureSpec:
             raise ValueError(f"feature {self.name}: invalid type {self.type!r}")
         if self.type == SEQUENCE and self.max_len <= 0:
             raise ValueError(f"sequence feature {self.name} needs max_len > 0")
-        if self.pretrain_path or self.freeze_emb:
-            raise NotImplementedError(
-                f"feature {self.name}: pretrained / frozen tables are not "
-                "ported yet (ROADMAP.md, Queue A: \"nn/embedding.py "
-                "remainder\")")
 
     @property
     def table_name(self) -> str:

@@ -1,8 +1,9 @@
 """Move the state of the JAX package onto the port.
 
 `from_jax_params` maps a flax parameter tree onto a port module;
-`load_packed_state` moves a JAX `PackedEmbeddingTrainer`'s dense params and
-packs into the port's, so both packages then compute the same step. The
+`load_packed_state` moves a JAX `PackedEmbeddingTrainer`'s dense params,
+packs and split accumulators into the port's, in each of its layouts, so
+both packages then compute the same step. The
 caller unboxes flax's `Partitioned` leaves and converts them to numpy on
 the JAX side (``jax.tree_util.tree_map(np.asarray, nn.meta.unbox(params))``);
 this module imports neither JAX nor flax. Each flax param has a list of
@@ -67,6 +68,13 @@ convolutions take the Conv rules above; S3Rec's (V + 1)-row ``emb_item``
 and GRU4RecF's ``emb_feat`` are bare tables
 (`tests/test_torch_sequence_ctr.py`, `tests/test_torch_ctr_extended.py`,
 `tests/test_torch_multitask.py`, `tests/test_torch_pretrain.py`).
+
+The RL rerankers of `models/reranking/rl.py` take them with no rule of
+their own: ``proj``, ``score``, ``value`` and PPO's bias-free ``att_c`` /
+``att_h`` / ``att_v`` are Dense kernels; the cells ``nn.RNN`` scans are
+``GRUCell_0`` / ``GRUCell_1`` in the model's scope (the EGR models' forward
+and backward ones), PPO's decoder cell is ``cell``; the discriminator's
+``head`` is an MLP (`tests/test_torch_rl_rerank.py`).
 """
 
 from __future__ import annotations
@@ -183,25 +191,32 @@ def from_jax_params(params: Mapping, model: nn.Module
 
 def load_packed_state(trainer, dense_params: Mapping,
                       packs: Mapping[str, np.ndarray],
-                      model_state: Optional[Mapping] = None) -> None:
+                      model_state: Optional[Mapping] = None,
+                      accs: Optional[Mapping[str, np.ndarray]] = None
+                      ) -> None:
     """Put a JAX `PackedEmbeddingTrainer`'s state into an initialized port
     trainer: its dense params tree (``t.params``, numpy leaves) onto the
-    model, its packs (``t.packs``, numpy, same names and layout) into
-    ``trainer.packs``; its ``model_state`` (the variables beside
-    ``params``, e.g. ``{"batch_stats": ...}``: BatchNorm and Dice
-    statistics) onto the model's buffers. Raises on a missing or extra
-    pack or a shape mismatch. Adam's moments stay at the port trainer's
-    (zeros after init)."""
+    model, its packs (``t.packs``, numpy, same names and layout: AdaGrad
+    state in the row, values alone, or lazy Adam's [values | m | v]) into
+    ``trainer.packs``, its split accumulators (``t.accs``, (ΣV, slots) a
+    split-layout pack) into ``trainer.accs``; its ``model_state`` (the
+    variables beside ``params``, e.g. ``{"batch_stats": ...}``: BatchNorm
+    and Dice statistics) onto the model's buffers. Raises on a missing or
+    extra pack or accumulator tensor, or a shape mismatch. The dense Adam's
+    moments stay at the port trainer's (zeros after init)."""
     model = trainer.model
     model.load_state_dict(from_jax_params(
         {"params": dense_params, **(model_state or {})}, model))
-    if set(packs) != set(trainer.packs):
-        raise KeyError(f"JAX packs {sorted(packs)} vs port packs "
-                       f"{sorted(trainer.packs)}")
-    for name, arr in packs.items():
-        ref = trainer.packs[name]
-        if tuple(np.shape(arr)) != tuple(ref.shape):
-            raise ValueError(f"pack {name}: JAX shape {np.shape(arr)} vs "
-                             f"port {tuple(ref.shape)}")
-        with torch.no_grad():
-            ref.copy_(torch.from_numpy(np.array(arr, np.float32)))
+    for what, src, dst in (("packs", packs, trainer.packs),
+                           ("accs", accs or {}, trainer.accs)):
+        if set(src) != set(dst):
+            raise KeyError(f"JAX {what} {sorted(src)} vs port {what} "
+                           f"{sorted(dst)}")
+        for name, arr in src.items():
+            ref = dst[name]
+            if tuple(np.shape(arr)) != tuple(ref.shape):
+                raise ValueError(f"{what} {name}: JAX shape "
+                                 f"{np.shape(arr)} vs port "
+                                 f"{tuple(ref.shape)}")
+            with torch.no_grad():
+                ref.copy_(torch.from_numpy(np.array(arr, np.float32)))

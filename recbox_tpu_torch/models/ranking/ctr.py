@@ -13,9 +13,9 @@ dict to (B,) float32 logits. Submodules carry the flax names (``linear`` /
 `interop.from_jax_params` moves a JAX model's params and batch_stats over.
 A model builds the ``linear`` module only where JAX's has one (DNN, DCN,
 DCNv2, AutoInt and PNN have none), so `PackedEmbeddingTrainer` plans the
-same packs as JAX's. DeepFM's block fast path
-(`_feature_major_block_logit`) is not ported: it serves the opt-in block
-protocol, measured slower on the TPU.
+same packs as JAX's. DeepFM's feature-major path reads the rows blocks of
+`PackedEmbeddingTrainer(block_rows=True)` without stacking them
+(`_feature_major_block_logit`, JAX :239-308).
 
 Under ``compute_dtype='bfloat16'`` the embeddings and the MLPs run in
 bf16; the layers that are flax ``Dense``s without ``dtype=`` (the crosses,
@@ -26,13 +26,14 @@ parameters, and the logits come back f32.
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from recbox_tpu_torch.features.schema import FeatureMap
+from recbox_tpu_torch.features.schema import CATEGORICAL, FeatureMap
 from recbox_tpu_torch.models.base import RankingModel
 from recbox_tpu_torch.nn.attention import lecun_normal_
 from recbox_tpu_torch.nn.core import (
@@ -40,7 +41,8 @@ from recbox_tpu_torch.nn.core import (
     get_activation, xavier_normal_,
 )
 from recbox_tpu_torch.nn.embedding import (
-    FeatureEmbedding, _field_view, concat_embeddings, stack_embeddings,
+    FeatureEmbedding, _field_view, concat_embeddings, rows_block_key,
+    stack_embeddings,
 )
 from recbox_tpu_torch.nn.interactions import (
     SENET, BilinearInteraction, CompressedInteractionNet, CrossNet,
@@ -251,6 +253,11 @@ class DeepFM(_FieldModel):
         lin = self.linear(batch)
         embs = self.embedding(batch)
         if self.feature_major_compute:
+            cat_block = batch.get(rows_block_key(self.embedding.path))
+            lin_block = batch.get(rows_block_key(self.linear.path))
+            if cat_block is not None and lin_block is not None:
+                return self._feature_major_block_logit(cat_block, lin_block,
+                                                       lin, embs)
             return self._feature_major_logit(lin, embs)
         field = stack_embeddings(embs, feats)
         flat = field.reshape(field.shape[0], -1)
@@ -272,12 +279,59 @@ class DeepFM(_FieldModel):
                              - torch.sum(torch.square(x), dim=0), dim=-1)
         h = torch.einsum("fbd,fdh->bh", x, self.dnn_w1.to(x.dtype)) \
             + self.dnn_b1.to(x.dtype)
+        return self._feature_major_head(first, fm, h)
+
+    def _feature_major_head(self, first, fm, h) -> torch.Tensor:
+        """The first DNN layer's pre-activation ``h`` through its norm,
+        activation, dropout and the rest of the tower, plus the first and
+        second order."""
         if hasattr(self, "dnn_bn1"):
             h = self.dnn_bn1(h)
         h = self.dnn_drop(self._act(h))
         deep = self.dnn_rest(h)
         return (first.float() + fm.float()
                 + deep.reshape(-1).float()).reshape(-1)
+
+    def _feature_major_block_logit(self, cat_block, lin_block, lin, embs
+                                   ) -> torch.Tensor:
+        """The feature-major logit over the rows blocks: (Fc, B, D) of the
+        categorical features in schema order and (Fc, B, 1) of their
+        first-order weights. FM's 0.5 (sum² − sum of squares) and the first
+        layer's einsum('fbd,fdh->bh') both split over a partition of the
+        feature axis, so each maximal schema-order run of categorical or
+        numeric features adds its part and the (F, B, D) stack is never
+        built; the parameters are the stacked path's."""
+        specs = [s for s in self.feature_map.input_features
+                 if s.name in embs]
+        parts, cat_i = [], 0                        # (F_run, B, D) pieces
+        for is_cat, grp in itertools.groupby(
+                specs, key=lambda s: s.type == CATEGORICAL):
+            g = list(grp)
+            if is_cat:
+                parts.append(cat_block[cat_i:cat_i + len(g)].to(self.dtype))
+                cat_i += len(g)
+            else:
+                parts.append(torch.stack([embs[s.name] for s in g], dim=0))
+        if cat_i != cat_block.shape[0]:
+            raise ValueError(
+                f"rows block carries {cat_block.shape[0]} features but the "
+                f"schema embeds {cat_i} categorical columns")
+        # the categorical first-order weights are the dim-1 block; the
+        # numeric ones come from the linear module
+        first = torch.sum(lin_block.float(), dim=(0, 2)) + self.lr_bias
+        for s in specs:
+            if s.type != CATEGORICAL:
+                first = first + lin[s.name].float().reshape(-1)
+        s_sum = sum(torch.sum(p, dim=0) for p in parts)
+        sq_sum = sum(torch.sum(torch.square(p), dim=0) for p in parts)
+        fm = 0.5 * torch.sum(torch.square(s_sum) - sq_sum, dim=-1)
+        h = self.dnn_b1.to(self.dtype)
+        off = 0
+        for p in parts:
+            h = h + torch.einsum("fbd,fdh->bh", p, self.dnn_w1[
+                off:off + p.shape[0]].to(p.dtype))
+            off += p.shape[0]
+        return self._feature_major_head(first, fm, h)
 
 
 class NFM(_FieldModel):

@@ -35,7 +35,11 @@ from recbox_tpu_torch.nn.attention import (
 )
 from recbox_tpu_torch.nn.core import MLP
 from recbox_tpu_torch.nn.embedding import FeatureEmbedding, concat_embeddings
-from recbox_tpu_torch.nn.recurrent import GRUCell, rnn
+# flip_sequences lives in nn/recurrent.py, which DSIN and the EGR models
+# share; it stays importable from here
+from recbox_tpu_torch.nn.recurrent import (  # noqa: F401
+    GRUCell, flip_sequences, rnn, take_steps,
+)
 
 __all__ = ["DIN", "BST", "DIEN", "DSIN"]
 
@@ -244,20 +248,6 @@ class DIEN(_SequenceCTR):
                             torch.sum(h * neg[:, 1:], dim=-1)], dim=-1)
 
 
-def flip_sequences(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """flax's ``flip_sequences`` over (B, S, ...): each row's first
-    ``length`` steps reversed and its padding reversed after them, index
-    (S − 1 − t + length) mod S."""
-    s = x.shape[1]
-    idx = (torch.arange(s - 1, -1, -1, device=x.device)[None, :]
-           + lengths.to(torch.int64)[:, None]) % s
-    return _take_steps(x, idx)
-
-
-def _take_steps(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
-
-
 class DSIN(_SequenceCTR):
     """Deep session interest network: the history cut into
     ``session_count`` sessions, a per-session transformer
@@ -268,8 +258,9 @@ class DSIN(_SequenceCTR):
     The bidirectional GRU is flax's ``nn.RNN`` with ``seq_lengths``: each
     row is rolled so its valid sessions form a prefix; the forward cell
     (``GRUCell_0``) scans all S steps, the backward one (``GRUCell_1``)
-    scans the row with its valid prefix reversed (`flip_sequences`) and is
-    flipped back, and the sum rolls back into place."""
+    scans the row with its valid prefix reversed and is flipped back
+    (`nn.recurrent.rnn` with ``reverse``), and the sum rolls back into
+    place."""
 
     def __init__(self, feature_map: FeatureMap, embedding_dim: int = 16,
                  history_feature: str = "hist",
@@ -314,11 +305,10 @@ class DSIN(_SequenceCTR):
         sess_len = sess_valid.sum(-1)
         lead = torch.argmax(sess_valid.to(torch.int32), dim=-1)
         pos = torch.arange(s, device=hist.device)[None, :]
-        pre = _take_steps(interest, (pos + lead[:, None]) % s)
+        pre = take_steps(interest, (pos + lead[:, None]) % s)
         fwd = rnn(self.GRUCell_0, pre)
-        bwd = flip_sequences(
-            rnn(self.GRUCell_1, flip_sequences(pre, sess_len)), sess_len)
-        evolved = _take_steps(fwd + bwd, (pos - lead[:, None]) % s)
+        bwd = rnn(self.GRUCell_1, pre, sess_len, reverse=True)
+        evolved = take_steps(fwd + bwd, (pos - lead[:, None]) % s)
         att1 = self.act1(target, interest, sess_valid)
         att2 = self.act2(target, evolved, sess_valid)
         x = torch.cat([self._other(embs), att1, att2], dim=-1)

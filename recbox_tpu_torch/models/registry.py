@@ -1,12 +1,11 @@
 """Model registry: name → (class, stage), the `get_model` analog.
 
 Counterpart of `recbox_tpu/models/registry.py` (:29-184) over the ported
-classes. The registry knows every name of JAX's: `get_model` returns
-``(class, stage)`` for a ported name, with the same case-insensitive
-lookup and the ``BPR`` → ``MF`` and ``WDL`` → ``WideDeep`` aliases; for a
-name not ported yet it raises NotImplementedError naming the
-`ROADMAP.md` Queue A item that ports it; an unknown name raises KeyError.
-`list_models` lists the ported names only (JAX's lists all of its).
+classes: every one of JAX's 125 names, at JAX's stage. `get_model` returns
+``(class, stage)``, with the same case-insensitive lookup and the ``BPR``
+→ ``MF``, ``WDL`` → ``WideDeep`` and ``EGR`` → ``EGREvaluator`` aliases;
+an unknown name raises KeyError. LambdaMART (stage 'ranker') and the
+XGBoost / LightGBM passthroughs (stage 'exlib') are host models.
 """
 
 from __future__ import annotations
@@ -14,6 +13,9 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple, Type
 
 from recbox_tpu_torch.models import knowledge, matching, ranking
+from recbox_tpu_torch.models.exlib import (
+    LightGBMRecommender, XGBoostRecommender,
+)
 from recbox_tpu_torch.models.matching import (
     DSSM, ENMF, FISM, MF, NAIS, NNCF, ADMMSLIM, EASE, ConvNCF, ItemKNN,
     LightGCN, NCEPLRec, NeuMF, NGCF, Pop, PureSVD, SLIM, YoutubeDNN,
@@ -25,8 +27,12 @@ from recbox_tpu_torch.models.ranking.ctr import (
     AFM, DCN, DNN, FM, LR, NFM, PNN, AutoInt, DCNv2, DeepFM, FiBiNET,
     WideDeep, xDeepFM,
 )
+from recbox_tpu_torch.models.reranking.lambdamart import LambdaMART
 from recbox_tpu_torch.models.reranking.models import (
     DLCM, GSF, PRM, MiDNN, SetRank,
+)
+from recbox_tpu_torch.models.reranking.rl import (
+    EGRDiscriminator, EGREvaluator, PPOReranker,
 )
 from recbox_tpu_torch.models.sequential import (
     CORE, FDSA, FOSSIL, FPMC, GCSAN, HGN, HRM, NARM, NPE, SHAN, SINE, SRGNN,
@@ -38,39 +44,21 @@ __all__ = ["MODEL_REGISTRY", "get_model", "register_model", "list_models"]
 
 MODEL_REGISTRY: Dict[str, Tuple[Type, str]] = {}
 
-# the JAX registry's names the port does not have yet: (stage, the
-# ROADMAP.md Queue A item that ports them)
-_RERANK, _FULL = "Reranking remainder", "The full registry"
-_PENDING: Dict[str, Tuple[str, str]] = {}
-for _names, _stage, _item in [
-        (("EGREvaluator", "EGRDiscriminator", "PPOReranker", "EGR"),
-         "reranking", _RERANK),
-        (("LambdaMART",), "ranker", _RERANK),
-        (("XGBoost", "LightGBM"), "exlib", _FULL)]:
-    for _name in _names:
-        _PENDING[_name.lower()] = (_stage, _item)
-
 
 def register_model(name: str, cls: Type, stage: str) -> None:
     MODEL_REGISTRY[name.lower()] = (cls, stage)
-    _PENDING.pop(name.lower(), None)
 
 
 def get_model(name: str) -> Tuple[Type, str]:
     key = name.lower()
     if key in MODEL_REGISTRY:
         return MODEL_REGISTRY[key]
-    if key in _PENDING:
-        stage, item = _PENDING[key]
-        raise NotImplementedError(
-            f"model {name!r} (stage {stage!r}) is not ported yet "
-            f"(ROADMAP.md, Queue A: \"{item}\")")
     raise KeyError(
         f"model {name!r} not registered; known: {sorted(MODEL_REGISTRY)}")
 
 
 def list_models(stage: Optional[str] = None) -> List[str]:
-    """The ported names (of ``stage``), sorted."""
+    """The registered names (of ``stage``), sorted."""
     return sorted(n for n, (_, s) in MODEL_REGISTRY.items()
                   if stage is None or s == stage)
 
@@ -119,5 +107,11 @@ for _name in ("CKE", "CFKG", "KTUP", "MKR", "KGCN", "KGNNLS", "KGAT",
               "RippleNet", "KGIN", "MCCLK"):
     register_model(_name, getattr(knowledge, _name), "knowledge")
 for _name, _cls in [("PRM", PRM), ("DLCM", DLCM), ("SetRank", SetRank),
-                    ("MiDNN", MiDNN), ("GSF", GSF)]:
+                    ("MiDNN", MiDNN), ("GSF", GSF),
+                    ("EGREvaluator", EGREvaluator),
+                    ("EGRDiscriminator", EGRDiscriminator),
+                    ("PPOReranker", PPOReranker), ("EGR", EGREvaluator)]:
     register_model(_name, _cls, "reranking")
+register_model("LambdaMART", LambdaMART, "ranker")
+register_model("XGBoost", XGBoostRecommender, "exlib")
+register_model("LightGBM", LightGBMRecommender, "exlib")

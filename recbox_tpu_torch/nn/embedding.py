@@ -22,14 +22,28 @@ The `__rows__` protocol (`embedding.py:44-75`): when a batch carries
 rows instead of its table, so a trainer that gathers rows itself
 (`training/packed.py`) gets (B, D) row gradients back. A module's ``path``
 is its flax name (``("embedding",)``, ``("linear",)`` in DeepFM), so the
-keys are the JAX package's. The block variant (`BLOCK_PREFIX`) is not
-ported: it was opt-in and measured slower on the TPU.
+keys are the JAX package's. Its block variant: ``rows_block_key(path)``
+carries one (F, B, D) tensor of the rows of every categorical feature in
+the batch, F in schema order; the module reads feature f as its f-th
+slice, and the backward gives the trainer one (F, B, D) gradient
+(`PackedEmbeddingTrainer(block_rows=True)`).
+
+Pretrained tables (`embedding.py:95-118`): ``FeatureSpec.pretrain_path``
+names a local .npy, or .npz (its 'embeddings' array, else its only one);
+its rows fill the table's leading rows over the usual draw, and a matrix
+of the wrong width or with more rows than the table raises ValueError, as
+in JAX. ``freeze_emb`` (on the feature or on its table's owner) detaches
+the looked-up rows, so no gradient reaches the table: the dense trainer's
+optimizer then sees zeros there, as JAX's does after ``stop_gradient``.
+``FeatureSpec.shard_table`` is read by nothing until `parallel/` is
+ported.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -40,15 +54,57 @@ from recbox_tpu_torch.features.schema import (
 from recbox_tpu_torch.nn.core import xavier_normal_, xavier_uniform_
 
 __all__ = ["FeatureEmbedding", "concat_embeddings", "stack_embeddings",
-           "masked_pool", "ROWS_PREFIX", "rows_key_for"]
+           "masked_pool", "ROWS_PREFIX", "rows_key_for", "BLOCK_PREFIX",
+           "rows_block_key"]
 
 ROWS_PREFIX = "__rows__"
+BLOCK_PREFIX = "__rows_block__"
 
 
 def rows_key_for(module_path: Tuple[str, ...], feature_name: str) -> str:
     """Batch key of the pre-gathered rows of ``feature_name`` for the
     FeatureEmbedding at ``module_path``."""
     return ROWS_PREFIX + "/".join(module_path) + ":" + feature_name
+
+
+def rows_block_key(module_path: Tuple[str, ...]) -> str:
+    """Batch key of the (F, B, D) block of pre-gathered rows of every
+    categorical feature of the FeatureEmbedding at ``module_path``."""
+    return BLOCK_PREFIX + "/".join(module_path)
+
+
+def _load_pretrained_matrix(path: str) -> np.ndarray:
+    """A (vocab, dim) matrix from .npy, or .npz (key 'embeddings'
+    preferred, else the single array)."""
+    data = np.load(path, allow_pickle=False)
+    if isinstance(data, np.ndarray):
+        return data
+    keys = list(data.keys())
+    key = "embeddings" if "embeddings" in keys else keys[0]
+    if "embeddings" not in keys and len(keys) > 1:
+        raise ValueError(
+            f"pretrained npz {path!r} has multiple arrays {keys}; store "
+            "the matrix under the key 'embeddings'")
+    return data[key]
+
+
+@torch.no_grad()
+def _pretrained_init_(table: torch.Tensor, path: str) -> None:
+    """Overwrite the leading rows of the drawn ``table`` (rows, dim) with
+    the pretrained matrix at ``path``; rows beyond the file (PAD, a shared
+    vocabulary's extension) keep the draw."""
+    rows, dim = table.shape
+    arr = _load_pretrained_matrix(path)
+    if arr.ndim != 2 or arr.shape[1] != dim:
+        raise ValueError(
+            f"pretrained matrix {path!r} has shape {arr.shape}; "
+            f"expected (<= {rows}, {dim})")
+    if arr.shape[0] > rows:
+        raise ValueError(
+            f"pretrained matrix {path!r} has {arr.shape[0]} rows but "
+            f"the table only has {rows}")
+    table[:arr.shape[0]] = torch.as_tensor(
+        np.asarray(arr), dtype=table.dtype).to(table.device)
 
 
 def masked_pool(seq_emb: torch.Tensor, mask: torch.Tensor, mode: str
@@ -121,6 +177,9 @@ class FeatureEmbedding(nn.Module):
                     xavier_normal_(w, generator)
                 else:
                     xavier_uniform_(w, generator)
+                pretrain = self._pretrain_path(spec)
+                if pretrain:
+                    _pretrained_init_(w, pretrain)
                 self.tables[spec.table_name] = nn.Parameter(w)
             flat = spec.type == SEQUENCE and (
                 not sequence_pooling or spec.pooling not in ("mean", "sum"))
@@ -137,6 +196,21 @@ class FeatureEmbedding(nn.Module):
                 rows = max(rows, f.vocab_size)
         return rows
 
+    def _owner(self, spec: FeatureSpec) -> FeatureSpec:
+        return self.feature_map.feature_dict.get(spec.table_name, spec)
+
+    def _pretrain_path(self, spec: FeatureSpec) -> Optional[str]:
+        """The table's pretrained file: its owner's, else the first one a
+        feature sharing the table names."""
+        path = self._owner(spec).pretrain_path
+        for f in self.feature_map.features:
+            if f.table_name == spec.table_name:
+                path = path or f.pretrain_path
+        return path
+
+    def _frozen(self, spec: FeatureSpec) -> bool:
+        return self._owner(spec).freeze_emb or spec.freeze_emb
+
     def _lookup(self, batch: Dict[str, torch.Tensor], spec: FeatureSpec,
                 x: torch.Tensor) -> torch.Tensor:
         rows = batch.get(rows_key_for(self.path, spec.name))
@@ -148,6 +222,12 @@ class FeatureEmbedding(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         out: Dict[str, torch.Tensor] = {}
+        # the block protocol: feature f of the categorical features in the
+        # batch, in schema order, is the block's f-th slice
+        block = batch.get(rows_block_key(self.path))
+        if block is not None:
+            block = block.to(self.dtype)
+        block_i = 0
         for spec in self.feats:
             name = spec.name
             if name not in batch:
@@ -157,12 +237,20 @@ class FeatureEmbedding(nn.Module):
                 out[name] = (x.to(self.dtype)[:, None]
                              * self.numeric[name].to(self.dtype))
             elif spec.type == CATEGORICAL:
-                emb = self._lookup(batch, spec, x)
+                if block is not None:
+                    emb = block[block_i]
+                    block_i += 1
+                else:
+                    emb = self._lookup(batch, spec, x)
+                if self._frozen(spec):
+                    emb = emb.detach()
                 if spec.padding_idx is not None:
                     emb = emb * (x != spec.padding_idx).to(emb.dtype)[..., None]
                 out[name] = emb
             elif spec.type == SEQUENCE:
                 emb = self._lookup(batch, spec, x)                  # (B, L, D)
+                if self._frozen(spec):
+                    emb = emb.detach()
                 pad = spec.padding_idx if spec.padding_idx is not None \
                     else spec.vocab_size - 1
                 mask = x != pad

@@ -4,7 +4,8 @@ Counterpart of `flax.linen.GRUCell` and `flax.linen.RNN`, as the JAX
 package's recurrent models use them (`recbox_tpu/models/sequential/
 models.py:173-230` GRU4Rec and NARM, `extended.py:672` RepeatNet,
 `session_graph.py:79` the GGNN's step, `models/reranking/models.py:84`
-DLCM). The cell:
+DLCM, `models/ranking/sequence_ctr.py` DSIN, `models/reranking/rl.py` the
+EGR models). The cell:
 
     r = σ(ir(x) + hr(h)),  z = σ(iz(x) + hz(h)),
     n = tanh(in(x) + r · hn(h)),  h' = (1 − z) · n + z · h,
@@ -16,7 +17,12 @@ the r and z recurrent projections too, which an optimizer would move apart
 from JAX's model, so the cell is written out. `rnn` is ``nn.RNN``: a zero
 carry scanned over every position of the (B, L, D) input, padding
 included, the states of all L steps returned; the input projections run
-once over the whole sequence before the loop.
+once over the whole sequence before the loop. With ``lengths`` and
+``reverse`` it is ``nn.RNN(cell, reverse=True, keep_order=True)(x,
+seq_lengths=lengths)``: each row's valid prefix reversed and its padding
+reversed after it (`flip_sequences`), scanned, and flipped back. flax's
+``seq_lengths`` selects nothing in the outputs: every slot, padding
+included, holds the state the scan reached there, and so does the port's.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from torch import nn
 
 from recbox_tpu_torch.nn.attention import dense
 
-__all__ = ["GRUCell", "rnn"]
+__all__ = ["GRUCell", "rnn", "flip_sequences", "take_steps"]
 
 
 class GRUCell(nn.Module):
@@ -67,9 +73,33 @@ class GRUCell(nn.Module):
         return self.step(h, *self.inputs(x))
 
 
-def rnn(cell: GRUCell, x: torch.Tensor) -> torch.Tensor:
+def take_steps(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[b, idx[b, t]]`` over (B, S, D): a per-row reordering of steps."""
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def flip_sequences(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """flax's ``flip_sequences`` over (B, S, D): each row's first
+    ``length`` steps reversed and its padding reversed after them, index
+    (S − 1 − t + length) mod S."""
+    s = x.shape[1]
+    idx = (torch.arange(s - 1, -1, -1, device=x.device)[None, :]
+           + lengths.to(torch.int64)[:, None]) % s
+    return take_steps(x, idx)
+
+
+def rnn(cell: GRUCell, x: torch.Tensor,
+        lengths: Optional[torch.Tensor] = None,
+        reverse: bool = False) -> torch.Tensor:
     """flax ``nn.RNN(cell)(x)``: (B, L, D) → the (B, L, H) states from a
-    zero carry over all L steps."""
+    zero carry over all L steps. ``reverse``: flax's ``reverse=True,
+    keep_order=True``, over each row's first ``lengths`` steps reversed
+    (all L steps without ``lengths``), the states put back in the input's
+    order."""
+    if reverse:
+        flip = (lambda t: torch.flip(t, dims=(1,))) if lengths is None \
+            else (lambda t: flip_sequences(t, lengths))
+        return flip(rnn(cell, flip(x)))
     xr, xz, xn = cell.inputs(x)
     h = torch.zeros(x.shape[0], cell.hidden, dtype=xr.dtype,
                     device=x.device)

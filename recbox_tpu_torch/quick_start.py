@@ -278,7 +278,13 @@ def run_rerank_experiment(
     """Listwise rerank pipeline (librerank's protocol): lists are dicts of
     item_feats (B, N, D), labels (B, N), mask (B, N); listwise-BCE
     training, MAP / NDCG / clicks@k on ``valid_lists``
-    (`evaluate_rerank`). The model's input width is the lists' D."""
+    (`evaluate_rerank`). The model's input width is the lists' D.
+
+    Every reranking name trains here as in JAX: EGR / EGREvaluator under
+    the listwise BCE; PPOReranker's greedy scores carry no gradient, so
+    its step moves nothing (zero gradients); EGRDiscriminator's (B,) logit
+    against (B, N) labels fails in `listwise_bce` unless B == N, in both
+    packages."""
     from recbox_tpu_torch.evaluation.rerank import evaluate_rerank
     from recbox_tpu_torch.models.reranking.models import listwise_bce
 

@@ -424,8 +424,12 @@ class Trainer:
         optimizer step on the dense ones; the gradients of ``extra`` back."""
         params = list(self.params.values())
         with record_function("trainer::backward"):
-            grads = torch.autograd.grad(loss, params + list(extra),
-                                        allow_unused=True)
+            # a loss that reaches no parameter (PPOReranker's greedy
+            # scores) has zero gradients, as jax.grad gives
+            grads = torch.autograd.grad(
+                loss, params + list(extra),
+                allow_unused=True) if loss.requires_grad \
+                else [None] * (len(params) + len(extra))
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip(params + list(extra), grads)]
         with record_function("trainer::adam"):

@@ -289,8 +289,10 @@ def test_feature_map_json_round_trips_with_jax(tmp_path):
     assert pfm.sum_emb_out_dim() == jfm.sum_emb_out_dim()
     assert [f.name for f in pfm.by_type("sequence")] == ["hist"]
     assert pfm.replace(num_items=7).num_items == 7
-    with pytest.raises(NotImplementedError, match="nn/embedding.py"):
-        FeatureSpec("x", pretrain_path="emb.npy")
+    # a pretrained, frozen table's fields persist as JAX's
+    spec = dict(name="x", type="categorical", vocab_size=5, embedding_dim=4,
+                pretrain_path="emb.npy", freeze_emb=True)
+    assert FeatureSpec(**spec).to_dict() == JFeatureSpec(**spec).to_dict()
 
 
 @pytest.mark.parametrize("algo", ["random", "bayes", "exhaustive"])

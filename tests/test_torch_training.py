@@ -360,7 +360,9 @@ def test_direct_init_draws_the_pack(feature_major):
 
 def test_delta_kernel_values_and_unported_paths():
     """delta_kernel takes the JAX package's three values and rejects any
-    other; the paths not ported yet raise NotImplementedError."""
+    other; the embedding optimizers are JAX's two, 'adagrad' and 'adam'
+    (lazy Adam), and any other raises NotImplementedError, as in JAX;
+    block_rows is taken (`tests/test_torch_packed_layouts.py` trains it)."""
     _, pm = _models(True)
 
     def make(**kw):
@@ -370,13 +372,13 @@ def test_delta_kernel_values_and_unported_paths():
 
     for value in ("auto", "pallas", "xla"):
         assert make(delta_kernel=value).delta_kernel == value
-    for kw in (dict(delta_kernel="cuda"), dict(embedding_optimizer="adam"),
-               dict(block_rows=True)):
+    assert make(embedding_optimizer="adam").embedding_optimizer == "adam"
+    assert make(block_rows=True).block_rows
+    for kw in (dict(delta_kernel="cuda"), dict(embedding_optimizer="sgd")):
         with pytest.raises(NotImplementedError):
             make(**kw)
-    for kw in (dict(embedding_optimizer="adam"), dict(block_rows=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make(**kw)
+        with pytest.raises(NotImplementedError):
+            JPacked(_models(True)[0], None, JTrainerConfig(), **kw)
     with pytest.raises(NotImplementedError, match="optimizer"):
         Trainer(pm, None, TrainerConfig(optimizer="lamb"),
                 device="cpu").init({})
