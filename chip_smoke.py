@@ -6,7 +6,9 @@
 Phases (any failure raises and exits non-zero):
   1. the card, as nvidia-smi names it, with its power limit;
   2. build every CUDA kernel of the port from `recbox_tpu_torch/csrc/`
-     (one nvcc per source, all started together) into `build/kernels/`;
+     (one nvcc per source, all started together) into `build/kernels/`,
+     and beside them the host library of `native/*.cpp` (g++) into
+     `build/native/`;
      each kernel's registers and spills as ptxas gives them (B4's
      wgmma route at D = 64 and 128, whose packed instantiations are B3's
      stage (a), B5's selection, B3's selection with its epilogue, B2's
@@ -203,7 +205,7 @@ Phases (any failure raises and exits non-zero):
      a DCNv2 teacher) at their yaml widths over 5l's schema under the
      packed trainer, 8 eager steps on one batch of 4096 each; S3Rec at
      s3rec.yaml's widths over a synthetic Amazon Beauty (22,363 users,
-     12,101 items, 1,221 attributes): 2 pretraining epochs (the joint
+     12,101 items, 1,221 attributes): 1 pretraining epoch (the joint
      loss on a fixed probe falls), the graft, a fine-tune through
      `run_sequential_experiment` with test Recall@10 above chance;
      GRU4RecF with a feat_seq column: 8 eager steps, a falling loss;
@@ -256,7 +258,23 @@ Phases (any failure raises and exits non-zero):
      list reward rises) and EGR's generator loop (REINFORCE on the trained
      evaluator's `list_value`, 8 updates), ms a rollout and an update;
      `get_model` for all 125 names; LambdaMART (10 trees, depth 4) on
-     1,000 lists, its NDCG@10 against the ranker-score column's order;
+     400 lists, its NDCG@10 against the ranker-score column's order;
+  5q. the data and features pipeline at phase 5's width: 1,048,576 raw
+     rows in the Criteo Display Advertising Challenge's layout (a label,
+     13 counts log-normal with 20% missing, 26 fields of 8-hex-digit
+     tokens drawn Zipf(1.1) over 400,000 a field, some empty; clicks from
+     a planted logistic model over the raw tokens of four fields) and
+     65,536 held out, through `FeatureEncoder` (its FeatureMap equal to
+     phase 5's schema; every categorical column encoded by the native
+     library) and `save_shards` (250,000 rows a shard); one epoch of the
+     native `ShardLoader` equal to one of the numpy one bit for bit; phase
+     5's trainer through `fit` over the native loader (32 steps, one B1
+     launch each, counted from 0 just before; a falling loss; held-out
+     AUC above 0.55 through an encoder reloaded from `save` / `load`); ms
+     a streamed step beside 5c's in-memory steps, and 8 of them under
+     torch.profiler (the device's idle share); B1 on one captured step of
+     the path against its plain version and timed; seconds and rows/s of
+     each stage;
   6. times with CUDA events (median after a warm-up; B5, B6 and their
      yardsticks over runs of 20 calls queued behind a spin kernel, so the
      host's launch work is not timed): each kernel, its
@@ -1957,15 +1975,18 @@ CRITEO_GROUPS = (
 )
 
 
-def train_breakdown(trainer, batch, groups=CRITEO_GROUPS, steps=None):
+def train_breakdown(trainer, batch, groups=CRITEO_GROUPS, steps=None,
+                    warmup=True):
     """Device time by kernel of one steady train step (torch.profiler),
     summed into ``groups`` ((name, substrings of a lower-case kernel name),
     first match wins, the rest "other"); the device timeline's span of each
     of the trainer's phases (gather, forward, backward, Adam, row update);
-    and the device's idle share of the step's wall time."""
+    and the device's idle share of the step's wall time. ``steps`` runs
+    once unprofiled first unless ``warmup`` is False (a warm trainer)."""
     from torch.profiler import ProfilerActivity, profile
     step = steps or (lambda: trainer.train_step(batch))
-    step()
+    if warmup:
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3421,7 +3442,9 @@ CTRX_MODELS = ("FFM", "FwFM", "FmFM", "FEFM", "DeepFEFM", "ONN", "CCPM",
 # Amazon Beauty at the S3Rec paper's scale (its Table 1): users, items,
 # attributes; `configs/models/s3rec.yaml`'s widths
 BEAUTY_USERS, BEAUTY_ITEMS, BEAUTY_ATTRS = 22_363, 12_101, 1_221
-S3_PRETRAIN_EPOCHS, S3_PRETRAIN_BATCH = 2, 256
+# one pretraining epoch, a depth cut from two (~7 s) to keep the script
+# inside its time; the probe loss falls within the first
+S3_PRETRAIN_EPOCHS, S3_PRETRAIN_BATCH = 1, 256
 S3_FINE_EPOCHS, S3_FINE_BATCH = 2, 2048
 
 
@@ -3883,8 +3906,8 @@ def s3rec_beauty():
     """Phase 5m (2): S3Rec at `configs/models/s3rec.yaml`'s widths (dim 64,
     2 layers, 2 heads, L = 50, dropout 0.2; the 1,221 attributes for AAP /
     MAP) at the Amazon Beauty scale of the S3Rec paper (22,363 users,
-    12,101 items), synthetic from the seed: `S3RecPretrainer` for 2 epochs
-    of batch 256 (AAP + MIP + MAP + SP), the joint loss on a fixed probe
+    12,101 items), synthetic from the seed: `S3RecPretrainer` for
+    S3_PRETRAIN_EPOCHS epochs of batch 256 (AAP + MIP + MAP + SP), the joint loss on a fixed probe
     batch falling; `transfer_pretrained` onto the model that
     `run_sequential_experiment` builds (its `build_model`, wrapped), then
     its fine-tune `fit` (2 epochs of 2048, full-softmax CE: 12,102 items
@@ -4683,7 +4706,9 @@ SPLIT_DIM, SPLIT_STEPS = 128, 16
 RL_TRAIN, RL_VALID, RL_N, RL_FEATS = 16_384, 4_096, 30, 65
 RL_BATCH, RL_EPOCHS, RL_LR = 256, 2, 1e-3
 PPO_UPDATES, PPO_INNER, PPO_LISTS, PPO_LR = 8, 4, 2048, 5e-3
-LM_LISTS, LM_TREES, LM_DEPTH = 1000, 10, 4
+# LambdaMART's lists: 400, a depth cut from 1,000 (~15 s of host numpy) to
+# keep the script inside its time
+LM_LISTS, LM_TREES, LM_DEPTH = 400, 10, 4
 
 
 def block_rows_criteo(per_feature=None):
@@ -5124,6 +5149,291 @@ def host_models(host):
                            "random_order_ndcg@10": rand}}
 
 
+# -- phase 5q: the data and features pipeline --------------------------------------
+
+# rows in the layout of the Criteo Display Advertising Challenge's train.txt
+# (a label, I1-I13 counts, C1-C26 tokens of 8 hex digits), its 45,840,617
+# rows cut in depth to one epoch of 32 steps at bench.py's batch
+Q_TRAIN, Q_HELD, Q_TOKENS = 1_048_576, 65_536, 400_000
+Q_ROWS_PER_SHARD = 250_000
+# the fields with ~10% empty tokens, the counts' missing share
+Q_EMPTY_FIELDS, Q_EMPTY, Q_NAN = (2, 5, 11, 18, 24), 0.1, 0.2
+# the packed AdaGrad accumulators' start. From 0 the Zipf head (~30% of a
+# field's rows on its OOV row, ~10% on its top token) and every row hit
+# once move by ~lr a step and the loss blows up (~1e2); from 5k's 0.1 a hot
+# row's g / sqrt(0.1 + g²) is ~g / 0.3, too small to learn in 32 steps
+# (CPU rehearsal at the full data, MLP (64, 32): AUC 0.522 from 0.1, 0.6103
+# from 1e-3)
+Q_ADAGRAD_INIT = 1e-3
+# a streamed window under torch.profiler: steps 4-11 of an epoch, one
+# shard boundary among them (the first falls in batch 7), as one in ~7.6
+# batches of an epoch
+Q_PROFILE_FROM, Q_PROFILE_STEPS = 4, 8
+# the code points of the hex digits
+HEX_DIGITS = np.array([ord(c) for c in "0123456789abcdef"], np.uint32)
+
+
+def hex_tokens(words):
+    """uint32 words as tokens of 8 hex digits (numpy 'U8', 8 code points
+    a token)."""
+    nib = (words[:, None] >> np.arange(28, -4, -4, dtype=np.uint32)) & 15
+    return HEX_DIGITS[nib].view("U8").ravel()
+
+
+def criteo_raw(seed):
+    """Phase 5q's raw training and held-out rows, their columns named as
+    `criteo_trainer`'s schema (c0..c25 for C1..C26, n0..n12 for I1..I13,
+    click): a field's tokens drawn Zipf(1.1) over Q_TOKENS tokens of its
+    own, Q_EMPTY of them empty in Q_EMPTY_FIELDS; counts log-normal and
+    rounded, Q_NAN missing; click Bernoulli(sigmoid(Σ w_f[token])) over
+    c0..c3, w N(0, 1) a token."""
+    vocab = np.random.default_rng(seed)
+    tokens = [hex_tokens(vocab.integers(0, 2 ** 32, Q_TOKENS,
+                                        dtype=np.uint32))
+              for _ in range(NUM_CAT)]
+    w = vocab.normal(size=(4, Q_TOKENS))
+    rng = np.random.default_rng(seed + 1)
+
+    def rows(n):
+        table, logit = {}, np.zeros(n)
+        for f in range(NUM_CAT):
+            idx = (rng.zipf(1.1, n) - 1) % Q_TOKENS
+            col = tokens[f][idx]
+            if f in Q_EMPTY_FIELDS:
+                col[rng.random(n) < Q_EMPTY] = ""
+            table[f"c{f}"] = col
+            if f < 4:
+                logit += w[f, idx]
+        for f in range(NUM_NUM):
+            v = np.round(rng.lognormal(1.0, 1.5, n))
+            v[rng.random(n) < Q_NAN] = np.nan
+            table[f"n{f}"] = v
+        table["click"] = (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(
+            np.int64)
+        return table
+
+    return rows(Q_TRAIN), rows(Q_HELD)
+
+
+def batches_equal(a, b):
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(
+            x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k])
+            for k in x) for x, y in zip(a, b))
+
+
+def pipeline_criteo(in_memory=None):
+    """Phase 5q: raw Criteo-layout rows → `FeatureEncoder` (c0..c25 with
+    ``topk_words`` VOCAB - 1, n0..n12 through log1p and StandardScaler,
+    dim 64; its FeatureMap equal to `criteo_trainer`'s) → `save_shards`
+    (Q_ROWS_PER_SHARD rows a shard: every shard boundary carries rows) →
+    one epoch of the native `ShardLoader` and one of the numpy one at the
+    same seed, bit for bit → `criteo_trainer`'s `fit` over the native
+    loader (1 epoch, eager steps, B1's count reset just before and read
+    just after: one launch a step), `CTREvaluator` on the held-out rows
+    through an encoder reloaded from `save` / `load`; the host's ms a
+    streamed step (the intervals between steps after the first), a
+    batch's host-to-device copy alone, and a window of streamed steps
+    under torch.profiler (device idle share) beside ``in_memory`` (5c's
+    in-memory steps); B1
+    against its plain version on one captured step of this path. The
+    library builds strictly and every encode and read takes the native
+    route: nothing falls back. ``stage_s``: the seconds of each stage."""
+    import tempfile
+    from recbox_tpu_torch.data import MASK_KEY, ShardLoader, save_shards
+    from recbox_tpu_torch.data import native_shards
+    from recbox_tpu_torch.evaluation import CTREvaluator
+    from recbox_tpu_torch.features import FeatureEncoder
+    from recbox_tpu_torch.ops import packed_delta
+    from recbox_tpu_torch.retrieval import native
+    from recbox_tpu_torch.utils.introspection import (
+        get_device_memory, get_environment,
+    )
+
+    stage_s, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        stage_s[name] = now - mark[0]
+        mark[0] = now
+
+    native.load_native(strict=True)
+    build = {k: native.build_info[k] for k in ("path", "built", "seconds")}
+    assert os.path.dirname(build["path"]) == str(native.BUILD_DIR) \
+        and native.native_available(), build
+    lap("native_library")
+    train_raw, held_raw = criteo_raw(SEED + 131)
+    lap("raw_rows")
+    cols = [{"name": f"c{i}", "type": "categorical",
+             "topk_words": VOCAB - 1, "embedding_dim": DIM}
+            for i in range(NUM_CAT)]
+    # counts through log(1 + x) before the scaler, as DLRM's Criteo
+    # preprocessing takes them (the raw tails put values ~100 standard
+    # deviations out, and the FM term's products of them blow the loss up)
+    cols += [{"name": f"n{i}", "type": "numeric", "embedding_dim": DIM,
+              "normalizer": "StandardScaler", "preprocess": np.log1p}
+             for i in range(NUM_NUM)]
+    enc = FeatureEncoder(cols, label_cols=["click"],
+                         dataset_id="criteo_bench")
+    fm = enc.fit(train_raw)
+    lap("encoder_fit")
+    trainer = criteo_trainer(SEED, adagrad_init=Q_ADAGRAD_INIT)
+    assert fm == trainer.model.feature_map, fm
+    lap("trainer")
+    encodes, streams = [], []
+    orig_encode, orig_stream = (native.vocab_encode_native,
+                                native_shards.NativeShardStream)
+
+    def encode(*a, **kw):
+        out = orig_encode(*a, **kw)
+        encodes.append(out is not None)
+        return out
+
+    class Stream(orig_stream):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            streams.append(len(self._paths))
+
+    native.vocab_encode_native = encode
+    native_shards.NativeShardStream = Stream
+    try:
+        train = enc.transform(train_raw)
+        assert encodes == [True] * NUM_CAT, encodes
+        del train_raw
+        lap("transform")
+        with tempfile.TemporaryDirectory() as tmp:
+            shard_dir = os.path.join(tmp, "shards")
+            files = save_shards(shard_dir, train,
+                                rows_per_shard=Q_ROWS_PER_SHARD)
+            shard_bytes = sum(os.path.getsize(f) for f in files)
+            del train
+            lap("save_shards")
+            enc.save(os.path.join(tmp, "encoder"))
+            held = FeatureEncoder.load(os.path.join(tmp, "encoder")
+                                       ).transform(held_raw)
+            assert encodes == [True] * (NUM_CAT * 2), encodes
+            lap("encoder_save_load_held_transform")
+            # the two readers: one epoch each at one seed, bit for bit
+            epochs = {}
+            for backend in ("native", "numpy"):
+                loader = ShardLoader(shard_dir, batch_size=BATCH, seed=SEED,
+                                     reader_backend=backend)
+                epochs[backend] = list(loader)
+                lap(f"reader_epoch_{backend}")
+            assert streams == [len(files)], streams
+            assert len(epochs["native"]) == Q_TRAIN // BATCH \
+                and batches_equal(epochs["native"], epochs["numpy"])
+            probe = {k: v for k, v in epochs["native"][1].items()
+                     if k != MASK_KEY}
+            del epochs
+            lap("readers_compared")
+            # the streamed fit over the native reader
+            loader = ShardLoader(shard_dir, batch_size=BATCH, seed=SEED + 1,
+                                 drop_last=True, reader_backend="native")
+            ctr = CTREvaluator(held, label="click",
+                               metrics=["AUC", "logloss"], batch_size=BATCH)
+            evals = []
+
+            def eval_fn(tr):
+                t0 = time.perf_counter()
+                metrics = ctr(tr)
+                evals.append({"eval_s": time.perf_counter() - t0, **metrics})
+                return metrics
+
+            trainer.eval_fn = eval_fn
+            losses, starts, step = [], [], trainer.train_step
+
+            def recorded(batch):
+                starts.append(time.perf_counter())
+                losses.append(step(batch))
+                return losses[-1]
+
+            trainer.train_step = recorded
+            trainer.init(loader.peek_batch())
+            torch.cuda.synchronize()
+            packed_delta.reset_launches()
+            t0 = time.perf_counter()
+            trainer.fit(loader)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches = packed_delta.launches["packed_adagrad_update"]
+            del trainer.train_step
+            steps = Q_TRAIN // BATCH
+            assert trainer.step == steps and launches == steps, (
+                trainer.step, launches)
+            assert streams == [len(files)] * 2, streams
+            losses = torch.stack(losses).float().cpu().numpy()
+            assert np.isfinite(losses).all() \
+                and losses[-4:].mean() < losses[:4].mean(), losses
+            assert len(evals) == 1 and evals[0]["AUC"] > 0.55, (evals, losses)
+            memory = get_device_memory()
+            lap("fit")
+            # the host's share: a batch's 40 host-to-device copies alone
+            h2d = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                trainer._device_batch(probe)
+                torch.cuda.synchronize()
+                h2d.append((time.perf_counter() - t0) * 1e3)
+
+            batches = iter(loader)
+
+            def streamed_steps(n):
+                for _ in range(n):
+                    batch = next(batches)
+                    batch.pop(MASK_KEY)
+                    trainer.train_step(batch)
+
+            streamed_steps(Q_PROFILE_FROM)
+            profile = train_breakdown(
+                trainer, None, warmup=False,
+                steps=lambda: streamed_steps(Q_PROFILE_STEPS))
+            batches.close()
+            lap("profiled_steps")
+        # B1 on one captured step of this path
+        rec = capture_b1_call(trainer, probe)
+        b1 = b1_on_captured(rec, pad_row=0)
+        del rec
+        lap("b1_check_and_time")
+    finally:
+        native.vocab_encode_native = orig_encode
+        native_shards.NativeShardStream = orig_stream
+    intervals = np.diff(starts) * 1e3
+    del trainer, probe
+    torch.cuda.empty_cache()
+    read = {k[len("reader_epoch_"):]: v for k, v in stage_s.items()
+            if k.startswith("reader_epoch_")}
+    return {"native_library": build, "rows": Q_TRAIN, "held_out": Q_HELD,
+            "tokens_a_field": Q_TOKENS,
+            "encoder_fit_rows_per_s": Q_TRAIN / stage_s["encoder_fit"],
+            "transform_rows_per_s": Q_TRAIN / stage_s["transform"],
+            "native_encodes": len(encodes),
+            "save_rows_per_s": Q_TRAIN / stage_s["save_shards"],
+            "shards": len(files), "shard_bytes": shard_bytes,
+            "reader_rows_per_s": {k: Q_TRAIN / v for k, v in read.items()},
+            "reader_ms_a_batch": {k: v / steps * 1e3
+                                  for k, v in read.items()},
+            "readers_bit_equal": True, "native_streams": len(streams),
+            "fit_s": fit_s, "steps": steps, "b1_launches": launches,
+            "losses": losses.tolist(), "evals": evals,
+            "first_step_ms": intervals[0],
+            "streamed_ms_a_step": float(intervals[1:].mean()),
+            "streamed_examples_per_s": BATCH / intervals[1:].mean() * 1e3,
+            "streamed_median_ms": float(np.median(intervals[1:])),
+            "streamed_max_ms": float(intervals[1:].max()),
+            "fit_ms_a_step_all": (fit_s - evals[0]["eval_s"]) / steps * 1e3,
+            "h2d_ms_a_batch": statistics.median(h2d),
+            "in_memory_5c": in_memory or {},
+            "profiled_steps": [Q_PROFILE_FROM,
+                               Q_PROFILE_FROM + Q_PROFILE_STEPS],
+            "streamed_profile": {
+                k: profile[k] for k in ("wall_ms", "device_ms", "idle_share",
+                                        "groups", "by_kernel")},
+            "b1_streamed_step": b1, "environment": get_environment(),
+            "device_memory_after_fit": memory, "stage_s": stage_s,
+            "wall_s": sum(stage_s.values())}
+
+
 def mi_kernel_entry(mi, variant):
     """B3 on the multi-interest path of phase 5n: its launches there (one
     a counted query), and B3 alone at that shape."""
@@ -5162,10 +5472,28 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
-    # 2. build
+    # 2. build: the CUDA kernels (one nvcc a source) and, beside them, the
+    # host library of phase 5q (g++, strict: a failed build raises)
+    import threading
+    from recbox_tpu_torch.retrieval import native
+    host_lib = {}
+
+    def build_host_lib():
+        try:
+            native.load_native(strict=True)
+        except BaseException as e:
+            host_lib["error"] = e
+
     t0 = time.perf_counter()
+    host_thread = threading.Thread(target=build_host_lib)
+    host_thread.start()
     seconds = _build.build()
+    host_thread.join()
+    if "error" in host_lib:
+        raise host_lib["error"]
     emit({"phase": "build", "seconds": seconds,
+          "native_library": {k: native.build_info[k] for k in (
+              "path", "built", "seconds")},
           "wall_s": time.perf_counter() - t0})
     for name, log in _build.build_logs.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
@@ -5456,6 +5784,13 @@ def main() -> int:
     emit({"phase": "host_models", "wall_s": time.perf_counter() - t0,
           **hosts})
     emit({"phase": "5p", "wall_s": time.perf_counter() - t5p})
+    # 5q. the data and features pipeline: raw rows through the encoder,
+    # npz shards and the native reader into phase 5's trainer
+    pipe = pipeline_criteo(in_memory={
+        key: fit_c[key] for key in ("eager_median_ms", "fused_median_ms",
+                                    "eager_examples_per_s",
+                                    "fused_examples_per_s")})
+    emit({"phase": "pipeline_criteo", "card": card, **pipe})
 
     # 6. times
     qps = {}
@@ -5551,9 +5886,10 @@ def main() -> int:
         + zoo["xdeepfm"]["b1_launches"]
         + din["run_ranking_experiment"]["b1_launches"]
         + mtl["run_ranking_experiment"]["b1_launches"]
-        + blk["b1_launches"],
+        + blk["b1_launches"] + pipe["b1_launches"],
         "launches_by_path": {
             "deepfm_block_rows_5p_fused": blk["b1_launches"],
+            "deepfm_pipeline_5q_streamed_fit": pipe["b1_launches"],
             "fit_fused_graph": fit_c["b1_launches"],
             "train_step_eager": train["launches"],
             "zoo_dcnv2_run_ranking_experiment":
@@ -5593,6 +5929,18 @@ def main() -> int:
             **{key: blk["b1_block_grads"]["time"][key] for key in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
             "device_ms_in_replayed_step": (blk["replayed_step_profile"][
+                "groups"] or {}).get("b1_packed_adagrad_update")},
+        "pipeline_5q": {
+            "launches": pipe["b1_launches"],
+            "ids": "26 x 32,768 a step of the encoder's ids (Zipf(1.1) "
+                   "tokens, the rest of the top 99,999 to OOV row 0)",
+            "max_abs_err": pipe["b1_streamed_step"]["check"]["max_abs_err"],
+            "max_abs_err_update": pipe["b1_streamed_step"]["check"][
+                "max_abs_err_update"],
+            **{key: pipe["b1_streamed_step"]["time"][key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "pad_row_count", "hottest_row_count")},
+            "device_ms_in_profiled_steps": (pipe["streamed_profile"][
                 "groups"] or {}).get("b1_packed_adagrad_update")},
         "not_called_5p": {
             "lazy_adam": layouts["lazy_adam_criteo"]["b1_launches"],

@@ -6,13 +6,16 @@ from recbox_tpu_torch.data.loader import (
 from recbox_tpu_torch.data.sampling import (
     AliasTable, popularity_distribution, sample_negatives,
 )
+from recbox_tpu_torch.data.shards import (
+    ShardLoader, load_shards, save_shards,
+)
 from recbox_tpu_torch.data.sequential import (
     build_sliding_windows, group_user_sequences, leave_one_out_split,
 )
 
 __all__ = ["ArrayLoader", "MatchingLoader", "MASK_KEY", "num_batches",
            "AliasTable", "popularity_distribution", "sample_negatives",
-           "AtomicDataset",
+           "ShardLoader", "save_shards", "load_shards", "AtomicDataset",
            "InteractionDataset", "load_atomic_dataset",
            "build_sliding_windows", "group_user_sequences",
            "leave_one_out_split"]

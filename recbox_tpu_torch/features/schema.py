@@ -19,11 +19,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 from typing import Mapping, Optional, Tuple
 
 __all__ = ["CATEGORICAL", "NUMERIC", "SEQUENCE", "META", "FeatureSpec",
-           "FeatureMap"]
+           "FeatureMap", "auto_embedding_dim"]
 
 CATEGORICAL = "categorical"
 NUMERIC = "numeric"
@@ -31,6 +32,14 @@ SEQUENCE = "sequence"
 META = "meta"
 
 _VALID_TYPES = (CATEGORICAL, NUMERIC, SEQUENCE, META)
+
+
+def auto_embedding_dim(vocab_size: int) -> int:
+    """Heuristic width 6·⌈vocab^0.25⌉ (rechub `utils/data.py:85-97`),
+    rounded up to a multiple of 8, as JAX's `schema.py:29` rounds it (the
+    encoder's ``embedding_dim='auto'``)."""
+    dim = 6 * math.ceil(max(1, vocab_size) ** 0.25)
+    return ((dim + 7) // 8) * 8
 
 
 @dataclasses.dataclass(frozen=True)
