@@ -275,6 +275,25 @@ Phases (any failure raises and exits non-zero):
      torch.profiler (the device's idle share); B1 on one captured step of
      the path against its plain version and timed; seconds and rows/s of
      each stage;
+  5r. the mesh (`recbox_tpu_torch/parallel/`): (a) a one-rank NCCL
+     world in this process: 5c's trainer under `make_mesh()` against it
+     without a mesh, 8 eager steps each from one state (the first loss and
+     the first step's dense parameters bit for bit, the packs within B1's
+     duplicate order; B1 once a step; 0 collective bytes; ms a step of
+     each); (b) a two-rank gloo world on this card (two processes on
+     cuda:0, collectives staged through the host): 5c's packed DeepFM
+     and the generic `Trainer` over it at a global batch of 8,192, 3
+     steps each against the unsharded run (loss within 1e-5; the packed
+     tables, AdaGrad from 0.1, within rtol 1e-4 / atol 1e-6 on every
+     entry; the generic tables, Adam, at most 2e-5 of their entries
+     outside it, and a planted fault, rank 1 skipping its owned update on
+     the last step, caught by that limit), the recorded bytes of a fourth
+     against `predict_step_comm_bytes` (within 1%), B1 on each rank's
+     owned rows;
+     the sharded search over 2 x 500,000 integer-valued rows (Q = 8192,
+     k = 500) merged by B5 against the unsharded exact top-k (ids equal
+     but for ties, scores within 1e-6); (c) `LAT_ROW`: index_select +
+     index_add_ of 851,968 ids in a 2.6M-row pack, per id;
   6. times with CUDA events (median after a warm-up; B5, B6 and their
      yardsticks over runs of 20 calls queued behind a spin kernel, so the
      host's launch work is not timed): each kernel, its
@@ -1918,10 +1937,12 @@ def sasrec_breakdown(trainer, batch, steps=None):
     ), steps=steps or (lambda: trainer.train_steps_repeat(batch, 1)))
 
 
-def criteo_trainer(seed, compute_dtype="bfloat16", **trainer_kw):
+def criteo_trainer(seed, compute_dtype="bfloat16", trainer_cls=None,
+                   **trainer_kw):
     """PackedEmbeddingTrainer over bench.py's DeepFM, as `bench.py:595-626`
     builds it: BCE, Adam 1e-3 with clip 10, AdaGrad on the packs;
-    ``trainer_kw`` to the trainer (5p's ``block_rows``)."""
+    ``trainer_kw`` to the trainer (5p's ``block_rows``, 5r's ``mesh``);
+    ``trainer_cls`` another trainer over the same model (5r's `Trainer`)."""
     from recbox_tpu_torch.features import FeatureMap, FeatureSpec
     from recbox_tpu_torch.models.ranking import DeepFM
     from recbox_tpu_torch.ops.losses import binary_crossentropy
@@ -1940,7 +1961,7 @@ def criteo_trainer(seed, compute_dtype="bfloat16", **trainer_kw):
                    device=DEVICE)
     cfg = TrainerConfig(learning_rate=1e-3, grad_clip_norm=10.0, epochs=1,
                         seed=seed)
-    return PackedEmbeddingTrainer(
+    return (trainer_cls or PackedEmbeddingTrainer)(
         model, lambda o, b: binary_crossentropy(o, b["click"]), cfg,
         device=DEVICE, **trainer_kw)
 
@@ -5451,6 +5472,383 @@ def mi_kernel_entry(mi, variant):
                                        "bound_ms", "bound_by")}}
 
 
+# -- phase 5r: the mesh ----------------------------------------------------------
+
+# (b)'s global batch: 5c's width, its batch cut 4x for gloo's host staging
+# (each step moves the batch's rows through the host several times)
+R_GLOO_BATCH = 8192
+# (b)'s sharded search (bench.py:244-248): 1M x 128, Q = 8192, k = 500, over
+# integer-valued rows and queries in [-64, 64] (every dot product exact in
+# f32, so the sharded and the unsharded scores are the same numbers)
+R_ITEMS, R_D, R_Q, R_K, R_INT = N_ITEMS, 128, N_QUERIES, K, 64
+# (a)'s eager steps and (c)'s probe: 26 fields x 32,768 ids of a
+# 2,600,000-row pack
+R_STEPS, R_LAT_REPS = 8, 20
+
+
+def r_criteo_batches(n, seed, batch):
+    """``n`` global batches of ``batch`` rows at 5c's width."""
+    global BATCH
+    kept, BATCH = BATCH, batch
+    try:
+        data = CriteoBatches(seed)
+        return [data() for _ in range(n)]
+    finally:
+        BATCH = kept
+
+
+def r_local(batch, mesh):
+    """This rank's 'data' shard of a global batch."""
+    from recbox_tpu_torch.parallel.mesh import DATA_AXIS, mesh_coords, \
+        mesh_shape
+    nd, d = mesh_shape(mesh)[DATA_AXIS], mesh_coords(mesh)[0]
+    n = len(next(iter(batch.values()))) // nd
+    return {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
+
+
+def lat_row_probe():
+    """5r(c): `placement.LAT_ROW` on the card: `index_select` then
+    `index_add_` of 26 x 32,768 uniform rows of a 2,600,000 x 128 f32 pack,
+    by CUDA events over R_LAT_REPS pairs, divided by the rows."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 171)
+    rows, n = NUM_CAT * VOCAB, NUM_CAT * BATCH
+    pack = torch.randn(rows, 128, generator=gen, device=DEVICE)
+    ids = torch.randint(0, rows, (n,), generator=gen, device=DEVICE)
+    upd = torch.randn(n, 128, generator=gen, device=DEVICE) * 1e-3
+
+    def pair():
+        g = pack.index_select(0, ids)
+        pack.index_add_(0, ids, upd)
+        return g
+
+    for _ in range(3):
+        pair()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(R_LAT_REPS):
+        pair()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / R_LAT_REPS
+    return {"rows": n, "pack_rows": rows, "pack_width": 128,
+            "gather_scatter_ms": ms, "lat_row_s": ms * 1e-3 / n}
+
+
+def mesh_one_rank():
+    """5r(a): a one-rank NCCL world in this process. 5c's trainer under
+    `make_mesh()` and without a mesh, from one state, take the same
+    R_STEPS eager steps. At n = 1 no collective is issued and the step is
+    the unsharded one: the first loss and the dense parameters after the
+    first step bit for bit; the packs after it within the order of B1's
+    duplicate sums (1e-3 of the pack's largest update, as 5c's replayed
+    step against its eager one); the later losses within 1e-3 (bf16
+    compute on states B1's order has parted); B1 once a step; 0 collective
+    bytes; eager ms a step of each, in turns."""
+    import torch.distributed as dist
+    from recbox_tpu_torch.ops import packed_delta
+    from recbox_tpu_torch.parallel import initialize_distributed, make_mesh
+    from recbox_tpu_torch.parallel.mesh import record_collectives
+    initialize_distributed()        # no torchrun variables: a world of one
+    try:
+        mesh = make_mesh()
+        batches = r_criteo_batches(R_STEPS, SEED + 181, BATCH)
+        plain = criteo_trainer(SEED)
+        sharded = criteo_trainer(SEED, mesh=mesh)
+        plain.init(batches[0])
+        sharded.init(batches[0])
+        pack0 = {k: v.clone() for k, v in plain.packs.items()}
+        out = {"mesh": {"data": 1, "model": 1},
+               "backend": dist.get_backend()}
+        losses = {"plain": [], "sharded": []}
+        times = {"plain": [], "sharded": []}
+        pack_diff, dense_after_1 = [], {}
+        packed_delta.reset_launches()
+        with record_collectives() as ops:
+            for i, b in enumerate(batches):
+                order = (("plain", plain), ("sharded", sharded))
+                for name, t in (order if i % 2 == 0 else order[::-1]):
+                    before = packed_delta.launches["packed_adagrad_update"]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    losses[name].append(float(t.train_step(b)))
+                    torch.cuda.synchronize()
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+                    assert packed_delta.launches[
+                        "packed_adagrad_update"] - before == 1
+                    if i == 0:
+                        dense_after_1[name] = {
+                            k: v.detach().clone() for k, v in
+                            t.params.items()}
+                pack_diff.append(max(
+                    (plain.packs[k] - sharded.packs[k]).abs().max().item()
+                    for k in pack0))
+                if i == 0:
+                    upd_1 = max((plain.packs[k] - pack0[k]).abs().max()
+                                .item() for k in pack0)
+        b1 = packed_delta.launches["packed_adagrad_update"]
+        assert b1 == 2 * R_STEPS, b1
+        assert losses["plain"][0] == losses["sharded"][0], losses
+        assert all(torch.equal(dense_after_1["plain"][k],
+                               dense_after_1["sharded"][k])
+                   for k in dense_after_1["plain"])
+        assert pack_diff[0] <= 1e-3 * upd_1, (pack_diff, upd_1)
+        np.testing.assert_allclose(losses["sharded"], losses["plain"],
+                                   rtol=1e-3)
+        collective_bytes = sum(op.bytes for op in ops)
+        assert collective_bytes == 0 and not ops, ops
+        out.update({
+            "steps": R_STEPS, "batch": BATCH,
+            "b1_launches": b1 // 2, "b1_launches_both_trainers": b1,
+            "collectives": len(ops), "collective_bytes": collective_bytes,
+            "losses": losses, "first_loss_bit_equal": True,
+            "losses_bit_equal": losses["plain"] == losses["sharded"],
+            "dense_after_first_step_bit_equal": True,
+            "packs_max_abs_diff_by_step": pack_diff,
+            "packs_max_update_first_step": upd_1,
+            "packs_bit_equal_after_first_step": pack_diff[0] == 0.0,
+            "eager_ms": {k: statistics.median(v[1:])
+                         for k, v in times.items()},
+            "eager_ms_all": times})
+        del plain, sharded
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def ids_equal_but_ties(s_ref, i_ref, s, i):
+    """Per row: the same scores, and the same ids except among those whose
+    score equals the row's last (a tie at the cut)."""
+    if not torch.equal(s_ref, s):
+        return False
+    for r in range(s.shape[0]):
+        cut = s_ref[r, -1]
+        keep = s_ref[r] > cut
+        if set(i_ref[r][keep].tolist()) != set(i[r][s[r] > cut].tolist()):
+            return False
+    return True
+
+
+def gloo_pair(rank, world, rdv, device, out_dir, width=None):
+    """5r(b), one rank of a two-rank gloo world whose tensors share one
+    device (collectives staged through the host, `parallel.mesh`): the
+    packed and the generic DeepFM trainers on a ('data') mesh of 2, 3 steps
+    of one global batch each (the packed one through B1 on each rank's
+    owned rows), a fourth under the collective recorder, and the generic
+    one again with a planted fault (rank 1 skips its owned update on the
+    last step), which the comparison must catch; the sharded search
+    on a ('model') mesh of 2, merged by B5. Rank 0 also runs the unsharded
+    trainers and the unsharded exact search from the same state and
+    writes the comparison. ``width`` overrides the module's widths (the
+    CPU rehearsal)."""
+    import torch.distributed as dist
+    global DEVICE
+    DEVICE = device
+    globals().update(width or {})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from recbox_tpu_torch.ops import bitonic_topk, packed_delta
+    from recbox_tpu_torch.parallel import make_mesh
+    from recbox_tpu_torch.parallel.inspect import collective_stats
+    from recbox_tpu_torch.parallel.mesh import export_state
+    from recbox_tpu_torch.parallel.placement import predict_step_comm_bytes
+    from recbox_tpu_torch.retrieval import BruteForceMIPS
+    from recbox_tpu_torch.training import Trainer
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                            world_size=world, rank=rank)
+    out = {}
+    try:
+        t_start = time.perf_counter()
+        mesh = make_mesh(1, device=device)              # ('data') of 2
+        batches = r_criteo_batches(4, SEED + 191, R_GLOO_BATCH)
+        mine = [r_local(b, mesh) for b in batches]
+        refs = {}
+        for kind, cls, kw in (
+                ("packed", None, {"adagrad_init": PACKED_ADAGRAD_INIT}),
+                ("generic", Trainer, {}), ("generic_fault", Trainer, {})):
+            packed_delta.reset_launches()
+            t = criteo_trainer(SEED, compute_dtype="float32",
+                               trainer_cls=cls, mesh=mesh, **kw)
+            t.init(mine[0])
+            t0 = time.perf_counter()
+            losses = []
+            for j, b in enumerate(mine[:3]):
+                # the planted fault: rank 1 skips its owned update (its
+                # row shards' Adam step) on the last step
+                keep = {n: p.detach().clone() for n, p in t.params.items()
+                        if t._sharded(n)} \
+                    if kind == "generic_fault" and rank == 1 and j == 2 \
+                    else {}
+                losses.append(float(t.train_step(b)))
+                with torch.no_grad():
+                    for n, v in keep.items():
+                        t.params[n].copy_(v)
+            wall = time.perf_counter() - t0
+            # the whole tables (a gather: every rank calls it), without
+            # the optimizer state that `state_dict` would gather too
+            whole = {k: v.detach().clone() for k, v in (
+                t.tables.items() if kind == "packed" else
+                export_state(t.params, t._row_shards()).items())}
+            out[kind] = {"losses": losses, "wall_s_3_steps": wall}
+            if kind != "generic_fault":
+                ops = collective_stats(t.train_step, mine[3])
+                counted = sum(op.bytes for op in ops)
+                dense = sum(p.numel() for n, p in
+                            t.model.named_parameters()
+                            if ".tables." not in n)
+                if kind == "packed":
+                    tables = [(sh.rows, t._value_width[pn], True,
+                               R_GLOO_BATCH * NUM_CAT)
+                              for pn, sh in t._pack_shards.items()]
+                else:
+                    tables = [(VOCAB, DIM, True), (VOCAB, 1, True)] * NUM_CAT
+                pred = predict_step_comm_bytes(tables, R_GLOO_BATCH, world,
+                                               1, dense)["total"]
+                out[kind].update({
+                    "b1_launches": packed_delta.launches[
+                        "packed_adagrad_update"],
+                    "collectives": len(ops), "counted_bytes": counted,
+                    "predicted_bytes": pred, "bytes_ratio": counted / pred})
+            del t
+            if rank == 0:
+                if cls not in refs:
+                    ref = criteo_trainer(SEED, compute_dtype="float32",
+                                         trainer_cls=cls, **kw)
+                    ref.init(batches[0])
+                    refs[cls] = (
+                        [float(ref.train_step(b)) for b in batches[:3]],
+                        {k: v.detach() for k, v in (
+                            ref.tables.items() if kind == "packed"
+                            else ref.params.items())})
+                    del ref
+                ref_losses, ref_whole = refs[cls]
+                err = max((whole[k] - ref_whole[k]).abs().max().item()
+                          for k in ref_whole)
+                # the worst entry's excess over atol + rtol·|ref| (<= 0:
+                # every entry within the tolerance)
+                excess = max(((whole[k] - ref_whole[k]).abs() - R_ATOL
+                              - R_RTOL * ref_whole[k].abs()).max().item()
+                             for k in ref_whole)
+                out[kind].update({
+                    "by_table_kind": r_table_errors(whole, ref_whole),
+                    "ref_losses": ref_losses,
+                    "loss_max_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                            zip(losses, ref_losses)),
+                    "max_abs_err": err, "tolerance_excess": excess})
+            dist.barrier()
+        # the sharded search over the 'model' axis
+        search_mesh = make_mesh(2, device=device)       # ('model') of 2
+        gen = torch.Generator(device=device).manual_seed(SEED + 193)
+        items = torch.randint(-R_INT, R_INT + 1, (R_ITEMS, R_D),
+                              generator=gen, device=device).float()
+        queries = torch.randint(-R_INT, R_INT + 1, (R_Q, R_D),
+                                generator=gen, device=device).float()
+        index = BruteForceMIPS(items, mesh=search_mesh, method="auto",
+                               bf16=False)
+        bitonic_topk.reset_launches()
+        t0 = time.perf_counter()
+        s, i = index.search(queries, R_K)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        out["search"] = {"shard_rows": index.shard_size,
+                         "wall_s": time.perf_counter() - t0,
+                         "b5_launches": bitonic_topk.launches[
+                             "bitonic_topk"]}
+        if rank == 0:
+            ref = BruteForceMIPS(items, method="exact", device=device)
+            rs, ri = ref.search(queries, R_K)
+            out["search"].update({
+                "ids_equal_but_ties": ids_equal_but_ties(rs, ri, s, i),
+                "max_abs_err": (rs - s).abs().max().item(),
+                "exhausted_slots": int((i < 0).sum())})
+        out["wall_s"] = time.perf_counter() - t_start
+        with open(os.path.join(out_dir, f"gloo_pair_rank{rank}.json"),
+                  "w") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def r_table_errors(got, ref):
+    """Per table kind (the 'embedding' tables, the 1-wide 'linear' ones):
+    the largest difference, the entries outside rtol R_RTOL / atol R_ATOL,
+    and the entries."""
+    out = {}
+    for k in ref:
+        kind = "linear" if k.startswith("linear") else "embedding"
+        d = (got[k] - ref[k].detach()).abs()
+        bad = int((d > R_ATOL + R_RTOL * ref[k].detach().abs()).sum())
+        o = out.setdefault(kind, {"max_abs_err": 0.0, "outside": 0,
+                                  "entries": 0})
+        o["max_abs_err"] = max(o["max_abs_err"], d.max().item())
+        o["outside"] += bad
+        o["entries"] += d.numel()
+    return out
+
+
+def mesh_two_ranks(device="cuda", width=None):
+    """5r(b): spawn `gloo_pair` as two processes on one device; rank 0's
+    comparison and each rank's launch counts."""
+    import tempfile
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        rdv = os.path.join(tmp, "rdv")
+        t0 = time.perf_counter()
+        mp.spawn(gloo_pair, args=(2, rdv, device, tmp, width), nprocs=2,
+                 join=True)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"gloo_pair_rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    return {"wall_s": wall, "ranks": ranks}
+
+
+# the tolerance of 5r(b)'s two-rank runs against the unsharded ones (f32
+# compute, TF32 off): the loss of each step within 1e-5 relative. The
+# packed pair (row-wise AdaGrad from PACKED_ADAGRAD_INIT, as 5p) holds every
+# table entry within rtol 1e-4 / atol 1e-6. The generic pair's Adam divides
+# each entry's gradient by its own root mean square, so an entry whose
+# gradient is rounding noise (an example's p - y at the ulp of p, which a
+# half-batch GEMM rounds apart from the whole batch's) moves by a share of
+# the lr that the rounding decides: there at most R_ADAM_OUTSIDE of the
+# entries lie outside rtol 1e-4 / atol 1e-6, a limit between the sound
+# run's share and that of a planted fault ('generic_fault': rank 1 skips
+# its owned update on the last step), which the phase must catch
+# (PERF.md §2 gives both readings)
+R_LOSS_RTOL, R_RTOL, R_ATOL, R_ADAM_OUTSIDE = 1e-5, 1e-4, 1e-6, 2e-5
+
+
+def r_outside_share(k):
+    by = k["by_table_kind"].values()
+    return sum(o["outside"] for o in by) / sum(o["entries"] for o in by)
+
+
+def check_two_ranks(res, on_card=True):
+    """Rank 0's comparison holds, and catches the planted fault; the
+    counted bytes equal the model within 1%; on the card each rank
+    launched B1 once a step (4 steps) and B5 once (the CPU rehearsal runs
+    their plain versions, which count none)."""
+    r0 = res["ranks"][0]
+    for kind in ("packed", "generic"):
+        k = r0[kind]
+        assert k["loss_max_rel_err"] <= R_LOSS_RTOL, (kind, k)
+        for rk in res["ranks"]:
+            assert abs(rk[kind]["bytes_ratio"] - 1) < 0.01, (kind, rk[kind])
+    assert r0["packed"]["tolerance_excess"] <= 0, r0["packed"]
+    assert r_outside_share(r0["generic"]) <= R_ADAM_OUTSIDE, r0["generic"]
+    assert r_outside_share(r0["generic_fault"]) > R_ADAM_OUTSIDE, \
+        r0["generic_fault"]
+    for rk in res["ranks"]:
+        assert rk["packed"]["b1_launches"] == (4 if on_card else 0), rk
+        assert rk["generic"]["b1_launches"] == 0, rk["generic"]
+        assert rk["search"]["b5_launches"] == (1 if on_card else 0), rk
+    assert r0["search"]["ids_equal_but_ties"], r0["search"]
+    assert r0["search"]["max_abs_err"] <= 1e-6, r0["search"]
+    return True
+
+
 def main() -> int:
     from recbox_tpu_torch.models.matching import YoutubeDNN
     from recbox_tpu_torch.ops import _build
@@ -5791,6 +6189,25 @@ def main() -> int:
                                     "eager_examples_per_s",
                                     "fused_examples_per_s")})
     emit({"phase": "pipeline_criteo", "card": card, **pipe})
+    # 5r. the mesh: a one-rank NCCL world, a two-rank gloo world on this
+    # card, and the placement planner's LAT_ROW
+    t5r = time.perf_counter()
+    mesh_a = mesh_one_rank()
+    emit({"phase": "mesh_one_rank_nccl", "card": card,
+          "eager_ms_5c_in_memory": fit_c["eager_median_ms"], **mesh_a})
+    mesh_b = mesh_two_ranks()
+    check_two_ranks(mesh_b)
+    emit({"phase": "mesh_two_ranks_gloo", "card": card,
+          "batch": R_GLOO_BATCH, "staged_through_host": True,
+          "tolerance": {"loss_rtol": R_LOSS_RTOL, "rtol": R_RTOL,
+                        "atol": R_ATOL,
+                        "adam_outside_share": R_ADAM_OUTSIDE}, **mesh_b})
+    lat = lat_row_probe()
+    emit({"phase": "lat_row", "card": card, **lat})
+    emit({"phase": "5r", "wall_s": time.perf_counter() - t5r})
+    r_b1 = mesh_a["b1_launches"] + sum(r["packed"]["b1_launches"]
+                                       for r in mesh_b["ranks"])
+    r_b5 = sum(r["search"]["b5_launches"] for r in mesh_b["ranks"])
 
     # 6. times
     qps = {}
@@ -5886,8 +6303,9 @@ def main() -> int:
         + zoo["xdeepfm"]["b1_launches"]
         + din["run_ranking_experiment"]["b1_launches"]
         + mtl["run_ranking_experiment"]["b1_launches"]
-        + blk["b1_launches"] + pipe["b1_launches"],
+        + blk["b1_launches"] + pipe["b1_launches"] + r_b1,
         "launches_by_path": {
+            "mesh_5r_one_rank_nccl_and_two_rank_gloo": r_b1,
             "deepfm_block_rows_5p_fused": blk["b1_launches"],
             "deepfm_pipeline_5q_streamed_fit": pipe["b1_launches"],
             "fit_fused_graph": fit_c["b1_launches"],
@@ -6077,7 +6495,10 @@ def main() -> int:
         "name": "bitonic_topk", "route": "cuda",
         "source": "recbox_tpu_torch/csrc/bitonic_topk.cu",
         "replaces": "recbox_tpu/ops/pallas/bitonic_topk.py:123",
-        "launches": cand_launches["bitonic_topk"],
+        "launches": cand_launches["bitonic_topk"] + r_b5,
+        "launches_by_path": {"candidate_paths_4b":
+                             cand_launches["bitonic_topk"],
+                             "sharded_search_merge_5r": r_b5},
         "max_abs_err": max(c["max_abs_err"] for c in b5_checks),
         "ms": t5["ms"], "plain_ms": t5["plain_ms"],
         "bound_ms": t5["bound_ms"], "bound_by": t5["bound_by"],

@@ -13,11 +13,10 @@ Improvements over the reference: atomic tmp+rename writes (a preempted
 download never leaves a torn archive), sha256 verification, no interactive
 "Will you proceed?" prompt (callers gate size themselves).
 
-The port's own copy of `recbox_tpu/data/acquire.py`, single-process: the
-JAX copy's multi-process guard (rank 0 downloads while the others wait at
-`_barrier`, through `jax.process_count` / `process_index`, :312-357) is
-not ported, since the port has no multi-process runtime yet (`ROADMAP.md`,
-Queue A: "parallel/"); every caller acquires for itself.
+The port's own copy of `recbox_tpu/data/acquire.py`, with its
+multi-process guard (:305-357): under several `torch.distributed`
+processes rank 0 downloads and extracts while every rank waits at the
+barrier (`parallel.mesh.barrier`), on a shared file system.
 
 The URL registry mirrors the reference's
 `properties/dataset/url.yaml`/`kg_url.yaml` name->archive mapping for the
@@ -311,31 +310,50 @@ def rename_atomic_files(folder: str, old_base: str, new_base: str) -> None:
                 os.replace(src, dst)
 
 
+def _barrier() -> None:
+    from recbox_tpu_torch.parallel.mesh import barrier
+    barrier()
+
+
 def acquire_dataset(name: str, data_dir: str,
                     url: Optional[str] = None,
                     checksum: Optional[str] = None) -> str:
     """Ensure `<data_dir>/<name>/<name>.inter` exists; return that folder.
 
     Local-first: existing atomic files are used as-is (no network touch),
-    so pre-staged snapshots work in air-gapped environments. One process
-    (the JAX copy's rank-0 download and barrier are not ported)."""
+    so pre-staged snapshots work in air-gapped environments. Under several
+    processes only rank 0 downloads; everyone else waits at the barrier
+    (`dataset.py:252-254`)."""
+    from recbox_tpu_torch.parallel.mesh import rank, world_size
     folder = os.path.join(data_dir, name)
     inter = os.path.join(folder, f"{name}.inter")
-    if os.path.exists(inter):
+    multi = world_size() > 1
+    if os.path.exists(inter) and not multi:
         return folder
-    url = url or DATASET_URLS.get(name)
-    if url is None:
-        raise KeyError(
-            f"no download url registered for dataset {name!r} and "
-            f"{inter} does not exist; register one with "
-            "register_dataset_url(name, url) or stage the files "
-            "locally")
-    checksum = checksum or DATASET_CHECKSUMS.get(name)
-    archive = download_url(url, folder, checksum=checksum)
-    extract_archive(archive, folder)
-    old_base = os.path.splitext(os.path.basename(archive))[0]
-    rename_atomic_files(folder, old_base, name)
-    if not os.path.exists(inter):
-        raise FileNotFoundError(
-            f"archive {archive} did not contain {name}.inter")
+    # rank 0 decides and downloads, EVERY rank waits at the barrier: a
+    # copy cached on some hosts only must not leave the others waiting
+    if not multi or rank() == 0:
+        if not os.path.exists(inter):
+            url = url or DATASET_URLS.get(name)
+            if url is None:
+                raise KeyError(
+                    f"no download url registered for dataset {name!r} and "
+                    f"{inter} does not exist; register one with "
+                    "register_dataset_url(name, url) or stage the files "
+                    "locally")
+            checksum = checksum or DATASET_CHECKSUMS.get(name)
+            archive = download_url(url, folder, checksum=checksum)
+            extract_archive(archive, folder)
+            old_base = os.path.splitext(os.path.basename(archive))[0]
+            rename_atomic_files(folder, old_base, name)
+            if not os.path.exists(inter):
+                raise FileNotFoundError(
+                    f"archive {archive} did not contain {name}.inter")
+    if multi:
+        _barrier()
+        if not os.path.exists(inter):
+            raise FileNotFoundError(
+                f"{inter} missing after rank-0 download — multi-process "
+                "acquisition needs a shared filesystem (or pre-staged "
+                "files on every host)")
     return folder

@@ -9,8 +9,8 @@ file format is JAX's byte for byte: the specs carry JAX's fields in JAX's
 order, so a ``feature_map.json`` either package writes loads in the other.
 ``pretrain_path`` and ``freeze_emb`` are read by
 `nn.embedding.FeatureEmbedding` (a pretrained table, no gradient to the
-table); ``shard_table`` is a mesh placement and the port has no mesh, so
-it is kept and not read. A
+table); ``shard_table`` is the table's mesh placement, which
+`nn.embedding.FeatureEmbedding` reads under a mesh (`parallel/`). A
 numeric feature is one scalar column, embedded as value × a learned (1, d)
 vector by `nn.embedding.FeatureEmbedding`, as in the JAX package.
 """
@@ -61,7 +61,8 @@ class FeatureSpec:
       pretrain_path, freeze_emb: a pretrained table (a local .npy / .npz)
         and whether it trains.
       pooling: sequence pooling, 'mean' | 'sum' | 'concat' | 'none'.
-      shard_table: JAX's per-table mesh placement (kept, not read).
+      shard_table: the per-table mesh placement: False replicates the
+        table, True row-shards it, None leaves it to the module.
     """
 
     name: str

@@ -35,8 +35,13 @@ of the wrong width or with more rows than the table raises ValueError, as
 in JAX. ``freeze_emb`` (on the feature or on its table's owner) detaches
 the looked-up rows, so no gradient reaches the table: the dense trainer's
 optimizer then sees zeros there, as JAX's does after ``stop_gradient``.
-``FeatureSpec.shard_table`` is read by nothing until `parallel/` is
-ported.
+Placement (JAX `embedding.py:212-219`): a table is row-sharded under a
+mesh when its owner's ``FeatureSpec.shard_table`` says so, else when the
+module's ``shard_tables`` (default True) does; `parallel.mesh.shard_params`
+then leaves this rank's shard in ``tables[<table>]`` and its `RowShard` in
+``table_shards[<table>]``, and the lookup runs the mesh's exchange
+(`parallel.mesh.sharded_embedding`). A replicated table is an ordinary
+parameter whose gradient the trainer all-reduces.
 """
 
 from __future__ import annotations
@@ -134,6 +139,8 @@ class FeatureEmbedding(nn.Module):
       name: the module's flax name, '/'-joined when nested; it scopes the
         `__rows__` keys (``path``).
       generator: the torch.Generator every table draws from.
+      shard_tables: row-shard the tables under a mesh where the owner's
+        spec leaves ``shard_table`` unset (JAX's module default).
     """
 
     def __init__(self, feature_map: FeatureMap, source: Optional[str] = None,
@@ -143,7 +150,8 @@ class FeatureEmbedding(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  name: Optional[str] = None,
                  generator: Optional[torch.Generator] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 shard_tables: bool = True):
         super().__init__()
         if emb_init_scheme not in ("normal", "xavier_normal",
                                    "xavier_uniform"):
@@ -159,6 +167,9 @@ class FeatureEmbedding(nn.Module):
         self.feats: Tuple[FeatureSpec, ...] = (
             feature_map.input_features if source is None
             else feature_map.by_source(source))
+        self.shard_tables = shard_tables
+        # {table: parallel.mesh.RowShard} once shard_params shards it
+        self.table_shards: Dict[str, object] = {}
         self.tables = nn.ParameterDict()
         self.numeric = nn.ParameterDict()
         out_dim = 0
@@ -208,6 +219,14 @@ class FeatureEmbedding(nn.Module):
                 path = path or f.pretrain_path
         return path
 
+    def table_sharded(self, tname: str) -> bool:
+        """Whether table ``tname`` row-shards under a mesh: its owner's
+        ``shard_table``, else the module's ``shard_tables``."""
+        first = next((f for f in self.feats if f.table_name == tname), None)
+        owner = self.feature_map.feature_dict.get(tname, first)
+        flag = None if owner is None else owner.shard_table
+        return self.shard_tables if flag is None else bool(flag)
+
     def _frozen(self, spec: FeatureSpec) -> bool:
         return self._owner(spec).freeze_emb or spec.freeze_emb
 
@@ -216,7 +235,13 @@ class FeatureEmbedding(nn.Module):
         rows = batch.get(rows_key_for(self.path, spec.name))
         if rows is None:
             # gather in the table's dtype, cast the (small) result
-            rows = F.embedding(x, self.tables[spec.table_name])
+            shard = self.table_shards.get(spec.table_name)
+            if shard is not None:
+                from recbox_tpu_torch.parallel.mesh import sharded_embedding
+                rows = sharded_embedding(x, self.tables[spec.table_name],
+                                         shard)
+            else:
+                rows = F.embedding(x, self.tables[spec.table_name])
         return rows.to(self.dtype)
 
     def forward(self, batch: Dict[str, torch.Tensor]

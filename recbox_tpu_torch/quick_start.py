@@ -13,8 +13,10 @@ from a generator seeded with the config's ``seed`` (2024 by default; JAX
 draws it from ``TrainerConfig.seed``, the same key). Every entry point
 takes ``device=`` and runs on the CUDA device unless the caller names
 another (`recbox_tpu_torch.resolve_device`, which raises without a card).
-``mesh`` is accepted for JAX's signatures; the port has no mesh
-(`parallel/` is not ported), so a mesh reaching a trainer raises there.
+``mesh`` (`parallel.make_mesh`) reaches the trainers and the services as
+in JAX: each process passes its rank's rows, the tables row-shard, and
+every rank runs the pipeline together (the fused CE kernel is refused
+under a mesh, `_use_fused_ce`).
 
 The sequential pipeline scores its evaluation chunks on the device and
 ranks there: a row's hit position under 'full' is the count of items that

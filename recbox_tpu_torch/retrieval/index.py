@@ -27,8 +27,18 @@ Methods:
   `int8_mips_topk` ('approx', 'refined' with an exact f32 rescore, and
   'auto' past the kernel's gates), whose top-k is exact here as well.
 
-The mesh-sharded search raises NotImplementedError (`ROADMAP.md` Queue A,
-`parallel/`).
+The mesh-sharded search (``mesh=``, JAX `index.py:333-393`): the items
+are padded with -inf rows to a multiple of the 'model' size and
+row-sharded over 'model' (replicated over 'data'); every rank passes the
+same queries. A search takes each shard's top-k by JAX's routing ('auto' /
+'approx' where the shard holds more than 4·k rows: `approx_mips_topk`,
+exact here; else the exact f32 top-k), offsets its ids by the shard,
+all-gathers the (Q, k) scores and ids over 'model', and merges the k·shards
+candidates exactly with B5 (`ops.bitonic_topk.pallas_bitonic_topk`: the
+kernel on the card, its plain version on the CPU), ties in position order
+as `lax.top_k`'s. A shard's top-k reads its real rows only, so a padding
+row is never a candidate; exhausted slots are -inf / -1. ``quantize='int8'``
+with a mesh raises NotImplementedError, as in JAX.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import numpy as np
 import torch
 
 from recbox_tpu_torch import resolve_device
+from recbox_tpu_torch.ops.bitonic_topk import pallas_bitonic_topk
 from recbox_tpu_torch.ops.mips_fused_topk import mips_fused_topk
 from recbox_tpu_torch.ops.mips_topk import SEGMENT, quantize_int8
 
@@ -158,7 +169,8 @@ class BruteForceMIPS:
     """MIPS top-k index over an (N, D) item matrix.
 
     Args mirror the JAX package's: metric 'ip' | 'cosine' (L2-normalized
-    at build and search); mesh (the sharded search, not ported: raises);
+    at build and search); mesh (the sharded search over 'model', on the
+    mesh's device; ``device`` must then be None or that device);
     method 'auto' | 'pallas' | 'approx' | 'segmented' | 'refined' |
     'exact' | 'exact_sort'; recall_target (the fused kernel's
     structural-recall gate; the int8 'refined' sweep runs at
@@ -178,17 +190,21 @@ class BruteForceMIPS:
                  quantize: Optional[str] = None,
                  keep_f32: Optional[bool] = None,
                  device: Optional[Union[str, torch.device]] = None):
-        self.device = resolve_device(device)
+        if quantize and mesh is not None:
+            raise NotImplementedError(
+                "quantize='int8' is unsharded-only for now")
+        if mesh is not None:
+            from recbox_tpu_torch.parallel.mesh import device_on_mesh
+            self.device = device_on_mesh(mesh, device)
+        else:
+            self.device = resolve_device(device)
         items = torch.as_tensor(item_embs).to(device=self.device,
                                               dtype=torch.float32)
         if metric == "cosine":
             items = _l2_normalize(items)
         elif metric != "ip":
             raise NotImplementedError(f"metric={metric}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh-sharded search is not ported (ROADMAP.md Queue A, "
-                "parallel/)")
+        self.mesh = mesh
         self.metric = metric
         self.method = "exact_sort" if method == "exact" else method
         if self.method not in ("auto", "pallas", "approx", "segmented",
@@ -217,13 +233,30 @@ class BruteForceMIPS:
         self.keep_f32 = keep_f32
         self.q_items = self.item_scale = None
         self.items = items
+        if mesh is not None:
+            from recbox_tpu_torch.parallel.mesh import (
+                MODEL_AXIS, mesh_coords, mesh_shape,
+            )
+            n_shards = mesh_shape(mesh)[MODEL_AXIS]
+            pad = (-self.num_items) % n_shards
+            if pad:
+                items = torch.cat([items, torch.full(
+                    (pad, self.dim), float("-inf"), device=self.device)])
+            self.shard_size = items.shape[0] // n_shards
+            self.shard_index = mesh_coords(mesh)[1]
+            lo = self.shard_index * self.shard_size
+            # this rank's shard; its real rows are the first shard_valid
+            self.items = items[lo:lo + self.shard_size].clone()
+            self.shard_valid = max(0, min(self.shard_size,
+                                          self.num_items - lo))
         if quantize == "int8":
             self.q_items, self.item_scale = quantize_int8(items)
             if not keep_f32:
                 self.items = None
         # the kernel's bf16 corpus, cast once here rather than per search
         self._kernel_items = None
-        if quantize is None and bf16 and self.method in ("auto", "pallas"):
+        if quantize is None and bf16 and mesh is None \
+                and self.method in ("auto", "pallas"):
             self._kernel_items = items.to(torch.bfloat16)
 
     def _pallas_recall_ok(self, topk: int) -> bool:
@@ -245,6 +278,8 @@ class BruteForceMIPS:
         if self.metric == "cosine":
             queries = _l2_normalize(queries)
         topk = min(topk, self.num_items)
+        if self.mesh is not None:
+            return self._search_sharded(queries, topk)
         if self.quantize == "int8":
             refine = self.method == "refined"
             if not refine and self._kernel_gate(topk):
@@ -279,3 +314,35 @@ class BruteForceMIPS:
             return _two_phase_exact(queries, self.items, topk,
                                     query_chunk=self.query_chunk)
         return chunked_topk(queries, self.items, topk, self.chunk_size)
+
+    def _search_sharded(self, queries: torch.Tensor, topk: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """JAX's `_build_sharded_search` (`index.py:348-393`): the shard's
+        top-k, ids offset by the shard, the all-gather over 'model', and
+        the exact merge of the k·shards candidates by B5."""
+        from recbox_tpu_torch.parallel.mesh import MODEL_AXIS, all_gather
+        k = min(topk, self.shard_size)
+        q = queries.shape[0]
+        cs = torch.full((q, k), float("-inf"), device=self.device)
+        ci = torch.full((q, k), self.num_items, dtype=torch.int32,
+                        device=self.device)
+        kk = min(k, self.shard_valid)
+        if kk:
+            real = self.items[:self.shard_valid]
+            if self.method in ("approx", "auto") and self.shard_size > 4 * k:
+                s, i = approx_mips_topk(queries, real, kk,
+                                        query_chunk=self.query_chunk,
+                                        recall_target=self.recall_target,
+                                        bf16=self.bf16)
+            else:
+                s, i = chunked_topk(queries, real, kk, self.chunk_size)
+            cs[:, :kk] = s
+            ci[:, :kk] = i + self.shard_index * self.shard_size
+        all_s = all_gather(cs, self.mesh, MODEL_AXIS, dim=1)
+        all_i = all_gather(ci, self.mesh, MODEL_AXIS, dim=1)
+        valid = (all_i >= 0) & (all_i < self.num_items)
+        all_s = torch.where(valid, all_s, torch.full_like(all_s,
+                                                          float("-inf")))
+        ms, mi = pallas_bitonic_topk(all_s, all_i, topk)
+        mi = torch.where(torch.isfinite(ms), mi, torch.full_like(mi, -1))
+        return ms, mi

@@ -84,6 +84,9 @@ class RetrievalService:
 
     ``device`` defaults to the CUDA device (`recbox_tpu_torch.resolve_device`);
     extra keyword arguments go to `BruteForceMIPS` (e.g. quantize='int8').
+    ``mesh`` (JAX `service.py:67`) shards the index over its 'model' axis
+    and runs the service on the mesh's device; every rank then builds,
+    queries and saves the service together, and only rank 0 writes.
     """
 
     def __init__(self, model: torch.nn.Module,
@@ -92,12 +95,17 @@ class RetrievalService:
                  batch_size: int = 8192,
                  item_embs: Optional[Union[np.ndarray, torch.Tensor]] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 **index_kwargs):
+                 mesh=None, **index_kwargs):
         if (corpus_arrays is None) == (item_embs is None):
             raise ValueError(
                 "pass exactly one of corpus_arrays (encode now) or "
                 "item_embs (pre-encoded, e.g. RetrievalService.load)")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            from recbox_tpu_torch.parallel.mesh import device_on_mesh
+            self.device = device_on_mesh(mesh, device)
+        else:
+            self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.metric = metric
         self.method = method
@@ -113,7 +121,10 @@ class RetrievalService:
                      **kwargs) -> "RetrievalService":
         """A service over ``trainer``'s model, the corpus encoded now, on
         the trainer's device unless ``device`` is given; ``method`` is
-        "auto" unless given (the kernel gate of `BruteForceMIPS`)."""
+        "auto" unless given (the kernel gate of `BruteForceMIPS`); the index
+        sharded over ``mesh`` only when one is given, as in JAX (a mesh
+        trainer's sharded tables encode through their exchange either
+        way, so every rank calls it)."""
         kwargs.setdefault("device", trainer.device)
         return cls(trainer.model, corpus_arrays, **kwargs)
 
@@ -136,8 +147,8 @@ class RetrievalService:
     def _build_index(self, item_embs: torch.Tensor) -> None:
         self.item_embs = item_embs.to(self.device)
         self.index = BruteForceMIPS(self.item_embs, metric=self.metric,
-                                    method=self.method, device=self.device,
-                                    **self.index_kwargs)
+                                    method=self.method, mesh=self.mesh,
+                                    device=self.device, **self.index_kwargs)
 
     # -- persistence -----------------------------------------------------------
     def save(self, path: str) -> None:
@@ -145,15 +156,20 @@ class RetrievalService:
         state_dict (model.pt) and the index config (service.json), each
         written to a temporary name and moved into place atomically. Reload
         with ``RetrievalService.load(path, model)``: the model definition is
-        code, the caller supplies it."""
+        code, the caller supplies it. Under several processes every rank
+        calls it (a mesh-sharded model's tables are gathered whole) and
+        only rank 0 writes (JAX `service.py:131`)."""
+        from recbox_tpu_torch.parallel.mesh import full_state_dict, rank
+        state = full_state_dict(self.model)
+        if rank() != 0:
+            return
         os.makedirs(path, exist_ok=True)
         tmp = os.path.join(path, "item_embs.tmp.npy")  # np.save appends .npy
         np.save(tmp, self.item_embs.cpu().numpy())
         os.replace(tmp, os.path.join(path, "item_embs.npy"))
         tmp = os.path.join(path, "model.pt.tmp")
         with open(tmp, "wb") as fh:
-            torch.save({k: v.cpu() for k, v in self.model.state_dict().items()},
-                       fh)
+            torch.save({k: v.cpu() for k, v in state.items()}, fh)
             fh.flush()
             os.fsync(fh.fileno())
         os.replace(tmp, os.path.join(path, "model.pt"))
@@ -166,11 +182,12 @@ class RetrievalService:
         os.replace(tmp, os.path.join(path, "service.json"))
 
     @classmethod
-    def load(cls, path: str, model: torch.nn.Module,
+    def load(cls, path: str, model: torch.nn.Module, mesh=None,
              device: Optional[Union[str, torch.device]] = None
              ) -> "RetrievalService":
         """Rebuild a saved service: the model's parameters from model.pt,
-        the index straight from the persisted embeddings (no re-encode)."""
+        the index straight from the persisted embeddings (no re-encode),
+        sharded over ``mesh`` when one is given."""
         with open(os.path.join(path, "service.json")) as fh:
             cfg = json.load(fh)
         with open(os.path.join(path, "model.pt"), "rb") as fh:
@@ -179,7 +196,7 @@ class RetrievalService:
         item_embs = np.load(os.path.join(path, "item_embs.npy"))
         return cls(model, metric=cfg["metric"], method=cfg["method"],
                    batch_size=cfg["batch_size"], item_embs=item_embs,
-                   device=device, **cfg["index_kwargs"])
+                   device=device, mesh=mesh, **cfg["index_kwargs"])
 
     @property
     def num_items(self) -> int:

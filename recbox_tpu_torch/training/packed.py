@@ -50,6 +50,20 @@ the split accumulators and the embedding lr. The model's state beside its
 parameters (BatchNorm statistics) is the dense trainer's `model_state`,
 moved by each step's forward, as JAX's packed step threads
 ``model_state`` (`packed.py:703-725`).
+
+Under a mesh (JAX `packed.py:361-373`, `:915-925`, `:945-955`) every pack
+and split accumulator is row-sharded over the combined ('data', 'model')
+grid: rank r holds rows ``[r·S, (r+1)·S)`` of a pack, padded. A step
+gathers the global batch's value columns through the mesh's exchange (the
+ids all-gathered over 'data', each rank's owned rows, an all-reduce over
+the world) and hands the model this rank's rows; the row gradients are
+all-gathered over 'data', and each rank updates the rows it owns from its
+own shard (B1 on the ids it owns, in local row numbers, once a step; the
+split and lazy Adam layouts likewise). The owner sees every occurrence of
+its ids, so the update is the unsharded one up to B1's order of duplicate
+sums. The ``tables`` / ``accumulators`` views and `state_dict` gather the
+packs whole (a collective: every rank calls them); `load_state_dict`
+shards them again, and the best-weight cache keeps each rank's shard.
 """
 
 from __future__ import annotations
@@ -66,6 +80,10 @@ from recbox_tpu_torch.models.base import MatchingModel
 from recbox_tpu_torch.nn.embedding import rows_block_key, rows_key_for
 from recbox_tpu_torch.ops.losses import embedding_reg_loss
 from recbox_tpu_torch.ops.packed_delta import packed_adagrad_update_
+from recbox_tpu_torch.parallel.mesh import (
+    export_state, import_state, local_rows, owned_grads, row_bounds,
+    sharded_rows, world_size,
+)
 from recbox_tpu_torch.training.sparse import merge_params, split_sparse_params
 from recbox_tpu_torch.training.trainer import Trainer, _copy_into
 
@@ -167,6 +185,8 @@ class PackedEmbeddingTrainer(Trainer):
         self._pack_store_width: Dict[str, int] = {}
         self._value_width: Dict[str, int] = {}
         self._homes: Dict[str, Tuple[str, str]] = {}
+        # under a mesh of more than one rank: {pack: its RowShard}
+        self._pack_shards: Dict[str, Any] = {}
 
     # -- layout construction --------------------------------------------------
     def _plan_layout(self, table_shapes: Dict[str, tuple],
@@ -310,6 +330,15 @@ class PackedEmbeddingTrainer(Trainer):
         # the packs own the table state from here on: drop the model's
         # tables, so its parameters are the dense ones alone; Trainer.init
         # then sets up Adam and hands the dropouts their seeded generator
+        if self.mesh is not None and world_size() > 1:
+            # row-shard every pack over the combined grid: no rank holds
+            # a table replica (JAX `packed.py:361-373`)
+            self._pack_shards = {k: row_bounds(v.shape[0], self.mesh)
+                                 for k, v in self.packs.items()}
+            self.packs = {k: local_rows(v, self.mesh)
+                          for k, v in self.packs.items()}
+            self.accs = {k: local_rows(v, self.mesh)
+                         for k, v in self.accs.items()}
         modules = dict(self.model.named_modules())
         for mname, tname in homes.values():
             del modules[mname].tables[tname]
@@ -405,9 +434,18 @@ class PackedEmbeddingTrainer(Trainer):
             if not ids:
                 continue
             ids = torch.cat(ids) if len(ids) > 1 else ids[0]
-            G = self.packs[pname].index_select(0, ids)          # (N, W)
-            v_pre = None if self._acc_in_row[pname] \
-                else self.accs[pname].index_select(0, ids)     # (N, S)
+            if self._pack_shards:
+                # the exchange: this rank's rows of the value columns; the
+                # owners read the rest at the update. ids become the global
+                # batch's
+                w_val = self._value_width[pname]
+                G, ids = sharded_rows(ids, self.packs[pname][:, :w_val],
+                                      self._pack_shards[pname])
+                v_pre = None
+            else:
+                G = self.packs[pname].index_select(0, ids)      # (N, W)
+                v_pre = None if self._acc_in_row[pname] \
+                    else self.accs[pname].index_select(0, ids)  # (N, S)
             if block:
                 G3 = G.reshape(len(segs), segs[0][1], G.shape[1])
                 for s in slots:
@@ -442,11 +480,33 @@ class PackedEmbeddingTrainer(Trainer):
             out.append(torch.cat(parts) if len(parts) > 1 else parts[0])
         return out
 
+    def _owned_inputs(self, pname: str, gids: torch.Tensor,
+                      grads: List[torch.Tensor]):
+        """Under a mesh: (local row numbers of the global batch's ids this
+        rank owns, their pre-step pack rows, their split accumulators or
+        None, their per-slot gradients), after the row gradients'
+        all-gather over 'data'."""
+        widths = [int(g.shape[1]) for g in grads]
+        lids, g_own = owned_grads(torch.cat(grads, dim=1) if len(grads) > 1
+                                  else grads[0], gids,
+                                  self._pack_shards[pname])
+        out, c0 = [], 0
+        for w in widths:
+            out.append(g_own[:, c0:c0 + w].contiguous())
+            c0 += w
+        lids = lids.to(torch.int32)
+        G = self.packs[pname].index_select(0, lids)
+        v_pre = None if self._acc_in_row[pname] \
+            else self.accs[pname].index_select(0, lids)
+        return lids, G, v_pre, out
+
     def _apply_row_updates(self, row_grads: Dict[str, torch.Tensor],
                            ctx, emb_lr: float) -> None:
         for pname, (ids, segs, G, v_pre) in ctx.items():
             slots = self._slots[pname]
             grads = self._slot_grads(slots, segs, row_grads)
+            if self._pack_shards:
+                ids, G, v_pre, grads = self._owned_inputs(pname, ids, grads)
             w_val = self._value_width[pname]
             if self.embedding_optimizer == "adam":
                 parts = self._lazy_adam_parts(slots, grads, G, w_val, emb_lr)
@@ -532,15 +592,17 @@ class PackedEmbeddingTrainer(Trainer):
         with record_function("trainer::forward"):
             loss = self.loss_fn(self._step_forward({**dbatch, **rows}),
                                 dbatch)
+        row_reg = None
         if cfg.embedding_regularizer:
             # (1/2)·p2 on the touched rows, once per batch occurrence
-            loss = loss + cfg.embedding_regularizer * 0.5 * sum(
+            row_reg = cfg.embedding_regularizer * 0.5 * sum(
                 torch.sum(torch.square(r.float())) for r in rows.values())
         if cfg.net_regularizer:
             loss = loss + cfg.net_regularizer * embedding_reg_loss(
                 self.params, prefix="", device=self.device)
+        objective, loss = self._mesh_loss(loss, rows=row_reg)
         keys = list(rows)
-        grads = self._dense_step(loss, [rows[k] for k in keys])
+        grads = self._dense_step(objective, [rows[k] for k in keys])
         with record_function("packed::row_update"):
             self._apply_row_updates(dict(zip(keys, grads)), ctx, emb_lr)
         return loss.detach()
@@ -561,12 +623,22 @@ class PackedEmbeddingTrainer(Trainer):
         return {**dbatch, **rows}
 
     # -- logical views ----------------------------------------------------------
+    def _whole_packs(self, sharded: bool = False
+                     ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """(packs, split accumulators), gathered whole under a mesh (a
+        collective: every rank calls it) or, with ``sharded``, DTensors of
+        each rank's rows; else the live ones."""
+        return (export_state(self.packs, self._pack_shards, sharded),
+                export_state(self.accs, self._pack_shards, sharded))
+
     @property
     def tables(self) -> Dict[str, torch.Tensor]:
-        """{table_key: (V, D)} view of the packed state."""
+        """{table_key: (V, D)} view of the packed state (whole tables
+        gathered under a mesh)."""
         out = {}
+        packs, _ = self._whole_packs()
         for pname, bundles in self._bundles.items():
-            pack = self.packs[pname]
+            pack = packs[pname]
             for b in bundles:
                 for si, s in enumerate(self._slots[pname]):
                     out[b.table_keys[si]] = pack[
@@ -580,8 +652,9 @@ class PackedEmbeddingTrainer(Trainer):
         (in the row, or the split ``accs``), or the row-mean of the lazy
         Adam v block."""
         out = {}
+        packs, accs = self._whole_packs()
         for pname, bundles in self._bundles.items():
-            pack = self.packs[pname]
+            pack = packs[pname]
             w_val = self._value_width[pname]
             for b in bundles:
                 rows = slice(b.row_offset, b.row_offset + b.rows)
@@ -593,7 +666,7 @@ class PackedEmbeddingTrainer(Trainer):
                     elif self._acc_in_row[pname]:
                         out[b.table_keys[si]] = pack[rows, s.acc_col]
                     else:
-                        out[b.table_keys[si]] = self.accs[pname][rows, si]
+                        out[b.table_keys[si]] = accs[pname][rows, si]
         return out
 
     def full_params(self) -> Dict[str, torch.Tensor]:
@@ -626,13 +699,14 @@ class PackedEmbeddingTrainer(Trainer):
         for k, v in self._best_accs.items():
             self.accs[k].copy_(v)
 
-    def state_dict(self) -> Dict[str, Any]:
+    def state_dict(self, sharded: bool = False) -> Dict[str, Any]:
         """The dense state, the packs, the split accumulators and the
         embedding lr (-1.0 while not yet resolved): the plateau decays it,
         and a resume at the configured value would undo that."""
-        state = super().state_dict()
-        state["packs"] = dict(self.packs)
-        state["accs"] = dict(self.accs)
+        state = super().state_dict(sharded)
+        packs, accs = self._whole_packs(sharded)
+        state["packs"] = dict(packs)
+        state["accs"] = dict(accs)
         state["emb_lr"] = float(self._emb_lr if self._emb_lr is not None
                                 else -1.0)
         return state
@@ -644,6 +718,7 @@ class PackedEmbeddingTrainer(Trainer):
             if set(saved) != set(live):
                 raise ValueError(f"checkpoint {name} {sorted(saved)} do not "
                                  f"match the trainer's {sorted(live)}")
+            saved = import_state(saved, self._pack_shards, self.device)
             for k, t in live.items():
                 _copy_into(t, saved[k], k)
         if float(state.get("emb_lr", -1.0)) > 0:

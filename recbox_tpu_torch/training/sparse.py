@@ -31,6 +31,19 @@ handed), the port routes an item-side module's features from those
 columns (``item::<feature>`` rows under ``item::<rows key>``, which
 `extract_item_batch` hands to the item tower) and the others from the top
 level: the rows the towers read, each occurrence once.
+
+Under a mesh the sharded tables are row-sharded over the combined grid
+(`parallel.mesh.shard_params`, as JAX's `Trainer.init` shards them), with
+their accumulators: a step gathers this rank's rows through the mesh's
+exchange, all-gathers the row gradients over 'data', and each rank applies
+the row-wise AdaGrad to the rows it owns in its local shard. The owner sees
+every occurrence of its ids, so the update is the unsharded one. The
+``tables`` then hold each rank's shard; `state_dict` gathers them whole
+(every rank calls it) and `load_state_dict` shards them again. A
+replicated table (``shard_table=False``) is whole on every rank: its ids
+and row gradients are all-gathered over 'data', and every replica applies
+every occurrence of the global batch, in one order, so the replicas stay
+equal and the update is the global batch's, as JAX's.
 """
 
 from __future__ import annotations
@@ -48,6 +61,10 @@ from recbox_tpu_torch.models.base import ITEM_PREFIX, MatchingModel
 from recbox_tpu_torch.nn.core import set_dropout_generator
 from recbox_tpu_torch.nn.embedding import FeatureEmbedding, rows_key_for
 from recbox_tpu_torch.ops.losses import embedding_reg_loss
+from recbox_tpu_torch.parallel.mesh import (
+    DATA_AXIS, all_gather, export_state, import_state, owned_grads,
+    shard_params, sharded_rows, world_size,
+)
 from recbox_tpu_torch.training.trainer import (
     Trainer, _copy_into, _make_optimizer,
 )
@@ -97,6 +114,23 @@ def merge_params(dense: Dict[str, torch.Tensor],
     return out
 
 
+def _index_add(t: torch.Tensor, ids: torch.Tensor, x: torch.Tensor) -> None:
+    t.index_add_(0, ids, x)
+
+
+def _ordered_add(t: torch.Tensor, ids: torch.Tensor, x: torch.Tensor
+                 ) -> None:
+    """``t.index_add_(0, ids, x)`` with each row's duplicates summed in
+    one fixed order, so replicas that apply the same occurrences stay equal
+    bit for bit: on the card the sorted accumulation of ``index_put_``
+    (``index_add_`` there adds by atomics, in no fixed order); on the CPU
+    ``index_add_``, which runs through ``ids`` in order."""
+    if t.is_cuda:
+        t.index_put_((ids,), x, accumulate=True)
+    else:
+        t.index_add_(0, ids, x)
+
+
 class SparseEmbeddingTrainer(Trainer):
     """Trainer with row-wise AdaGrad on the embedding tables.
 
@@ -119,8 +153,18 @@ class SparseEmbeddingTrainer(Trainer):
         self._emb_lr: Optional[torch.Tensor] = None
         self._best_tables: Dict[str, torch.Tensor] = {}
         self._best_accums: Dict[str, torch.Tensor] = {}
+        # under a mesh of more than one rank: {table key: its RowShard}
+        self._shards: Dict[str, Any] = {}
+        # under a mesh of more than one rank: the replicated tables keep
+        # their replicas equal
+        self._replicas = False
+        self._step_gids: Dict[str, torch.Tensor] = {}
 
     def init(self, sample_batch: Mapping[str, Any]) -> None:
+        if self.mesh is not None:
+            from recbox_tpu_torch.parallel.mesh import param_partition_specs
+            self.param_specs = param_partition_specs(self.model)
+            shard_params(self.model, self.mesh, self.param_specs)
         dense, tables, homes = split_sparse_params(self.model)
         if not tables:
             logger.warning("SparseEmbeddingTrainer found no tables; "
@@ -133,6 +177,13 @@ class SparseEmbeddingTrainer(Trainer):
         self.params = dense
         self._opt = _make_optimizer(self.config, list(dense.values()))
         self.tables = tables
+        if self.mesh is not None and world_size() > 1:
+            modules = dict(self.model.named_modules())
+            self._shards = {
+                k: modules[mname].table_shards[tname]
+                for k, (mname, tname) in homes.items()
+                if tname in modules[mname].table_shards}
+            self._replicas = len(self._shards) < len(tables)
         self.accumulators = {
             k: torch.full((t.shape[0],), float(self.adagrad_init),
                           dtype=torch.float32, device=self.device)
@@ -169,26 +220,40 @@ class SparseEmbeddingTrainer(Trainer):
             return super()._train_step(dbatch)
         cfg = self.config
         with record_function("sparse::gather"):
-            rows = {rkey: F.embedding(dbatch[fkey], self.tables[tkey]
-                                      .detach()).requires_grad_(True)
+            rows = {rkey: self._rows(dbatch[fkey], tkey, rkey)
+                    .requires_grad_(True)
                     for fkey, tkey, rkey in self._routes}
         self.model.train()
         with record_function("trainer::forward"):
             loss = self.loss_fn(self._step_forward({**dbatch, **rows}),
                                 dbatch)
+        row_reg = None
         if cfg.embedding_regularizer:
             # (1/2)·p2 on the touched rows, once per batch occurrence
-            loss = loss + cfg.embedding_regularizer * 0.5 * sum(
+            row_reg = cfg.embedding_regularizer * 0.5 * sum(
                 torch.sum(torch.square(r.float())) for r in rows.values())
         if cfg.net_regularizer:
             loss = loss + cfg.net_regularizer * embedding_reg_loss(
                 self.params, prefix="", device=self.device)
+        objective, loss = self._mesh_loss(loss, rows=row_reg)
         keys = list(rows)
-        grads = dict(zip(keys, self._dense_step(loss,
+        grads = dict(zip(keys, self._dense_step(objective,
                                                 [rows[k] for k in keys])))
         with record_function("sparse::row_update"):
             self._row_updates(dbatch, grads)
         return loss.detach()
+
+    @torch.no_grad()
+    def _rows(self, ids: torch.Tensor, tkey: str, rkey: str
+              ) -> torch.Tensor:
+        """The rows of ``ids``: a plain gather, or under a mesh the
+        exchange (the global batch's ids kept for the update)."""
+        shard = self._shards.get(tkey)
+        if shard is None:
+            return F.embedding(ids, self.tables[tkey])
+        rows, self._step_gids[rkey] = sharded_rows(ids, self.tables[tkey],
+                                                   shard)
+        return rows
 
     @torch.no_grad()
     def _row_updates(self, dbatch: Dict[str, torch.Tensor],
@@ -202,13 +267,26 @@ class SparseEmbeddingTrainer(Trainer):
         for tkey, routes in by_table.items():
             table, v = self.tables[tkey], self.accumulators[tkey]
             d = table.shape[1]
-            ids = torch.cat([dbatch[f].reshape(-1) for f, _ in routes]) \
-                .to(torch.int64)
             g = torch.cat([grads[r].reshape(-1, d) for _, r in routes]) \
                 .float()
-            v.index_add_(0, ids, torch.mean(torch.square(g), dim=-1))
+            add = _index_add
+            if tkey in self._shards:
+                # every occurrence of the rows this rank owns, in its
+                # shard's row numbers
+                gids = torch.cat([self._step_gids[r] for _, r in routes])
+                ids, g = owned_grads(g, gids, self._shards[tkey])
+            else:
+                ids = torch.cat([dbatch[f].reshape(-1) for f, _ in routes]) \
+                    .to(torch.int64)
+                if self._replicas:
+                    # a replicated table: every replica applies every
+                    # occurrence of the global batch, in one order
+                    ids = all_gather(ids, self.mesh, DATA_AXIS)
+                    g = all_gather(g.contiguous(), self.mesh, DATA_AXIS)
+                    add = _ordered_add
+            add(v, ids, torch.mean(torch.square(g), dim=-1))
             scale = self._emb_lr / (torch.sqrt(v[ids]) + self.adagrad_eps)
-            table.index_add_(0, ids, (-scale)[:, None] * g)
+            add(table, ids, (-scale)[:, None] * g)
 
     # -- lr plateau ---------------------------------------------------------------
     @property
@@ -240,12 +318,16 @@ class SparseEmbeddingTrainer(Trainer):
         for k, v in self._best_accums.items():
             self.accumulators[k].copy_(v)
 
-    def state_dict(self) -> Dict[str, Any]:
+    def state_dict(self, sharded: bool = False) -> Dict[str, Any]:
         """The dense state, the tables, their accumulators and the embedding
-        lr (-1.0 before `init`)."""
-        state = super().state_dict()
-        state["tables"] = dict(self.tables)
-        state["accumulators"] = dict(self.accumulators)
+        lr (-1.0 before `init`); under a mesh whole tables, or DTensors of
+        each rank's rows with ``sharded``."""
+        state = super().state_dict(sharded)
+        state["tables"] = export_state(
+            {k: t.detach() for k, t in self.tables.items()}, self._shards,
+            sharded)
+        state["accumulators"] = export_state(self.accumulators, self._shards,
+                                             sharded)
         state["emb_lr"] = self.emb_lr if self._emb_lr is not None else -1.0
         return state
 
@@ -256,8 +338,9 @@ class SparseEmbeddingTrainer(Trainer):
             if set(state[name]) != set(live):
                 raise ValueError(f"checkpoint {name} {sorted(state[name])} "
                                  f"do not match the trainer's {sorted(live)}")
+            saved = import_state(state[name], self._shards, self.device)
             for k, t in live.items():
-                _copy_into(t, state[name][k], k)
+                _copy_into(t, saved[k], k)
         if float(state.get("emb_lr", -1.0)) > 0 and self._emb_lr is not None:
             self._emb_lr.fill_(float(state["emb_lr"]))
         super().load_state_dict(state)

@@ -6,7 +6,8 @@ Counterpart of `recbox_tpu/training/trainer.py`: `TrainerConfig` (:50-83),
 LR and best-weight reload (:342-506), `apply`, `predict`, `state_dict`,
 `save` and `load` (:568-605), with ``train_method=`` (the model method a
 step drives, e.g. a sequential model's ``'full_scores'`` or
-``'fused_ce_loss'``) and its guard against a mesh (:133-143). PyTorch runs
+``'fused_ce_loss'``) and its guard against a mesh (:133-143), and the
+mesh sites (:178-209, :474-493). PyTorch runs
 eagerly: a step is the model's forward, ``backward`` through
 `torch.autograd.grad`, and the optimizer. The phases run inside
 `torch.profiler.record_function` ranges (``trainer::forward``,
@@ -45,9 +46,21 @@ adagrad (accumulators from 0.1, eps 1e-7 inside the root), sgd (no
 momentum) and rmsprop (decay 0.9, eps 1e-8 inside the root, no centering).
 Each steps all its tensors at once with `torch._foreach_*` ops in optax's
 op order; its learning rate and step count are device tensors, so a
-captured step reads the lr that plateau set and advances the count. The
-mesh is not ported yet and raises NotImplementedError naming its
-`ROADMAP.md` item.
+captured step reads the lr that plateau set and advances the count.
+
+Under a mesh (`parallel.mesh.make_mesh`: one process a rank), `init`
+row-shards the tables its `param_partition_specs` name
+(``trainer.param_specs``), each rank passes ITS rows of the global batch
+(`parallel.mesh.shard_batch`), and a step is the global batch's: the
+sharded lookups run the mesh's exchange, the replicated parameters'
+gradients are all-reduced over 'data' in one flat buffer, the global-norm
+clip adds the shards' squares over the world, and the loss is the global
+batch's mean (the loss function must be a mean over its rows). The
+evaluation merges every rank's metrics by its ``last_sample_count``
+(`parallel.distributed.merge_host_metrics`), as JAX's does. Under a mesh
+`train_steps_fused` takes K eager steps (`ROADMAP.md` Queue C), and
+`state_dict` gathers the sharded tables whole (every rank calls it; the
+checkpoint is written by rank 0); `load_state_dict` shards them again.
 """
 
 from __future__ import annotations
@@ -67,6 +80,13 @@ from recbox_tpu_torch.nn.core import (
     Reparam, set_dropout_generator, set_reparam_generator,
 )
 from recbox_tpu_torch.ops.losses import embedding_reg_loss
+from recbox_tpu_torch.parallel.distributed import merge_host_metrics
+from recbox_tpu_torch.parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, SHARDED_SPEC, all_reduce_, device_on_mesh,
+    export_state, import_state, mesh_shape, param_partition_specs,
+    shard_batch,
+    shard_params, table_shards, world_size,
+)
 from recbox_tpu_torch.training.checkpoint import (
     load_checkpoint, save_checkpoint,
 )
@@ -129,6 +149,10 @@ class _Optimizer:
         self.max_norm = max_norm
         self.state = {name: [torch.full_like(p, self.init)
                              for p in self.params] for name in self.slots}
+        # under a mesh: which params are row shards, and the world sum of
+        # a scalar (their squares enter the global norm once each)
+        self.sharded: List[bool] = [False] * len(self.params)
+        self.world_sum: Optional[Callable] = None
 
     def _clip(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         """optax's clip_by_global_norm: g where ||g|| < max_norm, else
@@ -136,8 +160,14 @@ class _Optimizer:
         (optax sums every square in one sum)."""
         if not self.max_norm or not grads:
             return grads
-        g_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.world_sum is not None and any(self.sharded):
+            mask = torch.tensor(self.sharded, device=norms.device)
+            sq = torch.square(norms)
+            shard_sq = self.world_sum(torch.sum(sq[mask]).reshape(1))[0]
+            g_norm = torch.sqrt(torch.sum(sq[~mask]) + shard_sq)
+        else:
+            g_norm = torch.linalg.vector_norm(norms)
         keep = g_norm < self.max_norm
         scaled = torch._foreach_mul(torch._foreach_div(grads, g_norm),
                                     self.max_norm)
@@ -333,7 +363,8 @@ class Trainer:
       config: TrainerConfig.
       eval_fn: ``eval_fn(trainer) -> {metric: value}`` on the validation
         set (e.g. `CTREvaluator`, `RetrievalEvaluator`).
-      mesh: as in the JAX package; a ``mesh`` raises (not ported).
+      mesh: a ``('data', 'model')`` mesh (`parallel.mesh.make_mesh`) for
+        sharded training; the trainer then runs on the mesh's device.
       train_method: name of the model method a step drives; None =
         ``model(batch)``. ``'full_scores'`` (with `full_softmax_loss`) and
         ``'fused_ce_loss'`` (with an identity loss) are the full-softmax
@@ -354,11 +385,11 @@ class Trainer:
                 "train_method='fused_ce_loss' is a single-shard path and "
                 "cannot run under a mesh; use train_method='full_scores' "
                 "+ full_softmax_loss")
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP.md, Queue A: "
-                "parallel/)")
-        self.device = resolve_device(device)
+            self.device = device_on_mesh(mesh, device)
+        else:
+            self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
         self.config = config
@@ -372,6 +403,7 @@ class Trainer:
         self.dropout_generator: Optional[torch.Generator] = None
         self.reparam_generator: Optional[torch.Generator] = None
         self.params: Optional[Dict[str, torch.Tensor]] = None
+        self.param_specs: Dict[str, tuple] = {}
         self.model_state: Dict[str, torch.Tensor] = {}
         self._opt: Optional[_Optimizer] = None
         self.step = 0
@@ -401,27 +433,100 @@ class Trainer:
                 device=self.device).manual_seed(self.config.seed
                                                 + REPARAM_SEED_OFFSET)
             set_reparam_generator(self.model, self.reparam_generator)
+        self.param_specs = param_partition_specs(self.model)
+        if self.mesh is not None:
+            shard_params(self.model, self.mesh, self.param_specs)
         self.params = dict(self.model.named_parameters())
         self.model_state = {
             n: t for n, t in self.model.state_dict(keep_vars=True).items()
             if not isinstance(t, torch.nn.Parameter)}
         self._opt = _make_optimizer(self.config, list(self.params.values()))
+        self._mesh_optimizer()
         n_params = sum(p.numel() for p in self.params.values())
         logger.info("initialized model: %s params", f"{n_params:,}")
+
+    def _mesh_optimizer(self) -> None:
+        """Tell the optimizer which of its params are row shards, so the
+        clip's global norm counts each shard once over the world."""
+        if self.mesh is None:
+            return
+        names = list(self.params)
+        self._opt.sharded = [self.param_specs.get(n) == SHARDED_SPEC
+                             for n in names]
+        self._opt.world_sum = lambda x: all_reduce_(x, self.mesh)
+
+    def _sharded(self, name: str) -> bool:
+        return self.mesh is not None \
+            and self.param_specs.get(name) == SHARDED_SPEC
 
     def _device_batch(self, batch: Mapping[str, Any]
                       ) -> Dict[str, torch.Tensor]:
         """The batch as tensors on the trainer's device (a tensor already
-        there is used as it is)."""
+        there is used as it is). Under a mesh, this rank's rows
+        (`shard_batch`; the first step checks that the ranks of one 'data'
+        coordinate pass the same rows)."""
+        if self.mesh is not None:
+            return shard_batch(batch, self.mesh, check=self.step == 0)
         return {k: (v if isinstance(v, torch.Tensor)
                     else torch.as_tensor(np.asarray(v))).to(self.device)
                 for k, v in batch.items()}
 
     # -- the train step ------------------------------------------------------
+    def _mesh_loss(self, mean: torch.Tensor,
+                   rows: Optional[torch.Tensor] = None,
+                   shard: Optional[torch.Tensor] = None):
+        """(the objective to differentiate, the loss to report) from the
+        step's parts: ``mean``, a mean over this rank's rows plus terms
+        every rank computes alike (the replicated parameters' penalties);
+        ``rows``, a sum over this rank's rows; ``shard``, a sum over this
+        rank's table shards. Without a mesh (or on a world of one) both are
+        their sum. Under a mesh the objective scales ``mean`` by 1 / n_data,
+        so the replicated gradients summed over 'data' and the row
+        gradients gathered over 'data' are the global batch's; the loss is
+        the world sum of each part over the ranks that share it."""
+        shape = mesh_shape(self.mesh) if self.mesh is not None else {}
+        if self.mesh is None or world_size() == 1 \
+                or (shape[DATA_AXIS] == 1 and shard is None):
+            # every rank holds the same rows: the sum is the global loss
+            total = mean
+            for part in (rows, shard):
+                if part is not None:
+                    total = total + part
+            return total, total
+        nd, nm = shape[DATA_AXIS], shape[MODEL_AXIS]
+        obj, rep = mean / nd, mean.detach().float() / (nd * nm)
+        if rows is not None:
+            obj, rep = obj + rows, rep + rows.detach().float() / nm
+        if shard is not None:
+            obj, rep = obj + shard, rep + shard.detach().float()
+        return obj, all_reduce_(rep.reshape(1).clone(), self.mesh)[0]
+
+    def _reduce_dense_grads(self, grads: List[torch.Tensor]) -> None:
+        """Sum the replicated parameters' gradients over 'data' in place,
+        one flat buffer a dtype (the row shards' gradients are whole
+        already)."""
+        if mesh_shape(self.mesh)[DATA_AXIS] == 1:
+            return
+        names = list(self.params)
+        by_dtype: Dict[torch.dtype, List[int]] = {}
+        for i, g in enumerate(grads):
+            if not self._sharded(names[i]):
+                by_dtype.setdefault(g.dtype, []).append(i)
+        for idx in by_dtype.values():
+            flat = torch.cat([grads[i].reshape(-1) for i in idx])
+            all_reduce_(flat, self.mesh, DATA_AXIS)
+            off = 0
+            for i in idx:
+                n = grads[i].numel()
+                grads[i] = flat[off:off + n].view_as(grads[i])
+                off += n
+
     def _dense_step(self, loss: torch.Tensor,
                     extra: List[torch.Tensor] = ()) -> List[torch.Tensor]:
         """Backward of ``loss`` to the dense parameters and ``extra``; an
-        optimizer step on the dense ones; the gradients of ``extra`` back."""
+        optimizer step on the dense ones; the gradients of ``extra`` back.
+        Under a mesh the replicated gradients are summed over 'data'
+        first (``loss`` is `_mesh_loss`'s objective)."""
         params = list(self.params.values())
         with record_function("trainer::backward"):
             # a loss that reaches no parameter (PPOReranker's greedy
@@ -432,6 +537,10 @@ class Trainer:
                 else [None] * (len(params) + len(extra))
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip(params + list(extra), grads)]
+        if self.mesh is not None:
+            dense = grads[:len(params)]
+            self._reduce_dense_grads(dense)
+            grads[:len(params)] = dense
         with record_function("trainer::adam"):
             self._opt.step(grads[:len(params)])
         return grads[len(params):]
@@ -451,18 +560,28 @@ class Trainer:
         self.model.train()
         with record_function("trainer::forward"):
             loss = self.loss_fn(self._step_forward(dbatch), dbatch)
+        shard_reg = None
         if cfg.embedding_regularizer or cfg.net_regularizer:
             tables = {n: p for n, p in self.params.items()
                       if is_embedding_table(n)}
             if cfg.embedding_regularizer:
+                # a row shard's penalty is this rank's share of the table's
+                repl = {n: p for n, p in tables.items()
+                        if not self._sharded(n)}
                 loss = loss + cfg.embedding_regularizer * embedding_reg_loss(
-                    tables, prefix="", device=self.device)
+                    repl, prefix="", device=self.device)
+                if len(repl) < len(tables):
+                    shard_reg = cfg.embedding_regularizer \
+                        * embedding_reg_loss(
+                            {n: p for n, p in tables.items()
+                             if n not in repl}, prefix="", device=self.device)
             if cfg.net_regularizer:
                 net = {n: p for n, p in self.params.items()
                        if n not in tables}
                 loss = loss + cfg.net_regularizer * embedding_reg_loss(
                     net, prefix="", device=self.device)
-        self._dense_step(loss)
+        objective, loss = self._mesh_loss(loss, shard=shard_reg)
+        self._dense_step(objective)
         return loss.detach()
 
     def train_steps_fused(self, batches: Mapping[str, Any]) -> torch.Tensor:
@@ -471,13 +590,14 @@ class Trainer:
 
         On the card the step runs as one CUDA graph replayed K times over
         the staged batches (`training/graph.py`), with the results of K
-        `train_step` calls; a failed capture or replay raises. On the CPU
-        the K steps run one after another."""
+        `train_step` calls; a failed capture or replay raises. On the CPU,
+        and under a mesh (whose collectives a graph does not hold), the K
+        steps run one after another."""
         first = {k: v[0] for k, v in batches.items()}
         if self.params is None:
             self.init(first)
         k = len(next(iter(batches.values())))
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.mesh is not None:
             losses = torch.stack([
                 self._train_step(self._device_batch(
                     {n: v[i] for n, v in batches.items()}))
@@ -642,6 +762,20 @@ class Trainer:
         if self.eval_fn is None:
             return {}
         metrics = self.eval_fn(self)
+        if world_size() > 1:
+            # each rank evaluated ITS shard of the eval data: merge them
+            # sample-weighted (JAX `trainer.py:474-493`); evaluators give
+            # their local row count as `last_sample_count`
+            weight = getattr(self.eval_fn, "last_sample_count", None)
+            if weight is None:
+                logger.warning(
+                    "multi-host eval merge: eval_fn has no "
+                    "last_sample_count attribute; falling back to equal "
+                    "host weights, which is WRONG if hosts' eval shards "
+                    "differ in size. Set eval_fn.last_sample_count to the "
+                    "local row count after each call.")
+                weight = 1.0
+            metrics = merge_host_metrics(metrics, float(weight))
         value, improved, should_stop = self.monitor.update(metrics,
                                                            self.epoch)
         logger.info("eval @ epoch %d step %d: %s -> monitor %.6f%s",
@@ -707,13 +841,32 @@ class Trainer:
         return np.concatenate(outs, axis=0)
 
     # -- checkpointing -------------------------------------------------------
-    def state_dict(self) -> Dict[str, Any]:
+    def _row_shards(self) -> Dict[str, Any]:
+        """{parameter name: RowShard} of the row-sharded tables ({} without
+        a mesh)."""
+        return table_shards(self.model) if self.mesh is not None else {}
+
+    def _opt_state(self, opt: Mapping[str, Any], move) -> Dict[str, Any]:
+        """The optimizer state with each per-parameter slot list passed
+        through ``move`` ({parameter name: tensor} -> the same)."""
+        names = list(self.params)
+        return {k: (list(move(dict(zip(names, v))).values())
+                    if k in self._opt.slots else v)
+                for k, v in opt.items()}
+
+    def state_dict(self, sharded: bool = False) -> Dict[str, Any]:
         """The full training state: parameters, the model state, optimizer
         state (its lr and step count included), step, epoch and the
-        monitor."""
-        return {"params": dict(self.params),
+        monitor. Under a mesh the row-sharded tables and their optimizer
+        state are gathered whole (a collective: every rank calls it), or
+        with ``sharded`` are DTensors of each rank's rows (for
+        `OrbaxCheckpointer`)."""
+        shards = self._row_shards()
+        opt = self._opt_state(self._opt.state_dict(), lambda t: export_state(
+            t, shards, sharded))
+        return {"params": export_state(self.params, shards, sharded),
                 "model_state": dict(self.model_state),
-                "opt_state": self._opt.state_dict(),
+                "opt_state": opt,
                 "step": self.step, "epoch": self.epoch,
                 "monitor": self.monitor.state()}
 
@@ -726,8 +879,10 @@ class Trainer:
             raise ValueError(f"checkpoint params "
                              f"{sorted(set(state['params']) ^ set(self.params))}"
                              " do not match the model's")
+        shards = self._row_shards()
+        params = import_state(state["params"], shards, self.device)
         for n, p in self.params.items():
-            _copy_into(p, state["params"][n], n)
+            _copy_into(p, params[n], n)
         # a checkpoint written before the trainer carried model state has
         # none: it loads into a model without buffers, else the names differ
         model_state = state.get("model_state", {})
@@ -737,7 +892,9 @@ class Trainer:
                              f"the model's {sorted(self.model_state)}")
         for n, t in self.model_state.items():
             _copy_into(t, model_state[n], n)
-        self._opt.load_state_dict(state["opt_state"])
+        self._opt.load_state_dict(self._opt_state(
+            state["opt_state"],
+            lambda t: import_state(t, shards, self.device)))
         self.step = int(state["step"])
         self.epoch = int(state["epoch"])
         self.monitor.restore(state["monitor"])

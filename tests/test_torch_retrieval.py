@@ -354,11 +354,12 @@ def test_index_auto_int8_and_cosine_route_to_kernel():
 
 
 def test_index_later_slice_paths_raise():
-    """Only the mesh-sharded search is left to port (ROADMAP.md Queue A,
-    parallel/)."""
+    """The mesh-sharded search is ported (`tests/test_torch_sharded_search
+    .py`); the int8 index still refuses a mesh, as JAX's does, before it
+    reads the mesh."""
     items = np.random.default_rng(6).normal(size=(256, 8)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        BruteForceMIPS(items, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="unsharded"):
+        BruteForceMIPS(items, device="cpu", mesh=object(), quantize="int8")
 
 
 @pytest.mark.parametrize("method,quantize", [

@@ -291,14 +291,24 @@ def test_trainer_regularizers_match_jax(emb_reg, net_reg):
                                atol=2e-5)
 
 
-def test_fused_ce_under_mesh_raises_and_unported_encoders():
+def test_fused_ce_under_mesh_raises_and_unported_encoders(tmp_path):
     _, pm = _pair()
     with pytest.raises(ValueError, match="single-shard"):
         Trainer(pm, lambda o, b: o, TrainerConfig(), mesh=object(),
                 device="cpu", train_method="fused_ce_loss")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Trainer(pm, lambda o, b: o, TrainerConfig(), mesh=object(),
-                device="cpu", train_method="full_scores")
+    # the logits' protocol runs under a mesh (parallel/): a gloo world of
+    # one here
+    import torch.distributed as dist
+    from recbox_tpu_torch.parallel import make_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device="cpu")
+        t = Trainer(pm, lambda o, b: o, TrainerConfig(), mesh=mesh,
+                    device="cpu", train_method="full_scores")
+        assert t.mesh is mesh and t.device == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()
     # the encoders are ported (tests/test_torch_sequential_zoo.py),
     # pretraining (tests/test_torch_pretrain.py) and the knowledge stage's
     # KSR (tests/test_torch_knowledge.py): none of the stage raises

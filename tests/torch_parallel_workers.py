@@ -1,0 +1,455 @@
+"""Rank processes for the port's multi-rank CPU tests (not collected).
+
+`run(task, world, tmp_path, **kwargs)` starts ``world`` gloo processes with
+`torch.multiprocessing.spawn`; they meet through a ``file://`` store under
+``tmp_path`` (no ports to collide between test workers), each runs
+``task(rank, world, **kwargs)`` with one thread, and each returns its
+arrays to the parent through an npz (``{name: array}``; a task may also
+return nothing). This module imports the port only, never JAX: the JAX
+side of each comparison runs in the test process.
+"""
+
+from __future__ import annotations
+
+import os
+import traceback
+from typing import Dict, List
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from recbox_tpu_torch.features import FeatureMap, FeatureSpec
+from recbox_tpu_torch.models.ranking import DeepFM
+from recbox_tpu_torch.ops.losses import binary_crossentropy
+from recbox_tpu_torch.parallel import make_mesh
+from recbox_tpu_torch.parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, mesh_coords, mesh_shape,
+)
+from recbox_tpu_torch.parallel.inspect import collective_stats
+from recbox_tpu_torch.training import (
+    PackedEmbeddingTrainer, SparseEmbeddingTrainer, Trainer, TrainerConfig,
+)
+from recbox_tpu_torch.training.sparse import merge_params
+
+
+def run(task: str, world: int, tmp_path, **kwargs) -> List[Dict]:
+    """Each rank's arrays, in rank order."""
+    tmp = str(tmp_path)
+    rdv = os.path.join(tmp, f"rdv_{task}")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    mp.spawn(_entry, args=(world, rdv, task, kwargs, tmp), nprocs=world,
+             join=True)
+    out = []
+    for r in range(world):
+        with np.load(os.path.join(tmp, f"{task}_rank{r}.npz"),
+                     allow_pickle=False) as z:
+            out.append({k: z[k] for k in z.files})
+    return out
+
+
+def _entry(rank, world, rdv, task, kwargs, tmp):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                            world_size=world, rank=rank)
+    try:
+        res = globals()[task](rank, world, **kwargs) or {}
+    except Exception:
+        traceback.print_exc()
+        raise
+    finally:
+        dist.destroy_process_group()
+    np.savez(os.path.join(tmp, f"{task}_rank{rank}.npz"),
+             **{k: np.asarray(v) for k, v in res.items()})
+
+
+# -- DeepFM over a small schema (JAX's `tests/test_parallel.py` shapes) ---------
+
+def feature_map(S, FM, vocab=64, dim=16, shard=(None, None),
+                names=("cat_a", "cat_b")):
+    """Two categorical fields (either package's FeatureSpec / FeatureMap),
+    with their ``shard_table`` placements."""
+    return FM("p", tuple(
+        S(n, "categorical", vocab_size=v, embedding_dim=dim, shard_table=s)
+        for n, v, s in zip(names, vocab if isinstance(vocab, tuple)
+                           else (vocab, vocab), shard)), labels=("click",))
+
+
+def deepfm(state_path=None, vocab=64, dim=16, hidden=(16,),
+           shard=(None, None)):
+    """The port's DeepFM over `feature_map`, with a saved state."""
+    fm = feature_map(FeatureSpec, FeatureMap, vocab, dim, shard)
+    model = DeepFM(fm, embedding_dim=dim, hidden_units=hidden, device="cpu")
+    if state_path is not None:
+        model.load_state_dict(torch.load(state_path, weights_only=True))
+    return model
+
+
+def local_rows(batch: Dict[str, np.ndarray], mesh) -> Dict[str, np.ndarray]:
+    """This rank's rows of a global batch: its 'data' shard."""
+    nd = mesh_shape(mesh)[DATA_AXIS]
+    d = mesh_coords(mesh)[0]
+    n = len(next(iter(batch.values()))) // nd
+    return {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
+
+
+KINDS = {"dense": Trainer, "packed": PackedEmbeddingTrainer,
+         "sparse": SparseEmbeddingTrainer,
+         "sparse-mixed": SparseEmbeddingTrainer}
+# each kind's `shard_table` placements: 'sparse-mixed' replicates cat_a's
+# tables (what `placement.apply_placement` writes for a small table)
+PLACEMENTS = {"sparse-mixed": (False, None)}
+
+
+def make_trainer(kind, model, mesh, lr=1e-2, **cfg):
+    return KINDS[kind](model, lambda o, b: binary_crossentropy(o, b["click"]),
+                       TrainerConfig(learning_rate=lr, epochs=1,
+                                     monitor="AUC", seed=5, **cfg),
+                       mesh=mesh, device="cpu")
+
+
+def whole_params(trainer) -> Dict[str, np.ndarray]:
+    """The whole model's parameters by port name, tables gathered (a
+    collective: every rank calls it)."""
+    if isinstance(trainer, PackedEmbeddingTrainer):
+        params = trainer.full_params()
+    elif isinstance(trainer, SparseEmbeddingTrainer):
+        state = trainer.state_dict()
+        params = merge_params(state["params"], state["tables"],
+                              {k: h for k, h in _homes(trainer).items()})
+    else:
+        params = trainer.state_dict()["params"]
+    return {k: v.detach().numpy().copy() for k, v in params.items()}
+
+
+def _homes(trainer):
+    from recbox_tpu_torch.training.sparse import split_sparse_params
+    return split_sparse_params(trainer.model)[2]
+
+
+def trainer_steps(rank, world, state_path, batch_path, meshes, kinds,
+                  steps=3):
+    """For each mesh shape (n_model) and trainer kind: ``steps`` steps of
+    one global batch from the saved state; the losses and the whole
+    tables / parameters after them."""
+    with np.load(batch_path) as z:
+        batch = {k: z[k] for k in z.files}
+    out = {}
+    for m in meshes:
+        mesh = make_mesh(m, device="cpu")
+        mine = local_rows(batch, mesh)
+        for kind in kinds:
+            t = make_trainer(kind, deepfm(
+                state_path, shard=PLACEMENTS.get(kind, (None, None))), mesh)
+            t.init(mine)
+            losses = [float(t.train_step(dict(mine))) for _ in range(steps)]
+            out[f"{kind}/m{m}/loss"] = np.asarray(losses)
+            for k, v in whole_params(t).items():
+                out[f"{kind}/m{m}/{k}"] = v
+            if kind == "dense":
+                name = "embedding.tables.cat_a"
+                out[f"{kind}/m{m}/local_shape"] = np.asarray(
+                    t.params[name].shape)
+                out[f"{kind}/m{m}/spec"] = np.asarray(
+                    [str(t.param_specs[name])])
+    return out
+
+
+def comm_bytes(rank, world, cases, vocab, small, batch_rows, dim, hidden):
+    """Per case (placement, n_model): the collective bytes one dense
+    `Trainer` step issues on this rank (after a first step, which also
+    checks the batch), and the dense parameter count outside the tables."""
+    rng = np.random.default_rng(0)
+    b = {"big": rng.integers(0, vocab, batch_rows).astype(np.int32),
+         "small": rng.integers(0, small, batch_rows).astype(np.int32),
+         "click": (rng.random(batch_rows) > 0.5).astype(np.float32)}
+    out = {}
+    for placement, m in cases:
+        shard = {"sharded": (True, True), "mixed": (True, False),
+                 "replicated": (False, False)}[placement]
+        fm = feature_map(FeatureSpec, FeatureMap, (vocab, small), dim,
+                         shard, names=("big", "small"))
+        model = DeepFM(fm, embedding_dim=dim, hidden_units=hidden,
+                       device="cpu")
+        mesh = make_mesh(m, device="cpu")
+        mine = local_rows(b, mesh)
+        t = make_trainer("dense", model, mesh)
+        t.init(mine)
+        t.train_step(dict(mine))
+        ops = collective_stats(t.train_step, dict(mine))
+        dense = sum(p.numel() for n, p in model.named_parameters()
+                    if ".tables." not in n)
+        out[f"{placement}/m{m}/bytes"] = np.asarray(
+            sum(op.bytes for op in ops))
+        out[f"{placement}/m{m}/dense"] = np.asarray(dense)
+        out[f"{placement}/m{m}/kinds"] = np.asarray(
+            sorted({op.kind for op in ops}) or [""])
+    return out
+
+
+def fused_and_errors(rank, world, state_path, batch_path):
+    """`train_steps_fused` under a mesh against two `train_step` calls
+    from the same state; `make_mesh`'s and `shard_batch`'s refusals."""
+    from recbox_tpu_torch.parallel.mesh import shard_batch
+    with np.load(batch_path) as z:
+        batch = {k: z[k] for k in z.files}
+    mesh = make_mesh(2, device="cpu")
+    mine = local_rows(batch, mesh)
+    out = {"mesh_shape": np.asarray([mesh_shape(mesh)[DATA_AXIS],
+                                     mesh_shape(mesh)[MODEL_AXIS]])}
+    t1 = make_trainer("dense", deepfm(state_path), mesh, fused_steps=2)
+    t1.init(mine)
+    fused = t1.train_steps_fused({k: np.stack([v, v])
+                                  for k, v in mine.items()})
+    t2 = make_trainer("dense", deepfm(state_path), mesh)
+    t2.init(mine)
+    eager = [float(t2.train_step(dict(mine))) for _ in range(2)]
+    out["fused"] = fused.numpy()
+    out["eager"] = np.asarray(eager)
+    out["fused_step"] = np.asarray(t1.step)
+    try:
+        make_mesh(3, device="cpu")
+        out["undivisible_raised"] = np.asarray(False)
+    except ValueError:
+        out["undivisible_raised"] = np.asarray(True)
+    # a rank on the other 'model' coordinate with different rows
+    other = {k: (v + 1 if k == "cat_a" and mesh_coords(mesh)[1] == 1
+                 else v) for k, v in mine.items()}
+    try:
+        shard_batch(other, mesh)
+        out["mismatch_raised"] = np.asarray(False)
+    except ValueError:
+        out["mismatch_raised"] = np.asarray(True)
+    return out
+
+
+def multihost(rank, world, ckpt, data_dir, orbax_dir):
+    """JAX's `tests/test_multihost.py` on two ranks: the rank-0 checkpoint,
+    the metric merge, `Trainer`'s merged evaluation, `shard_batch`, the
+    rank-0 `acquire_dataset`, and an `OrbaxCheckpointer` round trip."""
+    import logging
+    from recbox_tpu_torch.data import acquire
+    from recbox_tpu_torch.models.ranking import LR
+    from recbox_tpu_torch.parallel.distributed import (
+        merge_host_metrics, process_info,
+    )
+    from recbox_tpu_torch.parallel.mesh import all_gather, barrier
+    from recbox_tpu_torch.parallel.mesh import shard_batch
+    from recbox_tpu_torch.training.checkpoint import (
+        OrbaxCheckpointer, load_checkpoint, save_checkpoint,
+    )
+    out = {"process_count": process_info()["process_count"]}
+    # 1. every rank calls save; rank 1 first, and no file may appear
+    state = {"x": torch.full((4,), 7.0), "rank_of_writer": torch.tensor(rank)}
+    if rank == 1:
+        save_checkpoint(ckpt, state)
+    barrier()
+    out["rank1_wrote"] = os.path.exists(ckpt)
+    barrier()
+    if rank == 0:
+        save_checkpoint(ckpt, state)
+    barrier()
+    out["writer"] = int(load_checkpoint(ckpt)["rank_of_writer"])
+    out["tmp_left"] = os.path.exists(ckpt + ".tmp")
+    # 2. the weighted mean over ranks; a rank of weight 0 (NaN metrics)
+    # contributes exact zeros
+    out["merged"] = merge_host_metrics({"AUC": 1.0 if rank == 0 else 0.0},
+                                       1.0 if rank == 0 else 3.0)["AUC"]
+    out["merged_empty"] = merge_host_metrics(
+        {"AUC": 0.5 if rank == 0 else float("nan")},
+        2.0 if rank == 0 else 0.0)["AUC"]
+    # 3. Trainer's evaluation merges each rank's shard metrics
+    fm = FeatureMap("mh", (FeatureSpec("a", "categorical", vocab_size=8,
+                                       embedding_dim=4),), labels=("y",))
+    t = Trainer(LR(fm, device="cpu"),
+                lambda o, b: binary_crossentropy(o, b["y"]),
+                TrainerConfig(learning_rate=1e-2, monitor="AUC"),
+                device="cpu")
+    t.init({"a": np.array([1, 2], np.int32),
+            "y": np.array([1., 0.], np.float32)})
+
+    class ShardEval:
+        def __call__(self, tr):
+            self.last_sample_count = 2.0 if rank == 0 else 6.0
+            return {"AUC": 0.9 if rank == 0 else 0.5}
+
+    t.eval_fn = ShardEval()
+    out["trainer_merged"] = t._evaluate_and_checkpoint()["AUC"]
+    records = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    logging.getLogger("recbox_tpu_torch").addHandler(Catch())
+    t.eval_fn = lambda tr: {"AUC": 0.9 if rank == 0 else 0.5}
+    out["unweighted"] = t._evaluate_and_checkpoint()["AUC"]
+    out["warned"] = any("last_sample_count" in m for m in records)
+    # 4. the global batch is the union of the ranks' local rows
+    mesh = make_mesh(1, device="cpu")
+    local = np.arange(4, dtype=np.float32) + (0.0 if rank == 0 else 10.0)
+    mine = shard_batch({"x": local}, mesh)["x"]
+    whole = all_gather(mine, mesh, DATA_AXIS)
+    out["global_rows"] = whole.numel()
+    out["global_sum"] = float(whole.sum())
+    # 5. rank 0 extracts a staged archive while rank 1 waits; rank 1 never
+    # fetches or extracts
+    if rank == 1:
+        def refuse(*a, **k):
+            raise AssertionError("rank 1 must not download or extract")
+        acquire.download_url = acquire.extract_archive = refuse
+    folder = acquire.acquire_dataset(
+        "mhds", data_dir, url="file:///nonexistent/mhds.zip")
+    out["inter_seen"] = os.path.exists(os.path.join(folder, "mhds.inter"))
+    # 6. an asynchronous sharded save, its wait, and a load into a fresh
+    # trainer's template
+    rng = np.random.default_rng(3)
+    b = {"cat_a": rng.integers(0, 63, 32).astype(np.int32),
+         "cat_b": rng.integers(0, 63, 32).astype(np.int32),
+         "click": (rng.random(32) > 0.5).astype(np.float32)}
+    for kind in ("dense", "packed"):
+        torch.manual_seed(0)
+        t1 = make_trainer(kind, deepfm(vocab=63), mesh)
+        mine = local_rows(b, mesh)
+        t1.init(mine)
+        t1.train_step(dict(mine))
+        ck = OrbaxCheckpointer()
+        ck.save(os.path.join(orbax_dir, kind), t1.state_dict(sharded=True))
+        t1.train_step(dict(mine))          # training goes on meanwhile
+        ck.wait()
+        saved_meta = os.path.exists(os.path.join(orbax_dir,
+                                                 kind + ".meta/state.json"))
+        torch.manual_seed(1)
+        t2 = make_trainer(kind, deepfm(vocab=63), mesh)
+        t2.init(mine)
+        got = ck.load(os.path.join(orbax_dir, kind),
+                      t2.state_dict(sharded=True))
+        t2.load_state_dict(got)
+        # t1 stepped once more after the save: step it back with t2's
+        # second step and compare the gathered states
+        t2.train_step(dict(mine))
+        a, c = t1.state_dict(), t2.state_dict()
+        out[f"orbax_{kind}_step"] = c["step"]
+        out[f"orbax_{kind}_meta"] = saved_meta
+        out[f"orbax_{kind}_equal"] = all(
+            torch.equal(a["params"][k], c["params"][k]) for k in a["params"])
+        if kind == "packed":
+            out["orbax_packed_equal"] = out["orbax_packed_equal"] and all(
+                torch.equal(a["packs"][k], c["packs"][k])
+                for k in a["packs"])
+    return out
+
+
+def sharded_search(rank, world, cases, service_dir):
+    """Each case's sharded search ({name: (items path, n_model, topk,
+    method, bf16)}): every rank's (scores, ids); a `RetrievalService` on the
+    mesh, saved by rank 0 and loaded again; and the int8 index's refusal of
+    a mesh."""
+    from recbox_tpu_torch.retrieval import BruteForceMIPS
+    out = {}
+    meshes = {}
+    for name, (path, m, topk, method, bf16) in sorted(cases.items()):
+        if m not in meshes:
+            meshes[m] = make_mesh(m, device="cpu")
+        with np.load(path) as z:
+            items, queries = z["items"], z["queries"]
+        index = BruteForceMIPS(items, mesh=meshes[m], method=method,
+                               bf16=bf16)
+        s, i = index.search(queries, topk)
+        out[f"{name}/scores"] = s.numpy()
+        out[f"{name}/ids"] = i.numpy()
+        out[f"{name}/shard_rows"] = np.asarray(index.items.shape[0])
+    out.update(_service_on_mesh(meshes[max(meshes)], service_dir))
+    try:
+        BruteForceMIPS(np.ones((8, 4), np.float32), mesh=meshes[max(meshes)],
+                       quantize="int8")
+        out["int8_refused"] = np.asarray(False)
+    except NotImplementedError:
+        out["int8_refused"] = np.asarray(True)
+    return out
+
+
+def _service_on_mesh(mesh, path):
+    """MF's service with its index sharded over 'model': the queries of 8
+    users, the same from a saved and reloaded service and from an
+    unsharded index; only rank 0 writes."""
+    from recbox_tpu_torch.models.matching import MF
+    from recbox_tpu_torch.parallel.mesh import rank
+    from recbox_tpu_torch.retrieval import RetrievalService
+    fm = FeatureMap("svc", (
+        FeatureSpec("user_id", "categorical", source="user", vocab_size=64,
+                    embedding_dim=8),
+        FeatureSpec("item_id", "categorical", source="item", vocab_size=203,
+                    embedding_dim=8)),
+        query_index="user_id", corpus_index="item_id", num_items=203)
+    torch.manual_seed(7)
+    model = MF(fm, embedding_dim=8, device="cpu")
+    corpus = {"item_id": np.arange(203, dtype=np.int32)}
+    users = {"user_id": np.arange(8, dtype=np.int32)}
+    svc = RetrievalService(model, corpus, method="exact_sort", mesh=mesh,
+                           device="cpu")
+    s, i = svc.query(users, k=10)
+    plain = RetrievalService(model, corpus, method="exact_sort",
+                             device="cpu")
+    ps, pi = plain.query(users, k=10)
+    if rank() == 1:
+        svc.save(path)                 # rank 1 first: nothing may appear
+    _barrier()
+    written_by_1 = os.path.exists(os.path.join(path, "service.json"))
+    _barrier()
+    svc.save(path)
+    _barrier()
+    torch.manual_seed(8)
+    again = RetrievalService.load(path, MF(fm, embedding_dim=8,
+                                           device="cpu"), mesh=mesh)
+    ls, li = again.query(users, k=10)
+    return {"svc/scores": s, "svc/ids": i, "svc/plain_scores": ps,
+            "svc/plain_ids": pi, "svc/loaded_ids": li,
+            "svc/loaded_scores": ls, "svc/rank1_wrote": written_by_1,
+            "svc/index_rows": svc.index.items.shape[0]}
+
+
+def _barrier():
+    from recbox_tpu_torch.parallel.mesh import barrier
+    barrier()
+
+
+LAYOUTS = {"lazy_adam": (16, dict(embedding_optimizer="adam")),
+           "block_rows": (16, dict(block_rows=True)),
+           "split_accumulators": (127, {})}
+
+
+def packed_layout(name, state_path, mesh=None):
+    """The packed trainer in one of its other layouts (JAX
+    `packed.py:203-279`): lazy Adam, block rows, or split accumulators
+    (127 + 1 value columns fill the 128-lane pad)."""
+    dim, kw = LAYOUTS[name]
+    model = deepfm(state_path, dim=dim)
+    return PackedEmbeddingTrainer(
+        model, lambda o, b: binary_crossentropy(o, b["click"]),
+        TrainerConfig(learning_rate=1e-2, epochs=1, monitor="AUC", seed=5),
+        mesh=mesh, device="cpu", **kw)
+
+
+def packed_layouts(rank, world, states, batch_path, m=2):
+    """Each layout under a mesh of n_model ``m``: 3 steps, the losses,
+    the whole tables and accumulators."""
+    with np.load(batch_path) as z:
+        batch = {k: z[k] for k in z.files}
+    mesh = make_mesh(m, device="cpu")
+    mine = local_rows(batch, mesh)
+    out = {}
+    for name in LAYOUTS:
+        t = packed_layout(name, states[name], mesh)
+        t.init(mine)
+        out[f"{name}/loss"] = np.asarray(
+            [float(t.train_step(dict(mine))) for _ in range(3)])
+        for k, v in t.tables.items():
+            out[f"{name}/table/{k}"] = v.numpy().copy()
+        for k, v in t.accumulators.items():
+            out[f"{name}/acc/{k}"] = v.numpy().copy()
+        out[f"{name}/split"] = np.asarray(bool(t.accs))
+        out[f"{name}/block"] = np.asarray(any(t._block_mode.values()))
+    return out
