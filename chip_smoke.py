@@ -137,8 +137,8 @@ Phases (any failure raises and exits non-zero):
      steps against two 8-step `train_steps_fused` calls (a CUDA graph) from
      the same weights, then served by `RetrievalService.from_trainer`; the
      matching exits, `tools/quality_exit.py`'s MF-BPR and LightGCN on synth
-     at seeds 2024, 1, 2, 3, 4 and MF-BPR on ml1m_scale at seed 2024, valid
-     and test metrics a seed and the medians;
+     at seeds 2024, 1, 2, 3, 4 and MF-BPR on ml1m_scale at seed 2024 (4
+     epochs), valid and test metrics a seed and the medians;
   5h. the CTR zoo through B1 at the Criteo width (phase 5's 26 + 13
      fields, batch 32768, the logistic label of phase 5):
      `run_ranking_experiment` over DCNv2 at `configs/models/dcnv2.yaml`'s
@@ -182,7 +182,7 @@ Phases (any failure raises and exits non-zero):
      and RepeatNet keep `full_scores`), B2's launches, B2 against its
      plain version on each kernel-route model's operands (D = 64, 65 /
      66 padded to 80, 128), ms a step; (4) `run_experiment(
-     "SASRec", "ml1m_scale", epochs=2)` over 5i's files: seconds of data,
+     "SASRec", "ml1m_scale", epochs=1)` over 5i's files: seconds of data,
      fit and test, and the metrics;
   5k. sequence CTR at Taobao UserBehavior's vocabularies (987,994 users,
      4,162,024 items + PAD, 9,439 categories, 50-long shared-table
@@ -258,7 +258,7 @@ Phases (any failure raises and exits non-zero):
      list reward rises) and EGR's generator loop (REINFORCE on the trained
      evaluator's `list_value`, 8 updates), ms a rollout and an update;
      `get_model` for all 125 names; LambdaMART (10 trees, depth 4) on
-     400 lists, its NDCG@10 against the ranker-score column's order;
+     200 lists, its NDCG@10 against the ranker-score column's order;
   5q. the data and features pipeline at phase 5's width: 1,048,576 raw
      rows in the Criteo Display Advertising Challenge's layout (a label,
      13 counts log-normal with 20% missing, 26 fields of 8-hex-digit
@@ -294,6 +294,23 @@ Phases (any failure raises and exits non-zero):
      k = 500) merged by B5 against the unsharded exact top-k (ids equal
      but for ties, scores within 1e-6); (c) `LAT_ROW`: index_select +
      index_add_ of 851,968 ids in a 2.6M-row pack, per id;
+  5s. the public surface: (a) the 14 examples of
+     `recbox_tpu_torch/examples/` (the JAX package's `examples/` scripts
+     written against the port's public names), each `main()` on the card
+     with its script's assert, its wall seconds and the launches of every
+     port kernel around it; (b) `PackedEmbeddingTrainer(direct_init=True)`
+     over DeepFM at `tools/prof_bigvocab_packed.py:24-25`'s shape (26 x
+     1M x 64, 13 numeric, batch 8192, AdaGrad), the model built under
+     `abstract_tables()`: a 26M x 128 f32 pack and no table parameter,
+     the peak allocated under the pack's bytes plus 2 GiB, 8 eager and 8
+     replayed steps (finite, falling losses; B1 once a step), a replayed
+     step equal to an eager one, B1 against its plain version on a step's
+     own operands at this pack, and timed; (c) `segmented_mips_topk` at
+     `bench.py:244-262`'s shape (1M x 128, Q = 8192, k = 500): two B5
+     launches a query chunk, the result against the function on B5's
+     plain version (ids equal but for ties, scores within rtol 1e-6),
+     recall against the exact top-k >= 0.99, timed beside cuBLAS +
+     `torch.topk` and its bound;
   6. times with CUDA events (median after a warm-up; B5, B6 and their
      yardsticks over runs of 20 calls queued behind a spin kernel, so the
      host's launch work is not timed): each kernel, its
@@ -2763,29 +2780,36 @@ def sparse_mf_graph_check():
     return out
 
 
+# epochs of 5g's MF-BPR run on ml1m_scale (~5.4 s each on the card; the
+# exit's 30-epoch reading there is in PERF.md §7)
+ML1M_EXIT_EPOCHS = 4
+
+
 def matching_exits_on_card():
     """Phase 5g: the sparse trainer's graph check, then
     `tools/quality_exit.py`'s MF-BPR and LightGCN runs on synth at seeds
-    EXIT_SEEDS and MF-BPR on ml1m_scale at the first seed, on the card:
-    valid and test metrics a seed, and the medians."""
+    EXIT_SEEDS (30 epochs) and MF-BPR on ml1m_scale at the first seed for
+    ML1M_EXIT_EPOCHS, on the card: valid and test metrics a seed, and the
+    medians."""
     import tempfile
     from recbox_tpu_torch.tools import quality_exit as qe
     out = {"sparse_trainer_graph": sparse_mf_graph_check()}
     with tempfile.TemporaryDirectory() as tmp:
-        runs = [("bpr", qe.gen_synth, EXIT_SEEDS),
-                ("lightgcn", qe.gen_synth, EXIT_SEEDS),
-                ("bpr_ml1m_scale", qe.gen_ml1m_scale, EXIT_SEEDS[:1])]
-        for name, gen, seeds in runs:
+        runs = [("bpr", qe.gen_synth, EXIT_SEEDS, 30),
+                ("lightgcn", qe.gen_synth, EXIT_SEEDS, 30),
+                ("bpr_ml1m_scale", qe.gen_ml1m_scale, EXIT_SEEDS[:1],
+                 ML1M_EXIT_EPOCHS)]
+        for name, gen, seeds, epochs in runs:
             data_dir = gen(tmp)
             run = qe.run_lightgcn if name == "lightgcn" else qe.run_bpr
             res = []
             for seed in seeds:
                 t0 = time.perf_counter()
-                r = run(data_dir, seed, DEVICE)
+                r = run(data_dir, seed, DEVICE, epochs=epochs)
                 r["seconds"] = time.perf_counter() - t0
                 assert all(np.isfinite(v) for v in r["test"].values()), r
                 res.append({"seed": seed, **r})
-            out[name] = {"runs": res, "median_test": {
+            out[name] = {"epochs": epochs, "runs": res, "median_test": {
                 k: statistics.median(r["test"][k] for r in res)
                 for k in res[0]["test"]}}
     return out
@@ -3413,13 +3437,13 @@ def seq_zoo_on_card():
 
 
 def run_experiment_on_card(data_root):
-    """5j (4): `run_experiment("SASRec", "ml1m_scale", epochs=2,
+    """5j (4): `run_experiment("SASRec", "ml1m_scale", epochs=1,
     device="cuda")` over phase 5i's staged atomic files: the seconds of
     the data preparation, `fit` and the test evaluation, and the metrics."""
     from recbox_tpu_torch.quick_start import run_experiment
     t0 = time.perf_counter()
     res, tr = run_recorded(lambda: run_experiment(
-        "SASRec", "ml1m_scale", data_dir=data_root, epochs=2,
+        "SASRec", "ml1m_scale", data_dir=data_root, epochs=1,
         monitor="NDCG(k=10)", device=DEVICE))
     t_end = time.perf_counter()
     assert all(np.isfinite(v) for v in res.values()), res
@@ -3542,16 +3566,18 @@ def device_batches(arrays, size):
              for k, v in arrays.items()} for i in range(n)]
 
 
-def capture_b1_call(trainer, batch):
+def capture_b1_call(trainer, batch, keep_pack=True):
     """One eager step of ``trainer`` with B1's call recorded: (the pack
-    before the update, ids, G, slot gradients, lr, the layout keywords).
-    The step's own update goes through as usual."""
+    before the update, or None without ``keep_pack``, ids, G, slot
+    gradients, lr, the layout keywords). The step's own update goes
+    through as usual."""
     from recbox_tpu_torch.training import packed
     orig = packed.packed_adagrad_update_
     seen = {}
 
     def record(pack, ids, G, grads, lr, **kw):
-        seen.update(pre=pack.detach().clone(), ids=ids.detach().clone(),
+        seen.update(pre=pack.detach().clone() if keep_pack else None,
+                    ids=ids.detach().clone(),
                     G=G.detach().clone(),
                     grads=[g.detach().clone() for g in grads], lr=lr, kw=kw)
         return orig(pack, ids, G, grads, lr, **kw)
@@ -4047,6 +4073,8 @@ MI_MIN_LEN, MI_MAX_LEN = 5, 50
 # Adam at 1e-2: from emb_init's 1e-4 rows a capsule's squash leaves ~1e-8
 # vectors, whose gradients sit near Adam's eps at 1e-3
 MI_LR = 1e-2
+# queries a served variant: one (a query's host merge takes ~2 s)
+MI_QUERIES = 1
 # the autoencoders over ML-20M's catalog (the MultiVAE paper, Liang et al.,
 # WWW 2018, Table 1: 20,108 items after its filter), 8192 users, batch 500
 AE_ITEMS, AE_USERS, AE_BATCH = 20_108, 8192, 500
@@ -4138,7 +4166,7 @@ def mi_serve(trainer, users, variants):
             trainer.model, item_embs=svc.item_embs, method="auto",
             quantize="int8", device=svc.device)
         counts, walls = [], []
-        for _ in range(3):
+        for _ in range(MI_QUERIES):
             fused.reset_launches()
             mips_topk.reset_launches()
             t = time.perf_counter()
@@ -4725,11 +4753,11 @@ ADAM_STEPS = 16
 ADAM_EMBEDDING_LR = 1e-2
 SPLIT_DIM, SPLIT_STEPS = 128, 16
 RL_TRAIN, RL_VALID, RL_N, RL_FEATS = 16_384, 4_096, 30, 65
-RL_BATCH, RL_EPOCHS, RL_LR = 256, 2, 1e-3
+RL_BATCH, RL_EPOCHS, RL_LR = 256, 1, 1e-3
 PPO_UPDATES, PPO_INNER, PPO_LISTS, PPO_LR = 8, 4, 2048, 5e-3
 # LambdaMART's lists: 400, a depth cut from 1,000 (~15 s of host numpy) to
 # keep the script inside its time
-LM_LISTS, LM_TREES, LM_DEPTH = 400, 10, 4
+LM_LISTS, LM_TREES, LM_DEPTH = 200, 10, 4
 
 
 def block_rows_criteo(per_feature=None):
@@ -5849,6 +5877,348 @@ def check_two_ranks(res, on_card=True):
     return True
 
 
+# 5s. the public surface: the 14 examples of `recbox_tpu_torch/examples/`
+# on the card; DeepFM at `tools/prof_bigvocab_packed.py:24-25`'s shape
+# (26 x 1M x 64, 13 numeric, B = 8192) with direct_init; the segment-merge
+# top-k at `bench.py:244-262`'s shape (1M x 128, Q = 8192, k = 500)
+BV_VOCAB, BV_BATCH, BV_STEPS, BV_BATCHES = 1_000_000, 8192, 8, 4
+# the pack: 26M rows x 128 f32 ([64 embedding | 1 linear | 2 AdaGrad
+# accumulators | 0 pad]), 13,312,000,000 bytes
+BV_PACK_BYTES = NUM_CAT * BV_VOCAB * 128 * 4
+# dense tables beside it would add 26M x 65 f32 (6.76 GB); the steps' own
+# memory (B1's gathered rows 109 MB, bf16 activations, dense Adam, the
+# graph's pool) is well under 1 GB: the peak over the phase's start stays
+# under the pack plus 2 GiB, and tables would take it past 20 GB
+BV_PEAK_LIMIT = BV_PACK_BYTES + 2 * 2 ** 30
+SEG_N, SEG_D, SEG_CHUNK = 1_000_000, 128, 1024
+# an exact per-segment selection loses a top-500 item only where one of 8
+# segments holds more than seg_k = 93 of them (62.5 expected, sd ~7.5)
+SEG_RECALL_LIMIT = 0.99
+
+
+def kernel_counts():
+    """Every port kernel's launch count: B1, B2 each way, B3 by variant,
+    B4 by route, B5, B6."""
+    from recbox_tpu_torch.ops import (
+        bitonic_topk, embedding_gather, fused_ce, mips_fused_topk,
+        mips_topk, packed_delta,
+    )
+    return {**packed_delta.launches, **fused_ce.launches,
+            **{f"mips_fused_topk[{k}]": v
+               for k, v in mips_fused_topk.launches.items()},
+            **{f"mips_topk[{k}]": v
+               for k, v in mips_topk.route_launches.items()},
+            **bitonic_topk.launches, **embedding_gather.launches}
+
+
+def _scalars(result):
+    """The numbers and strings of an example's result (one level of dicts
+    deep), for the phase's line."""
+    out = {}
+    for key, val in result.items():
+        if isinstance(val, dict):
+            val = {k: v for k, v in val.items()
+                   if isinstance(v, (int, float, str))}
+        elif not isinstance(val, (int, float, str)):
+            continue
+        out[key] = val
+    return out
+
+
+def examples_on_card():
+    """5s(a): each example's ``main()`` on the card (the script's own
+    assert holds inside, or it raises), its wall seconds and the launches
+    of each port kernel around the call; the examples' prints go to
+    stderr. big_vocab_packed launches B1 once a step, ranking_deepfm's
+    packed trainer B1, large_vocab_flash_ce B2 both ways;
+    serving_retrieval's index is 'exact' (no kernel), as in JAX's
+    script."""
+    import contextlib
+    import importlib
+    from recbox_tpu_torch.examples import EXAMPLES
+    out = {}
+    for name in EXAMPLES:
+        module = importlib.import_module(f"recbox_tpu_torch.examples.{name}")
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            result = module.main()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = kernel_counts()
+        out[name] = {"wall_s": wall,
+                     "launches": {k: after[k] - before[k] for k in after
+                                  if after[k] != before[k]},
+                     "result": _scalars(result)}
+        torch.cuda.empty_cache()
+    launches = {name: r["launches"] for name, r in out.items()}
+    assert launches["big_vocab_packed"] == {
+        "packed_adagrad_update": 8}, launches["big_vocab_packed"]
+    assert launches["ranking_deepfm"].get("packed_adagrad_update", 0) > 0
+    flash = launches["large_vocab_flash_ce"]
+    assert flash.get("fused_ce_fwd", 0) > 0 \
+        and flash.get("fused_ce_bwd", 0) > 0, flash
+    assert out["serving_retrieval"]["result"]["index_method"] \
+        == "exact_sort" and not launches["serving_retrieval"]
+    return out
+
+
+def bigvocab_batches(n, seed=SEED + 181):
+    """`tools/prof_bigvocab_packed.py`'s batches, drawn on the card: ids
+    uniform over each field's 1M, numeric N(0, 1), clicks a fair coin."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    out = []
+    for _ in range(n):
+        b = {f"c{i}": torch.randint(0, BV_VOCAB, (BV_BATCH,), generator=gen,
+                                    device=DEVICE, dtype=torch.int32)
+             for i in range(NUM_CAT)}
+        b.update({f"n{i}": torch.randn(BV_BATCH, generator=gen,
+                                       device=DEVICE)
+                  for i in range(NUM_NUM)})
+        b["click"] = (torch.rand(BV_BATCH, generator=gen, device=DEVICE)
+                      < 0.5).float()
+        out.append(b)
+    return out
+
+
+def b1_big_pack(pack, rec):
+    """B1 against its plain version on one step's own operands ``rec``
+    (`capture_b1_call` without the pack's copy) over a pack too large to
+    hold three times: the plain version updates a copy of the touched rows
+    (B1's update is row-local), the kernel the pack itself; the touched
+    rows are held to the plain ones (`b1_agreement`,
+    `b1_update_agreement`), the untouched ones to a copy of the pack taken
+    before, bit for bit, 1M rows at a time. Then B1's times at the pack
+    (`b1_times`)."""
+    from recbox_tpu_torch.ops.packed_delta import (
+        fused_adagrad_delta_plain, packed_adagrad_update_,
+        packed_adagrad_update_plain_,
+    )
+    ids, G, grads, lr, kw = (rec[k] for k in ("ids", "G", "grads", "lr",
+                                              "kw"))
+    rows, local = torch.unique(ids.long(), return_inverse=True)
+    local = local.to(ids.dtype)
+    snap = pack.clone()
+    pre = pack.index_select(0, rows)
+    plain = pre.clone()
+    packed_adagrad_update_plain_(plain, local, G, grads, lr, **kw)
+    packed_adagrad_update_(pack, ids, G, grads, lr, **kw)
+    torch.cuda.synchronize()
+    got = pack.index_select(0, rows)
+    upd = fused_adagrad_delta_plain(G, grads, lr, store_w=pack.shape[1], **kw)
+    check = {**b1_agreement(got, plain, pre, local, upd),
+             **b1_update_agreement(got, plain, pre, local, upd)}
+    touched = torch.zeros(pack.shape[0], dtype=torch.bool, device=DEVICE)
+    touched[rows] = True
+    for r0 in range(0, pack.shape[0], 1 << 20):
+        keep = ~touched[r0:r0 + (1 << 20)]
+        assert torch.equal(pack[r0:r0 + (1 << 20)][keep],
+                           snap[r0:r0 + (1 << 20)][keep]), r0
+    del snap, got, plain, pre
+    times = b1_times(
+        lambda: packed_adagrad_update_(pack, ids, G, grads, lr, **kw),
+        lambda: packed_adagrad_update_plain_(pack, ids, G, grads, lr, **kw),
+        pack, ids, upd, grads, kw["dims"])
+    return {"check": {**check, "untouched_rows_bit_equal": True},
+            "time": {"pack": list(pack.shape), "dims": list(kw["dims"]),
+                     "grads": str(grads[0].dtype), **times}}
+
+
+def big_vocab_criteo():
+    """5s(b): `PackedEmbeddingTrainer(direct_init=True)` over DeepFM at
+    `tools/prof_bigvocab_packed.py:24-25`'s shape (26 fields x 1M ids x
+    64, 13 numeric, MLP 1024-512-256, bf16, batch 8192, Adam 1e-3 with clip
+    10, AdaGrad on the pack), the model built under `abstract_tables()`:
+    the pack is the only copy of the tables ever made (no table parameter,
+    the peak allocated over the phase's start under `BV_PEAK_LIMIT`).
+    BV_STEPS eager steps, then BV_STEPS replayed (`train_steps_fused`)
+    over BV_BATCHES batches in turn: finite losses, falling (the last
+    round of the batches below the first, the replayed steps' mean below
+    the eager ones'), B1 once a step, the peak; a replayed step
+    equal to an eager one (the batch's pack rows and a dense weight, as
+    5c); B1 against its plain version on a step's own operands at this
+    pack, and timed. The trainer is freed before the next phase."""
+    from recbox_tpu_torch.features import FeatureMap, FeatureSpec
+    from recbox_tpu_torch.models.ranking.ctr import DeepFM
+    from recbox_tpu_torch.nn import abstract_tables
+    from recbox_tpu_torch.ops import binary_crossentropy, packed_delta
+    from recbox_tpu_torch.training import TrainerConfig
+    from recbox_tpu_torch.training.packed import PackedEmbeddingTrainer
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    feats = tuple(
+        FeatureSpec(f"c{i}", "categorical", vocab_size=BV_VOCAB,
+                    embedding_dim=DIM) for i in range(NUM_CAT)) + tuple(
+        FeatureSpec(f"n{i}", "numeric", embedding_dim=DIM)
+        for i in range(NUM_NUM))
+    fm = FeatureMap("criteo_1m", feats, labels=("click",))
+    with abstract_tables():
+        model = DeepFM(fm, embedding_dim=DIM, hidden_units=HIDDEN,
+                       compute_dtype="bfloat16",
+                       generator=torch.Generator(
+                           device=DEVICE).manual_seed(SEED),
+                       device=DEVICE)
+    assert all(p.is_meta for n, p in model.named_parameters()
+               if ".tables." in n)
+    cfg = TrainerConfig(learning_rate=1e-3, grad_clip_norm=10.0, epochs=1,
+                        monitor="AUC", seed=SEED)
+    trainer = PackedEmbeddingTrainer(
+        model, lambda o, b: binary_crossentropy(o, b["click"]), cfg,
+        direct_init=True, device=DEVICE)
+    batches = bigvocab_batches(BV_BATCHES)
+    t0 = time.perf_counter()
+    trainer.init(batches[0])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    (pname,) = trainer.packs
+    pack = trainer.packs[pname]
+    assert tuple(pack.shape) == (NUM_CAT * BV_VOCAB, 128) \
+        and pack.numel() * pack.element_size() == BV_PACK_BYTES, pack.shape
+    assert not any(".tables." in n for n, _ in model.named_parameters())
+    order = [batches[i % BV_BATCHES] for i in range(BV_STEPS)]
+    packed_delta.reset_launches()
+    eager, eager_ms = [], []
+    for b in order:
+        t0 = time.perf_counter()
+        eager.append(float(trainer.train_step(b)))
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    eager_launches = packed_delta.launches["packed_adagrad_update"]
+    t0 = time.perf_counter()
+    replayed = trainer.train_steps_fused(stacked(order)).tolist()
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    launches = packed_delta.launches["packed_adagrad_update"]
+    peak = torch.cuda.max_memory_allocated() - base
+    assert eager_launches == BV_STEPS and launches == 2 * BV_STEPS, \
+        (eager_launches, launches)
+    losses = eager + replayed
+    assert all(math.isfinite(x) for x in losses), losses
+    rounds = [statistics.mean(losses[i:i + BV_BATCHES])
+              for i in range(0, len(losses), BV_BATCHES)]
+    assert rounds[-1] < rounds[0] \
+        and statistics.mean(replayed) < statistics.mean(eager), rounds
+    assert peak <= BV_PEAK_LIMIT, (peak, BV_PEAK_LIMIT)
+    # the replayed step against an eager one, on the rows the batch reads
+    offs = {f: b.row_offset for b in trainer._bundles[pname]
+            for f in b.features}
+    rows = torch.unique(torch.cat([batches[0][f].long() + off
+                                   for f, off in offs.items()]))
+    w_name = next(n for n in trainer.params if n.endswith("weight"))
+    match = graph_step_matches_eager(
+        trainer, batches[0],
+        lambda: {"pack_rows": trainer.packs[pname].index_select(0, rows),
+                 w_name: trainer.params[w_name]})
+    rec = capture_b1_call(trainer, batches[1], keep_pack=False)
+    b1 = b1_big_pack(trainer.packs[pname], rec)
+    out = {"pack": list(pack.shape), "pack_bytes": BV_PACK_BYTES,
+           "peak_allocated_over_start": peak, "peak_limit": BV_PEAK_LIMIT,
+           "allocated_at_start": base, "init_s": init_s,
+           "batch": BV_BATCH, "eager_losses": eager,
+           "replayed_losses": replayed, "round_mean_losses": rounds,
+           "b1_launches": launches, "eager_ms": eager_ms,
+           "eager_ms_after_first": statistics.mean(eager_ms[1:]),
+           "replayed_ms_a_step_with_capture": fused_s * 1e3 / BV_STEPS,
+           "replay_vs_eager": match, "b1": b1}
+    del trainer, model, pack, rec, batches, order
+    torch.cuda.empty_cache()
+    return out
+
+
+def segmented_on_card():
+    """5s(c): `segmented_mips_topk` at `bench.py:244-262`'s shape (1M x
+    128 N(0, 1) items, 8192 queries, k = 500, 8 segments, chunks of 1024
+    queries): B5's launches (two a chunk), the result against the same
+    function with B5's plain version in both selections (ids equal but for
+    ties at the k-th score, scores within rtol 1e-6), recall against the
+    exact top-k of the same bf16-rounded product over 512 queries (at
+    least `SEG_RECALL_LIMIT`); its ms, the plain version's, cuBLAS +
+    `torch.topk` over each chunk's scores and the bound (the corpus and
+    queries read once, the results written once; 2·Q·N·D operations at
+    the bf16 peak); B5's two selections of one chunk alone."""
+    from recbox_tpu_torch.ops import bitonic_topk
+    from recbox_tpu_torch.retrieval import index as index_mod
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 191)
+    items = torch.randn(SEG_N, SEG_D, generator=gen, device=DEVICE)
+    queries = torch.randn(N_QUERIES, SEG_D, generator=gen, device=DEVICE)
+
+    def run():
+        return index_mod.segmented_mips_topk(queries, items, K,
+                                             query_chunk=SEG_CHUNK)
+
+    bitonic_topk.reset_launches()
+    s, i = run()
+    torch.cuda.synchronize()
+    launches = bitonic_topk.launches["bitonic_topk"]
+    assert launches == 2 * (N_QUERIES // SEG_CHUNK), launches
+    assert tuple(i.shape) == (N_QUERIES, K) and bool(torch.isfinite(s).all())
+    real = index_mod.pallas_bitonic_topk
+    index_mod.pallas_bitonic_topk = \
+        lambda sc, ids=None, k=100: bitonic_topk.bitonic_topk_plain(sc, ids, k)
+    try:
+        ps, pi = run()
+        plain_ms = cuda_ms(run, reps=3)
+    finally:
+        index_mod.pallas_bitonic_topk = real
+    torch.testing.assert_close(s, ps, rtol=1e-6, atol=0.0)
+    cut = ps[:, -1:]
+    assert torch.equal(torch.where(s > cut, i, -1).sort(dim=1).values,
+                       torch.where(ps > cut, pi, -1).sort(dim=1).values)
+    qb = queries.to(torch.bfloat16).float()
+    ib = items.to(torch.bfloat16).float()
+    _, exact = torch.topk(qb[:512] @ ib.T, K, dim=1)
+    hits = (i[:512, :, None].long() == exact[:, None, :]).any(-1)
+    recall = float(hits.float().mean())
+    assert recall >= SEG_RECALL_LIMIT, recall
+    ms = cuda_ms(run, reps=3)
+
+    def library():
+        for q0 in range(0, N_QUERIES, SEG_CHUNK):
+            torch.topk(qb[q0:q0 + SEG_CHUNK] @ ib.T, K, dim=1)
+
+    library_ms = cuda_ms(library, reps=3)
+    moved = (SEG_N + N_QUERIES) * SEG_D * 4 + N_QUERIES * K * 8
+    by_bytes = moved / HBM_BYTES_S * 1e3
+    by_ops = 2.0 * N_QUERIES * SEG_N * SEG_D / PEAK_OPS["bf16"] * 1e3
+    # B5's two selections of one chunk, alone
+    seg_k = K // 8 + K // 16
+    seg_len = SEG_N // 8
+    sc = qb[:SEG_CHUNK] @ ib.T
+    rows = sc.view(SEG_CHUNK * 8, seg_len)
+    cs, ci = real(rows, None, seg_k)
+    merged_s = cs.view(SEG_CHUNK, -1)
+    merged_i = ci.view(SEG_CHUNK, -1)
+    stages = {}
+    for stage, (scores, ids, k) in (
+            ("segments", (rows, None, seg_k)),
+            ("merge", (merged_s, merged_i, K))):
+        c_rows, c = scores.shape
+        stage_moved = c_rows * c * 4 + c_rows * k * 8 \
+            + (0 if ids is None else c_rows * k * 4)
+        stages[stage] = {
+            "rows": c_rows, "c": c, "k": k,
+            "ms": cuda_ms(lambda: real(scores, ids, k), reps=5),
+            "plain_ms": cuda_ms(lambda: bitonic_topk.bitonic_topk_plain(
+                scores, ids, k), reps=3),
+            "library_ms": cuda_ms(lambda: torch.topk(scores, k, dim=1),
+                                  reps=5),
+            "bound_ms": stage_moved / HBM_BYTES_S * 1e3, "bound_by": "bytes"}
+    del sc, rows, cs, ci, merged_s, merged_i, qb, ib, items, queries
+    torch.cuda.empty_cache()
+    return {"n": SEG_N, "d": SEG_D, "q": N_QUERIES, "k": K,
+            "query_chunk": SEG_CHUNK, "n_segments": 8, "seg_k": seg_k,
+            "b5_launches": launches, "recall_vs_exact_512": recall,
+            "recall_limit": SEG_RECALL_LIMIT,
+            "max_abs_err": float((s - ps).abs().max()),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "per 1024 queries: cuBLAS f32 scores of the "
+                       "bf16-rounded operands + torch.topk(k=500)",
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "b5_one_chunk": stages}
+
+
 def main() -> int:
     from recbox_tpu_torch.models.matching import YoutubeDNN
     from recbox_tpu_torch.ops import _build
@@ -6208,6 +6578,26 @@ def main() -> int:
     r_b1 = mesh_a["b1_launches"] + sum(r["packed"]["b1_launches"]
                                        for r in mesh_b["ranks"])
     r_b5 = sum(r["search"]["b5_launches"] for r in mesh_b["ranks"])
+    # 5s. the public surface: the examples, DeepFM at 26 x 1M x 64 with
+    # direct_init, the segment-merge top-k at bench.py's shape
+    t5s = time.perf_counter()
+    t0 = time.perf_counter()
+    ex = examples_on_card()
+    emit({"phase": "examples_on_card", "card": card,
+          "wall_s": time.perf_counter() - t0, "examples": ex})
+    ex_launches = {}
+    for r in ex.values():
+        for key, n in r["launches"].items():
+            ex_launches[key] = ex_launches.get(key, 0) + n
+    t0 = time.perf_counter()
+    bv = big_vocab_criteo()
+    emit({"phase": "big_vocab_criteo", "card": card,
+          "wall_s": time.perf_counter() - t0, **bv})
+    t0 = time.perf_counter()
+    seg = segmented_on_card()
+    emit({"phase": "segmented_mips_topk", "card": card,
+          "wall_s": time.perf_counter() - t0, **seg})
+    emit({"phase": "5s", "wall_s": time.perf_counter() - t5s})
 
     # 6. times
     qps = {}
@@ -6263,7 +6653,13 @@ def main() -> int:
             "source": "recbox_tpu_torch/csrc/mips_fused_topk.cu",
             "stage_a_source": "recbox_tpu_torch/csrc/mips_topk.cu",
             "replaces": "recbox_tpu/ops/pallas/mips_fused_topk.py:100",
-            "launches": launches[variant], "max_abs_err": c["max_abs_err"],
+            "launches": launches[variant]
+            + ex_launches.get(f"mips_fused_topk[{variant}]", 0),
+            "launches_by_path": {
+                "serve_4": launches[variant],
+                "examples_5s": ex_launches.get(
+                    f"mips_fused_topk[{variant}]", 0)},
+            "max_abs_err": c["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
@@ -6303,8 +6699,11 @@ def main() -> int:
         + zoo["xdeepfm"]["b1_launches"]
         + din["run_ranking_experiment"]["b1_launches"]
         + mtl["run_ranking_experiment"]["b1_launches"]
-        + blk["b1_launches"] + pipe["b1_launches"] + r_b1,
+        + blk["b1_launches"] + pipe["b1_launches"] + r_b1
+        + ex_launches.get("packed_adagrad_update", 0) + bv["b1_launches"],
         "launches_by_path": {
+            "examples_5s": ex_launches.get("packed_adagrad_update", 0),
+            "big_vocab_5s_direct_init": bv["b1_launches"],
             "mesh_5r_one_rank_nccl_and_two_rank_gloo": r_b1,
             "deepfm_block_rows_5p_fused": blk["b1_launches"],
             "deepfm_pipeline_5q_streamed_fit": pipe["b1_launches"],
@@ -6360,6 +6759,15 @@ def main() -> int:
                 "pad_row_count", "hottest_row_count")},
             "device_ms_in_profiled_steps": (pipe["streamed_profile"][
                 "groups"] or {}).get("b1_packed_adagrad_update")},
+        "big_vocab_5s": {
+            "launches": bv["b1_launches"], "pack": bv["pack"],
+            "slots": bv["b1"]["time"]["dims"],
+            "grads": bv["b1"]["time"]["grads"],
+            "ids": "26 x 8,192 a step, uniform over each field's 1M",
+            "max_abs_err": bv["b1"]["check"]["max_abs_err"],
+            "max_abs_err_update": bv["b1"]["check"]["max_abs_err_update"],
+            **{key: bv["b1"]["time"][key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
         "not_called_5p": {
             "lazy_adam": layouts["lazy_adam_criteo"]["b1_launches"],
             "split_accumulators": layouts["split_accumulators_criteo"][
@@ -6411,8 +6819,10 @@ def main() -> int:
             "source": "recbox_tpu_torch/csrc/fused_ce.cu",
             "replaces": replaces,
             "launches": fit_d["b2_launches"][f"fused_ce_{key}"]
-            + seq_cli["b2_launches"][f"fused_ce_{key}"],
+            + seq_cli["b2_launches"][f"fused_ce_{key}"]
+            + ex_launches.get(f"fused_ce_{key}", 0),
             "launches_by_path": {
+                "examples_5s": ex_launches.get(f"fused_ce_{key}", 0),
                 "fit_fused_graph": fit_d["b2_launches"][f"fused_ce_{key}"],
                 "train_steps_repeat_eager": sas["launches"][
                     f"fused_ce_{key}"],
@@ -6476,6 +6886,9 @@ def main() -> int:
             "source": "recbox_tpu_torch/csrc/mips_topk.cu",
             "replaces": f"recbox_tpu/ops/pallas/mips_topk.py:{line}",
             "launches": cand_launches[name], "max_abs_err": max(errs),
+            "launches_by_route_examples_5s": {
+                r: ex_launches.get(f"mips_topk[{r}]", 0)
+                for r in ("wgmma", "tile")},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
@@ -6495,10 +6908,23 @@ def main() -> int:
         "name": "bitonic_topk", "route": "cuda",
         "source": "recbox_tpu_torch/csrc/bitonic_topk.cu",
         "replaces": "recbox_tpu/ops/pallas/bitonic_topk.py:123",
-        "launches": cand_launches["bitonic_topk"] + r_b5,
+        "launches": cand_launches["bitonic_topk"] + r_b5
+        + seg["b5_launches"] + ex_launches.get("bitonic_topk", 0),
         "launches_by_path": {"candidate_paths_4b":
                              cand_launches["bitonic_topk"],
-                             "sharded_search_merge_5r": r_b5},
+                             "sharded_search_merge_5r": r_b5,
+                             "segmented_mips_topk_5s": seg["b5_launches"],
+                             "examples_5s": ex_launches.get(
+                                 "bitonic_topk", 0)},
+        "segmented_5s": {
+            "launches": seg["b5_launches"], "max_abs_err": seg["max_abs_err"],
+            "shape": {key: seg[key] for key in (
+                "n", "d", "q", "k", "query_chunk", "n_segments", "seg_k")},
+            "recall_vs_exact_512": seg["recall_vs_exact_512"],
+            **{key: seg[key] for key in (
+                "ms", "plain_ms", "library_ms", "library", "bound_ms",
+                "bound_by")},
+            "b5_one_chunk": seg["b5_one_chunk"]},
         "max_abs_err": max(c["max_abs_err"] for c in b5_checks),
         "ms": t5["ms"], "plain_ms": t5["plain_ms"],
         "bound_ms": t5["bound_ms"], "bound_by": t5["bound_by"],
@@ -6516,7 +6942,11 @@ def main() -> int:
         "name": "seq_embedding_pool", "route": "cuda",
         "source": "recbox_tpu_torch/csrc/embedding_gather.cu",
         "replaces": "recbox_tpu/ops/pallas/embedding_gather.py:94",
-        "launches": cand_launches["seq_embedding_pool"],
+        "launches": cand_launches["seq_embedding_pool"]
+        + ex_launches.get("seq_embedding_pool", 0),
+        "launches_by_path": {
+            "candidate_paths_4b": cand_launches["seq_embedding_pool"],
+            "examples_5s": ex_launches.get("seq_embedding_pool", 0)},
         "max_abs_err": max(c["max_abs_err"] for c in b6_checks),
         "ms": t6["ms"], "plain_ms": t6["plain_ms"],
         "bound_ms": t6["bound_ms"], "bound_by": t6["bound_by"],

@@ -15,7 +15,10 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"
+
+__all__ = ["FeatureMap", "FeatureSpec", "Tokenizer", "Normalizer",
+           "__version__", "resolve_device"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -31,3 +34,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "is present; pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+# after resolve_device: modules below the root import it from here
+from recbox_tpu_torch.features import (  # noqa: E402
+    FeatureMap, FeatureSpec, Normalizer, Tokenizer,
+)

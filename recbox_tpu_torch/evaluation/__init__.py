@@ -1,5 +1,5 @@
 from recbox_tpu_torch.evaluation.beyond_accuracy import (
-    evaluate_beyond_accuracy,
+    evaluate_beyond_accuracy, gini_index, item_coverage, shannon_entropy,
 )
 from recbox_tpu_torch.evaluation.candidate import (
     candidate_topk, evaluate_candidate_retrieval, parse_protocol,
@@ -25,4 +25,5 @@ __all__ = ["evaluate_ctr", "auc_score", "log_loss", "grouped_auc",
            "MultiTaskEvaluator", "RetrievalEvaluator", "parse_protocol",
            "sample_eval_candidates", "candidate_topk",
            "evaluate_candidate_retrieval", "evaluate_beyond_accuracy",
+           "gini_index", "item_coverage", "shannon_entropy",
            "evaluate_rerank", "build_rerank_lists"]

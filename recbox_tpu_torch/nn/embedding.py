@@ -42,11 +42,19 @@ then leaves this rank's shard in ``tables[<table>]`` and its `RowShard` in
 ``table_shards[<table>]``, and the lookup runs the mesh's exchange
 (`parallel.mesh.sharded_embedding`). A replicated table is an ordinary
 parameter whose gradient the trainer all-reduces.
+
+Abstract tables: a model built inside ``abstract_tables()`` has its tables
+as shapes on the meta device, with no bytes and no draw (the counterpart of
+the abstract init that JAX's ``direct_init`` runs, `packed.py:316-329`).
+Only `PackedEmbeddingTrainer`'s direct init trains such a model: it draws
+the tables straight into its packs, so no dense table is ever made.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import contextlib
+import contextvars
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,11 +64,36 @@ from torch import nn
 from recbox_tpu_torch.features.schema import (
     CATEGORICAL, NUMERIC, SEQUENCE, FeatureMap, FeatureSpec,
 )
-from recbox_tpu_torch.nn.core import xavier_normal_, xavier_uniform_
+from recbox_tpu_torch.nn.core import (
+    normal_table, xavier_normal_, xavier_uniform_,
+)
 
 __all__ = ["FeatureEmbedding", "concat_embeddings", "stack_embeddings",
-           "masked_pool", "ROWS_PREFIX", "rows_key_for", "BLOCK_PREFIX",
-           "rows_block_key"]
+           "masked_pool", "emb_init", "abstract_tables", "ROWS_PREFIX",
+           "rows_key_for", "BLOCK_PREFIX", "rows_block_key"]
+
+_ABSTRACT_TABLES = contextvars.ContextVar("abstract_tables", default=False)
+
+
+@contextlib.contextmanager
+def abstract_tables() -> Iterator[None]:
+    """Inside, every `FeatureEmbedding` built makes its tables as shapes on
+    the meta device (no bytes, no draw); see the module docstring."""
+    token = _ABSTRACT_TABLES.set(True)
+    try:
+        yield
+    finally:
+        _ABSTRACT_TABLES.reset(token)
+
+
+def emb_init(std: float = 1e-4) -> Callable:
+    """JAX's ``emb_init(std)``: an initializer ``init(shape, generator,
+    device=None)`` that draws a normal(0, std) table from the explicit
+    generator (`nn/core.py` `normal_table`; Philox, not JAX's threefry)."""
+    def init(shape, generator: Optional[torch.Generator],
+             device: Optional[torch.device] = None) -> nn.Parameter:
+        return normal_table(shape, std, generator, device)
+    return init
 
 ROWS_PREFIX = "__rows__"
 BLOCK_PREFIX = "__rows_block__"
@@ -179,6 +212,10 @@ class FeatureEmbedding(nn.Module):
                 w = torch.empty(1, dim, device=device)
                 xavier_normal_(w, generator)
                 self.numeric[spec.name] = nn.Parameter(w)
+            elif spec.table_name not in self.tables \
+                    and _ABSTRACT_TABLES.get():
+                self.tables[spec.table_name] = nn.Parameter(torch.empty(
+                    self._table_rows(spec), dim, device="meta"))
             elif spec.table_name not in self.tables:
                 w = torch.empty(self._table_rows(spec), dim, device=device)
                 if emb_init_scheme == "normal":

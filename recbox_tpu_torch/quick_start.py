@@ -9,8 +9,10 @@ Counterpart of `recbox_tpu/quick_start.py`: `_use_fused_ce` (:41-81),
 `run_experiment` (:647-883) and `run_cascade_experiment` (:886-1213).
 A model's hyperparameters come from the config by the names of its
 constructor's arguments (JAX's: its dataclass fields); its initial draw
-from a generator seeded with the config's ``seed`` (2024 by default; JAX
-draws it from ``TrainerConfig.seed``, the same key). Every entry point
+from a host generator seeded with the config's ``seed`` (2024 by default;
+JAX draws it from ``TrainerConfig.seed``, the same key), so a seed gives the
+same initial weights on the card as on the CPU, as JAX's threefry draws do
+on every backend (`_seeded_build`). Every entry point
 takes ``device=`` and runs on the CUDA device unless the caller names
 another (`recbox_tpu_torch.resolve_device`, which raises without a card).
 ``mesh`` (`parallel.make_mesh`) reaches the trainers and the services as
@@ -48,7 +50,7 @@ from __future__ import annotations
 import inspect
 import logging
 import time
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -142,10 +144,21 @@ def _model_kwargs(cls, config: Mapping[str, Any]) -> Dict[str, Any]:
             for k, v in config.items() if k in names}
 
 
-def _generator(config: Mapping[str, Any], device: torch.device
-               ) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(
-        int(config.get("seed", 2024)))
+def _seeded_build(make: Callable, config: Mapping[str, Any],
+                  device: torch.device) -> torch.nn.Module:
+    """``make(generator, device)``, its parameters and buffers drawn on the
+    host from a generator seeded with the config's ``seed``. Off the CPU
+    the model is built on ``device`` as well (from a generator of that
+    device with the same seed, which a model may keep) and takes the host
+    draw's state: a card's generator gives another stream than the CPU's
+    for one seed, and JAX's draws are the same on every backend."""
+    seed = int(config.get("seed", 2024))
+    host = make(torch.Generator().manual_seed(seed), torch.device("cpu"))
+    if device.type == "cpu":
+        return host
+    model = make(torch.Generator(device=device).manual_seed(seed), device)
+    model.load_state_dict(host.state_dict())
+    return model
 
 
 def build_model(config: Mapping[str, Any], feature_map: FeatureMap,
@@ -157,8 +170,10 @@ def build_model(config: Mapping[str, Any], feature_map: FeatureMap,
     dev = resolve_device(device)
     # by keyword, as JAX's: a model that takes no feature map (the
     # autoencoders, Item2Vec) raises TypeError in both packages
-    return cls(feature_map=feature_map, **_model_kwargs(cls, config),
-               generator=_generator(config, dev), device=dev), stage
+    kwargs = _model_kwargs(cls, config)
+    return _seeded_build(
+        lambda g, d: cls(feature_map=feature_map, **kwargs, generator=g,
+                         device=d), config, dev), stage
 
 
 def build_reranker(config: Mapping[str, Any], in_dim: int,
@@ -168,9 +183,10 @@ def build_reranker(config: Mapping[str, Any], in_dim: int,
     cls, stage = get_model(config["model"])
     if stage != "reranking":
         raise ValueError(f"{config['model']} is not a reranker")
-    dev = resolve_device(device)
-    return cls(in_dim, **_model_kwargs(cls, config),
-               generator=_generator(config, dev), device=dev)
+    kwargs = _model_kwargs(cls, config)
+    return _seeded_build(
+        lambda g, d: cls(in_dim, **kwargs, generator=g, device=d), config,
+        resolve_device(device))
 
 
 def build_trainer_config(config: Mapping[str, Any]) -> TrainerConfig:

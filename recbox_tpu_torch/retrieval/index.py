@@ -12,9 +12,15 @@ Methods:
   version, i.e. the JAX package's device route at small size, not its
   CPU XLA fallback (`index.py:465-477`). Past the gates, 'auto' falls to
   'segmented' (k >= 256) or 'approx' as in the JAX package.
-* ``'approx'`` / ``'segmented'``: the JAX package serves these with
-  `lax.approx_max_k`, which PyTorch lacks. Here both are an exact
-  query-chunked `torch.topk` over the (bf16-rounded, when ``bf16``)
+* ``'segmented'`` (and 'auto' at k >= 256 past the kernel's gate), where
+  the corpus holds more than 16·k items: `segmented_mips_topk`, JAX's
+  segment merge (`index.py:145-200`): the top ``seg_k`` of each of 8
+  corpus segments, exactly, by kernel B5, then the exact top-k of the
+  merged candidates by B5 again. Its recall is bounded by the per-segment
+  budget, as JAX's is.
+* ``'approx'`` (and 'segmented' on a smaller corpus): the JAX package
+  serves it with `lax.approx_max_k`, which PyTorch lacks. Here it is an
+  exact query-chunked `torch.topk` over the (bf16-rounded, when ``bf16``)
   scores (`approx_mips_topk`); its recall of 1.0 meets any
   ``recall_target``.
 * ``'refined'``: over-retrieve 4·k by `approx_mips_topk` (bf16), then
@@ -54,7 +60,7 @@ from recbox_tpu_torch.ops.mips_fused_topk import mips_fused_topk
 from recbox_tpu_torch.ops.mips_topk import SEGMENT, quantize_int8
 
 __all__ = ["BruteForceMIPS", "chunked_topk", "approx_mips_topk",
-           "int8_mips_topk", "quantize_int8"]
+           "segmented_mips_topk", "int8_mips_topk", "quantize_int8"]
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
@@ -152,6 +158,63 @@ def approx_mips_topk(queries: torch.Tensor, items: torch.Tensor, topk: int,
         out_s.append(s)
         out_i.append(i.to(torch.int32))
     return torch.cat(out_s), torch.cat(out_i)
+
+
+def segmented_mips_topk(queries: torch.Tensor, items: torch.Tensor,
+                        topk: int, query_chunk: int = 1024,
+                        n_segments: int = 8, seg_k: int = 0,
+                        bf16: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's segment-merge top-k for large k (`index.py:145-200`): the
+    corpus is split into ``n_segments`` blocks of rows, each query keeps
+    the top ``seg_k`` of every block, and the top-k of those
+    n_segments·seg_k candidates is returned. ``seg_k`` (0: ~1.5× the even
+    split) and the padding (zero item rows scored -inf up to a multiple of
+    ``n_segments``, zero queries up to a multiple of ``query_chunk``) are
+    JAX's. Recall is bounded by the per-segment budget, as in JAX: a
+    query whose top-k holds more than ``seg_k`` items of one block loses
+    the rest; raise ``seg_k`` (or lower ``n_segments``) for headroom.
+
+    Each query chunk's scores are a product of operands rounded to bf16
+    (with ``bf16``) with f32 results, as XLA's preferred-f32 dot; both
+    selections are exact (JAX's CPU `approx_max_k` is exact too): the
+    per-block top ``seg_k`` is one launch of kernel B5 over the chunk's
+    (chunk·n_segments, block) score rows, the merge a second with the
+    candidates' ids. B5 runs its plain version on CPU tensors and raises
+    ValueError outside its domain (`ROADMAP.md` Queue C 10). Returns
+    ((Q, k) f32 scores, (Q, k) int32 ids), ties by position."""
+    q, d = queries.shape
+    n = items.shape[0]
+    if not seg_k:
+        # ~1.5x the even split, and never fewer merged candidates than topk
+        seg_k = max(topk // n_segments + topk // (2 * n_segments), 1,
+                    -(-topk // n_segments))
+    seg_k = max(seg_k, -(-topk // n_segments))
+    pad_n = (-n) % n_segments
+    if pad_n:
+        items = torch.cat([items, items.new_zeros((pad_n, d))])
+    seg_len = items.shape[0] // n_segments
+    pad_q = (-q) % query_chunk
+    if pad_q:
+        queries = torch.cat([queries, queries.new_zeros((pad_q, d))])
+    if bf16:
+        items = items.to(torch.bfloat16).to(torch.float32)
+        queries = queries.to(torch.bfloat16).to(torch.float32)
+    seg_off = torch.arange(n_segments, dtype=torch.int32,
+                           device=items.device)[None, :, None] * seg_len
+    out_s, out_i = [], []
+    for q0 in range(0, queries.shape[0], query_chunk):
+        s = queries[q0:q0 + query_chunk] @ items.T
+        if pad_n:
+            s[:, n:] = float("-inf")
+        c = s.shape[0]
+        cs, ci = pallas_bitonic_topk(s.view(c * n_segments, seg_len), None,
+                                     seg_k)
+        ci = (ci.view(c, n_segments, seg_k) + seg_off).view(c, -1)
+        ts, ti = pallas_bitonic_topk(cs.view(c, -1), ci, topk)
+        out_s.append(ts)
+        out_i.append(ti)
+    return torch.cat(out_s)[:q], torch.cat(out_i)[:q]
 
 
 def _two_phase_exact(queries: torch.Tensor, items: torch.Tensor, topk: int,
@@ -302,8 +365,12 @@ class BruteForceMIPS:
                                    query_tile=self.query_chunk)
         if self.method == "exact_sort":
             return chunked_topk(queries, self.items, topk, self.chunk_size)
-        # JAX's 'segmented' branch (N > 16k) is inside this one here: both
-        # are the exact top-k
+        if (self.method == "segmented"
+                or (self.method == "auto" and topk >= 256)) \
+                and self.num_items > 16 * topk:
+            return segmented_mips_topk(queries, self.items, topk,
+                                       query_chunk=self.query_chunk,
+                                       bf16=self.bf16)
         if self.method in ("approx", "segmented", "pallas", "auto") \
                 and self.num_items > 4 * topk:
             return approx_mips_topk(queries, self.items, topk,

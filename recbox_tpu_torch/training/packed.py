@@ -77,7 +77,9 @@ from torch.profiler import record_function
 
 from recbox_tpu_torch.features.schema import CATEGORICAL, SEQUENCE
 from recbox_tpu_torch.models.base import MatchingModel
-from recbox_tpu_torch.nn.embedding import rows_block_key, rows_key_for
+from recbox_tpu_torch.nn.embedding import (
+    FeatureEmbedding, rows_block_key, rows_key_for,
+)
 from recbox_tpu_torch.ops.losses import embedding_reg_loss
 from recbox_tpu_torch.ops.packed_delta import packed_adagrad_update_
 from recbox_tpu_torch.parallel.mesh import (
@@ -135,7 +137,11 @@ class PackedEmbeddingTrainer(Trainer):
     ``adam_b1`` / ``adam_b2``); ``block_rows``; ``direct_init`` (None =
     auto) draws the packs directly instead of copying the model's tables;
     ``table_initializer(generator, shape, device)`` overrides that draw
-    (default normal std=1e-4).
+    (default normal std=1e-4). A model built under
+    `nn.embedding.abstract_tables()` has no table bytes anywhere: its meta
+    tables stay off the trainer's device, and only the direct init (which
+    None then picks) can train it, so the packs are the only copy of the
+    tables ever made.
 
     ``delta_kernel`` takes the JAX package's three values, 'auto', 'pallas'
     and 'xla', and every value runs the same update here: kernel B1 on the
@@ -148,7 +154,8 @@ class PackedEmbeddingTrainer(Trainer):
     pass, so there is no such trade-off to select.
     """
 
-    def __init__(self, *args, embedding_lr: Optional[float] = None,
+    def __init__(self, model: torch.nn.Module, *args,
+                 embedding_lr: Optional[float] = None,
                  adagrad_init: float = 0.0, adagrad_eps: float = 1e-8,
                  direct_init: Optional[bool] = None,
                  table_initializer: Optional[Callable] = None,
@@ -156,7 +163,17 @@ class PackedEmbeddingTrainer(Trainer):
                  adam_b1: float = 0.9, adam_b2: float = 0.999,
                  delta_kernel: str = "auto", block_rows: bool = False,
                  **kwargs):
-        super().__init__(*args, **kwargs)
+        # abstract tables cannot move to a device: hold them out of the
+        # move, then put the shapes back for init to plan the packs from
+        abstract = []
+        for m in model.modules():
+            if isinstance(m, FeatureEmbedding):
+                meta = [n for n, p in m.tables.items() if p.is_meta]
+                abstract += [(m, n, m.tables.pop(n)) for n in meta]
+        super().__init__(model, *args, **kwargs)
+        for m, name, p in abstract:
+            m.tables[name] = p
+        self._abstract_tables = bool(abstract)
         if embedding_optimizer not in ("adagrad", "adam"):
             raise NotImplementedError(
                 f"embedding_optimizer={embedding_optimizer!r}")
@@ -307,9 +324,15 @@ class PackedEmbeddingTrainer(Trainer):
         self._plan_layout({k: tuple(v.shape) for k, v in tables.items()},
                           sample_batch)
         use_direct = self.direct_init
+        if self._abstract_tables and use_direct is False:
+            raise ValueError(
+                "the model's tables were built under abstract_tables(), "
+                "so only direct_init can draw them; pass direct_init=True "
+                "or None")
         if use_direct is None:
             # the exact path holds the model's tables and the packs at once
-            use_direct = self._packed_physical_bytes() * 2 > 8 * 2 ** 30
+            use_direct = (self._abstract_tables
+                          or self._packed_physical_bytes() * 2 > 8 * 2 ** 30)
         if use_direct:
             scheme = getattr(self.model, "emb_init_scheme", "normal")
             if self.table_initializer is None and scheme != "normal":
