@@ -10,15 +10,19 @@ Phases (any failure raises and exits non-zero):
      and beside them the host library of `native/*.cpp` (g++) into
      `build/native/`;
      each kernel's registers and spills as ptxas gives them (B4's
-     wgmma route at D = 64 and 128, whose packed instantiations are B3's
-     stage (a), B5's selection, B3's selection with its epilogue, B2's
-     ce_fwd / ce_bwd at depth 64 and 128, B1 and B6 must spill nothing);
+     wgmma and segment routes at D = 64 and 128, whose packed
+     instantiations are B3's stage (a), B5's selection, B3's selection
+     with its epilogue, B2's ce_fwd / ce_bwd at depth 64 and 128, B1 and
+     B6 must spill nothing);
   3. every kernel against its plain PyTorch version on the card: the MIPS
      top-k (B3) on N(0, 1) data at a small shape, the serving path's shape
      and the 1M x 128 shape (f32 and the small shape on B4's tile route),
-     and at 20 and 600 queries (the JAX segment plan below 1024 queries, on
-     the tile route), integer data bit for bit; B3 on integer data bit for
-     bit, bf16 and int8, on the wgmma route: at 1M x 64 and 1M x 128, at
+     and, on integer data bit for bit with one launch of each stage a call,
+     at the sweep of 1, 8, 20, 64, 256, 600 and 910 queries over 1M x 64
+     (and 20, 600 over 1M x 128; JAX's plans of 9 to 256 segments, on the
+     segment route) and 911, 1024 (on the wgmma route); B3 on integer
+     data bit for bit, bf16 and int8, on the wgmma route: at 1M x 64 and
+     1M x 128, at
      each plan of the route over 50,000 x 300, and over a corpus of repeated
      blocks whose tied winners must come out position ascending; the packed
      AdaGrad update (B1) at the Criteo training shape, ids uniform per field
@@ -38,8 +42,11 @@ Phases (any failure raises and exits non-zero):
      D = 64,
      integer-valued inputs bit for bit and N(0, 1) ones up to packed
      near-ties; every instantiation (f32 too) on integer data at 3000 rows
-     x 20 queries (the tile route, the packed ones split into runs merged
-     by atomic max) and 100,000 x 1024, and bf16 packed and unpacked and
+     x 20 queries (packed f32 on the tile route split into runs merged by
+     atomic max, packed bf16 and int8 on the segment route over the corpus
+     padded to whole segments), 100,000 x 1024 and 100,000 x 300 (27
+     segments, the last rows through the segment route's shifted view),
+     and bf16 packed and unpacked and
      int8 at each plan of the wgmma route (query tiles of 8192, 4096, 2048
      and 1024: 1, 2, 4 and 8 segments a sub-chunk) over 50,000 rows x 300
      queries at D = 128 and 64, bit for bit; B5 (the radix selection) at
@@ -59,6 +66,11 @@ Phases (any failure raises and exits non-zero):
      (each query one launch of B3's stage (a) on the wgmma route and one of
      its selection); recall against an exact bf16 top-k oracle; successive
      results in memory of their own; seen-item exclusion;
+  4a. small requests: 64 requests of 32 users a corpus through
+     `RetrievalService.query`, counts reset just before and read just after
+     (one selection and one segment-route stage (a) a request), wall ms a
+     request, one request under torch.profiler (device ms, idle share),
+     recall@500 against the exact top-k (>= 0.95 bf16, >= 0.90 int8);
   4b. the candidate paths, with B4 (by variant and by route), B5 and B6's
      counts reset just before and read just after: `pallas_mips_topk` at
      B4's shape packed (default merge), unpacked through B5
@@ -321,7 +333,9 @@ Phases (any failure raises and exits non-zero):
      F.embedding_bag for B6, over Zipf ids that stay in L2 and uniform
      ones that reach HBM; the port calls none of them), the
      bound (B2's counting its exps), B3's two stages alone and its stage (a) on
-     the tile route, B4 at D = 128 and 64 with its tile route on the same
+     the tile route (at the serving shape and at each point of the sweep
+     but 1024 queries, the sweep over runs of 10 or 3 calls behind a spin
+     kernel), B4 at D = 128 and 64 with its tile route on the same
      inputs beside its wgmma route, and the service's queries/s; one service query under torch.profiler,
      for device time by kernel, the results' copy to the host and the
      device's idle share.
@@ -457,8 +471,10 @@ def b3_route_taken(before):
     ``before``; asserts that call made one launch of each stage."""
     now = b3_counts()
     diff = {key: now[key] - before[key] for key in now}
-    assert diff["select"] == 1 and diff["wgmma"] + diff["tile"] == 1, diff
-    return "wgmma" if diff["wgmma"] else "tile"
+    routes = [key for key in diff if key != "select" and diff[key]]
+    assert diff["select"] == 1 and len(routes) == 1 \
+        and diff[routes[0]] == 1, diff
+    return routes[0]
 
 
 def check_kernel(variant, n, d, nq, k, gen):
@@ -556,7 +572,10 @@ def bound_ms(variant, n, d, nq, k):
 
 def library_topk(q, c, scale, k, chunk=512):
     """One PyTorch formulation of the same top-k: cuBLAS scores (bf16
-    matmul, or torch._int_mm for int8) and torch.topk, in query chunks."""
+    matmul, or torch._int_mm for int8) and torch.topk, in query chunks.
+    torch._int_mm takes more than 16 rows: a chunk of 16 queries or fewer
+    is padded with zero queries to 32, whose rows are dropped before the
+    top-k (their product is timed with it)."""
     out = []
     if c.dtype == torch.int8:
         from recbox_tpu_torch.ops.mips_topk import quantize_int8
@@ -566,7 +585,11 @@ def library_topk(q, c, scale, k, chunk=512):
         n = c.shape[0]
         c8 = torch.nn.functional.pad(c, (0, 0, 0, -n % 64))
         for s in range(0, q.shape[0], chunk):
-            sc = torch._int_mm(q8[s:s + chunk], c8.T)[:, :n].float() * scale
+            qc = q8[s:s + chunk]
+            m = qc.shape[0]
+            if m <= 16:
+                qc = torch.nn.functional.pad(qc, (0, 0, 0, 32 - m))
+            sc = torch._int_mm(qc, c8.T)[:m, :n].float() * scale
             out.append(torch.topk(sc * qs[s:s + chunk, None], k, dim=1))
     else:
         qc = q.to(c.dtype)
@@ -613,25 +636,93 @@ def b3_stages(q, c, scale, k):
     return stage_a, stage_b, lambda: b4_tile_route(q, c, scale, True, sub)
 
 
-def time_kernel(variant, n, d, nq, k, gen, reps=5):
+def time_kernel(variant, n, d, nq, k, gen, reps=5, inputs=None,
+                stages=None, inner=1):
     """B3 (both launches, through its wrapper), its plain version, the
-    library formulation and the bound, medians of ``reps`` calls; at the
-    serving query count also each stage alone (the selection over runs of
-    20 calls behind a spin kernel) and stage (a) on the tile route."""
-    from recbox_tpu_torch.ops.mips_fused_topk import mips_fused_topk
-    q, c, scale = make_inputs(variant, n, d, nq, gen)
-    ms = cuda_ms(lambda: mips_fused_topk(q, c, k, row_scale=scale), reps)
+    library formulation and the bound, medians of ``reps`` calls (B3 and
+    the library over runs of ``inner`` calls behind a spin kernel); with
+    ``stages`` (default: bf16 and int8 at the serving query count) also
+    each stage alone (the selection over runs of 20 calls behind a spin
+    kernel) and stage (a) on the tile route. ``inputs`` (q, c, scale) are
+    `make_inputs`'s, drawn here by default."""
+    from recbox_tpu_torch.ops.mips_fused_topk import (
+        mips_fused_topk, segment_plan,
+    )
+    from recbox_tpu_torch.ops.mips_topk import candidate_route
+    q, c, scale = inputs or make_inputs(variant, n, d, nq, gen)
+    ms = cuda_ms(lambda: mips_fused_topk(q, c, k, row_scale=scale), reps,
+                 inner)
     plain_ms = cuda_ms(lambda: run_plain(q, c, k, n, scale), reps)
-    library_ms = cuda_ms(lambda: library_topk(q, c, scale, k), reps)
+    library_ms = cuda_ms(lambda: library_topk(q, c, scale, k), reps, inner)
     b_ms, b_by = bound_ms(variant, n, d, nq, k)
     out = {"variant": variant, "n": n, "d": d, "q": nq, "k": k, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
-           "bound_by": b_by}
-    if variant != "f32" and nq == N_QUERIES:
+           "bound_by": b_by, "route": candidate_route(
+               c.dtype, d, segment_plan(c.dtype, n, d, nq, k)[0])}
+    if stages if stages is not None else (variant != "f32"
+                                          and nq == N_QUERIES):
         stage_a, stage_b, tile_a = b3_stages(q, c, scale, k)
-        out.update(stage_a_ms=cuda_ms(stage_a),
+        out.update(stage_a_ms=cuda_ms(stage_a, inner=inner),
                    stage_b_ms=cuda_ms(stage_b, reps=11, inner=20),
-                   tile_route_stage_a_ms=cuda_ms(tile_a, reps=3))
+                   tile_route_stage_a_ms=cuda_ms(tile_a, reps=3,
+                                                 inner=inner))
+    return out
+
+
+# phase 4a: requests of SMALL_USERS users, SMALL_REQUESTS of them a variant
+SMALL_USERS, SMALL_REQUESTS = 32, 64
+
+
+def serve_small_batches(svcs, users):
+    """Each service answers `SMALL_REQUESTS` requests of `SMALL_USERS`
+    users (consecutive slices of phase 4's users) through
+    `RetrievalService.query`: wall ms a request (to the results on the
+    host), one request under the profiler (device ms; the idle share
+    against the unprofiled median wall, the profiler's own beside it), B3's
+    launches by stage and route with the counts set to 0 just before and
+    read just after (one selection and one segment-route stage (a) a
+    request), and recall@500 of the first 512 users against the exact
+    top-k, held to the serving limits."""
+    from recbox_tpu_torch.ops import mips_fused_topk as fused
+    from recbox_tpu_torch.ops import mips_topk
+    reqs = [{key: v[r * SMALL_USERS:(r + 1) * SMALL_USERS]
+             for key, v in users.items()} for r in range(SMALL_REQUESTS)]
+    out = {}
+    for name, s in svcs:
+        s.query(reqs[0], k=K)                    # warm
+        torch.cuda.synchronize()
+        fused.reset_launches()
+        mips_topk.reset_launches()
+        walls, got = [], []
+        for req in reqs:
+            t0 = time.perf_counter()
+            scores, ids = s.query(req, k=K)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            got.append(ids)
+            assert scores.shape == ids.shape == (SMALL_USERS, K)
+            assert np.isfinite(scores).all() and (ids >= 0).all() \
+                and (ids < N_ITEMS).all()
+            assert (np.diff(scores, axis=1) <= 0).all()
+        counts = b3_counts()
+        assert counts == {"select": SMALL_REQUESTS, "wgmma": 0,
+                          "segment": SMALL_REQUESTS, "tile": 0}, counts
+        ids = np.concatenate(got)
+        recall = recall_vs_bf16_oracle(
+            s, {key: v[:len(ids)] for key, v in users.items()}, ids)
+        assert recall >= (0.95 if name == "bf16" else 0.90), (name, recall)
+        prof = breakdown(s, reqs[1])
+        wall = statistics.median(walls)
+        device = prof["device_ms"]
+        out[name] = {"users_a_request": SMALL_USERS,
+                     "requests": SMALL_REQUESTS, "k": K,
+                     "wall_ms_a_request": wall,
+                     "wall_ms_range": [min(walls), max(walls)],
+                     "device_ms_a_request": device,
+                     # against the unprofiled request's wall time
+                     "idle_share": None if device is None
+                     else 1 - device / wall,
+                     "launches": counts, "recall_vs_exact_512": recall,
+                     "profiled_request": prof}
     return out
 
 
@@ -664,33 +755,75 @@ def breakdown(svc, users):
                           for name, ms, n in rows[:8]]}
 
 
+# B3 below 911 queries, where JAX's plan for the query tile has 9 to 256
+# segments a sub-chunk and stage (a) takes the segment route: the sweep over
+# 1M x 64 (and the D = 128 points), bf16 and int8; 911 and 1024 queries plan
+# 8 segments and keep the wgmma route
+SEG_SWEEP = (1, 8, 20, 64, 256, 600, 910)
+SEG_SWEEP_D128 = (20, 600)
+SEG_WGMMA = (911, 1024)
+
+
+def segment_sweep_points():
+    """(variant, d, nq, route) of the sweep: bf16 and int8 at D = 64 over
+    `SEG_SWEEP` and `SEG_WGMMA`, and at D = 128 over `SEG_SWEEP_D128`."""
+    return [(v, d, nq, "segment" if nq <= 910 else "wgmma")
+            for v in ("bf16", "int8") for d in (DIM, 128)
+            for nq in ((SEG_SWEEP + SEG_WGMMA) if d == DIM
+                       else SEG_SWEEP_D128)]
+
+
 def check_segment_plan(gen):
-    """B3 below 1024 queries, where the JAX plan's sub-chunks are not 1024
-    rows: 20 queries (16384 rows, 128 segments) and 600 (1664 rows, 13
-    segments) over 1M x 64 bf16. Values are small integers, so every order
-    of summation is exact and kernel and plain version must return the same
-    ids and scores, ties included."""
+    """B3 at every point of the sweep (`segment_sweep_points`) over 1M
+    items on integer-valued towers (every order of summation exact): ids
+    and scores equal to the plain version's bit for bit, ties included,
+    one launch of each stage a call, on the route the point names."""
     from recbox_tpu_torch.ops.mips_fused_topk import (
         mips_fused_topk, segment_plan,
     )
-    c = torch.randint(-4, 5, (N_ITEMS, DIM), generator=gen,
-                      device=DEVICE).to(torch.bfloat16)
-    out = []
-    for nq in (20, 600):
-        q = torch.randint(-4, 5, (nq, DIM), generator=gen,
-                          device=DEVICE).float()
-        sub, n_cand = segment_plan(c.dtype, N_ITEMS, DIM, nq, K)
+    out, corpora = [], {}
+    for variant, d, nq, want in segment_sweep_points():
+        if (variant, d) not in corpora:
+            corpora.clear()
+            corpora[variant, d] = b3_integer_inputs(
+                gen, variant, N_ITEMS, d, max(SEG_SWEEP + SEG_WGMMA))
+        q, c, scale = corpora[variant, d]
+        q = q[:nq]
+        sub, n_cand = segment_plan(c.dtype, N_ITEMS, d, nq, K)
         before = b3_counts()
-        s, i = mips_fused_topk(q, c, K)
+        s, i = mips_fused_topk(q, c, K, row_scale=scale)
         route = b3_route_taken(before)
-        s2, i2 = run_plain(q, c, K, N_ITEMS, None)
+        s2, i2 = run_plain(q, c, K, N_ITEMS, scale)
         torch.cuda.synchronize()
-        assert torch.equal(i, i2) and torch.equal(s, s2), nq
+        assert route == want, (variant, d, nq, route)
+        assert torch.equal(i, i2) and torch.equal(s, s2), (variant, d, nq)
         assert bool(((i >= 0) & (i < N_ITEMS)).all())
-        assert route == "tile", (nq, route)
-        out.append({"q": nq, "sub_rows": sub, "segments": sub // 128,
-                    "candidates": n_cand, "route": route,
-                    "ids_equal": True})
+        out.append({"variant": variant, "d": d, "q": nq, "sub_rows": sub,
+                    "segments": sub // 128, "candidates": n_cand,
+                    "route": route, "launches_a_call": 1,
+                    "bits_equal": True, "max_abs_err": 0.0})
+        del s, i, s2, i2
+    return out
+
+
+def time_segment_sweep(gen):
+    """`time_kernel` at every point of the sweep but 1024 queries (N(0, 1)
+    towers, one draw a (variant, depth) sliced to each query count): B3,
+    its stages, stage (a) on the tile route, plain, library, bound; the
+    device's time over runs of 10 calls behind a spin kernel up to 64
+    queries (calls of ~0.1 ms), of 3 above."""
+    out, drawn = [], {}
+    for variant, d, nq, _ in segment_sweep_points():
+        if nq == 1024:
+            continue
+        if (variant, d) not in drawn:
+            drawn.clear()
+            drawn[variant, d] = make_inputs(variant, N_ITEMS, d,
+                                            max(SEG_SWEEP + SEG_WGMMA), gen)
+        q, c, scale = drawn[variant, d]
+        out.append(time_kernel(variant, N_ITEMS, d, nq, K, gen,
+                               inputs=(q[:nq], c, scale), stages=True,
+                               inner=10 if nq <= 64 else 3))
     return out
 
 
@@ -1250,9 +1383,13 @@ B4_VARIANTS = (("packed", torch.bfloat16, True), ("packed_int8", torch.int8,
 B4_F32_VARIANTS = (("packed", torch.float32, True),
                    ("unpacked", torch.float32, False))
 # a corpus and a few queries whose grid is too small for the card (the
-# packed variants split each sub-chunk into runs merged by atomic max), and
-# a mid-size one with no split runs; the last 37 rows past valid_items
-B4_SMALL = ((3000, 20), (100_000, 1024))
+# packed f32 variant splits each sub-chunk into runs merged by atomic max;
+# bf16 and int8 take the segment route over the corpus padded to a whole
+# number of segments), a mid-size one with no split runs, and 300 queries
+# over it (27 segments a sub-chunk, a ragged last sub-chunk whose last 19
+# rows the segment route reads through its shifted view); the last 37 rows
+# past valid_items
+B4_SMALL = ((3000, 20), (100_000, 1024), (100_000, 300))
 # the plans the wgmma route takes at D=128 (bf16, int8): query tiles of
 # 8192, 4096, 2048 and 1024 queries give n_seg = 1, 2, 4 and 8; 300
 # queries (a ragged second tile of 256) over a corpus whose last sub-chunk
@@ -1304,13 +1441,13 @@ def b4_pair(q, c, scale, packed, valid=None, tile=None):
     valid = n if valid is None else valid
     before = dict(route_launches)
     got, sub = b4_candidates(q, c, scale, packed, valid, tile)
-    route = candidate_route(c.dtype, c.shape[1], sub)
+    route = candidate_route(c.dtype, c.shape[1], sub, packed)
     assert route_launches[route] == before[route] + 1, (route, before)
     want = mips_segment_candidates_plain(q, c, valid, packed, scale, sub)
     n_live = (want if packed else want[0]).shape[0]
     got = got[:n_live] if packed else (got[0][:n_live], got[1][:n_live])
-    splits = 1 if route == "wgmma" else split_runs(nq, n, sub, packed,
-                                                   c.device)
+    splits = split_runs(nq, n, sub, packed, c.device) if route == "tile" \
+        else 1
     return got, want, {"route": route, "sub_rows": sub, "splits": splits}
 
 
@@ -1325,9 +1462,11 @@ def check_b4_small(gen):
     """Every instantiation of B4 (f32 too) at the `B4_SMALL` shapes, and
     bf16 packed and unpacked and int8 at each plan of the wgmma route
     (`B4_PLAN_TILES`) at D = 128 and 64, on integer-valued inputs, against
-    the plain version bit for bit; at the first small shape the packed ones
-    must run split on the tile route, and each plan tile must take the
-    wgmma route."""
+    the plain version bit for bit; at the first small shape (20 queries:
+    16,384-row sub-chunks, 128 segments, over 3000 rows, padded to a whole
+    number of segments) packed f32 must run split on the tile route, packed
+    bf16 and int8 on the segment route, unpacked bf16 unsplit on the tile
+    route; each plan tile must take the wgmma route."""
     out = []
     cases = [(n, nq, None, B4_D, v) for n, nq in B4_SMALL
              for v in B4_VARIANTS + B4_F32_VARIANTS]
@@ -1338,8 +1477,12 @@ def check_b4_small(gen):
         got, want, how = b4_pair(q, c, scale, packed, n - 37, tile)
         torch.cuda.synchronize()
         assert b4_bits_equal(got, want, packed), (n, nq, tile, name, dtype)
-        if packed and n == B4_SMALL[0][0]:
-            assert how["route"] == "tile" and how["splits"] > 1, (n, how)
+        if n == B4_SMALL[0][0]:
+            want = ("segment", 1) if packed and dtype != torch.float32 \
+                else ("tile", 1 if not packed else how["splits"])
+            assert (how["route"], how["splits"]) == want, (n, dtype, how)
+            assert how["route"] != "tile" or not packed \
+                or how["splits"] > 1, (n, how)
         if tile is not None:
             assert how["route"] == "wgmma", (tile, how)
         out.append({"variant": name, "dtype": str(dtype), "n": n, "d": d,
@@ -1556,7 +1699,7 @@ def candidate_paths(gen):
     assert counts == {"packed": 1, "packed_int8": 1, "unpacked": 2,
                       "bitonic_topk": 1, "seq_embedding_pool": 2}, counts
     # the 1024-query plan of every call on the new route
-    assert routes == {"wgmma": 4, "tile": 0}, routes
+    assert routes == {"wgmma": 4, "segment": 0, "tile": 0}, routes
     for name, (s, i) in res.items():
         assert s.shape == (B4_Q, K) and i.shape == (B4_Q, K), name
         assert bool(torch.isfinite(s).all()), name
@@ -1703,7 +1846,7 @@ def time_b4(gen):
                                      for v in B4_VARIANTS):
         q, c, scale = b4_inputs(gen, dtype, False, d=d)
         sub, _ = candidate_plan(dtype, B4_N, d, B4_TILE)
-        route = candidate_route(dtype, d, sub)
+        route = candidate_route(dtype, d, sub, packed)
         pad = (-B4_N) % sub
         c_pad = F.pad(c, (0, 0, 0, pad))
         scale_pad = None if scale is None else F.pad(scale, (0, pad))
@@ -2780,9 +2923,10 @@ def sparse_mf_graph_check():
     return out
 
 
-# epochs of 5g's MF-BPR run on ml1m_scale (~5.4 s each on the card; the
-# exit's 30-epoch reading there is in PERF.md §7)
-ML1M_EXIT_EPOCHS = 4
+# epochs of 5g's MF-BPR run on ml1m_scale (~5.8 s each on the card; the
+# exit's 30-epoch reading there is in PERF.md §7), a depth cut that keeps
+# the script inside its time
+ML1M_EXIT_EPOCHS = 2
 
 
 def matching_exits_on_card():
@@ -6266,11 +6410,15 @@ def main() -> int:
     for name, log in _build.build_logs.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         emit({"phase": "ptxas", "kernel": name, "usage": regs})
-    # the redesigned kernels spill nothing: B4's wgmma route at D = 64 and
-    # 128 (B3's stage (a) its packed instantiations), B5's selection, B3's
-    # selection with its epilogue, B2 both ways, B1 and B6
+    # the redesigned kernels spill nothing: B4's wgmma and segment-major
+    # routes at D = 64 and 128 (B3's stage (a) their packed
+    # instantiations), B5's selection, B3's selection with its epilogue, B2
+    # both ways, B1 and B6
     redesigned = {"mips_topk": usage_of(_build.build_logs, "mips_topk",
                                         "segment_candidates_wgmma"),
+                  "mips_topk_segment": usage_of(_build.build_logs,
+                                                "mips_topk",
+                                                "segment_major_candidates"),
                   "bitonic_topk": usage_of(_build.build_logs, "bitonic_topk",
                                            "select_topk"),
                   "mips_fused_topk": usage_of(_build.build_logs,
@@ -6296,10 +6444,14 @@ def main() -> int:
         found = [u for u in redesigned["mips_topk"]
                  if f"ELi{depth}EE" in u["function"]]
         assert len(found) == 12, (depth, len(found))
+    # the segment-major route: bf16 and s8 at depth 64 and 128
+    assert len(redesigned["mips_topk_segment"]) == 4, \
+        redesigned["mips_topk_segment"]
     # B2: ce_fwd and ce_bwd at depth 64 and 128
     assert len(redesigned["fused_ce"]) == 4, redesigned["fused_ce"]
     b3_ptxas = {"stage_a": [u for u in redesigned["mips_topk"]
                             if "Lb1E" in u["function"]],
+                "stage_a_segment": redesigned["mips_topk_segment"],
                 "stage_b": redesigned["mips_fused_topk"]}
 
     # 3. kernel against plain
@@ -6367,7 +6519,7 @@ def main() -> int:
     # each query: stage (a) on the wgmma route and the selection, once each
     for name, counts in stages.items():
         assert counts["wgmma"] >= 3 and counts["select"] >= 3 \
-            and counts["tile"] == 0, (name, counts)
+            and counts["tile"] == counts["segment"] == 0, (name, counts)
     recall = {}
     for name, s in (("bf16", svc), ("int8", svc8)):
         scores, ids = results[name]
@@ -6395,6 +6547,11 @@ def main() -> int:
     assert (ex_ids[:, :K - 3] == base_ids[:, 3:K]).mean() > 0.99
     emit({"phase": "exclude", "ok": True})
     del results, base_ids, ex_s, ex_ids
+    # 4a. small requests: 32 users a request, stage (a) on the segment route
+    small = serve_small_batches((("bf16", svc), ("int8", svc8)), users)
+    for name, res in small.items():
+        emit({"phase": "serve_small_batch", "card": card, "variant": name,
+              **res})
 
     # 4b. the candidate paths and the rest of BruteForceMIPS
     cand_launches, cand = candidate_paths(gen)
@@ -6629,10 +6786,9 @@ def main() -> int:
             t = time_kernel(variant, N_ITEMS, d, N_QUERIES, K, gen)
             emit({"phase": "timing", "card": card, **t})
             timings[(variant, d)] = t
-    for variant in ("bf16", "int8"):     # the JAX plan below 1024 queries
-        for nq in (20, 600):
-            emit({"phase": "timing", "card": card,
-                  **time_kernel(variant, N_ITEMS, DIM, nq, K, gen)})
+    sweep_times = time_segment_sweep(gen)   # the JAX plans below 1024 queries
+    for t in sweep_times:
+        emit({"phase": "timing", "card": card, "sweep": True, **t})
     b4_times = time_b4(gen)
     for t in b4_times.values():
         emit({"phase": "timing", "card": card, "kernel": "mips_topk", **t})
@@ -6654,19 +6810,31 @@ def main() -> int:
             "stage_a_source": "recbox_tpu_torch/csrc/mips_topk.cu",
             "replaces": "recbox_tpu/ops/pallas/mips_fused_topk.py:100",
             "launches": launches[variant]
+            + small[variant]["launches"]["select"]
             + ex_launches.get(f"mips_fused_topk[{variant}]", 0),
             "launches_by_path": {
                 "serve_4": launches[variant],
+                "serve_small_batch_4a": small[variant]["launches"]["select"],
                 "examples_5s": ex_launches.get(
                     f"mips_fused_topk[{variant}]", 0)},
+            "stage_a_launches_by_path_and_route": {
+                "serve_4": {r: stages[variant][r]
+                            for r in ("wgmma", "segment", "tile")},
+                "serve_small_batch_4a": {
+                    r: small[variant]["launches"][r]
+                    for r in ("wgmma", "segment", "tile")}},
             "max_abs_err": c["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "design": "(a) B4's packed segment-candidate kernel on its wgmma "
                       "route (TMA ring, two consumer warpgroups, the "
-                      "segment fold in registers), winners candidate-major; "
-                      "(b) B5's radix selection with B3's decode epilogue",
+                      "segment fold in registers) at 911 queries or more, "
+                      "on its segment-major route (TMA boxes of whole "
+                      "segments through a 3-D view, queries resident as "
+                      "wgmma's A, the fold a max along each query row) "
+                      "below, winners candidate-major; (b) B5's radix "
+                      "selection with B3's decode epilogue",
             "kernel_route": c["route"], "stage_launches": stages[variant],
             "stage_a_ms": t["stage_a_ms"], "stage_b_ms": t["stage_b_ms"],
             "tile_route_stage_a_ms": t["tile_route_stage_a_ms"],
@@ -6677,6 +6845,15 @@ def main() -> int:
                 "ms", "plain_ms", "library_ms", "bound_ms", "stage_a_ms",
                 "stage_b_ms", "tile_route_stage_a_ms")},
             "ptxas": b3_ptxas,
+            "segment_sweep": [
+                {key: t[key] for key in (
+                    "d", "q", "route", "ms", "stage_a_ms", "stage_b_ms",
+                    "tile_route_stage_a_ms", "bound_ms", "bound_by",
+                    "plain_ms", "library_ms")}
+                for t in sweep_times if t["variant"] == variant],
+            "serve_small_batch_4a": {key: small[variant][key] for key in (
+                "wall_ms_a_request", "device_ms_a_request", "idle_share",
+                "recall_vs_exact_512")},
             "multi_interest": mi_kernel_entry(mi, variant),
             "variants": ["bf16", "f32", "int8"], "matches_plain": True,
             "shape": {"n": N_ITEMS, "d": DIM, "q": N_QUERIES, "k": K},
@@ -6888,7 +7065,14 @@ def main() -> int:
             "launches": cand_launches[name], "max_abs_err": max(errs),
             "launches_by_route_examples_5s": {
                 r: ex_launches.get(f"mips_topk[{r}]", 0)
-                for r in ("wgmma", "tile")},
+                for r in ("wgmma", "segment", "tile")},
+            "as_b3_stage_a_by_path_and_route": None if name == "unpacked"
+            else {"serve_4": {
+                r: stages["bf16" if name == "packed" else "int8"][r]
+                for r in ("wgmma", "segment", "tile")},
+                "serve_small_batch_4a": {
+                    r: small["bf16" if name == "packed" else "int8"][
+                        "launches"][r] for r in ("wgmma", "segment", "tile")}},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
@@ -6900,6 +7084,8 @@ def main() -> int:
                 "bound_ms")},
             "ptxas": redesigned["mips_topk"] if t["route"] == "wgmma"
             else None,
+            "ptxas_segment_route": None if name == "unpacked"
+            else redesigned["mips_topk_segment"],
             "matches_plain": True,
             "shape": {"n": B4_N, "d": B4_D, "q": B4_Q,
                       "query_tile": B4_TILE}})

@@ -3,9 +3,10 @@
 // cluster too), mbarriers, warpgroup matrix multiplies (`wgmma`, bf16 and
 // s8; operands K-major or MN-major in shared memory, A from registers),
 // thread block clusters (ranks, distributed shared memory addresses,
-// remote arrivals) and the host-side tensor maps. Used by B4's `wgmma` route
-// (`mips_topk.cu` `segment_candidates_wgmma`), which B3's stage (a) runs,
-// and by B2 (`fused_ce.cu`).
+// remote arrivals) and the host-side tensor maps (2-D, and the 3-D
+// segment-major view). Used by B4's `wgmma` and segment-major routes
+// (`mips_topk.cu` `segment_candidates_wgmma`, `segment_major_candidates`),
+// which B3's stage (a) runs, and by B2 (`fused_ce.cu`).
 
 #pragma once
 
@@ -80,6 +81,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// As tma_load_2d for a 3-D map: the box at (c0 innermost, c1, c2).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(smem_addr(bar))
       : "memory");
 }
@@ -415,6 +428,35 @@ inline int k_major_map(CUtensorMap* map, const void* ptr, uint64_t rows,
       elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                       : CU_TENSOR_MAP_DATA_TYPE_UINT8,
       2, const_cast<void*>(ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      box_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : MAP_ENCODE_FAILED;
+}
+
+// Map of a row-major matrix of `cols` 2-byte or 1-byte values a row seen as
+// 3-D (cols, n_seg, seg_rows): element (k, g, j) is value k of row
+// j * n_seg + g, g stepping `stride_g` bytes (a row) and j `stride_j` (n_seg
+// rows). A box is box_bytes of a row x 1 x box_rows: box_rows consecutive
+// rows of one strided segment, laid out in shared memory as box_rows rows of
+// a 2-D box under the swizzle of that width; zeros past the view.
+inline int segment_major_map(CUtensorMap* map, const void* ptr,
+                             uint64_t seg_rows, uint64_t n_seg, uint64_t cols,
+                             int elem_bytes, uint64_t stride_g,
+                             uint64_t stride_j, uint32_t box_rows,
+                             int box_bytes) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return MAP_NO_ENCODER;
+  const cuuint64_t dims[3] = {cols, n_seg, seg_rows};
+  const cuuint64_t strides[2] = {stride_g, stride_j};
+  const cuuint32_t box[3] = {(cuuint32_t)(box_bytes / elem_bytes), 1,
+                             box_rows};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map,
+      elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      3, const_cast<void*>(ptr), dims, strides, box, elem,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
       box_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -18,18 +18,21 @@
 // is 2*Q*N*D = 1.07e12 operations, 1.06 ms at the bf16 tensor-core peak
 // (989 TFLOP/s) and 0.53 ms at int8's (1979 TOP/s); the corpus is 64 or
 // 128 MB and the winners 250 MB written and read once, about 0.2 ms of HBM.
-// So the kernel is bound by operations.
+// So the kernel is bound by operations. A served request of up to 64
+// queries is bound by the corpus read instead (128 MB bf16, 0.038 ms).
 //
 // Design: two launches, each a kernel shared with another function.
 //  (a) the packed form of B4's segment-candidate kernel (`mips_topk.cu`):
-//      bf16 and int8 at D = 64 or 128 and n_seg in {1, 2, 4, 8} (the
-//      serving plan is 8) on its `wgmma` route (TMA ring, two consumer
-//      warpgroups, the segment fold in registers), the rest (f32, which
-//      TF32 would change, and the plans below 1024 queries) on its tile
-//      route. It writes the winners candidate-major, (n_cand, Q). The first
-//      design scored 64 queries a block through WMMA fragments and a shared
-//      f32 stage, its own copy of the tile route, and sat at 13-18x its
-//      bound.
+//      bf16 and int8 at D = 64 or 128 on its `wgmma` route (TMA ring, two
+//      consumer warpgroups, the segment fold in registers) where n_seg is
+//      in {1, 2, 4, 8} (911 queries or more; the serving plan is 8), on
+//      its segment-major route (TMA boxes of whole segments, queries as
+//      wgmma's A, the fold along a query's row) at the plans of 910
+//      queries or fewer; f32, which TF32 would change, and other depths on
+//      its tile route. It writes the winners candidate-major, (n_cand, Q).
+//      The first design scored 64 queries a block through WMMA fragments
+//      and a shared f32 stage, its own copy of the tile route, and sat at
+//      13-18x its bound.
 //  (b) B5's selection (`select_topk.cuh`) reads those winners in place by
 //      strides, the position being the candidate, and selects the k largest
 //      packed winners a query by radix over keys in registers; this file's

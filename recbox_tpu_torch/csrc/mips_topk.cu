@@ -23,7 +23,12 @@
 // (260 MB, twice that unpacked) are under 0.2 ms of HBM. Bound by
 // operations; at D = 64 (B3's serving corpus) half of them.
 //
-// Two routes, picked by the wrapper's rule on (dtype, depth, plan):
+// Three routes, picked by the wrapper's rule (`candidate_route`) on
+// (dtype, depth, plan, variant): bf16 and int8 at D = 64 or 128 take
+// `wgmma` where n_seg is in {1, 2, 4, 8} (the plans of 911 queries or more)
+// and, packed, `segment` at every other n_seg (the plans of 910 queries or
+// fewer: 9 to 256 segments); f32, other depths and the unpacked variant
+// off the `wgmma` plans take `tile`.
 //
 // `segment_candidates_wgmma` (bf16 packed and unpacked, and int8 packed,
 // at D = 64 or 128 and n_seg in {1, 2, 4, 8}; the 1024-query plan is n_seg
@@ -63,8 +68,52 @@
 //  * then the candidate-major store, consecutive threads on consecutive
 //    queries.
 //
+// `segment_major_candidates` (bf16 and int8 packed, D = 64 or 128, any
+// other n_seg; B3's stage (a) below 911 queries). There a 64-row tile of
+// consecutive rows touches up to 64 segments, so the `wgmma` route's fold
+// cannot keep a thread in one segment. Bound on the H100 at 1M x 64: up to
+// 64 queries by the corpus read (128 MB bf16, 0.038 ms; int8 64 MB), at 600
+// queries by operations (0.078 ms bf16). This design:
+//  * TMA sees the corpus as 3-D (d, n_seg, rows / n_seg), element (k, g, j)
+//    row j * n_seg + g (`segment_view` in ops/mips_topk.py computes the
+//    view and the wrapper passes it), so a box of 128 consecutive j at one
+//    g is one whole segment, in the rows of a 2-D box under the 128-byte
+//    (int8 D = 64: 64-byte) swizzle. The view reaches rows below
+//    (n / n_seg) * n_seg; the last n % n_seg rows (index n / n_seg of
+//    segments g < n % n_seg of the ragged sub-chunk) come from the same
+//    view shifted by n % n_seg rows, read there at (g - n % n_seg + n_seg,
+//    sub * 128 - 1). No box reaches past the corpus: rows past it arrive
+//    as zeros. A corpus shorter than one sub-chunk whose rows are not a
+//    whole number of n_seg is padded by the wrapper with zero rows (a copy
+//    of under sub_rows rows, at most 4 MB);
+//  * the products are transposed against the `wgmma` route's: A is a
+//    64-query tile, resident in shared memory (loaded once by TMA, up to
+//    15 tiles a block, more in blocks over query groups), B the segment's
+//    128 rows, m64n128 bf16 k16 or s8 k32 into registers; a thread holds
+//    two query rows and 32 indices of the segment, so the fold is a max
+//    along the row: in registers, then over the four lanes of a row
+//    (shuffles), no shared memory, no atomics, no split runs;
+//  * persistent blocks, one an SM, each over a contiguous run of segments:
+//    a thread issues the boxes into a ring of 4-8 stages behind mbarriers,
+//    an int8 warp stages each segment's 128 row scales beside them, two
+//    consumer warpgroups take the segments in turn, each with two
+//    accumulator sets: one query tile's product runs while the one before
+//    it is folded. No product is in flight across a barrier wait, and each
+//    branch has the same products in flight in and out, or ptxas
+//    serializes every `wgmma` (its C7518 warning);
+//  * the fold, not the products, sets the pace past 64 queries (ALU
+//    instructions at half rate): one LOP3 packs a score (the index's
+//    constant bits, the mask held in a register), one FMNMX keeps it, the
+//    lanes' common index bits are OR-ed in after the max; the clip to
+//    +-PACK_FLOOR and the row mask run only for a warp whose maxima leave
+//    +-1e38 (a score past the clip, or NaN, would put them there) or a
+//    segment that reaches `valid`. int8 converts its exact s32 sum to f32
+//    by two full-rate instructions (|acc| < 2^22) before the row's scale;
+//  * each (segment, query) winner is written once, candidate-major.
+//
 // `segment_candidates` (every other dtype and plan: f32, other depths,
-// n_seg not dividing 8) is the first design, B3's first stage (a)
+// the unpacked variant off the `wgmma` plans) is the first design, B3's
+// first stage (a)
 // (`mips_tile.cuh`): a block takes 64 queries and the 128-row chunks of one
 // sub-chunk, scores each chunk into shared memory and folds it into running
 // winners of its (query, segment) pairs, then stores them candidate-major.
@@ -552,6 +601,345 @@ int launch_wgmma_depth(const void* q, const void* c, const void* row_scale,
                                                      n_seg, st);
 }
 
+
+// -- the segment-major route -------------------------------------------------
+
+constexpr int S_MAX_STAGES = 8;
+constexpr int S_MIN_STAGES = 4;
+// dynamic shared memory for the query tiles and the ring (of the H100's
+// 232,448 bytes a block, less the 1024 of alignment and the barriers)
+constexpr int S_BUDGET = 225 * 1024;
+// Where a thread's running maxima of packed unclipped scores lie within
+// +-S_UNCLIPPED, the clip to +-PACK_FLOOR changes no winner: no score passed
+// PACK_FLOOR, one below -PACK_FLOOR loses either way, and a NaN or infinite
+// score would have made a maximum NaN or infinite.
+constexpr float S_UNCLIPPED = 1e38f;
+
+// s8's exact s32 sum in f32 (|acc| < 2^22: the low mantissa bits of 1.5 *
+// 2^23 + acc, then less 1.5 * 2^23; two full-rate instructions where a
+// conversion runs at a quarter rate) times the row's scale: the value the
+// plain version forms.
+__device__ __forceinline__ float score_of_fast(float acc, float) {
+  return acc;
+}
+__device__ __forceinline__ float score_of_fast(int acc, float scale) {
+  return (__int_as_float(acc + 0x4B400000) - 12582912.f) * scale;
+}
+
+// The segment route's threads: two consumer warpgroups (warps 0-7); then a
+// warp whose first thread issues the TMA boxes, and (int8) a warp that
+// loads the row scales.
+constexpr int S_THREADS = 2 * WG + 64;
+
+// (bits of s & keep) | idx in one LOP3 (idx a constant, keep = ~PACK_MASK
+// in a register: with both constants ptxas splits it in two).
+__device__ __forceinline__ float pack_lop3(float s, uint32_t idx,
+                                           uint32_t keep) {
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEC;"
+      : "=r"(r)
+      : "r"(__float_as_uint(s)), "r"(idx), "r"(keep));
+  return __uint_as_float(r);
+}
+
+// The packed maximum of one query row over this thread's 32 indices of a
+// segment, unclipped and unmasked, NaN kept (the caller's check decides
+// whether it stands): four chains (short dependency chains) over the
+// indices' bits 8j + e; the thread's common bits col0 (1-2, clear in every
+// 8j + e) are OR-ed in once after the max, which they do not reorder. The
+// fold's ALU instructions (half rate) set the segment route's pace: one
+// LOP3 and one FMNMX a score.
+template <typename Acc, int OFF>
+__device__ __forceinline__ float fold_fast(const Acc (&d)[64],
+                                          const float* sc, int col0,
+                                          uint32_t keep) {
+  // int8's longer chain a score (its conversion and scale) hides more
+  // latency, and its registers are the scarcer
+  constexpr int CH = std::is_same<Acc, int>::value ? 2 : 4;
+  float r[CH];
+#pragma unroll
+  for (int u = 0; u < CH; ++u) r[u] = __uint_as_float(NEG_INF_BITS);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      r[(2 * j + e) % CH] = fmax_nan(
+          r[(2 * j + e) % CH],
+          pack_lop3(score_of_fast(d[4 * j + OFF + e], sc[8 * j + e]),
+                    8 * j + e, keep));
+  float m = r[0];
+#pragma unroll
+  for (int u = 1; u < CH; ++u) m = fmax_nan(m, r[u]);
+  return __uint_as_float(__float_as_uint(m) | col0);
+}
+
+// The same with the clip to +-PACK_FLOOR and the row mask: index 8j + col0
+// + e is live where 8j + e < live_from_col0 (the segment's rows ascend with
+// the index, so its live indices are those below a count).
+template <typename Acc, int OFF>
+__device__ __forceinline__ float fold_clipped(const Acc (&d)[64],
+                                             const float* sc, int col0,
+                                             int live_from_col0) {
+  float w = __uint_as_float(NEG_INF_BITS);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      w = fmaxf(w, pack(score_of(d[4 * j + OFF + e], sc[8 * j + e]),
+                        8 * j + e < live_from_col0, 8 * j + col0 + e));
+  return w;
+}
+
+// Issue one product: the 64 queries at `qdesc` against the segment at
+// `cdesc`, into d.
+template <typename T, int DEPTH, typename Acc>
+__device__ __forceinline__ void segment_product(Acc (&d)[64], uint64_t qdesc,
+                                                uint64_t cdesc) {
+  using R = WRow<T, DEPTH>;
+  fence_regs(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < R::SLICES; ++kk) {
+    const uint64_t k_box = kk / R::BOX_SLICES;
+    const uint64_t k_in = (kk % R::BOX_SLICES) * 2;
+    mma_slice(d, qdesc + k_box * ((W_TILE_M * R::BOX) >> 4) + k_in,
+              cdesc + k_box * ((SEGMENT * R::BOX) >> 4) + k_in, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// Fold a complete product and store the winners of its 64 queries (from
+// query q_base on) at candidate p. Thread t of the warpgroup holds queries
+// q_base + 16 * (t / 32) + t % 32 / 4 (+ 8) and indices 8j + col0 + e.
+template <typename Acc>
+__device__ __forceinline__ void segment_winners(
+    Acc (&d)[64], const float* sc, int col0, uint32_t keep,
+    int live_from_col0, bool all_live, float* __restrict__ cand_s, int p,
+    int nq, int q_base) {
+  fence_regs(d);
+  float wa = __uint_as_float(NEG_INF_BITS), wb = wa;
+  if (all_live) {
+    wa = fold_fast<Acc, 0>(d, sc, col0, keep);
+    wb = fold_fast<Acc, 2>(d, sc, col0, keep);
+  }
+  if (!__all_sync(0xFFFFFFFFu,
+                  fabsf(wa) < S_UNCLIPPED && fabsf(wb) < S_UNCLIPPED)) {
+    // the segment's last rows are masked, or a score needs the clip
+    wa = fold_clipped<Acc, 0>(d, sc, col0, live_from_col0);
+    wb = fold_clipped<Acc, 2>(d, sc, col0, live_from_col0);
+  }
+  // the four lanes of a query row hold its 128 indices between them
+#pragma unroll
+  for (int m = 1; m < 4; m <<= 1) {
+    wa = fmaxf(wa, __shfl_xor_sync(0xFFFFFFFFu, wa, m));
+    wb = fmaxf(wb, __shfl_xor_sync(0xFFFFFFFFu, wb, m));
+  }
+  const int lane = threadIdx.x % 32;
+  const int q =
+      q_base + 16 * (threadIdx.x % WG / 32) + (lane >> 2) + 8 * (lane & 1);
+  if ((lane & 3) < 2 && q < nq)
+    cand_s[(size_t)p * nq + q] = (lane & 1) ? wb : wa;
+}
+
+// Grid (query groups, corpus blocks), S_THREADS threads. The two consumer
+// warpgroups take the block's segments in turn, each segment against every
+// 64-query tile of the block's group (`group_tiles` tiles from tile
+// blockIdx.x * group_tiles), with two accumulator sets: one query tile's
+// product in flight while the one before it is folded. Segment p = sub *
+// n_seg + g (its candidate) is rows (sub * 128 + i) * n_seg + g for i <
+// 128; a block takes segments [p0, p1) of the n_cand. `cmap` is the
+// segment-major view of the corpus (element (k, g, j): row j * n_seg + g)
+// and `shifted` the same view from row tail_segs on: segments g < tail_segs
+// of sub-chunk tail_sub read it at (g - tail_segs + n_seg, sub * 128 - 1),
+// where it holds the corpus's last tail_segs rows that `cmap` cannot reach.
+// `keep` is ~PACK_MASK, a parameter so that it stays in a register.
+template <typename T, int DEPTH>
+__global__ void __launch_bounds__(S_THREADS, 1)
+    segment_major_candidates(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap cmap,
+                             const __grid_constant__ CUtensorMap shifted,
+                             const float* __restrict__ row_scale,
+                             float* __restrict__ cand_s, int nq, int n,
+                             int valid, int n_seg, int n_cand, int tail_sub,
+                             int tail_segs, int group_tiles, int stages,
+                             uint32_t keep) {
+  using Acc = typename AccOf<T>::type;
+  using R = WRow<T, DEPTH>;
+  constexpr int Q_BOX = W_TILE_M * R::BOX;  // a box of a 64-query tile
+  constexpr int C_BOX = SEGMENT * R::BOX;   // a box of a segment
+  constexpr int Q_TILE = R::BOXES * Q_BOX;
+  constexpr int STAGE = R::BOXES * C_BOX;
+  constexpr bool INT8 = kIsInt8<T>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[S_MAX_STAGES], empty[S_MAX_STAGES],
+      qfull;
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = smem + group_tiles * Q_TILE;
+  float* scales = reinterpret_cast<float*>(ring + stages * STAGE);  // int8
+  const int wg = threadIdx.x / WG, lane = threadIdx.x % 32;
+  const int qt0 = blockIdx.x * group_tiles;
+  const int q_tiles = min(group_tiles, (nq + W_TILE_M - 1) / W_TILE_M - qt0);
+  const int p0 = (int)((long long)n_cand * blockIdx.y / gridDim.y);
+  const int tiles = (int)((long long)n_cand * (blockIdx.y + 1) / gridDim.y) -
+                    p0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], INT8 ? 2 : 1);  // the boxes (and the scales)
+      mbar_init(&empty[s], 4);  // each warp of the warpgroup that read it
+    }
+    mbar_init(&qfull, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (wg == 2) {
+    if (threadIdx.x == 2 * WG) {
+      mbar_arrive_tx(&qfull, q_tiles * Q_TILE);
+      for (int qt = 0; qt < q_tiles; ++qt)
+        for (int b = 0; b < R::BOXES; ++b)
+          tma_load_2d(smem + qt * Q_TILE + b * Q_BOX, &qmap, &qfull,
+                      b * R::BOX_K, (qt0 + qt) * W_TILE_M);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % stages;
+        if (t >= stages) mbar_wait(&empty[s], (t / stages - 1) & 1);
+        const int sub = (p0 + t) / n_seg, g = (p0 + t) % n_seg;
+        const bool tail = sub == tail_sub && g < tail_segs;
+        const CUtensorMap* map = tail ? &shifted : &cmap;
+        const int c1 = tail ? g - tail_segs + n_seg : g;
+        const int c2 = sub * SEGMENT - (tail ? 1 : 0);
+        mbar_arrive_tx(&full[s], STAGE);
+        for (int b = 0; b < R::BOXES; ++b)
+          tma_load_3d(ring + s * STAGE + b * C_BOX, map, &full[s],
+                      b * R::BOX_K, c1, c2);
+      }
+    } else if (INT8 && threadIdx.x / 32 == 2 * WG / 32 + 1) {
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % stages;
+        if (t >= stages) mbar_wait(&empty[s], (t / stages - 1) & 1);
+        const int sub = (p0 + t) / n_seg, g = (p0 + t) % n_seg;
+        float v[4];  // indices 4 * lane ... + 3 (1 past the corpus)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int row = (sub * SEGMENT + 4 * lane + u) * n_seg + g;
+          v[u] = row < n ? __ldg(row_scale + row) : 1.f;
+        }
+        *reinterpret_cast<float4*>(scales + s * SEGMENT + 4 * lane) =
+            make_float4(v[0], v[1], v[2], v[3]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // the consumer warpgroups, each on every other segment
+    const int col0 = 2 * (lane & 3);
+    Acc d0[64], d1[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d0[i] = d1[i] = Acc(0);
+    mbar_wait(&qfull, 0);
+    // No product is in flight across a barrier wait, and every path in and
+    // out of a branch has the same products in flight (ptxas serializes
+    // every product where it cannot follow them): within a segment, the
+    // next query tile's product runs while one is folded.
+    for (int tile = wg; tile < tiles; tile += 2) {
+      const int s = tile % stages;
+      const int p = p0 + tile;
+      const int sub = p / n_seg, g = p % n_seg;
+      const int row0 = sub * SEGMENT * n_seg + g;  // the row of index 0
+      // a segment wholly below `valid` (all but the corpus's last) needs no
+      // masking
+      const bool all_live = row0 + (SEGMENT - 1) * n_seg < valid;
+      // its live indices: those below ceil((valid - row0) / n_seg)
+      const int live_from_col0 =
+          (valid > row0 ? min(SEGMENT, (valid - row0 + n_seg - 1) / n_seg)
+                        : 0) - col0;
+      mbar_wait(&full[s], (tile / stages) & 1);
+      // int8: the row scales of this thread's indices, 8j + e on (bf16
+      // reads none)
+      const float* sc = scales + s * SEGMENT + col0;
+      const uint64_t cdesc = swizzled_desc<R::BOX>(ring + s * STAGE);
+      const uint64_t qdesc = swizzled_desc<R::BOX>(smem);
+      constexpr uint64_t Q_STEP = Q_TILE >> 4;  // a query tile, 16-byte units
+      segment_product<T, DEPTH>(d0, qdesc, cdesc);
+      int qt = 0;
+      for (; qt + 2 < q_tiles; qt += 2) {
+        segment_product<T, DEPTH>(d1, qdesc + (qt + 1) * Q_STEP, cdesc);
+        wgmma_wait<1>();
+        segment_winners(d0, sc, col0, keep, live_from_col0, all_live, cand_s,
+                        p, nq, (qt0 + qt) * W_TILE_M);
+        segment_product<T, DEPTH>(d0, qdesc + (qt + 2) * Q_STEP, cdesc);
+        wgmma_wait<1>();
+        segment_winners(d1, sc, col0, keep, live_from_col0, all_live, cand_s,
+                        p, nq, (qt0 + qt + 1) * W_TILE_M);
+      }
+      if (qt + 1 < q_tiles) {  // two tiles left
+        segment_product<T, DEPTH>(d1, qdesc + (qt + 1) * Q_STEP, cdesc);
+        wgmma_wait<1>();
+        segment_winners(d0, sc, col0, keep, live_from_col0, all_live, cand_s,
+                        p, nq, (qt0 + qt) * W_TILE_M);
+        wgmma_wait<0>();
+        segment_winners(d1, sc, col0, keep, live_from_col0, all_live, cand_s,
+                        p, nq, (qt0 + qt + 1) * W_TILE_M);
+      } else {
+        wgmma_wait<0>();
+        segment_winners(d0, sc, col0, keep, live_from_col0, all_live, cand_s,
+                        p, nq, (qt0 + qt) * W_TILE_M);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // the stage is read
+    }
+  }
+}
+
+template <typename T, int DEPTH>
+int launch_segment(const void* q, const void* c, const void* row_scale,
+                   void* cand_s, int nq, int n, int valid, int n_seg,
+                   long long seg_rows, long long stride_g, long long stride_j,
+                   int tail_sub, int tail_segs, cudaStream_t st) {
+  using R = WRow<T, DEPTH>;
+  constexpr int Q_TILE = R::BOXES * W_TILE_M * R::BOX;
+  // a segment's rows and, int8, its 128 row scales
+  constexpr int STAGE = R::BOXES * SEGMENT * R::BOX +
+                        (kIsInt8<T> ? SEGMENT * 4 : 0);
+  const int sub_rows = n_seg * SEGMENT;
+  const int n_cand = (n + sub_rows - 1) / sub_rows * n_seg;
+  // the query tiles a block keeps resident: as many as leave a ring of
+  // S_MIN_STAGES segments, spread evenly over the groups; the ring takes the
+  // rest, up to S_MAX_STAGES
+  const int q_tiles = (nq + W_TILE_M - 1) / W_TILE_M;
+  int per = min(q_tiles, (S_BUDGET - S_MIN_STAGES * STAGE) / Q_TILE);
+  const int groups = (q_tiles + per - 1) / per;
+  per = (q_tiles + groups - 1) / groups;
+  const int stages = min(S_MAX_STAGES, (S_BUDGET - per * Q_TILE) / STAGE);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  // one block an SM in all, each over a contiguous run of segments
+  const int blocks = max(1, min(n_cand, sms / groups));
+  CUtensorMap qmap, cmap, smap;
+  int rc = k_major_map(&qmap, q, nq, DEPTH, sizeof(T), W_TILE_M, R::BOX);
+  if (rc == 0)
+    rc = segment_major_map(&cmap, c, seg_rows, n_seg, DEPTH, sizeof(T),
+                           stride_g, stride_j, SEGMENT, R::BOX);
+  if (rc == 0)
+    rc = segment_major_map(
+        &smap, static_cast<const unsigned char*>(c) + tail_segs * stride_g,
+        seg_rows, n_seg, DEPTH, sizeof(T), stride_g, stride_j, SEGMENT,
+        R::BOX);
+  if (rc != 0) return rc;
+  const int smem = 1024 + per * Q_TILE + stages * STAGE;
+  auto kernel = segment_major_candidates<T, DEPTH>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(groups, blocks), S_THREADS, smem, st>>>(
+      qmap, cmap, smap, static_cast<const float*>(row_scale),
+      static_cast<float*>(cand_s), nq, n, valid, n_seg, n_cand, tail_sub,
+      tail_segs, per, stages, ~(uint32_t)PACK_MASK);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -624,6 +1012,44 @@ int recbox_mips_segment_candidates_wgmma(int dtype, int packed, const void* q,
                 : launch_wgmma_depth<__nv_bfloat16, false>(
                       q, c, row_scale, cand_s, cand_i, nq, n, d, valid,
                       n_seg, st);
+}
+
+// The segment-major route, packed: dtype 1 = bfloat16, 2 = int8 (row_scale
+// required); q (nq, d) and c (n, d) row-major of that dtype, d 64 or 128;
+// sub_rows = 128 * n_seg, n_seg up to 256. The corpus's segment-major view
+// (`segment_view` in ops/mips_topk.py): seg_rows = n / n_seg (>= 1),
+// strides stride_g = d * itemsize and stride_j = n_seg * stride_g bytes;
+// tail_segs = n % n_seg and, when it is not 0, tail_sub = n / sub_rows >= 1
+// (else -1). cand_s float32 with at least ceil(n / sub_rows) * n_seg rows of
+// nq; every winner of those rows is written.
+int recbox_mips_segment_candidates_segment(
+    int dtype, const void* q, const void* c, const void* row_scale,
+    void* cand_s, int nq, int n, int d, int valid, int sub_rows,
+    long long seg_rows, long long stride_g, long long stride_j, int tail_sub,
+    int tail_segs, void* stream) {
+  const int n_seg = sub_rows / SEGMENT;
+  const long long itemsize = dtype == 2 ? 1 : 2;
+  if (nq <= 0 || n <= 0 || (d != 64 && d != 128) ||
+      (dtype != 1 && dtype != 2) || (dtype == 2) != (row_scale != nullptr) ||
+      sub_rows % SEGMENT != 0 || n_seg < 1 || sub_rows > MAX_SUB_ROWS ||
+      seg_rows != n / n_seg || seg_rows < 1 || stride_g != d * itemsize ||
+      stride_j != n_seg * stride_g || tail_segs != n % n_seg ||
+      tail_sub != (tail_segs == 0 ? -1 : n / sub_rows) || tail_sub == 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 2)
+    return d == 64 ? launch_segment<signed char, 64>(
+                         q, c, row_scale, cand_s, nq, n, valid, n_seg,
+                         seg_rows, stride_g, stride_j, tail_sub, tail_segs, st)
+                   : launch_segment<signed char, 128>(
+                         q, c, row_scale, cand_s, nq, n, valid, n_seg,
+                         seg_rows, stride_g, stride_j, tail_sub, tail_segs, st);
+  return d == 64 ? launch_segment<__nv_bfloat16, 64>(
+                       q, c, row_scale, cand_s, nq, n, valid, n_seg, seg_rows,
+                       stride_g, stride_j, tail_sub, tail_segs, st)
+                 : launch_segment<__nv_bfloat16, 128>(
+                       q, c, row_scale, cand_s, nq, n, valid, n_seg, seg_rows,
+                       stride_g, stride_j, tail_sub, tail_segs, st);
 }
 
 }  // extern "C"

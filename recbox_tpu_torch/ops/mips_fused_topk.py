@@ -12,9 +12,9 @@ loses only to segment collisions, ~k·128/(2N); returned scores carry the
 
 For CUDA tensors the function is two launches (`csrc/mips_fused_topk.cu`,
 built by `ops/_build.py`): stage (a), the packed form of B4's
-segment-candidate kernel (`ops/mips_topk.py`: its `wgmma` route where
-`candidate_route` takes the dtype, depth and plan, else its tile route),
-writes the winners candidate-major; stage (b), B5's selection with this
+segment-candidate kernel (`ops/mips_topk.py`: its `wgmma` route, its
+segment route below 911 queries, or its tile route, as `candidate_route`
+takes the dtype, depth and plan), writes the winners candidate-major; stage (b), B5's selection with this
 kernel's epilogue, selects the k largest packed winners of each query and
 decodes them. `mips_fused_topk_plain` runs for CPU tensors; a CUDA tensor
 never reaches it, and a failed build or launch raises. The plain version

@@ -14,12 +14,14 @@ score and a global row id.
 The kernel (`csrc/mips_topk.cu`, built by `ops/_build.py`) runs for CUDA
 tensors, `mips_segment_candidates_plain` for CPU tensors; a CUDA tensor
 never reaches the plain version, and a failed build or launch raises. The
-kernel has two routes, chosen by `candidate_route` from the dtype, the
-depth and the plan: `wgmma` (bf16 and int8, D = 64 or 128, n_seg in {1, 2,
-4, 8}: TMA-fed `wgmma` with the segment fold in registers) and `tile`
-(every other case: WMMA / CUDA-core tiles through a shared score stage).
-B3's stage (a) (`mips_fused_topk.py`) launches the packed kernel through
-`_candidates_cuda`.
+kernel has three routes, chosen by `candidate_route` from the dtype, the
+depth, the plan and the variant: `wgmma` (bf16 and int8, D = 64 or 128,
+n_seg in {1, 2, 4, 8}: TMA-fed `wgmma` with the segment fold in registers),
+`segment` (the same types and depths, packed, any other n_seg: the plans
+of 910 queries or fewer; TMA brings whole segments through the 3-D view of
+`segment_view`) and `tile` (every other case: WMMA / CUDA-core tiles
+through a shared score stage). B3's stage (a) (`mips_fused_topk.py`)
+launches the packed kernel through `_candidates_cuda`.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import struct
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -39,8 +41,9 @@ __all__ = ["SEGMENT", "PACK_FLOOR", "PACK_BITS", "PACK_MASK", "block_plan",
            "candidate_plan", "split_runs", "quantize_int8", "winner_ids",
            "decode_winners", "mips_segment_candidates",
            "mips_segment_candidates_plain",
-           "pallas_mips_topk", "candidate_route", "launches",
-           "route_launches", "reset_launches"]
+           "pallas_mips_topk", "candidate_route", "SegmentView",
+           "segment_view", "segment_view_row", "launches", "route_launches",
+           "reset_launches"]
 
 SEGMENT = 128          # items per candidate segment (one winner each)
 
@@ -54,7 +57,7 @@ PACK_MASK = (1 << PACK_BITS) - 1
 # kernel launches on the CUDA path, by variant and by route; the plain
 # version never counts
 launches = {"packed": 0, "packed_int8": 0, "unpacked": 0}
-route_launches = {"wgmma": 0, "tile": 0}
+route_launches = {"wgmma": 0, "segment": 0, "tile": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -212,27 +215,86 @@ def _kernel_lib() -> ctypes.CDLL:
                                                          vp, i, i, i, i, i,
                                                          vp]
     lib.recbox_mips_segment_candidates_wgmma.restype = i
+    ll = ctypes.c_longlong
+    lib.recbox_mips_segment_candidates_segment.argtypes = [
+        i, vp, vp, vp, vp, i, i, i, i, i, ll, ll, ll, i, i, vp]
+    lib.recbox_mips_segment_candidates_segment.restype = i
     return lib
 
 
-# the depths and segment counts the wgmma route is built for
+# the depths and segment counts the wgmma route is built for; the segment
+# route takes the same depths and every other segment count of a plan
 _WGMMA_DEPTHS = (64, 128)
 _WGMMA_SEGMENTS = (1, 2, 4, 8)
 
 
-def candidate_route(dtype: torch.dtype, d: int, sub_rows: int) -> str:
+def candidate_route(dtype: torch.dtype, d: int, sub_rows: int,
+                    packed: bool = True) -> str:
     """The kernel's route for a corpus of ``dtype`` and depth ``d`` at the
-    plan with ``sub_rows``: 'wgmma' for bf16 and int8 with D = 64 or 128
-    (after padding to 16) and n_seg = sub_rows / 128 in {1, 2, 4, 8}, where
-    every row a thread of the `wgmma` tile holds is in one segment; 'tile'
-    for the rest (f32, which TF32 would change; other depths; plans with
-    n_seg not dividing 8). B3's stage (a) takes the same rule."""
+    plan with ``sub_rows``: for bf16 and int8 with D = 64 or 128 (after
+    padding to 16), 'wgmma' where n_seg = sub_rows / 128 is in {1, 2, 4, 8}
+    (every row a thread of the `wgmma` tile holds is in one segment: the
+    plans of 911 queries or more) and 'segment' for the packed variants at
+    every other n_seg (the plans of 910 queries or fewer, 9 to 256
+    segments); 'tile' for the rest (f32, which TF32 would change; other
+    depths; the unpacked variant off the `wgmma` plans). B3's stage (a),
+    packed, takes the same rule."""
     if (dtype in (torch.bfloat16, torch.int8)
             and d + (-d) % 16 in _WGMMA_DEPTHS
-            and sub_rows // SEGMENT in _WGMMA_SEGMENTS
             and sub_rows % SEGMENT == 0):
-        return "wgmma"
+        if sub_rows // SEGMENT in _WGMMA_SEGMENTS:
+            return "wgmma"
+        if packed:
+            return "segment"
     return "tile"
+
+
+class SegmentView(NamedTuple):
+    """How the segment route's TMA sees an (n, d) corpus: as a 3-D
+    (d, n_seg, seg_rows) array whose element (k, g, j) is value k of row
+    j·n_seg + g, so that a box of 128 consecutive j at one g is one whole
+    segment (segment g of sub-chunk s is j = s·128 ... s·128 + 127). The
+    view reaches rows < seg_rows·n_seg = rows - tail_segs; the last
+    tail_segs rows (index seg_rows... of segments g < tail_segs of sub-chunk
+    tail_sub) come from the same view shifted by tail_segs rows, read there
+    at (g - tail_segs + n_seg, s·128 - 1). A corpus of fewer rows than a
+    sub-chunk that is not a whole number of n_seg rows is padded with
+    pad_rows zero rows first (a copy of under sub_rows rows)."""
+    n_seg: int
+    rows: int                   # corpus rows the kernel sees (n + pad_rows)
+    pad_rows: int
+    dims: Tuple[int, int, int]  # (d, n_seg, seg_rows), innermost first
+    strides: Tuple[int, int]    # bytes of a step in g and in j
+    tail_sub: int               # -1 when tail_segs is 0
+    tail_segs: int
+
+
+def segment_view(n: int, d: int, itemsize: int, sub_rows: int
+                 ) -> SegmentView:
+    """The segment route's view of an (n, d) corpus of ``itemsize``-byte
+    values at the plan with ``sub_rows`` (`SegmentView`); the wrapper pads
+    and launches by it."""
+    n_seg = sub_rows // SEGMENT
+    pad = (-n) % n_seg if n < sub_rows else 0
+    rows = n + pad
+    tail_segs = rows % n_seg
+    return SegmentView(n_seg, rows, pad, (d, n_seg, rows // n_seg),
+                       (d * itemsize, n_seg * d * itemsize),
+                       rows // sub_rows if tail_segs else -1, tail_segs)
+
+
+def segment_view_row(view: SegmentView, sub: int, g: int, i: int) -> int:
+    """The corpus row that the segment route's box brings as index ``i`` of
+    segment ``g`` of sub-chunk ``sub``, or -1 where TMA fills zeros (a row
+    at or past ``view.rows``); the kernel's producer takes the same
+    coordinates."""
+    n_seg, seg_rows = view.n_seg, view.dims[2]
+    if sub == view.tail_sub and g < view.tail_segs:
+        base, g, j = view.tail_segs, g - view.tail_segs + n_seg, \
+            sub * SEGMENT - 1 + i
+    else:
+        base, j = 0, sub * SEGMENT + i
+    return base + j * n_seg + g if 0 <= j < seg_rows else -1
 
 
 # queries a block of the kernel scores (QT in csrc/mips_tile.cuh)
@@ -271,7 +333,7 @@ def _candidates_cuda(queries, corpus, valid, packed, row_scale, sub_rows,
     if n_sub > 65535:
         raise ValueError(f"mips_segment_candidates: {n} rows exceed the "
                          f"kernel's {65535 * sub_rows} at sub_rows={sub_rows}")
-    route = candidate_route(corpus.dtype, d, sub_rows)
+    route = candidate_route(corpus.dtype, d, sub_rows, packed)
     lib = _kernel_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     out_i_ptr = None if out_i is None else out_i.data_ptr()
@@ -284,6 +346,19 @@ def _candidates_cuda(queries, corpus, valid, packed, row_scale, sub_rows,
                 _DTYPES[corpus.dtype], int(packed), queries.data_ptr(),
                 corpus.data_ptr(), scale_ptr, out_s.data_ptr(), out_i_ptr,
                 nq, n, d, valid, sub_rows, stream)
+    elif route == "segment":
+        view = segment_view(n, d, corpus.element_size(), sub_rows)
+        if view.pad_rows:   # under one sub-chunk: a copy of < sub_rows rows
+            corpus = F.pad(corpus, (0, 0, 0, view.pad_rows))
+            if row_scale is not None:
+                row_scale = F.pad(row_scale, (0, view.pad_rows), value=1.0)
+                scale_ptr = row_scale.data_ptr()
+        with torch.cuda.device(dev):
+            rc = lib.recbox_mips_segment_candidates_segment(
+                _DTYPES[corpus.dtype], queries.data_ptr(), corpus.data_ptr(),
+                scale_ptr, out_s.data_ptr(), nq, view.rows, d, valid,
+                sub_rows, view.dims[2], *view.strides, view.tail_sub,
+                view.tail_segs, stream)
     else:
         splits = split_runs(nq, n, sub_rows, packed, dev)
         if splits > 1:

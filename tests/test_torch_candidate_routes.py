@@ -1,8 +1,10 @@
 """The dispatch rules of the redesigned candidate kernels, on the CPU.
 
-B4 (`mips_segment_candidates`) has two CUDA routes chosen by an explicit
-rule on (dtype, depth, plan), and B3's stage (a) (`mips_fused_topk`) takes
-the same rule; B5 (`pallas_bitonic_topk`) and B3's stage (b) select in
+B4 (`mips_segment_candidates`) has three CUDA routes chosen by an
+explicit rule on (dtype, depth, plan, variant), and B3's stage (a)
+(`mips_fused_topk`) takes the same rule; the segment route reads the corpus
+through the 3-D view of `segment_view`, held here row by row against the
+segments of the plain version and of JAX's kernel; B5 (`pallas_bitonic_topk`) and B3's stage (b) select in
 windows planned by `select_plan`. The kernels run on the card
 (`chip_smoke.py`); here the rules are held against the JAX package's block
 plan and against the (C, k) domain the first B5 and B3 kernels took (k <= C
@@ -17,7 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from recbox_tpu.ops.pallas.mips_topk import _block_plan
+from recbox_tpu.ops.pallas.mips_topk import (
+    _block_plan, mips_segment_candidates as jcands,
+)
+from recbox_tpu.retrieval.index import quantize_int8 as jquantize
 from recbox_tpu_torch.ops import mips_fused_topk as fused_mod
 from recbox_tpu_torch.ops.bitonic_topk import (
     bitonic_topk_plain, pallas_bitonic_topk, select_plan, select_smem,
@@ -26,8 +31,9 @@ from recbox_tpu_torch.ops.mips_fused_topk import (
     mips_fused_topk, segment_plan,
 )
 from recbox_tpu_torch.ops.mips_topk import (
-    candidate_plan, candidate_route, mips_segment_candidates,
-    route_launches,
+    PACK_FLOOR, PACK_MASK, SEGMENT, candidate_plan, candidate_route,
+    mips_segment_candidates, mips_segment_candidates_plain, quantize_int8,
+    route_launches, segment_view, segment_view_row,
 )
 
 _SMEM = 232448   # a block's shared memory on the H100
@@ -63,6 +69,10 @@ def test_d64_plans_take_the_wgmma_route(dtype, d, tile):
     assert candidate_route(dtype, d, sub) == "wgmma"
 
 
+# the small-query plans, on the tile route until the segment route came
+_SEGMENT_PLANS = {(torch.bfloat16, 128, 512), (torch.bfloat16, 128, 20)}
+
+
 @pytest.mark.parametrize("dtype,d,tile", [
     (torch.float32, 128, 1024),    # f32: no bf16 wgmma, TF32 would round
     (torch.bfloat16, 48, 1024),    # another depth
@@ -70,8 +80,35 @@ def test_d64_plans_take_the_wgmma_route(dtype, d, tile):
     (torch.bfloat16, 128, 20),     # the small-query plans: n_seg = 128
 ])
 def test_other_dtypes_depths_and_plans_take_the_tile_route(dtype, d, tile):
+    """f32 and other depths take the tile route at any plan; the plans
+    with n_seg outside {1, 2, 4, 8} (16 and 128 here) take the segment
+    route when packed and stay on the tile route unpacked."""
     sub, _ = candidate_plan(dtype, 1_000_000, d, tile)
-    assert candidate_route(dtype, d, sub) == "tile"
+    if (dtype, d, tile) in _SEGMENT_PLANS:
+        assert candidate_route(dtype, d, sub) == "segment"
+        assert candidate_route(dtype, d, sub, packed=False) == "tile"
+    else:
+        assert candidate_route(dtype, d, sub) == "tile"
+        assert candidate_route(dtype, d, sub, packed=False) == "tile"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("nq", [1, 8, 20, 64, 256, 600, 910, 911, 1024])
+def test_served_request_plans_take_the_segment_route(dtype, d, nq):
+    """Every request of 910 queries or fewer plans 9 to 256 segments a
+    sub-chunk (JAX's plan for its query tile) and takes the segment route,
+    packed; 911 queries plan 1024-row sub-chunks (n_seg 8) and, with 1024,
+    keep the wgmma route."""
+    sub, _ = segment_plan(dtype, 1_000_000, d, nq, 500)
+    n_seg = sub // 128
+    assert sub == _block_plan(_JAX_DTYPES[dtype], min(nq, 1024),
+                              d + (-d) % 128)[0]
+    if nq <= 910:
+        assert 9 <= n_seg <= 256 and n_seg not in (1, 2, 4, 8)
+        assert candidate_route(dtype, d, sub) == "segment"
+    else:
+        assert n_seg == 8 and candidate_route(dtype, d, sub) == "wgmma"
 
 
 def test_route_pads_depth_to_sixteen_first():
@@ -82,7 +119,8 @@ def test_route_pads_depth_to_sixteen_first():
     assert candidate_route(torch.int8, 56, 1024) == "wgmma"
     assert candidate_route(torch.bfloat16, 112, 1024) == "tile"
     assert candidate_route(torch.bfloat16, 48, 1024) == "tile"
-    assert candidate_route(torch.bfloat16, 128, 1536) == "tile"   # n_seg 12
+    assert candidate_route(torch.bfloat16, 128, 1536) == "segment"  # n_seg 12
+    assert candidate_route(torch.bfloat16, 112, 1536) == "tile"
 
 
 _JAX_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
@@ -94,15 +132,18 @@ _JAX_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
 @pytest.mark.parametrize("nq", [20, 600, 1024, 8192])
 def test_fused_stage_a_route_at_jax_plans(dtype, d, nq):
     """B3's stage (a) at the JAX plan of its query tile (min(1024, Q)) over
-    1M rows: the `wgmma` route for bf16 and int8 at a depth that pads to
-    64 or 128 with the 1024-query plan (n_seg = 8); the tile route for f32,
-    for D = 112, and for the plans of 20 and 600 queries (n_seg 128 or 256,
-    and 13)."""
+    1M rows: for bf16 and int8 at a depth that pads to 64 or 128, the
+    `wgmma` route with the 1024-query plan (n_seg = 8) and the segment
+    route with the plans of 20 and 600 queries (n_seg 128 or 256, and 13);
+    the tile route for f32 and for D = 112."""
     sub, _ = segment_plan(dtype, 1_000_000, d, nq, 500)
     assert sub == _block_plan(_JAX_DTYPES[dtype], min(nq, 1024),
                               d + (-d) % 128)[0]
-    wgmma = (dtype != torch.float32 and d != 112 and nq >= 1024)
-    assert candidate_route(dtype, d, sub) == ("wgmma" if wgmma else "tile")
+    if dtype == torch.float32 or d == 112:
+        want = "tile"
+    else:
+        want = "wgmma" if nq >= 1024 else "segment"
+    assert candidate_route(dtype, d, sub) == want
 
 
 def test_cpu_tensors_count_no_route():
@@ -112,6 +153,117 @@ def test_cpu_tensors_count_no_route():
     c = torch.randint(-3, 4, (2000, 128)).to(torch.bfloat16)
     mips_segment_candidates(q, c, packed=True)
     assert route_launches == before
+
+
+# -- B4: the segment route's 3-D view ----------------------------------------
+
+# (n_seg, query tile, corpus dtype): the JAX plans of 910, 600, 512, 20
+# (bf16) and 20 (int8) queries at D = 128; corpora not a whole number of
+# sub-chunks: two sub-chunks and a ragged third (its last row of segments
+# partial, so the shifted view serves it), one whole sub-chunk, and one
+# shorter than a sub-chunk (padded to a multiple of n_seg)
+_VIEW_PLANS = [(9, 910, torch.bfloat16), (13, 600, torch.bfloat16),
+               (16, 512, torch.bfloat16), (128, 20, torch.bfloat16),
+               (256, 20, torch.int8)]
+
+
+def _view_corpora(sub):
+    return (2 * sub + sub // 3 + 7, sub, sub // 2 + 3)
+
+
+def _view_rows(view, n_sub):
+    """(n_sub · n_seg, 128) rows the view brings a segment, -1 for zeros."""
+    return np.array([[segment_view_row(view, s, g, i) for i in range(SEGMENT)]
+                     for s in range(n_sub) for g in range(view.n_seg)])
+
+
+@pytest.mark.parametrize("n_seg,tile,dtype", _VIEW_PLANS)
+def test_segment_view_rows_are_the_plans_segments(n_seg, tile, dtype):
+    """For every sub-chunk s, segment g and index i the segment route's
+    boxes bring row s·sub_rows + g + i·n_seg, the row the plain version
+    and JAX's kernel assign there (`winner_ids`), where it is a row of the
+    corpus, and zeros where it lies past the corpus (or its padding); no
+    box reaches an address past the corpus the kernel sees."""
+    sub, _ = candidate_plan(dtype, 1_000_000, 128, tile)
+    assert sub == 128 * n_seg
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for n in _view_corpora(sub):
+        view = segment_view(n, 128, itemsize, sub)
+        n_sub = -(-n // sub)
+        assert view.n_seg == n_seg and view.rows >= n
+        assert view.dims == (128, n_seg, view.rows // n_seg)
+        assert view.strides == (128 * itemsize, n_seg * 128 * itemsize)
+        assert (view.pad_rows > 0) == (n < sub and n % n_seg != 0)
+        assert (view.tail_sub >= 1) == (view.tail_segs > 0)
+        rows = _view_rows(view, n_sub)
+        want = (np.arange(n_sub)[:, None, None] * sub
+                + np.arange(n_seg)[None, :, None]
+                + np.arange(SEGMENT)[None, None, :] * n_seg
+                ).reshape(-1, SEGMENT)
+        np.testing.assert_array_equal(rows, np.where(want < view.rows, want,
+                                                     -1))
+        if n > sub:      # the shifted view serves the last rows
+            assert view.tail_segs and any(segment_view_row(view, view.tail_sub, g, i)
+                       == view.rows - 1 for g in range(n_seg)
+                       for i in range(SEGMENT))
+
+
+def _packed_through_view(q, c, scale, view, sub, valid):
+    """The segment route's dataflow in numpy: each segment's rows gathered
+    through the view (zeros past it), scored, packed with their index, the
+    float max taken; candidate-major (n_sub · n_seg, Q) bits."""
+    n_sub = -(-c.shape[0] // sub)
+    rows = _view_rows(view, n_sub)
+    cz = np.concatenate([c.astype(np.float64), np.zeros((1, c.shape[1]))])
+    sz = np.ones(c.shape[0] + 1) if scale is None else \
+        np.concatenate([scale.astype(np.float64), [1.0]])
+    s = np.einsum("qd,prd->pqr", q.astype(np.float64), cz[rows])
+    s = (s.astype(np.float32) * sz[rows][:, None, :].astype(np.float32))
+    s = np.clip(s, -PACK_FLOOR, PACK_FLOOR).astype(np.float32)
+    s = np.where(((rows >= 0) & (rows < valid))[:, None, :], s,
+                 np.float32(-PACK_FLOOR))
+    bits = (s.view(np.int32) & ~PACK_MASK) | np.arange(SEGMENT, dtype=np.int32)
+    return bits.view(np.float32).max(axis=2).view(np.int32)
+
+
+@pytest.mark.parametrize("n_seg,tile,dtype", _VIEW_PLANS)
+def test_segment_view_candidates_equal_plain_and_jax(n_seg, tile, dtype):
+    """Integer data through the view's gather (the segment route's boxes,
+    folded as the kernel folds them) give the packed candidates of the
+    plain version and of JAX's kernel (interpret mode, at ``tile`` queries
+    and so the same plan) bit for bit, over a corpus two and a third
+    sub-chunks long with the last 37 rows past valid_items."""
+    sub, _ = candidate_plan(dtype, 1_000_000, 128, tile)
+    n = _view_corpora(sub)[0]
+    valid = n - 37
+    rng = np.random.default_rng(n_seg)
+    q = rng.integers(-4, 5, size=(tile, 128)).astype(np.float32)
+    c = rng.integers(-4, 5, size=(n, 128)).astype(np.float32)
+    jdt = _JAX_DTYPES[dtype]
+    spb = _block_plan(jdt, tile, 128)[1]
+    cp = np.concatenate([c, np.zeros(((-n) % (sub * spb), 128), np.float32)])
+    if dtype == torch.int8:
+        pc, pscale = quantize_int8(torch.from_numpy(c))
+        pq = quantize_int8(torch.from_numpy(q))[0]
+        jc, jscale = jquantize(jnp.asarray(cp))
+        want = jcands(jquantize(jnp.asarray(q))[0], jc, valid_items=valid,
+                      interpret=True, packed=True,
+                      row_scale=jscale.reshape(-1, 1))
+        scale = pscale.numpy()
+    else:
+        pc, pq = (torch.from_numpy(a).to(dtype) for a in (c, q))
+        want = jcands(jnp.asarray(q, jdt), jnp.asarray(cp, jdt),
+                      valid_items=valid, interpret=True, packed=True)
+        scale = None
+    view = segment_view(n, 128, pc.element_size(), sub)
+    got = _packed_through_view(pq.float().numpy(), pc.float().numpy(), scale,
+                               view, sub, valid)
+    plain = mips_segment_candidates_plain(pq, pc, valid, True, None if
+                                          scale is None else pscale, sub)
+    n_live = got.shape[0]
+    np.testing.assert_array_equal(got, plain.view(torch.int32).numpy())
+    np.testing.assert_array_equal(
+        got, np.asarray(want).view(np.int32)[:n_live])
 
 
 # -- B5: the selection plan ---------------------------------------------------

@@ -41,7 +41,7 @@ from recbox_tpu_torch.ops.mips_fused_topk import (
     mips_fused_topk, mips_fused_topk_plain, segment_plan,
 )
 from recbox_tpu_torch.ops.mips_topk import (
-    decode_winners, mips_segment_candidates_plain,
+    candidate_route, decode_winners, mips_segment_candidates_plain,
 )
 from recbox_tpu_torch.retrieval import (
     BruteForceMIPS, RetrievalService, chunked_topk, quantize_int8,
@@ -610,6 +610,37 @@ def test_service_auto_20_users_matches_jax_kernel():
     _, old_i = mips_fused_topk_plain(torch.tensor(ju), torch.tensor(ji_emb),
                                      10, 20_000, sub_rows=1024)
     assert not _sets_equal(old_i, ji)
+
+
+@pytest.mark.parametrize("n_users", [20, 32, 64])
+def test_service_small_requests_take_the_segment_route(n_users):
+    """A served request of 20-64 users over a bf16 index at D = 64: JAX's
+    plan for its query tile has 16,384-row sub-chunks (128 segments), so
+    the CUDA path's stage (a) takes the segment route; on the CPU the
+    service's answer (the plain version) holds the JAX kernel's ids (in
+    interpret mode, on the same bf16 towers) but for ties at the k-th and
+    its scores within the packing's 2^-17."""
+    jm, pm = _youtubednn_pair(dim=64)
+    rng = np.random.default_rng(n_users)
+    hist = rng.integers(0, 20_000, (n_users, 5)).astype(np.int32)
+    users = {"user_id": rng.integers(0, N_USERS, n_users).astype(np.int32),
+             "hist": hist}
+    corpus = {"item_id": np.arange(20_000, dtype=np.int32)}
+    variables = _transplant(jm, pm, {k: v[:4] for k, v in users.items()},
+                            {"item_id": corpus["item_id"][:4]}, scale=1e3)
+    ju = np.asarray(jm.apply(variables, users, method=jm.encode_user))
+    ji_emb = np.asarray(jm.apply(variables, corpus, method=jm.encode_item))
+    psvc = RetrievalService(pm, corpus, method="auto", device="cpu")
+    assert psvc.index._kernel_gate(10)
+    sub, _ = segment_plan(torch.bfloat16, 20_000, 64, n_users, 10)
+    assert sub == 16384 and candidate_route(torch.bfloat16, 64, sub) \
+        == "segment"
+    js, ji = jfused(jnp.asarray(ju, jnp.bfloat16),
+                    jnp.asarray(ji_emb, jnp.bfloat16), 10,
+                    valid_items=20_000, interpret=True)
+    ps, pi = psvc.query(users, k=10)
+    assert _sets_equal_but_ties(ps, pi, js, ji)
+    np.testing.assert_allclose(ps, np.asarray(js), rtol=2e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("method", ["auto", "exact"])
