@@ -121,11 +121,11 @@ Phases (any failure raises and exits non-zero):
      profiled;
   5e. the quality exits on the card: `recbox_tpu_torch.tools.quality_exit`
      (the JAX package's DeepFM synthctr and SASRec synthseq parity runs,
-     and DCNv2 / xDeepFM in DeepFM's place) at seeds 2024, 1, 2, 3, 4,
-     valid and test metrics a seed and the medians of the test metrics;
-     then SASRec at seed 2024 through B2's loss and 8-step graphs, one
-     B2 forward and backward a step, its test metrics within 0.02 of the
-     median of the five;
+     and DCNv2 / xDeepFM in DeepFM's place) at seeds 2024, 1, 2
+     (`CARD_EXIT_SEEDS`), valid and test metrics a seed and the medians of
+     the test metrics; then SASRec at seed 2024 through B2's loss and
+     8-step graphs, one B2 forward and backward a step, its test metrics
+     within 0.02 of the median of the three;
   5f. matching from training to serving: LightGCN at `bench.py`'s width
      (30,000 users, 41,000 items, 1M interactions with 64 planted blocks,
      90% of a user's items from its block, the blocks scattered over the
@@ -149,8 +149,9 @@ Phases (any failure raises and exits non-zero):
      steps against two 8-step `train_steps_fused` calls (a CUDA graph) from
      the same weights, then served by `RetrievalService.from_trainer`; the
      matching exits, `tools/quality_exit.py`'s MF-BPR and LightGCN on synth
-     at seeds 2024, 1, 2, 3, 4 and MF-BPR on ml1m_scale at seed 2024 (4
-     epochs), valid and test metrics a seed and the medians;
+     at seeds 2024, 1, 2, 3, 4 and MF-BPR on ml1m_scale at seed 2024 (1
+     epoch, `ML1M_EXIT_EPOCHS`), valid and test metrics a seed and the
+     medians;
   5h. the CTR zoo through B1 at the Criteo width (phase 5's 26 + 13
      fields, batch 32768, the logistic label of phase 5):
      `run_ranking_experiment` over DCNv2 at `configs/models/dcnv2.yaml`'s
@@ -306,6 +307,23 @@ Phases (any failure raises and exits non-zero):
      k = 500) merged by B5 against the unsharded exact top-k (ids equal
      but for ties, scores within 1e-6); (c) `LAT_ROW`: index_select +
      index_add_ of 851,968 ids in a 2.6M-row pack, per id;
+  5t. a model's own tables row-sharded (`parallel.mesh.shard_rows`): (a)
+     a one-rank NCCL world: SASRec at 1M x 50 x 64, B = 1024, bf16,
+     through `full_scores`, its table marked sharded on `make_mesh()`
+     against the unmeshed trainer, 6 steps each in turns (the first loss
+     and every parameter after the first step bit for bit, no collective,
+     ms a step of each); (b) two gloo ranks on this card, a ('data')
+     mesh of 2: SASRec in f32 without dropout at a global batch of 256,
+     each rank holding 500,000 rows and their Adam moments (its bytes
+     against the unsharded run's), 3 steps against the unsharded run
+     (losses within 1e-5, the table at 5r(b)'s Adam rule), the recorded
+     bytes of a fourth against the model of `t_sasrec_comm_model` (within
+     1%, no term in V), the full sort of 4,096 users over the 1M items
+     through the evaluator's towers against the unsharded evaluation of
+     the same weights (ids equal but for ties); MIND over the 1M items
+     trained the same way and served through `RetrievalService.
+     from_trainer` on a ('model') mesh of 2, B5 merging the shards' top
+     100 (once a rank), against the unsharded service;
   5s. the public surface: (a) the 14 examples of
      `recbox_tpu_torch/examples/` (the JAX package's `examples/` scripts
      written against the port's public names), each `main()` on the card
@@ -336,9 +354,11 @@ Phases (any failure raises and exits non-zero):
      the tile route (at the serving shape and at each point of the sweep
      but 1024 queries, the sweep over runs of 10 or 3 calls behind a spin
      kernel), B4 at D = 128 and 64 with its tile route on the same
-     inputs beside its wgmma route, and the service's queries/s; one service query under torch.profiler,
-     for device time by kernel, the results' copy to the host and the
-     device's idle share.
+     inputs beside its wgmma route, and the service's queries/s; one
+     8192-user query of each service under torch.profiler (taken after
+     phase 4, before the script's other profiler sessions; a breakdown
+     that sees no device work fails), for device time by kernel, the
+     results' copy to the host and the device's idle share.
 
 Earlier lines of stdout carry the measurements as JSON; the line before
 the last is the kernels' summary, the last one
@@ -726,14 +746,15 @@ def serve_small_batches(svcs, users):
     return out
 
 
-def breakdown(svc, users):
-    """Where one steady service query's time goes: device time by kernel
-    (torch.profiler, CUPTI), the copy of the results to the host among
-    them, and the device's idle share of the call's wall time. Device
-    times are null when the profiler saw no device work."""
+# profiler sessions a breakdown may take before it fails for seeing no
+# device work
+BREAKDOWN_SESSIONS = 3
+
+
+def _profiled_query(svc, users):
+    """(wall ms, [(kernel, device ms, count)]) of one query under
+    torch.profiler (CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
-    svc.query(users, k=K)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -744,13 +765,29 @@ def breakdown(svc, users):
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in rows)
-    if device_ms == 0:
-        return {"wall_ms": wall_ms, "device_ms": None, "idle_share": None,
-                "copy_ms": None, "by_kernel": []}
+    return wall_ms, rows
+
+
+def breakdown(svc, users):
+    """Where one steady service query's time goes: device time by kernel
+    (torch.profiler, CUPTI), the copy of the results to the host among
+    them, and the device's idle share of the call's wall time. A profiler
+    session now and then sees no device work at all, at any point of the
+    script (once right after a session that saw 19 ms): the first session
+    that sees device work is kept (``sessions`` counts them), and after
+    BREAKDOWN_SESSIONS that see none the breakdown fails."""
+    svc.query(users, k=K)
+    torch.cuda.synchronize()
+    for session in range(1, BREAKDOWN_SESSIONS + 1):
+        wall_ms, rows = _profiled_query(svc, users)
+        device_ms = sum(r[1] for r in rows)
+        if device_ms > 0:
+            break
+    assert device_ms > 0, "the profiler saw no device work"
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": 1 - device_ms / wall_ms,
             "copy_ms": sum(ms for name, ms, _ in rows if "DtoH" in name),
+            "sessions": session,
             "by_kernel": [{"name": name[:90], "ms": ms, "count": n}
                           for name, ms, n in rows[:8]]}
 
@@ -1942,10 +1979,15 @@ def time_b6():
     return out
 
 
-def sasrec_setup(vocab, train_method, seed=SEED):
+def sasrec_setup(vocab, train_method, seed=SEED, mesh=None,
+                 compute_dtype="bfloat16", dropout=0.1, rows=None):
     """bench.py's SASRec regime (`bench.py:426-441`): 2 layers, 2 heads,
     L = 50, d = 64, dropout 0.1, bf16 compute, Adam 1e-3 with clip 10;
-    the batch drawn as `bench.py:434-438` draws it."""
+    the batch drawn as `bench.py:434-438` draws it (``rows`` of them,
+    SAS_B by default). ``mesh``, ``compute_dtype`` and ``dropout`` are 5t's
+    (the trainer on a mesh; f32 and no dropout for its two-rank
+    comparison)."""
+    rows = SAS_B if rows is None else rows
     from recbox_tpu_torch.features import FeatureMap, FeatureSpec
     from recbox_tpu_torch.models.sequential import SASRec
     from recbox_tpu_torch.ops.losses import full_softmax_loss
@@ -1954,7 +1996,7 @@ def sasrec_setup(vocab, train_method, seed=SEED):
         "item_id", "categorical", vocab_size=vocab,
         embedding_dim=SAS_D),), corpus_index="item_id", num_items=vocab)
     model = SASRec(fm, embedding_dim=SAS_D, max_seq_len=SAS_L, n_layers=2,
-                   n_heads=2, dropout=0.1, compute_dtype="bfloat16",
+                   n_heads=2, dropout=dropout, compute_dtype=compute_dtype,
                    generator=torch.Generator(device=DEVICE).manual_seed(seed),
                    device=DEVICE)
     loss = (lambda o, b: o) if train_method == "fused_ce_loss" else \
@@ -1962,12 +2004,12 @@ def sasrec_setup(vocab, train_method, seed=SEED):
     trainer = Trainer(model, loss, TrainerConfig(learning_rate=1e-3,
                                                  grad_clip_norm=10.0,
                                                  seed=seed),
-                      device=DEVICE, train_method=train_method)
+                      device=DEVICE, train_method=train_method, mesh=mesh)
     rng = np.random.default_rng(seed)
     batch = {
-        "item_seq": rng.integers(1, vocab, (SAS_B, SAS_L)).astype(np.int32),
-        "seq_len": np.full(SAS_B, SAS_L, np.int32),
-        "item_id": rng.integers(1, vocab, SAS_B).astype(np.int32),
+        "item_seq": rng.integers(1, vocab, (rows, SAS_L)).astype(np.int32),
+        "seq_len": np.full(rows, SAS_L, np.int32),
+        "item_id": rng.integers(1, vocab, rows).astype(np.int32),
     }
     batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
     return trainer, batch
@@ -2259,6 +2301,9 @@ def train_criteo():
 FIT_TRAIN_BATCHES, FIT_HELD_OUT_BATCHES, FIT_K, FIT_BLOCKS = 24, 4, 8, 6
 SAS_FIT_BATCHES, SAS_EVAL_USERS = 16, 4096
 EXIT_SEEDS = (2024, 1, 2, 3, 4)
+# 5e's seeds: the first three, a depth cut that keeps the script inside its
+# time (the exits' 5-seed readings are in PERF.md §7)
+CARD_EXIT_SEEDS = EXIT_SEEDS[:3]
 
 
 def clone_state(obj):
@@ -2561,8 +2606,8 @@ def fit_sasrec_1m():
 def quality_exits_on_card():
     """Phase 5e: `tools/quality_exit.py`'s DeepFM synthctr and SASRec
     synthseq runs, and the DCNv2 ('stacked') / xDeepFM (CIN relu) synthctr
-    runs, on the card, seeds EXIT_SEEDS; valid and test metrics a seed and
-    the medians of the test metrics. Then SASRec's first seed
+    runs, on the card, seeds CARD_EXIT_SEEDS; valid and test metrics a
+    seed and the medians of the test metrics. Then SASRec's first seed
     again through the 1M-item trainer's path (`fused`: kernel B2's loss,
     8-step `train_steps_fused` graphs), one B2 forward and backward a step,
     its test metrics within 0.02 (the exit's SASRec limit) of the median
@@ -2576,7 +2621,7 @@ def quality_exits_on_card():
             gen, run = qe.RUNS[name]
             data_dir = gen(tmp)
             runs = []
-            for seed in EXIT_SEEDS:
+            for seed in CARD_EXIT_SEEDS:
                 t0 = time.perf_counter()
                 res = run(data_dir, seed, DEVICE)
                 res["seconds"] = time.perf_counter() - t0
@@ -2925,8 +2970,8 @@ def sparse_mf_graph_check():
 
 # epochs of 5g's MF-BPR run on ml1m_scale (~5.8 s each on the card; the
 # exit's 30-epoch reading there is in PERF.md §7), a depth cut that keeps
-# the script inside its time
-ML1M_EXIT_EPOCHS = 2
+# the script inside its time (1, for phase 5t's time)
+ML1M_EXIT_EPOCHS = 1
 
 
 def matching_exits_on_card():
@@ -3388,7 +3433,7 @@ def bert4rec_gather_ab(trainer, batches, rounds=3):
     from recbox_tpu_torch.models.sequential import extended
     embedding = extended._masked_history
 
-    def indexing(table, item_seq):
+    def indexing(table, item_seq, shard=None):
         item_seq = item_seq.to(torch.int64)
         mask = item_seq != 0
         emb = table[item_seq]
@@ -6021,6 +6066,383 @@ def check_two_ranks(res, on_card=True):
     return True
 
 
+# -- phase 5t: a model's own tables row-sharded ----------------------------------
+# (a) SASRec at SAS_V x SAS_L x SAS_D, SAS_B rows, through `full_scores`, on
+# a one-rank NCCL mesh against the unmeshed trainer: T_STEPS steps of each,
+# in turns. (b) two gloo ranks on the card, a ('data') mesh of 2, the batch
+# cut to T_GLOO_BATCH rows, f32 and no dropout (the unsharded run draws
+# other dropout masks); T_EVAL_USERS users' full sort over the SAS_V items
+# (the table through the lookup's exchange, T_EVAL_BATCH ids a round);
+# MIND over SAS_V items trained the same way and served on a ('model') mesh
+# of 2 for T_MI_QUERIES users at k = T_MI_K
+T_STEPS, T_GLOO_BATCH, T_EVAL_USERS, T_EVAL_K = 6, 256, 4096, 20
+T_EVAL_BATCH, T_MI_NEGS, T_MI_QUERIES, T_MI_K, T_MI_INTERESTS = \
+    65536, 10, 256, 100, 4
+
+
+def t_held_bytes(trainer, name="emb_item"):
+    """Bytes this rank holds of table ``name``: its rows and its Adam
+    moments."""
+    p = trainer.params[name]
+    i = list(trainer.params).index(name)
+    opt = sum(trainer._opt.state[slot][i].numel() * 4
+              for slot in trainer._opt.slots)
+    return p.numel() * p.element_size() + opt
+
+
+def mesh_sasrec_one_rank():
+    """5t(a): a one-rank NCCL world in this process. SASRec's table marked
+    sharded on `make_mesh()` against the unmeshed trainer, from one draw,
+    T_STEPS `full_scores` steps each, in turns: at n = 1 no collective is
+    issued and the step is the unsharded one, the first loss and every
+    parameter after the first step bit for bit (dropout draws from each
+    trainer's own generator, seeded alike); ms a step of each."""
+    import torch.distributed as dist
+    from recbox_tpu_torch.parallel import initialize_distributed, make_mesh
+    from recbox_tpu_torch.parallel.mesh import (
+        SHARDED_SPEC, record_collectives,
+    )
+    initialize_distributed()        # no torchrun variables: a world of one
+    try:
+        mesh = make_mesh()
+        plain, batch = sasrec_setup(SAS_V, "full_scores")
+        sharded, _ = sasrec_setup(SAS_V, "full_scores", mesh=mesh)
+        plain.init(batch)
+        sharded.init(batch)
+        assert sharded.param_specs["emb_item"] == SHARDED_SPEC
+        assert tuple(sharded.params["emb_item"].shape) == (SAS_V, SAS_D)
+        losses = {"plain": [], "sharded": []}
+        times = {"plain": [], "sharded": []}
+        after_1 = {}
+        with record_collectives() as ops:
+            for i in range(T_STEPS):
+                order = (("plain", plain), ("sharded", sharded))
+                for name, t in (order if i % 2 == 0 else order[::-1]):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    losses[name].append(float(t.train_step(batch)))
+                    torch.cuda.synchronize()
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+                    if i == 0:
+                        after_1[name] = {k: v.detach().clone()
+                                         for k, v in t.params.items()}
+        assert losses["plain"][0] == losses["sharded"][0], losses
+        assert all(torch.equal(after_1["plain"][k], after_1["sharded"][k])
+                   for k in after_1["plain"])
+        assert not ops, ops
+        assert all(math.isfinite(x) for v in losses.values() for x in v)
+        out = {"mesh": {"data": 1, "model": 1},
+               "backend": dist.get_backend(), "steps": T_STEPS,
+               "vocab": SAS_V, "batch": SAS_B, "seq_len": SAS_L,
+               "dim": SAS_D, "compute_dtype": "bfloat16", "dropout": 0.1,
+               "collectives": len(ops), "losses": losses,
+               "first_loss_bit_equal": True,
+               "params_after_first_step_bit_equal": True,
+               "losses_bit_equal": losses["plain"] == losses["sharded"],
+               "step_ms": {k: statistics.median(v[1:])
+                           for k, v in times.items()},
+               "step_ms_all": times,
+               "table_bytes_held": t_held_bytes(sharded)}
+        del plain, sharded
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def ids_near_ties(s_ref, i_ref, s, i, tol):
+    """Per row: scores within ``tol`` of the reference, and every id the
+    reference ranks above its cut by more than ``tol`` present (an id may
+    swap only with one whose score lies within ``tol`` of the cut)."""
+    s_ref, i_ref, s, i = (torch.as_tensor(np.asarray(x)) for x in
+                          (s_ref, i_ref, s, i))
+    if (s_ref - s).abs().max().item() > tol:
+        return False
+    for r in range(s.shape[0]):
+        keep = s_ref[r] > s_ref[r, -1] + tol
+        if not set(i_ref[r][keep].tolist()) <= set(i[r].tolist()):
+            return False
+    return True
+
+
+def t_batches(n, seed, rows, vocab, negs=0):
+    """``n`` global batches of SASRec's (and MIND's) columns: histories
+    of SAS_L items, targets and, with ``negs``, (rows, 1 + negs)
+    candidates, the target first."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        b = {"item_seq": rng.integers(1, vocab, (rows, SAS_L)).astype(
+                 np.int32),
+             "seq_len": np.full(rows, SAS_L, np.int32),
+             "item_id": rng.integers(1, vocab, rows).astype(np.int32)}
+        if negs:
+            cand = np.concatenate([b["item_id"][:, None], rng.integers(
+                1, vocab, (rows, negs))], axis=1).astype(np.int32)
+            b["__item_ids__"] = b["item::item_id"] = cand
+        out.append(b)
+    return out
+
+
+def t_sasrec_comm_model(rows, dense, world=2, n_data=2):
+    """Collective bytes of one SASRec `full_scores` step on a ('data')
+    mesh, by the recorder's convention (an all-gather counts its output,
+    an all-reduce its tensor): the history's lookup (ids all-gathered,
+    int64; rows all-reduced over the world; their gradient all-gathered),
+    the users all-gathered and their gradient all-reduced, the softmax
+    (targets all-gathered, int32; each row's max, sum of exps and target
+    logit all-reduced: 3 f32), the replicated parameters' 'data'
+    all-reduce, the clip's and the loss's scalars. No term in V."""
+    g = rows                                   # the global batch
+    look = g * SAS_L * 8 + 2 * g * SAS_L * SAS_D * 4
+    users = 2 * g * SAS_D * 4
+    softmax = g * 4 + 3 * g * 4
+    return {"lookup": look, "users": users, "softmax": softmax,
+            "dense": dense * 4, "scalars": 2 * 4,
+            "total": look + users + softmax + dense * 4 + 8}
+
+
+def t_mind(mesh, seed=SEED):
+    """MIND over SAS_V items (D = SAS_D, T_MI_INTERESTS interests, L =
+    SAS_L), f32, trained on sampled candidates (softmax CE)."""
+    from recbox_tpu_torch.features import FeatureMap, FeatureSpec
+    from recbox_tpu_torch.models.matching import MIND
+    from recbox_tpu_torch.ops.losses import get_matching_loss
+    from recbox_tpu_torch.training import Trainer, TrainerConfig
+    fm = FeatureMap("mind5t", (FeatureSpec(
+        "item_id", "categorical", source="item", vocab_size=SAS_V,
+        embedding_dim=SAS_D),), corpus_index="item_id", num_items=SAS_V)
+    model = MIND(fm, embedding_dim=SAS_D, interest_num=T_MI_INTERESTS,
+                 max_seq_len=SAS_L,
+                 generator=torch.Generator(device=DEVICE).manual_seed(seed),
+                 device=DEVICE)
+    match = get_matching_loss("SoftmaxCrossEntropyLoss")
+    return Trainer(model, lambda o, b: match(o),
+                   TrainerConfig(learning_rate=1e-3, grad_clip_norm=10.0,
+                                 seed=seed), mesh=mesh, device=DEVICE)
+
+
+def t_eval_ids(trainer, users):
+    """The full sort of ``users`` over every item the way the trainer's
+    evaluator takes it (`RetrievalEvaluator.encode_all`: the users and the
+    corpus through the towers, under a mesh through the lookup's
+    exchange), top T_EVAL_K: (scores, ids, the evaluator's metrics)."""
+    from recbox_tpu_torch.evaluation import RetrievalEvaluator
+    from recbox_tpu_torch.evaluation.retrieval import (
+        evaluate_retrieval, full_sort_topk,
+    )
+    ev = RetrievalEvaluator(
+        {"item_seq": users["item_seq"], "seq_len": users["seq_len"]},
+        {"item_id": np.arange(SAS_V, dtype=np.int32)},
+        np.arange(len(users["item_id"])), {},
+        {q: [int(t)] for q, t in enumerate(users["item_id"])},
+        batch_size=T_EVAL_BATCH)
+    u, items = ev.encode_all(trainer)
+    # chunks of 1024 users: (1024, SAS_V) f32 scores at a time
+    parts = [full_sort_topk(u[c:c + 1024], items, T_EVAL_K,
+                            device=trainer.device)
+             for c in range(0, len(u), 1024)]
+    metrics = evaluate_retrieval(u, items, ev.train_user2items,
+                                 ev.valid_user2items, ev.query_indices,
+                                 ev.metrics, device=trainer.device)
+    return (np.concatenate([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]), metrics)
+
+
+def t_gloo_rank(rank, world, rdv, device, out_dir, width=None):
+    """5t(b), one rank of a two-rank gloo world on one device: SASRec
+    through `full_scores` on a ('data') mesh of 2, its table's 500,000
+    rows a rank, 3 steps of T_GLOO_BATCH rows and a fourth under the
+    collective recorder; the full sort of T_EVAL_USERS users; MIND trained
+    the same way and served through `RetrievalService.from_trainer` on a
+    ('model') mesh of 2 (the merge by B5). Rank 0 also runs the unsharded
+    trainers from the same draw, and the unsharded evaluation and service
+    over the sharded run's weights gathered whole."""
+    import torch.distributed as dist
+    global DEVICE
+    DEVICE = device
+    globals().update(width or {})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from recbox_tpu_torch.ops import bitonic_topk
+    from recbox_tpu_torch.parallel import make_mesh
+    from recbox_tpu_torch.parallel.inspect import collective_stats
+    from recbox_tpu_torch.parallel.mesh import export_state
+    from recbox_tpu_torch.retrieval import RetrievalService
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                            world_size=world, rank=rank)
+    out = {}
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    def whole(t):
+        return {k: v.detach().clone() for k, v in
+                export_state(t.params, t._row_shards()).items()}
+
+    try:
+        t_start = time.perf_counter()
+        mesh = make_mesh(1, device=device)              # ('data') of 2
+        batches = t_batches(4, SEED + 211, T_GLOO_BATCH, SAS_V)
+        mine = [r_local(b, mesh) for b in batches]
+        t, _ = sasrec_setup(SAS_V, "full_scores", mesh=mesh,
+                            compute_dtype="float32", dropout=0.0, rows=8)
+        t.init(mine[0])
+        shard = t._row_shards()["emb_item"]
+        t0 = time.perf_counter()
+        losses = []
+        for b in mine[:3]:
+            losses.append(float(t.train_step(b)))
+        sync()
+        wall = time.perf_counter() - t0
+        ops = collective_stats(t.train_step, mine[3])
+        counted = sum(op.bytes for op in ops)
+        dense = sum(p.numel() for n, p in t.params.items()
+                    if not t._sharded(n))
+        model = t_sasrec_comm_model(T_GLOO_BATCH, dense)
+        held = t_held_bytes(t)
+        out["sasrec"] = {
+            "shard_rows": shard.shard_rows, "valid_rows": shard.valid,
+            "losses": losses, "wall_s_3_steps": wall,
+            "table_bytes_held": held, "collectives": len(ops),
+            "counted_bytes": counted, "model_bytes": model,
+            "bytes_ratio": counted / model["total"],
+            "ops": sorted({op.line for op in ops})}
+        users = t_batches(1, SEED + 213, T_EVAL_USERS, SAS_V)[0]
+        t0 = time.perf_counter()
+        es, ei, metrics = t_eval_ids(t, users)
+        sync()
+        out["sasrec"]["eval"] = {"wall_s": time.perf_counter() - t0,
+                                 "metrics": metrics}
+        # the four steps' weights gathered whole (every rank calls it)
+        got = whole(t)
+        del t
+        if rank == 0:
+            ref, _ = sasrec_setup(SAS_V, "full_scores",
+                                  compute_dtype="float32", dropout=0.0,
+                                  rows=8)
+            ref.init(batches[0])
+            ref_losses = [float(ref.train_step(b)) for b in batches[:3]]
+            ref.train_step(batches[3])
+            held_ref = t_held_bytes(ref)
+            errs = r_table_errors({"emb_item": got["emb_item"]},
+                                  {"emb_item": ref.params["emb_item"]})
+            # the unsharded evaluation on the sharded run's weights
+            with torch.no_grad():
+                for k, p in ref.params.items():
+                    p.copy_(got[k])
+            rs, ri, rmetrics = t_eval_ids(ref, users)
+            out["sasrec"].update({
+                "ref_losses": ref_losses,
+                "loss_max_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                        zip(losses, ref_losses)),
+                "table": errs["embedding"],
+                "table_bytes_held_unsharded": held_ref,
+                "eval_ids_equal_but_ties": ids_near_ties(
+                    rs, ri, es, ei, 1e-5 * float(np.abs(rs).max())),
+                "eval_ids_bit_equal": bool(np.array_equal(ri, ei)
+                                           and np.array_equal(rs, es)),
+                "eval_metrics_equal": rmetrics == metrics})
+            del ref
+        dist.barrier()
+        # MIND: the same mesh, 3 steps; served on a ('model') mesh of 2
+        mb = t_batches(3, SEED + 217, T_GLOO_BATCH, SAS_V, negs=T_MI_NEGS)
+        mmine = [r_local(b, mesh) for b in mb]
+        mt = t_mind(mesh)
+        mt.init(mmine[0])
+        mlosses = [float(mt.train_step(b)) for b in mmine]
+        search_mesh = make_mesh(2, device=device)       # ('model') of 2
+        t0 = time.perf_counter()
+        svc = RetrievalService.from_trainer(
+            mt, {"item_id": np.arange(SAS_V, dtype=np.int32)},
+            mesh=search_mesh, method="exact", batch_size=T_EVAL_BATCH)
+        sync()
+        encode_s = time.perf_counter() - t0
+        q = {k: users[k][:T_MI_QUERIES] for k in ("item_seq", "seq_len")}
+        bitonic_topk.reset_launches()
+        t0 = time.perf_counter()
+        ms, mi = svc.query(q, k=T_MI_K)
+        sync()
+        out["mind"] = {
+            "losses": mlosses, "corpus_encode_s": encode_s,
+            "query_s": time.perf_counter() - t0,
+            "b5_launches": bitonic_topk.launches["bitonic_topk"],
+            "index_rows": int(svc.index.items.shape[0]),
+            "shape": {"items": SAS_V, "queries": T_MI_QUERIES,
+                      "interests": T_MI_INTERESTS, "k": T_MI_K}}
+        mgot = whole(mt)
+        del svc, mt
+        if rank == 0:
+            ref = t_mind(None)
+            ref.init(mb[0])
+            ref_losses = [float(ref.train_step(b)) for b in mb]
+            with torch.no_grad():
+                for k, p in ref.params.items():
+                    p.copy_(mgot[k])
+            rsvc = RetrievalService.from_trainer(
+                ref, {"item_id": np.arange(SAS_V, dtype=np.int32)},
+                method="exact", batch_size=T_EVAL_BATCH)
+            rs, ri = rsvc.query(q, k=T_MI_K)
+            out["mind"].update({
+                "ref_losses": ref_losses,
+                "loss_max_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                        zip(mlosses, ref_losses)),
+                "served_ids_equal_but_ties": ids_near_ties(
+                    rs, ri, ms, mi, 1e-5 * float(np.abs(rs).max())),
+                "served_max_abs_err": float(np.abs(rs - ms).max())})
+            del ref, rsvc
+        out["wall_s"] = time.perf_counter() - t_start
+        with open(os.path.join(out_dir, f"t_gloo_rank{rank}.json"),
+                  "w") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_tables_two_ranks(device="cuda", width=None):
+    """5t(b): spawn `t_gloo_rank` as two processes on one device; each
+    rank's result."""
+    import tempfile
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        rdv = os.path.join(tmp, "rdv")
+        t0 = time.perf_counter()
+        mp.spawn(t_gloo_rank, args=(2, rdv, device, tmp, width), nprocs=2,
+                 join=True)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"t_gloo_rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    return {"wall_s": wall, "ranks": ranks}
+
+
+def check_mesh_tables(res, on_card=True):
+    """5t(b) holds: each rank's 500,000 rows (SAS_V / 2) and the bytes
+    it holds against the unsharded run's; the losses against the unsharded
+    run (rtol R_LOSS_RTOL), the table at 5r(b)'s Adam rule; the counted
+    bytes equal the model within 1%; the full sort's ids equal the
+    unsharded evaluation's but for ties; MIND's losses and served ids
+    alike; on the card B5 launched once a rank for the served query."""
+    r0 = res["ranks"][0]
+    s0, m0 = r0["sasrec"], r0["mind"]
+    assert s0["loss_max_rel_err"] <= R_LOSS_RTOL, s0
+    assert s0["table"]["outside"] <= R_ADAM_OUTSIDE \
+        * s0["table"]["entries"], s0["table"]
+    assert s0["eval_ids_equal_but_ties"], s0
+    assert m0["loss_max_rel_err"] <= R_LOSS_RTOL, m0
+    assert m0["served_ids_equal_but_ties"], m0
+    for rk in res["ranks"]:
+        s = rk["sasrec"]
+        assert s["shard_rows"] == SAS_V // 2 == s["valid_rows"], s
+        assert s["table_bytes_held"] * 2 == s0["table_bytes_held_unsharded"]
+        assert abs(s["bytes_ratio"] - 1) < 0.01, s
+        assert rk["mind"]["b5_launches"] == (1 if on_card else 0), rk
+    return True
+
+
 # 5s. the public surface: the 14 examples of `recbox_tpu_torch/examples/`
 # on the card; DeepFM at `tools/prof_bigvocab_packed.py:24-25`'s shape
 # (26 x 1M x 64, 13 numeric, B = 8192) with direct_init; the segment-merge
@@ -6547,6 +6969,11 @@ def main() -> int:
     assert (ex_ids[:, :K - 3] == base_ids[:, 3:K]).mean() > 0.99
     emit({"phase": "exclude", "ok": True})
     del results, base_ids, ex_s, ex_ids
+    # phase 6's breakdown of one 8192-user query of each service, taken
+    # here, before any other profiler session of the script (late in the
+    # script the profiler has seen no device work)
+    profiles = {name: breakdown(s, users)
+                for name, s in (("bf16", svc), ("int8", svc8))}
     # 4a. small requests: 32 users a request, stage (a) on the segment route
     small = serve_small_batches((("bf16", svc), ("int8", svc8)), users)
     for name, res in small.items():
@@ -6735,6 +7162,23 @@ def main() -> int:
     r_b1 = mesh_a["b1_launches"] + sum(r["packed"]["b1_launches"]
                                        for r in mesh_b["ranks"])
     r_b5 = sum(r["search"]["b5_launches"] for r in mesh_b["ranks"])
+    # 5t. a model's own tables row-sharded: SASRec through full_scores on a
+    # one-rank NCCL mesh against the unmeshed step, then two gloo ranks on
+    # this card (SASRec, its full sort, MIND served through B5)
+    t5t = time.perf_counter()
+    t0 = time.perf_counter()
+    tab_a = mesh_sasrec_one_rank()
+    emit({"phase": "mesh_tables_one_rank_nccl", "card": card,
+          "wall_s": time.perf_counter() - t0, **tab_a})
+    tab_b = mesh_tables_two_ranks()
+    check_mesh_tables(tab_b)
+    emit({"phase": "mesh_tables_two_ranks_gloo", "card": card,
+          "batch": T_GLOO_BATCH, "staged_through_host": True,
+          "tolerance": {"loss_rtol": R_LOSS_RTOL, "rtol": R_RTOL,
+                        "atol": R_ATOL,
+                        "adam_outside_share": R_ADAM_OUTSIDE}, **tab_b})
+    emit({"phase": "5t", "wall_s": time.perf_counter() - t5t})
+    t_b5 = sum(r["mind"]["b5_launches"] for r in tab_b["ranks"])
     # 5s. the public surface: the examples, DeepFM at 26 x 1M x 64 with
     # direct_init, the segment-merge top-k at bench.py's shape
     t5s = time.perf_counter()
@@ -6768,8 +7212,10 @@ def main() -> int:
         qps[name] = N_QUERIES / statistics.median(walls)
     emit({"phase": "service_qps", "k": K, "queries": N_QUERIES,
           "items": N_ITEMS, **qps})
-    for name, s in (("bf16", svc), ("int8", svc8)):
-        emit({"phase": "breakdown", "variant": name, **breakdown(s, users)})
+    for name in ("bf16", "int8"):
+        emit({"phase": "breakdown", "variant": name, "card": card,
+              "taken_after": "phase 4, before the other profiler sessions",
+              **profiles[name]})
     b1_times = {kind: time_b1(gen, kind) for kind in ("uniform", "zipf")}
     for t in b1_times.values():
         emit({"phase": "timing", "card": card,
@@ -7094,11 +7540,12 @@ def main() -> int:
         "name": "bitonic_topk", "route": "cuda",
         "source": "recbox_tpu_torch/csrc/bitonic_topk.cu",
         "replaces": "recbox_tpu/ops/pallas/bitonic_topk.py:123",
-        "launches": cand_launches["bitonic_topk"] + r_b5
+        "launches": cand_launches["bitonic_topk"] + r_b5 + t_b5
         + seg["b5_launches"] + ex_launches.get("bitonic_topk", 0),
         "launches_by_path": {"candidate_paths_4b":
                              cand_launches["bitonic_topk"],
                              "sharded_search_merge_5r": r_b5,
+                             "mind_from_trainer_on_mesh_5t": t_b5,
                              "segmented_mips_topk_5s": seg["b5_launches"],
                              "examples_5s": ex_launches.get(
                                  "bitonic_topk", 0)},

@@ -11,6 +11,11 @@ Counterpart of `recbox_tpu/evaluation/evaluators.py`:
   beyond-accuracy metrics (`evaluation/beyond_accuracy.py`) over each
   user's top ``beyond_topk``: the full sort with the train items masked,
   or, under a sampled protocol, the candidate-ranked list.
+  Under a mesh every rank encodes every query and the whole corpus: a
+  row-sharded table's rows come through the lookup's exchange
+  (n_data·V·D·4 bytes all-reduced an evaluation, the table in effect
+  gathered whole), and the full sort runs as without a mesh, so it gives
+  the unsharded evaluation's metrics.
 * `CTREvaluator`: `Trainer.predict` over the validation rows, the sigmoid
   of the logits, then `evaluate_ctr` (AUC / logloss on the host, grouped
   metrics on the trainer's device).

@@ -19,6 +19,7 @@ from torch import nn
 
 from recbox_tpu_torch.models.base import init_rng
 from recbox_tpu_torch.nn.core import normal_table
+from recbox_tpu_torch.parallel.mesh import lookup, whole_table
 
 __all__ = ["Item2Vec", "sgns_loss", "build_skipgram_pairs"]
 
@@ -59,9 +60,10 @@ class Item2Vec(nn.Module):
         g, dev = self.init_rng(generator, device)
         self.num_items, self.embedding_dim = num_items, embedding_dim
         self.emb_center = normal_table((num_items, embedding_dim), 0.05, g,
-                                       dev)
+                                       dev, shard=True)
         self.emb_context = normal_table((num_items, embedding_dim), 0.05, g,
-                                        dev)
+                                        dev, shard=True)
+
 
     def forward(self, batch):
         return self.pair_logits(batch["center"], batch["context"],
@@ -70,19 +72,21 @@ class Item2Vec(nn.Module):
     def pair_logits(self, center, context, neg
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B,) positive logits and (B, N) negative logits."""
-        c = F.embedding(center, self.emb_center)
-        pos = torch.sum(c * F.embedding(context, self.emb_context), dim=-1)
+        c = lookup(self.emb_center, center, embedding=True)
+        pos = torch.sum(c * lookup(self.emb_context, context,
+                                   embedding=True), dim=-1)
         negs = torch.einsum("bd,bnd->bn", c,
-                            F.embedding(neg, self.emb_context))
+                            lookup(self.emb_context, neg, embedding=True))
         return pos, negs
 
     def item_vectors(self) -> torch.Tensor:
-        return self.emb_center
+        """The center table (gathered whole under a mesh)."""
+        return whole_table(self.emb_center)
 
     def user_vector(self, hist: torch.Tensor) -> torch.Tensor:
         """Mean of the history's center vectors; ``hist`` (B, L) padded
         with 0."""
-        emb = F.embedding(hist, self.emb_center)
+        emb = lookup(self.emb_center, hist, embedding=True)
         mask = (hist != 0).to(emb.dtype)[..., None]
         return torch.sum(emb * mask, dim=1) / torch.clamp(
             torch.sum(mask, dim=1), min=1e-12)

@@ -34,6 +34,7 @@ from recbox_tpu_torch.models.base import MatchingModel, extract_item_batch
 from recbox_tpu_torch.nn.attention import CapsuleNetwork, MultiInterestSA
 from recbox_tpu_torch.nn.core import MLP, normal_table
 from recbox_tpu_torch.nn.embedding import FeatureEmbedding, concat_embeddings
+from recbox_tpu_torch.parallel.mesh import lookup
 
 __all__ = ["MIND", "ComiRec", "SimpleX", "YoutubeSBC",
            "sampled_softmax_inbatch_loss"]
@@ -66,7 +67,7 @@ class _MultiInterestBase(MatchingModel):
         self.pow_p = float(pow_p)
         spec = feature_map[feature_map.corpus_index]
         self.emb_item = normal_table((spec.vocab_size, embedding_dim), 1e-4,
-                                     g, dev)
+                                     g, dev, shard=True)
         self._make_extractor(g, dev)
 
     def _make_extractor(self, generator, device) -> None:
@@ -78,7 +79,7 @@ class _MultiInterestBase(MatchingModel):
 
     def _history(self, batch):
         seq = batch["item_seq"]
-        emb = F.embedding(seq, self.emb_item)
+        emb = lookup(self.emb_item, seq, embedding=True)
         mask = seq != 0
         return emb * mask[..., None].to(emb.dtype), mask
 
@@ -90,7 +91,8 @@ class _MultiInterestBase(MatchingModel):
         return self.interests(batch)
 
     def item_tower(self, batch):
-        return F.embedding(batch[self.feature_map.corpus_index], self.emb_item)
+        return lookup(self.emb_item, batch[self.feature_map.corpus_index],
+                      embedding=True)
 
     def forward(self, batch):
         """(B, 1 + negs) scores: the interests attended by their scores
@@ -153,22 +155,26 @@ class SimpleX(MatchingModel):
         self.gamma, self.max_seq_len = float(gamma), max_seq_len
         rows = (feature_map[feature_map.query_index].vocab_size,
                 feature_map[feature_map.corpus_index].vocab_size)
-        self.emb_user = normal_table((rows[0], embedding_dim), 1e-4, g, dev)
-        self.emb_item = normal_table((rows[1], embedding_dim), 1e-4, g, dev)
+        self.emb_user = normal_table((rows[0], embedding_dim), 1e-4, g, dev,
+                                     shard=True)
+        self.emb_item = normal_table((rows[1], embedding_dim), 1e-4, g, dev,
+                                     shard=True)
 
     def user_tower(self, batch):
-        ue = F.embedding(batch[self.feature_map.query_index], self.emb_user)
+        ue = lookup(self.emb_user, batch[self.feature_map.query_index],
+                    embedding=True)
         if "item_seq" not in batch:
             return ue
         seq = batch["item_seq"]
-        emb = F.embedding(seq, self.emb_item)
+        emb = lookup(self.emb_item, seq, embedding=True)
         mask = (seq != 0).to(emb.dtype)[..., None]
         hist = torch.sum(emb * mask, dim=1) / torch.clamp(
             torch.sum(mask, dim=1), min=1e-9)
         return self.gamma * ue + (1.0 - self.gamma) * hist
 
     def item_tower(self, batch):
-        return F.embedding(batch[self.feature_map.corpus_index], self.emb_item)
+        return lookup(self.emb_item, batch[self.feature_map.corpus_index],
+                      embedding=True)
 
 
 class YoutubeSBC(MatchingModel):

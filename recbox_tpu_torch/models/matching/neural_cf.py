@@ -19,8 +19,9 @@ FISM, NAIS and ENMF also read ``hist`` (B, L), item histories padded with
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -32,6 +33,7 @@ from recbox_tpu_torch.models.base import MatchingModel
 from recbox_tpu_torch.nn.core import (
     MLP, Dropout, normal_table, xavier_normal_,
 )
+from recbox_tpu_torch.parallel.mesh import lookup, row_shard, whole_table
 
 __all__ = ["PairScoringModel", "NeuMF", "ConvNCF", "NAIS", "FISM", "ENMF",
            "NNCF", "enmf_loss"]
@@ -40,7 +42,9 @@ Device = Optional[Union[str, torch.device]]
 
 
 def _table(rows: int, dim: int, generator, device) -> nn.Parameter:
-    return normal_table((rows, dim), 1e-4, generator, device)
+    """A user or item table, row-sharded under a mesh (JAX's
+    ``_sharded()``)."""
+    return normal_table((rows, dim), 1e-4, generator, device, shard=True)
 
 
 def _lecun_(w: torch.Tensor, fan_in: int, generator) -> None:
@@ -71,8 +75,33 @@ def _same_pad(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
+# inside `PairScoringModel.full_scores` under a mesh: {id(table): the
+# whole table}
+_WHOLE: Dict[int, torch.Tensor] = {}
+
+
 def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids.long()]
+    """``table[ids]``; under a mesh the rows of a sharded table through
+    the exchange, or of its whole copy inside ``full_scores``."""
+    whole = _WHOLE.get(id(table))
+    if whole is not None:
+        return whole[ids.long()]
+    return lookup(table, ids.long())
+
+
+@contextlib.contextmanager
+def _whole_tables(model: nn.Module):
+    """The model's row-sharded tables gathered whole for `_gather`
+    (`parallel.mesh.whole_table`: V·D·4 bytes each way a table)."""
+    tables = [p for _, p in model.named_parameters()
+              if row_shard(p) is not None]
+    for p in tables:
+        _WHOLE[id(p)] = whole_table(p)
+    try:
+        yield
+    finally:
+        for p in tables:
+            _WHOLE.pop(id(p), None)
 
 
 class PairScoringModel(MatchingModel):
@@ -95,11 +124,15 @@ class PairScoringModel(MatchingModel):
         return self.score(batch, batch["__item_ids__"])
 
     def full_scores(self, batch) -> torch.Tensor:
-        """(B, num_items) scores of every item for each user."""
+        """(B, num_items) scores of every item for each user. Under a mesh
+        the sharded tables are gathered whole for the call (f(u, i) runs
+        replicated layers on every pair, so the logits are this rank's
+        rows against every item, a plain tensor)."""
         qi = self.feature_map.query_index
         users = batch[qi] if qi in batch else batch["user_id"]
         ids = torch.arange(self.num_items, device=users.device)
-        return self.score(batch, ids[None, :].expand(users.shape[0], -1))
+        with _whole_tables(self):
+            return self.score(batch, ids[None, :].expand(users.shape[0], -1))
 
     def user_tower(self, batch):
         raise NotImplementedError("pair-scoring models have no user tower")
@@ -260,7 +293,9 @@ class ENMF(PairScoringModel):
         u = self.user_repr(batch)
         v = _gather(self.emb_item, batch["hist"])
         h = self.h[:, 0]
-        return torch.einsum("bd,bld,d->bl", u, v, h), u, self.emb_item, h
+        # the Gram term reads every item: the whole table under a mesh
+        return torch.einsum("bd,bld,d->bl", u, v, h), u, \
+            whole_table(self.emb_item), h
 
 
 def enmf_loss(pos_scores, user_repr, item_table, h, hist_mask,
@@ -318,7 +353,7 @@ class NNCF(PairScoringModel):
 
     def score(self, batch, item_ids):
         u_ids = batch["user_id"].long()
-        u = self.emb_user[u_ids]
+        u = _gather(self.emb_user, u_ids)
         i = _gather(self.emb_item, item_ids)
         un = self._neigh_repr(self.user_neighbors[u_ids], self.emb_item,
                               self.u_conv)

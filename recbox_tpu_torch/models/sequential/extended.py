@@ -29,6 +29,13 @@ constants cancel in the softmax and BPR losses, JAX :12-19).
 - ``compute_dtype='bfloat16'`` reaches the transformer encoders of
   BERT4Rec, CORE and FDSA (LightSANs' own layers stay f32, as in JAX).
 
+Under a mesh the tables JAX partitions row-shard (`item_table(...,
+shard=True)`: the item, user, feature and output tables); TransRec's and
+FOSSIL's replicated ``bias_item`` join the sharded scoring table through
+`parallel.mesh.shard_slice`; BERT4Rec's [MASK] row stays in its shard and
+out of the scored columns; RepeatNet's mixture stays whole (`ROADMAP.md`
+Queue C 60); the cloze heads raise.
+
 Parameter names follow the flax tree, so `interop.from_jax_params` fills
 them: the tables (``emb_item``, ``emb_item_li``, ``emb_user``,
 ``bias_item``, ``emb_eta_user``, ...), each encoder's Dense layers by
@@ -57,6 +64,9 @@ from recbox_tpu_torch.nn.attention import (
 from recbox_tpu_torch.nn.core import Dropout
 from recbox_tpu_torch.nn.recurrent import GRUCell, rnn
 from recbox_tpu_torch.ops.fused_ce import fused_softmax_ce
+from recbox_tpu_torch.parallel.mesh import (
+    lookup, shard_slice, sharded_logits,
+)
 
 __all__ = ["BERT4Rec", "FPMC", "TransRec", "HGN", "SHAN", "FOSSIL", "HRM",
            "NPE", "CORE", "LightSANs", "FDSA", "RepeatNet", "SINE",
@@ -77,6 +87,15 @@ def _seq_args(kw: dict) -> dict:
         "feature_map", "embedding_dim", "max_seq_len", "dropout",
         "compute_dtype", "temperature", "similarity", "right_align",
         "generator", "device")}
+
+
+def _unsharded(model, what: str) -> None:
+    """Refuse a head that scores a whole (.., V) vocabulary against a
+    row-sharded table."""
+    if model._shard() is not None:
+        raise NotImplementedError(
+            f"{type(model).__name__}.{what} under a mesh: the item table is "
+            f"row-sharded; train through full_scores + full_softmax_loss")
 
 
 # -- BERT4Rec -----------------------------------------------------------------
@@ -117,7 +136,8 @@ class BERT4Rec(SequentialRecommender):
                  device: Device = None):
         super().__init__(**_seq_args(locals()))
         self.emb_item = item_table(self.vocab_size + 1, embedding_dim,
-                                   self._gen, self._dev)      # +1 = [MASK]
+                                   self._gen, self._dev,
+                                   shard=True)                # +1 = [MASK]
         self.bert4rec = _BERT4RecEncoder(
             embedding_dim, max_seq_len, n_layers, n_heads, dropout,
             self._enc_dtype(), self._gen, self._dev)
@@ -127,10 +147,14 @@ class BERT4Rec(SequentialRecommender):
         return self.vocab_size
 
     def _table(self) -> torch.Tensor:
+        # under a mesh the whole shard: the sharded logits leave out the
+        # columns from vocab_size on, [MASK] among them
+        if self._shard() is not None:
+            return self.emb_item
         return self.emb_item[:self.vocab_size]
 
     def _encode(self, item_seq, seq_len):
-        emb, mask = _masked_history(self.emb_item, item_seq)
+        emb, mask = _masked_history(self.emb_item, item_seq, self._shard())
         return self.bert4rec(emb, mask)
 
     def user_tower(self, batch):
@@ -150,7 +174,9 @@ class BERT4Rec(SequentialRecommender):
 
     def masked_item_scores(self, item_seq, seq_len, positions):
         """Cloze logits: ``item_seq`` already holds [MASK] at ``positions``
-        (B, P); (B, P, vocab) f32 scores at those positions."""
+        (B, P); (B, P, vocab) f32 scores at those positions. Unsharded
+        only: under a mesh it raises (the cloze head is not sharded)."""
+        _unsharded(self, "masked_item_scores")
         g = self._gathered(item_seq, seq_len, positions)
         return torch.einsum("bpd,vd->bpv", g.float(), self._table().float())
 
@@ -160,7 +186,8 @@ class BERT4Rec(SequentialRecommender):
         logits: the (B, P) positions flatten to B·P rows of kernel B2
         against the first V table rows; ``weights`` (B, P) masks pad
         positions exactly (a row of weight 0 is a no-op in the loss and
-        the gradients)."""
+        the gradients). A single-shard path: it raises under a mesh."""
+        _unsharded(self, "fused_cloze_loss")
         g = self._gathered(item_seq, seq_len, positions)
         flat = g.reshape(-1, g.shape[-1])
         w = None if weights is None else weights.reshape(-1)
@@ -184,16 +211,18 @@ class FPMC(SequentialRecommender):
                  device: Device = None):
         super().__init__(**_seq_args(locals()))
         g, dev, v, d = self._gen, self._dev, self.vocab_size, embedding_dim
-        self.emb_item_li = item_table(v, d, g, dev)               # V_li
-        self.emb_item_il = item_table(v, d, g, dev)               # V_il
-        self.emb_user = item_table(num_users, d, g, dev)          # V_ui
+        self.emb_item_li = item_table(v, d, g, dev, shard=True)   # V_li
+        self.emb_item_il = item_table(v, d, g, dev, shard=True)   # V_il
+        self.emb_user = item_table(num_users, d, g, dev,
+                                   shard=True)                    # V_ui
 
     def _table(self):
         return torch.cat([self.emb_item, self.emb_item_li], dim=1)
 
     def user_tower(self, batch):
-        u = self.emb_user[batch["user_id"].to(torch.int64)]
-        last = self.emb_item_il[batch["item_seq"][:, -1].to(torch.int64)]
+        u = lookup(self.emb_user, batch["user_id"].to(torch.int64))
+        last = lookup(self.emb_item_il,
+                          batch["item_seq"][:, -1].to(torch.int64))
         return torch.cat([u, last], dim=-1)
 
 
@@ -211,18 +240,22 @@ class TransRec(SequentialRecommender):
                  device: Device = None):
         super().__init__(**_seq_args(locals()))
         self.emb_user = item_table(num_users, embedding_dim, self._gen,
-                                   self._dev)
+                                   self._dev, shard=True)
         self.bias_item = nn.Parameter(torch.zeros(self.vocab_size, 1,
                                                   device=self._dev))
 
     def _table(self):
         e = self.emb_item
         sq = -torch.sum(e * e, dim=1, keepdim=True)
-        return torch.cat([e, sq, self.bias_item], dim=1)
+        # the bias replicates (JAX leaves it unpartitioned): its rows of
+        # this rank's shard
+        return torch.cat([e, sq, shard_slice(self.bias_item, self._shard())],
+                         dim=1)
 
     def user_tower(self, batch):
-        x = self.emb_user[batch["user_id"].to(torch.int64)] \
-            + self.emb_item[batch["item_seq"][:, -1].to(torch.int64)]
+        x = lookup(self.emb_user, batch["user_id"].to(torch.int64)) \
+            + lookup(self.emb_item,
+                         batch["item_seq"][:, -1].to(torch.int64))
         ones = torch.ones((x.shape[0], 1), dtype=x.dtype, device=x.device)
         return torch.cat([2.0 * x, ones, ones], dim=-1)
 
@@ -259,13 +292,14 @@ class HGN(SequentialRecommender):
                  device: Device = None):
         super().__init__(**_seq_args(locals()))
         self.emb_user = item_table(num_users, embedding_dim, self._gen,
-                                   self._dev)
+                                   self._dev, shard=True)
         self.hgn = _HGNEncoder(embedding_dim, max_seq_len, self._gen,
                                self._dev)
 
     def user_tower(self, batch):
-        emb, mask = _masked_history(self._table(), batch["item_seq"])
-        u = self.emb_user[batch["user_id"].to(torch.int64)]
+        emb, mask = _masked_history(self._table(), batch["item_seq"],
+                                    self._shard())
+        u = lookup(self.emb_user, batch["user_id"].to(torch.int64))
         return u + self.hgn(emb, mask, u) + torch.sum(emb, dim=1)
 
 
@@ -296,13 +330,14 @@ class SHAN(SequentialRecommender):
         super().__init__(**_seq_args(locals()))
         self.short_len = short_len
         self.emb_user = item_table(num_users, embedding_dim, self._gen,
-                                   self._dev)
+                                   self._dev, shard=True)
         self.long = _SHANAttention(embedding_dim, self._gen, self._dev)
         self.short = _SHANAttention(embedding_dim, self._gen, self._dev)
 
     def user_tower(self, batch):
-        emb, mask = _masked_history(self._table(), batch["item_seq"])
-        u = self.emb_user[batch["user_id"].to(torch.int64)]
+        emb, mask = _masked_history(self._table(), batch["item_seq"],
+                                    self._shard())
+        u = lookup(self.emb_user, batch["user_id"].to(torch.int64))
         long = self.long(emb, mask, u)
         s = self.short_len
         cand = torch.cat([long[:, None], emb[:, -s:]], dim=1)
@@ -332,10 +367,12 @@ class FOSSIL(SequentialRecommender):
         self.emb_eta_user = item_table(num_users, order_k, self._gen, dev)
 
     def _table(self):
-        return torch.cat([self.emb_item, self.bias_item], dim=1)
+        return torch.cat([self.emb_item,
+                          shard_slice(self.bias_item, self._shard())], dim=1)
 
     def user_tower(self, batch):
-        emb, _ = _masked_history(self.emb_item, batch["item_seq"])
+        emb, _ = _masked_history(self.emb_item, batch["item_seq"],
+                                 self._shard())
         denom = torch.pow(torch.clamp(batch["seq_len"], min=1).to(emb.dtype),
                           self.alpha)[:, None]
         sim = torch.sum(emb, dim=1) / denom
@@ -364,7 +401,7 @@ class HRM(SequentialRecommender):
         self.high_order = high_order
         self.pool_layer1, self.pool_layer2 = pool_layer1, pool_layer2
         self.emb_user = item_table(num_users, embedding_dim, self._gen,
-                                   self._dev)
+                                   self._dev, shard=True)
 
     @staticmethod
     def _pool(x, mask, mode):
@@ -380,8 +417,9 @@ class HRM(SequentialRecommender):
         mask = item_seq != 0
         # the newest slot always counts (a short history's max pool)
         mask = torch.cat([mask[:, :-1], torch.ones_like(mask[:, -1:])], dim=1)
-        l1 = self._pool(self._table()[item_seq], mask, self.pool_layer1)
-        u = self.emb_user[batch["user_id"].to(torch.int64)]
+        l1 = self._pool(lookup(self._table(), item_seq, self._shard()), mask,
+                        self.pool_layer1)
+        u = lookup(self.emb_user, batch["user_id"].to(torch.int64))
         pair = torch.stack([u, l1], dim=1)
         return self._pool(pair, torch.ones(pair.shape[:2], dtype=torch.bool,
                                            device=pair.device),
@@ -401,16 +439,19 @@ class NPE(SequentialRecommender):
                  device: Device = None):
         super().__init__(**_seq_args(locals()))
         g, dev = self._gen, self._dev
-        self.emb_item_out = item_table(self.vocab_size, embedding_dim, g, dev)
-        self.emb_user = item_table(num_users, embedding_dim, g, dev)
+        self.emb_item_out = item_table(self.vocab_size, embedding_dim, g, dev,
+                                       shard=True)
+        self.emb_user = item_table(num_users, embedding_dim, g, dev,
+                                   shard=True)
         self.drop = Dropout(dropout)
 
     def _table(self):
         return F.relu(self.emb_item_out)
 
     def user_tower(self, batch):
-        emb, _ = _masked_history(self.emb_item, batch["item_seq"])
-        u = self.emb_user[batch["user_id"].to(torch.int64)]
+        emb, _ = _masked_history(self.emb_item, batch["item_seq"],
+                                 self._shard())
+        u = lookup(self.emb_user, batch["user_id"].to(torch.int64))
         return self.drop(F.relu(u) + F.relu(torch.sum(emb, dim=1)))
 
 
@@ -470,6 +511,12 @@ class CORE(SequentialRecommender):
         def unit(x):
             return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True),
                                    min=1e-12)
+        shard = self._shard()
+        if shard is not None:
+            # the cosine normalises row by row: this rank's rows alone
+            return sharded_logits(unit(self.user_tower(batch)),
+                                  unit(self._table()), shard,
+                                  self.vocab_size, self.temperature)
         return (unit(self.user_tower(batch)) @ unit(self._table()).T
                 ) / self.temperature
 
@@ -610,16 +657,19 @@ class FDSA(SequentialRecommender):
         self.feature_seq_name = feature_seq_name
         self.feature_vocab = feature_vocab
         if feature_vocab:
-            self.emb_feat = item_table(feature_vocab, embedding_dim, g, dev)
+            self.emb_feat = item_table(feature_vocab, embedding_dim, g, dev,
+                                       shard=True)
         else:
             self.feat_from_item = dense(embedding_dim, embedding_dim, g, dev)
         self.fdsa = _FDSAEncoder(embedding_dim, max_seq_len, n_layers,
                                  n_heads, dropout, self._enc_dtype(), g, dev)
 
     def user_tower(self, batch):
-        emb, mask = _masked_history(self._table(), batch["item_seq"])
+        emb, mask = _masked_history(self._table(), batch["item_seq"],
+                                    self._shard())
         if self.feature_vocab:
-            feat = self.emb_feat[batch[self.feature_seq_name].to(torch.int64)]
+            feat = lookup(self.emb_feat,
+                              batch[self.feature_seq_name].to(torch.int64))
             feat = feat * mask[..., None].to(feat.dtype)
         else:
             feat = self.feat_from_item(emb)
@@ -697,10 +747,15 @@ class RepeatNet(SequentialRecommender):
     def _probs(self, batch):
         item_seq = right_align_to_left(batch["item_seq"].to(torch.int64),
                                        batch["seq_len"])
-        emb, mask = _masked_history(self._table(), item_seq)
+        emb, mask = _masked_history(self._table(), item_seq, self._shard())
         return self.core(emb, item_seq, mask, batch["seq_len"])
 
     def full_scores(self, batch):
+        # whole (B, V) log-probabilities under a mesh too: the explore
+        # head is a replicated Dense over V and the repeat head scatters
+        # over the history, so the mixture reads the sharded table only
+        # through the history's lookup (the exchange; `ROADMAP.md` Queue C
+        # 60)
         return torch.log(self._probs(batch) + 1e-12)
 
     def user_tower(self, batch):

@@ -12,6 +12,12 @@ one). Training protocols: ``full_scores`` (B, V) logits with
 kernel B2 (`ops/fused_ce.py`) without the (B, V) logits, and the sampled
 negatives of `MatchingModel.forward`.
 
+Under a mesh the item table row-shards (`parallel.mesh.shard_rows`, JAX's
+``nn.with_partitioning`` at :83): the history and the item tower read it
+through the mesh's exchange (`parallel.mesh.lookup`), and ``full_scores``
+gives `parallel.mesh.ShardedLogits`, this rank's columns of the global
+batch's scores, whose CE `full_softmax_loss` takes vocabulary-parallel.
+
 ``right_align`` (GRU4Rec, NARM and the session models default to it)
 turns the history right-padded before the encoder, as JAX's base does.
 ``compute_dtype='bfloat16'`` runs the transformer encoders (SASRec here;
@@ -46,6 +52,9 @@ from recbox_tpu_torch.nn.attention import (
 from recbox_tpu_torch.nn.core import _TRUNC_STD, Dropout
 from recbox_tpu_torch.nn.recurrent import GRUCell, rnn
 from recbox_tpu_torch.ops.fused_ce import fused_softmax_ce
+from recbox_tpu_torch.parallel.mesh import (
+    lookup, row_shard, shard_rows, sharded_logits,
+)
 
 __all__ = ["SequentialRecommender", "SASRec", "GRU4Rec", "NARM", "STAMP",
            "Caser", "NextItNet", "right_align_to_left"]
@@ -63,15 +72,17 @@ def right_align_to_left(item_seq: torch.Tensor,
     return torch.gather(item_seq, 1, idx)
 
 
-def _masked_history(table: torch.Tensor, item_seq: torch.Tensor):
+def _masked_history(table: torch.Tensor, item_seq: torch.Tensor,
+                    shard=None):
     """(emb (B, L, D) with PAD rows zeroed, mask (B, L)). The rows come by
     `F.embedding`, whose backward sums a repeated id's rows in parallel
     segments (indexing's accumulating `index_put_` adds them one after
     another: on a Zipf batch of 1024 x 50 ids, 14.7 of BERT4Rec's 25.2 ms
-    replayed step on an H100, `PERF.md` §5)."""
+    replayed step on an H100, `PERF.md` §5); under a mesh (``shard``, the
+    table's `RowShard`) by the mesh's exchange."""
     item_seq = item_seq.to(torch.int64)
     mask = item_seq != 0
-    emb = F.embedding(item_seq, table)
+    emb = lookup(table, item_seq, shard, embedding=True)
     return emb * mask[..., None].to(emb.dtype), mask
 
 
@@ -92,10 +103,14 @@ def _conv_init(conv: nn.Module, generator) -> None:
         nn.init.zeros_(conv.bias)
 
 
-def item_table(rows: int, dim: int, generator, device) -> nn.Parameter:
-    """An item-side table drawn as `nn.embedding.emb_init`: normal(1e-4)."""
-    return nn.Parameter(1e-4 * torch.randn(rows, dim, generator=generator,
-                                           device=device))
+def item_table(rows: int, dim: int, generator, device,
+               shard: bool = False) -> nn.Parameter:
+    """An item-side table drawn as `nn.embedding.emb_init`: normal(1e-4);
+    ``shard`` marks it for row-sharding under a mesh (JAX's
+    ``nn.with_partitioning(emb_init(), (('data', 'model'), None))``)."""
+    p = nn.Parameter(1e-4 * torch.randn(rows, dim, generator=generator,
+                                        device=device))
+    return shard_rows(p) if shard else p
 
 
 class SequentialRecommender(MatchingModel):
@@ -123,7 +138,7 @@ class SequentialRecommender(MatchingModel):
         self.right_align = right_align
         self.vocab_size = feature_map[feature_map.corpus_index].vocab_size
         self.emb_item = item_table(self.vocab_size, embedding_dim,
-                                   self._gen, self._dev)
+                                   self._gen, self._dev, shard=True)
 
     @property
     def _cdtype(self) -> torch.dtype:
@@ -137,8 +152,13 @@ class SequentialRecommender(MatchingModel):
 
     def _table(self) -> torch.Tensor:
         """The scoring table (V, D'): the item table unless a model
-        augments it."""
+        augments it; under a mesh this rank's rows of it."""
         return self.emb_item
+
+    def _shard(self):
+        """The scoring table's `RowShard` under a mesh (the item table's),
+        else None."""
+        return row_shard(self.emb_item)
 
     def encode(self, emb: torch.Tensor, mask: torch.Tensor,
                seq_len: torch.Tensor) -> torch.Tensor:
@@ -149,23 +169,29 @@ class SequentialRecommender(MatchingModel):
         item_seq = item_seq.to(torch.int64)
         if self.right_align:
             item_seq = right_align_to_left(item_seq, seq_len)
-        emb, mask = _masked_history(self._table(), item_seq)
+        emb, mask = _masked_history(self._table(), item_seq, self._shard())
         return self.encode(emb, mask, seq_len)
 
     def user_tower(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         return self.encode_sequence(batch["item_seq"], batch["seq_len"])
 
     def item_tower(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return self._table()[batch[self.feature_map.corpus_index].to(
-            torch.int64)]
+        return lookup(self._table(), batch[self.feature_map.corpus_index].to(
+            torch.int64), self._shard())
 
     def full_scores(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """(B, vocab) f32 scores over the item vocabulary, divided by the
         temperature. In bf16 compute the operands round to bf16 and the
         product is f32: on the CPU as f32 products of the rounded values,
         on the card a bf16 `torch.matmul` (JAX leaves this product to XLA)
-        with its output in f32."""
+        with its output in f32. Under a mesh, this rank's columns of the
+        global batch's scores (`parallel.mesh.ShardedLogits`)."""
         user = self.user_tower(batch)
+        shard = self._shard()
+        if shard is not None:
+            return sharded_logits(user, self._table(), shard,
+                                  self.vocab_size, self.temperature,
+                                  self._cdtype)
         u, t = user.to(self._cdtype), self._table().to(self._cdtype)
         if u.dtype == torch.bfloat16 and u.device.type == "cpu":
             u, t = u.float(), t.float()
@@ -177,7 +203,11 @@ class SequentialRecommender(MatchingModel):
         temperature``. Equals ``full_softmax_loss(full_scores(batch),
         batch[corpus_index])`` under bf16 compute. Train it with an identity
         loss: ``Trainer(model, lambda out, b: out, cfg,
-        train_method='fused_ce_loss')``."""
+        train_method='fused_ce_loss')``. A single-shard path: it raises
+        under a mesh, as the trainer does."""
+        if self._shard() is not None:
+            raise ValueError("fused_ce_loss is a single-shard path and "
+                             "cannot run on a row-sharded table")
         user = self.user_tower(batch)
         return fused_softmax_ce(user / self.temperature, self._table(),
                                 batch[self.feature_map.corpus_index])

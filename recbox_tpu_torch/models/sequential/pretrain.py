@@ -38,6 +38,7 @@ from recbox_tpu_torch.nn.attention import (
 )
 from recbox_tpu_torch.nn.core import Dropout
 from recbox_tpu_torch.nn.recurrent import GRUCell, rnn
+from recbox_tpu_torch.parallel.mesh import lookup
 
 __all__ = ["S3Rec", "GRU4RecF", "PRETRAIN_PARAMETERS"]
 
@@ -69,7 +70,7 @@ class S3Rec(SequentialRecommender):
                          generator, device)
         g, dev, d = self._gen, self._dev, embedding_dim
         self.n_attributes = n_attributes
-        self.emb_item = item_table(self.vocab_size + 1, d, g, dev)
+        self.emb_item = item_table(self.vocab_size + 1, d, g, dev, shard=True)
         self.encoder = _BERT4RecEncoder(d, max_seq_len, n_layers, n_heads,
                                         dropout, self._enc_dtype(), g, dev)
         self.causal = TransformerEncoder(
@@ -86,21 +87,32 @@ class S3Rec(SequentialRecommender):
         return self.vocab_size
 
     def _table(self) -> torch.Tensor:
+        # under a mesh the whole shard: the sharded logits leave out the
+        # columns from vocab_size on, [MASK] among them
+        if self._shard() is not None:
+            return self.emb_item
         return self.emb_item[:self.vocab_size]
 
     def _bi_encode(self, seq: torch.Tensor) -> torch.Tensor:
-        emb, mask = _masked_history(self.emb_item, seq)
+        emb, mask = _masked_history(self.emb_item, seq, self._shard())
         return self.encoder(emb, mask)
 
     def user_tower(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        emb, mask = _masked_history(self.emb_item, batch["item_seq"])
+        emb, mask = _masked_history(self.emb_item, batch["item_seq"],
+                                    self._shard())
         return self.causal(self.pos(emb), mask)[:, -1, :]
 
     # -- pretrain heads ------------------------------------------------------
     def mip_logits(self, item_seq: torch.Tensor, seq_len: torch.Tensor,
                    positions: torch.Tensor) -> torch.Tensor:
         """(B, P, vocab) scores of the states at ``positions`` against the
-        item table ([MASK] excluded)."""
+        item table ([MASK] excluded). Unsharded only: it raises under a
+        mesh."""
+        if self._shard() is not None:
+            raise NotImplementedError(
+                "S3Rec.mip_logits under a mesh: the item table is "
+                "row-sharded; pretrain_losses scores its MIP pairs through "
+                "the exchange")
         h = self._bi_encode(item_seq)
         idx = positions.to(torch.int64)[..., None].expand(-1, -1, h.shape[-1])
         return torch.einsum("bpd,vd->bpv", torch.gather(h, 1, idx),
@@ -138,10 +150,10 @@ class S3Rec(SequentialRecommender):
         table = self.emb_item
         mip_mask = (masked_seq == self.mask_token).float()
         valid = (masked_seq != 0).float()
-        pos_e = nn.functional.embedding(batch["pos_items"].to(torch.int64),
-                                        table)
-        neg_e = nn.functional.embedding(batch["neg_items"].to(torch.int64),
-                                        table)
+        pos_e = lookup(table, batch["pos_items"].to(torch.int64),
+                       self._shard(), embedding=True)
+        neg_e = lookup(table, batch["neg_items"].to(torch.int64),
+                       self._shard(), embedding=True)
         mip_dist = torch.sum(h * pos_e, -1) - torch.sum(h * neg_e, -1)
         mip_loss = torch.sum(_bce(mip_dist, torch.ones_like(mip_dist))
                              * mip_mask)
@@ -206,7 +218,7 @@ class GRU4RecF(GRU4Rec):
         self.feature_seq_name = feature_seq_name
         self.feature_vocab = feature_vocab
         if feature_vocab:
-            self.emb_feat = item_table(feature_vocab, d, g, dev)
+            self.emb_feat = item_table(feature_vocab, d, g, dev, shard=True)
         self.gru4recf = _GRU4RecFEncoder(2 * d, d, hidden_size, n_layers,
                                          dropout, g, dev)
 
@@ -214,11 +226,11 @@ class GRU4RecF(GRU4Rec):
         seq_len = batch["seq_len"]
         seq = right_align_to_left(batch["item_seq"].to(torch.int64), seq_len)
         mask = seq != 0
-        emb = nn.functional.embedding(seq, self._table())
+        emb = lookup(self._table(), seq, self._shard(), embedding=True)
         if self.feature_vocab and self.feature_seq_name in batch:
             fseq = right_align_to_left(
                 batch[self.feature_seq_name].to(torch.int64), seq_len)
-            femb = nn.functional.embedding(fseq, self.emb_feat)
+            femb = lookup(self.emb_feat, fseq, embedding=True)
         else:
             femb = torch.zeros_like(emb)
         x = torch.cat([emb, femb], dim=-1) * mask[..., None].to(emb.dtype)

@@ -30,6 +30,7 @@ from recbox_tpu_torch.models.sequential.models import (
 )
 from recbox_tpu_torch.nn.attention import TransformerEncoder, dense
 from recbox_tpu_torch.nn.recurrent import GRUCell
+from recbox_tpu_torch.parallel.mesh import lookup
 
 __all__ = ["SRGNN", "GCSAN", "session_adjacency"]
 
@@ -101,7 +102,8 @@ class _SessionGraphModel(SequentialRecommender):
         seq = right_align_to_left(batch["item_seq"].to(torch.int64),
                                   batch["seq_len"])
         mask = seq != 0
-        emb = self._table()[seq] * mask[..., None].to(self.emb_item.dtype)
+        emb = lookup(self._table(), seq, self._shard()) \
+            * mask[..., None].to(self.emb_item.dtype)
         a_in, a_out = session_adjacency(seq)
         return self.gnn(emb, a_in, a_out), mask
 

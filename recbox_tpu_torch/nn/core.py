@@ -50,13 +50,20 @@ def xavier_normal_(t: torch.Tensor, generator: Optional[torch.Generator] = None
                                      generator=generator)
 
 
-def normal_table(shape, std: float, generator, device) -> nn.Parameter:
+def normal_table(shape, std: float, generator, device,
+                 shard: bool = False) -> nn.Parameter:
     """A table drawn as JAX's ``emb_init(std)`` / flax's ``normal(std)``:
-    normal(0, std)."""
+    normal(0, std). ``shard`` marks it for row-sharding under a mesh
+    (`parallel.mesh.shard_rows`), where JAX wraps the init in
+    ``nn.with_partitioning(..., (('data', 'model'), None))``."""
     w = torch.empty(tuple(shape), device=device)
     with torch.no_grad():
         w.normal_(0.0, std, generator=generator)
-    return nn.Parameter(w)
+    p = nn.Parameter(w)
+    if shard:
+        from recbox_tpu_torch.parallel.mesh import shard_rows
+        shard_rows(p)
+    return p
 
 
 def xavier_param(shape, generator, device) -> nn.Parameter:

@@ -117,7 +117,14 @@ def full_softmax_loss(full_scores: torch.Tensor,
                       target_ids: torch.Tensor) -> torch.Tensor:
     """CE over the full item vocabulary (recbole loss_type='CE'):
     full_scores (B, vocab), target_ids (B,) int; the mean over rows of
-    -log_softmax(scores)[target]."""
+    -log_softmax(scores)[target]. Under a mesh, a model's ``full_scores``
+    over a row-sharded table are `parallel.mesh.ShardedLogits`, whose CE
+    is the vocabulary-parallel one (`parallel.mesh.vocab_parallel_ce`)."""
+    from recbox_tpu_torch.parallel.mesh import (
+        ShardedLogits, vocab_parallel_ce,
+    )
+    if isinstance(full_scores, ShardedLogits):
+        return vocab_parallel_ce(full_scores, target_ids)
     logp = torch.log_softmax(full_scores, dim=-1)
     return -torch.mean(torch.gather(
         logp, 1, target_ids.reshape(-1, 1).to(torch.int64))[:, 0])

@@ -14,8 +14,11 @@ CPU, and the collectives are written out by hand:
   stages every collective through the host, explicitly;
 * `param_partition_specs`: ``(('data', 'model'), None)`` for a row-sharded
   `FeatureEmbedding` table (its spec's ``shard_table``, else the module's
-  ``shard_tables``, JAX `nn/embedding.py:212-219`), ``()`` for every other
-  parameter (a model's own bare tables replicate here);
+  ``shard_tables``, JAX `nn/embedding.py:212-219`) and for a model's own
+  table marked with `shard_rows` where the model makes it (JAX's
+  ``nn.with_partitioning`` on the sequential, NCF, Item2Vec and
+  multi-interest tables), ``()`` for every other parameter (the graph and
+  knowledge models' tables replicate here, `ROADMAP.md` Queue C);
 * `shard_params`: rank r keeps rows ``[r·S, (r+1)·S)`` of each sharded
   table, S = ceil(V / N), in the combined-grid order; a ragged last shard
   is padded with zero rows that no view shows;
@@ -30,6 +33,14 @@ CPU, and the collectives are written out by hand:
   exchange `placement.predict_step_comm_bytes` models. `sharded_rows` and
   `owned_grads` are its two halves, which the trainers that update rows
   outside autograd call;
+* a model's own sharded tables: `lookup` (the exchange, or the model's
+  indexing without a mesh), `shard_slice` (a replicated per-row parameter
+  cut to the shard's rows), `whole_table` (the table all-gathered, for the
+  scorers that read every row), and the vocabulary-parallel full softmax:
+  `sharded_logits` gives `ShardedLogits` (the global batch's rows against
+  this rank's columns, which refuse any use but theirs),
+  `vocab_parallel_ce` their CE (3·B floats reduced a step, no term in V)
+  and `sharded_hit_positions` the evaluators' ranks;
 * `export_state` / `import_state`: a state dict's row shards gathered
   whole (or as DTensors) and split again, keyed by a {name: RowShard} map;
 * the collective wrappers (`all_gather`, `all_reduce_`, `barrier`) through
@@ -61,7 +72,9 @@ __all__ = ["make_mesh", "shard_params", "shard_batch", "param_partition_specs",
            "import_state", "sharded_embedding", "sharded_rows",
            "owned_grads", "all_gather", "all_reduce_", "barrier",
            "record_collectives", "world_size", "rank", "SHARDED_SPEC", "table_shards",
-           "full_state_dict"]
+           "full_state_dict", "shard_rows", "row_shard", "lookup",
+           "shard_slice", "gather_batch", "whole_table", "ShardedLogits",
+           "sharded_logits", "vocab_parallel_ce", "sharded_hit_positions"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -231,19 +244,20 @@ def all_gather(x: torch.Tensor, mesh=None, axis: Optional[str] = None,
     return out
 
 
-def all_reduce_(x: torch.Tensor, mesh=None, axis: Optional[str] = None
-                ) -> torch.Tensor:
-    """Sum ``x`` over the group in place; returns it (untouched on a group
-    of one)."""
+def all_reduce_(x: torch.Tensor, mesh=None, axis: Optional[str] = None,
+                op: str = "sum") -> torch.Tensor:
+    """Reduce ``x`` over the group in place (``op`` 'sum' or 'max');
+    returns it (untouched on a group of one)."""
     group = _group(mesh, axis)
     if _size(group) == 1:
         return x
+    rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     if _staged(x, group) or not x.is_contiguous():
         buf = x.detach().cpu() if _staged(x, group) else x.contiguous()
-        dist.all_reduce(buf, group=group)
+        dist.all_reduce(buf, op=rop, group=group)
         x.copy_(buf)
     else:
-        dist.all_reduce(x, group=group)
+        dist.all_reduce(x, op=rop, group=group)
     _record("all-reduce", x)
     return x
 
@@ -420,6 +434,278 @@ def sharded_embedding(ids: torch.Tensor, table: torch.Tensor,
     return _ShardedLookup.apply(table, ids, shard)
 
 
+# -- a model's own tables -------------------------------------------------------
+
+_MARK = "recbox_shard_rows"
+_SHARD = "recbox_row_shard"
+
+
+def shard_rows(p: torch.nn.Parameter) -> torch.nn.Parameter:
+    """Mark a model's own table for row-sharding under a mesh, where the
+    model makes it (flax's ``nn.with_partitioning(init, (('data',
+    'model'), None))``); returns ``p``. `param_partition_specs` gives it
+    `SHARDED_SPEC` and `shard_params` keeps this rank's rows in it."""
+    setattr(p, _MARK, True)
+    return p
+
+
+def row_shard(p: torch.Tensor) -> Optional[RowShard]:
+    """The `RowShard` of a marked table that `shard_params` sharded over a
+    world of more than one rank; None otherwise, where the model runs its
+    unsharded path (a world of one keeps the whole table)."""
+    shard = getattr(p, _SHARD, None)
+    return shard if shard is not None and world_size() > 1 else None
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor,
+           shard: Optional[RowShard] = None,
+           embedding: bool = False) -> torch.Tensor:
+    """The rows ``ids`` of a model's own table: the marked parameter (its
+    `row_shard` by default), or a per-row function of it, such as a
+    model's augmented scoring table, with the parameter's ``shard``. Under
+    a mesh the exchange of `sharded_embedding`; without one the indexing
+    the model did before: ``F.embedding(ids, table)`` with ``embedding``,
+    else ``table[ids]``."""
+    shard = shard if shard is not None else row_shard(table)
+    if shard is None:
+        return F.embedding(ids, table) if embedding else table[ids]
+    return _ShardedLookup.apply(table, ids, shard)
+
+
+class _ShardSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, full, shard):
+        ctx.shard, ctx.rows = shard, full.shape[0]
+        out = full.new_zeros((shard.shard_rows,) + tuple(full.shape[1:]))
+        out[:shard.valid] = full[shard.lo:shard.lo + shard.valid]
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        s = ctx.shard
+        out = grad.new_zeros((ctx.rows,) + tuple(grad.shape[1:]))
+        out[s.lo:s.lo + s.valid] = grad[:s.valid]
+        # each rank's gradient covers its own rows, from the global batch:
+        # the 'model' sum here and the trainer's 'data' sum give every
+        # row once
+        return all_reduce_(out, s.mesh, MODEL_AXIS), None
+
+
+def shard_slice(p: torch.Tensor, shard: Optional[RowShard]) -> torch.Tensor:
+    """This rank's padded rows of a REPLICATED per-row parameter (TransRec's
+    and FOSSIL's item bias) beside a sharded table; ``p`` itself without a
+    shard. Its backward sums the (V, ...) gradient over 'model' (a V term
+    of the replicated parameter, as its 'data' all-reduce is)."""
+    return p if shard is None else _ShardSlice.apply(p, shard)
+
+
+class _GatherData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.n = mesh, x.shape[0]
+        out = all_gather(x, mesh, DATA_AXIS)
+        return x.clone() if out is x else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        # every rank's rows of the global batch reach every rank's
+        # columns: the world sum, then this rank's rows
+        g = all_reduce_(grad.contiguous().clone(), ctx.mesh)
+        d = mesh_coords(ctx.mesh)[0]
+        return g[d * ctx.n:(d + 1) * ctx.n], None
+
+
+def gather_batch(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The global batch's rows of ``x`` (this rank's, all-gathered over
+    'data'), differentiable: the backward sums the gradient over the world
+    and keeps this rank's rows (each rank's columns add their share)."""
+    return _GatherData.apply(x, mesh)
+
+
+class _WholeTable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, shard):
+        ctx.shard = shard
+        return gather_rows(local, shard.rows, shard.mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        s = ctx.shard
+        # this rank's rows of the batch reached every row: the 'data' sum
+        # gives each row the global batch's gradient once
+        g = all_reduce_(grad.contiguous().clone(), s.mesh, DATA_AXIS)
+        out = grad.new_zeros((s.shard_rows,) + tuple(grad.shape[1:]))
+        out[:s.valid] = g[s.lo:s.lo + s.valid]
+        return out, None
+
+
+def whole_table(p: torch.Tensor, shard: Optional[RowShard] = None
+                ) -> torch.Tensor:
+    """The whole (V, ...) table of a marked parameter, differentiable: its
+    shards all-gathered over the world (V·D·4 bytes), the backward's
+    gradient summed over 'data' and cut to this rank's rows (V·D·4 more);
+    ``p`` itself unsharded. For the scorers that read every row (the
+    pair-scoring models' ``full_scores``, ENMF's Gram term)."""
+    shard = shard if shard is not None else row_shard(p)
+    return p if shard is None else _WholeTable.apply(p, shard)
+
+
+class ShardedLogits:
+    """Scores over a vocabulary row-sharded over the mesh: ``local`` (R, S)
+    f32, the global batch's R rows (all-gathered over 'data', `gather_batch`)
+    against this rank's S columns, global ids ``shard.lo + j``; columns at
+    or past ``vocab`` (the shard's padding, BERT4Rec's and S3Rec's [MASK]
+    row) take no part. A row's softmax needs every rank's columns, so only
+    the vocabulary-parallel consumers read it: `ops.losses.full_softmax_loss`
+    (`vocab_parallel_ce`) and the evaluators' hit positions
+    (`sharded_hit_positions`); any other use raises TypeError, where JAX's
+    sharded (B, V) array reads like any other (`ROADMAP.md` Queue C 59)."""
+
+    __slots__ = ("local", "shard", "vocab", "rows")
+
+    def __init__(self, local: torch.Tensor, shard: RowShard, vocab: int,
+                 rows: int):
+        object.__setattr__(self, "local", local)
+        object.__setattr__(self, "shard", shard)
+        object.__setattr__(self, "vocab", int(vocab))
+        object.__setattr__(self, "rows", int(rows))   # this rank's rows
+
+    def _refuse(self, what):
+        raise TypeError(
+            f"{what} on ShardedLogits: each rank holds only its columns of "
+            f"the vocabulary; use full_softmax_loss or the evaluators' hit "
+            f"positions, which reduce over the mesh")
+
+    def __getattr__(self, name):
+        self._refuse(f"attribute {name!r}")
+
+    def __setattr__(self, name, value):
+        self._refuse(f"setting {name!r}")
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        raise TypeError(f"{getattr(func, '__name__', func)} on "
+                        f"ShardedLogits: use full_softmax_loss or the "
+                        f"evaluators' hit positions")
+
+    def __array__(self, *args, **kwargs):
+        self._refuse("conversion to an array")
+
+    def __repr__(self):
+        return (f"ShardedLogits(rows={tuple(self.local.shape)[0]}, "
+                f"columns {self.shard.lo}..{self.shard.lo + self.valid} of "
+                f"{self.vocab})")
+
+    @property
+    def valid(self) -> int:
+        """This rank's columns inside the vocabulary."""
+        return max(0, min(self.shard.shard_rows, self.vocab - self.shard.lo))
+
+
+def sharded_logits(user: torch.Tensor, table: torch.Tensor,
+                   shard: RowShard, vocab: int, temperature: float = 1.0,
+                   dtype: Optional[torch.dtype] = None) -> ShardedLogits:
+    """``user @ table.T / temperature`` over a row-sharded ``table`` (this
+    rank's (S, D) shard): the users gathered over 'data' (B·D·4 bytes, and
+    their gradient's world sum), this rank's (B, S) block in f32, the
+    product in ``dtype`` (bf16 compute: the operands rounded, f32 out, as
+    the unsharded ``full_scores``)."""
+    n = user.shape[0]
+    u = gather_batch(user, shard.mesh)
+    t = table
+    if dtype is not None:
+        u, t = u.to(dtype), t.to(dtype)
+        if u.dtype == torch.bfloat16 and u.device.type == "cpu":
+            u, t = u.float(), t.float()
+    return ShardedLogits((u @ t.T).float() / temperature, shard, vocab, n)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, targets, shard, vocab, n_own):
+        mesh, lo = shard.mesh, shard.lo
+        valid = max(0, min(local.shape[1], vocab - lo))
+        z = local[:, :valid]
+        r = local.shape[0]
+        m = z.amax(dim=1) if valid else local.new_full((r,), float("-inf"))
+        m = all_reduce_(m.contiguous(), mesh, op="max")
+        e = torch.exp(z - m[:, None])
+        rel = targets.to(torch.int64) - lo
+        owned = (rel >= 0) & (rel < valid)
+        rel = torch.clamp(rel, 0, max(valid - 1, 0))
+        t = torch.where(owned, z.gather(1, rel[:, None])[:, 0], 0.0) \
+            if valid else local.new_zeros((r,))
+        st = torch.stack([e.sum(dim=1), t])
+        all_reduce_(st, mesh)
+        rows = -(st[1] - m - torch.log(st[0]))          # -log p[target]
+        d = mesh_coords(mesh)[0]
+        ctx.save_for_backward(e / st[0][:, None], rel, owned)
+        ctx.shape, ctx.n_own = tuple(local.shape), n_own
+        return torch.mean(rows[d * n_own:(d + 1) * n_own])
+
+    @staticmethod
+    def backward(ctx, g):
+        p, rel, owned = ctx.saved_tensors
+        # the gradient of the world's objective on this rank's block:
+        # every rank's loss is its 'data' shard's mean, scaled alike by
+        # the trainer (1 / n_data), so the global batch's mean takes
+        # g / n_own a row
+        scale = g / ctx.n_own
+        out = torch.zeros(ctx.shape, dtype=p.dtype, device=p.device)
+        out[:, :p.shape[1]] = p * scale
+        rows = torch.nonzero(owned).squeeze(1)
+        out[rows, rel[rows]] -= scale
+        return out, None, None, None, None
+
+
+def vocab_parallel_ce(logits: ShardedLogits, targets: torch.Tensor
+                      ) -> torch.Tensor:
+    """The full-softmax CE of sharded logits: this rank's 'data' rows'
+    mean of −log softmax[target], JAX's ``full_softmax_loss`` on the whole
+    logits. Each row's max (max) and its sum of exps and target logit (sum)
+    are reduced over the world, 3·B f32, besides the targets' all-gather
+    over 'data' (B int32); no term in V. Its backward is softmax minus
+    one-hot on the local block, with no collective."""
+    mesh = logits.shard.mesh
+    tg = all_gather(targets.reshape(-1).to(torch.int32), mesh, DATA_AXIS)
+    return _VocabParallelCE.apply(logits.local, tg, logits.shard,
+                                  logits.vocab, logits.rows)
+
+
+@torch.no_grad()
+def sharded_hit_positions(logits: ShardedLogits, targets: torch.Tensor,
+                          candidates: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """`quick_start.hit_positions` of sharded logits, for this rank's rows:
+    'full' counts the columns that score above the target, or equal and
+    before it, on each rank and sums the counts over the world (the
+    target's score from its owner, B f32 and B int64); with ``candidates``
+    (rows, 1 + N) their scores come from their owners (B·(1 + N) f32)."""
+    mesh, lo = logits.shard.mesh, logits.shard.lo
+    z, valid = logits.local, logits.valid
+    d, n = mesh_coords(mesh)[0], logits.rows
+    tg = all_gather(targets.reshape(-1).to(torch.int64), mesh, DATA_AXIS)
+
+    def owned_scores(ids):
+        rel = ids - lo
+        own = (rel >= 0) & (rel < valid)
+        got = torch.gather(z, 1, torch.clamp(rel, 0, z.shape[1] - 1))
+        return all_reduce_(torch.where(own, got, 0.0), mesh)
+
+    if candidates is not None:
+        cand = all_gather(candidates.to(torch.int64), mesh, DATA_AXIS)
+        cs = owned_scores(cand)
+        pos = torch.sum(cs[:, 1:] > cs[:, :1], dim=1)
+    else:
+        ts = owned_scores(tg[:, None])
+        cols = lo + torch.arange(valid, device=z.device)
+        zz = z[:, :valid]
+        pos = torch.sum((zz > ts) | ((zz == ts) & (cols[None, :]
+                                                    < tg[:, None])), dim=1)
+        all_reduce_(pos, mesh)
+    return pos[d * n:(d + 1) * n]
+
+
 # -- parameter specs and placement ----------------------------------------------
 
 def _feature_embeddings(module: torch.nn.Module):
@@ -433,12 +719,22 @@ def _table_param_name(mname: str, tname: str) -> str:
     return f"{mname}.tables.{tname}" if mname else f"tables.{tname}"
 
 
+def _own_tables(module: torch.nn.Module):
+    """(name, parameter) of every table a model marked with `shard_rows`."""
+    for n, p in module.named_parameters():
+        if getattr(p, _MARK, False):
+            yield n, p
+
+
 def param_partition_specs(module: torch.nn.Module) -> Dict[str, tuple]:
     """{parameter name: spec}: `SHARDED_SPEC` for a row-sharded
-    `FeatureEmbedding` table, ``()`` (replicated) for every other."""
+    `FeatureEmbedding` table and for a model's own table marked with
+    `shard_rows` (flax's partition metadata, name for name), ``()``
+    (replicated) for every other."""
     sharded = {_table_param_name(mname, t)
                for mname, m in _feature_embeddings(module)
                for t in m.tables if m.table_sharded(t)}
+    sharded |= {n for n, _ in _own_tables(module)}
     return {n: (SHARDED_SPEC if n in sharded else ())
             for n, _ in module.named_parameters()}
 
@@ -453,7 +749,10 @@ def shard_params(module_or_params, mesh, specs: Optional[Mapping] = None):
 
     A module: each such `FeatureEmbedding` table keeps this rank's padded
     shard in place (the same Parameter) and its module records the
-    `RowShard`, so its lookups run the exchange; returns the module. A
+    `RowShard`, so its lookups run the exchange; so does each table the
+    model marked with `shard_rows`, the Parameter itself carrying its
+    `RowShard` (`row_shard`; a table sharded once is left as it is);
+    returns the module. A
     {name: tensor} dict (``specs`` naming the sharded entries): returns a
     new dict of the local shards."""
     if isinstance(module_or_params, torch.nn.Module):
@@ -466,6 +765,12 @@ def shard_params(module_or_params, mesh, specs: Optional[Mapping] = None):
                 shard = row_bounds(p.shape[0], mesh)
                 p.data = local_rows(p.data, mesh)
                 m.table_shards[t] = shard
+        for n, p in _own_tables(module):
+            if specs.get(n) != SHARDED_SPEC or hasattr(p, _SHARD):
+                continue
+            shard = row_bounds(p.shape[0], mesh)
+            p.data = local_rows(p.data, mesh)
+            setattr(p, _SHARD, shard)
         return module
     specs = specs or {}
     return {k: (local_rows(v, mesh) if specs.get(k) == SHARDED_SPEC else v)
@@ -473,10 +778,14 @@ def shard_params(module_or_params, mesh, specs: Optional[Mapping] = None):
 
 
 def table_shards(module: torch.nn.Module) -> Dict[str, RowShard]:
-    """{parameter name: RowShard} of the module's row-sharded tables."""
-    return {_table_param_name(mname, t): shard
-            for mname, m in _feature_embeddings(module)
-            for t, shard in m.table_shards.items()}
+    """{parameter name: RowShard} of the module's row-sharded tables (its
+    `FeatureEmbedding` tables and its own)."""
+    out = {_table_param_name(mname, t): shard
+           for mname, m in _feature_embeddings(module)
+           for t, shard in m.table_shards.items()}
+    out.update({n: getattr(p, _SHARD) for n, p in _own_tables(module)
+                if hasattr(p, _SHARD)})
+    return out
 
 
 def full_state_dict(module: torch.nn.Module) -> Dict[str, torch.Tensor]:

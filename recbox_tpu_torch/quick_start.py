@@ -471,7 +471,14 @@ def hit_positions(scores: torch.Tensor, targets: torch.Tensor,
     'full' (``candidates`` None): the items that score above the target,
     plus those that score equal and come before it in index order.
     Candidates (target in column 0): the columns that score above it, the
-    position of column 0 in a stable descending sort."""
+    position of column 0 in a stable descending sort. Sharded logits
+    (a mesh's row-sharded table) rank over every rank's columns
+    (`parallel.mesh.sharded_hit_positions`)."""
+    from recbox_tpu_torch.parallel.mesh import (
+        ShardedLogits, sharded_hit_positions,
+    )
+    if isinstance(scores, ShardedLogits):
+        return sharded_hit_positions(scores, targets, candidates)
     if candidates is not None:
         cs = torch.gather(scores, 1, candidates)
         return torch.sum(cs[:, 1:] > cs[:, :1], dim=1)
@@ -532,11 +539,17 @@ def run_sequential_experiment(
             scores = trainer.apply({k: split[k][s:s + bs] for k in keys},
                                    method="full_scores")
             tgt = torch.as_tensor(split[corpus][s:s + bs].astype(np.int64),
-                                  device=scores.device)
+                                  device=trainer.device)
             cand = None if protocol == "full" else torch.as_tensor(
-                cand_cache[split_id][s:s + bs], device=scores.device)
+                cand_cache[split_id][s:s + bs], device=trainer.device)
             pos.append(hit_positions(scores, tgt, cand))
         return rank_metrics(torch.cat(pos).cpu().numpy(), ks)
+
+    def eval_valid(trainer):
+        # under a mesh every rank ranks the whole split (its rows of the
+        # sharded logits): the merge weighs the ranks alike
+        eval_valid.last_sample_count = float(len(valid_arrays[corpus]))
+        return eval_split(trainer, valid_arrays, 0)
 
     use_fused = _use_fused_ce(config, feature_map, model, mesh)
     if use_fused:
@@ -547,7 +560,7 @@ def run_sequential_experiment(
         (lambda o, b: o) if use_fused else
         (lambda o, b: full_softmax_loss(o, b[corpus])),
         build_trainer_config(config),
-        eval_fn=lambda tr: eval_split(tr, valid_arrays, 0),
+        eval_fn=eval_valid,
         mesh=mesh, device=dev,
         train_method="fused_ce_loss" if use_fused else "full_scores")
     loader = ArrayLoader(train_arrays,

@@ -123,8 +123,10 @@ class RetrievalService:
         the trainer's device unless ``device`` is given; ``method`` is
         "auto" unless given (the kernel gate of `BruteForceMIPS`); the index
         sharded over ``mesh`` only when one is given, as in JAX (a mesh
-        trainer's sharded tables encode through their exchange either
-        way, so every rank calls it)."""
+        trainer's sharded tables, its `FeatureEmbedding`'s and the model's
+        own, encode through their exchange either way, so every rank calls
+        it; with ``mesh`` the index keeps this rank's 'model' shard of the
+        encoded corpus and B5 merges the shards' top-k)."""
         kwargs.setdefault("device", trainer.device)
         return cls(trainer.model, corpus_arrays, **kwargs)
 

@@ -50,7 +50,11 @@ captured step reads the lr that plateau set and advances the count.
 
 Under a mesh (`parallel.mesh.make_mesh`: one process a rank), `init`
 row-shards the tables its `param_partition_specs` name
-(``trainer.param_specs``), each rank passes ITS rows of the global batch
+(``trainer.param_specs``: `FeatureEmbedding` tables and a model's own
+tables marked with `parallel.mesh.shard_rows`; their optimizer state is
+made per shard; a sequential model's ``full_scores`` over them are
+`parallel.mesh.ShardedLogits`, whose CE is vocabulary-parallel), each rank
+passes ITS rows of the global batch
 (`parallel.mesh.shard_batch`), and a step is the global batch's: the
 sharded lookups run the mesh's exchange, the replicated parameters'
 gradients are all-reduced over 'data' in one flat buffer, the global-norm
@@ -447,8 +451,9 @@ class Trainer:
 
     def _mesh_optimizer(self) -> None:
         """Tell the optimizer which of its params are row shards, so the
-        clip's global norm counts each shard once over the world."""
-        if self.mesh is None:
+        clip's global norm counts each shard once over the world (a world
+        of one keeps the unsharded norm, bit for bit)."""
+        if self.mesh is None or world_size() == 1:
             return
         names = list(self.params)
         self._opt.sharded = [self.param_specs.get(n) == SHARDED_SPEC

@@ -453,3 +453,222 @@ def packed_layouts(rank, world, states, batch_path, m=2):
         out[f"{name}/split"] = np.asarray(bool(t.accs))
         out[f"{name}/block"] = np.asarray(any(t._block_mode.values()))
     return out
+
+
+# -- a model's own row-sharded tables (`test_torch_mesh_tables`) ---------------
+
+MT_V, MT_D, MT_L, MT_B, MT_USERS, MT_NEGS = 64, 16, 8, 32, 16, 3
+# name: (module of `recbox_tpu_torch.models`, constructor keywords, the
+# trainer's train_method); the sequential models train on the full
+# softmax, NeuMF and MIND on (B, 1 + negs) sampled candidates
+MT_CASES = {
+    "SASRec": ("sequential", dict(n_layers=1, n_heads=2), "full_scores"),
+    "CORE": ("sequential", dict(n_layers=1, n_heads=2), "full_scores"),
+    "SRGNN": ("sequential", dict(steps=1), "full_scores"),
+    "NeuMF": ("matching", dict(mlp_hidden_units=(16, 8), num_users=MT_USERS,
+                               num_items=MT_V), None),
+    "MIND": ("matching", dict(interest_num=2, routing_rounds=2), None),
+}
+
+
+# port-only cases, each against the port's unsharded run at (2, 2):
+# TransRec's replicated bias beside its sharded table (`shard_slice`),
+# BERT4Rec's [MASK] row past the scored columns, FDSA's feature table,
+# NeuMF trained through `full_scores` (its tables gathered whole), Item2Vec
+MT_PORT = {
+    "TransRec": ("sequential", dict(num_users=MT_USERS), "full_scores"),
+    "BERT4Rec": ("sequential", dict(n_layers=1, n_heads=2), "full_scores"),
+    "FDSA": ("sequential", dict(n_layers=1, n_heads=2, feature_vocab=7),
+             "full_scores"),
+    "NeuMF-full": ("matching", dict(mlp_hidden_units=(16, 8),
+                                    num_users=MT_USERS, num_items=MT_V),
+                   "full_scores"),
+    "Item2Vec": ("matching", {}, None),
+}
+
+
+def mt_feature_map(FM, FS, v=MT_V):
+    """Users and items (either package's FeatureSpec / FeatureMap)."""
+    return FM("mt", (FS("user_id", "categorical", source="user",
+                        vocab_size=MT_USERS, embedding_dim=MT_D),
+                     FS("item_id", "categorical", source="item",
+                        vocab_size=v, embedding_dim=MT_D)),
+              query_index="user_id", corpus_index="item_id", num_items=v)
+
+
+def _mt_case(name):
+    return MT_CASES[name] if name in MT_CASES else MT_PORT[name]
+
+
+def mt_kwargs(name, v=MT_V):
+    kw = dict(_mt_case(name)[1], embedding_dim=MT_D)
+    if _mt_case(name)[0] == "sequential":
+        kw.update(max_seq_len=MT_L, dropout=0.0)
+    if name == "NeuMF":
+        kw.update(num_items=v)
+    if name == "MIND":
+        kw.update(max_seq_len=MT_L)
+    return kw
+
+
+def mt_batch(seed=1, v=MT_V, b=MT_B):
+    """One global batch every case reads: left-padded histories, their
+    lengths, users, next-item targets and (B, 1 + negs) candidates, the
+    target first."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, MT_L + 1, b).astype(np.int32)
+    seq = rng.integers(1, v, (b, MT_L)).astype(np.int32)
+    seq[np.arange(MT_L)[None, :] < (MT_L - lens)[:, None]] = 0
+    target = rng.integers(1, v, b).astype(np.int32)
+    cand = np.concatenate([target[:, None], rng.integers(
+        1, v, (b, MT_NEGS))], axis=1).astype(np.int32)
+    return {"item_seq": seq, "seq_len": lens, "item_id": target,
+            "user_id": rng.integers(0, MT_USERS, b).astype(np.int32),
+            "__item_ids__": cand, "item::item_id": cand,
+            "feat_seq": np.where(seq > 0, seq % 6 + 1, 0).astype(np.int32),
+            "center": seq[:, -1], "context": target,
+            "neg": cand[:, 1:]}
+
+
+def mt_model(name, state_path=None, v=MT_V):
+    from recbox_tpu_torch import models
+    mod = getattr(models, _mt_case(name)[0])
+    cls = name.split("-")[0]
+    if cls == "Item2Vec":
+        model = mod.Item2Vec(v, MT_D, device="cpu")
+    else:
+        model = getattr(mod, cls)(mt_feature_map(FeatureMap, FeatureSpec,
+                                                 v),
+                                  device="cpu", **mt_kwargs(name, v))
+    if state_path is not None:
+        model.load_state_dict(torch.load(state_path, weights_only=True))
+    return model
+
+
+def mt_loss(name):
+    from recbox_tpu_torch.ops.losses import (
+        full_softmax_loss, get_matching_loss,
+    )
+    if _mt_case(name)[2] == "full_scores":
+        return lambda o, b: full_softmax_loss(o, b["item_id"])
+    if name == "Item2Vec":
+        from recbox_tpu_torch.models.matching import sgns_loss
+        return lambda o, b: sgns_loss(o)
+    match = get_matching_loss("SoftmaxCrossEntropyLoss")
+    return lambda o, b: match(o)
+
+
+def mt_trainer(name, model, mesh, lr=1e-2):
+    return Trainer(model, mt_loss(name),
+                   TrainerConfig(learning_rate=lr, epochs=1, monitor="AUC",
+                                 seed=5),
+                   mesh=mesh, device="cpu", train_method=_mt_case(name)[2])
+
+
+def mt_steps(name, state_path, batch, mesh, steps=3, v=MT_V):
+    """``steps`` steps of one global batch; (trainer, losses)."""
+    mine = local_rows(batch, mesh) if mesh is not None else batch
+    t = mt_trainer(name, mt_model(name, state_path, v), mesh)
+    t.init(mine)
+    return t, [float(t.train_step(dict(mine))) for _ in range(steps)]
+
+
+def mesh_tables(rank, world, states, batch_path, meshes, ragged_state,
+                ckpt_dir):
+    """Every case at every mesh shape (n_model): 3 steps from the saved
+    state, the losses, the whole parameters (gathered) and each sharded
+    table's local shape; SASRec's collective bytes a step at V and 2V; a
+    save / load round trip of a sharded SASRec read back by `predict`;
+    SASRec over a ragged vocabulary (V = 50: the last shard padded)."""
+    from recbox_tpu_torch.data.loader import ArrayLoader
+    from recbox_tpu_torch.parallel.mesh import barrier
+    with np.load(batch_path) as z:
+        batch = {k: z[k] for k in z.files}
+    out = {}
+    built = {m: make_mesh(m, device="cpu") for m in meshes}
+    for m in meshes:
+        for name, path in sorted(states.items()):
+            if name in MT_PORT and m != 2:
+                continue
+            t, losses = mt_steps(name, path, batch, built[m])
+            out[f"{name}/m{m}/loss"] = np.asarray(losses)
+            for k, v in t.state_dict()["params"].items():
+                out[f"{name}/m{m}/{k}"] = v.detach().numpy().copy()
+            for k in t._row_shards():
+                out[f"{name}/m{m}/local/{k}"] = np.asarray(
+                    t.params[k].shape)
+    # the collective bytes of SASRec's second step at V and 2V
+    mesh = built[2]
+    for v in (MT_V, 2 * MT_V):
+        b = mt_batch(seed=2, v=v)
+        mine = local_rows(b, mesh)
+        torch.manual_seed(3)
+        t = mt_trainer("SASRec", mt_model("SASRec", v=v), mesh)
+        t.init(mine)
+        t.train_step(dict(mine))
+        ops = collective_stats(t.train_step, dict(mine))
+        out[f"bytes/v{v}"] = np.asarray(sum(op.bytes for op in ops))
+        out[f"kinds/v{v}"] = np.asarray(sorted(op.line for op in ops))
+    # save a sharded SASRec, load it into a fresh trainer, predict
+    path = os.path.join(ckpt_dir, "sasrec.ckpt")
+    t, _ = mt_steps("SASRec", states["SASRec"], batch, mesh)
+    t.save(path)
+    barrier()
+    torch.manual_seed(4)
+    fresh = mt_trainer("SASRec", mt_model("SASRec"), mesh)
+    fresh.init(local_rows(batch, mesh))
+    fresh.load(path)
+    rows = {k: batch[k] for k in ("item_seq", "seq_len", "__item_ids__",
+                                  "item::item_id")}
+    for tag, tr in (("trained", t), ("loaded", fresh)):
+        out[f"predict/{tag}"] = tr.predict(ArrayLoader(
+            rows, batch_size=8, shuffle=False))
+    # the same through `OrbaxCheckpointer` (each rank writes its rows)
+    from recbox_tpu_torch.training.checkpoint import OrbaxCheckpointer
+    ck = OrbaxCheckpointer()
+    odir = os.path.join(ckpt_dir, "sasrec_orbax")
+    ck.save(odir, t.state_dict(sharded=True))
+    ck.wait()
+    torch.manual_seed(5)
+    again = mt_trainer("SASRec", mt_model("SASRec"), mesh)
+    again.init(local_rows(batch, mesh))
+    again.load_state_dict(ck.load(odir, again.state_dict(sharded=True)))
+    out["predict/orbax"] = again.predict(ArrayLoader(
+        rows, batch_size=8, shuffle=False))
+    # a ragged vocabulary
+    rb = mt_batch(seed=5, v=50)
+    _, losses = mt_steps("SASRec", ragged_state, rb, built[4], v=50)
+    out["ragged/loss"] = np.asarray(losses)
+    # the pipelines end to end on a (2, 2) mesh
+    for name, run in mt_pipelines(mesh).items():
+        for k, v in run.items():
+            out[f"pipeline/{name}/{k}"] = np.asarray(v)
+    return out
+
+
+MT_PIPE = {"model": "SASRec", "embedding_dim": MT_D, "max_seq_len": MT_L,
+           "n_layers": 1, "n_heads": 2, "dropout": 0.0, "epochs": 2,
+           "batch_size": 32, "learning_rate": 1e-2, "eval_batch_size": 64,
+           "seed": 3, "monitor": "NDCG(k=10)"}
+
+
+def mt_pipelines(mesh=None):
+    """`run_sequential_experiment` and `run_matching_experiment` (SASRec
+    on the full softmax) over 256 training rows and 96 held-out users,
+    with or without a mesh; their metrics."""
+    from recbox_tpu_torch import quick_start as qs
+    fm = mt_feature_map(FeatureMap, FeatureSpec)
+    train, valid, test = (mt_batch(seed=s, b=n) for s, n in
+                          ((11, 256), (12, 96), (13, 96)))
+    keep = ("item_seq", "seq_len", "item_id", "user_id")
+    train, valid, test = ({k: d[k] for k in keep}
+                          for d in (train, valid, test))
+    seq = qs.run_sequential_experiment(dict(MT_PIPE), fm, train, valid,
+                                       test, mesh=mesh, device="cpu")
+    users = {k: valid[k] for k in ("item_seq", "seq_len")}
+    match = qs.run_matching_experiment(
+        dict(MT_PIPE, loss="FullSoftmaxCE", monitor="Recall(k=20)"), fm,
+        train, {"item_id": np.arange(MT_V, dtype=np.int32)}, users,
+        np.arange(96), {}, {q: [int(t)] for q, t in enumerate(
+            valid["item_id"])}, mesh=mesh, device="cpu")
+    return {"sequential": seq, "matching": match}
