@@ -324,6 +324,19 @@ Phases (any failure raises and exits non-zero):
      trained the same way and served through `RetrievalService.
      from_trainer` on a ('model') mesh of 2, B5 merging the shards' top
      100 (once a rank), against the unsharded service;
+  5u. the graph and knowledge models' own tables row-sharded, in 5t(b)'s
+     two gloo ranks: (a) LightGCN at 5f's width (30,000 x 41,000, 3 hops,
+     d = 64, batch 2048, f32), its tables gathered whole once a forward,
+     each rank holding 35,500 rows and their Adam moments, 3 steps
+     against the unsharded run (5t's rules), the recorded bytes of a
+     fourth (2·(U + I)·D·4 plus two scalars, within 1%, the same over the
+     edge list doubled), the full sort of 4,096 users against the
+     unsharded evaluation, served through `from_trainer` on a ('model')
+     mesh of 2 (B5 once a rank) against the unsharded service; (b) KGAT
+     through `run_kg_experiment` over 5o's staged files, one epoch of 8
+     CF batches and 8 KG steps, against the unsharded run; (c) KSR's
+     history on its sharded item table, one forward against the
+     unsharded model;
   5s. the public surface: (a) the 14 examples of
      `recbox_tpu_torch/examples/` (the JAX package's `examples/` scripts
      written against the port's public names), each `main()` on the card
@@ -2709,8 +2722,9 @@ def lightgcn_data(seed=SEED):
             u2i(held), u2i(~held))
 
 
-def lightgcn_trainer(train_users, train_items, seed=SEED):
-    """Trainer(LightGCN) at bench.py's width over the train edges."""
+def lightgcn_trainer(train_users, train_items, seed=SEED, mesh=None):
+    """Trainer(LightGCN) at bench.py's width over the train edges, on
+    ``mesh`` when one is given."""
     from recbox_tpu_torch.features import FeatureMap, FeatureSpec
     from recbox_tpu_torch.models.matching import LightGCN, build_norm_edges
     from recbox_tpu_torch.ops.losses import get_matching_loss
@@ -2733,8 +2747,8 @@ def lightgcn_trainer(train_users, train_items, seed=SEED):
                         fused_steps=FIT_K, patience=LG_EPOCHS + 1,
                         monitor="Recall(k=20)", lr_decay_factor=1.0,
                         reload_best_on_plateau=False, seed=seed)
-    return fm, Trainer(model, lambda o, b: bpr(o), cfg, device=DEVICE), \
-        len(eu)
+    return fm, Trainer(model, lambda o, b: bpr(o), cfg, mesh=mesh,
+                       device=DEVICE), len(eu)
 
 
 def fit_lightgcn():
@@ -4728,12 +4742,14 @@ def sized_yaml(name):
                          "n_relations")}
 
 
-def stage_ml1m_kg(root):
-    """``root``/ml1m_kg/ml1m_kg.{inter,link,kg}: ml1m_scale's interactions,
-    each item linked to an entity of its own, and the item's genre,
-    director, KG_CAST actors and year as triples."""
+def stage_ml1m_kg(root, src=None):
+    """``root``/ml1m_kg/ml1m_kg.{inter,link,kg}: ml1m_scale's interactions
+    (or those of the .inter file ``src``), each item linked to an entity
+    of its own, and the item's genre, director, KG_CAST actors and year as
+    triples."""
     from recbox_tpu_torch.tools import quality_exit as qe
-    src = os.path.join(qe.gen_ml1m_scale(root), "ml1m_scale.inter")
+    if src is None:
+        src = os.path.join(qe.gen_ml1m_scale(root), "ml1m_scale.inter")
     d = os.path.join(root, "ml1m_kg")
     os.makedirs(d, exist_ok=True)
     items = []
@@ -4763,6 +4779,50 @@ def stage_ml1m_kg(root):
     return root, {"items": len(items), "triples": triples}
 
 
+def ml1m_kg_split(root):
+    """The staged ``root``/ml1m_kg loaded and split as 5o trains on it:
+    the interactions (``inter``), the KG, the feature map, the train rows
+    (``tr``), the corpus, the train / valid user → items maps, the valid
+    users (``vu``) and KGAT's `run_kg_experiment` config at kgat.yaml's
+    widths over the collaborative KG of the train rows (``kgat``), one
+    epoch of batches of 2048."""
+    from recbox_tpu_torch.data import load_atomic_dataset
+    from recbox_tpu_torch.data.knowledge import collaborative_kg_edges
+    from recbox_tpu_torch.features import FeatureMap, FeatureSpec
+    ds = load_atomic_dataset(os.path.join(root, "ml1m_kg"), "ml1m_kg")
+    inter = ds.to_interactions(rating_field="rating",
+                               time_field="timestamp")
+    kg = ds.to_knowledge_graph()
+    n_users, n_items = inter.num_users, inter.num_items
+    train, valid, _ = inter.split_ratio((0.8, 0.1, 0.1), order="TO",
+                                        group_by_user=True, seed=SEED)
+    u2i = {}
+    for a, b in zip(train.user_ids.tolist(), train.item_ids.tolist()):
+        u2i.setdefault(a, []).append(b)
+    v2i = {}
+    for a, b in zip(valid.user_ids.tolist(), valid.item_ids.tolist()):
+        v2i.setdefault(a, []).append(b)
+    fm = FeatureMap("ml1m_kg", (
+        FeatureSpec("user_id", "categorical", "user", vocab_size=n_users,
+                    embedding_dim=64),
+        FeatureSpec("item_id", "categorical", "item", vocab_size=n_items,
+                    embedding_dim=64)),
+        query_index="user_id", corpus_index="item_id", num_items=n_items)
+    tr = {"user_id": train.user_ids.astype(np.int32),
+          "item_id": train.item_ids.astype(np.int32)}
+    h, r, t = collaborative_kg_edges(kg, tr["user_id"], tr["item_id"],
+                                     n_users)
+    kcfg = {**sized_yaml("KGAT"), "num_users": n_users,
+            "n_entities": kg.n_entities, "n_relations": kg.n_relations,
+            "ckg_heads": h, "ckg_relations": r, "ckg_tails": t,
+            "epochs": 1, "batch_size": 2048, "monitor": "Recall(k=20)",
+            "exclude_items": [0], "seed": SEED}
+    return {"inter": inter, "kg": kg, "fm": fm, "tr": tr,
+            "corpus": {"item_id": np.arange(n_items, dtype=np.int32)},
+            "u2i": u2i, "v2i": v2i, "vu": np.asarray(sorted(v2i), np.int64),
+            "kgat": kcfg}
+
+
 def knowledge_ml1m(root):
     """Phase 5o: (1) `run_experiment("CKE", "ml1m_kg")` over the staged
     files at cke.yaml's widths (1 epoch: the CF phase, then the KG phase
@@ -4782,9 +4842,9 @@ def knowledge_ml1m(root):
     triples drawn as `run_kg_experiment` draws them, RippleNet on its
     ripple batch) takes 8 eager steps of it under an Adam of its own."""
     from recbox_tpu_torch import quick_start as qs
-    from recbox_tpu_torch.data import MatchingLoader, load_atomic_dataset
+    from recbox_tpu_torch.data import MatchingLoader
     from recbox_tpu_torch.data.knowledge import (
-        build_neighbor_table, build_ripple_sets, collaborative_kg_edges,
+        build_neighbor_table, build_ripple_sets,
     )
     from recbox_tpu_torch.data.sequential import (
         group_user_sequences, leave_one_out_split,
@@ -4807,37 +4867,13 @@ def knowledge_ml1m(root):
         "losses_first_last": step_losses(trainer)[[0, -1]].tolist(), **res}
     del trainer
 
-    ds = load_atomic_dataset(os.path.join(root, "ml1m_kg"), "ml1m_kg")
-    inter = ds.to_interactions(rating_field="rating",
-                               time_field="timestamp")
-    kg = ds.to_knowledge_graph()
+    sp = ml1m_kg_split(root)
+    inter, kg, fm, tr, corpus = (sp[k] for k in ("inter", "kg", "fm", "tr",
+                                                 "corpus"))
+    u2i, v2i, vu, kcfg = (sp[k] for k in ("u2i", "v2i", "vu", "kgat"))
     n_users, n_items = inter.num_users, inter.num_items
-    train, valid, _ = inter.split_ratio((0.8, 0.1, 0.1), order="TO",
-                                        group_by_user=True, seed=SEED)
-    u2i = {}
-    for a, b in zip(train.user_ids.tolist(), train.item_ids.tolist()):
-        u2i.setdefault(a, []).append(b)
-    v2i = {}
-    for a, b in zip(valid.user_ids.tolist(), valid.item_ids.tolist()):
-        v2i.setdefault(a, []).append(b)
-    fm = FeatureMap("ml1m_kg", (
-        FeatureSpec("user_id", "categorical", "user", vocab_size=n_users,
-                    embedding_dim=64),
-        FeatureSpec("item_id", "categorical", "item", vocab_size=n_items,
-                    embedding_dim=64)),
-        query_index="user_id", corpus_index="item_id", num_items=n_items)
-    tr = {"user_id": train.user_ids.astype(np.int32),
-          "item_id": train.item_ids.astype(np.int32)}
-    corpus = {"item_id": np.arange(n_items, dtype=np.int32)}
-    vu = np.asarray(sorted(v2i), np.int64)
     chance = 20 / n_items
-    h, r, t = collaborative_kg_edges(kg, tr["user_id"], tr["item_id"],
-                                     n_users)
-    kcfg = {**sized_yaml("KGAT"), "num_users": n_users,
-            "n_entities": kg.n_entities, "n_relations": kg.n_relations,
-            "ckg_heads": h, "ckg_relations": r, "ckg_tails": t,
-            "epochs": 1, "batch_size": 2048, "monitor": "Recall(k=20)",
-            "exclude_items": [0], "seed": SEED}
+    h = kcfg["ckg_heads"]
     t0 = time.perf_counter()
     res, trainer = run_recorded(lambda: qs.run_kg_experiment(
         kcfg, fm, tr, corpus, kg, {"user_id": vu.astype(np.int32)}, vu,
@@ -6222,34 +6258,45 @@ def t_mind(mesh, seed=SEED):
                                  seed=seed), mesh=mesh, device=DEVICE)
 
 
-def t_eval_ids(trainer, users):
-    """The full sort of ``users`` over every item the way the trainer's
-    evaluator takes it (`RetrievalEvaluator.encode_all`: the users and the
-    corpus through the towers, under a mesh through the lookup's
-    exchange), top T_EVAL_K: (scores, ids, the evaluator's metrics)."""
+def full_sort_ids(trainer, user_arrays, n_items, k, batch, truth=None):
+    """The full sort of the users of ``user_arrays`` over ``n_items`` items
+    the way the trainer's evaluator takes it (`RetrievalEvaluator.
+    encode_all`: the users and the corpus through the towers in batches of
+    ``batch``, under a mesh through the lookup's exchange or a propagation
+    over the tables gathered whole), top ``k`` in chunks of 1024 users:
+    (scores, ids, the evaluator's metrics against ``truth``, a {query:
+    items} map, or None)."""
     from recbox_tpu_torch.evaluation import RetrievalEvaluator
     from recbox_tpu_torch.evaluation.retrieval import (
         evaluate_retrieval, full_sort_topk,
     )
+    n = len(next(iter(user_arrays.values())))
     ev = RetrievalEvaluator(
-        {"item_seq": users["item_seq"], "seq_len": users["seq_len"]},
-        {"item_id": np.arange(SAS_V, dtype=np.int32)},
-        np.arange(len(users["item_id"])), {},
-        {q: [int(t)] for q, t in enumerate(users["item_id"])},
-        batch_size=T_EVAL_BATCH)
+        user_arrays, {"item_id": np.arange(n_items, dtype=np.int32)},
+        np.arange(n), {}, truth or {}, batch_size=batch)
     u, items = ev.encode_all(trainer)
-    # chunks of 1024 users: (1024, SAS_V) f32 scores at a time
-    parts = [full_sort_topk(u[c:c + 1024], items, T_EVAL_K,
-                            device=trainer.device)
+    # chunks of 1024 users: (1024, n_items) f32 scores at a time
+    parts = [full_sort_topk(u[c:c + 1024], items, k, device=trainer.device)
              for c in range(0, len(u), 1024)]
     metrics = evaluate_retrieval(u, items, ev.train_user2items,
                                  ev.valid_user2items, ev.query_indices,
-                                 ev.metrics, device=trainer.device)
+                                 ev.metrics, device=trainer.device) \
+        if truth else None
     return (np.concatenate([p[0] for p in parts]),
             np.concatenate([p[1] for p in parts]), metrics)
 
 
-def t_gloo_rank(rank, world, rdv, device, out_dir, width=None):
+def t_eval_ids(trainer, users):
+    """5t's full sort: SASRec's ``users`` over the SAS_V items, top
+    T_EVAL_K, with the metrics of their targets."""
+    return full_sort_ids(
+        trainer, {"item_seq": users["item_seq"], "seq_len": users["seq_len"]},
+        SAS_V, T_EVAL_K, T_EVAL_BATCH,
+        {q: [int(t)] for q, t in enumerate(users["item_id"])})
+
+
+def t_gloo_rank(rank, world, rdv, device, out_dir, width=None,
+                graph_root=None):
     """5t(b), one rank of a two-rank gloo world on one device: SASRec
     through `full_scores` on a ('data') mesh of 2, its table's 500,000
     rows a rank, 3 steps of T_GLOO_BATCH rows and a fourth under the
@@ -6394,6 +6441,9 @@ def t_gloo_rank(rank, world, rdv, device, out_dir, width=None):
                 "served_max_abs_err": float(np.abs(rs - ms).max())})
             del ref, rsvc
         out["wall_s"] = time.perf_counter() - t_start
+        if graph_root is not None:      # 5u in the same world
+            out["graph"] = u_graph(rank, mesh, search_mesh, graph_root, sync,
+                                   whole)
         with open(os.path.join(out_dir, f"t_gloo_rank{rank}.json"),
                   "w") as fh:
             json.dump(out, fh)
@@ -6401,16 +6451,17 @@ def t_gloo_rank(rank, world, rdv, device, out_dir, width=None):
         dist.destroy_process_group()
 
 
-def mesh_tables_two_ranks(device="cuda", width=None):
+def mesh_tables_two_ranks(device="cuda", width=None, graph_root=None):
     """5t(b): spawn `t_gloo_rank` as two processes on one device; each
-    rank's result."""
+    rank's result. With ``graph_root`` (5o's staged ml1m_kg) the same
+    ranks then run 5u (`u_graph`)."""
     import tempfile
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory() as tmp:
         rdv = os.path.join(tmp, "rdv")
         t0 = time.perf_counter()
-        mp.spawn(t_gloo_rank, args=(2, rdv, device, tmp, width), nprocs=2,
-                 join=True)
+        mp.spawn(t_gloo_rank, args=(2, rdv, device, tmp, width, graph_root),
+                 nprocs=2, join=True)
         wall = time.perf_counter() - t0
         ranks = []
         for r in range(2):
@@ -6440,6 +6491,344 @@ def check_mesh_tables(res, on_card=True):
         assert s["table_bytes_held"] * 2 == s0["table_bytes_held_unsharded"]
         assert abs(s["bytes_ratio"] - 1) < 0.01, s
         assert rk["mind"]["b5_launches"] == (1 if on_card else 0), rk
+    return True
+
+
+# -- phase 5u: the graph and knowledge models' own tables row-sharded ----------
+# In 5t(b)'s spawn, on its ('data') mesh of two gloo ranks on the card, f32:
+# (a) LightGCN at 5f's width (LG_USERS x LG_ITEMS over 5f's train edges,
+# LG_DIM, LG_HOPS hops; batches of LG_BATCH with one uniform negative; BPR,
+# Adam 1e-3): U_STEPS steps and a fourth under the collective recorder,
+# the fourth again over the edge list doubled, against the unsharded
+# trainer from one draw; the full sort of U_EVAL_USERS held-out users
+# (`RetrievalEvaluator.encode_all`, U_EVAL_BATCH rows an encode batch);
+# the model served through `from_trainer` on a ('model') mesh of 2 for
+# U_SVC_USERS users at k = U_K. (b) KGAT through `run_kg_experiment` over
+# 5o's staged ml1m_kg at kgat.yaml's widths: one epoch over the first
+# U_KG_BATCHES batches of U_KG_BATCH train rows (the collaborative KG over
+# all of them) and U_KG_STEPS KG steps, against the unsharded run. (c) KSR
+# at ksr.yaml's widths over the same data: one forward of U_KSR_BATCH
+# histories, each rank's rows against the unsharded model's
+U_STEPS, U_EVAL_USERS, U_SVC_USERS, U_K, U_EVAL_BATCH = \
+    3, 4096, 256, 20, 65536
+U_KG_BATCHES, U_KG_BATCH, U_KG_STEPS, U_KSR_BATCH = 8, 2048, 8, 256
+# 5u(c)'s tolerance: the user tower (the history's rows copied exactly by
+# the exchange) within 1e-6; the CE over the sharded logits (each rank's
+# column block in its own product) within rtol 1e-5
+U_KSR_ATOL, U_KSR_CE_RTOL = 1e-6, 1e-5
+
+
+def u_lightgcn_bytes(dim=None, world=2):
+    """Collective bytes of one LightGCN step on a ('data') mesh of the
+    world, by the recorder's convention: each table all-gathered over the
+    world (the padded shards), its gradient all-reduced over 'data' (its
+    rows), the loss's and the clip's f32 scalars. No term in the edges:
+    2·(U + I)·D·4 + 8 where the world divides both tables."""
+    dim = dim or LG_DIM
+    su, si = -(-LG_USERS // world), -(-LG_ITEMS // world)
+    gather = world * (su + si) * dim * 4
+    reduce = (LG_USERS + LG_ITEMS) * dim * 4
+    return {"gather": gather, "reduce": reduce, "scalars": 8,
+            "total": gather + reduce + 8}
+
+
+def u_lightgcn(rank, mesh, search_mesh, sync, whole):
+    """5u(a) on one rank; rank 0 also runs the unsharded trainer, its full
+    sort and its service over the sharded run's weights gathered whole."""
+    from recbox_tpu_torch.data import MatchingLoader
+    from recbox_tpu_torch.data.loader import MASK_KEY
+    from recbox_tpu_torch.ops import bitonic_topk
+    from recbox_tpu_torch.parallel.inspect import collective_stats
+    from recbox_tpu_torch.retrieval import RetrievalService
+    t0 = time.perf_counter()
+    tr_u, tr_i, held, _ = lightgcn_data()
+    data_s = time.perf_counter() - t0
+    fm, t, _ = lightgcn_trainer(tr_u, tr_i, mesh=mesh)
+    corpus = {"item_id": np.arange(LG_ITEMS, dtype=np.int32)}
+    loader = MatchingLoader(fm, {"user_id": tr_u, "item_id": tr_i}, corpus,
+                            batch_size=LG_BATCH, num_negs=1,
+                            exclude_seen=False, seed=SEED)
+    batches = []
+    for b in loader:
+        b.pop(MASK_KEY, None)
+        batches.append(b)
+        if len(batches) == U_STEPS + 1:
+            break
+    mine = [r_local(b, mesh) for b in batches]
+    t.init(mine[0])
+    shards = t._row_shards()
+    sync()
+    t0 = time.perf_counter()
+    losses = [float(t.train_step(b)) for b in mine[:U_STEPS]]
+    sync()
+    wall = time.perf_counter() - t0
+    ops = collective_stats(t.train_step, mine[U_STEPS])
+    counted = sum(op.bytes for op in ops)
+    # the same step over the edge list doubled (each edge twice)
+    _, t2, _ = lightgcn_trainer(tr_u, tr_i, mesh=mesh)
+    for k in ("edge_users", "edge_items", "edge_coefs"):
+        setattr(t2.model, k, torch.cat([getattr(t2.model, k)] * 2))
+    t2.init(mine[0])
+    t2.train_step(mine[0])
+    counted_2e = sum(op.bytes for op in collective_stats(
+        t2.train_step, mine[U_STEPS]))
+    edges = (len(t.model.edge_users), len(t2.model.edge_users))
+    del t2
+    users = np.array(sorted(held)[:U_EVAL_USERS], np.int32)
+    sync()
+    t0 = time.perf_counter()
+    es, ei, _ = full_sort_ids(t, {"user_id": users}, LG_ITEMS, U_K,
+                              U_EVAL_BATCH)
+    sync()
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svc = RetrievalService.from_trainer(t, corpus, mesh=search_mesh,
+                                        method="exact",
+                                        batch_size=U_EVAL_BATCH)
+    sync()
+    encode_s = time.perf_counter() - t0
+    q = {"user_id": users[:U_SVC_USERS]}
+    bitonic_topk.reset_launches()
+    t0 = time.perf_counter()
+    ss, si = svc.query(q, k=U_K)
+    sync()
+    search_shard = int(svc.index.items.shape[0])
+    model_bytes = u_lightgcn_bytes()
+    out = {"data_s": data_s,
+           "shard_rows": {k: s.shard_rows for k, s in shards.items()},
+           "valid_rows": {k: s.valid for k, s in shards.items()},
+           "losses": losses, "wall_s_3_steps": wall,
+           "table_bytes_held": sum(t_held_bytes(t, k) for k in shards),
+           "collectives": len(ops), "counted_bytes": counted,
+           "counted_bytes_2e": counted_2e, "edges": list(edges),
+           "model_bytes": model_bytes,
+           "bytes_ratio": counted / model_bytes["total"],
+           "ops": sorted({op.line for op in ops}),
+           "eval": {"users": len(users), "wall_s": eval_s},
+           "service": {"corpus_encode_s": encode_s,
+                       "query_s": time.perf_counter() - t0,
+                       "users": U_SVC_USERS, "k": U_K,
+                       "index_rows": search_shard},
+           "b5_launches": bitonic_topk.launches["bitonic_topk"]}
+    got = whole(t)
+    del svc, t
+    if rank == 0:
+        _, ref, _ = lightgcn_trainer(tr_u, tr_i)
+        ref.init(batches[0])
+        ref_losses = [float(ref.train_step(b)) for b in batches[:U_STEPS]]
+        ref.train_step(batches[U_STEPS])
+        held_ref = sum(t_held_bytes(ref, k) for k in shards)
+        errs = r_table_errors({k: got[k] for k in shards},
+                              {k: ref.params[k] for k in shards})
+        with torch.no_grad():
+            for k, p in ref.params.items():
+                p.copy_(got[k])
+        rs, ri, _ = full_sort_ids(ref, {"user_id": users}, LG_ITEMS, U_K,
+                                  U_EVAL_BATCH)
+        rsvc = RetrievalService.from_trainer(ref, corpus, method="exact",
+                                             batch_size=U_EVAL_BATCH)
+        rss, rsi = rsvc.query(q, k=U_K)
+        out.update({
+            "ref_losses": ref_losses,
+            "loss_max_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                    zip(losses, ref_losses)),
+            "table": errs["embedding"],
+            "table_bytes_held_unsharded": held_ref,
+            "eval_ids_equal_but_ties": ids_near_ties(
+                rs, ri, es, ei, 1e-5 * float(np.abs(rs).max())),
+            "eval_ids_bit_equal": bool(np.array_equal(ri, ei)
+                                       and np.array_equal(rs, es)),
+            "served_ids_equal_but_ties": ids_near_ties(
+                rss, rsi, ss, si, 1e-5 * float(np.abs(rss).max())),
+            "served_max_abs_err": float(np.abs(rss - ss).max())})
+        del ref, rsvc
+    return out
+
+
+def u_kgat(mesh, sp, sync, whole):
+    """5u(b) on one rank, then the unsharded pipeline on every rank (its
+    evaluation merges the metrics of the world's processes,
+    `Trainer._evaluate_and_checkpoint`, so each rank runs it). On the card
+    ``index_add_`` adds with atomics in no fixed order, which parts two
+    unsharded KGAT runs after 16 Adam steps by more than 5r(b)'s rule
+    allows, so both runs take torch's deterministic algorithms (a fixed
+    order); the two ranks' unsharded runs are compared too."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _u_kgat(mesh, sp, sync, whole)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _u_kgat(mesh, sp, sync, whole):
+    from recbox_tpu_torch import quick_start as qs
+    from recbox_tpu_torch.parallel.mesh import all_gather, rank
+    cfg = dict(sp["kgat"], batch_size=U_KG_BATCH,
+               kg_steps_per_epoch=U_KG_STEPS)
+    tr = {k: v[:U_KG_BATCHES * U_KG_BATCH] for k, v in sp["tr"].items()}
+    vu = sp["vu"]
+
+    def run(m):
+        return run_recorded(lambda: qs.run_kg_experiment(
+            cfg, sp["fm"], tr, sp["corpus"], sp["kg"],
+            {"user_id": vu.astype(np.int32)}, vu, sp["u2i"], sp["v2i"],
+            mesh=m, device=DEVICE))
+
+    sync()
+    t0 = time.perf_counter()
+    res, t = run(mesh)
+    sync()
+    shard = t._row_shards()["emb_node"]
+    out = {"wall_s": time.perf_counter() - t0, "metrics": res,
+           "cf_steps": int(t.step), "kg_steps": U_KG_STEPS,
+           "losses": step_losses(t).tolist(), "nodes": shard.rows,
+           "shard_rows": shard.shard_rows, "valid_rows": shard.valid,
+           "node_bytes_held": t_held_bytes(t, "emb_node"),
+           "node_row_bytes": t.params["emb_node"].shape[1] * 4 * 3,
+           "ckg_edges": len(cfg["ckg_heads"])}
+    got = whole(t)
+    del t
+    ref_res, ref = run(None)
+    ref_losses = step_losses(ref).tolist()
+    node = ref.params["emb_node"].detach()
+    refs = all_gather(node[None].contiguous())      # every rank's run
+    out.update({
+        "ref_runs_node_table": r_table_errors(
+            {"emb_node": refs[1 - rank()]},
+            {"emb_node": node})["embedding"],
+        "ref_metrics": ref_res, "ref_losses": ref_losses,
+        "loss_max_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                zip(out["losses"], ref_losses)),
+        "node_table": r_table_errors(
+            {"emb_node": got["emb_node"]},
+            {"emb_node": ref.params["emb_node"]})["embedding"],
+        "other_params_max_abs_err": max(
+            (got[k] - p.detach()).abs().max().item()
+            for k, p in ref.params.items() if k != "emb_node"),
+        "metrics_max_abs_diff": max(abs(res[k] - ref_res[k])
+                                    for k in ref_res),
+        "node_bytes_held_unsharded": t_held_bytes(ref, "emb_node")})
+    del ref
+    return out
+
+
+def u_ksr(mesh, sp):
+    """5u(c): KSR's item and entity tables sharded over the mesh, one
+    forward of this rank's rows of U_KSR_BATCH users' histories (the user
+    tower,
+    the full-softmax CE over the sharded logits) against the unsharded
+    model built from the same seed."""
+    from recbox_tpu_torch import quick_start as qs
+    from recbox_tpu_torch.data.knowledge import build_neighbor_table
+    from recbox_tpu_torch.features import FeatureMap, FeatureSpec
+    from recbox_tpu_torch.ops.losses import full_softmax_loss
+    from recbox_tpu_torch.parallel.mesh import shard_params
+    inter, kg = sp["inter"], sp["kg"]
+    ents, _ = build_neighbor_table(kg, 4, seed=SEED)
+    fm = FeatureMap("ml1m_kg", (FeatureSpec(
+        "item_id", "categorical", "item", vocab_size=inter.num_items,
+        embedding_dim=64),), query_index="user_id", corpus_index="item_id",
+        num_items=inter.num_items)
+    cfg = {**sized_yaml("KSR"), "num_users": inter.num_users,
+           "num_items": inter.num_items, "n_entities": kg.n_entities,
+           "n_relations": kg.n_relations, "kg_neighbors": ents,
+           "seed": SEED}
+    plain, _ = qs.build_model(cfg, fm, DEVICE)
+    model, _ = qs.build_model(cfg, fm, DEVICE)
+    shard_params(model, mesh)
+    # users spread over the split's valid users (the remap numbers items
+    # by first appearance, so the first users' histories hold the
+    # smallest ids): the last 50 train items of each, left-padded, and
+    # the first valid item as the target
+    users = sp["vu"][np.linspace(0, len(sp["vu"]) - 1,
+                                 U_KSR_BATCH).astype(int)]
+    seq = np.zeros((U_KSR_BATCH, 50), np.int64)
+    for r, u in enumerate(users.tolist()):
+        h = sp["u2i"].get(u, [])[-50:]
+        seq[r, 50 - len(h):] = h
+    batch = r_local({
+        "item_seq": torch.from_numpy(seq).to(DEVICE),
+        "seq_len": torch.from_numpy((seq > 0).sum(1)).to(DEVICE),
+        "item_id": torch.as_tensor([sp["v2i"][u][0] for u in users.tolist()],
+                                   device=DEVICE)}, mesh)
+    plain.eval()
+    model.eval()
+    with torch.no_grad():
+        u, pu = model.user_tower(batch), plain.user_tower(batch)
+        ce = float(full_softmax_loss(model.full_scores(batch),
+                                     batch["item_id"]))
+        pce = float(full_softmax_loss(plain.full_scores(batch),
+                                      batch["item_id"]))
+    seq = batch["item_seq"]
+    return {"item_rows": int(model.emb_item.shape[0]),
+            "entity_rows": int(model.emb_entity.shape[0]),
+            "vocab": inter.num_items, "rows": int(seq.shape[0]),
+            "rows_with_ids_past_half": int(
+                (seq > inter.num_items // 2).any(dim=1).sum()),
+            "user_max_abs_err": float((u - pu).abs().max()),
+            "ce": ce, "ce_unsharded": pce,
+            "ce_rel_err": abs(ce - pce) / abs(pce)}
+
+
+def u_graph(rank, mesh, search_mesh, root, sync, whole):
+    """5u on one rank of 5t(b)'s world: (a), (b) and (c), each timed."""
+    import torch.distributed as dist
+    t_start = time.perf_counter()
+    out = {"lightgcn": u_lightgcn(rank, mesh, search_mesh, sync, whole)}
+    out["lightgcn"]["wall_s"] = time.perf_counter() - t_start
+    dist.barrier()
+    t0 = time.perf_counter()
+    sp = ml1m_kg_split(root)
+    out["ml1m_kg_split_s"] = time.perf_counter() - t0
+    out["kgat"] = u_kgat(mesh, sp, sync, whole)
+    dist.barrier()
+    t0 = time.perf_counter()
+    out["ksr"] = u_ksr(mesh, sp)
+    out["ksr"]["wall_s"] = time.perf_counter() - t0
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def check_mesh_graph(res, on_card=True):
+    """5u holds: (a) each rank's (U / 2 + I / 2) rows and the bytes it
+    holds of the tables and their Adam moments, half the unsharded run's;
+    the counted bytes of a step within 1% of `u_lightgcn_bytes` and equal
+    over the edge list doubled; the losses at rtol R_LOSS_RTOL and the
+    tables at 5r(b)'s Adam rule against the unsharded run; the full sort's
+    and the served ids equal the unsharded ones but for ties; on the card
+    B5 once a rank for the served query. (b) KGAT's node table half a
+    rank, its CF losses and node table by the same rules. (c) KSR's
+    tables half a rank, every history holding an id past the middle of
+    the vocabulary, the user tower within U_KSR_ATOL and the CE within
+    rtol U_KSR_CE_RTOL of the unsharded model's."""
+    ranks = [r["graph"] for r in res["ranks"]]
+    l0, k0 = ranks[0]["lightgcn"], ranks[0]["kgat"]
+    assert l0["loss_max_rel_err"] <= R_LOSS_RTOL, l0
+    assert l0["table"]["outside"] <= R_ADAM_OUTSIDE \
+        * l0["table"]["entries"], l0["table"]
+    assert l0["eval_ids_equal_but_ties"], l0
+    assert l0["served_ids_equal_but_ties"], l0
+    assert k0["loss_max_rel_err"] <= R_LOSS_RTOL, k0
+    assert k0["node_table"]["outside"] <= R_ADAM_OUTSIDE \
+        * k0["node_table"]["entries"], k0["node_table"]
+    for rk in ranks:
+        lg, kg, ks = rk["lightgcn"], rk["kgat"], rk["ksr"]
+        assert lg["valid_rows"] == {"emb_user": LG_USERS // 2,
+                                    "emb_item": LG_ITEMS // 2}, lg
+        assert lg["table_bytes_held"] * 2 == l0["table_bytes_held_unsharded"]
+        assert abs(lg["bytes_ratio"] - 1) < 0.01, lg
+        assert lg["counted_bytes_2e"] == lg["counted_bytes"], lg
+        assert lg["edges"][1] == 2 * lg["edges"][0], lg
+        assert lg["b5_launches"] == (1 if on_card else 0), lg
+        assert kg["shard_rows"] == -(-kg["nodes"] // 2), kg
+        # half the unsharded run's, and the padding row of an odd count
+        assert kg["node_bytes_held"] * 2 - k0["node_bytes_held_unsharded"] \
+            == (2 * kg["shard_rows"] - kg["nodes"]) * kg["node_row_bytes"]
+        assert kg["cf_steps"] == U_KG_BATCHES, kg
+        assert ks["item_rows"] == -(-ks["vocab"] // 2), ks
+        assert ks["rows_with_ids_past_half"] > 0, ks
+        assert ks["user_max_abs_err"] <= U_KSR_ATOL, ks
+        assert ks["ce_rel_err"] <= U_KSR_CE_RTOL, ks
     return True
 
 
@@ -7102,12 +7491,14 @@ def main() -> int:
         emit({"phase": name, "card": card,
               "wall_s": time.perf_counter() - t0, **res})
     torch.cuda.empty_cache()
-    # 5o. the knowledge stage over ml1m_scale and a synthetic KG
-    with tempfile.TemporaryDirectory() as kg_dir:
-        t0 = time.perf_counter()
-        kg = knowledge_ml1m(kg_dir)
-        emit({"phase": "knowledge_ml1m", "card": card,
-              "wall_s": time.perf_counter() - t0, **kg})
+    # 5o. the knowledge stage over ml1m_scale and a synthetic KG (its
+    # staged files kept for 5u)
+    kg_tmp = tempfile.TemporaryDirectory()
+    kg_dir = kg_tmp.name
+    t0 = time.perf_counter()
+    kg = knowledge_ml1m(kg_dir)
+    emit({"phase": "knowledge_ml1m", "card": card,
+          "wall_s": time.perf_counter() - t0, **kg})
     torch.cuda.empty_cache()
     # 5p. the packed trainer's block rows, lazy Adam and split
     # accumulators at the Criteo width; the RL rerankers; the host models
@@ -7164,21 +7555,36 @@ def main() -> int:
     r_b5 = sum(r["search"]["b5_launches"] for r in mesh_b["ranks"])
     # 5t. a model's own tables row-sharded: SASRec through full_scores on a
     # one-rank NCCL mesh against the unmeshed step, then two gloo ranks on
-    # this card (SASRec, its full sort, MIND served through B5)
+    # this card (SASRec, its full sort, MIND served through B5); 5u. the
+    # same ranks: the graph and knowledge models' tables (LightGCN at 5f's
+    # width, its full sort and service through B5; KGAT over 5o's staged
+    # files; KSR's history)
     t5t = time.perf_counter()
     t0 = time.perf_counter()
     tab_a = mesh_sasrec_one_rank()
     emit({"phase": "mesh_tables_one_rank_nccl", "card": card,
           "wall_s": time.perf_counter() - t0, **tab_a})
-    tab_b = mesh_tables_two_ranks()
+    tab_b = mesh_tables_two_ranks(graph_root=kg_dir)
+    kg_tmp.cleanup()
     check_mesh_tables(tab_b)
+    check_mesh_graph(tab_b)
+    graph = [r.pop("graph") for r in tab_b["ranks"]]
     emit({"phase": "mesh_tables_two_ranks_gloo", "card": card,
           "batch": T_GLOO_BATCH, "staged_through_host": True,
           "tolerance": {"loss_rtol": R_LOSS_RTOL, "rtol": R_RTOL,
                         "atol": R_ATOL,
                         "adam_outside_share": R_ADAM_OUTSIDE}, **tab_b})
-    emit({"phase": "5t", "wall_s": time.perf_counter() - t5t})
+    emit({"phase": "mesh_graph_two_ranks_gloo", "card": card,
+          "staged_through_host": True,
+          "tolerance": {"loss_rtol": R_LOSS_RTOL, "rtol": R_RTOL,
+                        "atol": R_ATOL, "adam_outside_share": R_ADAM_OUTSIDE,
+                        "ksr_atol": U_KSR_ATOL,
+                        "ksr_ce_rtol": U_KSR_CE_RTOL}, "ranks": graph})
+    emit({"phase": "5u", "wall_s": max(g["wall_s"] for g in graph)})
+    emit({"phase": "5t", "wall_s": time.perf_counter() - t5t,
+          "of_it_5u": max(g["wall_s"] for g in graph)})
     t_b5 = sum(r["mind"]["b5_launches"] for r in tab_b["ranks"])
+    u_b5 = sum(g["lightgcn"]["b5_launches"] for g in graph)
     # 5s. the public surface: the examples, DeepFM at 26 x 1M x 64 with
     # direct_init, the segment-merge top-k at bench.py's shape
     t5s = time.perf_counter()
@@ -7540,12 +7946,13 @@ def main() -> int:
         "name": "bitonic_topk", "route": "cuda",
         "source": "recbox_tpu_torch/csrc/bitonic_topk.cu",
         "replaces": "recbox_tpu/ops/pallas/bitonic_topk.py:123",
-        "launches": cand_launches["bitonic_topk"] + r_b5 + t_b5
+        "launches": cand_launches["bitonic_topk"] + r_b5 + t_b5 + u_b5
         + seg["b5_launches"] + ex_launches.get("bitonic_topk", 0),
         "launches_by_path": {"candidate_paths_4b":
                              cand_launches["bitonic_topk"],
                              "sharded_search_merge_5r": r_b5,
                              "mind_from_trainer_on_mesh_5t": t_b5,
+                             "lightgcn_from_trainer_on_mesh_5u": u_b5,
                              "segmented_mips_topk_5s": seg["b5_launches"],
                              "examples_5s": ex_launches.get(
                                  "bitonic_topk", 0)},

@@ -26,6 +26,16 @@ took ~0.7 s a step on an H100). Each entry is the same D-term dot
 product, summed by the matmul's blocking instead of the per-edge
 einsum's; the two agree to f32 rounding
 (`tests/test_torch_knowledge.py`). A Queue C divergence (`ROADMAP.md`).
+
+Under a mesh the user, entity and node tables row-shard where JAX's
+``_sharded()`` marks them (`parallel.mesh.shard_rows`); the relation
+tables and ``rel_proj`` / ``rel_mat`` replicate. KGAT's propagation reads
+every node at every layer, so it gathers ``emb_node`` whole once a
+propagation (`parallel.mesh.whole_table`: (entities + users)·D·4 bytes
+each way, the padding rows of a ragged last shard cut off before any
+hop) and runs its layers on the whole table over the replicated edges; its
+``kg_loss`` and the other three models read rows by id through the
+mesh's exchange (`take`).
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from recbox_tpu_torch.models.knowledge.models import take
 from recbox_tpu_torch.models.matching.neural_cf import PairScoringModel
 from recbox_tpu_torch.nn.attention import dense
 from recbox_tpu_torch.nn.core import normal_table, xavier_param
+from recbox_tpu_torch.parallel.mesh import whole_table
 
 __all__ = ["KGCN", "KGNNLS", "KGAT", "RippleNet", "graph_buffer"]
 
@@ -93,8 +104,10 @@ class KGCN(PairScoringModel):
         self.n_hops, self.aggregator = int(n_hops), aggregator
         graph_buffer(self, "neighbor_entities", neighbor_entities, dev)
         graph_buffer(self, "neighbor_relations", neighbor_relations, dev)
-        self.emb_user = normal_table((self.num_users, d), 0.01, g, dev)
-        self.emb_entity = normal_table((n_entities, d), 0.01, g, dev)
+        self.emb_user = normal_table((self.num_users, d), 0.01, g, dev,
+                                     shard=True)
+        self.emb_entity = normal_table((n_entities, d), 0.01, g, dev,
+                                       shard=True)
         self.emb_rel = normal_table((n_relations, d), 0.01, g, dev)
         d_in = 2 * d if aggregator == "concat" else d
         for k in range(self.n_hops):
@@ -210,7 +223,7 @@ class KGAT(MatchingModel):
         graph_buffer(self, "ckg_relations", ckg_relations, dev)
         graph_buffer(self, "ckg_tails", ckg_tails, dev)
         self.emb_node = normal_table((n_entities + num_users, d), 0.01, g,
-                                     dev)
+                                     dev, shard=True)
         self.emb_rel = normal_table((n_relations, kg_dim), 0.01, g, dev)
         self.rel_proj = xavier_param((n_relations, d, kg_dim), g, dev)
         for k in range(n_layers):
@@ -233,7 +246,7 @@ class KGAT(MatchingModel):
 
     def propagated(self) -> torch.Tensor:
         h, t = self.ckg_heads, self.ckg_tails
-        x = self.emb_node
+        x = whole_table(self.emb_node)
         layers = [x]
         for k in range(self.n_layers):
             att = self._attention(x)
@@ -292,7 +305,8 @@ class RippleNet(PairScoringModel):
         g, dev, d = self._gen, self._dev, embedding_dim
         self.n_entities, self.n_relations = n_entities, n_relations
         self.n_hops = int(n_hops)
-        self.emb_entity = normal_table((n_entities, d), 0.01, g, dev)
+        self.emb_entity = normal_table((n_entities, d), 0.01, g, dev,
+                                       shard=True)
         self.rel_mat = xavier_param((n_relations, d, d), g, dev)
 
     def score(self, batch, item_ids):

@@ -8,6 +8,14 @@ buffers of `gnn.graph_buffer` (interaction edges ``inter_users`` /
 aggregation. Parameter names are flax's (``emb_user``, ``emb_entity``,
 ``emb_rel``, ``intent_logits``; KSR's ``emb_item``, ``ksr_gru`` with its
 ``GRUCell_0``, ``q`` and ``out``).
+
+Under a mesh ``emb_user``, ``emb_entity`` and KSR's ``emb_item`` row-shard
+where JAX marks them (`parallel.mesh.shard_rows`); ``emb_rel`` and
+``intent_logits`` replicate. KGIN and MCCLK propagate over every row, so a
+forward gathers each table whole once (`_EdgeModel._tables`,
+`parallel.mesh.whole_table`) and runs its hops on the whole tables over
+the replicated edges; KSR reads its history and its KG memory by id
+through the mesh's exchange (`parallel.mesh.lookup`).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from recbox_tpu_torch.models.sequential.models import (
 from recbox_tpu_torch.nn.attention import dense
 from recbox_tpu_torch.nn.core import Dropout, normal_table
 from recbox_tpu_torch.nn.recurrent import GRUCell, rnn
+from recbox_tpu_torch.parallel.mesh import lookup, whole_table
 
 __all__ = ["KGIN", "MCCLK", "KSR"]
 
@@ -69,9 +78,16 @@ class _EdgeModel(MatchingModel):
         for name, value in zip(_EDGES, (inter_users, inter_items, kg_heads,
                                         kg_relations, kg_tails)):
             graph_buffer(self, name, value, dev)
-        self.emb_user = normal_table((num_users, d), 0.01, g, dev)
-        self.emb_entity = normal_table((n_entities, d), 0.01, g, dev)
+        self.emb_user = normal_table((num_users, d), 0.01, g, dev,
+                                     shard=True)
+        self.emb_entity = normal_table((n_entities, d), 0.01, g, dev,
+                                       shard=True)
         self.emb_rel = normal_table((n_relations, d), 0.01, g, dev)
+
+    def _tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The user and entity tables, whole: under a mesh gathered from
+        every rank's rows (a collective)."""
+        return whole_table(self.emb_user), whole_table(self.emb_entity)
 
     def _towers(self) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
@@ -120,7 +136,7 @@ class KGIN(_EdgeModel):
         iu, ii = self.inter_users, self.inter_items
         intents = self._intents()
         deg_u = _degree(iu, self.num_users)
-        user_out, ent_out = self.emb_user, self.emb_entity
+        user_out, ent_out = self._tables()
         for _ in range(self.n_layers):
             ent_agg = self._kg_aggregate(ent_out)
             att = torch.softmax(user_out @ intents.T, dim=-1)       # (U, P)
@@ -153,13 +169,17 @@ class MCCLK(_EdgeModel):
         super().__init__(feature_map, embedding_dim, **kwargs)
         self.ssl_tau = float(ssl_tau)
 
-    def collaborative_view(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def collaborative_view(self, tables=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``tables``: the whole (user, entity) tables (`_tables`),
+        gathered here when not given."""
         iu, ii = self.inter_users, self.inter_items
         du = _degree(iu, self.num_users)
         di = _degree(ii, self.n_entities)
         coef = (1.0 / torch.sqrt(du.index_select(0, iu)
                                  * di.index_select(0, ii)))[:, None]
-        u_layers, i_layers = [self.emb_user], [self.emb_entity]
+        ue, ie = self._tables() if tables is None else tables
+        u_layers, i_layers = [ue], [ie]
         for _ in range(self.n_layers):
             msg_u = _segment_sum(i_layers[-1].index_select(0, ii) * coef,
                                  iu, self.num_users)
@@ -170,21 +190,26 @@ class MCCLK(_EdgeModel):
         return (torch.mean(torch.stack(u_layers), 0),
                 torch.mean(torch.stack(i_layers), 0))
 
-    def semantic_view(self) -> torch.Tensor:
-        out = self.emb_entity
+    def semantic_view(self, entities=None) -> torch.Tensor:
+        """``entities``: the whole entity table, gathered here when not
+        given."""
+        out = whole_table(self.emb_entity) if entities is None \
+            else entities
         for _ in range(self.n_layers):
             out = out + self._kg_aggregate(out)
         return out
 
     def contrastive_loss(self, batch) -> torch.Tensor:
-        _, collab_i = self.collaborative_view()
+        tables = self._tables()
+        _, collab_i = self.collaborative_view(tables)
         pos = batch["__item_ids__"][:, 0].long()
-        return infonce(collab_i[pos], self.semantic_view()[pos],
+        return infonce(collab_i[pos], self.semantic_view(tables[1])[pos],
                        self.ssl_tau)
 
     def _towers(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        ue, collab_i = self.collaborative_view()
-        return ue, collab_i + self.semantic_view()
+        tables = self._tables()
+        ue, collab_i = self.collaborative_view(tables)
+        return ue, collab_i + self.semantic_view(tables[1])
 
 
 class _KSREncoder(nn.Module):
@@ -218,7 +243,8 @@ class KSR(SequentialRecommender):
         g, dev, d = self._gen, self._dev, embedding_dim
         self.num_users, self.n_entities = num_users, n_entities
         graph_buffer(self, "kg_neighbors", kg_neighbors, dev)
-        self.emb_entity = normal_table((n_entities, d), 0.01, g, dev)
+        self.emb_entity = normal_table((n_entities, d), 0.01, g, dev,
+                                       shard=True)
         self.ksr_gru = _KSREncoder(d, hidden_size, dropout, g, dev)
         self.q = dense(hidden_size, d, g, dev, bias=False)
         self.out = dense(2 * d, d, g, dev)
@@ -226,11 +252,13 @@ class KSR(SequentialRecommender):
     def user_tower(self, batch):
         seq = right_align_to_left(batch["item_seq"].long(), batch["seq_len"])
         mask = seq != 0
-        emb = take(self._table(), seq) * mask[..., None].to(torch.float32)
+        emb = lookup(self._table(), seq, self._shard(), embedding=True) \
+            * mask[..., None].to(torch.float32)
         h = self.ksr_gru(emb, batch["seq_len"])
         neigh = self.kg_neighbors[torch.clamp(seq, 0, self.n_entities - 1)]
         b, length, k = neigh.shape
-        mem = take(self.emb_entity, neigh.reshape(b, length * k))
+        mem = lookup(self.emb_entity, neigh.reshape(b, length * k),
+                     embedding=True)
         mem_mask = torch.repeat_interleave(mask, k, dim=1)
         q = self.q(h)
         att = torch.einsum("bmd,bd->bm", mem, q)

@@ -17,6 +17,14 @@ the first ``kg_loss`` call, and JAX's `run_kg_experiment` then initialises
 it apart and merges it into the trained tree (`recbox_tpu/quick_start.py
 :553-562`). A Queue C divergence (`ROADMAP.md`): the head's initial draw
 comes from the model's generator, not from a key of seed + 1.
+
+Under a mesh the user, item and entity tables row-shard where JAX's
+``_sharded()`` marks them (`parallel.mesh.shard_rows`); the relation
+tables and projections replicate. Every read of a marked table is by id
+(`take`, the mesh's exchange): CKE's item side is two lookups (the item
+and the entity tables shard over different row counts), and CFKG's
+augmented table, a per-row function of the entity table, is computed on
+this rank's rows and read with the entity table's `RowShard`.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from recbox_tpu_torch.features.schema import FeatureMap
 from recbox_tpu_torch.models.base import MatchingModel, _l2_normalize
 from recbox_tpu_torch.models.matching.neural_cf import PairScoringModel
 from recbox_tpu_torch.nn.core import MLP, normal_table, xavier_param
+from recbox_tpu_torch.parallel.mesh import lookup, row_shard
 
 __all__ = ["CKE", "CFKG", "KTUP", "MKR"]
 
@@ -42,9 +51,11 @@ def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     `F.embedding` (a (R, D, k) table as R rows of D·k): its backward sums
     a repeated id's rows in parallel segments, where indexing's
     accumulating ``index_put_`` adds them one after another (a relation
-    id repeats over every edge of the collaborative KG)."""
+    id repeats over every edge of the collaborative KG). A 2-D table goes
+    through `parallel.mesh.lookup`: a table marked for row-sharding reads
+    its rows through the mesh's exchange under a mesh (a collective)."""
     if table.ndim == 2:
-        return F.embedding(ids, table)
+        return lookup(table, ids, embedding=True)
     rows = F.embedding(ids, table.reshape(table.shape[0], -1))
     return rows.reshape(tuple(ids.shape) + tuple(table.shape[1:]))
 
@@ -73,9 +84,12 @@ class CKE(MatchingModel):
         d = embedding_dim
         self.num_users, self.num_items = num_users, num_items
         self.n_entities, self.n_relations = n_entities, n_relations
-        self.emb_user = normal_table((num_users, d), 1e-4, g, dev)
-        self.emb_item = normal_table((num_items, d), 1e-4, g, dev)
-        self.emb_entity = normal_table((n_entities, d), 0.01, g, dev)
+        self.emb_user = normal_table((num_users, d), 1e-4, g, dev,
+                                     shard=True)
+        self.emb_item = normal_table((num_items, d), 1e-4, g, dev,
+                                     shard=True)
+        self.emb_entity = normal_table((n_entities, d), 0.01, g, dev,
+                                       shard=True)
         self.emb_rel = normal_table((n_relations, kg_dim), 0.01, g, dev)
         self.rel_proj = xavier_param((n_relations, d, kg_dim), g, dev)
 
@@ -115,11 +129,15 @@ class CFKG(MatchingModel):
         d = embedding_dim
         self.num_users, self.n_entities = num_users, n_entities
         self.n_relations = n_relations
-        self.emb_user = normal_table((num_users, d), 0.01, g, dev)
-        self.emb_entity = normal_table((n_entities, d), 0.01, g, dev)
+        self.emb_user = normal_table((num_users, d), 0.01, g, dev,
+                                     shard=True)
+        self.emb_entity = normal_table((n_entities, d), 0.01, g, dev,
+                                       shard=True)
         self.emb_rel = normal_table((n_relations, d), 0.01, g, dev)
 
     def full_scores_table(self) -> torch.Tensor:
+        """[2 e, −‖e‖²] of each entity row; under a mesh of this rank's
+        rows."""
         e = self.emb_entity
         return torch.cat([2.0 * e, -_l2sq(e)[:, None]], dim=1)
 
@@ -129,8 +147,9 @@ class CFKG(MatchingModel):
         return torch.cat([x, x.new_ones(x.shape[0], 1)], dim=-1)
 
     def item_tower(self, batch):
-        return take(self.full_scores_table(),
-                    batch[self.feature_map.corpus_index])
+        return lookup(self.full_scores_table(),
+                      batch[self.feature_map.corpus_index],
+                      row_shard(self.emb_entity), embedding=True)
 
     def kg_loss(self, batch) -> torch.Tensor:
         """TransE BPR on the KG triples."""
@@ -160,8 +179,10 @@ class KTUP(PairScoringModel):
                          num_items=num_items, **kwargs)
         g, dev, d = self._gen, self._dev, embedding_dim
         self.n_entities, self.n_relations = n_entities, n_relations
-        self.emb_user = normal_table((self.num_users, d), 0.01, g, dev)
-        self.emb_entity = normal_table((n_entities, d), 0.01, g, dev)
+        self.emb_user = normal_table((self.num_users, d), 0.01, g, dev,
+                                     shard=True)
+        self.emb_entity = normal_table((n_entities, d), 0.01, g, dev,
+                                       shard=True)
         self.emb_pref = normal_table((n_preferences, d), 0.01, g, dev)
         self.emb_pref_norm = normal_table((n_preferences, d), 0.01, g, dev)
         self.emb_rel = normal_table((n_relations, d), 0.01, g, dev)
@@ -227,9 +248,12 @@ class MKR(MatchingModel):
         self.num_users, self.num_items = num_users, num_items
         self.n_entities, self.n_relations = n_entities, n_relations
         self.n_layers_cc = n_layers_cc
-        self.emb_user = normal_table((num_users, d), 0.01, g, dev)
-        self.emb_item = normal_table((num_items, d), 0.01, g, dev)
-        self.emb_entity = normal_table((n_entities, d), 0.01, g, dev)
+        self.emb_user = normal_table((num_users, d), 0.01, g, dev,
+                                     shard=True)
+        self.emb_item = normal_table((num_items, d), 0.01, g, dev,
+                                     shard=True)
+        self.emb_entity = normal_table((n_entities, d), 0.01, g, dev,
+                                       shard=True)
         self.emb_rel = normal_table((n_relations, d), 0.01, g, dev)
         for k in range(n_layers_cc):
             setattr(self, f"cc{k}", _CrossCompress(d, g, dev))

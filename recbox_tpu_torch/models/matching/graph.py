@@ -21,6 +21,18 @@ and serving) propagates again, as in JAX. The tables are the parameters
 ``emb_user`` and ``emb_item``, and NGCF's hop k is the module ``gnn<k>``
 with Linear ``w1`` and ``w2``: flax's names, so `interop.from_jax_params`
 maps a JAX param tree onto them.
+
+Under a mesh the two tables row-shard (`parallel.mesh.shard_rows`, JAX's
+``nn.with_partitioning`` of ``_GraphBase._table_init``). A hop reads
+every row, so a propagation gathers each table whole once at its top
+(`parallel.mesh.whole_table`: (U + I)·D·4 bytes, and as many again for
+the gradient's 'data' sum in the backward) and runs the hops on the
+whole tables over the replicated edge buffers: no term in the edge count.
+Sharding divides the tables and their Adam moments by the world; the
+step's peak stays whole (the gathered tables and the hops' activations).
+Each call of ``propagated`` is a collective: every rank calls it as often
+(the trainer's steps, each encode batch of the evaluators and the
+service).
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ from recbox_tpu_torch.models.base import (
 from recbox_tpu_torch.nn.core import (
     _TRUNC_STD, Dropout, normal_table, xavier_normal_, xavier_uniform_,
 )
+from recbox_tpu_torch.parallel.mesh import shard_rows, whole_table
 
 __all__ = ["LightGCN", "NGCF", "build_norm_edges"]
 
@@ -72,8 +85,11 @@ def _lecun_normal_(t: torch.Tensor, generator: Optional[torch.Generator]
 
 def _table(rows: int, dim: int, scheme: str, generator, device
            ) -> nn.Parameter:
+    """A table of ``scheme``'s draw, marked for row-sharding under a mesh
+    (JAX's ``_table_init``)."""
     if scheme == "normal":
-        return normal_table((rows, dim), 1e-4, generator, device)
+        return normal_table((rows, dim), 1e-4, generator, device,
+                            shard=True)
     w = torch.empty(rows, dim, device=device)
     if scheme == "xavier_uniform":
         xavier_uniform_(w, generator)
@@ -82,7 +98,7 @@ def _table(rows: int, dim: int, scheme: str, generator, device
     else:   # a typo would silently confound init experiments: refuse
         raise ValueError(f"emb_init_scheme={scheme!r}: expected 'normal' | "
                          "'xavier_uniform' | 'xavier_normal'")
-    return nn.Parameter(w)
+    return shard_rows(nn.Parameter(w))
 
 
 class _GraphBase(MatchingModel):
@@ -130,6 +146,11 @@ class _GraphBase(MatchingModel):
             .index_add_(0, i, user_emb.index_select(0, u) * c)
         return to_user, to_item
 
+    def _tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The user and item tables, whole: under a mesh gathered from
+        every rank's rows (a collective)."""
+        return whole_table(self.emb_user), whole_table(self.emb_item)
+
     def propagated(self) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
 
@@ -161,7 +182,7 @@ class LightGCN(_GraphBase):
 
     def propagated(self, coefs: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        ue, ie = self.emb_user, self.emb_item
+        ue, ie = self._tables()
         user_layers, item_layers = [ue], [ie]
         for _ in range(self.n_layers):
             ue, ie = self._propagate_hop(ue, ie, coefs)
@@ -205,7 +226,7 @@ class NGCF(_GraphBase):
         self.msg_dropout = Dropout(self.dropout)
 
     def propagated(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        ue, ie = self.emb_user, self.emb_item
+        ue, ie = self._tables()
         user_layers, item_layers = [ue], [ie]
         for k in range(self.n_layers):
             layer = getattr(self, f"gnn{k}")

@@ -20,6 +20,13 @@ parameters carry flax's names (``emb_user``, ``emb_item``,
 GCMC's ``decoder_q`` is orthogonal, drawn by `torch.nn.init.orthogonal_`
 (the QR of a normal matrix, signs fixed by R's diagonal, as flax's
 ``orthogonal()``): the same distribution, another stream.
+
+Under a mesh the tables row-shard as `graph`'s do: SGL, NCL, DGCF,
+SpectralCF and GCMC gather them whole once a propagation and run their
+hops on the whole tables (`_GraphBase._tables`); NCL's prototype term and
+LINE, which read rows by id, read them through the mesh's exchange
+(`parallel.mesh.lookup`). ``NCL.prototypes`` runs the k-means on the
+gathered tables, so every rank gets the same centers.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from recbox_tpu_torch.models.matching.graph import (
 )
 from recbox_tpu_torch.nn.attention import dense
 from recbox_tpu_torch.nn.core import Dropout
+from recbox_tpu_torch.parallel.mesh import lookup
 
 __all__ = ["SGL", "NCL", "DGCF", "SpectralCF", "GCMC", "LINE",
            "kmeans_prototypes", "infonce", "infonce_all"]
@@ -146,7 +154,7 @@ class NCL(LightGCN):
         self.ssl_tau, self.hyper_layers = float(ssl_tau), int(hyper_layers)
 
     def layer_outputs(self) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        ue, ie = self.emb_user, self.emb_item
+        ue, ie = self._tables()
         user_layers, item_layers = [ue], [ie]
         for _ in range(max(self.n_layers, 2 * self.hyper_layers)):
             ue, ie = self._propagate_hop(ue, ie)
@@ -179,8 +187,22 @@ class NCL(LightGCN):
 
         ua = torch.as_tensor(np.asarray(user_assign), device=dev)
         ia = torch.as_tensor(np.asarray(item_assign), device=dev)
-        return (proto_nce(self.emb_user[users], user_protos, ua[users])
-                + proto_nce(self.emb_item[pos], item_protos, ia[pos]))
+        return (proto_nce(lookup(self.emb_user, users), user_protos,
+                          ua[users])
+                + proto_nce(lookup(self.emb_item, pos), item_protos,
+                            ia[pos]))
+
+    @torch.no_grad()
+    def prototypes(self, k: int, n_iters: int = 20, seed: int = 0):
+        """NCL's E-step: `kmeans_prototypes` of the user and of the item
+        table, (user centers, item centers, user assignments, item
+        assignments) for ``prototype_loss``. Under a mesh the tables are
+        gathered whole first (a collective: every rank calls it), and
+        every rank computes the same prototypes."""
+        ue, ie = (t.float().cpu().numpy() for t in self._tables())
+        (up, ua), (ip, ia) = (kmeans_prototypes(e, k, n_iters, seed)
+                              for e in (ue, ie))
+        return up, ip, ua, ia
 
 
 class DGCF(_GraphBase):
@@ -199,8 +221,9 @@ class DGCF(_GraphBase):
         k, d = self.n_intents, self.embedding_dim
         u, i = self.edge_users, self.edge_items
         nu, ni = self.num_users, self.num_items
-        out_u = self.emb_user.reshape(nu, k, d // k)
-        out_i = self.emb_item.reshape(ni, k, d // k)
+        ue, ie = self._tables()
+        out_u = ue.reshape(nu, k, d // k)
+        out_i = ie.reshape(ni, k, d // k)
         logits = out_u.new_zeros(u.shape[0], k)
         for _ in range(self.n_layers):
             hu, hi = out_u, out_i
@@ -236,7 +259,7 @@ class SpectralCF(_GraphBase):
             setattr(self, f"filter{k}", lin)
 
     def propagated(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        ue, ie = self.emb_user, self.emb_item
+        ue, ie = self._tables()
         user_layers, item_layers = [ue], [ie]
         for k in range(self.n_layers):
             f = getattr(self, f"filter{k}")
@@ -270,7 +293,7 @@ class GCMC(_GraphBase):
             nn.init.orthogonal_(self.decoder_q, generator=g)
 
     def encoded(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        su, si = self._propagate_hop(self.emb_user, self.emb_item)
+        su, si = self._propagate_hop(*self._tables())
         hu = self.enc_u(torch.relu(su))
         hi = self.enc_i(torch.relu(si))
         return hu @ self.decoder_q, hi
@@ -294,20 +317,22 @@ class LINE(_GraphBase):
                                        self.emb_item.device)
 
     def user_tower(self, batch):
-        return self.emb_user[batch[self.feature_map.query_index].reshape(-1)]
+        return lookup(self.emb_user,
+                      batch[self.feature_map.query_index].reshape(-1))
 
     def item_tower(self, batch):
-        return self.emb_item[batch[self.feature_map.corpus_index].reshape(-1)]
+        return lookup(self.emb_item,
+                      batch[self.feature_map.corpus_index].reshape(-1))
 
     def forward(self, batch):
         user_emb = self.user_tower(batch)
         ids = batch["__item_ids__"]
         flat = ids.reshape(-1)
-        scores = similarity_scores(user_emb, self.emb_item[flat],
+        scores = similarity_scores(user_emb, lookup(self.emb_item, flat),
                                    ids.shape[1], self.similarity,
                                    self.temperature)
         if self.order == 2:
             scores = scores + similarity_scores(
-                user_emb, self.emb_item_ctx[flat], ids.shape[1],
+                user_emb, lookup(self.emb_item_ctx, flat), ids.shape[1],
                 self.similarity, self.temperature)
         return scores

@@ -19,9 +19,8 @@ FISM, NAIS and ENMF also read ``hist`` (B, L), item histories padded with
 
 from __future__ import annotations
 
-import contextlib
 import math
-from typing import Dict, Optional, Sequence, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -33,7 +32,9 @@ from recbox_tpu_torch.models.base import MatchingModel
 from recbox_tpu_torch.nn.core import (
     MLP, Dropout, normal_table, xavier_normal_,
 )
-from recbox_tpu_torch.parallel.mesh import lookup, row_shard, whole_table
+from recbox_tpu_torch.parallel.mesh import (
+    lookup, whole_table, whole_tables,
+)
 
 __all__ = ["PairScoringModel", "NeuMF", "ConvNCF", "NAIS", "FISM", "ENMF",
            "NNCF", "enmf_loss"]
@@ -75,33 +76,10 @@ def _same_pad(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
-# inside `PairScoringModel.full_scores` under a mesh: {id(table): the
-# whole table}
-_WHOLE: Dict[int, torch.Tensor] = {}
-
-
 def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]``; under a mesh the rows of a sharded table through
     the exchange, or of its whole copy inside ``full_scores``."""
-    whole = _WHOLE.get(id(table))
-    if whole is not None:
-        return whole[ids.long()]
     return lookup(table, ids.long())
-
-
-@contextlib.contextmanager
-def _whole_tables(model: nn.Module):
-    """The model's row-sharded tables gathered whole for `_gather`
-    (`parallel.mesh.whole_table`: V·D·4 bytes each way a table)."""
-    tables = [p for _, p in model.named_parameters()
-              if row_shard(p) is not None]
-    for p in tables:
-        _WHOLE[id(p)] = whole_table(p)
-    try:
-        yield
-    finally:
-        for p in tables:
-            _WHOLE.pop(id(p), None)
 
 
 class PairScoringModel(MatchingModel):
@@ -131,7 +109,7 @@ class PairScoringModel(MatchingModel):
         qi = self.feature_map.query_index
         users = batch[qi] if qi in batch else batch["user_id"]
         ids = torch.arange(self.num_items, device=users.device)
-        with _whole_tables(self):
+        with whole_tables(self):
             return self.score(batch, ids[None, :].expand(users.shape[0], -1))
 
     def user_tower(self, batch):

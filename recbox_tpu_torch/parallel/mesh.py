@@ -16,9 +16,9 @@ CPU, and the collectives are written out by hand:
   `FeatureEmbedding` table (its spec's ``shard_table``, else the module's
   ``shard_tables``, JAX `nn/embedding.py:212-219`) and for a model's own
   table marked with `shard_rows` where the model makes it (JAX's
-  ``nn.with_partitioning`` on the sequential, NCF, Item2Vec and
-  multi-interest tables), ``()`` for every other parameter (the graph and
-  knowledge models' tables replicate here, `ROADMAP.md` Queue C);
+  ``nn.with_partitioning`` on the sequential, NCF, Item2Vec,
+  multi-interest, graph and knowledge tables), ``()`` for every other
+  parameter;
 * `shard_params`: rank r keeps rows ``[r·S, (r+1)·S)`` of each sharded
   table, S = ceil(V / N), in the combined-grid order; a ragged last shard
   is padded with zero rows that no view shows;
@@ -36,7 +36,9 @@ CPU, and the collectives are written out by hand:
 * a model's own sharded tables: `lookup` (the exchange, or the model's
   indexing without a mesh), `shard_slice` (a replicated per-row parameter
   cut to the shard's rows), `whole_table` (the table all-gathered, for the
-  scorers that read every row), and the vocabulary-parallel full softmax:
+  scorers that read every row and the propagation models, once a
+  forward), `whole_tables` (a model's tables gathered for `lookup`
+  inside a call), and the vocabulary-parallel full softmax:
   `sharded_logits` gives `ShardedLogits` (the global batch's rows against
   this rank's columns, which refuse any use but theirs),
   `vocab_parallel_ce` their CE (3·B floats reduced a step, no term in V)
@@ -73,7 +75,8 @@ __all__ = ["make_mesh", "shard_params", "shard_batch", "param_partition_specs",
            "owned_grads", "all_gather", "all_reduce_", "barrier",
            "record_collectives", "world_size", "rank", "SHARDED_SPEC", "table_shards",
            "full_state_dict", "shard_rows", "row_shard", "lookup",
-           "shard_slice", "gather_batch", "whole_table", "ShardedLogits",
+           "shard_slice", "gather_batch", "whole_table", "whole_tables",
+           "ShardedLogits",
            "sharded_logits", "vocab_parallel_ce", "sharded_hit_positions"]
 
 DATA_AXIS = "data"
@@ -457,16 +460,25 @@ def row_shard(p: torch.Tensor) -> Optional[RowShard]:
     return shard if shard is not None and world_size() > 1 else None
 
 
+# inside `whole_tables`: {id(marked parameter): its whole table}
+_WHOLE: Dict[int, torch.Tensor] = {}
+
+
 def lookup(table: torch.Tensor, ids: torch.Tensor,
            shard: Optional[RowShard] = None,
            embedding: bool = False) -> torch.Tensor:
     """The rows ``ids`` of a model's own table: the marked parameter (its
     `row_shard` by default), or a per-row function of it, such as a
     model's augmented scoring table, with the parameter's ``shard``. Under
-    a mesh the exchange of `sharded_embedding`; without one the indexing
-    the model did before: ``F.embedding(ids, table)`` with ``embedding``,
+    a mesh the exchange of `sharded_embedding`, or inside `whole_tables`
+    the rows of the table's whole copy; without one the indexing the
+    model did before: ``F.embedding(ids, table)`` with ``embedding``,
     else ``table[ids]``."""
-    shard = shard if shard is not None else row_shard(table)
+    whole = _WHOLE.get(id(table))
+    if whole is not None:
+        table, shard = whole, None
+    else:
+        shard = shard if shard is not None else row_shard(table)
     if shard is None:
         return F.embedding(ids, table) if embedding else table[ids]
     return _ShardedLookup.apply(table, ids, shard)
@@ -544,10 +556,33 @@ def whole_table(p: torch.Tensor, shard: Optional[RowShard] = None
     """The whole (V, ...) table of a marked parameter, differentiable: its
     shards all-gathered over the world (V·D·4 bytes), the backward's
     gradient summed over 'data' and cut to this rank's rows (V·D·4 more);
-    ``p`` itself unsharded. For the scorers that read every row (the
-    pair-scoring models' ``full_scores``, ENMF's Gram term)."""
+    ``p`` itself unsharded. A collective: every rank calls it as often.
+    For the scorers that read every row (the pair-scoring models'
+    ``full_scores``, ENMF's Gram term) and the propagation models, which
+    gather each table once a forward and run their hops on the whole
+    tables over replicated edges: no term in the edge count, the table
+    and its Adam moments divided by the world (3·V·D·4 / N bytes a rank),
+    the step's peak not (the gathered table and the hops' (V, D)
+    activations are whole on every rank)."""
     shard = shard if shard is not None else row_shard(p)
     return p if shard is None else _WholeTable.apply(p, shard)
+
+
+@contextlib.contextmanager
+def whole_tables(model: torch.nn.Module):
+    """Inside, `lookup` reads each of the model's row-sharded tables from
+    its whole copy, gathered once on entry (`whole_table`: V·D·4 bytes
+    each way a table): for the pair-scoring models' ``full_scores``, which
+    run f(u, i) on every item. A collective on entry: every rank enters."""
+    tables = [p for _, p in model.named_parameters()
+              if row_shard(p) is not None]
+    for p in tables:
+        _WHOLE[id(p)] = whole_table(p)
+    try:
+        yield
+    finally:
+        for p in tables:
+            _WHOLE.pop(id(p), None)
 
 
 class ShardedLogits:

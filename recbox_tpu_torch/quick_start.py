@@ -598,7 +598,12 @@ def run_kg_experiment(
     ``kg`` is a `data.knowledge.KnowledgeGraph`. The KG batches are drawn
     from ``default_rng(seed + 7)``, JAX's draws in JAX's order (one batch
     goes to JAX's initialisation of the KG heads first, and is drawn and
-    dropped here)."""
+    dropped here). Under a mesh every rank draws the same batch and passes
+    it as its rows, as the CF phase passes the loader's: the global batch
+    is n_data copies of it, and the KG step takes the trainer's mesh step
+    (`Trainer._mesh_loss` scales the loss by 1 / n_data, the replicated
+    gradients are summed over 'data'), so the drawn batch counts once,
+    JAX's one mean over one replicated batch."""
     config = Config(config)
     dev = resolve_device(device)
     model, _ = build_model(config, feature_map, dev)
@@ -646,10 +651,13 @@ def run_kg_experiment(
 
         def kg_step():
             model.eval()     # JAX applies kg_loss with train=False
-            loss = model.kg_loss(kg_batch())
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-            kg_opt.step([torch.zeros_like(p) if g is None else g
-                         for p, g in zip(params, grads)])
+            objective, loss = trainer._mesh_loss(model.kg_loss(kg_batch()))
+            grads = torch.autograd.grad(objective, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, grads)]
+            if mesh is not None:
+                trainer._reduce_dense_grads(grads)
+            kg_opt.step(grads)
             return loss.detach()
 
     result: Dict[str, float] = {}

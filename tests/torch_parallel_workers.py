@@ -672,3 +672,373 @@ def mt_pipelines(mesh=None):
         np.arange(96), {}, {q: [int(t)] for q, t in enumerate(
             valid["item_id"])}, mesh=mesh, device="cpu")
     return {"sequential": seq, "matching": match}
+
+
+# -- the graph and knowledge models' own tables (`test_torch_mesh_graph`) ------
+
+MG_CATS, MG_REL, MG_D, MG_B, MG_NEGS, MG_L = 5, 3, 8, 16, 3, 5
+MG_INTER, MG_LR = 200, 1e-2
+# the cases held to JAX's sharded trainer: every sharded table divides
+# over four devices (JAX's device_put requires it; KGAT's nodes are 44 +
+# 24 = 68); the port-only cases and the pipelines leave the last shard
+# padded (30 items, 41 entities, KGAT's 65 nodes)
+MG_EVEN = dict(users=24, items=32, ents=44)
+MG_RAGGED = dict(users=24, items=30, ents=41)
+MG_GRAPH = ("LightGCN", "NGCF", "SGL", "NCL", "DGCF", "SpectralCF", "GCMC",
+            "LINE")
+# constructor keywords beyond the sizes and graph arrays
+MG_KW = {
+    "LightGCN": {}, "NGCF": {}, "SGL": dict(ssl_tau=0.3, drop_ratio=0.2),
+    "NCL": dict(ssl_tau=0.2, hyper_layers=1),
+    "DGCF": dict(n_intents=2, n_routing=2), "SpectralCF": {},
+    "GCMC": dict(hidden_dim=6), "LINE": dict(order=2), "CKE": dict(kg_dim=4),
+    "CFKG": {}, "KTUP": dict(n_preferences=3),
+    "MKR": dict(n_layers_cc=2, user_hidden=(6,)), "KGCN": {},
+    "KGNNLS": dict(aggregator="concat"), "KGAT": dict(n_layers=2, kg_dim=4),
+    "RippleNet": dict(n_hops=2), "KGIN": dict(n_intents=3),
+    "MCCLK": dict(ssl_tau=0.3), "KSR": dict(hidden_size=6, dropout=0.0),
+}
+# against JAX's sharded trainer at every mesh shape; the rest against the
+# port's unsharded run at (2, 2), KGAT again over a node table the world
+# does not divide
+MG_JAX = ("LightGCN", "NGCF", "GCMC", "LINE", "KGAT", "KGIN", "CKE",
+          "RippleNet", "KSR")
+MG_PORT = ("SGL", "NCL", "DGCF", "SpectralCF", "KGCN", "KGNNLS", "CFKG",
+           "KTUP", "MKR", "MCCLK", "KGAT-ragged")
+
+
+def mg_size(case):
+    return MG_EVEN if case in MG_JAX else MG_RAGGED
+
+
+def mg_world(users, items, ents, seed=0):
+    """(interaction users, items, the KG): each item → its category
+    (relation 1), 12 items → a plain entity (relation 2)."""
+    from recbox_tpu_torch.data.knowledge import KnowledgeGraph
+    rng = np.random.default_rng(seed)
+    extra = rng.choice(items, 12, replace=False)
+    heads = np.concatenate([np.arange(items), extra]).astype(np.int64)
+    rels = np.concatenate([np.full(items, 1), np.full(12, 2)])
+    tails = np.concatenate([items + np.arange(items) % MG_CATS,
+                            items + MG_CATS + rng.integers(
+                                0, ents - items - MG_CATS, 12)])
+    kg = KnowledgeGraph(heads, rels.astype(np.int64), tails.astype(np.int64),
+                        ents, MG_REL, items)
+    return (rng.integers(0, users, MG_INTER).astype(np.int32),
+            rng.integers(0, items, MG_INTER).astype(np.int32), kg)
+
+
+def mg_u2i(users, items):
+    out = {}
+    for u, i in zip(users.tolist(), items.tolist()):
+        out.setdefault(u, []).append(i)
+    return out
+
+
+def mg_graph(cls, users, items, ents, iu, ii, kg):
+    """``cls``'s sizes and graph arrays (numpy) over the interactions
+    ``iu`` / ``ii`` and the KG."""
+    from recbox_tpu_torch.data.knowledge import (
+        build_neighbor_table, collaborative_kg_edges,
+    )
+    from recbox_tpu_torch.models.matching import build_norm_edges
+    if cls in MG_GRAPH:
+        eu, ei, c = build_norm_edges(iu, ii, users, items)
+        return dict(num_users=users, num_items=items, n_layers=2,
+                    edge_users=eu, edge_items=ei, edge_coefs=c)
+    if cls == "KSR":
+        ents_k, _ = build_neighbor_table(kg, 2, 1)
+        return dict(num_users=users, n_entities=ents, kg_neighbors=ents_k)
+    sizes = dict(num_users=users, n_entities=ents, n_relations=MG_REL)
+    if cls in ("CKE", "KTUP", "MKR", "KGCN", "KGNNLS", "RippleNet"):
+        sizes["num_items"] = items
+    if cls in ("KGCN", "KGNNLS"):
+        ents_k, rels = build_neighbor_table(kg, 3, 0)
+        return dict(sizes, neighbor_entities=ents_k, neighbor_relations=rels,
+                    n_hops=2)
+    if cls == "KGAT":
+        h, r, t = collaborative_kg_edges(kg, iu, ii, users)
+        return dict(sizes, ckg_heads=h, ckg_relations=r, ckg_tails=t)
+    if cls in ("KGIN", "MCCLK"):
+        return dict(sizes, inter_users=iu, inter_items=ii,
+                    kg_heads=kg.heads.astype(np.int32),
+                    kg_relations=kg.relations.astype(np.int32),
+                    kg_tails=kg.tails.astype(np.int32))
+    return sizes
+
+
+def mg_case_graph(case, double=False):
+    """A case's sizes and graph arrays over its world; ``double`` repeats
+    the edge list (the bytes case)."""
+    size = mg_size(case)
+    iu, ii, kg = mg_world(**size)
+    out = mg_graph(case.split("-")[0], **size, iu=iu, ii=ii, kg=kg)
+    if double:
+        for k in ("edge_users", "edge_items", "edge_coefs"):
+            out[k] = np.concatenate([out[k], out[k]])
+    return out
+
+
+def mg_feature_map(FM, FS, users, items):
+    """Users and items (either package's FeatureMap / FeatureSpec)."""
+    return FM("mg", (FS("user_id", "categorical", source="user",
+                        vocab_size=users, embedding_dim=MG_D),
+                     FS("item_id", "categorical", source="item",
+                        vocab_size=items, embedding_dim=MG_D)),
+              query_index="user_id", corpus_index="item_id", num_items=items)
+
+
+def mg_model(case, state_path=None, double=False):
+    from recbox_tpu_torch.models import knowledge, matching
+    cls = case.split("-")[0]
+    size = mg_size(case)
+    model = getattr(matching if cls in MG_GRAPH else knowledge, cls)(
+        mg_feature_map(FeatureMap, FeatureSpec, size["users"],
+                       size["items"]),
+        embedding_dim=MG_D, device="cpu", **MG_KW[cls],
+        **mg_case_graph(case, double))
+    if state_path is not None:
+        model.load_state_dict(torch.load(state_path, weights_only=True))
+    return model
+
+
+def mg_batch(case, seed=1, b=MG_B):
+    """One global batch of ``case``'s columns: users and (B, 1 + negs)
+    candidates, the positive first; RippleNet's users' ripple memories;
+    KSR's left-padded histories, each with an id past the middle of the
+    vocabulary, and their next items."""
+    from recbox_tpu_torch.data.knowledge import build_ripple_sets
+    size = mg_size(case)
+    users, items = size["users"], size["items"]
+    rng = np.random.default_rng(seed)
+    if case == "KSR":
+        lens = rng.integers(1, MG_L + 1, b).astype(np.int32)
+        seq = rng.integers(1, items, (b, MG_L)).astype(np.int32)
+        seq[:, -1] = rng.integers(items // 2 + 1, items, b)
+        seq[np.arange(MG_L)[None, :] < (MG_L - lens)[:, None]] = 0
+        return {"item_seq": seq, "seq_len": lens,
+                "item_id": rng.integers(1, items, b).astype(np.int32)}
+    cand = rng.integers(0, items, (b, 1 + MG_NEGS)).astype(np.int32)
+    out = {"user_id": rng.integers(0, users, b).astype(np.int32),
+           "__item_ids__": cand, "item::item_id": cand}
+    if case == "RippleNet":
+        iu, ii, kg = mg_world(**size)
+        rs = build_ripple_sets(kg, mg_u2i(iu, ii), 2, 4, 0)
+        row = {int(u): k for k, u in enumerate(rs["users"])}
+        sel = np.array([row.get(int(u), 0) for u in out["user_id"]])
+        for k in ("heads", "relations", "tails"):
+            out[f"ripple_{k}"] = rs[k][sel]
+    return out
+
+
+def mg_loss(case, model):
+    """``case``'s training loss, a mean over the rank's rows (the mesh
+    step's contract, `Trainer._mesh_loss`): BPR, KSR's full-softmax CE;
+    SGL's and NCL's InfoNCE sums over the batch divided by its rows (SGL's
+    on two fixed edge keep-masks: the trainer's draws are each rank's
+    own), NCL's prototype term on the prototypes `mg_steps` takes before
+    the steps (every rank calls `NCL.prototypes`), KGNNLS's label
+    smoothness."""
+    from recbox_tpu_torch.ops.losses import (
+        full_softmax_loss, get_matching_loss,
+    )
+    bpr = get_matching_loss("PairwiseLogisticLoss")
+    if case == "KSR":
+        return lambda o, b: full_softmax_loss(o, b["item_id"])
+    if case == "SGL":
+        rng = np.random.default_rng(3)
+        n = model.edge_users.shape[0]
+        masks = [torch.from_numpy((rng.random(n) > 0.2).astype(np.float32))
+                 for _ in range(2)]
+        return lambda o, b: bpr(o) + model.ssl_loss(b, masks) \
+            / b["user_id"].shape[0]
+    if case == "NCL":
+        return lambda o, b: bpr(o) + model.structural_loss(b) \
+            / b["user_id"].shape[0] + model.prototype_loss(
+                b, *model.mg_protos)
+    if case == "KGNNLS":
+        iu, ii, _ = mg_world(**mg_size(case))
+        labels = torch.zeros(model.num_users, model.n_entities)
+        labels[torch.from_numpy(iu).long(), torch.from_numpy(ii).long()] = 1
+
+        def ls(o, b):
+            ids = b["__item_ids__"]
+            target = torch.zeros(ids.shape)
+            target[:, 0] = 1.0
+            return bpr(o) + model.ls_loss(
+                b, ids, labels[b["user_id"].long()], target)
+        return ls
+    return lambda o, b: bpr(o)
+
+
+def mg_trainer(case, model, mesh):
+    return Trainer(model, mg_loss(case, model),
+                   TrainerConfig(learning_rate=MG_LR, epochs=1,
+                                 monitor="AUC", seed=5),
+                   mesh=mesh, device="cpu",
+                   train_method="full_scores" if case == "KSR" else None)
+
+
+def mg_steps(case, state_path, batch, mesh, steps=3):
+    """``steps`` steps of one global batch from the saved state; (trainer,
+    losses)."""
+    mine = local_rows(batch, mesh) if mesh is not None else batch
+    model = mg_model(case, state_path)
+    t = mg_trainer(case, model, mesh)
+    t.init(mine)
+    if case == "NCL":       # on the gathered tables, after the sharding
+        model.mg_protos = model.prototypes(3, n_iters=5)
+    return t, [float(t.train_step(dict(mine))) for _ in range(steps)]
+
+
+def mesh_graph(rank, world, states, batch_dir, meshes, pipelines=()):
+    """Every case at its mesh shapes (n_model; the port-only cases at 2):
+    3 steps from the saved state, the losses, the whole parameters, each
+    sharded table's local shape and real rows, NCL's prototypes; with
+    LightGCN among the cases, its collective bytes a step at E and 2E
+    edges and the trained model served on a ('model') mesh against an
+    unsharded service of its gathered weights; ``pipelines``
+    (`mg_pipelines`) on a (2, 2) mesh."""
+    built = {m: make_mesh(m, device="cpu") for m in meshes}
+    out = {}
+    for m in meshes:
+        for case in sorted(states):
+            if case not in MG_JAX and m != 2:
+                continue
+            with np.load(os.path.join(batch_dir, f"{case}.npz")) as z:
+                batch = {k: z[k] for k in z.files}
+            t, losses = mg_steps(case, states[case], batch, built[m])
+            out[f"{case}/m{m}/loss"] = np.asarray(losses)
+            for k, v in t.state_dict()["params"].items():
+                out[f"{case}/m{m}/{k}"] = v.detach().numpy().copy()
+            for k, shard in t._row_shards().items():
+                out[f"{case}/m{m}/local/{k}"] = np.asarray(
+                    tuple(t.params[k].shape) + (shard.valid,))
+                out[f"{case}/m{m}/padding/{k}"] = np.asarray(
+                    float(t.params[k][shard.valid:].abs().sum()))
+            if case == "NCL":
+                for i, p in enumerate(t.model.mg_protos):
+                    out[f"NCL/m{m}/protos{i}"] = np.asarray(p)
+            if case == "LightGCN" and m == 2:
+                out.update(_mg_service(t, built[4]))
+            if case in MG_FULL_SCORES and m == 2:
+                out[f"{case}/full_scores"] = _mg_full_scores(
+                    case, states[case], batch, built[m])
+    # the collective bytes of LightGCN's second step at E and 2E
+    mesh = built[2]
+    b = mg_batch("LightGCN", seed=2)
+    mine = local_rows(b, mesh)
+    for tag, double in (("E", False), ("2E", True)) if "LightGCN" in states \
+            else ():
+        torch.manual_seed(3)
+        model = mg_model("LightGCN", double=double)
+        t = mg_trainer("LightGCN", model, mesh)
+        t.init(mine)
+        t.train_step(dict(mine))
+        ops = collective_stats(t.train_step, dict(mine))
+        out[f"bytes/{tag}"] = np.asarray(sum(op.bytes for op in ops))
+        out[f"kinds/{tag}"] = np.asarray(sorted(op.line for op in ops))
+        out[f"edges/{tag}"] = np.asarray(len(model.edge_users))
+    for name, run in mg_pipelines(pipelines, mesh).items():
+        for k, v in run.items():
+            out[f"pipeline/{name}/{k}"] = np.asarray(v)
+    return out
+
+
+# the pair-scoring models, whose ``full_scores`` read their sharded tables
+# whole inside `parallel.mesh.whole_tables`
+MG_FULL_SCORES = ("KGCN", "KTUP", "RippleNet")
+
+
+def _mg_full_scores(case, state_path, batch, mesh):
+    """``full_scores`` of this rank's rows of ``batch`` from the saved
+    state, the model's tables sharded over ``mesh``."""
+    from recbox_tpu_torch.parallel.mesh import shard_params
+    model = mg_model(case, state_path)
+    shard_params(model, mesh)
+    mine = {k: torch.from_numpy(v) for k, v in
+            local_rows(batch, mesh).items()}
+    with torch.no_grad():
+        return model.eval().full_scores(mine)
+
+
+def _mg_service(trainer, mesh):
+    """The trained LightGCN served through `RetrievalService.from_trainer`
+    on ``mesh`` (the index over 'model', every rank encoding the corpus),
+    and an unsharded service over its gathered weights in this process."""
+    from recbox_tpu_torch.parallel.mesh import full_state_dict
+    from recbox_tpu_torch.retrieval import RetrievalService
+    size = mg_size("LightGCN")
+    corpus = {"item_id": np.arange(size["items"], dtype=np.int32)}
+    users = {"user_id": np.arange(size["users"], dtype=np.int32)}
+    svc = RetrievalService.from_trainer(trainer, corpus, mesh=mesh,
+                                        method="exact", batch_size=16)
+    s, i = svc.query(users, k=5)
+    plain = mg_model("LightGCN")
+    plain.load_state_dict(full_state_dict(trainer.model))
+    ps, pi = RetrievalService(plain, corpus, method="exact",
+                              batch_size=16, device="cpu").query(users, k=5)
+    return {"svc/scores": s, "svc/ids": i, "svc/plain_scores": ps,
+            "svc/plain_ids": pi}
+
+
+MG_PIPE = dict(embedding_dim=MG_D, epochs=2, batch_size=16, num_negs=2,
+               eval_batch_size=16, learning_rate=1e-2, seed=3,
+               monitor="Recall(k=20)", kg_batch_size=16,
+               kg_steps_per_epoch=3)
+
+
+def mg_pipelines(names, mesh=None):
+    """Of ``names``: `run_matching_experiment` (LightGCN) and
+    `run_kg_experiment` (KGAT, CKE: their CF and KG phases) over the ragged
+    world's first 160 interactions, the rest held out, with or without a
+    mesh; their metrics. The evaluators encode in batches of 16 (two user
+    and two corpus batches, each propagating)."""
+    from recbox_tpu_torch import quick_start as qs
+    size = MG_RAGGED
+    iu, ii, kg = mg_world(**size)
+    fm = mg_feature_map(FeatureMap, FeatureSpec, size["users"],
+                        size["items"])
+    train = {"user_id": iu[:160], "item_id": ii[:160]}
+    held = mg_u2i(iu[160:], ii[160:])
+    queries = np.asarray(sorted(held), np.int64)
+    users = {"user_id": queries.astype(np.int32)}
+    corpus = {"item_id": np.arange(size["items"], dtype=np.int32)}
+    t2i = mg_u2i(train["user_id"], train["item_id"])
+    out = {}
+    for name in names:
+        cfg = dict(MG_PIPE, model=name, **MG_KW[name], **mg_graph(
+            name, **size, iu=train["user_id"], ii=train["item_id"], kg=kg))
+        if name == "LightGCN":
+            out[name] = qs.run_matching_experiment(
+                cfg, fm, train, corpus, users, queries, t2i, held,
+                mesh=mesh, device="cpu")
+        else:
+            out[name] = qs.run_kg_experiment(
+                cfg, fm, train, corpus, kg, users, queries, t2i, held,
+                mesh=mesh, device="cpu")
+    return out
+
+
+def ksr_history(rank, world, state_path, batch_path):
+    """KSR on a ('data') mesh of the world from the saved state, its item
+    and entity tables row-sharded: this rank's user tower, training scores
+    and full-softmax CE over the sharded logits, each rank on its rows of
+    one global batch."""
+    from recbox_tpu_torch.ops.losses import full_softmax_loss
+    from recbox_tpu_torch.parallel.mesh import shard_params
+    with np.load(batch_path) as z:
+        batch = {k: torch.from_numpy(z[k]) for k in z.files}
+    mesh = make_mesh(1, device="cpu")
+    mine = local_rows(batch, mesh)
+    model = mg_model("KSR", state_path)
+    shard_params(model, mesh)
+    model.eval()
+    with torch.no_grad():
+        return {"user": model.user_tower(mine),
+                "scores": model(dict(mine, **{
+                    "__item_ids__": mine["cand"],
+                    "item::item_id": mine["cand"]})),
+                "ce": full_softmax_loss(model.full_scores(mine),
+                                        mine["item_id"]),
+                "rows": np.asarray(model.emb_item.shape[0])}
