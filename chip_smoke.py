@@ -12,8 +12,9 @@ Phases (any failure raises and exits non-zero):
      each kernel's registers and spills as ptxas gives them (B4's
      wgmma and segment routes at D = 64 and 128, whose packed
      instantiations are B3's stage (a), B5's selection, B3's selection
-     with its epilogue, B2's ce_fwd / ce_bwd at depth 64 and 128, B1 and
-     B6 must spill nothing);
+     with its epilogue, the selection's global-memory mode in both
+     libraries, B2's ce_fwd / ce_bwd at depth 64 and 128, B1 and B6 must
+     spill nothing);
   3. every kernel against its plain PyTorch version on the card: the MIPS
      top-k (B3) on N(0, 1) data at a small shape, the serving path's shape
      and the 1M x 128 shape (f32 and the small shape on B4's tile route),
@@ -354,6 +355,27 @@ Phases (any failure raises and exits non-zero):
      plain version (ids equal but for ties, scores within rtol 1e-6),
      recall against the exact top-k >= 0.99, timed beside cuBLAS +
      `torch.topk` and its bound;
+  5v. selection past k = 8192 (B5's and B3's stage (b) global-memory
+     mode) and the contrastive terms over the global batch: (a)
+     `BruteForceMIPS` 'auto' over 16,777,216 x 64 N(0, 1) items, bf16 and
+     int8, 1024 users at k = 10,000 (B3: 131,072 winners a query), the
+     counts reset just before and read just after one served call (one
+     stage (a) and one selection in the new mode), held to B3's plain
+     version as phase 3 holds it, timed with each stage alone beside its
+     bound, its plain version and cuBLAS + `torch.topk`; (b) B5 alone at
+     (Q, C) = (1024, 131,072) over bf16-rounded scores (ties) at k = 10,000
+     and 65,536, bit for bit against its plain version, timed beside
+     `torch.topk` and the byte bound; (c) in 5r(b)'s ranks, the sharded
+     search over 2 x 1M integer rows x 64 at k = 10,000 (B5 merges 20,000
+     candidates a query, once a rank) against the unsharded exact search;
+     (d) in 5t(b)'s ranks, the gradient of the step's objective and one
+     Adam step each of YoutubeSBC at 5n's width (in-batch negatives over
+     the global batch), SGL and NCL at 5f's LightGCN width (their InfoNCE
+     sums, SGL on fixed edge masks) and MCCLK at 5u(b)'s (in-batch
+     InfoNCE), against the unsharded ones on the global batch: the losses
+     within 1e-5 and each gradient entry within rtol 1e-4, or 1e-4 of the
+     largest (Adam's first step, lr · sign(g), would not see a term's
+     weight);
   6. times with CUDA events (median after a warm-up; B5, B6 and their
      yardsticks over runs of 20 calls queued behind a spin kernel, so the
      host's launch work is not timed): each kernel, its
@@ -638,7 +660,6 @@ def b3_stages(q, c, scale, k):
     B3's epilogue) from them; and stage (a) forced onto B4's tile route,
     B3's first design of it, for a comparison in the same run."""
     from recbox_tpu_torch.ops import mips_fused_topk as fused
-    from recbox_tpu_torch.ops.bitonic_topk import select_plan
     from recbox_tpu_torch.ops.mips_topk import (
         _candidates_cuda, quantize_int8,
     )
@@ -653,18 +674,12 @@ def b3_stages(q, c, scale, k):
     win = torch.empty((n_cand, nq), device=c.device)
     out_s = torch.empty((nq, k), device=c.device)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=c.device)
-    qb, window, kpt, p = select_plan(n_cand, k)
-    lib = fused._kernel_lib()
 
     def stage_a():
         _candidates_cuda(q, c, n, True, scale, sub, win, None)
 
     def stage_b():
-        rc = lib.recbox_mips_select_winners(
-            win.data_ptr(), None if q_scale is None else q_scale.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(), nq, n_cand, k, p, window, qb,
-            kpt, sub, torch.cuda.current_stream().cuda_stream)
-        assert rc == 0, rc
+        fused.select_winners(win, q_scale, out_s, out_i, k, sub)
 
     return stage_a, stage_b, lambda: b4_tile_route(q, c, scale, True, sub)
 
@@ -6015,6 +6030,39 @@ def gloo_pair(rank, world, rdv, device, out_dir, width=None):
                 "ids_equal_but_ties": ids_equal_but_ties(rs, ri, s, i),
                 "max_abs_err": (rs - s).abs().max().item(),
                 "exhausted_slots": int((i < 0).sum())})
+            del ref
+        del index, items, queries
+        # 5v(c): past k = 8192, 2 x V_SHARD integer rows (dot products
+        # exact in f32) at k = V_K: each shard's exact top V_K, B5's merge
+        # of the 2 · V_K candidates in its global-memory mode
+        t1 = time.perf_counter()
+        items = torch.randint(-R_INT, R_INT + 1, (2 * V_SHARD, DIM),
+                              generator=gen, device=device).float()
+        queries = torch.randint(-R_INT, R_INT + 1, (V_SEARCH_Q, DIM),
+                                generator=gen, device=device).float()
+        index = BruteForceMIPS(items, mesh=search_mesh, method="auto",
+                               bf16=False)
+        bitonic_topk.reset_launches()
+        t0 = time.perf_counter()
+        s, i = index.search(queries, V_K)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        out["search_large_k"] = {
+            "shard_rows": index.shard_size, "k": V_K,
+            "queries": V_SEARCH_Q, "wall_s": time.perf_counter() - t0,
+            "b5_launches": bitonic_topk.launches["bitonic_topk"],
+            "b5_global_memory_launches": bitonic_topk.large_launches[
+                "bitonic_topk"]}
+        if rank == 0:
+            ref = BruteForceMIPS(items, method="exact", device=device)
+            rs, ri = ref.search(queries, V_K)
+            out["search_large_k"].update({
+                "ids_equal_but_ties": ids_equal_but_ties(rs, ri, s, i),
+                "max_abs_err": (rs - s).abs().max().item(),
+                "exhausted_slots": int((i < 0).sum())})
+            del ref
+        out["search_large_k"]["phase_s"] = time.perf_counter() - t1
+        del index, items, queries
         out["wall_s"] = time.perf_counter() - t_start
         with open(os.path.join(out_dir, f"gloo_pair_rank{rank}.json"),
                   "w") as fh:
@@ -6099,6 +6147,15 @@ def check_two_ranks(res, on_card=True):
         assert rk["search"]["b5_launches"] == (1 if on_card else 0), rk
     assert r0["search"]["ids_equal_but_ties"], r0["search"]
     assert r0["search"]["max_abs_err"] <= 1e-6, r0["search"]
+    # 5v(c): the merge past k = 8192, once a rank in the global-memory mode
+    big = r0["search_large_k"]
+    assert big["ids_equal_but_ties"] and big["max_abs_err"] == 0.0, big
+    assert big["exhausted_slots"] == 0, big
+    for rk in res["ranks"]:
+        n = 1 if on_card else 0
+        assert (rk["search_large_k"]["b5_launches"],
+                rk["search_large_k"]["b5_global_memory_launches"]) \
+            == (n, n), rk["search_large_k"]
     return True
 
 
@@ -6441,9 +6498,13 @@ def t_gloo_rank(rank, world, rdv, device, out_dir, width=None,
                 "served_max_abs_err": float(np.abs(rs - ms).max())})
             del ref, rsvc
         out["wall_s"] = time.perf_counter() - t_start
-        if graph_root is not None:      # 5u in the same world
-            out["graph"] = u_graph(rank, mesh, search_mesh, graph_root, sync,
-                                   whole)
+        if graph_root is not None:      # 5u, then 5v(d), in the same world
+            out["graph"], sp = u_graph(rank, mesh, search_mesh, graph_root,
+                                       sync, whole)
+            dist.barrier()
+            t0 = time.perf_counter()
+            out["contrastive"] = v_contrastive(rank, mesh, sp, sync, whole)
+            out["contrastive"]["wall_s"] = time.perf_counter() - t0
         with open(os.path.join(out_dir, f"t_gloo_rank{rank}.json"),
                   "w") as fh:
             json.dump(out, fh)
@@ -6786,7 +6847,198 @@ def u_graph(rank, mesh, search_mesh, root, sync, whole):
     out["ksr"] = u_ksr(mesh, sp)
     out["ksr"]["wall_s"] = time.perf_counter() - t0
     out["wall_s"] = time.perf_counter() - t_start
+    return out, sp
+
+
+def v_case(name, sp):
+    """5v(d)'s ``name``: (trainer on a mesh or None, its global batch on
+    the device). YoutubeSBC at its yaml's widths over 5n's 1M items and
+    its batch of MI_BATCH, `sampled_softmax_inbatch_loss` with the log
+    popularity of this rank's rows' items (JAX's loss function); SGL and
+    NCL at their yamls' widths over 5f's graph, a batch of LG_BATCH with
+    one negative, BPR plus SGL's InfoNCE sum on two fixed edge keep-masks
+    or NCL's structural sum and prototype mean (its V_PROTOS prototypes
+    drawn after the sharding, `NCL.prototypes`); MCCLK at its yaml's
+    widths over 5u(b)'s split, a batch of KG_EAGER_BATCH, BPR plus its
+    in-batch InfoNCE. Each model from one seed, f32, Adam 1e-3."""
+    from recbox_tpu_torch import quick_start as qs
+    from recbox_tpu_torch.data import MatchingLoader
+    from recbox_tpu_torch.data.loader import MASK_KEY
+    from recbox_tpu_torch.models.matching import (
+        YoutubeSBC, build_norm_edges, sampled_softmax_inbatch_loss,
+    )
+    from recbox_tpu_torch.models.matching import graph_extended as ge
+    from recbox_tpu_torch.ops.losses import get_matching_loss
+    from recbox_tpu_torch.training import Trainer, TrainerConfig
+    bpr = get_matching_loss("PairwiseLogisticLoss")
+    cfg = TrainerConfig(learning_rate=1e-3, seed=SEED)
+    g = lambda: torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def batch_of(loader):
+        b = next(iter(loader))
+        b.pop(MASK_KEY, None)
+        return {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
+
+    if name == "YoutubeSBC":
+        train, _, _ = mi_data()
+        fm = mi_feature_map()
+        rows = {k: v[:MI_BATCH] for k, v in train.items()}
+        batch = batch_of(MatchingLoader(fm, rows, {"item_id": np.arange(
+            N_ITEMS, dtype=np.int32)}, batch_size=MI_BATCH,
+            num_negs=MI_NEGS, seed=SEED, exclude_ids=(0,)))
+        counts = np.bincount(train["item_id"], minlength=N_ITEMS) + 1.0
+        log_q = torch.from_numpy(np.log(counts / counts.sum()).astype(
+            np.float32)).to(DEVICE)
+        kw = {k: (tuple(v) if isinstance(v, list) else v)
+              for k, v in model_yaml("YoutubeSBC").items() if k != "model"}
+        return (lambda mesh: Trainer(
+            YoutubeSBC(fm, **kw, generator=g(), device=DEVICE),
+            lambda o, b: sampled_softmax_inbatch_loss(
+                o, log_q[b["item_id"].long()]), cfg, mesh=mesh,
+            device=DEVICE, train_method="inbatch_scores")), batch
+    if name in ("SGL", "NCL"):
+        tr_u, tr_i, _, _ = lightgcn_data()
+        eu, ei, c = build_norm_edges(tr_u, tr_i, LG_USERS, LG_ITEMS)
+        fm, _, _ = lightgcn_trainer(tr_u[:1], tr_i[:1])
+        batch = batch_of(MatchingLoader(
+            fm, {"user_id": tr_u, "item_id": tr_i},
+            {"item_id": np.arange(LG_ITEMS, dtype=np.int32)},
+            batch_size=LG_BATCH, num_negs=1, exclude_seen=False,
+            seed=SEED))
+        kw = {k: v for k, v in model_yaml(name).items()
+              if k not in ("model", "edge_users", "edge_items",
+                           "edge_coefs", "num_users", "num_items")}
+        rng = np.random.default_rng(SEED + 223)
+        masks = [torch.from_numpy(rng.random(len(eu)) > kw.get(
+            "drop_ratio", 0.0)).to(DEVICE) for _ in range(2)]
+
+        def make(mesh):
+            model = getattr(ge, name)(
+                fm, num_users=LG_USERS, num_items=LG_ITEMS, edge_users=eu,
+                edge_items=ei, edge_coefs=c, **kw, generator=g(),
+                device=DEVICE)
+            if name == "SGL":
+                loss = lambda o, b: bpr(o) + model.ssl_loss(b, masks)
+            else:
+                loss = lambda o, b: bpr(o) + model.structural_loss(b) \
+                    + model.prototype_loss(b, *model.v_protos)
+            return Trainer(model, loss, cfg, mesh=mesh, device=DEVICE)
+        return make, batch
+    graph = dict(inter_users=sp["tr"]["user_id"],
+                 inter_items=sp["tr"]["item_id"], kg_heads=sp["kg"].heads,
+                 kg_relations=sp["kg"].relations, kg_tails=sp["kg"].tails)
+    mcfg = {**sized_yaml("MCCLK"), "num_users": sp["inter"].num_users,
+            "num_items": sp["inter"].num_items,
+            "n_entities": sp["kg"].n_entities,
+            "n_relations": sp["kg"].n_relations, **graph, "seed": SEED}
+    batch = batch_of(MatchingLoader(sp["fm"], sp["tr"], sp["corpus"],
+                                    batch_size=KG_EAGER_BATCH, num_negs=1,
+                                    seed=SEED, exclude_ids=(0,)))
+
+    def make_mcclk(mesh):
+        model, _ = qs.build_model(mcfg, sp["fm"], DEVICE)
+        return Trainer(model, lambda o, b: bpr(o) + model.contrastive_loss(
+            b), cfg, mesh=mesh, device=DEVICE)
+    return make_mcclk, batch
+
+
+V_CASES = ("YoutubeSBC", "SGL", "NCL", "MCCLK")
+
+
+def v_grads(t, b):
+    """The gradient of the mesh step's objective on batch ``b``, as
+    `Trainer._train_step` takes it before its optimizer (the replicated
+    parameters' summed over 'data', the row shards' gathered whole: a
+    collective), and the loss it reports."""
+    from recbox_tpu_torch.parallel.mesh import export_state
+    t.model.train()
+    obj, rep = t._mesh_loss(t.loss_fn(t._step_forward(b), b))
+    names, params = list(t.params), list(t.params.values())
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+        params, torch.autograd.grad(obj, params, allow_unused=True))]
+    if t.mesh is not None:
+        t._reduce_dense_grads(grads)
+    return float(rep), {k: g.detach().clone() for k, g in export_state(
+        dict(zip(names, grads)), t._row_shards()).items()}
+
+
+def v_contrastive(rank, mesh, sp, sync, whole):
+    """5v(d) on one rank of 5t(b)'s ('data') mesh of 2, each case from one
+    draw on this rank's rows: the gradient of the step's objective
+    (`v_grads`), then one step; rank 0 also takes both on the global batch
+    without a mesh and compares the losses (5r(b)'s rtol) and the
+    gradients (the CPU tests' rule: each entry within rtol R_RTOL, or
+    R_RTOL of the largest entry; Adam's first step, lr · sign(g), would
+    not see a term's weight). Under torch's deterministic algorithms, as
+    5u(b): the propagations' `index_add_` then sums in a fixed order."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {}
+    try:
+        for name in V_CASES:
+            t0 = time.perf_counter()
+            make, batch = v_case(name, sp)
+            mine = r_local(batch, mesh)
+            t = make(mesh)
+            t.init(mine)
+            if name == "NCL":           # every rank calls it (a gather)
+                t.model.v_protos = t.model.prototypes(
+                    V_PROTOS, n_iters=V_PROTO_ITERS, seed=SEED)
+            grad_loss, grads = v_grads(t, mine)
+            sync()
+            t1 = time.perf_counter()
+            loss = float(t.train_step(mine))
+            sync()
+            res = {"rows": int(len(next(iter(mine.values())))),
+                   "global_rows": int(len(next(iter(batch.values())))),
+                   "loss": loss, "step_s": time.perf_counter() - t1}
+            del t
+            if rank == 0:
+                ref = make(None)
+                ref.init(batch)
+                if name == "NCL":
+                    ref.model.v_protos = ref.model.prototypes(
+                        V_PROTOS, n_iters=V_PROTO_ITERS, seed=SEED)
+                ref_grad_loss, ref_grads = v_grads(ref, batch)
+                ref_loss = float(ref.train_step(batch))
+                top = max(g.abs().max().item() for g in ref_grads.values())
+                res.update({
+                    "ref_loss": ref_loss,
+                    "loss_rel_err": max(
+                        abs(loss - ref_loss) / abs(ref_loss),
+                        abs(grad_loss - ref_grad_loss) / abs(ref_grad_loss)),
+                    "grad_max_abs": top,
+                    "grad_max_abs_err": max(
+                        (grads[k] - g).abs().max().item()
+                        for k, g in ref_grads.items()),
+                    # the worst entry's excess over rtol·|ref| + rtol·top
+                    "grad_tolerance_excess": max(
+                        ((grads[k] - g).abs() - R_RTOL * g.abs()
+                         - R_RTOL * top).max().item()
+                        for k, g in ref_grads.items())})
+                del ref
+            res["wall_s"] = time.perf_counter() - t0
+            out[name] = res
+            if DEVICE != "cpu":
+                torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
     return out
+
+
+def check_contrastive(res):
+    """5v(d) holds: each case's loss (of the gradient's forward and of the
+    step) within R_LOSS_RTOL of the unsharded one's, its gradient within
+    the CPU tests' rule of the unsharded gradient on the global batch
+    (each entry within rtol R_RTOL, or R_RTOL of the largest entry), a
+    gradient that is not zero; each rank held half the global batch."""
+    r0 = res["ranks"][0]["contrastive"]
+    for name in V_CASES:
+        c = r0[name]
+        assert c["loss_rel_err"] <= R_LOSS_RTOL, (name, c)
+        assert c["grad_tolerance_excess"] <= 0 < c["grad_max_abs"], (name, c)
+        for rk in res["ranks"]:
+            assert 2 * rk["contrastive"][name]["rows"] == c["global_rows"]
+    return True
 
 
 def check_mesh_graph(res, on_card=True):
@@ -7174,6 +7426,158 @@ def segmented_on_card():
             "b5_one_chunk": stages}
 
 
+# -- phase 5v: selection past k = 8192; the contrastive terms on the mesh ----
+# (a) BruteForceMIPS 'auto' over V_N x DIM items at k = V_K for V_Q users:
+# the kernel gate takes B3 (V_N · 2 · 0.05 >= V_K · 128), whose 1024-query
+# plan gives V_N / 128 = 131,072 winners a query, past one 16384-key
+# window at k above 8192: its stage (b) in the global-memory mode. (b) B5
+# alone at (V_Q, V_C) at k = V_K and V_K_WIDE. (c) 5r(b)'s sharded search
+# over 2 x V_SHARD rows at k = V_K for V_SEARCH_Q queries. (d) in 5t(b)'s
+# ranks: the gradient of the step's objective and one step each of
+# YoutubeSBC (5n's width), SGL and NCL (5f's; NCL's V_PROTOS prototypes,
+# V_PROTO_ITERS k-means rounds) and MCCLK (5u(b)'s)
+V_N, V_Q, V_K, V_K_WIDE, V_C = 16_777_216, 1024, 10_000, 65_536, 131_072
+V_SHARD, V_SEARCH_Q, V_PROTOS, V_PROTO_ITERS = 1_000_000, 64, 16, 3
+# cuBLAS + torch.topk's query chunks at V_N items (bf16 scores 2.1 GB a
+# chunk of 64; int8's s32 and f32 copies 4.3 GB each a chunk of 32)
+V_LIB_CHUNK = {"bf16": 64, "int8": 32}
+
+
+def large_k_search(gen):
+    """5v(a): `BruteForceMIPS` 'auto' over V_N x DIM N(0, 1) items, bf16 and
+    int8, V_Q users at k = V_K. Each variant: B3's counts reset just before
+    and read just after one served call (one stage (a) and one selection,
+    in the global-memory mode); the result against B3's plain version on
+    the inputs the kernel saw (int8 identical; bf16 scores within rtol
+    2e-5, as `check_kernel`, and ids equal but for swaps at the cut within
+    that tolerance); ms of
+    the search, of each stage alone, of the plain version and of cuBLAS +
+    `torch.topk`, beside the bound."""
+    from recbox_tpu_torch.ops import mips_fused_topk as fused
+    from recbox_tpu_torch.ops.mips_fused_topk import (
+        mips_fused_topk_plain, segment_plan,
+    )
+    from recbox_tpu_torch.ops.mips_topk import candidate_route, quantize_int8
+    from recbox_tpu_torch.retrieval import BruteForceMIPS
+    items = torch.randn(V_N, DIM, generator=gen, device=DEVICE)
+    users = torch.randn(V_Q, DIM, generator=gen, device=DEVICE)
+    out = {}
+    for variant in ("bf16", "int8"):
+        index = BruteForceMIPS(items, method="auto", device=DEVICE,
+                               quantize="int8" if variant == "int8"
+                               else None)
+        c = index.q_items if variant == "int8" else index._kernel_items
+        scale = index.item_scale if variant == "int8" else None
+        sub, n_cand = segment_plan(c.dtype, V_N, DIM, V_Q, V_K,
+                                   index.query_chunk)
+        fused.reset_launches()
+        before = b3_counts()
+        s, i = index.search(users, V_K)
+        torch.cuda.synchronize()
+        route = b3_route_taken(before)
+        served = {"select": fused.launches[variant],
+                  "select_global_memory_mode":
+                      fused.large_launches[variant], "stage_a": route}
+        assert served["select_global_memory_mode"] == 1, served
+
+        def plain():
+            if variant == "int8":
+                q8, qs = quantize_int8(users)
+                return mips_fused_topk_plain(q8, c, V_K, V_N, scale, qs,
+                                             sub)
+            return mips_fused_topk_plain(users.to(c.dtype), c, V_K, V_N,
+                                         sub_rows=sub)
+
+        ps, pi = plain()
+        torch.cuda.synchronize()
+        assert s.shape == (V_Q, V_K) and bool(torch.isfinite(s).all())
+        assert bool(((i >= 0) & (i < V_N)).all())
+        si = torch.sort(i.long(), 1).values
+        same = (si == torch.sort(pi.long(), 1).values
+                ).all(1).float().mean().item()
+        err = (s - ps).abs().max().item()
+        # an id may swap only with one whose packed score lies within the
+        # scores' tolerance of the k-th (another order of the products
+        # moves a packed score by its rounding; with 131,072 winners a
+        # query, the k-th has close neighbours)
+        tol = 2e-5 * float(ps.abs().max()) + 1e-6
+        keep = ps > ps[:, -1:] + tol
+        at = torch.searchsorted(si, pi.long()).clamp(max=V_K - 1)
+        near_ties = bool(((si.gather(1, at) == pi.long()) | ~keep).all())
+        if variant == "int8":
+            assert torch.equal(i, pi) and torch.equal(s, ps), variant
+        else:
+            assert near_ties, variant
+            torch.testing.assert_close(s, ps, rtol=2e-5, atol=1e-6)
+        del s, i, ps, pi
+        stage_a, stage_b, _ = b3_stages(users, c, scale, V_K)
+        b_ms, b_by = bound_ms(variant, V_N, DIM, V_Q, V_K)
+        out[variant] = {
+            "n": V_N, "d": DIM, "q": V_Q, "k": V_K, "sub_rows": sub,
+            "winners_a_query": n_cand, "route": candidate_route(
+                c.dtype, DIM, sub), "served_launches": served,
+            "rows_same_ids": same, "ids_equal_but_near_ties": near_ties,
+            "near_tie_tolerance": tol, "max_abs_err": err,
+            "tolerance": "identical ids and scores" if variant == "int8"
+            else "ids equal but for swaps within the tolerance of the "
+                 "k-th score, scores rtol 2e-5 atol 1e-6",
+            "ms": cuda_ms(lambda: index.search(users, V_K), reps=3),
+            "stage_a_ms": cuda_ms(stage_a, reps=3),
+            "stage_b_ms": cuda_ms(stage_b, reps=5),
+            # stage (b) reads the winners once and writes the k pairs
+            "stage_b_bound_ms": (n_cand * V_Q * 4 + V_Q * V_K * 8)
+            / HBM_BYTES_S * 1e3,
+            "plain_ms": cuda_ms(plain, reps=1),
+            "library_ms": cuda_ms(lambda: library_topk(
+                users, c, scale, V_K, chunk=V_LIB_CHUNK[variant]), reps=1),
+            "library": f"cuBLAS scores and torch.topk, "
+                       f"{V_LIB_CHUNK[variant]} queries a call",
+            "bound_ms": b_ms, "bound_by": b_by}
+        del index, c, scale, stage_a, stage_b
+        torch.cuda.empty_cache()
+    return out
+
+
+def large_k_b5(gen):
+    """5v(b): B5 alone on row-major (V_Q, V_C) bf16-rounded scores (ties)
+    and distinct ids at k = V_K and V_K_WIDE: the global-memory mode once a
+    call (counted), bit for bit against its plain version (ties by
+    position); ms beside the plain version, `torch.topk` on the same
+    scores and the bound (every score read once, the winners' ids read,
+    the k pairs written)."""
+    from recbox_tpu_torch.ops import bitonic_topk as bt
+    out = []
+    for k in (V_K, V_K_WIDE):
+        s, ids = b5_inputs(gen, V_C, V_Q, ties=True)
+        sr, ir = s.T.contiguous(), ids.T.contiguous()
+        del s, ids
+        bt.reset_launches()
+        ts, ti = bt.pallas_bitonic_topk(sr, ir, k)
+        launches = (bt.launches["bitonic_topk"],
+                    bt.large_launches["bitonic_topk"])
+        ps, pi = bt.bitonic_topk_plain(sr, ir, k)
+        torch.cuda.synchronize()
+        assert launches == (1, 1), launches
+        assert torch.equal(ts.view(torch.int32), ps.view(torch.int32)) \
+            and torch.equal(ti, pi), k
+        moved = V_C * V_Q * 4 + k * V_Q * 4 + k * V_Q * 8
+        out.append({
+            "q": V_Q, "c": V_C, "k": k, "plan": list(bt.select_plan(V_C, k)),
+            "launches_global_memory_mode": launches[1],
+            "bit_equal": True, "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: bt.pallas_bitonic_topk(sr, ir, k),
+                          reps=5),
+            "plain_ms": cuda_ms(lambda: bt.bitonic_topk_plain(sr, ir, k),
+                                reps=3),
+            "library_ms": cuda_ms(lambda: torch.topk(sr, k, dim=1), reps=5),
+            "library": "torch.topk on the (Q, C) scores",
+            "bound_ms": moved / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+            "bytes": moved})
+        del sr, ir, ts, ti, ps, pi
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     from recbox_tpu_torch.models.matching import YoutubeDNN
     from recbox_tpu_torch.ops import _build
@@ -7243,6 +7647,11 @@ def main() -> int:
                   "embedding_gather": usage_of(_build.build_logs,
                                                "embedding_gather",
                                                "seq_pool")}
+    # the selection's global-memory mode (five kernels in each library)
+    redesigned["bitonic_topk_global_memory"] = usage_of(
+        _build.build_logs, "bitonic_topk", "select_large")
+    redesigned["mips_fused_topk_global_memory"] = usage_of(
+        _build.build_logs, "mips_fused_topk", "select_large")
     for name, usage in redesigned.items():
         emit({"phase": "ptxas_redesigned", "kernel": name, "usage": usage})
         assert usage and all(u["spill_stores"] == u["spill_loads"] == 0
@@ -7568,7 +7977,9 @@ def main() -> int:
     kg_tmp.cleanup()
     check_mesh_tables(tab_b)
     check_mesh_graph(tab_b)
+    check_contrastive(tab_b)
     graph = [r.pop("graph") for r in tab_b["ranks"]]
+    contrastive = [r.pop("contrastive") for r in tab_b["ranks"]]
     emit({"phase": "mesh_tables_two_ranks_gloo", "card": card,
           "batch": T_GLOO_BATCH, "staged_through_host": True,
           "tolerance": {"loss_rtol": R_LOSS_RTOL, "rtol": R_RTOL,
@@ -7605,6 +8016,28 @@ def main() -> int:
     emit({"phase": "segmented_mips_topk", "card": card,
           "wall_s": time.perf_counter() - t0, **seg})
     emit({"phase": "5s", "wall_s": time.perf_counter() - t5s})
+    # 5v. selection past k = 8192: (a) the served search at 16.8M items,
+    # (b) B5 alone; (c) and (d) ran in 5r(b)'s and 5t(b)'s ranks
+    t5v = time.perf_counter()
+    big_search = large_k_search(gen)
+    for variant, res in big_search.items():
+        emit({"phase": "large_k_search", "card": card, "variant": variant,
+              **res})
+    big_b5 = large_k_b5(gen)
+    for res in big_b5:
+        emit({"phase": "large_k_b5", "card": card, **res})
+    v_c = [r["search_large_k"] for r in mesh_b["ranks"]]
+    emit({"phase": "large_k_sharded_search", "card": card,
+          "staged_through_host": True, "ranks": v_c})
+    emit({"phase": "mesh_contrastive_two_ranks_gloo", "card": card,
+          "staged_through_host": True,
+          "tolerance": {"loss_rtol": R_LOSS_RTOL, "grad_rtol": R_RTOL,
+                        "grad_atol_of_largest": R_RTOL},
+          "ranks": contrastive})
+    v_wall = time.perf_counter() - t5v + max(
+        r["phase_s"] for r in v_c) + max(c["wall_s"] for c in contrastive)
+    emit({"phase": "5v", "wall_s": v_wall,
+          "of_it_in_5r_and_5t": v_wall - (time.perf_counter() - t5v)})
 
     # 6. times
     qps = {}
@@ -7977,6 +8410,54 @@ def main() -> int:
             "ms", "library_ms", "bound_ms")} for t in b5_times[1:]},
         "ptxas": redesigned["bitonic_topk"], "matches_plain": True,
         "shape": {"c": t5["c"], "q": t5["q"], "k": t5["k"]}})
+    # the selection's global-memory mode (5v): B5's sharded merge past
+    # k = 8192 and B3's served search at 16.8M items
+    w10, w64 = big_b5
+    kernels.append({
+        "name": "bitonic_topk[global_memory_mode]", "route": "cuda",
+        "source": "recbox_tpu_torch/csrc/bitonic_topk.cu",
+        "mode_source": "recbox_tpu_torch/csrc/select_topk.cuh",
+        "replaces": "recbox_tpu/ops/pallas/bitonic_topk.py:123",
+        "launches": sum(r["b5_global_memory_launches"] for r in v_c),
+        "launches_by_path": {"sharded_search_merge_5v_c": sum(
+            r["b5_global_memory_launches"] for r in v_c)},
+        "max_abs_err": max(w10["max_abs_err"], w64["max_abs_err"]),
+        "ms": w10["ms"], "plain_ms": w10["plain_ms"],
+        "bound_ms": w10["bound_ms"], "bound_by": w10["bound_by"],
+        "library_ms": w10["library_ms"], "library": w10["library"],
+        "design": "order keys copied row-major through shared tiles; one "
+                  "block a row: radix passes over the row in device "
+                  "memory, the k survivors compacted; bitonic runs of "
+                  "16384 in shared memory merged in device memory",
+        "k_65536": {key: w64[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "ptxas": usage_of(_build.build_logs, "bitonic_topk",
+                          "select_large"),
+        "matches_plain": True, "bit_equal": True,
+        "shape": {"q": V_Q, "c": V_C, "k": V_K}})
+    for variant in ("bf16", "int8"):
+        v = big_search[variant]
+        kernels.append({
+            "name": f"mips_fused_topk[{variant},global_memory_mode]",
+            "route": "cuda",
+            "source": "recbox_tpu_torch/csrc/mips_fused_topk.cu",
+            "stage_a_source": "recbox_tpu_torch/csrc/mips_topk.cu",
+            "mode_source": "recbox_tpu_torch/csrc/select_topk.cuh",
+            "replaces": "recbox_tpu/ops/pallas/mips_fused_topk.py:100",
+            "launches": v["served_launches"]["select_global_memory_mode"],
+            "launches_by_path": {"served_search_5v_a": v[
+                "served_launches"]},
+            "max_abs_err": v["max_abs_err"], "ms": v["ms"],
+            "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"], "library_ms": v["library_ms"],
+            "library": v["library"], "stage_a_ms": v["stage_a_ms"],
+            "stage_b_ms": v["stage_b_ms"],
+            "stage_b_bound_ms": v["stage_b_bound_ms"],
+            "ptxas": usage_of(_build.build_logs, "mips_fused_topk",
+                              "select_large"),
+            "rows_same_ids": v["rows_same_ids"], "matches_plain": True,
+            "shape": {"n": V_N, "d": DIM, "q": V_Q, "k": V_K,
+                      "winners_a_query": v["winners_a_query"]}})
     t6, t6u = b6_times[0], b6_times[2]
     kernels.append({
         "name": "seq_embedding_pool", "route": "cuda",

@@ -14,8 +14,11 @@
 // far below the card's rate, so the bound is bytes.
 //
 // The selection (a radix select over keys in registers, then a sort of the
-// k survivors) is `select_topk.cuh`'s; this file gives it B5's epilogue,
-// which writes each winner's score and gathers its id.
+// k survivors; past 16384 candidates at k above 8192 its global-memory
+// mode) is `select_topk.cuh`'s; this file gives it B5's epilogue, which
+// writes each winner's score and gathers its id. At (Q, C) = (1024,
+// 131072) the function must read 512 MB of scores and write the k pairs:
+// 0.18 ms of HBM at k = 10,000, 0.32 ms at k = 65,536.
 
 #include "select_topk.cuh"
 
@@ -44,16 +47,20 @@ extern "C" {
 
 // scores float32, ids int32 or null, out_s float32, out_i int32, all
 // addressed by the element strides given; (k, p, window, qb, kpt) as
-// `launch_select` takes them.
+// `launch_select` takes them; with qb 0 the scratch keys (q_chunk, c) u32
+// and surv (q_chunk, p) u64 (null otherwise).
 int recbox_select_topk(const void* scores, const void* ids, void* out_s,
                        void* out_i, int nq, int c, int k, int p, int window,
                        int qb, int kpt, long long s_q, long long s_c,
                        long long i_q, long long i_c, long long o_q,
-                       long long o_k, void* stream) {
+                       long long o_k, void* keys, void* surv, int q_chunk,
+                       void* stream) {
   const RowOut out{static_cast<float*>(out_s), static_cast<int*>(out_i),
                    static_cast<const int*>(ids), i_q, i_c, o_q, o_k};
   return launch_select(static_cast<const float*>(scores), nq, c, k, p,
-                       window, qb, kpt, s_q, s_c, out,
+                       window, qb, kpt, s_q, s_c,
+                       static_cast<unsigned int*>(keys),
+                       static_cast<unsigned long long*>(surv), q_chunk, out,
                        static_cast<cudaStream_t>(stream));
 }
 

@@ -44,6 +44,26 @@
 // together with the k survivors carried from the windows before it.
 // A persistent grid that asked L2 for the next query set's scores while
 // selecting the current one was tried and was slower on the card.
+//
+// Past one window with 2k > 16384 (k above 8192 over more than 16384
+// candidates) the carry and a window no longer fit a block, and the
+// global-memory mode (`launch_select_large`) takes over, for any k <= C.
+// Per chunk of queries, five kernels: (1) a candidate-major source's order
+// keys copied row-major into a (rows, C) u32 scratch through 32 x 32 tiles
+// in shared memory, so it is read and written in whole lines (a row-major
+// source is read in place); (2) one
+// 1024-thread block a row runs the same radix selection over the row's
+// keys in device memory (11 / 11 / 10-bit digits of each 32-bit word, a
+// shared histogram a pass) and compacts the k keys at or above the found
+// prefix into a (rows, p) survivor buffer, warp-aggregated, the rest of
+// the row's p slots set to 0, below every key; (3) runs of 16384
+// survivors sorted by the bitonic network, each run's direction its place
+// in the row's network, 16 keys a thread in registers for the strides
+// below 16 and shared memory for the rest; (4) the strides of 16384 and
+// more of the larger merges in global memory, one launch a stride, each
+// merge finished in shared memory by (3); (5) the epilogue over the first
+// k keys of each row. A simple design that is right; its time is in
+// `PERF.md`.
 
 #pragma once
 
@@ -467,16 +487,339 @@ int launch_kpt(int kpt, const float* scores, int nq, int c, int k, int p,
   return (int)cudaErrorInvalidValue;
 }
 
+// -- the global-memory mode: any k <= C ----------------------------------------
+
+constexpr int LARGE_THREADS = 1024;   // a block of the row and sort kernels
+constexpr int LARGE_RUN = 16384;      // survivors a run sorted in shared memory
+constexpr int LARGE_TILE = 32;        // the key copy's square tile
+
+// (1) Keys of candidate-major scores (q, c), rows q < nqc, into keys[q * c
+// + c] as order keys: a 32 x 32 tile read along the queries (the source's
+// contiguous axis) and written along the row, 32 x 8 threads, four
+// elements each. A row-major source needs no copy: (2) reads it in place.
+constexpr int TILE_ROWS = 8;
+__global__ void __launch_bounds__(LARGE_TILE * TILE_ROWS)
+    select_large_keys(const float* __restrict__ scores, int nqc, int c,
+                      long long s_c, unsigned int* __restrict__ keys) {
+  __shared__ unsigned int tile[LARGE_TILE][LARGE_TILE + 1];  // [col][row]
+  const int tx = threadIdx.x % LARGE_TILE, ty = threadIdx.x / LARGE_TILE;
+  const long long c0 = (long long)blockIdx.x * LARGE_TILE;
+  const int r0 = blockIdx.y * LARGE_TILE;
+#pragma unroll
+  for (int j = ty; j < LARGE_TILE; j += TILE_ROWS)
+    if (r0 + tx < nqc && c0 + j < c)
+      tile[j][tx] = order_key(__ldg(scores + r0 + tx + (c0 + j) * s_c));
+  __syncthreads();
+#pragma unroll
+  for (int j = ty; j < LARGE_TILE; j += TILE_ROWS)
+    if (r0 + j < nqc && c0 + tx < c)
+      keys[(long long)(r0 + j) * c + c0 + tx] = tile[tx][j];
+}
+
+// A row's order keys: from a row-major source in place (IN_PLACE: the
+// scores, row stride s_q), else from the (rows, c) copy (1) made.
+template <bool IN_PLACE>
+struct RowKeys {
+  const void* base;
+  long long s_q;
+  __device__ __forceinline__ unsigned int operator()(int row, int c,
+                                                     int i) const {
+    if constexpr (IN_PLACE)
+      return order_key(
+          __ldg(static_cast<const float*>(base) + row * s_q + i));
+    else
+      return static_cast<const unsigned int*>(base)[(long long)row * c + i];
+  }
+};
+
+// (2) One block a row: the radix selection of `radix_select` over the
+// row's keys in device memory, then the k keys at or above the prefix into
+// surv[row * p, +k) in no order and 0 in the row's other p - k slots.
+template <class Src>
+__global__ void __launch_bounds__(LARGE_THREADS)
+    select_large_rows(Src src, int c, int k, int p,
+                      unsigned long long* __restrict__ surv) {
+  __shared__ int hist[HIST_BINS];
+  __shared__ GroupState st;
+  const int t = threadIdx.x;
+  const int lane = t % 32;
+  const int row = blockIdx.x;
+  unsigned long long* out = surv + (long long)blockIdx.x * p;
+  Prefix pre{0u, 0u, 0u, 0u};
+  int remaining = k;
+  for (int shift = 64;;) {
+    // 11 / 11 / 10 bits of each word
+    const int bits = (shift == 42 || shift == 10) ? 10 : 11;
+    shift -= bits;
+    const int bins = 1 << bits;
+    const bool high = shift >= 32;
+    const int s = high ? shift - 32 : shift;
+    for (int b = t; b < bins; b += LARGE_THREADS) hist[b] = 0;
+    __syncthreads();
+    // four loads in flight a thread before their counts
+    for (int i0 = t; i0 < c; i0 += 4 * LARGE_THREADS) {
+      unsigned int h[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * LARGE_THREADS;
+        h[u] = i < c ? src(row, c, i) : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * LARGE_THREADS;
+        const unsigned int l = low_word(i);
+        if (i < c && pre.matches(h[u], l))
+          atomicAdd(hist + (((high ? h[u] : l) >> s) & (bins - 1)), 1);
+      }
+    }
+    __syncthreads();
+    if (t < 32) find_bin(hist, bins, remaining, lane, &st);
+    __syncthreads();
+    if (high) {
+      pre.hi |= (unsigned int)st.bin << s;
+      pre.mask_hi |= (unsigned int)(bins - 1) << s;
+    } else {
+      pre.lo |= (unsigned int)st.bin << s;
+      pre.mask_lo |= (unsigned int)(bins - 1) << s;
+    }
+    remaining = st.remaining;
+    // every key left in the bin is needed (always so at the last bits)
+    if (st.bin_count == remaining || shift == 0) break;
+  }
+  __syncthreads();
+  if (t == 0) st.filled = 0;
+  __syncthreads();
+  // the whole block walks the row in steps of its width, so every lane of
+  // a warp takes part in its ballot
+  for (int i0 = 0; i0 < c; i0 += LARGE_THREADS) {
+    const int i = i0 + t;
+    unsigned int h = 0u, l = 0u;
+    bool take = false;
+    if (i < c) {
+      h = src(row, c, i);
+      l = low_word(i);
+      take = pre.at_or_above(h, l);
+    }
+    const unsigned int mask = __ballot_sync(0xFFFFFFFFu, take);
+    int base = 0;
+    if (lane == 0 && mask != 0u) base = atomicAdd(&st.filled, __popc(mask));
+    base = __shfl_sync(0xFFFFFFFFu, base, 0);
+    if (take)
+      out[base + __popc(mask & ((1u << lane) - 1u))] =
+          ((unsigned long long)h << 32) | l;
+  }
+  for (int j = k + t; j < p; j += LARGE_THREADS) out[j] = 0ull;
+}
+
+// (3) Runs of LARGE_RUN survivors in shared memory: the bitonic network's
+// sizes size_from..size_to, each at its strides below LARGE_RUN, each
+// pair's direction from its place in the row's p. A thread holds 16
+// consecutive keys in registers, where the strides below 16 run with no
+// barrier; the larger strides run in shared memory, one key in 17 a pad so
+// a thread's 16 keys sit in other banks than its neighbours'.
+constexpr int SORT_E = LARGE_RUN / LARGE_THREADS;  // 16 keys a thread
+
+__host__ __device__ constexpr int padded(int i) { return i + (i >> 4); }
+
+// The steps of `size` at strides STRIDE, STRIDE / 2, ..., 1 on a thread's
+// keys v, at row positions g0 + j.
+template <int STRIDE>
+__device__ __forceinline__ void register_steps(
+    unsigned long long (&v)[SORT_E], int g0, int size) {
+  if constexpr (STRIDE >= 1) {
+#pragma unroll
+    for (int j = 0; j < SORT_E; ++j) {
+      if ((j & STRIDE) == 0) {
+        const bool desc = ((g0 + j) & size) == 0;
+        const unsigned long long a = v[j], b = v[j + STRIDE];
+        if ((a < b) == desc) {
+          v[j] = b;
+          v[j + STRIDE] = a;
+        }
+      }
+    }
+    register_steps<STRIDE / 2>(v, g0, size);
+  }
+}
+
+__global__ void __launch_bounds__(LARGE_THREADS)
+    select_large_sort(unsigned long long* __restrict__ surv, int p,
+                      int size_from, int size_to) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* s = reinterpret_cast<unsigned long long*>(smem);
+  const int t = threadIdx.x;
+  const long long base = (long long)blockIdx.x * LARGE_RUN;
+  const int first = (int)(blockIdx.x % (unsigned)(p / LARGE_RUN)) * LARGE_RUN;
+  const int g0 = first + t * SORT_E;
+  for (int i = t; i < LARGE_RUN; i += LARGE_THREADS)
+    s[padded(i)] = surv[base + i];
+  __syncthreads();
+  unsigned long long v[SORT_E];
+#pragma unroll
+  for (int j = 0; j < SORT_E; ++j) v[j] = s[padded(t * SORT_E + j)];
+  for (int size = size_from; size <= size_to; size <<= 1) {
+    if (size > SORT_E) {
+      // the strides of 16 and more, through shared memory
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < SORT_E; ++j) s[padded(t * SORT_E + j)] = v[j];
+      __syncthreads();
+      for (int stride = (size < LARGE_RUN ? size : LARGE_RUN) >> 1;
+           stride >= SORT_E; stride >>= 1) {
+        for (int i = t; i < LARGE_RUN / 2; i += LARGE_THREADS) {
+          const int lo = 2 * i - (i & (stride - 1));
+          const int hi = lo + stride;
+          const bool desc = ((first + lo) & size) == 0;
+          const unsigned long long a = s[padded(lo)], b = s[padded(hi)];
+          if ((a < b) == desc) {
+            s[padded(lo)] = b;
+            s[padded(hi)] = a;
+          }
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int j = 0; j < SORT_E; ++j) v[j] = s[padded(t * SORT_E + j)];
+    }
+    switch (size) {  // the strides below 16, in registers
+      case 2:
+        register_steps<1>(v, g0, size);
+        break;
+      case 4:
+        register_steps<2>(v, g0, size);
+        break;
+      case 8:
+        register_steps<4>(v, g0, size);
+        break;
+      default:
+        register_steps<8>(v, g0, size);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < SORT_E; ++j) s[padded(t * SORT_E + j)] = v[j];
+  __syncthreads();
+  for (int i = t; i < LARGE_RUN; i += LARGE_THREADS)
+    surv[base + i] = s[padded(i)];
+}
+
+// (4) One stride (>= LARGE_RUN) of the network's merge of `size` over each
+// of the rows' p survivors.
+__global__ void __launch_bounds__(LARGE_THREADS)
+    select_large_merge(unsigned long long* __restrict__ surv, int nqc, int p,
+                       int size, int stride) {
+  const long long half = p / 2;
+  const long long pairs = (long long)nqc * half;
+  for (long long x = (long long)blockIdx.x * LARGE_THREADS + threadIdx.x;
+       x < pairs; x += (long long)gridDim.x * LARGE_THREADS) {
+    const long long r = x / half;
+    const int i = (int)(x % half);
+    const int lo = 2 * i - (i & (stride - 1));
+    const int hi = lo + stride;
+    const bool desc = (lo & size) == 0;
+    unsigned long long* row = surv + r * p;
+    const unsigned long long a = row[lo], b = row[hi];
+    if ((a < b) == desc) {
+      row[lo] = b;
+      row[hi] = a;
+    }
+  }
+}
+
+// (5) The epilogue over the first k sorted survivors of each row.
+template <class Out>
+__global__ void __launch_bounds__(LARGE_THREADS)
+    select_large_emit(const unsigned long long* __restrict__ surv, int q0,
+                      int nqc, int k, int p, Out out) {
+  const long long n = (long long)nqc * k;
+  for (long long x = (long long)blockIdx.x * LARGE_THREADS + threadIdx.x;
+       x < n; x += (long long)gridDim.x * LARGE_THREADS) {
+    const int r = (int)(x / k), j = (int)(x % k);
+    out(q0 + r, j, surv[(long long)r * p + j]);
+  }
+}
+
+__host__ inline int large_blocks(long long items) {
+  const long long b = (items + LARGE_THREADS - 1) / LARGE_THREADS;
+  return (int)(b < (1 << 20) ? (b > 0 ? b : 1) : (1 << 20));
+}
+
+// The global-memory mode: the top k of each of nq queries over c scores,
+// any 1 <= k <= c, p the power of two >= k and >= LARGE_RUN (the mode
+// serves k above 8192); in chunks of
+// q_chunk queries through the caller's scratch: keys (q_chunk, c) u32 and
+// surv (q_chunk, p) u64.
+template <class Out>
+int launch_select_large(const float* scores, int nq, int c, int k, int p,
+                        long long s_q, long long s_c, unsigned int* keys,
+                        unsigned long long* surv, int q_chunk,
+                        const Out& out, cudaStream_t st) {
+  // a source of strides other than row-major (s_c 1) or candidate-major
+  // (s_q 1) is not taken
+  if (nq <= 0 || c <= 0 || k <= 0 || k > c || k > p || p < LARGE_RUN ||
+      (p & (p - 1)) != 0 || surv == nullptr || q_chunk <= 0 ||
+      q_chunk > 65535 * LARGE_TILE || (s_c != 1 && s_q != 1) ||
+      (s_c != 1 && keys == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int sort_smem = padded(LARGE_RUN) * 8;
+  cudaError_t e = cudaFuncSetAttribute(
+      select_large_sort, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sort_smem);
+  if (e != cudaSuccess) return (int)e;
+  for (int q0 = 0; q0 < nq; q0 += q_chunk) {
+    const int nqc = nq - q0 < q_chunk ? nq - q0 : q_chunk;
+    if (s_c != 1) {  // candidate-major (B3's winners): the row-major copy
+      select_large_keys<<<
+          dim3((unsigned)((c + LARGE_TILE - 1) / LARGE_TILE),
+               (unsigned)((nqc + LARGE_TILE - 1) / LARGE_TILE)),
+          LARGE_TILE * TILE_ROWS, 0, st>>>(scores + q0 * s_q, nqc, c, s_c,
+                                           keys);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+      select_large_rows<<<nqc, LARGE_THREADS, 0, st>>>(
+          RowKeys<false>{keys, 0}, c, k, p, surv);
+    } else {
+      select_large_rows<<<nqc, LARGE_THREADS, 0, st>>>(
+          RowKeys<true>{scores + q0 * s_q, s_q}, c, k, p, surv);
+    }
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    const unsigned runs = (unsigned)((long long)nqc * (p / LARGE_RUN));
+    select_large_sort<<<runs, LARGE_THREADS, sort_smem, st>>>(surv, p, 2,
+                                                              LARGE_RUN);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    for (int size = 2 * LARGE_RUN; size <= p; size <<= 1) {
+      for (int stride = size / 2; stride >= LARGE_RUN; stride >>= 1) {
+        select_large_merge<<<large_blocks((long long)nqc * (p / 2)),
+                             LARGE_THREADS, 0, st>>>(surv, nqc, p, size,
+                                                     stride);
+        if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+      }
+      select_large_sort<<<runs, LARGE_THREADS, sort_smem, st>>>(
+          surv, p, size, size);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    }
+    select_large_emit<Out><<<large_blocks((long long)nqc * k), LARGE_THREADS,
+                             0, st>>>(surv, q0, nqc, k, p, out);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
+}
+
 // The top k of each of nq queries over c scores at the given element
-// strides into the epilogue `out`: 1 <= k <= c; p a power of two, k <= p;
-// window = c when c <= 16384, else 16384 with 2k <= window (the carry and
-// a window both fit); qb in {1, 2, 4}, 1 when windowed; kpt keys a thread
-// with window <= 256 * kpt: 8, 16 or 32 for qb 4, 64 for qb 2, 32 or 64
-// for qb 1 (`ops/bitonic_topk.py` `select_plan`).
+// strides into the epilogue `out`: 1 <= k <= c; p a power of two, k <= p.
+// In shared memory (qb 1, 2 or 4): window = c when c <= 16384, else 16384
+// with 2k <= window (the carry and a window both fit); qb 1 when windowed;
+// kpt keys a thread with window <= 256 * kpt: 8, 16 or 32 for qb 4, 64 for
+// qb 2, 32 or 64 for qb 1. qb 0: the global-memory mode, any k <= c, over
+// the scratch `keys` and `surv` in chunks of q_chunk queries
+// (`ops/bitonic_topk.py` `select_plan`).
 template <class Out>
 int launch_select(const float* scores, int nq, int c, int k, int p,
                   int window, int qb, int kpt, long long s_q, long long s_c,
+                  unsigned int* keys, unsigned long long* surv, int q_chunk,
                   const Out& out, cudaStream_t st) {
+  if (qb == 0)
+    return launch_select_large(scores, nq, c, k, p, s_q, s_c, keys, surv,
+                               q_chunk, out, st);
   if (nq <= 0 || c <= 0 || k <= 0 || k > c || k > p || p < 2 ||
       (p & (p - 1)) != 0 || window <= 0 || window > MAX_WINDOW ||
       window > c || window > G * kpt ||

@@ -38,7 +38,9 @@ from recbox_tpu_torch.models.sequential.models import (
 from recbox_tpu_torch.nn.attention import dense
 from recbox_tpu_torch.nn.core import Dropout, normal_table
 from recbox_tpu_torch.nn.recurrent import GRUCell, rnn
-from recbox_tpu_torch.parallel.mesh import lookup, whole_table
+from recbox_tpu_torch.parallel.mesh import (
+    inbatch_columns, lookup, module_mesh, whole_table,
+)
 
 __all__ = ["KGIN", "MCCLK", "KSR"]
 
@@ -200,11 +202,21 @@ class MCCLK(_EdgeModel):
         return out
 
     def contrastive_loss(self, batch) -> torch.Tensor:
+        """InfoNCE between the batch's positives' collaborative and
+        semantic views, in-batch negatives. Under a mesh
+        (`parallel.mesh.module_mesh`) the negatives are the global batch's
+        positives, as under JAX's sharded trainer: their ids gathered over
+        'data', their semantic rows read from this rank's whole views (the
+        tables' gradient is summed over 'data' by `whole_table`)."""
         tables = self._tables()
         _, collab_i = self.collaborative_view(tables)
+        sem = self.semantic_view(tables[1])
         pos = batch["__item_ids__"][:, 0].long()
-        return infonce(collab_i[pos], self.semantic_view(tables[1])[pos],
-                       self.ssl_tau)
+        mesh = module_mesh(self)
+        if mesh is None:
+            return infonce(collab_i[pos], sem[pos], self.ssl_tau)
+        cols, offset = inbatch_columns(pos, mesh)
+        return infonce(collab_i[pos], sem[cols], self.ssl_tau, offset)
 
     def _towers(self) -> Tuple[torch.Tensor, torch.Tensor]:
         tables = self._tables()

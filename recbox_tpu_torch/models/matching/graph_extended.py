@@ -26,7 +26,10 @@ SpectralCF and GCMC gather them whole once a propagation and run their
 hops on the whole tables (`_GraphBase._tables`); NCL's prototype term and
 LINE, which read rows by id, read them through the mesh's exchange
 (`parallel.mesh.lookup`). ``NCL.prototypes`` runs the k-means on the
-gathered tables, so every rank gets the same centers.
+gathered tables, so every rank gets the same centers. SGL's ``ssl_loss``
+and NCL's ``structural_loss`` are sums over the batch's rows: under a mesh
+each counts n_data times this rank's rows, so that the trainer's mean over
+'data' leaves JAX's global-batch sum.
 """
 
 from __future__ import annotations
@@ -45,18 +48,23 @@ from recbox_tpu_torch.models.matching.graph import (
 )
 from recbox_tpu_torch.nn.attention import dense
 from recbox_tpu_torch.nn.core import Dropout
-from recbox_tpu_torch.parallel.mesh import lookup
+from recbox_tpu_torch.parallel.mesh import data_shards, lookup
 
 __all__ = ["SGL", "NCL", "DGCF", "SpectralCF", "GCMC", "LINE",
            "kmeans_prototypes", "infonce", "infonce_all"]
 
 
 def infonce(a: torch.Tensor, b: torch.Tensor,
-            tau: float = 0.2) -> torch.Tensor:
-    """InfoNCE with in-batch negatives: row r of ``a`` against row r of
-    ``b``."""
+            tau: float = 0.2, offset: int = 0) -> torch.Tensor:
+    """InfoNCE with in-batch negatives: row r of ``a`` against row
+    ``offset + r`` of ``b`` (``b`` may hold more rows: under a mesh the
+    global batch's, this rank's rows from ``offset``)."""
     logits = _l2_normalize(a) @ _l2_normalize(b).T / tau
-    return torch.mean(-torch.diagonal(F.log_softmax(logits, dim=-1)))
+    logp = F.log_softmax(logits, dim=-1)
+    if offset == 0 and logits.shape[0] == logits.shape[1]:
+        return torch.mean(-torch.diagonal(logp))
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    return torch.mean(-logp[rows, offset + rows])
 
 
 def infonce_all(a: torch.Tensor, b: torch.Tensor, b_all: torch.Tensor,
@@ -129,7 +137,10 @@ class SGL(LightGCN):
                  ) -> torch.Tensor:
         """InfoNCE over two dropout views: the anchors are the batch's
         users and positive items, the denominator every node of view 2.
-        ``masks`` (two (E,) keep-masks) replaces the draws."""
+        ``masks`` (two (E,) keep-masks) replaces the draws. A sum over the
+        batch's rows: under a mesh, n_data times this rank's (`parallel.
+        mesh.data_shards`), so that ``bpr(o) + model.ssl_loss(b)`` trains
+        JAX's sharded objective."""
         if masks is None:
             n = self.edge_users.shape[0]
             dev = self.edge_users.device
@@ -139,8 +150,9 @@ class SGL(LightGCN):
         u2, i2 = self._propagate_with_mask(masks[1].to(torch.float32))
         users = batch[self.feature_map.query_index].reshape(-1)
         pos = batch["__item_ids__"][:, 0]
-        return (infonce_all(u1[users], u2[users], u2, self.ssl_tau)
-                + infonce_all(i1[pos], i2[pos], i2, self.ssl_tau))
+        return data_shards(self) * (
+            infonce_all(u1[users], u2[users], u2, self.ssl_tau)
+            + infonce_all(i1[pos], i2[pos], i2, self.ssl_tau))
 
 
 class NCL(LightGCN):
@@ -163,12 +175,16 @@ class NCL(LightGCN):
         return user_layers, item_layers
 
     def structural_loss(self, batch) -> torch.Tensor:
+        """Hop 2h against hop 0 of the batch's users and positive items,
+        the denominator every node: a sum over the batch's rows, n_data
+        times this rank's under a mesh, as SGL's ``ssl_loss``."""
         ul, il = self.layer_outputs()
         users = batch[self.feature_map.query_index].reshape(-1)
         pos = batch["__item_ids__"][:, 0]
         k = 2 * self.hyper_layers
-        return (infonce_all(ul[k][users], ul[0][users], ul[0], self.ssl_tau)
-                + infonce_all(il[k][pos], il[0][pos], il[0], self.ssl_tau))
+        return data_shards(self) * (
+            infonce_all(ul[k][users], ul[0][users], ul[0], self.ssl_tau)
+            + infonce_all(il[k][pos], il[0][pos], il[0], self.ssl_tau))
 
     def prototype_loss(self, batch, user_protos, item_protos, user_assign,
                        item_assign) -> torch.Tensor:

@@ -11,7 +11,8 @@ Counterpart of `recbox_tpu/models/matching/multi_interest.py`:
   - SimpleX: user = g · id embedding + (1 − g) · mean(history), cosine;
   - YoutubeSBC: in-batch sampled softmax with log-q correction
     (``train_method='inbatch_scores'`` with
-    `sampled_softmax_inbatch_loss`).
+    `sampled_softmax_inbatch_loss`); under a mesh the negatives are the
+    global batch's items, as under JAX's sharded trainer.
 
 `user_tower` of MIND / ComiRec returns (B, K, D): `RetrievalService.query`
 searches each interest and merges by max score, and the retrieval
@@ -34,7 +35,10 @@ from recbox_tpu_torch.models.base import MatchingModel, extract_item_batch
 from recbox_tpu_torch.nn.attention import CapsuleNetwork, MultiInterestSA
 from recbox_tpu_torch.nn.core import MLP, normal_table
 from recbox_tpu_torch.nn.embedding import FeatureEmbedding, concat_embeddings
-from recbox_tpu_torch.parallel.mesh import lookup
+from recbox_tpu_torch.parallel.mesh import (
+    DATA_AXIS, all_gather, inbatch_columns, inbatch_layout, lookup,
+    mark_inbatch, module_mesh,
+)
 
 __all__ = ["MIND", "ComiRec", "SimpleX", "YoutubeSBC",
            "sampled_softmax_inbatch_loss"]
@@ -46,10 +50,26 @@ def sampled_softmax_inbatch_loss(scores: torch.Tensor,
                                  log_q: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """In-batch softmax CE on the diagonal of (B, B) ``scores``, each
-    column's ``log_q`` subtracted first."""
+    column's ``log_q`` subtracted first.
+
+    Under a mesh, ``scores`` from ``YoutubeSBC.inbatch_scores`` are this
+    rank's rows against the global batch's columns
+    (`parallel.mesh.mark_inbatch`): each row's positive sits at this rank's
+    offset, and a ``log_q`` of this rank's rows is all-gathered over 'data'
+    to cover the global batch's columns, so the loss written as JAX writes
+    it is this rank's rows' mean of JAX's global-batch CE."""
+    layout = inbatch_layout(scores)
+    if layout is None:
+        if log_q is not None:
+            scores = scores - log_q[None, :]
+        return -torch.mean(torch.diagonal(F.log_softmax(scores, dim=1)))
+    mesh, offset = layout
     if log_q is not None:
+        if log_q.shape[0] != scores.shape[1]:
+            log_q = all_gather(log_q.contiguous(), mesh, DATA_AXIS)
         scores = scores - log_q[None, :]
-    return -torch.mean(torch.diagonal(F.log_softmax(scores, dim=1)))
+    rows = torch.arange(scores.shape[0], device=scores.device)
+    return -torch.mean(F.log_softmax(scores, dim=1)[rows, offset + rows])
 
 
 class _MultiInterestBase(MatchingModel):
@@ -216,6 +236,16 @@ class YoutubeSBC(MatchingModel):
             self.item_embedding(batch), self.feature_map.by_source("item")))
 
     def inbatch_scores(self, batch) -> torch.Tensor:
+        """(B, B) user · item scores of the batch, the positives on the
+        diagonal. Under a mesh (`parallel.mesh.module_mesh`), as JAX's
+        sharded step sees the global batch: this rank's users against the
+        global batch's items (gathered over 'data', their gradient summed
+        over 'data'), marked for `sampled_softmax_inbatch_loss`."""
         u = self.user_tower(batch)
         i = self.item_tower(batch)
-        return (u @ i.T).float() / self.temperature
+        mesh = module_mesh(self)
+        if mesh is None:
+            return (u @ i.T).float() / self.temperature
+        items, offset = inbatch_columns(i, mesh)
+        return mark_inbatch((u @ items.T).float() / self.temperature, mesh,
+                            offset)

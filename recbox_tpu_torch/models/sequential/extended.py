@@ -89,15 +89,6 @@ def _seq_args(kw: dict) -> dict:
         "generator", "device")}
 
 
-def _unsharded(model, what: str) -> None:
-    """Refuse a head that scores a whole (.., V) vocabulary against a
-    row-sharded table."""
-    if model._shard() is not None:
-        raise NotImplementedError(
-            f"{type(model).__name__}.{what} under a mesh: the item table is "
-            f"row-sharded; train through full_scores + full_softmax_loss")
-
-
 # -- BERT4Rec -----------------------------------------------------------------
 
 class _BERT4RecEncoder(nn.Module):
@@ -174,10 +165,16 @@ class BERT4Rec(SequentialRecommender):
 
     def masked_item_scores(self, item_seq, seq_len, positions):
         """Cloze logits: ``item_seq`` already holds [MASK] at ``positions``
-        (B, P); (B, P, vocab) f32 scores at those positions. Unsharded
-        only: under a mesh it raises (the cloze head is not sharded)."""
-        _unsharded(self, "masked_item_scores")
+        (B, P); (B, P, vocab) f32 scores at those positions. Under a mesh,
+        as GSPMD splits JAX's einsum along V: `parallel.mesh.ShardedLogits`
+        of the B·P positions (row b·P + p), for `vocab_parallel_ce` (with
+        the positions' weights) and `sharded_hit_positions`."""
         g = self._gathered(item_seq, seq_len, positions)
+        shard = self._shard()
+        if shard is not None:
+            return sharded_logits(g.reshape(-1, g.shape[-1]).float(),
+                                  self._table().float(), shard,
+                                  self.vocab_size)
         return torch.einsum("bpd,vd->bpv", g.float(), self._table().float())
 
     def fused_cloze_loss(self, item_seq, seq_len, positions, labels,
@@ -186,8 +183,15 @@ class BERT4Rec(SequentialRecommender):
         logits: the (B, P) positions flatten to B·P rows of kernel B2
         against the first V table rows; ``weights`` (B, P) masks pad
         positions exactly (a row of weight 0 is a no-op in the loss and
-        the gradients). A single-shard path: it raises under a mesh."""
-        _unsharded(self, "fused_cloze_loss")
+        the gradients). A single-shard path: it raises under a mesh, as
+        JAX's flash-CE is a single-shard op and its trainer refuses it
+        under a mesh."""
+        if self._shard() is not None:
+            raise NotImplementedError(
+                "BERT4Rec.fused_cloze_loss under a mesh: kernel B2 is a "
+                "single-shard op, as JAX's flash-CE "
+                "(recbox_tpu/ops/pallas/fused_ce.py:386-387); train through "
+                "masked_item_scores + vocab_parallel_ce")
         g = self._gathered(item_seq, seq_len, positions)
         flat = g.reshape(-1, g.shape[-1])
         w = None if weights is None else weights.reshape(-1)

@@ -38,7 +38,7 @@ from recbox_tpu_torch.nn.attention import (
 )
 from recbox_tpu_torch.nn.core import Dropout
 from recbox_tpu_torch.nn.recurrent import GRUCell, rnn
-from recbox_tpu_torch.parallel.mesh import lookup
+from recbox_tpu_torch.parallel.mesh import lookup, sharded_logits
 
 __all__ = ["S3Rec", "GRU4RecF", "PRETRAIN_PARAMETERS"]
 
@@ -106,17 +106,18 @@ class S3Rec(SequentialRecommender):
     def mip_logits(self, item_seq: torch.Tensor, seq_len: torch.Tensor,
                    positions: torch.Tensor) -> torch.Tensor:
         """(B, P, vocab) scores of the states at ``positions`` against the
-        item table ([MASK] excluded). Unsharded only: it raises under a
-        mesh."""
-        if self._shard() is not None:
-            raise NotImplementedError(
-                "S3Rec.mip_logits under a mesh: the item table is "
-                "row-sharded; pretrain_losses scores its MIP pairs through "
-                "the exchange")
+        item table ([MASK] excluded). Under a mesh, as GSPMD splits JAX's
+        einsum along V: `parallel.mesh.ShardedLogits` of the B·P positions
+        (row b·P + p), for `vocab_parallel_ce` and
+        `sharded_hit_positions`."""
         h = self._bi_encode(item_seq)
         idx = positions.to(torch.int64)[..., None].expand(-1, -1, h.shape[-1])
-        return torch.einsum("bpd,vd->bpv", torch.gather(h, 1, idx),
-                            self._table())
+        g = torch.gather(h, 1, idx)
+        shard = self._shard()
+        if shard is not None:
+            return sharded_logits(g.reshape(-1, g.shape[-1]), self._table(),
+                                  shard, self.vocab_size)
+        return torch.einsum("bpd,vd->bpv", g, self._table())
 
     def sp_logits(self, item_seq, seq_len, segment, segment_len,
                   neg_segment, neg_segment_len

@@ -14,9 +14,11 @@ order). The kernel selects on, and the plain version sorts, the same 64-bit
 keys (`order_keys`), so they agree bit for bit. The kernel
 (`csrc/bitonic_topk.cu` over `csrc/select_topk.cuh`, built by
 `ops/_build.py`: a radix selection over keys held in registers, then a sort
-of the k survivors; B3's stage (b) runs the same selection) runs for CUDA
-tensors, `bitonic_topk_plain` for CPU tensors; a CUDA tensor never reaches
-the plain version, and a failed build or launch raises.
+of the k survivors; past one 16384-key window at k above 8192 its
+global-memory mode, for any k <= C; B3's stage (b) runs the same
+selection) runs for CUDA tensors, `bitonic_topk_plain` for CPU tensors; a
+CUDA tensor never reaches the plain version, and a failed build or launch
+raises.
 """
 
 from __future__ import annotations
@@ -31,19 +33,29 @@ from recbox_tpu_torch.ops import _build
 
 __all__ = ["pallas_bitonic_topk", "pallas_bitonic_topk_cmajor",
            "bitonic_topk_plain", "exact_topk", "order_keys", "select_plan",
-           "launches", "reset_launches"]
+           "large_scratch", "LARGE", "launches", "large_launches",
+           "reset_launches"]
 
 # kernel launches on the CUDA path; the plain version never counts
 launches = {"bitonic_topk": 0}
+# of them, the launches in the global-memory mode (k above 8192 over more
+# than 16384 candidates)
+large_launches = {"bitonic_topk": 0}
 
 # the kernel's window: at most this many keys selected together
 _MAX_SORT = 16384
 _LOW32 = 0xFFFFFFFF
+# the plan's queries a block of the global-memory mode
+LARGE = 0
+# its scratch a chunk of queries: (rows, C) u32 keys and (rows, p) u64
+# survivors (csrc/select_topk.cuh `launch_select_large`)
+LARGE_SCRATCH_BYTES = 1 << 30
+_LARGE_MAX_CHUNK = 65535 * 32
 
 
 def reset_launches() -> None:
     for name in launches:
-        launches[name] = 0
+        launches[name] = large_launches[name] = 0
 
 
 def order_keys(scores: torch.Tensor) -> torch.Tensor:
@@ -87,7 +99,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("bitonic_topk")
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.recbox_select_topk.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i,
-                                       ll, ll, ll, ll, ll, ll, vp]
+                                       ll, ll, ll, ll, ll, ll, vp, vp, i, vp]
     lib.recbox_select_topk.restype = i
     return lib
 
@@ -114,19 +126,20 @@ def select_smem(qb: int, c: int, window: int, p: int) -> int:
 def select_plan(c: int, k: int, who: str = "bitonic_topk"
                 ) -> Tuple[int, int, int, int]:
     """(queries a block, keys a window, keys a thread, survivor sort
-    width) of the selection kernel (B5's, and B3's stage (b)). Every
-    candidate fits one window up to 16384 (any k <= C); past that, windows
-    of 16384 carry the top k from one to the next, which holds k <= 8192.
-    A block takes 4 queries (16-byte loads of a candidate-major row) while
-    a thread holds at most 32 keys and the block fits in shared memory; at
-    64 keys a thread 2 queries; else, and when windowed, 1."""
+    width) of the selection kernel (B5's, and B3's stage (b)), for any
+    k <= C. Every candidate fits one window up to 16384; past that, windows
+    of 16384 carry the top k from one to the next while 2k <= 16384. A
+    block takes 4 queries (16-byte loads of a candidate-major row) while a
+    thread holds at most 32 keys and the block fits in shared memory; at
+    64 keys a thread 2 queries; else, and when windowed, 1. Past one window
+    at k above 8192 the plan is ``(0, C, 0, p)``: the global-memory mode
+    (`LARGE`), whose rows are selected and sorted in device memory."""
     if k > c:
         raise ValueError(f"{who}: k={k} > {c} candidates")
     p = 1 << max(1, (k - 1).bit_length())
     window = min(c, _MAX_SORT)
     if window < c and 2 * k > _MAX_SORT:
-        raise ValueError(f"{who}: k={k} is above the kernel's "
-                         f"{_MAX_SORT // 2} for {c} candidates")
+        return LARGE, c, 0, p
     kpt = max(8, 1 << (-(-window // _THREADS) - 1).bit_length())
     for qb in ((4, 2, 1) if window == c else (1,)):
         # the kernel's instantiations: 8-32 keys a thread at 4 queries a
@@ -135,6 +148,20 @@ def select_plan(c: int, k: int, who: str = "bitonic_topk"
         if built and select_smem(qb, c, window, p) <= _SMEM_LIMIT:
             return qb, window, kpt, p
     raise AssertionError("one query's window always fits")  # pragma: no cover
+
+
+def large_scratch(q: int, c: int, p: int, device, keys: bool = True
+                  ) -> Tuple[Optional[torch.Tensor], torch.Tensor, int]:
+    """(keys, survivors, queries a chunk) of the global-memory mode for
+    Q queries over C candidates: as many queries a chunk as fit
+    `LARGE_SCRATCH_BYTES` (one at least). The (chunk, C) order keys only
+    with ``keys`` (a candidate-major source; a row-major one is read in
+    place), else None."""
+    row = c * 4 * keys + p * 8
+    chunk = max(1, min(q, LARGE_SCRATCH_BYTES // row, _LARGE_MAX_CHUNK))
+    return (torch.empty((chunk, c), dtype=torch.int32, device=device)
+            if keys else None,
+            torch.empty((chunk, p), dtype=torch.int64, device=device), chunk)
 
 
 def _bitonic_cuda(scores, ids, k, out_s, out_i):
@@ -146,6 +173,14 @@ def _bitonic_cuda(scores, ids, k, out_s, out_i):
                          "scores and ids on one CUDA device")
     q, c = scores.shape
     qb, window, kpt, p = select_plan(c, k)
+    keys = surv = None
+    chunk = 0
+    if qb == LARGE:
+        # the mode reads a row-major or a candidate-major source
+        if scores.stride(1) != 1 and scores.stride(0) != 1:
+            scores = scores.contiguous()
+        keys, surv, chunk = large_scratch(q, c, p, dev,
+                                          keys=scores.stride(1) != 1)
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         rc = lib.recbox_select_topk(
@@ -156,10 +191,14 @@ def _bitonic_cuda(scores, ids, k, out_s, out_i):
             0 if ids is None else ids.stride(0),
             0 if ids is None else ids.stride(1),
             out_s.stride(0), out_s.stride(1),
+            None if keys is None else keys.data_ptr(),
+            None if surv is None else surv.data_ptr(), chunk,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bitonic_topk: launch failed with CUDA error {rc}")
     launches["bitonic_topk"] += 1
+    if qb == LARGE:
+        large_launches["bitonic_topk"] += 1
 
 
 def row_topk(scores: torch.Tensor, ids: Optional[torch.Tensor], k: int,
@@ -200,10 +239,10 @@ def pallas_bitonic_topk_cmajor(scores_cm: torch.Tensor, ids_cm: torch.Tensor,
 
     The layout the candidate generator emits, read in place (no transpose).
     ``q_tile`` was the JAX kernel's query tile in VMEM and has no meaning
-    here: it is accepted and ignored. Raises ValueError for k > C, and for
-    k above 8192 over more than 16384 candidates (the kernel's window;
-    JAX's own limit is k <= 2048 over more than 4096: it raises once the
-    power of two at or above k reaches its 4096-candidate block)."""
+    here: it is accepted and ignored. Any k <= C; raises ValueError for
+    k > C (JAX's own kernel stops at k <= 2048 over more than 4096
+    candidates: it raises once the power of two at or above k reaches its
+    4096-candidate block)."""
     return row_topk(scores_cm.T, ids_cm.T, k, out_cmajor=True)
 
 

@@ -41,8 +41,14 @@ CPU, and the collectives are written out by hand:
   inside a call), and the vocabulary-parallel full softmax:
   `sharded_logits` gives `ShardedLogits` (the global batch's rows against
   this rank's columns, which refuse any use but theirs),
-  `vocab_parallel_ce` their CE (3·B floats reduced a step, no term in V)
-  and `sharded_hit_positions` the evaluators' ranks;
+  `vocab_parallel_ce` their CE (3·B floats reduced a step, no term in V;
+  weighted as `fused_softmax_ce` is, for the cloze / MIP heads) and
+  `sharded_hit_positions` the evaluators' ranks;
+* the loss terms that span JAX's global batch: `module_mesh` (the mesh
+  `shard_params` placed a model on), `inbatch_columns` (the global batch's
+  in-batch negatives, their gradient summed over 'data'), `mark_inbatch` /
+  `inbatch_layout` (where each row's positive sits) and `data_shards` (the
+  weight of a sum over this rank's rows);
 * `export_state` / `import_state`: a state dict's row shards gathered
   whole (or as DTensors) and split again, keyed by a {name: RowShard} map;
 * the collective wrappers (`all_gather`, `all_reduce_`, `barrier`) through
@@ -58,6 +64,7 @@ import contextlib
 import dataclasses
 import math
 import os
+import weakref
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -77,7 +84,9 @@ __all__ = ["make_mesh", "shard_params", "shard_batch", "param_partition_specs",
            "full_state_dict", "shard_rows", "row_shard", "lookup",
            "shard_slice", "gather_batch", "whole_table", "whole_tables",
            "ShardedLogits",
-           "sharded_logits", "vocab_parallel_ce", "sharded_hit_positions"]
+           "sharded_logits", "vocab_parallel_ce", "sharded_hit_positions",
+           "module_mesh", "data_shards", "inbatch_columns", "mark_inbatch",
+           "inbatch_layout"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -513,25 +522,86 @@ def shard_slice(p: torch.Tensor, shard: Optional[RowShard]) -> torch.Tensor:
 
 class _GatherData(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh, ctx.n = mesh, x.shape[0]
+    def forward(ctx, x, mesh, grad_axis):
+        ctx.mesh, ctx.n, ctx.axis = mesh, x.shape[0], grad_axis
         out = all_gather(x, mesh, DATA_AXIS)
         return x.clone() if out is x else out
 
     @staticmethod
     def backward(ctx, grad):
-        # every rank's rows of the global batch reach every rank's
-        # columns: the world sum, then this rank's rows
-        g = all_reduce_(grad.contiguous().clone(), ctx.mesh)
+        # every rank's rows of the global batch reach every rank's use of
+        # them: the sum over the ranks whose uses differ, then this rank's
+        # rows
+        g = all_reduce_(grad.contiguous().clone(), ctx.mesh, ctx.axis)
         d = mesh_coords(ctx.mesh)[0]
-        return g[d * ctx.n:(d + 1) * ctx.n], None
+        return g[d * ctx.n:(d + 1) * ctx.n], None, None
 
 
-def gather_batch(x: torch.Tensor, mesh) -> torch.Tensor:
+def gather_batch(x: torch.Tensor, mesh,
+                 grad_axis: Optional[str] = None) -> torch.Tensor:
     """The global batch's rows of ``x`` (this rank's, all-gathered over
-    'data'), differentiable: the backward sums the gradient over the world
-    and keeps this rank's rows (each rank's columns add their share)."""
-    return _GatherData.apply(x, mesh)
+    'data'), differentiable: the backward sums the gradient over
+    ``grad_axis`` and keeps this rank's rows. The world (None) where each
+    rank scores its own columns (`sharded_logits`: every rank's columns add
+    their share); 'data' where the ranks of one 'data' coordinate compute
+    the same thing (in-batch negatives: a world sum would count each row's
+    gradient n_model times)."""
+    return _GatherData.apply(x, mesh, grad_axis)
+
+
+# -- the global batch's in-batch negatives --------------------------------------
+
+# a mark on a model's in-batch scores under a mesh: (mesh, this rank's
+# first row in the global batch)
+_INBATCH = "recbox_inbatch"
+# {model: the mesh `shard_params` sharded it over}, held beside the model
+# rather than on it, so a deep copy of a model copies no process group
+_MODULE_MESH: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def module_mesh(module: torch.nn.Module):
+    """The mesh `shard_params` placed ``module`` on, over a world of more
+    than one rank; None otherwise (the model runs its unsharded path). A
+    model reads it where its loss terms span the global batch, as JAX's
+    sharded step sees it: in-batch negatives (`inbatch_columns`), sums over
+    the batch's rows (`data_shards`)."""
+    mesh = _MODULE_MESH.get(module)
+    return mesh if mesh is not None and world_size() > 1 else None
+
+
+def data_shards(module: torch.nn.Module) -> int:
+    """The 'data' coordinates of ``module``'s mesh (1 without one): the
+    weight of a sum over this rank's rows, which the trainer's mean over
+    'data' (`Trainer._mesh_loss`) divides by it, so that the world's sum
+    is the global batch's, as in JAX's sharded step."""
+    mesh = module_mesh(module)
+    return 1 if mesh is None else mesh_shape(mesh)[DATA_AXIS]
+
+
+def inbatch_columns(x: torch.Tensor, mesh) -> Tuple[torch.Tensor, int]:
+    """(the global batch's rows of ``x``, this rank's first row among
+    them): the columns of in-batch scores under a mesh (`gather_batch`
+    over 'data', its gradient summed over 'data': the ranks of one 'data'
+    coordinate score alike). Integer ``x`` (ids) is gathered without
+    autograd."""
+    d = mesh_coords(mesh)[0]
+    if x.is_floating_point():
+        return gather_batch(x, mesh, DATA_AXIS), d * x.shape[0]
+    return all_gather(x.contiguous(), mesh, DATA_AXIS), d * x.shape[0]
+
+
+def mark_inbatch(scores: torch.Tensor, mesh, offset: int) -> torch.Tensor:
+    """Mark (R, N) in-batch ``scores`` of this rank's R rows against the
+    global batch's N columns, row r's positive at column ``offset + r``,
+    for the in-batch losses (`inbatch_layout`); returns ``scores``."""
+    setattr(scores, _INBATCH, (mesh, int(offset)))
+    return scores
+
+
+def inbatch_layout(scores: torch.Tensor):
+    """(mesh, offset) of scores marked by `mark_inbatch`, else None (a
+    square (B, B) block, the positives on its diagonal)."""
+    return getattr(scores, _INBATCH, None)
 
 
 class _WholeTable(torch.autograd.Function):
@@ -657,7 +727,7 @@ def sharded_logits(user: torch.Tensor, table: torch.Tensor,
 
 class _VocabParallelCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, local, targets, shard, vocab, n_own):
+    def forward(ctx, local, targets, shard, vocab, n_own, weights):
         mesh, lo = shard.mesh, shard.lo
         valid = max(0, min(local.shape[1], vocab - lo))
         z = local[:, :valid]
@@ -674,37 +744,65 @@ class _VocabParallelCE(torch.autograd.Function):
         all_reduce_(st, mesh)
         rows = -(st[1] - m - torch.log(st[0]))          # -log p[target]
         d = mesh_coords(mesh)[0]
-        ctx.save_for_backward(e / st[0][:, None], rel, owned)
+        own = slice(d * n_own, (d + 1) * n_own)
+        if weights is None:
+            scale = None
+            loss = torch.mean(rows[own])
+        else:
+            # n_data times this rank's share of sum(w·ce) / sum(w) over the
+            # global batch: the trainer's mean over 'data' gives the whole;
+            # a row of weight 0 adds nothing, NaN or not
+            w = weights.to(local.dtype)
+            scale = w * ((r // n_own) / w.sum())
+            loss = torch.sum(torch.where(w[own] > 0, scale[own] * rows[own],
+                                         0.0))
+        ctx.save_for_backward(e / st[0][:, None], rel, owned, scale)
         ctx.shape, ctx.n_own = tuple(local.shape), n_own
-        return torch.mean(rows[d * n_own:(d + 1) * n_own])
+        return loss
 
     @staticmethod
     def backward(ctx, g):
-        p, rel, owned = ctx.saved_tensors
-        # the gradient of the world's objective on this rank's block:
-        # every rank's loss is its 'data' shard's mean, scaled alike by
-        # the trainer (1 / n_data), so the global batch's mean takes
-        # g / n_own a row
-        scale = g / ctx.n_own
+        p, rel, owned, scale = ctx.saved_tensors
+        # the gradient of the world's objective on this rank's block: every
+        # rank's loss is scaled alike by the trainer (1 / n_data), so each
+        # row takes g times its weight in its owner's loss: g / n_own
+        # unweighted (the 'data' shard's mean), else g · n_data · w / sum(w)
         out = torch.zeros(ctx.shape, dtype=p.dtype, device=p.device)
-        out[:, :p.shape[1]] = p * scale
         rows = torch.nonzero(owned).squeeze(1)
-        out[rows, rel[rows]] -= scale
-        return out, None, None, None, None
+        if scale is None:
+            s = g / ctx.n_own
+            out[:, :p.shape[1]] = p * s
+            out[rows, rel[rows]] -= s
+        else:
+            s = (g * scale)[:, None]
+            out[:, :p.shape[1]] = torch.where(s != 0, p * s, 0.0)
+            out[rows, rel[rows]] -= s[rows, 0]
+        return out, None, None, None, None, None
 
 
-def vocab_parallel_ce(logits: ShardedLogits, targets: torch.Tensor
+def vocab_parallel_ce(logits: ShardedLogits, targets: torch.Tensor,
+                      weights: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """The full-softmax CE of sharded logits: this rank's 'data' rows'
     mean of −log softmax[target], JAX's ``full_softmax_loss`` on the whole
     logits. Each row's max (max) and its sum of exps and target logit (sum)
     are reduced over the world, 3·B f32, besides the targets' all-gather
     over 'data' (B int32); no term in V. Its backward is softmax minus
-    one-hot on the local block, with no collective."""
+    one-hot on the local block, with no collective.
+
+    ``weights`` (this rank's rows, non-negative; a constant, as a mask):
+    the weighted mean sum(w·ce) / sum(w) over the global batch, as
+    `ops.fused_ce.fused_softmax_ce` takes it (a row of w = 0 an exact no-op
+    in the loss and the gradient), returned as this rank's share times
+    n_data, so that the mean over 'data' (the trainer's) is the whole; the
+    weights are all-gathered over 'data' (B f32)."""
     mesh = logits.shard.mesh
     tg = all_gather(targets.reshape(-1).to(torch.int32), mesh, DATA_AXIS)
+    if weights is not None:
+        weights = all_gather(weights.reshape(-1).detach().to(torch.float32),
+                             mesh, DATA_AXIS)
     return _VocabParallelCE.apply(logits.local, tg, logits.shard,
-                                  logits.vocab, logits.rows)
+                                  logits.vocab, logits.rows, weights)
 
 
 @torch.no_grad()
@@ -786,8 +884,8 @@ def shard_params(module_or_params, mesh, specs: Optional[Mapping] = None):
     shard in place (the same Parameter) and its module records the
     `RowShard`, so its lookups run the exchange; so does each table the
     model marked with `shard_rows`, the Parameter itself carrying its
-    `RowShard` (`row_shard`; a table sharded once is left as it is);
-    returns the module. A
+    `RowShard` (`row_shard`; a table sharded once is left as it is),
+    and the module records the mesh (`module_mesh`); returns the module. A
     {name: tensor} dict (``specs`` naming the sharded entries): returns a
     new dict of the local shards."""
     if isinstance(module_or_params, torch.nn.Module):
@@ -806,6 +904,7 @@ def shard_params(module_or_params, mesh, specs: Optional[Mapping] = None):
             shard = row_bounds(p.shape[0], mesh)
             p.data = local_rows(p.data, mesh)
             setattr(p, _SHARD, shard)
+        _MODULE_MESH[module] = mesh
         return module
     specs = specs or {}
     return {k: (local_rows(v, mesh) if specs.get(k) == SHARDED_SPEC else v)

@@ -180,8 +180,9 @@ def segmented_mips_topk(queries: torch.Tensor, items: torch.Tensor,
     selections are exact (JAX's CPU `approx_max_k` is exact too): the
     per-block top ``seg_k`` is one launch of kernel B5 over the chunk's
     (chunk·n_segments, block) score rows, the merge a second with the
-    candidates' ids. B5 runs its plain version on CPU tensors and raises
-    ValueError outside its domain (`ROADMAP.md` Queue C 10). Returns
+    candidates' ids. B5 runs its plain version on CPU tensors and takes
+    any k <= C on the card (past 16384 candidates at k above 8192 in its
+    global-memory mode), as JAX's `lax.top_k` does. Returns
     ((Q, k) f32 scores, (Q, k) int32 ids), ties by position."""
     q, d = queries.shape
     n = items.shape[0]

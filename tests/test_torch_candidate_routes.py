@@ -7,8 +7,9 @@ through the 3-D view of `segment_view`, held here row by row against the
 segments of the plain version and of JAX's kernel; B5 (`pallas_bitonic_topk`) and B3's stage (b) select in
 windows planned by `select_plan`. The kernels run on the card
 (`chip_smoke.py`); here the rules are held against the JAX package's block
-plan and against the (C, k) domain the first B5 and B3 kernels took (k <= C
-up to 16384 candidates, k <= 8192 above), and the plain top-k's tie order
+plan and against the (C, k) domain the first B5 and B3 kernels took in
+shared memory (k <= C up to 16384 candidates, k <= 8192 above; any k <= C
+past that in the global-memory mode), and the plain top-k's tie order
 against `lax.top_k`. Exact comparisons throughout: the rules are integer
 arithmetic and the top-k of equal values is a total order.
 """
@@ -25,7 +26,7 @@ from recbox_tpu.ops.pallas.mips_topk import (
 from recbox_tpu.retrieval.index import quantize_int8 as jquantize
 from recbox_tpu_torch.ops import mips_fused_topk as fused_mod
 from recbox_tpu_torch.ops.bitonic_topk import (
-    bitonic_topk_plain, pallas_bitonic_topk, select_plan, select_smem,
+    LARGE, bitonic_topk_plain, pallas_bitonic_topk, select_plan, select_smem,
 )
 from recbox_tpu_torch.ops.mips_fused_topk import (
     mips_fused_topk, segment_plan,
@@ -276,15 +277,14 @@ _SHAPES = [(c, k) for c in (10, 7936, 8192, 8193, 16384, 16385, 40_000)
 
 @pytest.mark.parametrize("c,k", _SHAPES)
 def test_select_plan_takes_the_first_kernels_domain(c, k):
-    """`select_plan` accepts exactly the (C, k) the first B5 and B3 kernels
-    (a bitonic sort in windows of up to 16384 keys) took, k <= C up to
-    16384 candidates and k <= 8192 above, and raises ValueError elsewhere;
-    every plan fits a block's shared memory."""
+    """`select_plan` plans in shared memory exactly the (C, k) the first B5
+    and B3 kernels (a bitonic sort in windows of up to 16384 keys) took,
+    k <= C up to 16384 candidates and k <= 8192 above, every plan within a
+    block's shared memory; past that (k above 8192 over more than 16384
+    candidates) the global-memory mode, ``(0, C, 0, p)``."""
     if c > 16384 and k > 8192:
-        with pytest.raises(ValueError,
-                           match=f"above the kernel's 8192 for {c} "
-                                 "candidates"):
-            select_plan(c, k)
+        p = 1 << (k - 1).bit_length()
+        assert select_plan(c, k) == (LARGE, c, 0, p)
         return
     qb, window, kpt, p = select_plan(c, k)
     assert qb in (1, 2, 4) and p >= k and p & (p - 1) == 0
@@ -301,20 +301,19 @@ def test_select_plan_takes_the_first_kernels_domain(c, k):
     (2_097_152, 16384, True), (2_098_176, 8192, True),
     (2_098_176, 8193, False)])
 def test_fused_topk_domain_is_unchanged(n, k, fits):
-    """B3's (C, k) domain over its live winners is the first B3 kernel's:
-    k = C at 16384, k = 8192 over more, and k = 8193 over more raises. The
-    CUDA path plans its selection before it looks at the device, so meta
-    tensors reach the plan and then the device check, and launch
-    nothing."""
+    """B3's (C, k) domain over its live winners holds the first B3
+    kernel's in shared memory (k = C at 16384, k = 8192 over more), and
+    k = 8193 over more takes the global-memory mode. The CUDA path plans
+    its selection before it looks at the device, so meta tensors reach the
+    plan and then the device check, and launch nothing."""
     from recbox_tpu_torch.ops import mips_topk as mips_mod
     before = (dict(fused_mod.launches), dict(mips_mod.route_launches))
     q = torch.empty((1024, 64), dtype=torch.bfloat16, device="meta")
     c = torch.empty((n, 64), dtype=torch.bfloat16, device="meta")
     sub, n_cand = segment_plan(c.dtype, n, 64, 1024, k)
     assert sub == 1024 and n_cand >= k
-    match = "CUDA device" if fits else \
-        f"above the kernel's 8192 for {-(-n // 1024) * 8} candidates"
-    with pytest.raises(ValueError, match=match):
+    assert (select_plan(-(-n // 1024) * 8, k)[0] != LARGE) == fits
+    with pytest.raises(ValueError, match="CUDA device"):
         mips_fused_topk(q, c, k)
     assert (fused_mod.launches, mips_mod.route_launches) == before
 
@@ -334,13 +333,13 @@ def test_select_plan_queries_a_block():
 
 def test_bitonic_k_above_candidates_raises_through_the_plan():
     """k > C raises before any kernel, as JAX's kernel does, on both
-    entries; k above 8192 over more than 16384 candidates too."""
+    entries; k above 8192 over more than 16384 candidates no longer does:
+    it takes the global-memory mode."""
     with pytest.raises(ValueError, match="candidates"):
         select_plan(10, 11)
     with pytest.raises(ValueError, match="candidates"):
         pallas_bitonic_topk(torch.zeros((2, 10)), k=11)
-    with pytest.raises(ValueError, match="8192 for 20000 candidates"):
-        select_plan(20_000, 8193)
+    assert select_plan(20_000, 8193) == (LARGE, 20_000, 0, 16384)
 
 
 @pytest.mark.parametrize("c,k", [(300, 50), (20_000, 500), (700, 700)])

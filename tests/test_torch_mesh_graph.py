@@ -397,8 +397,9 @@ def test_chip_smoke_5u_two_rank_rehearsal(monkeypatch, tmp_path):
     step (equal to `u_lightgcn_bytes` and over the edge list doubled),
     its losses and tables against the unsharded run, the full sort's and
     the served ids; KGAT through `run_kg_experiment` over a small
-    ml1m_kg-shaped staging; KSR's forward; and the phase's own check (the
-    plain versions count no launches)."""
+    ml1m_kg-shaped staging; KSR's forward; 5v(d)'s steps of YoutubeSBC,
+    SGL, NCL and MCCLK against the unsharded ones; and the phases' own
+    checks (the plain versions count no launches)."""
     import importlib
     import os
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -409,7 +410,8 @@ def test_chip_smoke_5u_two_rank_rehearsal(monkeypatch, tmp_path):
                  LG_USERS=300, LG_ITEMS=400, LG_INTER=6000, LG_BATCH=64,
                  U_EVAL_USERS=100, U_SVC_USERS=16, U_EVAL_BATCH=512,
                  U_KG_BATCHES=2, U_KG_BATCH=128, U_KG_STEPS=2,
-                 U_KSR_BATCH=32)
+                 U_KSR_BATCH=32, N_ITEMS=2000, MI_USERS=512, MI_BATCH=64,
+                 MI_NEGS=3, KG_EAGER_BATCH=128, V_PROTOS=4)
     for k, v in width.items():
         monkeypatch.setattr(cs, k, v)
     rng = np.random.default_rng(0)
@@ -425,6 +427,7 @@ def test_chip_smoke_5u_two_rank_rehearsal(monkeypatch, tmp_path):
                                    graph_root=str(tmp_path))
     assert cs.check_mesh_tables(res, on_card=False)
     assert cs.check_mesh_graph(res, on_card=False)
+    assert cs.check_contrastive(res)
     lg = res["ranks"][0]["graph"]["lightgcn"]
     assert lg["counted_bytes"] == lg["model_bytes"]["total"] \
         == 2 * (300 + 400) * cs.LG_DIM * 4 + 8

@@ -84,8 +84,9 @@ def test_chip_smoke_5r_two_rank_rehearsal():
     """`chip_smoke.py` phase 5r(b) on the CPU at a small width: the same
     two gloo ranks (`gloo_pair`), the packed and the generic DeepFM
     trainers against their unsharded runs, the counted bytes against the
-    model, the sharded search against the exact one, and the phase's own
-    check (`check_two_ranks`; the plain versions count no launches)."""
+    model, the sharded search against the exact one (and 5v(c)'s past
+    k = 8192: 2 x 20,000 rows at k = 9,000), and the phase's own check
+    (`check_two_ranks`; the plain versions count no launches)."""
     import importlib
     import sys
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -93,10 +94,12 @@ def test_chip_smoke_5r_two_rank_rehearsal():
         sys.path.insert(0, root)
     cs = importlib.import_module("chip_smoke")
     width = dict(NUM_CAT=4, NUM_NUM=2, VOCAB=500, DIM=8, HIDDEN=(16,),
-                 R_ITEMS=5003, R_D=16, R_Q=37, R_K=20, R_GLOO_BATCH=64)
+                 R_ITEMS=5003, R_D=16, R_Q=37, R_K=20, R_GLOO_BATCH=64,
+                 V_SHARD=20_000, V_K=9000, V_SEARCH_Q=8)
     res = cs.mesh_two_ranks(device="cpu", width=width)
     assert cs.check_two_ranks(res, on_card=False)
     r0 = res["ranks"][0]
     assert r0["packed"]["loss_max_rel_err"] <= 1e-5
     assert r0["search"]["ids_equal_but_ties"]
     assert r0["search"]["max_abs_err"] == 0.0
+    assert r0["search_large_k"]["ids_equal_but_ties"]

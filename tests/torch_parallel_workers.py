@@ -708,7 +708,10 @@ MG_PORT = ("SGL", "NCL", "DGCF", "SpectralCF", "KGCN", "KGNNLS", "CFKG",
 
 
 def mg_size(case):
-    return MG_EVEN if case in MG_JAX else MG_RAGGED
+    # a case named '<model>-even' (`MC_CASES`) is held to JAX's sharded
+    # trainer too
+    return MG_EVEN if case in MG_JAX or case.endswith("-even") \
+        else MG_RAGGED
 
 
 def mg_world(users, items, ents, seed=0):
@@ -832,13 +835,13 @@ def mg_batch(case, seed=1, b=MG_B):
 
 
 def mg_loss(case, model):
-    """``case``'s training loss, a mean over the rank's rows (the mesh
-    step's contract, `Trainer._mesh_loss`): BPR, KSR's full-softmax CE;
-    SGL's and NCL's InfoNCE sums over the batch divided by its rows (SGL's
-    on two fixed edge keep-masks: the trainer's draws are each rank's
-    own), NCL's prototype term on the prototypes `mg_steps` takes before
-    the steps (every rank calls `NCL.prototypes`), KGNNLS's label
-    smoothness."""
+    """``case``'s training loss as JAX writes it: BPR, KSR's full-softmax
+    CE; SGL's and NCL's InfoNCE sums over the batch (SGL's on two fixed
+    edge keep-masks: the trainer's draws are each rank's own; under a mesh
+    the models weigh the sums by n_data, so the trainer's mean over 'data'
+    leaves the global batch's sum), NCL's prototype term on the prototypes
+    `mg_steps` takes before the steps (every rank calls `NCL.prototypes`),
+    KGNNLS's label smoothness."""
     from recbox_tpu_torch.ops.losses import (
         full_softmax_loss, get_matching_loss,
     )
@@ -846,16 +849,12 @@ def mg_loss(case, model):
     if case == "KSR":
         return lambda o, b: full_softmax_loss(o, b["item_id"])
     if case == "SGL":
-        rng = np.random.default_rng(3)
-        n = model.edge_users.shape[0]
-        masks = [torch.from_numpy((rng.random(n) > 0.2).astype(np.float32))
-                 for _ in range(2)]
-        return lambda o, b: bpr(o) + model.ssl_loss(b, masks) \
-            / b["user_id"].shape[0]
+        masks = [torch.from_numpy(m)
+                 for m in sgl_masks(model.edge_users.shape[0])]
+        return lambda o, b: bpr(o) + model.ssl_loss(b, masks)
     if case == "NCL":
         return lambda o, b: bpr(o) + model.structural_loss(b) \
-            / b["user_id"].shape[0] + model.prototype_loss(
-                b, *model.mg_protos)
+            + model.prototype_loss(b, *model.mg_protos)
     if case == "KGNNLS":
         iu, ii, _ = mg_world(**mg_size(case))
         labels = torch.zeros(model.num_users, model.n_entities)
@@ -869,6 +868,12 @@ def mg_loss(case, model):
                 b, ids, labels[b["user_id"].long()], target)
         return ls
     return lambda o, b: bpr(o)
+
+
+def sgl_masks(n):
+    """SGL's two fixed (n,) edge keep-masks (f32 0 / 1)."""
+    rng = np.random.default_rng(3)
+    return [(rng.random(n) > 0.2).astype(np.float32) for _ in range(2)]
 
 
 def mg_trainer(case, model, mesh):
@@ -1042,3 +1047,208 @@ def ksr_history(rank, world, state_path, batch_path):
                 "ce": full_softmax_loss(model.full_scores(mine),
                                         mine["item_id"]),
                 "rows": np.asarray(model.emb_item.shape[0])}
+
+
+# -- the contrastive terms over the global batch --------------------------------
+
+# YoutubeSBC's in-batch negatives, SGL's and NCL's contrastive sums and
+# MCCLK's in-batch InfoNCE under JAX's loss functions; the graph cases over
+# `MG_EVEN`'s world (every sharded table divides over four ranks)
+MC_CASES = ("YoutubeSBC", "SGL-even", "NCL-even", "MCCLK-even")
+MC_USERS, MC_ITEMS, MC_HIDDEN = 24, 32, (16, MG_D)
+# (optimizer, lr) a case: YoutubeSBC's item-side output bias shifts each
+# row's scores alike, so its gradient is rounding noise, which Adam's
+# division by its root mean square turns into moves of ~lr in either
+# package (its unsharded runs part by 3e-4 at the fourth step); plain SGD
+# moves it by lr times the noise
+MC_OPT = {"YoutubeSBC": ("sgd", 0.5)}
+
+
+def mc_config(case):
+    opt, lr = MC_OPT.get(case, ("adam", MG_LR))
+    return dict(optimizer=opt, learning_rate=lr, epochs=1, monitor="AUC",
+                seed=5)
+
+
+def mc_feature_map(FM, FS):
+    """YoutubeSBC's users and items (either package's FeatureMap)."""
+    return mg_feature_map(FM, FS, MC_USERS, MC_ITEMS)
+
+
+def mc_log_q():
+    """Each item's log sampling probability (a popularity)."""
+    p = np.random.default_rng(11).uniform(1.0, 20.0, MC_ITEMS)
+    return np.log(p / p.sum()).astype(np.float32)
+
+
+def mc_batch(case, seed=1, b=MG_B):
+    """One global batch: YoutubeSBC's users and positive items (distinct
+    items: an in-batch negative equal to the positive would be a positive
+    too); a graph case's `mg_batch`."""
+    if case != "YoutubeSBC":
+        return mg_batch(case, seed, b)
+    rng = np.random.default_rng(seed)
+    return {"user_id": rng.integers(0, MC_USERS, b).astype(np.int32),
+            "item_id": rng.choice(MC_ITEMS, b, replace=False).astype(
+                np.int32)}
+
+
+def mc_model(case, state_path=None):
+    if case != "YoutubeSBC":
+        return mg_model(case, state_path)
+    from recbox_tpu_torch.models.matching import YoutubeSBC
+    model = YoutubeSBC(mc_feature_map(FeatureMap, FeatureSpec),
+                       embedding_dim=MG_D, user_hidden_units=MC_HIDDEN,
+                       item_hidden_units=MC_HIDDEN, device="cpu")
+    if state_path is not None:
+        model.load_state_dict(torch.load(state_path, weights_only=True))
+    return model
+
+
+def mc_loss(case, model, protos=None):
+    """``case``'s loss as JAX writes it: YoutubeSBC's in-batch sampled
+    softmax with the rank's rows' log q; BPR plus SGL's InfoNCE sum (on
+    `sgl_masks`), NCL's structural sum and prototype mean (on
+    ``protos``), MCCLK's in-batch InfoNCE."""
+    from recbox_tpu_torch.models.matching import sampled_softmax_inbatch_loss
+    from recbox_tpu_torch.ops.losses import get_matching_loss
+    if case == "YoutubeSBC":
+        log_q = torch.from_numpy(mc_log_q())
+        return lambda o, b: sampled_softmax_inbatch_loss(
+            o, log_q[b["item_id"].long()])
+    bpr = get_matching_loss("PairwiseLogisticLoss")
+    cls = case.split("-")[0]
+    if cls == "SGL":
+        masks = [torch.from_numpy(m)
+                 for m in sgl_masks(model.edge_users.shape[0])]
+        return lambda o, b: bpr(o) + model.ssl_loss(b, masks)
+    if cls == "NCL":
+        return lambda o, b: bpr(o) + model.structural_loss(b) \
+            + model.prototype_loss(b, *protos)
+    return lambda o, b: bpr(o) + model.contrastive_loss(b)
+
+
+def mc_steps(case, state_path, batch, mesh, protos=None, steps=3):
+    """``steps`` steps of one global batch from the saved state; (trainer,
+    losses)."""
+    mine = local_rows(batch, mesh) if mesh is not None else batch
+    model = mc_model(case, state_path)
+    t = Trainer(model, mc_loss(case, model, protos),
+                TrainerConfig(**mc_config(case)),
+                mesh=mesh, device="cpu",
+                train_method="inbatch_scores" if case == "YoutubeSBC"
+                else None)
+    t.init(mine)
+    return t, [float(t.train_step(dict(mine))) for _ in range(steps)]
+
+
+def mesh_contrastive(rank, world, states, batch_dir, meshes, protos_path):
+    """Every case at every mesh shape (n_model): 3 steps from the saved
+    state, the losses and the whole parameters."""
+    with np.load(protos_path) as z:
+        protos = [z[f"p{i}"] for i in range(4)]
+    out = {}
+    for m in meshes:
+        mesh = make_mesh(m, device="cpu")
+        for case in MC_CASES:
+            with np.load(os.path.join(batch_dir, f"{case}.npz")) as z:
+                batch = {k: z[k] for k in z.files}
+            t, losses = mc_steps(case, states[case], batch, mesh, protos)
+            out[f"{case}/m{m}/loss"] = np.asarray(losses)
+            for k, v in t.state_dict()["params"].items():
+                out[f"{case}/m{m}/{k}"] = v.detach().numpy().copy()
+    return out
+
+
+# -- the cloze and MIP heads under a mesh ---------------------------------------
+
+# the item vocabulary: with the [MASK] row the tables' 64 rows divide over
+# four ranks; P masked positions a row
+CZ_V, CZ_P, CZ_B = 63, 2, 8
+CZ_CASES = ("BERT4Rec", "S3Rec")
+
+
+def cz_feature_map(FM, FS):
+    return mt_feature_map(FM, FS, CZ_V)
+
+
+def cz_model(case, state_path=None):
+    from recbox_tpu_torch.models import sequential
+    kw = dict(embedding_dim=MT_D, max_seq_len=MT_L, n_layers=1, n_heads=2,
+              dropout=0.0)
+    model = getattr(sequential, case)(cz_feature_map(FeatureMap, FeatureSpec),
+                                      device="cpu", **kw)
+    if state_path is not None:
+        model.load_state_dict(torch.load(state_path, weights_only=True))
+    return model
+
+
+def cz_batch(seed=2, b=CZ_B):
+    """Left-padded histories with [MASK] (id V) at the last ``CZ_P``
+    positions, their true items, and the positions' weights (a pad
+    position, weight 0, in every third row)."""
+    rng = np.random.default_rng(seed)
+    seq = rng.integers(1, CZ_V, (b, MT_L)).astype(np.int32)
+    pos = np.tile(np.arange(MT_L - CZ_P, MT_L, dtype=np.int32), (b, 1))
+    labels = np.take_along_axis(seq, pos, axis=1).astype(np.int32)
+    seq[:, MT_L - CZ_P:] = CZ_V
+    w = np.ones((b, CZ_P), np.float32)
+    w[::3, 0] = 0.0
+    return {"item_seq": seq, "seq_len": np.full(b, MT_L, np.int32),
+            "positions": pos, "labels": labels, "weights": w}
+
+
+def cz_heads(case, model, b):
+    """``case``'s head on batch ``b``: BERT4Rec's `masked_item_scores`,
+    S3Rec's `mip_logits`."""
+    head = model.masked_item_scores if case == "BERT4Rec" \
+        else model.mip_logits
+    return head(b["item_seq"], b["seq_len"], b["positions"])
+
+
+def mesh_cloze(rank, world, states, batch_path, meshes):
+    """Each head at every mesh shape (n_model) on this rank's rows of one
+    global batch, from the saved state: the weighted CE through
+    `vocab_parallel_ce` (the world's mean of the ranks' values), the
+    gradient of JAX's objective (this rank's value over n_data, the
+    replicated parameters' gradients summed over 'data', the sharded
+    table's gathered whole), and this rank's rows' hit positions
+    (`sharded_hit_positions`)."""
+    from recbox_tpu_torch.parallel.mesh import (
+        all_reduce_, gather_rows, row_shard, shard_params,
+        sharded_hit_positions, vocab_parallel_ce,
+    )
+    with np.load(batch_path) as z:
+        batch = {k: torch.from_numpy(z[k]) for k in z.files}
+    out = {}
+    for m in meshes:
+        mesh = make_mesh(m, device="cpu")
+        nd = mesh_shape(mesh)[DATA_AXIS]
+        mine = local_rows(batch, mesh)
+        for case in CZ_CASES:
+            model = cz_model(case, states[case])
+            shard_params(model, mesh)
+            logits = cz_heads(case, model, mine)
+            loss = vocab_parallel_ce(logits, mine["labels"],
+                                     mine["weights"])
+            names = [n for n, p in model.named_parameters()]
+            params = [p for p in model.parameters()]
+            grads = torch.autograd.grad(loss / nd, params, allow_unused=True)
+            for n, p, g in zip(names, params, grads):
+                g = torch.zeros_like(p) if g is None else g.contiguous()
+                shard = row_shard(p)
+                if shard is None:
+                    all_reduce_(g, mesh, DATA_AXIS)
+                else:
+                    g = gather_rows(g, shard.rows, mesh)
+                out[f"{case}/m{m}/grad/{n}"] = g.numpy()
+            world_loss = all_reduce_(loss.detach().reshape(1).clone(), mesh)
+            out[f"{case}/m{m}/loss"] = world_loss.numpy() / world
+            out[f"{case}/m{m}/hits"] = sharded_hit_positions(
+                logits, mine["labels"]).numpy()
+            out[f"{case}/m{m}/rows"] = np.asarray(
+                mesh_coords(mesh)[0] * mine["labels"].numel())
+            out[f"{case}/m{m}/unweighted"] = all_reduce_(
+                vocab_parallel_ce(logits, mine["labels"]).detach().reshape(
+                    1).clone(), mesh).numpy() / world
+    return out
