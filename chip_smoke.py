@@ -2,6 +2,9 @@
 """Drive the PyTorch/CUDA port on one card, check it and time it.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
+    python3 chip_smoke.py --selection [--root DIR] [--only NAME ...]
+                                   # the top-k selection alone (see
+                                   # `selection_main`)
 
 Phases (any failure raises and exits non-zero):
   1. the card, as nvidia-smi names it, with its power limit;
@@ -351,21 +354,26 @@ Phases (any failure raises and exits non-zero):
      step equal to an eager one, B1 against its plain version on a step's
      own operands at this pack, and timed; (c) `segmented_mips_topk` at
      `bench.py:244-262`'s shape (1M x 128, Q = 8192, k = 500): two B5
-     launches a query chunk, the result against the function on B5's
+     launches a query chunk (the first over 8 x 125,000-item segments on
+     the selection's streaming path), the result against the function on B5's
      plain version (ids equal but for ties, scores within rtol 1e-6),
      recall against the exact top-k >= 0.99, timed beside cuBLAS +
      `torch.topk` and its bound;
-  5v. selection past k = 8192 (B5's and B3's stage (b) global-memory
-     mode) and the contrastive terms over the global batch: (a)
-     `BruteForceMIPS` 'auto' over 16,777,216 x 64 N(0, 1) items, bf16 and
-     int8, 1024 users at k = 10,000 (B3: 131,072 winners a query), the
-     counts reset just before and read just after one served call (one
-     stage (a) and one selection in the new mode), held to B3's plain
-     version as phase 3 holds it, timed with each stage alone beside its
-     bound, its plain version and cuBLAS + `torch.topk`; (b) B5 alone at
-     (Q, C) = (1024, 131,072) over bf16-rounded scores (ties) at k = 10,000
-     and 65,536, bit for bit against its plain version, timed beside
-     `torch.topk` and the byte bound; (c) in 5r(b)'s ranks, the sharded
+  5v. selection past one 16384-key window (B5's and B3's stage (b)
+     streaming path and global-memory mode) and the contrastive terms over
+     the global batch: (a) `BruteForceMIPS` 'auto' over 16,777,216 x 64
+     N(0, 1) items, bf16 and int8, 1024 users at k = 10,000 (B3: 131,072
+     winners a query) and at k = 500, the counts reset just before and
+     read just after each served call (one stage (a) and one selection,
+     in the global-memory mode / on the streaming path), held to B3's
+     plain version as phase 3 holds it, timed with each stage alone beside
+     its bound, `torch.topk` over the winners, its plain version and
+     cuBLAS + `torch.topk`; (b) B5 alone at (Q, C) = (1024, 131,072) over
+     bf16-rounded scores (ties) at k = 10,000 and 65,536, bit for bit
+     against its plain version, timed beside `torch.topk` and the byte
+     bound; and both paths, row-major and candidate-major, bit for bit on
+     rows ascending, all equal, with -inf tails and with NaN entries;
+     (c) in 5r(b)'s ranks, the sharded
      search over 2 x 1M integer rows x 64 at k = 10,000 (B5 merges 20,000
      candidates a query, once a rank) against the unsharded exact search;
      (d) in 5t(b)'s ranks, the gradient of the step's objective and one
@@ -681,6 +689,7 @@ def b3_stages(q, c, scale, k):
     def stage_b():
         fused.select_winners(win, q_scale, out_s, out_i, k, sub)
 
+    stage_b.winners = win   # stage (a)'s output once stage_a has run
     return stage_a, stage_b, lambda: b4_tile_route(q, c, scale, True, sub)
 
 
@@ -1618,8 +1627,9 @@ def b5_inputs(gen, c, q, ties=False):
     return s, ids.to(torch.int32)
 
 
-# B5's further checks: a windowed shape (C past the kernel's 16384-key
-# window: three windows carry the top k), and k = C at one window's width
+# B5's further checks: a shape past the kernel's 16384-key window (the
+# streaming path, 4 queries a block of the candidate-major source), and
+# k = C at one window's width
 B5_WINDOWED = (40_000, 64)
 B5_FULL_K = (16384, 8)
 
@@ -1656,11 +1666,11 @@ def check_b5(gen):
         assert ts.shape == (q, k) and ti.shape == (q, k)
         assert torch.equal(ts, ps) and torch.equal(ti, pi), (c, q, k, layout)
         assert bool((ts[:, 1:] <= ts[:, :-1]).all())
-        qb, window, kpt, _ = select_plan(c, k)
+        qb, window, kpt, _ = select_plan(c, k, cmajor=layout == "cmajor")
         out.append({"c": c, "q": q, "k": k, "ties": ties, "layout": layout,
                     "queries_a_block": qb, "keys_a_thread": kpt,
-                    "window": window,
-                    "windows": -(-c // window), "equal_to_plain": True,
+                    "path": "window" if window == c else "stream",
+                    "window_or_buffer": window, "equal_to_plain": True,
                     "max_abs_err": 0.0})
     return out
 
@@ -7343,7 +7353,9 @@ def segmented_on_card():
     least `SEG_RECALL_LIMIT`); its ms, the plain version's, cuBLAS +
     `torch.topk` over each chunk's scores and the bound (the corpus and
     queries read once, the results written once; 2·Q·N·D operations at
-    the bf16 peak); B5's two selections of one chunk alone."""
+    the bf16 peak); B5's two selections of one chunk alone (`b5_case`:
+    the segments' on the streaming path, bit for bit against its plain
+    version, and the merge's)."""
     from recbox_tpu_torch.ops import bitonic_topk
     from recbox_tpu_torch.retrieval import index as index_mod
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 191)
@@ -7358,7 +7370,11 @@ def segmented_on_card():
     s, i = run()
     torch.cuda.synchronize()
     launches = bitonic_topk.launches["bitonic_topk"]
+    stream = bitonic_topk.stream_launches["bitonic_topk"]
+    # a chunk's per-segment selection on the streaming path, its merge in
+    # one window
     assert launches == 2 * (N_QUERIES // SEG_CHUNK), launches
+    assert stream == N_QUERIES // SEG_CHUNK, stream
     assert tuple(i.shape) == (N_QUERIES, K) and bool(torch.isfinite(s).all())
     real = index_mod.pallas_bitonic_topk
     index_mod.pallas_bitonic_topk = \
@@ -7388,7 +7404,8 @@ def segmented_on_card():
     moved = (SEG_N + N_QUERIES) * SEG_D * 4 + N_QUERIES * K * 8
     by_bytes = moved / HBM_BYTES_S * 1e3
     by_ops = 2.0 * N_QUERIES * SEG_N * SEG_D / PEAK_OPS["bf16"] * 1e3
-    # B5's two selections of one chunk, alone
+    # B5's two selections of one chunk, alone, each bit for bit against
+    # its plain version (the merge over the segments' own winners)
     seg_k = K // 8 + K // 16
     seg_len = SEG_N // 8
     sc = qb[:SEG_CHUNK] @ ib.T
@@ -7396,26 +7413,14 @@ def segmented_on_card():
     cs, ci = real(rows, None, seg_k)
     merged_s = cs.view(SEG_CHUNK, -1)
     merged_i = ci.view(SEG_CHUNK, -1)
-    stages = {}
-    for stage, (scores, ids, k) in (
-            ("segments", (rows, None, seg_k)),
-            ("merge", (merged_s, merged_i, K))):
-        c_rows, c = scores.shape
-        stage_moved = c_rows * c * 4 + c_rows * k * 8 \
-            + (0 if ids is None else c_rows * k * 4)
-        stages[stage] = {
-            "rows": c_rows, "c": c, "k": k,
-            "ms": cuda_ms(lambda: real(scores, ids, k), reps=5),
-            "plain_ms": cuda_ms(lambda: bitonic_topk.bitonic_topk_plain(
-                scores, ids, k), reps=3),
-            "library_ms": cuda_ms(lambda: torch.topk(scores, k, dim=1),
-                                  reps=5),
-            "bound_ms": stage_moved / HBM_BYTES_S * 1e3, "bound_by": "bytes"}
+    stages = {"segments": b5_case(rows, None, seg_k),
+              "merge": b5_case(merged_s, merged_i, K)}
     del sc, rows, cs, ci, merged_s, merged_i, qb, ib, items, queries
     torch.cuda.empty_cache()
     return {"n": SEG_N, "d": SEG_D, "q": N_QUERIES, "k": K,
             "query_chunk": SEG_CHUNK, "n_segments": 8, "seg_k": seg_k,
-            "b5_launches": launches, "recall_vs_exact_512": recall,
+            "b5_launches": launches, "b5_stream_launches": stream,
+            "recall_vs_exact_512": recall,
             "recall_limit": SEG_RECALL_LIMIT,
             "max_abs_err": float((s - ps).abs().max()),
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -7437,27 +7442,105 @@ def segmented_on_card():
 # YoutubeSBC (5n's width), SGL and NCL (5f's; NCL's V_PROTOS prototypes,
 # V_PROTO_ITERS k-means rounds) and MCCLK (5u(b)'s)
 V_N, V_Q, V_K, V_K_WIDE, V_C = 16_777_216, 1024, 10_000, 65_536, 131_072
+# 5v(a)'s k on the selection's streaming path (131,072 winners a query)
+V_K_STREAM = 500
 V_SHARD, V_SEARCH_Q, V_PROTOS, V_PROTO_ITERS = 1_000_000, 64, 16, 3
 # cuBLAS + torch.topk's query chunks at V_N items (bf16 scores 2.1 GB a
 # chunk of 64; int8's s32 and f32 copies 4.3 GB each a chunk of 32)
 V_LIB_CHUNK = {"bf16": 64, "int8": 32}
 
 
+def b5_case(scores, ids, k, cmajor=False, reps=5):
+    """B5 alone through its public wrapper on (Q, C) ``scores`` / ``ids``
+    (with ``cmajor`` (C, Q) ones, through `pallas_bitonic_topk_cmajor`),
+    held bit for bit against its plain version (NaN bits included): the
+    largest finite difference, ms beside the plain version's, `torch.topk`
+    on the same scores and the bound (every score read once, the winners'
+    ids read, the k pairs written)."""
+    from recbox_tpu_torch.ops import bitonic_topk as bt
+    if cmajor:
+        def run():
+            return bt.pallas_bitonic_topk_cmajor(scores, ids, k)
+        view, view_ids = scores.T, None if ids is None else ids.T
+    else:
+        def run():
+            return bt.pallas_bitonic_topk(scores, ids, k)
+        view, view_ids = scores, ids
+    ts, ti = run()
+    if cmajor:
+        ts, ti = ts.T, ti.T
+    ps, pi = bt.bitonic_topk_plain(view, view_ids, k)
+    torch.cuda.synchronize()
+    assert torch.equal(ts.contiguous().view(torch.int32),
+                       ps.view(torch.int32)) \
+        and torch.equal(ti.contiguous(), pi), (tuple(view.shape), k, cmajor)
+    diff = (ts - ps).abs()
+    diff = diff[torch.isfinite(diff)]
+    q, c = view.shape
+    moved = q * c * 4 + q * k * 8 + (0 if ids is None else q * k * 4)
+    del ts, ti, ps, pi
+    return {"q": q, "c": c, "k": k, "layout": "cmajor" if cmajor else "rows",
+            "bit_equal": True,
+            "max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+            "ms": cuda_ms(run, reps),
+            "plain_ms": cuda_ms(lambda: bt.bitonic_topk_plain(
+                view, view_ids, k), reps=3),
+            "library_ms": cuda_ms(lambda: torch.topk(view, k, dim=1), reps),
+            "library": "torch.topk on the (Q, C) scores",
+            "bound_ms": moved / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+            "bytes": moved}
+
+
+def b3b_case(win, q_scale, sub, k, reps=5):
+    """B3's stage (b) alone on stage (a)'s (n_cand, Q) packed ``win``ners,
+    held bit for bit against the plain selection of the same winners,
+    decoded: the path it took, ms beside `torch.topk` over the winners and
+    the bound (the winners read once, the k pairs written)."""
+    from recbox_tpu_torch.ops import mips_fused_topk as fused
+    from recbox_tpu_torch.ops.bitonic_topk import exact_topk
+    from recbox_tpu_torch.ops.mips_topk import decode_winners
+    n_cand, nq = win.shape
+    got_s = torch.empty((nq, k), device=win.device)
+    got_i = torch.empty((nq, k), dtype=torch.int32, device=win.device)
+
+    def run():
+        return fused.select_winners(win, q_scale, got_s, got_i, k, sub)
+
+    path = run()
+    vals, pos = exact_topk(win.T, k)
+    want_s, want_i = decode_winners(vals, pos, sub, q_scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32)) \
+        and torch.equal(got_i, want_i), ("stage (b)", n_cand, nq, k)
+    del vals, pos, want_s, want_i
+    return {"q": nq, "c": n_cand, "k": k, "path": path, "bit_equal": True,
+            "ms": cuda_ms(run, reps),
+            "library_ms": cuda_ms(lambda: torch.topk(win.T, k, dim=1), reps),
+            "library": "torch.topk over stage (a)'s winners",
+            "bound_ms": (n_cand * nq * 4 + nq * k * 8) / HBM_BYTES_S * 1e3,
+            "bound_by": "bytes"}
+
+
 def large_k_search(gen):
     """5v(a): `BruteForceMIPS` 'auto' over V_N x DIM N(0, 1) items, bf16 and
-    int8, V_Q users at k = V_K. Each variant: B3's counts reset just before
-    and read just after one served call (one stage (a) and one selection,
-    in the global-memory mode); the result against B3's plain version on
-    the inputs the kernel saw (int8 identical; bf16 scores within rtol
-    2e-5, as `check_kernel`, and ids equal but for swaps at the cut within
-    that tolerance); ms of
-    the search, of each stage alone, of the plain version and of cuBLAS +
-    `torch.topk`, beside the bound."""
+    int8, V_Q users at k = V_K (stage (b) in the global-memory mode) and at
+    k = V_K_STREAM (stage (b) on the streaming path). Each variant and k:
+    B3's counts reset just before and read just after one served call (one
+    stage (a) and one selection, on the path asserted); the result against
+    B3's plain version on the inputs the kernel saw (int8 identical; bf16
+    scores within rtol 2e-5, as `check_kernel`, and ids equal but for swaps
+    at the cut within that tolerance), and stage (b) alone on stage (a)'s
+    winners bit for bit against the plain selection of those winners; ms
+    of the search, of each stage
+    alone, of `torch.topk` over stage (a)'s winners, of the plain version
+    and of cuBLAS + `torch.topk`, beside the bounds."""
     from recbox_tpu_torch.ops import mips_fused_topk as fused
     from recbox_tpu_torch.ops.mips_fused_topk import (
         mips_fused_topk_plain, segment_plan,
     )
-    from recbox_tpu_torch.ops.mips_topk import candidate_route, quantize_int8
+    from recbox_tpu_torch.ops.mips_topk import (
+        candidate_route, quantize_int8,
+    )
     from recbox_tpu_torch.retrieval import BruteForceMIPS
     items = torch.randn(V_N, DIM, generator=gen, device=DEVICE)
     users = torch.randn(V_Q, DIM, generator=gen, device=DEVICE)
@@ -7468,83 +7551,194 @@ def large_k_search(gen):
                                else None)
         c = index.q_items if variant == "int8" else index._kernel_items
         scale = index.item_scale if variant == "int8" else None
-        sub, n_cand = segment_plan(c.dtype, V_N, DIM, V_Q, V_K,
-                                   index.query_chunk)
-        fused.reset_launches()
-        before = b3_counts()
-        s, i = index.search(users, V_K)
-        torch.cuda.synchronize()
-        route = b3_route_taken(before)
-        served = {"select": fused.launches[variant],
-                  "select_global_memory_mode":
-                      fused.large_launches[variant], "stage_a": route}
-        assert served["select_global_memory_mode"] == 1, served
+        for k, path in ((V_K, "large"), (V_K_STREAM, "stream")):
+            sub, n_cand = segment_plan(c.dtype, V_N, DIM, V_Q, k,
+                                       index.query_chunk)
+            fused.reset_launches()
+            before = b3_counts()
+            s, i = index.search(users, k)
+            torch.cuda.synchronize()
+            route = b3_route_taken(before)
+            served = {"select": fused.launches[variant],
+                      "select_stream": fused.stream_launches[variant],
+                      "select_global_memory_mode":
+                          fused.large_launches[variant], "stage_a": route}
+            assert served["select"] == 1 and served[
+                "select_stream" if path == "stream"
+                else "select_global_memory_mode"] == 1, served
+            assert served["select_stream"] + served[
+                "select_global_memory_mode"] == 1, served
 
-        def plain():
+            def plain(k=k, sub=sub):
+                if variant == "int8":
+                    q8, qs = quantize_int8(users)
+                    return mips_fused_topk_plain(q8, c, k, V_N, scale, qs,
+                                                 sub)
+                return mips_fused_topk_plain(users.to(c.dtype), c, k, V_N,
+                                             sub_rows=sub)
+
+            ps, pi = plain()
+            torch.cuda.synchronize()
+            assert s.shape == (V_Q, k) and bool(torch.isfinite(s).all())
+            assert bool(((i >= 0) & (i < V_N)).all())
+            si = torch.sort(i.long(), 1).values
+            same = (si == torch.sort(pi.long(), 1).values
+                    ).all(1).float().mean().item()
+            err = (s - ps).abs().max().item()
+            # an id may swap only with one whose packed score lies within
+            # the scores' tolerance of the k-th (another order of the
+            # products moves a packed score by its rounding; with 131,072
+            # winners a query, the k-th has close neighbours)
+            tol = 2e-5 * float(ps.abs().max()) + 1e-6
+            keep = ps > ps[:, -1:] + tol
+            at = torch.searchsorted(si, pi.long()).clamp(max=k - 1)
+            near_ties = bool(((si.gather(1, at) == pi.long()) | ~keep).all())
             if variant == "int8":
-                q8, qs = quantize_int8(users)
-                return mips_fused_topk_plain(q8, c, V_K, V_N, scale, qs,
-                                             sub)
-            return mips_fused_topk_plain(users.to(c.dtype), c, V_K, V_N,
-                                         sub_rows=sub)
+                assert torch.equal(i, pi) and torch.equal(s, ps), \
+                    (variant, k)
+            else:
+                if not near_ties:
+                    # which item of each missed id's 128-row segment stage
+                    # (a) kept: ids of one segment whose scores lie within
+                    # a packed score's unit swap with the products' order
+                    n_seg = sub // 128
 
-        ps, pi = plain()
-        torch.cuda.synchronize()
-        assert s.shape == (V_Q, V_K) and bool(torch.isfinite(s).all())
-        assert bool(((i >= 0) & (i < V_N)).all())
-        si = torch.sort(i.long(), 1).values
-        same = (si == torch.sort(pi.long(), 1).values
-                ).all(1).float().mean().item()
-        err = (s - ps).abs().max().item()
-        # an id may swap only with one whose packed score lies within the
-        # scores' tolerance of the k-th (another order of the products
-        # moves a packed score by its rounding; with 131,072 winners a
-        # query, the k-th has close neighbours)
-        tol = 2e-5 * float(ps.abs().max()) + 1e-6
-        keep = ps > ps[:, -1:] + tol
-        at = torch.searchsorted(si, pi.long()).clamp(max=V_K - 1)
-        near_ties = bool(((si.gather(1, at) == pi.long()) | ~keep).all())
-        if variant == "int8":
-            assert torch.equal(i, pi) and torch.equal(s, ps), variant
-        else:
-            assert near_ties, variant
-            torch.testing.assert_close(s, ps, rtol=2e-5, atol=1e-6)
-        del s, i, ps, pi
-        stage_a, stage_b, _ = b3_stages(users, c, scale, V_K)
-        b_ms, b_by = bound_ms(variant, V_N, DIM, V_Q, V_K)
-        out[variant] = {
-            "n": V_N, "d": DIM, "q": V_Q, "k": V_K, "sub_rows": sub,
-            "winners_a_query": n_cand, "route": candidate_route(
-                c.dtype, DIM, sub), "served_launches": served,
-            "rows_same_ids": same, "ids_equal_but_near_ties": near_ties,
-            "near_tie_tolerance": tol, "max_abs_err": err,
-            "tolerance": "identical ids and scores" if variant == "int8"
-            else "ids equal but for swaps within the tolerance of the "
-                 "k-th score, scores rtol 2e-5 atol 1e-6",
-            "ms": cuda_ms(lambda: index.search(users, V_K), reps=3),
-            "stage_a_ms": cuda_ms(stage_a, reps=3),
-            "stage_b_ms": cuda_ms(stage_b, reps=5),
-            # stage (b) reads the winners once and writes the k pairs
-            "stage_b_bound_ms": (n_cand * V_Q * 4 + V_Q * V_K * 8)
-            / HBM_BYTES_S * 1e3,
-            "plain_ms": cuda_ms(plain, reps=1),
-            "library_ms": cuda_ms(lambda: library_topk(
-                users, c, scale, V_K, chunk=V_LIB_CHUNK[variant]), reps=1),
-            "library": f"cuBLAS scores and torch.topk, "
-                       f"{V_LIB_CHUNK[variant]} queries a call",
-            "bound_ms": b_ms, "bound_by": b_by}
-        del index, c, scale, stage_a, stage_b
+                    def segment(x):
+                        return (x // sub) * n_seg + x % sub % n_seg
+
+                    missed = []
+                    for r, j in ((si.gather(1, at) != pi.long()) & keep
+                                 ).nonzero()[:4].tolist():
+                        x = int(pi[r, j])
+                        missed.append({
+                            "row": r, "id": x, "score": float(ps[r, j]),
+                            "cut": float(ps[r, -1]), "served_of_segment": [
+                                (y, float(v)) for y, v in zip(
+                                    i[r].tolist(), s[r].tolist())
+                                if segment(y) == segment(x)]})
+                    raise AssertionError((variant, k, missed))
+                torch.testing.assert_close(s, ps, rtol=2e-5, atol=1e-6)
+            del s, i, ps, pi
+            stage_a, stage_b, _ = b3_stages(users, c, scale, k)
+            stage_a()
+            # the redesigned selection alone: stage (b) on these winners
+            # bit for bit against the plain selection of the same winners
+            b_alone = b3b_case(stage_b.winners, quantize_int8(users)[1]
+                               if variant == "int8" else None, sub, k)
+            assert b_alone["path"] == path, (b_alone["path"], path)
+            b_ms, b_by = bound_ms(variant, V_N, DIM, V_Q, k)
+            res = {
+                "n": V_N, "d": DIM, "q": V_Q, "k": k, "sub_rows": sub,
+                "winners_a_query": n_cand, "route": candidate_route(
+                    c.dtype, DIM, sub), "served_launches": served,
+                "stage_b_path": path, "stage_b_bit_equal_on_winners": True,
+                "rows_same_ids": same, "ids_equal_but_near_ties": near_ties,
+                "near_tie_tolerance": tol, "max_abs_err": err,
+                "tolerance": "identical ids and scores" if variant == "int8"
+                else "ids equal but for swaps within the tolerance of the "
+                     "k-th score, scores rtol 2e-5 atol 1e-6",
+                "ms": cuda_ms(lambda k=k: index.search(users, k), reps=3),
+                "stage_a_ms": cuda_ms(stage_a, reps=3),
+                "stage_b_ms": b_alone["ms"],
+                # stage (b) reads the winners once and writes the k pairs
+                "stage_b_bound_ms": b_alone["bound_ms"],
+                "stage_b_library_ms": b_alone["library_ms"],
+                "stage_b_library": b_alone["library"],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "plain_ms": cuda_ms(plain, reps=1),
+                "library_ms": cuda_ms(lambda k=k: library_topk(
+                    users, c, scale, k, chunk=V_LIB_CHUNK[variant]), reps=1),
+                "library": f"cuBLAS scores and torch.topk, "
+                           f"{V_LIB_CHUNK[variant]} queries a call"}
+            out[variant if path == "large" else f"{variant}_stream"] = res
+            del stage_a, stage_b
+        del index, c, scale
         torch.cuda.empty_cache()
+    return out
+
+
+# 5v(b)'s rows that stress the selection's order: (rows, candidates) past
+# one window, k on the streaming path (a candidate-major source's two
+# buffers) and in the global-memory mode
+V_SPECIAL = (64, 40_000)
+V_SPECIAL_K = (500, 2000, 12_000)
+
+
+def special_rows(kind, q, c, gen):
+    """(Q, C) f32 scores of one kind: 'ascending' along the row (every key
+    beats those before it: the streaming path's threshold rises at each
+    tile), 'equal' (one value: position alone decides), 'neg_inf_tail'
+    (the last 30% -inf, as `segmented_mips_topk` pads), 'nan' (N(0, 1)
+    with 5% NaN of either sign, which order above +inf and below -inf)."""
+    if kind == "ascending":
+        return torch.arange(c, device=DEVICE, dtype=torch.float32).repeat(
+            q, 1) + torch.arange(q, device=DEVICE)[:, None]
+    if kind == "equal":
+        return torch.full((q, c), 1.5, device=DEVICE)
+    s = torch.randn(q, c, generator=gen, device=DEVICE)
+    if kind == "neg_inf_tail":
+        s[:, int(0.7 * c):] = float("-inf")
+        return s
+    nan = torch.rand(q, c, generator=gen, device=DEVICE) < 0.05
+    sign = torch.rand(q, c, generator=gen, device=DEVICE) < 0.5
+    bits = torch.where(sign, torch.tensor(-0x400000, device=DEVICE,
+                                          dtype=torch.int32),
+                       torch.tensor(0x7FC00000, device=DEVICE,
+                                    dtype=torch.int32))
+    return torch.where(nan, bits.view(torch.float32), s)
+
+
+def special_rows_b5(gen):
+    """5v(b): B5 on V_SPECIAL rows of each `special_rows` kind, row-major
+    and candidate-major, at each k of V_SPECIAL_K (the streaming path and
+    the global-memory mode, counted), bit for bit against its plain
+    version (NaN bits included)."""
+    from recbox_tpu_torch.ops import bitonic_topk as bt
+    q, c = V_SPECIAL
+    out = []
+    for kind in ("ascending", "equal", "neg_inf_tail", "nan"):
+        rows = special_rows(kind, q, c, gen)
+        for layout in ("rows", "cmajor"):
+            for k in V_SPECIAL_K:
+                bt.reset_launches()
+                if layout == "rows":
+                    ts, ti = bt.pallas_bitonic_topk(rows, None, k)
+                else:
+                    ts, ti = bt.pallas_bitonic_topk_cmajor(
+                        rows.T.contiguous(), torch.arange(
+                            c, device=DEVICE, dtype=torch.int32)[:, None]
+                        .expand(c, q).contiguous(), k)
+                    ts, ti = ts.T, ti.T
+                counts = (bt.launches["bitonic_topk"],
+                          bt.stream_launches["bitonic_topk"],
+                          bt.large_launches["bitonic_topk"])
+                ps, pi = bt.bitonic_topk_plain(rows, None, k)
+                torch.cuda.synchronize()
+                path = "stream" if 2 * k <= 16384 else "large"
+                assert counts == ((1, 1, 0) if path == "stream"
+                                  else (1, 0, 1)), (kind, layout, k, counts)
+                assert torch.equal(ts.contiguous().view(torch.int32),
+                                   ps.view(torch.int32)) \
+                    and torch.equal(ti.contiguous(), pi), (kind, layout, k)
+                diff = (ts - ps).abs()
+                diff = diff[torch.isfinite(diff)]
+                out.append({"kind": kind, "layout": layout, "q": q, "c": c,
+                            "k": k, "path": path,
+                            "max_abs_err": float(diff.max())
+                            if diff.numel() else 0.0,
+                            "plan": list(bt.select_plan(
+                                c, k, cmajor=layout == "cmajor")),
+                            "bit_equal": True})
+        del rows
     return out
 
 
 def large_k_b5(gen):
     """5v(b): B5 alone on row-major (V_Q, V_C) bf16-rounded scores (ties)
     and distinct ids at k = V_K and V_K_WIDE: the global-memory mode once a
-    call (counted), bit for bit against its plain version (ties by
-    position); ms beside the plain version, `torch.topk` on the same
-    scores and the bound (every score read once, the winners' ids read,
-    the k pairs written)."""
+    call (counted), then `b5_case` (bit for bit against its plain version,
+    ties by position; ms beside the plain version, `torch.topk` and the
+    bound)."""
     from recbox_tpu_torch.ops import bitonic_topk as bt
     out = []
     for k in (V_K, V_K_WIDE):
@@ -7552,28 +7746,14 @@ def large_k_b5(gen):
         sr, ir = s.T.contiguous(), ids.T.contiguous()
         del s, ids
         bt.reset_launches()
-        ts, ti = bt.pallas_bitonic_topk(sr, ir, k)
+        bt.pallas_bitonic_topk(sr, ir, k)
         launches = (bt.launches["bitonic_topk"],
                     bt.large_launches["bitonic_topk"])
-        ps, pi = bt.bitonic_topk_plain(sr, ir, k)
-        torch.cuda.synchronize()
         assert launches == (1, 1), launches
-        assert torch.equal(ts.view(torch.int32), ps.view(torch.int32)) \
-            and torch.equal(ti, pi), k
-        moved = V_C * V_Q * 4 + k * V_Q * 4 + k * V_Q * 8
-        out.append({
-            "q": V_Q, "c": V_C, "k": k, "plan": list(bt.select_plan(V_C, k)),
-            "launches_global_memory_mode": launches[1],
-            "bit_equal": True, "max_abs_err": 0.0,
-            "ms": cuda_ms(lambda: bt.pallas_bitonic_topk(sr, ir, k),
-                          reps=5),
-            "plain_ms": cuda_ms(lambda: bt.bitonic_topk_plain(sr, ir, k),
-                                reps=3),
-            "library_ms": cuda_ms(lambda: torch.topk(sr, k, dim=1), reps=5),
-            "library": "torch.topk on the (Q, C) scores",
-            "bound_ms": moved / HBM_BYTES_S * 1e3, "bound_by": "bytes",
-            "bytes": moved})
-        del sr, ir, ts, ti, ps, pi
+        out.append({**b5_case(sr, ir, k),
+                    "plan": list(bt.select_plan(V_C, k)),
+                    "launches_global_memory_mode": launches[1]})
+        del sr, ir
         torch.cuda.empty_cache()
     return out
 
@@ -7647,11 +7827,13 @@ def main() -> int:
                   "embedding_gather": usage_of(_build.build_logs,
                                                "embedding_gather",
                                                "seq_pool")}
-    # the selection's global-memory mode (five kernels in each library)
-    redesigned["bitonic_topk_global_memory"] = usage_of(
-        _build.build_logs, "bitonic_topk", "select_large")
-    redesigned["mips_fused_topk_global_memory"] = usage_of(
-        _build.build_logs, "mips_fused_topk", "select_large")
+    # the selection's global-memory mode (its kernels in each library) and
+    # its streaming path
+    for lib in ("bitonic_topk", "mips_fused_topk"):
+        redesigned[f"{lib}_global_memory"] = usage_of(
+            _build.build_logs, lib, "select_large")
+        redesigned[f"{lib}_stream"] = usage_of(_build.build_logs, lib,
+                                               "select_stream")
     for name, usage in redesigned.items():
         emit({"phase": "ptxas_redesigned", "kernel": name, "usage": usage})
         assert usage and all(u["spill_stores"] == u["spill_loads"] == 0
@@ -8016,8 +8198,9 @@ def main() -> int:
     emit({"phase": "segmented_mips_topk", "card": card,
           "wall_s": time.perf_counter() - t0, **seg})
     emit({"phase": "5s", "wall_s": time.perf_counter() - t5s})
-    # 5v. selection past k = 8192: (a) the served search at 16.8M items,
-    # (b) B5 alone; (c) and (d) ran in 5r(b)'s and 5t(b)'s ranks
+    # 5v. selection past one window: (a) the served search at 16.8M items
+    # at k = 10,000 and 500, (b) B5 alone and on rows that stress its
+    # order; (c) and (d) ran in 5r(b)'s and 5t(b)'s ranks
     t5v = time.perf_counter()
     big_search = large_k_search(gen)
     for variant, res in big_search.items():
@@ -8026,6 +8209,9 @@ def main() -> int:
     big_b5 = large_k_b5(gen)
     for res in big_b5:
         emit({"phase": "large_k_b5", "card": card, **res})
+    special = special_rows_b5(gen)
+    emit({"phase": "selection_special_rows", "card": card,
+          "cases": special})
     v_c = [r["search_large_k"] for r in mesh_b["ranks"]]
     emit({"phase": "large_k_sharded_search", "card": card,
           "staged_through_host": True, "ranks": v_c})
@@ -8425,10 +8611,12 @@ def main() -> int:
         "ms": w10["ms"], "plain_ms": w10["plain_ms"],
         "bound_ms": w10["bound_ms"], "bound_by": w10["bound_by"],
         "library_ms": w10["library_ms"], "library": w10["library"],
-        "design": "order keys copied row-major through shared tiles; one "
-                  "block a row: radix passes over the row in device "
-                  "memory, the k survivors compacted; bitonic runs of "
-                  "16384 in shared memory merged in device memory",
+        "design": "two reads of each score (the first digit's "
+                  "histogram; the keys above its threshold bin to the "
+                  "survivors, the bin's to a buffer), the bin's keys "
+                  "narrowed in shared memory, the k survivors sorted in "
+                  "runs of 16384 (16 a thread in registers, merge-path "
+                  "merges in shared memory) and merged in device memory",
         "k_65536": {key: w64[key] for key in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         "ptxas": usage_of(_build.build_logs, "bitonic_topk",
@@ -8457,6 +8645,55 @@ def main() -> int:
                               "select_large"),
             "rows_same_ids": v["rows_same_ids"], "matches_plain": True,
             "shape": {"n": V_N, "d": DIM, "q": V_Q, "k": V_K,
+                      "winners_a_query": v["winners_a_query"]}})
+    # the selection's streaming path: B5 over the segments of 5s(c)'s
+    # `segmented_mips_topk` and B3's stage (b) served at k = 500 (5v(a))
+    segs = seg["b5_one_chunk"]["segments"]
+    kernels.append({
+        "name": "bitonic_topk[stream]", "route": "cuda",
+        "source": "recbox_tpu_torch/csrc/bitonic_topk.cu",
+        "path_source": "recbox_tpu_torch/csrc/select_topk.cuh",
+        "replaces": "recbox_tpu/ops/pallas/bitonic_topk.py:123",
+        "launches": seg["b5_stream_launches"],
+        "launches_by_path": {"segmented_mips_topk_5s": seg[
+            "b5_stream_launches"]},
+        "max_abs_err": max(segs["max_abs_err"], max(
+            r["max_abs_err"] for r in special)),
+        "ms": segs["ms"], "plain_ms": segs["plain_ms"],
+        "bound_ms": segs["bound_ms"], "bound_by": segs["bound_by"],
+        "library_ms": segs["library_ms"],
+        "library": "torch.topk on the (rows, C) scores",
+        "design": "a streaming filter on a running threshold: scores "
+                  "through registers a tile at a time, the next tile's "
+                  "loads in flight; keys above the k-th kept key to a "
+                  "shared buffer by warp ballots; a full buffer keeps its "
+                  "k largest by radix selection in place",
+        "ptxas": usage_of(_build.build_logs, "bitonic_topk",
+                          "select_stream"),
+        "special_rows": special, "matches_plain": segs["bit_equal"],
+        "shape": {"rows": segs["q"], "c": segs["c"], "k": segs["k"]}})
+    for variant in ("bf16", "int8"):
+        v = big_search[f"{variant}_stream"]
+        kernels.append({
+            "name": f"mips_fused_topk[{variant},stream]", "route": "cuda",
+            "source": "recbox_tpu_torch/csrc/mips_fused_topk.cu",
+            "stage_a_source": "recbox_tpu_torch/csrc/mips_topk.cu",
+            "path_source": "recbox_tpu_torch/csrc/select_topk.cuh",
+            "replaces": "recbox_tpu/ops/pallas/mips_fused_topk.py:100",
+            "launches": v["served_launches"]["select_stream"],
+            "launches_by_path": {"served_search_5v_a": v[
+                "served_launches"]},
+            "max_abs_err": v["max_abs_err"], "ms": v["ms"],
+            "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"], "library_ms": v["library_ms"],
+            "library": v["library"], "stage_a_ms": v["stage_a_ms"],
+            "stage_b_ms": v["stage_b_ms"],
+            "stage_b_bound_ms": v["stage_b_bound_ms"],
+            "stage_b_library_ms": v["stage_b_library_ms"],
+            "ptxas": usage_of(_build.build_logs, "mips_fused_topk",
+                              "select_stream"),
+            "rows_same_ids": v["rows_same_ids"], "matches_plain": True,
+            "shape": {"n": V_N, "d": DIM, "q": V_Q, "k": V_K_STREAM,
                       "winners_a_query": v["winners_a_query"]}})
     t6, t6u = b6_times[0], b6_times[2]
     kernels.append({
@@ -8488,5 +8725,142 @@ def main() -> int:
     return 0
 
 
+def kernel_ms(fn) -> dict:
+    """Device ms by kernel name of one call of ``fn`` under torch.profiler
+    (after a warm call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:90]: e.self_device_time_total / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def selection_main(argv) -> int:
+    """``python3 chip_smoke.py --selection [--root DIR] [--only NAME ...]
+    [--profile]``: the top-k selection (B5 and B3's stage (b)) alone, at
+    one window and past it, one JSON line a case (`b5_case` / `b3b_case`:
+    bit for bit against the plain versions, ms, `torch.topk`, the bound)
+    with the card's name and power limit. Cases: b5_window ((C, Q) =
+    (7936, 8192) candidate-major, k = 500), b5_segments (5s(c)'s 8192
+    rows x 125,000, k = 93), b5_rows ((1024, 131,072) at k = 500, 2000,
+    8192), b5_cmajor (the same candidate-major at k = 500, 2000, 4096),
+    b5_large (bf16-rounded, k = 10,000 and 65,536), b3b_window (stage
+    (a)'s winners of 1M x 64 bf16 items for 8192 queries, k = 500),
+    b3b_stream / b3b_large (of 16.8M x 64 for 1024, k = 500 / 10,000;
+    printed as b3b_past_window) and segmented
+    (`segmented_mips_topk` at 5s(c)'s shape). ``--root`` imports
+    `recbox_tpu_torch` from another checkout (its kernels build there),
+    so that two trees are timed on one card in one call; ``--profile``
+    adds each case's device ms by kernel."""
+    import argparse
+    parser = argparse.ArgumentParser(prog="chip_smoke.py --selection")
+    parser.add_argument("--root", default=None)
+    parser.add_argument("--only", nargs="*", default=None)
+    parser.add_argument("--profile", action="store_true")
+    args = parser.parse_args(argv)
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import recbox_tpu_torch
+    from recbox_tpu_torch.ops import _build
+    from recbox_tpu_torch.ops import bitonic_topk as bt
+    from recbox_tpu_torch.ops.mips_fused_topk import segment_plan
+    from recbox_tpu_torch.retrieval import index as index_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build(["bitonic_topk", "mips_fused_topk", "mips_topk"])
+    info = {"package": os.path.dirname(recbox_tpu_torch.__file__),
+            "card": subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                check=True).stdout.strip().splitlines()[0]}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+
+    def on(name):
+        return args.only is None or name in args.only
+
+    def plan(c, k, cmajor):
+        try:
+            return list(bt.select_plan(c, k, cmajor=cmajor))
+        except TypeError:       # a tree whose plan ignores the layout
+            return list(bt.select_plan(c, k))
+
+    def b5(name, scores, ids, k, cmajor=False, reps=5):
+        res = b5_case(scores, ids, k, cmajor, reps)
+        if args.profile:
+            res["kernel_ms"] = kernel_ms(lambda: (
+                bt.pallas_bitonic_topk_cmajor if cmajor
+                else bt.pallas_bitonic_topk)(scores, ids, k))
+        emit({**info, "name": name, **res,
+              "plan": plan(res["c"], k, cmajor)})
+
+    def b3b(name, n, nq, ks, reps=5):
+        q, c, _ = make_inputs("bf16", n, DIM, nq, gen)
+        for k in ks:
+            sub = segment_plan(c.dtype, n, DIM, nq, k)[0]
+            stage_a, stage_b, _ = b3_stages(q, c, None, k)
+            stage_a()
+            res = b3b_case(stage_b.winners, None, sub, k, reps)
+            if args.profile:
+                res["kernel_ms"] = kernel_ms(stage_b)
+            emit({**info, "name": name, **res,
+                  "plan": plan(res["c"], k, True)})
+            del stage_a, stage_b
+            torch.cuda.empty_cache()
+
+    if on("b5_window"):
+        s, ids = b5_inputs(gen, 7936, 8192)
+        b5("b5_window", s, ids, 500, cmajor=True, reps=11)
+        del s, ids
+    if on("b5_segments"):
+        s = torch.randn(8192, 125_000, generator=gen, device=DEVICE)
+        b5("b5_segments", s, None, 93)
+        del s
+    if on("b5_rows") or on("b5_cmajor") or on("b5_large"):
+        s = torch.randn(V_Q, V_C, generator=gen, device=DEVICE)
+        if on("b5_rows"):
+            for k in (500, 2000, 8192):
+                b5("b5_rows", s, None, k)
+        if on("b5_cmajor"):
+            cm = s.T.contiguous()
+            pos = torch.arange(V_C, device=DEVICE, dtype=torch.int32)[
+                :, None].expand(V_C, V_Q).contiguous()
+            for k in (500, 2000, 4096):
+                b5("b5_cmajor", cm, pos, k, cmajor=True)
+            del cm, pos
+        if on("b5_large"):
+            sr = s.to(torch.bfloat16).float()
+            ids = torch.randperm(V_Q * V_C, generator=gen, device=DEVICE
+                                 ).view(V_Q, V_C).to(torch.int32)
+            for k in (V_K, V_K_WIDE):
+                b5("b5_large", sr, ids, k)
+            del sr, ids
+        del s
+    torch.cuda.empty_cache()
+    if on("b3b_window"):
+        b3b("b3b_window", N_ITEMS, N_QUERIES, (K,), reps=11)
+    if on("b3b_stream") or on("b3b_large"):
+        b3b("b3b_past_window", V_N, V_Q,
+            [k for k, name in ((V_K_STREAM, "b3b_stream"),
+                               (V_K, "b3b_large")) if on(name)])
+    if on("segmented"):
+        items = torch.randn(SEG_N, SEG_D, generator=gen, device=DEVICE)
+        queries = torch.randn(N_QUERIES, SEG_D, generator=gen, device=DEVICE)
+        moved = (SEG_N + N_QUERIES) * SEG_D * 4 + N_QUERIES * K * 8
+        emit({**info, "name": "segmented_mips_topk", "n": SEG_N,
+              "d": SEG_D, "q": N_QUERIES, "k": K,
+              "ms": cuda_ms(lambda: index_mod.segmented_mips_topk(
+                  queries, items, K, query_chunk=SEG_CHUNK), reps=3),
+              "bound_ms": max(moved / HBM_BYTES_S, 2.0 * N_QUERIES * SEG_N
+                              * SEG_D / PEAK_OPS["bf16"]) * 1e3})
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(selection_main(sys.argv[2:]) if sys.argv[1:2] == ["--selection"]
+             else main())

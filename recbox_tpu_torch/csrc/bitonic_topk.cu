@@ -13,12 +13,15 @@
 // and write 33 MB: 0.092 ms of HBM. Selecting needs ~C operations a query,
 // far below the card's rate, so the bound is bytes.
 //
-// The selection (a radix select over keys in registers, then a sort of the
-// k survivors; past 16384 candidates at k above 8192 its global-memory
+// The selection (up to 16384 candidates a radix select over keys in
+// registers, then a sort of the k survivors; past that while 2k <= 16384 a
+// streaming filter on a running threshold; beyond, its global-memory
 // mode) is `select_topk.cuh`'s; this file gives it B5's epilogue, which
-// writes each winner's score and gathers its id. At (Q, C) = (1024,
-// 131072) the function must read 512 MB of scores and write the k pairs:
-// 0.18 ms of HBM at k = 10,000, 0.32 ms at k = 65,536.
+// writes each winner's score and gathers its id. Over a chunk's segments of
+// `segmented_mips_topk` (8192 rows x 125,000, k = 93) the function must
+// read 4.1 GB: 1.22 ms of HBM. At (Q, C) = (1024, 131072) it must read 512
+// MB of scores and write the k pairs: 0.18 ms of HBM at k = 10,000, 0.32
+// ms at k = 65,536.
 
 #include "select_topk.cuh"
 
@@ -47,21 +50,19 @@ extern "C" {
 
 // scores float32, ids int32 or null, out_s float32, out_i int32, all
 // addressed by the element strides given; (k, p, window, qb, kpt) as
-// `launch_select` takes them; with qb 0 the scratch keys (q_chunk, c) u32
-// and surv (q_chunk, p) u64 (null otherwise).
+// `launch_select` takes them; with qb 0 the scratch of `large_layout` for
+// chunks of q_chunk queries (null otherwise).
 int recbox_select_topk(const void* scores, const void* ids, void* out_s,
                        void* out_i, int nq, int c, int k, int p, int window,
                        int qb, int kpt, long long s_q, long long s_c,
                        long long i_q, long long i_c, long long o_q,
-                       long long o_k, void* keys, void* surv, int q_chunk,
-                       void* stream) {
+                       long long o_k, void* scratch, long long scratch_bytes,
+                       int q_chunk, void* stream) {
   const RowOut out{static_cast<float*>(out_s), static_cast<int*>(out_i),
                    static_cast<const int*>(ids), i_q, i_c, o_q, o_k};
   return launch_select(static_cast<const float*>(scores), nq, c, k, p,
-                       window, qb, kpt, s_q, s_c,
-                       static_cast<unsigned int*>(keys),
-                       static_cast<unsigned long long*>(surv), q_chunk, out,
-                       static_cast<cudaStream_t>(stream));
+                       window, qb, kpt, s_q, s_c, scratch, scratch_bytes,
+                       q_chunk, out, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

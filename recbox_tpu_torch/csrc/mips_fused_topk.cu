@@ -35,9 +35,11 @@
 //      13-18x its bound.
 //  (b) B5's selection (`select_topk.cuh`) reads those winners in place by
 //      strides, the position being the candidate, and selects the k largest
-//      packed winners a query by radix over keys in registers (past 16384
-//      winners at k above 8192, its global-memory mode: at 16.8M x 64 and
-//      k = 10,000, 131,072 winners a query); this file's
+//      packed winners a query by radix over keys in registers; past 16384
+//      winners (131,072 a query at 16.8M x 64) its streaming filter, 8
+//      adjacent queries a block so that each 32-byte sector of the winners
+//      is read whole, while 2k <= 16384, else its global-memory mode; this
+//      file's
 //      epilogue decodes each: clears the index bits, rebuilds the row id
 //      from the candidate and the index, applies the query's int8 scale and
 //      writes (-inf, -1) for a winner that is only padding. The first
@@ -84,13 +86,14 @@ extern "C" {
 // winners (n_cand, nq) float32, candidate-major, the packed winners of the
 // plan with `sub_rows` (a multiple of 128 up to 32768); q_scale (nq,)
 // float32 or null; out_s (nq, k) float32, out_i (nq, k) int32; (k, p,
-// window, qb, kpt) as `launch_select` takes them; with qb 0 the scratch
-// keys (q_chunk, n_cand) u32 and surv (q_chunk, p) u64 (null otherwise).
+// window, qb, kpt) as `launch_select` takes them; with qb 0 the scratch of
+// `large_layout` for chunks of q_chunk queries (null otherwise).
 int recbox_mips_select_winners(const void* winners, const void* q_scale,
                                void* out_s, void* out_i, int nq, int n_cand,
                                int k, int p, int window, int qb, int kpt,
-                               int sub_rows, void* keys, void* surv,
-                               int q_chunk, void* stream) {
+                               int sub_rows, void* scratch,
+                               long long scratch_bytes, int q_chunk,
+                               void* stream) {
   if (sub_rows < SEGMENT || sub_rows > MAX_SUB_ROWS ||
       sub_rows % SEGMENT != 0)
     return (int)cudaErrorInvalidValue;
@@ -98,10 +101,8 @@ int recbox_mips_select_winners(const void* winners, const void* q_scale,
                       static_cast<const float*>(q_scale), k,
                       sub_rows / SEGMENT, sub_rows};
   return launch_select(static_cast<const float*>(winners), nq, n_cand, k, p,
-                       window, qb, kpt, 1, nq,
-                       static_cast<unsigned int*>(keys),
-                       static_cast<unsigned long long*>(surv), q_chunk, out,
-                       static_cast<cudaStream_t>(stream));
+                       window, qb, kpt, 1, nq, scratch, scratch_bytes,
+                       q_chunk, out, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

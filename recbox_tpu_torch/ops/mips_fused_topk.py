@@ -15,10 +15,11 @@ built by `ops/_build.py`): stage (a), the packed form of B4's
 segment-candidate kernel (`ops/mips_topk.py`: its `wgmma` route, its
 segment route below 911 queries, or its tile route, as `candidate_route`
 takes the dtype, depth and plan), writes the winners candidate-major; stage (b), B5's selection with this
-kernel's epilogue (its global-memory mode past 16384 winners at k above
-8192), selects the k largest packed winners of each query and decodes
-them. `mips_fused_topk_plain` runs for CPU tensors; a CUDA tensor
-never reaches it, and a failed build or launch raises. The plain version
+kernel's epilogue (past 16384 winners its streaming path while 2k <=
+16384, 4 adjacent queries a block, and its global-memory mode beyond),
+selects the k largest packed winners of each query and decodes them.
+`mips_fused_topk_plain` runs for CPU tensors; a CUDA tensor never reaches
+it, and a failed build or launch raises. The plain version
 also serves as the kernels' yardstick in `chip_smoke.py` and the tests.
 
 Ties: packed score descending, then candidate position ascending (B5's
@@ -50,14 +51,17 @@ from recbox_tpu_torch.ops.mips_topk import (
 )
 
 __all__ = ["mips_fused_topk", "mips_fused_topk_plain", "segment_plan",
-           "select_winners", "launches", "large_launches", "reset_launches"]
+           "select_winners", "launches", "stream_launches", "large_launches",
+           "reset_launches"]
 
 # launches of the selection, one a call through the kernels, by corpus
 # dtype (stage (a) counts in `mips_topk`'s `launches` and
 # `route_launches`); the plain version never counts
 launches = {"f32": 0, "bf16": 0, "int8": 0}
-# of them, the selections in the global-memory mode (k above 8192 over
-# more than 16384 winners)
+# of them, the selections on the streaming path (past 16384 winners while
+# 2k <= 16384) and in the global-memory mode (k above 8192 over more than
+# 16384 winners)
+stream_launches = {"f32": 0, "bf16": 0, "int8": 0}
 large_launches = {"f32": 0, "bf16": 0, "int8": 0}
 
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
@@ -65,7 +69,7 @@ _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 
 def reset_launches() -> None:
     for name in launches:
-        launches[name] = large_launches[name] = 0
+        launches[name] = stream_launches[name] = large_launches[name] = 0
 
 
 def segment_plan(corpus_dtype: torch.dtype, n: int, d: int, nq: int, k: int,
@@ -106,36 +110,39 @@ def mips_fused_topk_plain(queries: torch.Tensor, corpus: torch.Tensor, k: int,
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("mips_fused_topk")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.recbox_mips_select_winners.argtypes = [vp, vp, vp, vp, i, i, i, i, i,
-                                               i, i, i, vp, vp, i, vp]
+    lib.recbox_mips_select_winners.argtypes = [
+        vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp, ctypes.c_longlong, i, vp]
     lib.recbox_mips_select_winners.restype = i
     return lib
 
 
 def select_winners(winners: torch.Tensor, q_scale: Optional[torch.Tensor],
                    out_s: torch.Tensor, out_i: torch.Tensor, k: int,
-                   sub_rows: int) -> bool:
+                   sub_rows: int) -> str:
     """Stage (b) alone: the top k of the (n_cand, Q) packed ``winners``
     (contiguous, on the card) decoded into ``out_s`` / ``out_i`` (Q, k),
-    by B5's plan (the global-memory mode past 16384 winners at k above
-    8192, with its scratch). Returns whether that mode ran."""
+    by B5's plan for a candidate-major source. Returns the path taken:
+    'window' (16384 winners or fewer), 'stream' (more, while 2k <= 16384)
+    or 'large' (the global-memory mode, with its scratch)."""
     n_cand, nq = winners.shape
-    qb, window, kpt, p = select_plan(n_cand, k, "mips_fused_topk")
-    keys = surv = None
-    chunk = 0
+    qb, window, kpt, p = select_plan(n_cand, k, "mips_fused_topk",
+                                     cmajor=True)
+    scratch, nbytes, chunk = None, 0, 0
     if qb == LARGE:
-        keys, surv, chunk = large_scratch(nq, n_cand, p, winners.device)
+        scratch, chunk = large_scratch(nq, n_cand, k, winners.device)
+        nbytes = scratch.numel()
     rc = _kernel_lib().recbox_mips_select_winners(
         winners.data_ptr(),
         None if q_scale is None else q_scale.data_ptr(),
         out_s.data_ptr(), out_i.data_ptr(), nq, n_cand, k, p, window, qb,
-        kpt, sub_rows, None if keys is None else keys.data_ptr(),
-        None if surv is None else surv.data_ptr(), chunk,
-        torch.cuda.current_stream(winners.device).cuda_stream)
+        kpt, sub_rows, None if scratch is None else scratch.data_ptr(),
+        nbytes, chunk, torch.cuda.current_stream(winners.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mips_fused_topk: the selection failed with CUDA "
                            f"error {rc}")
-    return qb == LARGE
+    if qb == LARGE:
+        return "large"
+    return "stream" if window < n_cand else "window"
 
 
 def _mips_fused_topk_cuda(queries, corpus, k, valid, row_scale, q_scale,
@@ -159,10 +166,13 @@ def _mips_fused_topk_cuda(queries, corpus, k, valid, row_scale, q_scale,
     if q_scale is not None:
         q_scale = q_scale.contiguous()
     with torch.cuda.device(dev):
-        large = select_winners(winners, q_scale, out_s, out_i, k, sub_rows)
-    launches[_NAMES[corpus.dtype]] += 1
-    if large:
-        large_launches[_NAMES[corpus.dtype]] += 1
+        path = select_winners(winners, q_scale, out_s, out_i, k, sub_rows)
+    name = _NAMES[corpus.dtype]
+    launches[name] += 1
+    if path == "large":
+        large_launches[name] += 1
+    elif path == "stream":
+        stream_launches[name] += 1
     return out_s, out_i
 
 

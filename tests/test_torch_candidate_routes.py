@@ -280,19 +280,26 @@ def test_select_plan_takes_the_first_kernels_domain(c, k):
     """`select_plan` plans in shared memory exactly the (C, k) the first B5
     and B3 kernels (a bitonic sort in windows of up to 16384 keys) took,
     k <= C up to 16384 candidates and k <= 8192 above, every plan within a
-    block's shared memory; past that (k above 8192 over more than 16384
-    candidates) the global-memory mode, ``(0, C, 0, p)``."""
+    block's shared memory: one window up to 16384 candidates, the
+    streaming path past it (a buffer of keys a query, fewer than C, that
+    holds the sort's width and 2k); past that (k above 8192 over more than
+    16384 candidates) the global-memory mode, ``(0, C, 0, p)``."""
     if c > 16384 and k > 8192:
         p = 1 << (k - 1).bit_length()
         assert select_plan(c, k) == (LARGE, c, 0, p)
         return
     qb, window, kpt, p = select_plan(c, k)
-    assert qb in (1, 2, 4) and p >= k and p & (p - 1) == 0
+    assert p >= k and p & (p - 1) == 0
+    assert select_smem(qb, c, window, p) <= _SMEM
+    if c > 16384:
+        # one query a block of a row-major source, 8 keys a thread a tile
+        assert (qb, kpt) == (1, 8)
+        assert max(p, 512, 2 * k) <= window < c
+        return
+    assert qb in (1, 2, 4)
     assert kpt in (8, 16, 32, 64) and window <= 256 * kpt
     assert kpt <= 32 if qb == 4 else kpt == 64 if qb == 2 else kpt >= 32
-    assert window == min(c, 16384)
-    assert window == c or (qb == 1 and window >= k)
-    assert select_smem(qb, c, window, p) <= _SMEM
+    assert window == c
 
 
 # corpora of 1024-row sub-chunks (8 winners each) for 1024 queries at D=64:
@@ -321,14 +328,20 @@ def test_fused_topk_domain_is_unchanged(n, k, fits):
 def test_select_plan_queries_a_block():
     """Four queries a block at the candidate path's shapes (16-byte loads
     of a candidate-major row, 32 keys a thread), two at 64 keys a thread,
-    one where the survivors of more do not fit, and when windowed."""
+    one where the survivors of more do not fit; past one window the
+    streaming path, four adjacent queries a block of a candidate-major
+    source while their buffers fit."""
     assert select_plan(7936, 500) == (4, 7936, 32, 512)
     assert select_plan(7812, 100) == (4, 7812, 32, 128)
     assert select_plan(300, 12) == (4, 300, 8, 16)
     assert select_plan(8192, 8192) == (1, 8192, 32, 8192)
     assert select_plan(16384, 2000) == (2, 16384, 64, 2048)
     assert select_plan(16384, 16384) == (1, 16384, 64, 16384)
-    assert select_plan(40_000, 500) == (1, 16384, 64, 512)
+    assert select_plan(40_000, 500) == (1, 1536, 8, 512)
+    assert select_plan(40_000, 500, cmajor=True) == (4, 2304, 16, 512)
+    assert select_plan(40_000, 1400, cmajor=True) == (4, 5952, 16, 2048)
+    assert select_plan(40_000, 2000, cmajor=True) == (4, 5952, 16, 2048)
+    assert select_plan(40_000, 2049, cmajor=True) == (1, 8192, 8, 4096)
 
 
 def test_bitonic_k_above_candidates_raises_through_the_plan():

@@ -2,18 +2,23 @@
 search's merge.
 
 B5 (`pallas_bitonic_topk`) and B3's stage (b) select in shared memory up
-to 16384 candidates, and past that while 2k <= 16384; beyond, their
-global-memory mode takes any k <= C (`select_plan` gives ``(0, C, 0, p)``;
-the kernels run on the card, `chip_smoke.py` phase 5v). JAX has no such
-limit: the sharded search merges with `lax.top_k`. Here:
+to 16384 candidates in one window, and past that while 2k <= 16384 on
+their streaming path (a buffer of keys a query in shared memory, 8
+adjacent queries a block of a candidate-major source where their buffers
+fit); beyond, their global-memory mode takes any k <= C (`select_plan`
+gives ``(0, C, 0, p)``; the kernels run on the card, `chip_smoke.py`
+phases 5s and 5v). JAX has no such limit: the sharded search merges with
+`lax.top_k`. Here:
 
 * `select_plan` returns a plan for every k <= C at every C, the
-  global-memory mode exactly where the shared-memory plans end, and its
-  scratch (`large_scratch`, on the meta device: the key copy only for a
-  candidate-major source) within its budget;
+  global-memory mode exactly where the shared-memory plans end, each
+  shared-memory plan within a block's shared memory, and the
+  global-memory mode's scratch (`large_scratch`, on the meta device)
+  within its budget and of `large_scratch_bytes`'s layout;
 * the plain version the kernels are held to against `jax.lax.top_k` at
   (4, 40,000) with k = 12,000 over bf16-rounded scores (ties), values and
-  positions exactly;
+  positions exactly, and past one window at small k over rows ascending,
+  all equal and with -inf tails;
 * `BruteForceMIPS` sharded over 'model' on four gloo ranks
   (`torch_parallel_workers.sharded_search`) at k = 9,000 over 40,000
   integer-valued rows, whose B5 merge takes 18,000 or 36,000 candidates,
@@ -31,8 +36,8 @@ import torch_parallel_workers as W
 from recbox_tpu.parallel import make_mesh as jmake_mesh
 from recbox_tpu.retrieval import BruteForceMIPS as JMIPS
 from recbox_tpu_torch.ops.bitonic_topk import (
-    LARGE, LARGE_SCRATCH_BYTES, large_scratch, row_topk, select_plan,
-    select_smem,
+    LARGE, LARGE_SCRATCH_BYTES, large_scratch, large_scratch_bytes,
+    row_topk, select_plan, select_smem,
 )
 from test_torch_retrieval import _sets_equal_but_ties
 
@@ -43,6 +48,10 @@ _SHAPES = [(c, k) for c in (2, 300, 16384, 16385, 40_000, 131_072,
                             1_000_003)
            for k in (1, 2, 8192, 8193, 12_000, 16384, 65_536, c // 2, c)
            if 1 <= k <= c]
+# the redesigned paths' own shapes: a chunk's per-segment rows of
+# `segmented_mips_topk` (k = 93), B3's winners at 16.8M items for k = 500
+# (streaming) and 10,000 (global memory)
+_SHAPES += [(125_000, 93), (131_072, 500), (131_072, 10_000)]
 
 
 @pytest.mark.parametrize("c,k", _SHAPES)
@@ -55,17 +64,74 @@ def test_select_plan_takes_every_k(c, k):
     assert p >= k and p & (p - 1) == 0
     if c > _WINDOW and k > _WINDOW // 2:
         assert (qb, window, kpt) == (LARGE, c, 0)
-        keys, surv, chunk = large_scratch(1024, c, p, "meta")
-        assert keys.shape == (chunk, c) and surv.shape == (chunk, p)
-        assert keys.dtype == torch.int32 and surv.dtype == torch.int64
-        assert chunk == 1 or chunk * (4 * c + 8 * p) <= LARGE_SCRATCH_BYTES
-        # a row-major source is read in place: no key copy
-        none, surv, rows = large_scratch(1024, c, p, "meta", keys=False)
-        assert none is None and surv.shape == (rows, p) and rows >= chunk
-        assert rows == 1 or rows * 8 * p <= LARGE_SCRATCH_BYTES
+        scratch, chunk = large_scratch(1024, c, k, "meta")
+        assert scratch.dtype == torch.uint8 and 1 <= chunk <= 1024
+        assert scratch.numel() == large_scratch_bytes(chunk, c, k)
+        assert chunk == 1 or scratch.numel() <= LARGE_SCRATCH_BYTES
+        # one query's bin buffer holds every candidate, its survivors k
+        assert large_scratch_bytes(1, c, k) >= 8 * c + 8 * k
         return
-    assert qb in (1, 2, 4) and window == min(c, _WINDOW)
     assert select_smem(qb, c, window, p) <= _SMEM
+    if c > _WINDOW:
+        # the streaming path: a buffer of keys a query, fewer than C
+        assert qb == 1 and kpt == 8 and max(p, 512, 2 * k) <= window < c
+        return
+    assert qb in (1, 2, 4) and window == c
+
+
+@pytest.mark.parametrize("c,k", [(125_000, 93), (131_072, 500),
+                                 (131_072, 1024), (131_072, 1025),
+                                 (131_072, 1488), (131_072, 1489),
+                                 (131_072, 2048), (131_072, 2049),
+                                 (131_072, 8192), (16385, 1)])
+def test_stream_plan_candidate_major(c, k):
+    """Over a candidate-major source the streaming path takes 4 adjacent
+    queries a block with the smaller of two buffers, 2304 keys (half an
+    SM's shared memory) or 5952 (a block's most), that holds the sort's
+    width and 2k and exceeds one query's buffer, else one query a block as
+    a row-major source does; the global-memory mode does not depend on
+    the layout."""
+    qb, window, kpt, p = select_plan(c, k, cmajor=True)
+    assert select_smem(qb, c, window, p) <= _SMEM
+    assert max(p, 512, 2 * k) <= window < c
+    # 8 scores a thread a tile in a block of 256 (one query), 16 in one of
+    # 512 (four)
+    assert kpt == (8 if qb == 1 else 16)
+    assert (qb, window) == ((4, 2304) if k <= 1024 else (4, 5952)
+                            if k <= 2048 else (1, 2 * p))
+    if window == 2304:
+        # two such blocks' shared memory fit an SM's 228 KB
+        assert 2 * (select_smem(4, c, window, p) + 1024) <= 233472
+    if window == 5952:
+        assert select_smem(4, c, window + 32, p) > _SMEM
+    if qb == 1:
+        assert (qb, window, kpt, p) == select_plan(c, k)
+    assert select_plan(c, 10_000 if c > 20_000 else c, cmajor=True) == \
+        select_plan(c, 10_000 if c > 20_000 else c)
+
+
+@pytest.mark.parametrize("rows,c,k", [(1024, 131_072, 10_000),
+                                      (1024, 131_072, 65_536),
+                                      (64, 40_000, 12_000),
+                                      (7, 16_385, 16_385)])
+def test_large_scratch_layout(rows, c, k):
+    """The global-memory mode's scratch (`csrc/select_topk.cuh`
+    `large_layout`): per row a 2048-bin histogram for each of up to 8
+    splits, 20 ints of state, C bin keys and k survivors (u64), past one
+    16384-key run a second k and the merges' split points, each array
+    256-byte aligned; a chunk as many rows as `LARGE_SCRATCH_BYTES`
+    holds."""
+    def al(n):
+        return -(-n // 256) * 256
+    want = al(8 * rows * 2048 * 4) + al(rows * 80) + al(rows * c * 8) \
+        + al(rows * k * 8)
+    if k > 16384:
+        want += al(rows * k * 8) + al(rows * -(-k // 4096) * 4)
+    assert large_scratch_bytes(rows, c, k) == want
+    scratch, chunk = large_scratch(rows, c, k, "meta")
+    assert chunk == rows or large_scratch_bytes(
+        chunk + 1, c, k) > LARGE_SCRATCH_BYTES - 6 * 256
+    assert scratch.numel() <= LARGE_SCRATCH_BYTES
 
 
 def test_select_plan_raises_only_past_the_candidates():
@@ -83,6 +149,33 @@ def test_plain_topk_matches_lax_top_k_past_8192():
     assert len(np.unique(s[0])) < 40_000 // 4          # many ties
     jv, ji = jax.lax.top_k(jnp.asarray(s), 12_000)
     pv, pi = row_topk(torch.from_numpy(s), None, 12_000)
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+
+
+def _ordered_rows(kind, q, c, seed):
+    """(Q, C) f32 rows that stress a running threshold: 'ascending' (each
+    key beats those before it), 'equal' (position alone decides),
+    'neg_inf_tail' (N(0, 1) and the last 30% -inf)."""
+    if kind == "ascending":
+        return (np.arange(c, dtype=np.float32)[None, :]
+                + np.arange(q, dtype=np.float32)[:, None])
+    if kind == "equal":
+        return np.full((q, c), 1.5, np.float32)
+    s = np.random.default_rng(seed).normal(size=(q, c)).astype(np.float32)
+    s[:, int(0.7 * c):] = -np.inf
+    return s
+
+
+@pytest.mark.parametrize("kind", ["ascending", "equal", "neg_inf_tail"])
+@pytest.mark.parametrize("k", [1, 93, 500])
+def test_plain_topk_matches_lax_top_k_on_ordered_rows(kind, k):
+    """Past one window (4 x 40,000) at the streaming path's small k: the
+    plain version's values and positions equal `lax.top_k`'s on rows that
+    raise the threshold at every tile, tie on every key, or end in -inf."""
+    s = _ordered_rows(kind, 4, 40_000, 11 + k)
+    jv, ji = jax.lax.top_k(jnp.asarray(s), k)
+    pv, pi = row_topk(torch.from_numpy(s), None, k)
     np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
 
