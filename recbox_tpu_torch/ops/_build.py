@@ -31,7 +31,8 @@ SOURCES = {"mips_fused_topk": "mips_fused_topk.cu",
            "fused_ce": "fused_ce.cu",
            "mips_topk": "mips_topk.cu",
            "bitonic_topk": "bitonic_topk.cu",
-           "embedding_gather": "embedding_gather.cu"}
+           "embedding_gather": "embedding_gather.cu",
+           "trace_mark": "trace_mark.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from recbox_tpu_torch.ops import _build
+from recbox_tpu_torch.utils import tracing
 
 __all__ = ["pallas_bitonic_topk", "pallas_bitonic_topk_cmajor",
            "bitonic_topk_plain", "exact_topk", "order_keys", "select_plan",
@@ -38,12 +39,14 @@ __all__ = ["pallas_bitonic_topk", "pallas_bitonic_topk_cmajor",
            "stream_launches", "large_launches", "reset_launches"]
 
 # kernel launches on the CUDA path; the plain version never counts
-launches = {"bitonic_topk": 0}
+launches = tracing.register("bitonic_topk.launches", {"bitonic_topk": 0})
 # of them, the launches on the streaming path (past one 16384-key window
 # while 2k <= 16384) and in the global-memory mode (k above 8192 over more
 # than 16384 candidates)
-stream_launches = {"bitonic_topk": 0}
-large_launches = {"bitonic_topk": 0}
+stream_launches = tracing.register("bitonic_topk.stream_launches",
+                                   {"bitonic_topk": 0})
+large_launches = tracing.register("bitonic_topk.large_launches",
+                                  {"bitonic_topk": 0})
 
 # the kernel's window: at most this many keys selected together
 _MAX_SORT = 16384

@@ -25,12 +25,14 @@ import functools
 import torch
 
 from recbox_tpu_torch.ops import _build
+from recbox_tpu_torch.utils import tracing
 
 __all__ = ["seq_embedding_pool", "seq_embedding_pool_plain", "launches",
            "reset_launches"]
 
 # kernel launches on the CUDA path; the plain version never counts
-launches = {"seq_embedding_pool": 0}
+launches = tracing.register("embedding_gather.launches",
+                            {"seq_embedding_pool": 0})
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = ("mean", "sum")

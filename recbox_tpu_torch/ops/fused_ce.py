@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from recbox_tpu_torch.ops import _build
+from recbox_tpu_torch.utils import tracing
 
 __all__ = ["fused_softmax_ce", "fused_multinomial_ce", "fused_ce_lse",
            "fused_ce_bwd", "fused_ce_lse_plain", "fused_ce_bwd_plain",
@@ -47,7 +48,8 @@ __all__ = ["fused_softmax_ce", "fused_multinomial_ce", "fused_ce_lse",
 
 # kernel launches on the CUDA path (one per forward sweep, one per
 # backward); the plain versions never count
-launches = {"fused_ce_fwd": 0, "fused_ce_bwd": 0}
+launches = tracing.register("fused_ce.launches",
+                            {"fused_ce_fwd": 0, "fused_ce_bwd": 0})
 
 _TILE = 64              # table rows a tile, `NT` in the kernel
 _MAX_DEPTH = 128        # the kernel's largest padded D

@@ -49,6 +49,7 @@ from recbox_tpu_torch.ops.mips_topk import (
     SEGMENT, _candidates_cuda, block_plan, decode_winners,
     mips_segment_candidates_plain, quantize_int8,
 )
+from recbox_tpu_torch.utils import tracing
 
 __all__ = ["mips_fused_topk", "mips_fused_topk_plain", "segment_plan",
            "select_winners", "launches", "stream_launches", "large_launches",
@@ -57,12 +58,15 @@ __all__ = ["mips_fused_topk", "mips_fused_topk_plain", "segment_plan",
 # launches of the selection, one a call through the kernels, by corpus
 # dtype (stage (a) counts in `mips_topk`'s `launches` and
 # `route_launches`); the plain version never counts
-launches = {"f32": 0, "bf16": 0, "int8": 0}
+launches = tracing.register("mips_fused_topk.launches",
+                            {"f32": 0, "bf16": 0, "int8": 0})
 # of them, the selections on the streaming path (past 16384 winners while
 # 2k <= 16384) and in the global-memory mode (k above 8192 over more than
 # 16384 winners)
-stream_launches = {"f32": 0, "bf16": 0, "int8": 0}
-large_launches = {"f32": 0, "bf16": 0, "int8": 0}
+stream_launches = tracing.register("mips_fused_topk.stream_launches",
+                                   {"f32": 0, "bf16": 0, "int8": 0})
+large_launches = tracing.register("mips_fused_topk.large_launches",
+                                  {"f32": 0, "bf16": 0, "int8": 0})
 
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from recbox_tpu_torch.ops import _build
 from recbox_tpu_torch.ops.bitonic_topk import exact_topk, row_topk
+from recbox_tpu_torch.utils import tracing
 
 __all__ = ["SEGMENT", "PACK_FLOOR", "PACK_BITS", "PACK_MASK", "block_plan",
            "candidate_plan", "split_runs", "quantize_int8", "winner_ids",
@@ -56,8 +57,10 @@ PACK_MASK = (1 << PACK_BITS) - 1
 
 # kernel launches on the CUDA path, by variant and by route; the plain
 # version never counts
-launches = {"packed": 0, "packed_int8": 0, "unpacked": 0}
-route_launches = {"wgmma": 0, "segment": 0, "tile": 0}
+launches = tracing.register("mips_topk.launches",
+                            {"packed": 0, "packed_int8": 0, "unpacked": 0})
+route_launches = tracing.register("mips_topk.route_launches",
+                                  {"wgmma": 0, "segment": 0, "tile": 0})
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 

@@ -33,13 +33,15 @@ from typing import Sequence
 import torch
 
 from recbox_tpu_torch.ops import _build
+from recbox_tpu_torch.utils import tracing
 
 __all__ = ["fused_adagrad_delta_plain", "packed_adagrad_update_",
            "packed_adagrad_update_plain_", "reduction_width", "launches",
            "reset_launches"]
 
 # kernel launches on the CUDA path; the plain version never counts
-launches = {"packed_adagrad_update": 0}
+launches = tracing.register("packed_delta.launches",
+                            {"packed_adagrad_update": 0})
 
 _GRAD_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SLOTS = 8

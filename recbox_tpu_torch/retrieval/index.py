@@ -58,6 +58,7 @@ from recbox_tpu_torch import resolve_device
 from recbox_tpu_torch.ops.bitonic_topk import pallas_bitonic_topk
 from recbox_tpu_torch.ops.mips_fused_topk import mips_fused_topk
 from recbox_tpu_torch.ops.mips_topk import SEGMENT, quantize_int8
+from recbox_tpu_torch.utils import tracing
 
 __all__ = ["BruteForceMIPS", "chunked_topk", "approx_mips_topk",
            "segmented_mips_topk", "int8_mips_topk", "quantize_int8"]
@@ -335,23 +336,61 @@ class BruteForceMIPS:
                 and self.num_items > 16 * topk
                 and self._pallas_recall_ok(topk))
 
+    def _route(self, topk: int) -> str:
+        """The route a search for ``topk`` (at most `num_items`) takes, as
+        its span names it (``index::<route>``): 'sharded' (the mesh's
+        search), 'fused' (the fused kernel, bf16 / f32 or int8), 'int8' (the
+        int8 sweep, rescored in f32 for 'refined'), 'exact_sort',
+        'segmented', 'approx', 'refined' (bf16 over-retrieval, f32 rescore)
+        or 'chunked' (the exact scan)."""
+        if self.mesh is not None:
+            return "sharded"
+        if self.quantize == "int8":
+            return "fused" if self.method != "refined" \
+                and self._kernel_gate(topk) else "int8"
+        if self._kernel_gate(topk):
+            return "fused"
+        if self.method == "exact_sort":
+            return "exact_sort"
+        if (self.method == "segmented"
+                or (self.method == "auto" and topk >= 256)) \
+                and self.num_items > 16 * topk:
+            return "segmented"
+        if self.method in ("approx", "segmented", "pallas", "auto") \
+                and self.num_items > 4 * topk:
+            return "approx"
+        if self.method == "refined" and self.num_items > 8 * topk:
+            return "refined"
+        return "chunked"
+
     def search(self, queries: ArrayLike, topk: int = 500
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        queries = torch.as_tensor(queries).to(device=self.device,
-                                              dtype=torch.float32)
-        if self.metric == "cosine":
-            queries = _l2_normalize(queries)
         topk = min(topk, self.num_items)
-        if self.mesh is not None:
+        route = self._route(topk)
+        with tracing.span("index::" + route):
+            queries = torch.as_tensor(queries).to(device=self.device,
+                                                  dtype=torch.float32)
+            if self.metric == "cosine":
+                queries = _l2_normalize(queries)
+            return self._search(route, queries, topk)
+
+    def _search(self, route: str, queries: torch.Tensor, topk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if route == "sharded":
             return self._search_sharded(queries, topk)
-        if self.quantize == "int8":
-            refine = self.method == "refined"
-            if not refine and self._kernel_gate(topk):
+        if route == "fused":
+            if self.quantize == "int8":
                 return mips_fused_topk(queries, self.q_items, topk,
                                        valid_items=self.num_items,
                                        row_scale=self.item_scale,
                                        query_tile=self.query_chunk)
+            items = self._kernel_items if self.bf16 else self.items
+            return mips_fused_topk(queries, items, topk,
+                                   valid_items=self.num_items,
+                                   query_tile=self.query_chunk)
+        if route == "int8":
             # the refined sweep runs at >= 0.99, as `_two_phase_exact`
+            refine = self.method == "refined"
             return int8_mips_topk(
                 queries, self.q_items, self.item_scale, topk,
                 query_chunk=self.query_chunk,
@@ -359,26 +398,16 @@ class BruteForceMIPS:
                                else self.recall_target),
                 oversample=4 if refine else 0,
                 items_f32=self.items if refine else None)
-        if self._kernel_gate(topk):
-            items = self._kernel_items if self.bf16 else self.items
-            return mips_fused_topk(queries, items, topk,
-                                   valid_items=self.num_items,
-                                   query_tile=self.query_chunk)
-        if self.method == "exact_sort":
-            return chunked_topk(queries, self.items, topk, self.chunk_size)
-        if (self.method == "segmented"
-                or (self.method == "auto" and topk >= 256)) \
-                and self.num_items > 16 * topk:
+        if route == "segmented":
             return segmented_mips_topk(queries, self.items, topk,
                                        query_chunk=self.query_chunk,
                                        bf16=self.bf16)
-        if self.method in ("approx", "segmented", "pallas", "auto") \
-                and self.num_items > 4 * topk:
+        if route == "approx":
             return approx_mips_topk(queries, self.items, topk,
                                     query_chunk=self.query_chunk,
                                     recall_target=self.recall_target,
                                     bf16=self.bf16)
-        if self.method == "refined" and self.num_items > 8 * topk:
+        if route == "refined":
             return _two_phase_exact(queries, self.items, topk,
                                     query_chunk=self.query_chunk)
         return chunked_topk(queries, self.items, topk, self.chunk_size)

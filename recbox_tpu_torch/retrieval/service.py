@@ -31,8 +31,17 @@ import torch
 from recbox_tpu_torch import resolve_device
 from recbox_tpu_torch.data.loader import MASK_KEY, ArrayLoader
 from recbox_tpu_torch.retrieval.index import BruteForceMIPS
+from recbox_tpu_torch.utils import tracing
 
 __all__ = ["RetrievalService"]
+
+# counts of `RetrievalService.query` alone, not of the corpus encode: the
+# queries, the query rows through the user tower (the loader's padding
+# included), the rows returned, and the sites at which the host waited on
+# a CUDA device (each synchronous copy of a batch to the card, each select
+# of its real rows, each wait for the results on the host)
+query_counts = tracing.register("service", {
+    "queries": 0, "rows_encoded": 0, "rows_served": 0, "host_waits": 0})
 
 
 def _merge_interests(s: np.ndarray, i: np.ndarray, t: int
@@ -69,14 +78,17 @@ def _to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
     results (a sweep over every user, say) should copy them
     (``np.array(s)``): the block then goes back to the cache at once, and
     the next call reuses it."""
-    if tensors[0].device.type != "cuda":
-        return [t.cpu().numpy() for t in tensors]
-    bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            for t in tensors]
-    for buf, t in zip(bufs, tensors):
-        buf.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(tensors[0].device).synchronize()
-    return [buf.numpy() for buf in bufs]
+    with tracing.span("service::to_host"):
+        if tensors[0].device.type != "cuda":
+            return [t.cpu().numpy() for t in tensors]
+        bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+        for buf, t in zip(bufs, tensors):
+            buf.copy_(t, non_blocking=True)
+        with tracing.span("service::wait"):
+            torch.cuda.current_stream(tensors[0].device).synchronize()
+        query_counts["host_waits"] += 1
+        return [buf.numpy() for buf in bufs]
 
 
 class RetrievalService:
@@ -131,15 +143,35 @@ class RetrievalService:
         return cls(trainer.model, corpus_arrays, **kwargs)
 
     @torch.no_grad()
-    def _encode(self, fn, arrays: Dict[str, np.ndarray]) -> torch.Tensor:
+    def _encode(self, fn, arrays: Dict[str, np.ndarray],
+                count: bool = False) -> torch.Tensor:
+        """``fn`` over ``arrays`` in the loader's padded batches, the
+        padding's rows dropped; ``count`` (a query) adds the rows and the
+        host's waits to `query_counts`."""
         outs = []
-        for batch in ArrayLoader(arrays, batch_size=self.batch_size,
-                                 shuffle=False):
-            mask = torch.as_tensor(batch.pop(MASK_KEY), device=self.device)
-            emb = fn({k: torch.as_tensor(v, device=self.device)
-                      for k, v in batch.items()})
-            outs.append(emb[mask.bool()])
-        return torch.cat(outs, dim=0)
+        with tracing.span("service::encode"):
+            batches = iter(ArrayLoader(arrays, batch_size=self.batch_size,
+                                       shuffle=False))
+            while True:
+                with tracing.span("service::load"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                with tracing.span("service::to_device"):
+                    batch = {k: torch.as_tensor(v, device=self.device)
+                             for k, v in batch.items()}
+                mask = batch.pop(MASK_KEY)
+                with tracing.span("service::tower"):
+                    emb = fn(batch)
+                with tracing.span("service::select"):
+                    outs.append(emb[mask.bool()])
+                if count:
+                    query_counts["rows_encoded"] += mask.shape[0]
+                    if self.device.type == "cuda":
+                        # each copy from pageable memory (the inputs and
+                        # the mask) and the boolean select wait for the card
+                        query_counts["host_waits"] += len(batch) + 2
+            return torch.cat(outs, dim=0)
 
     # -- corpus lifecycle ------------------------------------------------------
     def refresh_items(self, corpus_arrays: Dict[str, np.ndarray]) -> None:
@@ -214,7 +246,16 @@ class RetrievalService:
         filtering over-retrieves by the longest list. When a row's pool is
         exhausted, trailing slots pad with score -inf, id -1.
         """
-        q = self._encode(self.model.encode_user, user_arrays)
+        with tracing.span("service::query"):
+            s, i = self._query(user_arrays, k, exclude)
+        query_counts["queries"] += 1
+        query_counts["rows_served"] += s.shape[0]
+        return s, i
+
+    def _query(self, user_arrays: Dict[str, np.ndarray], k: int,
+               exclude: Optional[Sequence[Sequence[int]]]
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        q = self._encode(self.model.encode_user, user_arrays, count=True)
         k = min(k, self.num_items)
         extra = max((len(e) for e in exclude), default=0) \
             if exclude is not None else 0
@@ -222,19 +263,22 @@ class RetrievalService:
         if q.ndim == 3:  # (B, K, D) multi-interest: retrieve per interest
             B, K, D = q.shape
             s, i = _to_host(*self.index.search(q.reshape(B * K, D), topk=t))
-            s, i = _merge_interests(s.reshape(B, -1), i.reshape(B, -1), t)
+            with tracing.span("service::merge_interests"):
+                s, i = _merge_interests(s.reshape(B, -1), i.reshape(B, -1),
+                                        t)
         else:
             s, i = _to_host(*self.index.search(q, topk=t))
         if exclude is None:
             return s[:, :k], i[:, :k]
-        # vectorized seen-filter: pad banned lists, mask to -inf, re-rank
-        banned = np.full((s.shape[0], max(extra, 1)), -1, dtype=np.int64)
-        for r, e in enumerate(exclude):
-            if len(e):
-                banned[r, :len(e)] = np.asarray(e, dtype=np.int64)
-        bad = (i[:, :, None] == banned[:, None, :]).any(-1)
-        s = np.where(bad, -np.inf, s).astype(np.float32)
-        order = np.argsort(-s, axis=1, kind="stable")[:, :k]
-        out_s = np.take_along_axis(s, order, axis=1)
-        out_i = np.take_along_axis(i, order, axis=1)
-        return out_s, np.where(np.isneginf(out_s), -1, out_i)
+        with tracing.span("service::exclude"):
+            # vectorized seen-filter: pad banned lists, mask to -inf, re-rank
+            banned = np.full((s.shape[0], max(extra, 1)), -1, dtype=np.int64)
+            for r, e in enumerate(exclude):
+                if len(e):
+                    banned[r, :len(e)] = np.asarray(e, dtype=np.int64)
+            bad = (i[:, :, None] == banned[:, None, :]).any(-1)
+            s = np.where(bad, -np.inf, s).astype(np.float32)
+            order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+            out_s = np.take_along_axis(s, order, axis=1)
+            out_i = np.take_along_axis(i, order, axis=1)
+            return out_s, np.where(np.isneginf(out_s), -1, out_i)

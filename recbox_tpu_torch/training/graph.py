@@ -23,8 +23,15 @@ What the capture must not bake in:
   - a value passed by value to a kernel, such as kernel B1's embedding
     learning rate, is part of the trainer's ``_graph_token()``: the step is
     captured again when the token changes (the packed trainer's plateau);
-  - the kernels count launches in Python, once at capture: the counts of
-    the capture are taken back and added again at each replay.
+  - the port's counters (`utils/tracing.py` ``counters``: every kernel
+    wrapper's launch counts) move in Python, once at capture: what the
+    capture added to every registered group is taken back and added again
+    at each replay.
+
+Each phase of the captured step (`tracing.phase`) is bracketed by marker
+kernels that the graph replays, so a profile of replayed steps still shows
+where each phase runs on the device (`tracing.prepare_markers` loads them
+before the capture).
 
 A failed capture or replay raises; nothing falls back to eager steps. The
 first `WARMUP_STEPS` steps of a trainer run the same step body eagerly on
@@ -40,19 +47,21 @@ from typing import Dict, List, Mapping
 import numpy as np
 import torch
 
+from recbox_tpu_torch.utils import tracing
+
 __all__ = ["StepGraph", "WARMUP_STEPS", "kernel_counters"]
 
 WARMUP_STEPS = 2
 
 
 def kernel_counters() -> List[Dict[str, int]]:
-    """The launch counts of every kernel wrapper of the port."""
-    from recbox_tpu_torch.ops import (
+    """Every group of counts in the registry (`tracing.counters`), the
+    launch counts of every kernel wrapper of the port among them."""
+    from recbox_tpu_torch.ops import (  # noqa: F401  (each registers)
         bitonic_topk, embedding_gather, fused_ce, mips_fused_topk, mips_topk,
         packed_delta,
     )
-    return [m.launches for m in (bitonic_topk, embedding_gather, fused_ce,
-                                 mips_fused_topk, mips_topk, packed_delta)]
+    return list(tracing.counters.values())
 
 
 def _signature(batches: Mapping) -> tuple:
@@ -83,7 +92,7 @@ class StepGraph:
         self.cursor = torch.zeros(1, dtype=torch.int64, device=dev)
         self.graph = None
         self.token = None
-        self.captured_launches: List[Dict[str, int]] = []
+        self.captured_counts: Dict[str, Dict[str, int]] = {}
         self.capture_seconds = 0.0
 
     def fits(self, batches: Mapping, k: int) -> bool:
@@ -107,8 +116,8 @@ class StepGraph:
         self.cursor.zero_()
 
     def _capture(self, token) -> None:
-        counters = kernel_counters()
-        before = [dict(c) for c in counters]
+        tracing.prepare_markers(self.trainer.device)
+        before = {g: dict(c) for g, c in tracing.counters.items()}
         graph = torch.cuda.CUDAGraph()
         for gen in (self.trainer.dropout_generator,
                     self.trainer.reparam_generator):
@@ -119,13 +128,17 @@ class StepGraph:
             self._body()
         torch.cuda.synchronize()
         self.capture_seconds = time.perf_counter() - t0
-        # nothing ran during the capture: its counts go back, and each
-        # replay adds them
-        self.captured_launches = [
-            {key: c[key] - b.get(key, 0) for key in c}
-            for c, b in zip(counters, before)]
-        for c, b in zip(counters, before):
-            c.update(b)
+        # nothing ran during the capture: what it counted goes back, and
+        # each replay adds it
+        self.captured_counts = {}
+        for g, c in tracing.counters.items():
+            was = before.get(g, {})
+            add = {key: n - was.get(key, 0) for key, n in c.items()
+                   if n != was.get(key, 0)}
+            if add:
+                self.captured_counts[g] = add
+                for key, n in add.items():
+                    c[key] -= n
         self.graph, self.token = graph, token
 
     def run(self, batches: Mapping, k: int) -> torch.Tensor:
@@ -146,10 +159,9 @@ class StepGraph:
             token = trainer._graph_token()
             if self.graph is None or token != self.token:
                 self._capture(token)
-            counters = kernel_counters()
             for _ in range(k - done):
                 self.graph.replay()
-                for c, add in zip(counters, self.captured_launches):
+                for g, add in self.captured_counts.items():
                     for key, n in add.items():
-                        c[key] += n
+                        tracing.counters[g][key] += n
         return self.losses[:k].clone()

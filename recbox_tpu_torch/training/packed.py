@@ -73,7 +73,6 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from recbox_tpu_torch.features.schema import CATEGORICAL, SEQUENCE
 from recbox_tpu_torch.models.base import MatchingModel
@@ -88,6 +87,7 @@ from recbox_tpu_torch.parallel.mesh import (
 )
 from recbox_tpu_torch.training.sparse import merge_params, split_sparse_params
 from recbox_tpu_torch.training.trainer import Trainer, _copy_into
+from recbox_tpu_torch.utils import tracing
 
 logger = logging.getLogger("recbox_tpu_torch")
 
@@ -609,10 +609,10 @@ class PackedEmbeddingTrainer(Trainer):
             return super()._train_step(dbatch)
         cfg = self.config
         emb_lr = self._resolve_emb_lr()
-        with record_function("packed::gather"):
+        with tracing.phase("packed::gather"):
             rows, ctx = self._gather_rows(dbatch)
         self.model.train()
-        with record_function("trainer::forward"):
+        with tracing.phase("trainer::forward"):
             loss = self.loss_fn(self._step_forward({**dbatch, **rows}),
                                 dbatch)
         row_reg = None
@@ -626,7 +626,7 @@ class PackedEmbeddingTrainer(Trainer):
         objective, loss = self._mesh_loss(loss, rows=row_reg)
         keys = list(rows)
         grads = self._dense_step(objective, [rows[k] for k in keys])
-        with record_function("packed::row_update"):
+        with tracing.phase("packed::row_update"):
             self._apply_row_updates(dict(zip(keys, grads)), ctx, emb_lr)
         return loss.detach()
 

@@ -54,7 +54,6 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from recbox_tpu_torch.features.schema import CATEGORICAL, SEQUENCE
 from recbox_tpu_torch.models.base import ITEM_PREFIX, MatchingModel
@@ -68,6 +67,7 @@ from recbox_tpu_torch.parallel.mesh import (
 from recbox_tpu_torch.training.trainer import (
     Trainer, _copy_into, _make_optimizer,
 )
+from recbox_tpu_torch.utils import tracing
 
 logger = logging.getLogger("recbox_tpu_torch")
 
@@ -219,12 +219,12 @@ class SparseEmbeddingTrainer(Trainer):
         if not self.tables:
             return super()._train_step(dbatch)
         cfg = self.config
-        with record_function("sparse::gather"):
+        with tracing.phase("sparse::gather"):
             rows = {rkey: self._rows(dbatch[fkey], tkey, rkey)
                     .requires_grad_(True)
                     for fkey, tkey, rkey in self._routes}
         self.model.train()
-        with record_function("trainer::forward"):
+        with tracing.phase("trainer::forward"):
             loss = self.loss_fn(self._step_forward({**dbatch, **rows}),
                                 dbatch)
         row_reg = None
@@ -239,7 +239,7 @@ class SparseEmbeddingTrainer(Trainer):
         keys = list(rows)
         grads = dict(zip(keys, self._dense_step(objective,
                                                 [rows[k] for k in keys])))
-        with record_function("sparse::row_update"):
+        with tracing.phase("sparse::row_update"):
             self._row_updates(dbatch, grads)
         return loss.detach()
 

@@ -9,14 +9,17 @@ step drives, e.g. a sequential model's ``'full_scores'`` or
 ``'fused_ce_loss'``) and its guard against a mesh (:133-143), and the
 mesh sites (:178-209, :474-493). PyTorch runs
 eagerly: a step is the model's forward, ``backward`` through
-`torch.autograd.grad`, and the optimizer. The phases run inside
-`torch.profiler.record_function` ranges (``trainer::forward``,
-``trainer::backward``, ``trainer::adam`` (every optimizer), and the packed
-trainer's ``packed::gather`` and ``packed::row_update``), so a profile
-attributes device time to them; without a profiler a range costs a few
-microseconds. On the card `train_steps_fused` replays one CUDA graph of the
-step a batch (`training/graph.py`); on the CPU it is a loop of the same
-steps.
+`torch.autograd.grad`, and the optimizer. The phases are `tracing.phase`s
+(``trainer::forward``, ``trainer::backward``, ``trainer::adam`` (every
+optimizer), the packed trainer's ``packed::gather`` and
+``packed::row_update``, the sparse trainer's ``sparse::gather`` and
+``sparse::row_update``): in an eager step a profiler range each, which a
+profile attributes device time to, and nothing without a profiler; in a
+captured step also a marker kernel at each end, which every replay runs,
+so a profile of replayed steps attributes device time by the markers
+(`utils/tracing.py`). On the card `train_steps_fused` replays one CUDA
+graph of the step a batch (`training/graph.py`); on the CPU it is a loop
+of the same steps.
 
 The model's state beside its parameters (``model_state``: its persistent
 buffers, the BatchNorm running statistics, flax's ``batch_stats``) moves
@@ -76,7 +79,6 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from recbox_tpu_torch import resolve_device
 from recbox_tpu_torch.data.loader import MASK_KEY
@@ -96,6 +98,7 @@ from recbox_tpu_torch.training.checkpoint import (
 )
 from recbox_tpu_torch.training.graph import StepGraph
 from recbox_tpu_torch.training.monitor import Monitor
+from recbox_tpu_torch.utils import tracing
 
 logger = logging.getLogger("recbox_tpu_torch")
 
@@ -533,7 +536,7 @@ class Trainer:
         Under a mesh the replicated gradients are summed over 'data'
         first (``loss`` is `_mesh_loss`'s objective)."""
         params = list(self.params.values())
-        with record_function("trainer::backward"):
+        with tracing.phase("trainer::backward"):
             # a loss that reaches no parameter (PPOReranker's greedy
             # scores) has zero gradients, as jax.grad gives
             grads = torch.autograd.grad(
@@ -546,7 +549,7 @@ class Trainer:
             dense = grads[:len(params)]
             self._reduce_dense_grads(dense)
             grads[:len(params)] = dense
-        with record_function("trainer::adam"):
+        with tracing.phase("trainer::adam"):
             self._opt.step(grads[:len(params)])
         return grads[len(params):]
 
@@ -563,7 +566,7 @@ class Trainer:
         host counter moves here."""
         cfg = self.config
         self.model.train()
-        with record_function("trainer::forward"):
+        with tracing.phase("trainer::forward"):
             loss = self.loss_fn(self._step_forward(dbatch), dbatch)
         shard_reg = None
         if cfg.embedding_regularizer or cfg.net_regularizer:

@@ -87,8 +87,9 @@ class MetricsWriter:
 def profile_step(log_dir: Optional[str] = None):
     """Capture a torch.profiler trace around a block (CPU and, where a
     card is present, CUDA activities) and write it under ``log_dir`` as a
-    Chrome trace, ``trace.json`` (TensorBoard's and Perfetto's format).
-    No-op when log_dir is None."""
+    Chrome trace, ``trace.json`` (TensorBoard's and Perfetto's format),
+    which holds the port's spans and a replayed step's phase markers
+    (`utils/tracing.py`). No-op when log_dir is None."""
     if log_dir is None:
         yield
         return
